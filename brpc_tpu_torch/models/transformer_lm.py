@@ -1,0 +1,287 @@
+"""TransformerLM serving path in eager PyTorch.
+
+Counterpart of the serving subset of ``brpc_tpu/models/transformer_lm.py``:
+``LMConfig``, ``init_params``, the rmsnorm/rope helpers, ``make_decode``
+(prefill + single-token decode step over an f32 ``max_seq`` KV cache),
+``empty_cache`` and the generators.  The arithmetic follows the JAX code:
+every weight product goes through ``qmatmul`` (bf16 in, f32 out), the
+MLP uses the tanh form of gelu (``jax.nn.gelu``'s default), rmsnorm puts
+eps 1e-6 inside the square root, rope splits each head in halves, and
+prefill attention goes through ``ops.flash_attention.attention`` — the
+hand-written CUDA kernel on the card when ``use_flash`` is set.
+
+MoE blocks (``moe_experts > 0``) and ``scan_layers`` are not ported yet
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.flash_attention import attention
+from ..ops.quant import qmatmul
+from ..utils.device import resolve_device
+
+
+class LMConfig:
+    """Same fields and defaults as the JAX package's ``LMConfig``."""
+
+    def __init__(self, vocab: int = 256, dim: int = 64, heads: int = 4,
+                 depth: int = 2, mlp_mult: int = 4, max_seq: int = 256,
+                 causal: bool = True, remat: bool = True,
+                 lr: float = 0.05, moe_experts: int = 0,
+                 moe_capacity: float = 2.0, moe_aux_weight: float = 0.01,
+                 moe_top_k: int = 1, use_flash: bool = False,
+                 scan_layers: bool = False, attn_impl: str = "auto"):
+        if dim % heads != 0:
+            raise ValueError(f"dim {dim} is not a multiple of heads {heads}")
+        if (dim // heads) % 2 != 0:
+            raise ValueError("head dim must be even for RoPE")
+        self.vocab = vocab
+        self.dim = dim
+        self.heads = heads
+        self.depth = depth
+        self.mlp_mult = mlp_mult
+        self.max_seq = max_seq
+        self.causal = causal
+        self.remat = remat
+        self.lr = lr
+        self.moe_experts = moe_experts
+        self.moe_capacity = moe_capacity
+        self.moe_aux_weight = moe_aux_weight
+        self.moe_top_k = moe_top_k
+        self.use_flash = use_flash
+        self.attn_impl = attn_impl
+        self.scan_layers = scan_layers
+
+
+def _check_ported(cfg: LMConfig) -> None:
+    if cfg.moe_experts > 0:
+        raise NotImplementedError("MoE blocks are not ported yet")
+    if cfg.scan_layers:
+        raise NotImplementedError("scan_layers is not ported yet")
+
+
+def init_params(generator: torch.Generator, cfg: LMConfig,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters in the JAX package's layout and scales (normal
+    draws times 1/sqrt(dim), ``w2`` further over ``mlp_mult``, unit norm
+    gains), drawn from ``generator`` on ``device`` — the generator must
+    live on that device.  The values differ from the JAX package's
+    ``PRNGKey`` draws; parity tests carry the JAX params over with
+    :func:`brpc_tpu_torch.utils.convert.params_from_numpy`."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    scale = 1.0 / math.sqrt(cfg.dim)
+
+    def normal(*shape, mult=scale):
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32) * mult
+
+    params: Dict[str, Any] = {
+        "embed": normal(cfg.vocab, cfg.dim),
+        "unembed": normal(cfg.dim, cfg.vocab),
+    }
+    h = cfg.dim * cfg.mlp_mult
+    for i in range(cfg.depth):
+        params[f"blk{i}"] = {
+            "wqkv": normal(cfg.dim, 3 * cfg.dim),
+            "wo": normal(cfg.dim, cfg.dim),
+            "ln1": torch.ones(cfg.dim, device=dev),
+            "ln2": torch.ones(cfg.dim, device=dev),
+            "w1": normal(cfg.dim, h),
+            "w2": normal(h, cfg.dim, mult=scale / cfg.mlp_mult),
+        }
+    return params
+
+
+def _rmsnorm(x, g):
+    return x * g / torch.sqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-6)
+
+
+def _freqs(head_dim: int, device) -> torch.Tensor:
+    half = head_dim // 2
+    return torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=device) / half)
+
+
+def _rope_tables(seq: int, head_dim: int, device="cpu"):
+    """sin/cos tables for rotary embedding, shaped (1, s, 1, d/2)."""
+    pos = torch.arange(seq, dtype=torch.float32,
+                       device=device)[None, :, None, None]
+    ang = pos * _freqs(head_dim, device)[None, None, None, :]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def _rope(x, sin, cos):
+    """Rotary position embedding on the two halves of each head."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _rope_at(x, pos: int, head_dim: int):
+    """Rotary embedding for ONE position."""
+    ang = (torch.tensor(float(pos), dtype=torch.float32, device=x.device)
+           * _freqs(head_dim, x.device))[None, None, None, :]
+    return _rope(x, torch.sin(ang), torch.cos(ang))
+
+
+def make_decode(cfg: LMConfig, device="cuda"):
+    """Returns ``(prefill, decode_step)``:
+
+    - ``prefill(params, ids[b, s]) -> (cache, logits[b, vocab])`` runs the
+      prompt, fills fresh f32 ``(b, max_seq, heads, hd)`` caches and
+      returns the last position's logits;
+    - ``decode_step(params, cache, token[b]) -> (cache, logits)`` writes
+      the token's k/v at ``cache["len"]`` and attends over the prefix.
+      The returned dict is new, but the cache tensors are updated IN
+      PLACE (the JAX package donates them for the same effect): a caller
+      that needs the old cache clones it first.
+    """
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    impl = "flash" if cfg.use_flash else cfg.attn_impl
+
+    def mlp(bp, h):
+        return qmatmul(F.gelu(qmatmul(h, bp["w1"]), approximate="tanh"),
+                       bp["w2"])
+
+    def prefill_layer(bp, x, sin, cos):
+        b, s = x.shape[0], x.shape[1]
+        h = _rmsnorm(x, bp["ln1"])
+        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+        shp = (b, s, cfg.heads, hd)
+        q, k = (_rope(t.reshape(shp), sin, cos) for t in (q, k))
+        v = v.reshape(shp)
+        kc = torch.zeros((b, cfg.max_seq, cfg.heads, hd),
+                         dtype=torch.float32, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :s] = k
+        vc[:, :s] = v
+        att = attention(q, k, v, causal=cfg.causal, impl=impl)
+        x = x + qmatmul(att.reshape(b, s, cfg.dim), bp["wo"])
+        x = x + mlp(bp, _rmsnorm(x, bp["ln2"]))
+        return x, kc, vc
+
+    def decode_layer(bp, x, kc, vc, pos: int):
+        b = x.shape[0]
+        h = _rmsnorm(x, bp["ln1"])
+        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+        shp = (b, 1, cfg.heads, hd)
+        q = _rope_at(q.reshape(shp), pos, hd)
+        k = _rope_at(k.reshape(shp), pos, hd)
+        kc[:, pos] = k[:, 0]
+        vc[:, pos] = v.reshape(shp)[:, 0]
+        s_mat = torch.einsum("bqhd,bkhd->bhqk", q, kc) / (hd ** 0.5)
+        live = torch.arange(cfg.max_seq, device=dev) <= pos  # prefix + self
+        s_mat = torch.where(live[None, None, None, :], s_mat, -1e30)
+        p = torch.softmax(s_mat, dim=-1)
+        att = torch.einsum("bhqk,bkhd->bqhd", p, vc)
+        x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
+        x = x + mlp(bp, _rmsnorm(x, bp["ln2"]))
+        return x, kc, vc
+
+    def prefill(params, ids):
+        ids = torch.as_tensor(ids, device=dev).long()
+        b, s = ids.shape
+        if s > cfg.max_seq:
+            raise ValueError(f"seq {s} exceeds max_seq {cfg.max_seq}")
+        x = params["embed"][ids]
+        sin, cos = _rope_tables(s, hd, dev)
+        cache: Dict[str, Any] = {"len": s}
+        for i in range(cfg.depth):
+            x, kc, vc = prefill_layer(params[f"blk{i}"], x, sin, cos)
+            cache[f"k{i}"], cache[f"v{i}"] = kc, vc
+        return cache, qmatmul(x[:, -1], params["unembed"])
+
+    def decode_step(params, cache, token):
+        cache = dict(cache)
+        pos = int(cache["len"])
+        token = torch.as_tensor(token, device=dev).long()
+        x = params["embed"][token][:, None, :]       # (b, 1, d)
+        for i in range(cfg.depth):
+            x, kc, vc = decode_layer(params[f"blk{i}"], x,
+                                     cache[f"k{i}"], cache[f"v{i}"], pos)
+            cache[f"k{i}"], cache[f"v{i}"] = kc, vc
+        cache["len"] = pos + 1
+        return cache, qmatmul(x[:, 0], params["unembed"])
+
+    return prefill, decode_step
+
+
+def empty_cache(cfg: LMConfig, batch: int, start_len: int = 1,
+                device="cuda"):
+    """A fresh KV cache in the layout ``make_decode``'s steps expect."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    cache: Dict[str, Any] = {"len": int(start_len)}
+    for i in range(cfg.depth):
+        for kind in ("k", "v"):
+            cache[f"{kind}{i}"] = torch.zeros(
+                (batch, cfg.max_seq, cfg.heads, hd), dtype=torch.float32,
+                device=dev)
+    return cache
+
+
+def _validate_gen_args(cfg: LMConfig, prompt_ids, max_new: int,
+                       temperature: float, generator) -> None:
+    s = prompt_ids.shape[1]
+    if s + max_new > cfg.max_seq:
+        raise ValueError(
+            f"prompt {s} + max_new {max_new} exceeds max_seq "
+            f"{cfg.max_seq} (the cache would silently wrap)")
+    if temperature > 0.0 and generator is None:
+        raise ValueError(
+            "temperature > 0 requires a torch.Generator (a silent default "
+            "would make every sampled completion identical)")
+
+
+def make_scan_generator(cfg: LMConfig, params, device="cuda"):
+    """``gen(prompt_ids, max_new, temperature=0.0, generator=None) ->
+    (b, max_new) int32`` on ``device``: one prefill, then ``max_new - 1``
+    decode steps, each picking the next token from the last logits
+    (greedy argmax — the first index of the maximum — at temperature 0,
+    else a draw from the tempered softmax with ``generator``).  The JAX
+    package scans the steps inside one compiled program; eager PyTorch
+    runs the same steps as a Python loop."""
+    prefill, decode_step = make_decode(cfg, device)
+
+    def pick(logits, temperature: float, generator: Optional[torch.Generator]):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    @torch.inference_mode()
+    def gen(prompt_ids, max_new: int, temperature: float = 0.0,
+            generator: Optional[torch.Generator] = None):
+        _validate_gen_args(cfg, prompt_ids, max_new, temperature, generator)
+        cache, logits = prefill(params, prompt_ids)
+        token = pick(logits, temperature, generator)
+        out = [token]
+        for _ in range(max_new - 1):
+            cache, logits = decode_step(params, cache, token)
+            token = pick(logits, temperature, generator)
+            out.append(token)
+        return torch.stack(out, dim=1).to(torch.int32)
+
+    return gen
+
+
+# In eager PyTorch the per-step generator and the scanned one are the same
+# loop; the name is kept for callers of the JAX package's API.
+make_generator = make_scan_generator
+
+
+def generate(params, cfg: LMConfig, prompt_ids, max_new: int,
+             device="cuda"):
+    """One-off greedy decoding convenience."""
+    return make_scan_generator(cfg, params, device)(prompt_ids, max_new)

@@ -1,0 +1,50 @@
+"""ServerController — the per-request context handed to service methods.
+
+The slim core of ``brpc_tpu/server/controller.py``: the request meta,
+the peer, the request attachment and error reporting.  Async
+completion, deadlines, streams and device attachments wait for later
+slices of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..butil.endpoint import EndPoint
+from ..butil.status import Errno
+from ..protocol.meta import RpcMeta
+
+
+class ServerController:
+    __slots__ = ("request_meta", "remote_side", "request_attachment",
+                 "_error_code", "_error_text")
+
+    def __init__(self, request_meta: RpcMeta,
+                 remote_side: Optional[EndPoint] = None,
+                 request_attachment: bytes = b""):
+        self.request_meta = request_meta
+        self.remote_side = remote_side
+        self.request_attachment = request_attachment
+        self._error_code = 0
+        self._error_text = ""
+
+    @property
+    def failed(self) -> bool:
+        return self._error_code != 0
+
+    def set_failed(self, code_or_text, text: str = "") -> None:
+        """``cntl.set_failed("oops")`` or ``cntl.set_failed(EREQUEST, "x")``."""
+        if isinstance(code_or_text, str):
+            self._error_code = int(Errno.EINTERNAL)
+            self._error_text = code_or_text
+        else:
+            self._error_code = int(code_or_text)
+            self._error_text = text
+
+    @property
+    def error_code(self) -> int:
+        return self._error_code
+
+    @property
+    def error_text(self) -> str:
+        return self._error_text

@@ -1,0 +1,188 @@
+"""Server — serves registered services over tpu_std.
+
+The slim core of ``brpc_tpu/server/server.py``: ``add_service``,
+``start``, ``listen_endpoint`` and ``stop``, with one accept thread and
+one thread per connection on blocking sockets.  A connection's requests
+are answered in order.  It speaks tpu_std only; the JAX server's other
+protocols, native engine, admission, tracing and draining wait for
+later slices of the port.
+"""
+
+from __future__ import annotations
+
+import logging
+import socket
+import threading
+from typing import Any, Callable, Dict, Optional, Tuple
+
+from ..butil.endpoint import EndPoint, parse_endpoint
+from ..butil.status import Errno
+from ..protocol.meta import RpcMeta
+from ..protocol.tpu_std import (FrameError, pack_frame, read_frame,
+                                serialize_payload)
+from .controller import ServerController
+from .service import extract_methods, service_name_of
+
+LOG = logging.getLogger(__name__)
+_ACCEPT_POLL_S = 0.2
+_JOIN_TIMEOUT_S = 5.0
+
+
+class Server:
+    def __init__(self):
+        self._services: Dict[str, Any] = {}
+        self._methods: Dict[Tuple[str, str], Callable] = {}
+        self._listener: Optional[socket.socket] = None
+        self._listen_endpoint: Optional[EndPoint] = None
+        self._threads: list = []
+        self._conns: set = set()
+        self._lock = threading.Lock()
+        self._stopping = threading.Event()
+
+    def add_service(self, service: Any, name: str = "") -> int:
+        """Register ``service`` under ``name`` (default: its class name);
+        its public methods become ``name.Method``.  0 on success."""
+        if self._listener is not None:
+            LOG.error("add_service after start")
+            return -1
+        sname = name or service_name_of(service)
+        if sname in self._services:
+            LOG.error("service %s already added", sname)
+            return -1
+        methods = extract_methods(service)
+        if not methods:
+            LOG.error("service %s has no public methods", sname)
+            return -1
+        self._services[sname] = service
+        for mname, fn in methods.items():
+            self._methods[(sname, mname)] = fn
+        return 0
+
+    def start(self, addr: Any = "127.0.0.1:0") -> int:
+        """Listen on ``addr`` ("ip:port"; port 0 picks a free one) and
+        start accepting.  0 on success."""
+        if self._listener is not None:
+            LOG.error("server already started")
+            return -1
+        ep = addr if isinstance(addr, EndPoint) else parse_endpoint(str(addr))
+        family = socket.AF_INET6 if ":" in ep.host else socket.AF_INET
+        lsock = socket.socket(family, socket.SOCK_STREAM)
+        try:
+            lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            lsock.bind(ep.to_sockaddr())
+            lsock.listen(128)
+        except OSError as e:
+            lsock.close()
+            LOG.error("cannot listen on %s: %s", ep, e)
+            return -1
+        lsock.settimeout(_ACCEPT_POLL_S)
+        host, port = lsock.getsockname()[:2]
+        self._listener = lsock
+        self._listen_endpoint = EndPoint(host=host, port=port)
+        self._stopping.clear()
+        self._spawn(self._accept_loop, "tpu_std-accept")
+        return 0
+
+    @property
+    def listen_endpoint(self) -> Optional[EndPoint]:
+        return self._listen_endpoint
+
+    def stop(self) -> int:
+        """Close the listener and every connection, and join the threads
+        (a request being served is let finish, up to a timeout)."""
+        if self._listener is None:
+            return 0
+        self._stopping.set()
+        with self._lock:
+            conns = list(self._conns)
+            threads = list(self._threads)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        for t in threads:
+            t.join(_JOIN_TIMEOUT_S)
+        self._listener.close()
+        self._listener = None
+        self._listen_endpoint = None
+        self._threads = []
+        return 0
+
+    # -- internals ---------------------------------------------------------
+
+    def _spawn(self, target, name: str, *args) -> None:
+        t = threading.Thread(target=target, args=args, name=name,
+                             daemon=True)
+        with self._lock:
+            self._threads.append(t)
+        t.start()
+
+    def _accept_loop(self) -> None:
+        while not self._stopping.is_set():
+            try:
+                conn, peer = self._listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            conn.settimeout(None)
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._lock:
+                self._conns.add(conn)
+            self._spawn(self._serve_conn, "tpu_std-conn", conn,
+                        EndPoint(host=peer[0], port=peer[1]))
+
+    def _serve_conn(self, conn: socket.socket, peer: EndPoint) -> None:
+        try:
+            while not self._stopping.is_set():
+                try:
+                    meta, payload, att = read_frame(conn)
+                except (EOFError, OSError):
+                    return
+                except FrameError as e:
+                    LOG.warning("closing %s: %s", peer, e)
+                    return
+                conn.sendall(self._dispatch(meta, payload, att, peer))
+        except OSError:
+            pass
+        finally:
+            with self._lock:
+                self._conns.discard(conn)
+            conn.close()
+
+    def _dispatch(self, meta: RpcMeta, payload: bytes, att: bytes,
+                  peer: EndPoint) -> bytes:
+        """One request frame's fields -> the response frame."""
+        cntl = ServerController(meta, peer, att)
+        fn = self._methods.get((meta.service_name, meta.method_name))
+        response = None
+        if fn is None:
+            known = meta.service_name in self._services
+            cntl.set_failed(Errno.ENOMETHOD if known else Errno.ENOSERVICE,
+                            f"unknown {meta.service_name}."
+                            f"{meta.method_name}")
+        elif meta.compress_type:
+            cntl.set_failed(Errno.EREQUEST,
+                            f"unsupported compress_type {meta.compress_type}")
+        else:
+            try:
+                response = fn(cntl, payload)
+            except Exception as e:  # a failing method answers EINTERNAL
+                LOG.exception("method %s.%s raised", meta.service_name,
+                              meta.method_name)
+                cntl.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
+        out = RpcMeta()
+        out.correlation_id = meta.correlation_id
+        body = b""
+        if not cntl.failed:
+            try:
+                body = serialize_payload(response)
+            except TypeError as e:
+                cntl.set_failed(Errno.EINTERNAL,
+                                f"response serialization failed: {e}")
+        if cntl.failed:
+            out.error_code = cntl.error_code
+            out.error_text = cntl.error_text
+            body = b""
+        return pack_frame(out, body)

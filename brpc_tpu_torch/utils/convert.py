@@ -1,0 +1,38 @@
+"""Parameter carry-over from the JAX package.
+
+A JAX TransformerLM parameter tree, with every leaf turned into a numpy
+array (``jax.tree_util.tree_map(np.asarray, params)`` keeps the
+``QuantTensor`` nodes), becomes the port's parameter dict on a device.
+The port never imports JAX: a quantized leaf is recognised by its
+``(q, s)`` fields.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.quant import QuantTensor
+from .device import resolve_device
+
+
+def _is_quant(leaf) -> bool:
+    return getattr(leaf, "_fields", None) == ("q", "s")
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """Nested dict of numpy arrays (unrolled ``blk{i}`` layout) -> the
+    port's params on ``device``.  Stacked ``scan_layers`` trees raise."""
+    dev = resolve_device(device)
+
+    def conv(val):
+        if isinstance(val, dict):
+            return {k: conv(v) for k, v in val.items()}
+        if _is_quant(val):
+            return QuantTensor(conv(val.q), conv(val.s))
+        return torch.from_numpy(np.array(val, copy=True)).to(dev)
+
+    if "blocks" in tree:
+        raise NotImplementedError(
+            "stacked scan_layers params are not ported yet")
+    return {k: conv(v) for k, v in tree.items()}

@@ -1,0 +1,103 @@
+"""The port stands alone: it imports neither ``jax`` nor any module of
+``brpc_tpu``, and its entry points never fall back to the CPU on their
+own."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "brpc_tpu_torch")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "brpc_tpu" or name.startswith("brpc_tpu."))
+
+
+_IMPORT_ALL = r"""
+import importlib, importlib.abc, pkgutil, sys
+sys.modules["jax"] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "brpc_tpu" or name.startswith("brpc_tpu."):
+            raise ImportError("the port must not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import brpc_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(brpc_tpu_torch.__path__,
+                                               "brpc_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules if m == "brpc_tpu" or m.startswith("brpc_tpu.")
+       or m == "jax" and sys.modules[m] is not None]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_imports_with_jax_and_brpc_tpu_blocked():
+    n_modules = len(list(pkgutil.walk_packages([PKG], "brpc_tpu_torch.")))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) == n_modules >= 20
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_brpc_tpu_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names = [node.args[0].value]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, node.lineno)
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.models.lm_service import LMService
+    from brpc_tpu_torch.models.transformer_lm import (LMConfig, init_params,
+                                                      make_decode,
+                                                      make_scan_generator)
+    from brpc_tpu_torch.utils.convert import params_from_numpy
+    cfg = LMConfig(vocab=16, dim=8, heads=2, depth=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LMService()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LMService(cfg=cfg, device="cuda:0")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_decode(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_scan_generator(cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy({})
+    # the CPU is served only when asked for
+    assert LMService(cfg=cfg, device="cpu").device.type == "cpu"
