@@ -1,1 +1,9 @@
-"""The TransformerLM serving stack of the port."""
+"""The TransformerLM of the port: serving (``make_decode``, the
+generators, ``LMService``) and training (``make_forward``,
+``make_train_step``)."""
+
+from .transformer_lm import (LMConfig, init_params, make_forward,
+                             make_train_step, make_value_and_grad)
+
+__all__ = ["LMConfig", "init_params", "make_forward", "make_train_step",
+           "make_value_and_grad"]

@@ -1,17 +1,21 @@
-"""TransformerLM serving path in eager PyTorch.
+"""TransformerLM in eager PyTorch: serving and training.
 
-Counterpart of the serving subset of ``brpc_tpu/models/transformer_lm.py``:
-``LMConfig``, ``init_params``, the rmsnorm/rope helpers, ``make_decode``
-(prefill + single-token decode step over an f32 ``max_seq`` KV cache),
-``empty_cache`` and the generators.  The arithmetic follows the JAX code:
-every weight product goes through ``qmatmul`` (bf16 in, f32 out), the
-MLP uses the tanh form of gelu (``jax.nn.gelu``'s default), rmsnorm puts
-eps 1e-6 inside the square root, rope splits each head in halves, and
-prefill attention goes through ``ops.flash_attention.attention`` — the
-hand-written CUDA kernel on the card when ``use_flash`` is set.
+Counterpart of ``brpc_tpu/models/transformer_lm.py``: ``LMConfig``,
+``init_params``, the rmsnorm/rope helpers, ``make_decode`` (prefill +
+single-token decode step over an f32 ``max_seq`` KV cache),
+``empty_cache`` and the generators for serving; ``make_forward`` and
+``make_train_step`` (plain SGD, gradient accumulation, remat) for
+training.  The arithmetic follows the JAX code: every weight product goes
+through ``qmatmul`` (bf16 in, f32 out, so autograd runs the backward
+products in bf16 as JAX does), the MLP uses the tanh form of gelu
+(``jax.nn.gelu``'s default), rmsnorm puts eps 1e-6 inside the square
+root, rope splits each head in halves, and attention goes through
+``ops.flash_attention.attention`` — the hand-written CUDA kernels, forward
+and backward, on the card when ``use_flash`` is set.
 
 MoE blocks (``moe_experts > 0``) and ``scan_layers`` are not ported yet
-and raise ``NotImplementedError``.
+and raise ``NotImplementedError``; so do ``mesh``/``sp_axis`` (ring
+attention and sharded training wait for the port's ``parallel/`` slice).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import attention
 from ..ops.quant import qmatmul
@@ -132,6 +137,21 @@ def _rope_at(x, pos: int, head_dim: int):
     return _rope(x, torch.sin(ang), torch.cos(ang))
 
 
+def _mlp(bp, h):
+    """gelu MLP; ``up`` is bf16 when gelu sees it, as in the JAX block."""
+    return qmatmul(F.gelu(qmatmul(h, bp["w1"]), approximate="tanh"),
+                   bp["w2"])
+
+
+def _qkv_heads(cfg: LMConfig, bp, h, sin, cos):
+    """q, k (rope applied) and v, each (b, s, heads, head_dim) f32."""
+    b, s = h.shape[0], h.shape[1]
+    q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+    shp = (b, s, cfg.heads, cfg.dim // cfg.heads)
+    q, k = (_rope(t.reshape(shp), sin, cos) for t in (q, k))
+    return q, k, v.reshape(shp)
+
+
 def make_decode(cfg: LMConfig, device="cuda"):
     """Returns ``(prefill, decode_step)``:
 
@@ -149,17 +169,9 @@ def make_decode(cfg: LMConfig, device="cuda"):
     hd = cfg.dim // cfg.heads
     impl = "flash" if cfg.use_flash else cfg.attn_impl
 
-    def mlp(bp, h):
-        return qmatmul(F.gelu(qmatmul(h, bp["w1"]), approximate="tanh"),
-                       bp["w2"])
-
     def prefill_layer(bp, x, sin, cos):
         b, s = x.shape[0], x.shape[1]
-        h = _rmsnorm(x, bp["ln1"])
-        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
-        shp = (b, s, cfg.heads, hd)
-        q, k = (_rope(t.reshape(shp), sin, cos) for t in (q, k))
-        v = v.reshape(shp)
+        q, k, v = _qkv_heads(cfg, bp, _rmsnorm(x, bp["ln1"]), sin, cos)
         kc = torch.zeros((b, cfg.max_seq, cfg.heads, hd),
                          dtype=torch.float32, device=dev)
         vc = torch.zeros_like(kc)
@@ -167,7 +179,7 @@ def make_decode(cfg: LMConfig, device="cuda"):
         vc[:, :s] = v
         att = attention(q, k, v, causal=cfg.causal, impl=impl)
         x = x + qmatmul(att.reshape(b, s, cfg.dim), bp["wo"])
-        x = x + mlp(bp, _rmsnorm(x, bp["ln2"]))
+        x = x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
         return x, kc, vc
 
     def decode_layer(bp, x, kc, vc, pos: int):
@@ -185,7 +197,7 @@ def make_decode(cfg: LMConfig, device="cuda"):
         p = torch.softmax(s_mat, dim=-1)
         att = torch.einsum("bhqk,bkhd->bqhd", p, vc)
         x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
-        x = x + mlp(bp, _rmsnorm(x, bp["ln2"]))
+        x = x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
         return x, kc, vc
 
     def prefill(params, ids):
@@ -285,3 +297,136 @@ def generate(params, cfg: LMConfig, prompt_ids, max_new: int,
              device="cuda"):
     """One-off greedy decoding convenience."""
     return make_scan_generator(cfg, params, device)(prompt_ids, max_new)
+
+
+# -- training ---------------------------------------------------------------
+
+def _check_unsharded(mesh, sp_axis) -> None:
+    if mesh is not None or sp_axis is not None:
+        raise NotImplementedError(
+            "mesh / sp_axis (ring attention, sharded training) arrive with "
+            "the parallel/ slice of the port")
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested parameter dict, in insertion order."""
+    out = []
+    for val in tree.values():
+        out.extend(tree_leaves(val) if isinstance(val, dict) else [val])
+    return out
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s nesting with its leaves taken in order from ``leaves``."""
+    return {k: _rebuild(v, leaves) if isinstance(v, dict) else next(leaves)
+            for k, v in tree.items()}
+
+
+def make_forward(cfg: LMConfig, mesh=None, sp_axis=None, device="cuda"):
+    """Forward fn: ``(params, ids[b, s], with_aux=False) -> logits[b, s,
+    vocab]`` f32, or ``(logits, aux)`` with ``with_aux`` (aux is 0 for
+    the dense MLP).  With ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
+    ``jax.checkpoint`` does: the flash forward kernel then runs twice per
+    block.  ``mesh``/``sp_axis`` raise ``NotImplementedError``."""
+    _check_ported(cfg)
+    _check_unsharded(mesh, sp_axis)
+    dev = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    impl = "flash" if cfg.use_flash else cfg.attn_impl
+
+    def block(bp, x, sin, cos):
+        b, s, _ = x.shape
+        q, k, v = _qkv_heads(cfg, bp, _rmsnorm(x, bp["ln1"]), sin, cos)
+        att = attention(q, k, v, causal=cfg.causal, impl=impl)
+        x = x + qmatmul(att.reshape(b, s, cfg.dim), bp["wo"])
+        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+
+    def forward(params, ids, with_aux: bool = False):
+        ids = torch.as_tensor(ids, device=dev).long()
+        s = ids.shape[-1]
+        if s > cfg.max_seq:
+            raise ValueError(f"seq {s} exceeds max_seq {cfg.max_seq}")
+        x = params["embed"][ids]
+        sin, cos = _rope_tables(s, hd, dev)
+        for i in range(cfg.depth):
+            bp = params[f"blk{i}"]
+            x = (checkpoint(block, bp, x, sin, cos, use_reentrant=False)
+                 if cfg.remat else block(bp, x, sin, cos))
+        logits = qmatmul(x, params["unembed"])
+        if with_aux:
+            return logits, torch.zeros((), dtype=torch.float32, device=dev)
+        return logits
+
+    return forward
+
+
+def make_value_and_grad(cfg: LMConfig, mesh=None, sp_axis=None,
+                        accum: int = 1, device="cuda"):
+    """``value_and_grad(params, ids, labels) -> (loss, grads)``: the loss
+    of :func:`make_train_step` (mean next-token NLL of the f32
+    log-softmax, plus aux) and its gradient, a dict shaped like
+    ``params``.  ``accum > 1`` runs the batch as ``accum`` microbatches
+    one after another and averages their losses and gradients."""
+    forward = make_forward(cfg, mesh, sp_axis, device)
+    dev = resolve_device(device)
+
+    def loss_fn(params, ids, labels):
+        logits, aux = forward(params, ids, with_aux=True)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None]).squeeze(-1)
+        return nll.mean() + aux
+
+    def one(params, ids, labels):
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss = loss_fn(_rebuild(params, iter(live)), ids, labels)
+        return loss.detach(), list(torch.autograd.grad(loss, live))
+
+    def value_and_grad(params, ids, labels):
+        ids = torch.as_tensor(ids, device=dev).long()
+        labels = torch.as_tensor(labels, device=dev).long()
+        if accum <= 1:
+            loss, grads = one(params, ids, labels)
+        else:
+            if ids.shape[0] % accum != 0:
+                raise ValueError(
+                    f"batch {ids.shape[0]} not divisible by "
+                    f"accum={accum} — trailing examples would be "
+                    "silently dropped")
+            b = ids.shape[0] // accum
+            mids = ids.reshape(accum, b, *ids.shape[1:])
+            mlbl = labels.reshape(accum, b, *labels.shape[1:])
+            loss, grads = one(params, mids[0], mlbl[0])
+            for i in range(1, accum):
+                l, g = one(params, mids[i], mlbl[i])
+                loss = loss + l
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi)
+            loss = loss / accum
+            grads = [g / accum for g in grads]
+        return loss, _rebuild(params, iter(grads))
+
+    return value_and_grad
+
+
+def make_train_step(cfg: LMConfig, mesh=None, sp_axis=None, accum: int = 1,
+                    device="cuda"):
+    """``train_step(params, ids, labels, lr=cfg.lr) -> (new_params,
+    loss)``; plain SGD ``p - lr * g``.
+
+    Pure, like the JAX function: ``params`` is left as it is and the new
+    parameters are new tensors.  ``accum > 1`` turns on gradient
+    accumulation: the leading batch dim must be ``accum * microbatch``,
+    and the microbatches run one after another (the JAX package scans
+    them inside one compiled program), so one step holds the activations
+    of a single microbatch."""
+    value_and_grad = make_value_and_grad(cfg, mesh, sp_axis, accum, device)
+
+    def train_step(params, ids, labels, lr: float = cfg.lr):
+        loss, grads = value_and_grad(params, ids, labels)
+        with torch.no_grad():
+            new = [p - lr * g for p, g in zip(tree_leaves(params),
+                                              tree_leaves(grads))]
+        return _rebuild(params, iter(new)), loss
+
+    return train_step

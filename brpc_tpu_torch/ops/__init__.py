@@ -1,2 +1,3 @@
 """Device ops of the port: quantized matmul, and flash attention with its
-hand-written CUDA forward kernel (``csrc/``, built by ``cuda_build``)."""
+hand-written CUDA forward and backward kernels (``csrc/``, built by
+``cuda_build``)."""

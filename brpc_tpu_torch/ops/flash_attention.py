@@ -1,24 +1,27 @@
-"""Flash attention for the port: a hand-written CUDA forward kernel, its
-plain PyTorch version, and the ``attention()`` dispatcher.
+"""Flash attention for the port: hand-written CUDA kernels for the forward
+and the backward, their plain PyTorch versions, and the ``attention()``
+dispatcher.
 
 Counterpart of ``brpc_tpu/ops/flash_attention.py``.  The Pallas forward
-``_fwd_kernel`` becomes ``csrc/flash_fwd.cu`` (CUDA C++ for sm_90a,
-built by :mod:`.cuda_build`, called through ctypes).  On a CUDA tensor
-:func:`flash_attention_fwd` launches that kernel or raises; on a CPU
-tensor it runs :func:`flash_attention_plain`, the same online-softmax
-arithmetic in PyTorch ops.  Nothing catches a build or launch error to
-run the plain version instead.
+``_fwd_kernel`` becomes ``csrc/flash_fwd.cu``; the backward kernels
+``_dq_kernel`` and ``_dkdv_kernel`` become ``flash_dq`` and ``flash_dkdv``
+in ``csrc/flash_bwd.cu`` (CUDA C++ for sm_90a, built by
+:mod:`.cuda_build`, called through ctypes).  On a CUDA tensor
+:func:`flash_attention_fwd` and :func:`flash_attention_bwd` launch those
+kernels or raise; on a CPU tensor they run :func:`flash_attention_plain`
+and :func:`flash_attention_bwd_plain`, the same tile-wise arithmetic in
+PyTorch ops.  Nothing catches a build or launch error to run the plain
+version instead.
 
 Layouts follow the JAX package: q/k/v/out are ``(b, s, h, d)``; the
-log-sum-exp is f32 ``(b, h, s)`` (the JAX one is padded,
-``(b, h, s_pad, 1)``).  The backward kernels (``_dq_kernel``,
-``_dkdv_kernel``) are not ported yet, so ``flash_attention``'s gradient
-raises.
+log-sum-exp and ``dd = rowsum(do * out)`` are f32 ``(b, h, s)`` (the JAX
+ones are padded, ``(b, h, s_pad, 1)``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Tuple
 
 import torch
@@ -31,62 +34,119 @@ BLOCK_K = 32
 MAX_HEAD_DIM = 128
 
 
-class FlashFwdKernel:
-    """ctypes binding of ``flash_fwd`` with its launch count."""
+class CudaKernel:
+    """ctypes binding of one C entry point of a ``csrc/`` library, with its
+    launch count: it adds one where it launches, and nowhere else."""
 
-    name = "flash_fwd"
-    source = "flash_fwd.cu"
-
-    def __init__(self):
+    def __init__(self, name: str, source: str, argtypes: list):
+        self.name = name
+        self.source = source
         self.launches = 0
+        self._argtypes = argtypes
         self._fn = None
 
-    def _bind(self):
+    def _launch(self, *args) -> None:
         if self._fn is None:
             lib = cuda_build.load(self.source)
-            fn = lib.flash_fwd
+            fn = getattr(lib, self.name)
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                           + [ctypes.c_longlong] * 12
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                              ctypes.c_void_p])
-            lib.flash_fwd_error_string.restype = ctypes.c_char_p
-            lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-            self._err = lib.flash_fwd_error_string
+            fn.argtypes = self._argtypes
+            err = getattr(lib, os.path.splitext(self.source)[0]
+                          + "_error_string")
+            err.restype = ctypes.c_char_p
+            err.argtypes = [ctypes.c_int]
+            self._err = err
             self._fn = fn
-        return self._fn
+        code = self._fn(*args)
+        if code != 0:
+            raise RuntimeError(f"{self.name} launch failed: "
+                               f"{self._err(code).decode()} ({code})")
+        self.launches += 1
+
+
+def _check_kernel_inputs(name: str, *ts) -> None:
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{name} kernel needs CUDA tensors")
+    if ts[0].dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, "
+                        f"not {ts[0].dtype}")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError(f"{name} needs a contiguous head dim")
+
+
+class FlashFwdKernel(CudaKernel):
+    """``flash_fwd``: ``(q, k, v, causal) -> (out, lse)``."""
+
+    def __init__(self):
+        super().__init__(
+            "flash_fwd", "flash_fwd.cu",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
     def __call__(self, q, k, v, causal: bool):
         """Launch on the current stream; returns ``(out, lse)``."""
         _check_inputs(q, k, v)
-        if not (q.is_cuda and k.is_cuda and v.is_cuda):
-            raise ValueError("flash_fwd kernel needs CUDA tensors")
-        if q.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"flash_fwd takes float32 or bfloat16, "
-                            f"not {q.dtype}")
-        if any(t.stride(-1) != 1 for t in (q, k, v)):
-            raise ValueError("flash_fwd needs a contiguous head dim")
+        _check_kernel_inputs(self.name, q, k, v)
         b, s, h, d = q.shape
         out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         if q.numel() == 0:
             return out, lse
-        fn = self._bind()
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, s, h, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3],
-                 int(q.dtype == torch.bfloat16), int(causal),
-                 1.0 / (d ** 0.5), stream)
-        if err != 0:
-            raise RuntimeError(f"flash_fwd launch failed: "
-                               f"{self._err(err).decode()} ({err})")
-        self.launches += 1
+        self._launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), b, s, h, d,
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *out.stride()[:3],
+                     int(q.dtype == torch.bfloat16), int(causal),
+                     1.0 / (d ** 0.5), stream)
         return out, lse
 
 
+class FlashBwdKernel(CudaKernel):
+    """``flash_dq`` (one output, dq) or ``flash_dkdv`` (two, dk and dv):
+    ``(q, k, v, do, lse, dd, causal) -> outputs``, each ``(b, s, h, d)``
+    contiguous in q's dtype."""
+
+    def __init__(self, name: str, n_out: int):
+        super().__init__(
+            name, "flash_bwd.cu",
+            [ctypes.c_void_p] * (6 + n_out) + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        self.n_out = n_out
+
+    def __call__(self, q, k, v, do, lse, dd, causal: bool):
+        """Launch on the current stream; returns the list of outputs."""
+        _check_inputs(q, k, v)
+        if do.shape != q.shape or do.dtype != q.dtype:
+            raise ValueError("do must have q's shape and dtype")
+        _check_kernel_inputs(self.name, q, k, v, do)
+        b, s, h, d = q.shape
+        for name, t in (("lse", lse), ("dd", dd)):
+            if (t.shape != (b, h, s) or t.dtype != torch.float32
+                    or not t.is_contiguous() or t.device != q.device):
+                raise ValueError(f"{name} must be contiguous f32 (b, h, s) "
+                                 f"on q's device")
+        outs = [torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+                for _ in range(self.n_out)]
+        if q.numel() == 0:
+            return outs
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        self._launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+                     *(o.data_ptr() for o in outs), b, s, h, d,
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *do.stride()[:3],
+                     int(q.dtype == torch.bfloat16), int(causal),
+                     1.0 / (d ** 0.5), stream)
+        return outs
+
+
 FLASH_FWD = FlashFwdKernel()
+FLASH_DQ = FlashBwdKernel("flash_dq", 1)
+FLASH_DKDV = FlashBwdKernel("flash_dkdv", 2)
+KERNELS = (FLASH_FWD, FLASH_DQ, FLASH_DKDV)
 
 
 def _check_inputs(q, k, v) -> None:
@@ -151,19 +211,84 @@ def flash_attention_fwd(q, k, v, causal: bool = False
     return flash_attention_plain(q, k, v, causal)
 
 
+def attention_delta(out, do) -> torch.Tensor:
+    """``dd = rowsum(do * out)`` in f32, ``(b, h, s)`` contiguous: the
+    backward's per-row term, computed outside the kernels as the JAX code
+    does."""
+    return ((do.float() * out.float()).sum(dim=-1)
+            .permute(0, 2, 1).contiguous())
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool = False
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' arithmetic in PyTorch ops, keys in tiles of
+    :data:`BLOCK_K`: ``p = exp(s - lse)`` recomputed (masked scores at
+    -1e30, so a dead row with lse 1e30 gives p = 0), ``ds = p * (do·vᵀ -
+    dd)``; ``dq = Σ ds·k·scale`` with ds rounded to k's dtype, ``dk =
+    Σ dsᵀ·q·scale`` with ds rounded to q's dtype, ``dv = Σ pᵀ·do`` with p
+    rounded to do's dtype; f32 sums.  Returns ``(dq, dk, dv)``, each
+    ``(b, s, h, d)`` in q's dtype.  As for :func:`flash_attention_plain`,
+    keep TF32 off on a card."""
+    _check_inputs(q, k, v)
+    b, s, h, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    qf, kf, vf, dof = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, do))
+    lse = lse[..., None]
+    dd = attention_delta(out, do)[..., None]
+    dq = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    for k0 in range(0, s, BLOCK_K):
+        k1 = min(k0 + BLOCK_K, s)
+        sc = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * scale
+        if causal:
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            sc = torch.where(qpos >= kpos, sc, -1e30)
+        p = torch.exp(sc - lse)
+        ds = p * (dof @ vf[:, :, k0:k1].transpose(-1, -2) - dd)
+        dq += ds.to(k.dtype).float() @ kf[:, :, k0:k1]
+        dk[:, :, k0:k1] = (ds.to(q.dtype).float().transpose(-1, -2) @ qf
+                           * scale)
+        dv[:, :, k0:k1] = p.to(do.dtype).float().transpose(-1, -2) @ dof
+    return tuple(g.to(q.dtype).permute(0, 2, 1, 3)
+                 for g in (dq * scale, dk, dv))
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False
+                        ) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv)``: the CUDA kernels ``flash_dq`` and ``flash_dkdv``
+    for CUDA tensors, the plain version for CPU tensors."""
+    if q.is_cuda:
+        dd = attention_delta(out, do)
+        (dq,) = FLASH_DQ(q, k, v, do, lse, dd, causal)
+        dk, dv = FLASH_DKDV(q, k, v, do, lse, dd, causal)
+        return dq, dk, dv
+    if q.device.type != "cpu":
+        raise ValueError(f"flash attention runs on cuda or cpu, "
+                         f"not {q.device}")
+    return flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Forward through :func:`flash_attention_fwd`; no backward yet."""
+    """Forward through :func:`flash_attention_fwd`, which saves q, k, v,
+    out and lse; backward through :func:`flash_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        out, _ = flash_attention_fwd(q, k, v, causal)
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash attention backward (_dq_kernel, _dkdv_kernel) arrives "
-            "with the training slice of the port")
+        q, k, v, out, lse = ctx.saved_tensors
+        do = grad_out.to(q.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, causal: bool = False):

@@ -1,10 +1,10 @@
-"""Parameter carry-over from the JAX package.
+"""Parameter carry-over between the JAX package and the port.
 
 A JAX TransformerLM parameter tree, with every leaf turned into a numpy
 array (``jax.tree_util.tree_map(np.asarray, params)`` keeps the
-``QuantTensor`` nodes), becomes the port's parameter dict on a device.
-The port never imports JAX: a quantized leaf is recognised by its
-``(q, s)`` fields.
+``QuantTensor`` nodes), becomes the port's parameter dict on a device;
+:func:`params_to_numpy` goes back.  The port never imports JAX: a
+quantized leaf is recognised by its ``(q, s)`` fields.
 """
 
 from __future__ import annotations
@@ -36,3 +36,18 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
         raise NotImplementedError(
             "stacked scan_layers params are not ported yet")
     return {k: conv(v) for k, v in tree.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's params -> nested dict of numpy arrays, the inverse of
+    :func:`params_from_numpy` (quantized leaves stay ``QuantTensor``s, of
+    numpy arrays)."""
+
+    def conv(val):
+        if isinstance(val, dict):
+            return {k: conv(v) for k, v in val.items()}
+        if _is_quant(val):
+            return QuantTensor(conv(val.q), conv(val.s))
+        return val.detach().cpu().numpy()
+
+    return {k: conv(v) for k, v in params.items()}

@@ -55,7 +55,11 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == n_modules >= 20
+    assert int(proc.stdout.split()[-1]) == n_modules >= 21
+    names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
+    assert {"brpc_tpu_torch.utils.checkpoint",
+            "brpc_tpu_torch.models.transformer_lm",
+            "brpc_tpu_torch.ops.flash_attention"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -101,3 +105,25 @@ def test_entry_points_raise_without_cuda():
         params_from_numpy({})
     # the CPU is served only when asked for
     assert LMService(cfg=cfg, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.models.transformer_lm import (LMConfig, make_forward,
+                                                      make_train_step,
+                                                      make_value_and_grad)
+    from brpc_tpu_torch.utils.checkpoint import TensorSpec, TrainCheckpointer
+    cfg = LMConfig(vocab=16, dim=8, heads=2, depth=1, max_seq=8,
+                   use_flash=True)
+    for fn in (make_forward, make_train_step, make_value_and_grad):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(cfg)
+    ckpt = TrainCheckpointer(str(tmp_path))
+    ckpt.save(1, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ckpt.restore(like={"w": TensorSpec((2,), torch.float32, "cuda:0")})
+    # the CPU is served only when asked for
+    assert make_train_step(cfg, device="cpu") is not None
+    assert ckpt.restore(like={"w": TensorSpec((2,), torch.float32,
+                                              "cpu")})["w"].device.type == "cpu"
