@@ -1,9 +1,12 @@
 """Controller — one client call's knobs and results.
 
-The slim core of ``brpc_tpu/client/controller.py``: ``timeout_ms`` in,
-``failed`` / ``error_code`` / ``error_text`` / ``response`` out.
-Retries, backup requests, load balancing, streams and attachments wait
-for later slices of the port.
+The slim core of ``brpc_tpu/client/controller.py``: ``timeout_ms``,
+``request_attachment`` (bytes) and ``request_device_attachment`` (a
+tensor for the ICI lane) in; ``failed`` / ``error_code`` / ``error_text``,
+``response``, ``response_attachment`` and ``response_device_attachment``
+(a :class:`~brpc_tpu_torch.ici.DeviceAttachment` to redeem with
+``.tensor()``) out.  Retries, backup requests, load balancing and streams
+wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -12,11 +15,18 @@ from typing import Any, Optional
 
 
 class Controller:
-    __slots__ = ("timeout_ms", "response", "_error_code", "_error_text")
+    __slots__ = ("timeout_ms", "request_attachment",
+                 "request_device_attachment", "response",
+                 "response_attachment", "response_device_attachment",
+                 "_error_code", "_error_text")
 
     def __init__(self):
         self.timeout_ms: Optional[int] = None   # None = the channel's
+        self.request_attachment: bytes = b""
+        self.request_device_attachment: Any = None
         self.response: Any = None       # response bytes
+        self.response_attachment: bytes = b""
+        self.response_device_attachment = None
         self._error_code = 0
         self._error_text = ""
 

@@ -1,0 +1,22 @@
+"""Device-attachment lane -- RPC payloads that stay on the device.
+
+The port of ``brpc_tpu/ici/``: the connection carries *descriptors* and
+acks while the tensor stays where it lies, the way an RDMA message
+carries keys instead of payload bytes.
+
+- :mod:`fabric`     -- how posted tensors reach their redeemer (the
+  in-process registry);
+- :mod:`endpoint`   -- per-connection window + ack flow control, the
+  descriptor lifecycle, the send and redeem paths, the TTL sweep;
+- :mod:`attachment` -- the user-facing :class:`DeviceAttachment` and the
+  descriptor codec.
+
+Not ported yet: the cross-process transfer fabric and ``block_pool``.
+"""
+
+from .attachment import DeviceAttachment
+from .endpoint import IciEndpoint, ici_enabled
+from .fabric import local_domain_id
+
+__all__ = ["DeviceAttachment", "IciEndpoint", "ici_enabled",
+           "local_domain_id"]

@@ -1,0 +1,313 @@
+"""IciEndpoint -- per-connection device data plane with window + ack flow
+control.  The port of ``brpc_tpu/ici/endpoint.py`` without its
+cross-process transfer branch.
+
+- Posting a tensor counts its bytes against ``ici_window_bytes`` on the
+  connection; the receiver's redemption sends a "TICI" ack frame on the
+  same connection; the ack returns the credit and releases the tensor.
+- Send path: when the peer's domain (learned from RpcMeta on the first
+  exchange) is reachable by the in-process fabric, the tensor goes as a
+  descriptor and stays where it is; otherwise its bytes ride the regular
+  attachment (the fallback, also taken when ``ici_enabled`` is off).
+- TICI frames are packed and read by ``protocol/tpu_std.py``; the
+  connection's ack queue is ``transport/socket.py``'s.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import struct
+import threading
+import weakref
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..butil.flags import define_flag, get_flag
+from ..ops.device_ops import bytes_to_tensor, dtype_name, tensor_bytes
+from ..protocol.tpu_std import MAX_BODY_SIZE
+from ..transport.socket import Socket
+from .attachment import (KIND_INLINE, KIND_INPROC, KIND_TRANSFER,
+                         DeviceAttachment, decode_descriptor,
+                         encode_descriptor)
+from .fabric import in_process_fabric
+
+LOG = logging.getLogger(__name__)
+
+define_flag("ici_enabled", True,
+            "exchange ICI domains and send device attachments "
+            "device-resident when peers share a fabric",
+            validator=lambda v: True)       # reloadable on/off switch
+define_flag("ici_window_bytes", 256 * 1024 * 1024,
+            "max posted-but-unacked device payload bytes per connection",
+            validator=lambda v: int(v) > 0)
+define_flag("ici_desc_ttl_s", 120,
+            "reclaim posted descriptors never redeemed after this many "
+            "seconds", validator=lambda v: int(v) > 0)
+
+
+def ici_enabled() -> bool:
+    return bool(get_flag("ici_enabled", True))
+
+
+class IciEndpoint:
+    """Sender-side window accounting for one connection, created on its
+    first device-attachment send."""
+
+    __slots__ = ("socket_id", "_lock", "_cond", "outstanding_bytes",
+                 "posted_count", "acked_count", "__weakref__")
+
+    def __init__(self, socket_id: int):
+        self.socket_id = socket_id
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self.outstanding_bytes = 0
+        self.posted_count = 0
+        self.acked_count = 0
+
+    def post(self, tensor: Any, nbytes: int, timeout_s: float = 30.0,
+             conn_key=None) -> Optional[int]:
+        """Reserve window credit and post to the in-process fabric.
+        Returns the descriptor id, or None if the window stayed full for
+        ``timeout_s`` (the EOVERCROWDED case).  A payload larger than the
+        whole window is admitted when nothing else is in flight."""
+        _ensure_sweeper()
+        window = int(get_flag("ici_window_bytes", 256 * 1024 * 1024))
+        with self._cond:
+            ok = self._cond.wait_for(
+                lambda: self.outstanding_bytes + nbytes <= window
+                or self.outstanding_bytes == 0, timeout=timeout_s)
+            if not ok:
+                return None
+            self.outstanding_bytes += nbytes
+            self.posted_count += 1
+        return in_process_fabric().post(tensor, nbytes, self._on_release,
+                                        socket_id=self.socket_id,
+                                        conn_key=conn_key)
+
+    def _on_release(self, nbytes: int) -> None:
+        with self._cond:
+            self.outstanding_bytes -= nbytes
+            self.acked_count += 1
+            self._cond.notify_all()
+
+
+_endpoints: "weakref.WeakSet[IciEndpoint]" = weakref.WeakSet()
+
+
+def endpoint_of(sock: Socket) -> IciEndpoint:
+    ep = sock.ici_endpoint
+    if ep is None:
+        ep = sock.ici_endpoint = IciEndpoint(sock.id)
+        _endpoints.add(ep)
+    return ep
+
+
+def live_endpoints() -> List[IciEndpoint]:
+    """All endpoints that ever posted and are still referenced."""
+    return list(_endpoints)
+
+
+# -- send path -------------------------------------------------------------
+
+_LOOPBACK_HOSTS = ("127.0.0.1", "::1", "localhost")
+_nonce_init_lock = threading.Lock()
+
+
+def _is_local_peer(sock) -> bool:
+    """In-process reach also needs a loopback peer address: a remote peer
+    replaying our domain token must not steer us onto descriptors it can
+    never redeem."""
+    ep = sock.remote_side
+    return ep is not None and str(getattr(ep, "host", "")) in _LOOPBACK_HOSTS
+
+
+def conn_nonce_of(sock) -> bytes:
+    """The initiator's connection nonce: made on the client socket at its
+    first use, carried in every ici-enabled request meta, and pinned by
+    the server from the first frame that carries it."""
+    tok = sock.ici_conn_token
+    if tok is None:
+        with _nonce_init_lock:
+            tok = sock.ici_conn_token
+            if tok is None:
+                tok = sock.ici_conn_token = os.urandom(8)
+    return tok
+
+
+def conn_key_of(sock):
+    """Connection identity both ends compute alike: the connection nonce
+    once exchanged, else the unordered (local, remote) address pair.  A
+    descriptor binds to the connection it was posted for."""
+    tok = sock.ici_conn_token
+    if tok is not None:
+        return tok
+    local, remote = sock.local_side, sock.remote_side
+    if local is None or remote is None:
+        return None
+
+    def norm(h: str) -> str:
+        return "127.0.0.1" if h in ("0.0.0.0", "::", "localhost") else h
+
+    a = (norm(str(local.host)), int(local.port))
+    b = (norm(str(remote.host)), int(remote.port))
+    return (a, b) if a <= b else (b, a)
+
+
+def _tensor_meta(t: torch.Tensor) -> Tuple[int, str, Tuple[int, ...]]:
+    return (t.numel() * t.element_size(), dtype_name(t.dtype),
+            tuple(int(s) for s in t.shape))
+
+
+def prepare_send(sock, meta, tensor, timeout_s: float = 30.0):
+    """Route a device attachment for sending: a descriptor (the tensor
+    stays put) or its bytes (the fallback).  Sets ``meta.ici_desc`` and
+    returns the bytes to append to the frame's attachment (None for a
+    descriptor).  Raises RuntimeError when the window stays full past
+    ``timeout_s``, and before any credit or staging is spent for a payload
+    that no frame can carry: 4 GiB and up (the descriptor's size field is
+    u32), or, inline, the frame cap."""
+    if not isinstance(tensor, torch.Tensor):
+        tensor = torch.from_numpy(np.array(tensor))
+    nbytes, dtype, shape = _tensor_meta(tensor)
+    if nbytes >= 1 << 32:
+        raise RuntimeError(
+            f"device attachment of {nbytes} bytes exceeds the 4GiB "
+            "frame limit -- shard it or use streaming")
+    peer = sock.ici_peer_domain
+    conn_key = conn_key_of(sock)
+    if ici_enabled() and peer is not None \
+            and in_process_fabric().can_reach(peer) \
+            and _is_local_peer(sock) and conn_key is not None:
+        desc_id = endpoint_of(sock).post(tensor, nbytes,
+                                         timeout_s=timeout_s,
+                                         conn_key=conn_key)
+        if desc_id is None:
+            raise RuntimeError(
+                "ICI window full: posted device payloads awaiting ack "
+                f"exceed ici_window_bytes on socket {sock.id}")
+        meta.ici_desc = encode_descriptor(KIND_INPROC, desc_id, nbytes,
+                                          dtype, shape)
+        return None
+    if nbytes >= MAX_BODY_SIZE:
+        raise RuntimeError(
+            f"device attachment of {nbytes} bytes cannot ride inline: "
+            f"frames carry at most {MAX_BODY_SIZE} bytes, and the peer is "
+            "not reachable device-resident")
+    # fallback: one D2H copy, bytes ride the regular attachment
+    data, dtype, shape = tensor_bytes(tensor)
+    meta.ici_desc = encode_descriptor(KIND_INLINE, 0, nbytes, dtype, shape)
+    return data
+
+
+def split_device_attachment(meta, attachment: bytes, socket_id: int
+                            ) -> Tuple[bytes, Optional[DeviceAttachment]]:
+    """Receiver side: if the frame carries a device attachment, split its
+    bytes (inline fallback) off the end of ``attachment``.  Returns
+    ``(user_attachment, device_attachment_or_None)``; a malformed or
+    unknown descriptor is dropped."""
+    if not meta.ici_desc:
+        return attachment, None
+    try:
+        kind, desc_id, nbytes, dtype, shape, extra = \
+            decode_descriptor(meta.ici_desc)
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return attachment, None          # malformed wire field: drop
+    if kind not in (KIND_INLINE, KIND_INPROC, KIND_TRANSFER):
+        return attachment, None          # unknown kind: drop
+    host_bytes = None
+    if kind == KIND_INLINE:
+        if nbytes > len(attachment):
+            return attachment, None      # malformed; drop the handle
+        keep = len(attachment) - nbytes
+        host_bytes = memoryview(attachment)[keep:]
+        attachment = attachment[:keep]
+    return attachment, DeviceAttachment(
+        kind, desc_id, nbytes, dtype, shape, socket_id=socket_id,
+        host_bytes=host_bytes, extra=extra)
+
+
+# -- redeem path -----------------------------------------------------------
+
+def redeem_attachment(att: DeviceAttachment, device=None):
+    """Land the attachment as a tensor (``device`` None: a descriptor's
+    tensor where it was posted, inline bytes on the CPU); acks the poster
+    for a descriptor."""
+    if att.kind == KIND_INPROC:
+        sock = Socket.address(att._socket_id)
+        key = conn_key_of(sock) if sock is not None else None
+        t = in_process_fabric().redeem(att.desc_id, device, conn_key=key)
+        if t is None:
+            raise RuntimeError(
+                f"ICI descriptor {att.desc_id} expired, already redeemed, "
+                "or bound to a different connection")
+        _send_ack(att._socket_id, (att.desc_id,))
+        return t
+    if att.kind == KIND_TRANSFER:
+        raise RuntimeError(
+            "the peer sent a cross-process transfer descriptor "
+            "(KIND_TRANSFER); the port has no transfer fabric yet, so "
+            "peers in other processes must send device attachments inline")
+    return bytes_to_tensor(att._host_bytes, att.dtype, att.shape,
+                           device=device if device is not None else "cpu")
+
+
+# -- acks ------------------------------------------------------------------
+
+def _send_ack(socket_id: int, desc_ids) -> None:
+    """Queue the credit return on the connection (transport/socket.py)."""
+    sock = Socket.address(socket_id)
+    if sock is None or sock.failed:
+        return                      # the poster's TTL sweep reclaims
+    sock.queue_ack(desc_ids)
+
+
+def ack_unused(meta, socket_id: int) -> None:
+    """Return window credit for a descriptor the receiver discards
+    without redeeming (an error response, a stale response)."""
+    if not meta.ici_desc:
+        return
+    try:
+        kind, desc_id = decode_descriptor(meta.ici_desc)[:2]
+    except (struct.error, IndexError, UnicodeDecodeError):
+        return
+    if kind == KIND_INPROC:
+        _send_ack(socket_id, (desc_id,))
+
+
+def process_ack(desc_ids, sock) -> None:
+    """An inbound TICI frame: release each descriptor, only if it was
+    posted on this connection (forged acks are dropped)."""
+    fabric = in_process_fabric()
+    sid = getattr(sock, "id", None)
+    for desc_id in desc_ids:
+        fabric.release(desc_id, only_socket=sid)
+
+
+# -- descriptor TTL sweep --------------------------------------------------
+
+_sweeper: Optional[threading.Thread] = None
+_sweep_lock = threading.Lock()
+
+
+def _ensure_sweeper() -> None:
+    """Start the TTL sweep (a daemon thread) on the first post."""
+    global _sweeper
+    with _sweep_lock:
+        if _sweeper is not None:
+            return
+        _sweeper = threading.Thread(target=_sweep_loop, name="ici-ttl-sweep",
+                                    daemon=True)
+    _sweeper.start()
+
+
+def _sweep_loop() -> None:
+    wake = threading.Event()
+    while True:
+        ttl = float(get_flag("ici_desc_ttl_s", 120))
+        wake.wait(max(ttl / 4, 5.0))
+        n = in_process_fabric().sweep_expired(ttl)
+        if n:
+            LOG.warning("ICI ttl sweep reclaimed %d descriptors", n)

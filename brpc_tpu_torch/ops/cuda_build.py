@@ -7,7 +7,8 @@ named by a hash of the source and the flags, so an edited source builds
 anew and an unchanged one is reused.  Nothing is built at import: the
 first launch builds, and :func:`build_all` builds every source at once
 (one ``nvcc`` per source, all started together).  A failed build raises;
-there is no fallback.
+there is no fallback.  :class:`CudaKernel` binds one C entry point of a
+library and counts its launches.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "checksum.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -97,3 +98,33 @@ def load(source: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[source] = ctypes.CDLL(path)
     return lib
+
+
+class CudaKernel:
+    """ctypes binding of one C entry point of a ``csrc/`` library, with its
+    launch count: it adds one where it launches, and nowhere else."""
+
+    def __init__(self, name: str, source: str, argtypes: list):
+        self.name = name
+        self.source = source
+        self.launches = 0
+        self._argtypes = argtypes
+        self._fn = None
+
+    def _launch(self, *args) -> None:
+        if self._fn is None:
+            lib = load(self.source)
+            fn = getattr(lib, self.name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = self._argtypes
+            err = getattr(lib, os.path.splitext(self.source)[0]
+                          + "_error_string")
+            err.restype = ctypes.c_char_p
+            err.argtypes = [ctypes.c_int]
+            self._err = err
+            self._fn = fn
+        code = self._fn(*args)
+        if code != 0:
+            raise RuntimeError(f"{self.name} launch failed: "
+                               f"{self._err(code).decode()} ({code})")
+        self.launches += 1

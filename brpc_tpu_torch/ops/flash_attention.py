@@ -21,47 +21,16 @@ ones are padded, ``(b, h, s_pad, 1)``).
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Tuple
 
 import torch
 
-from . import cuda_build
+from .cuda_build import CudaKernel
 
 # Key tile of the kernel (csrc/flash_fwd.cu BK); the plain version walks
 # keys in the same tiles.
 BLOCK_K = 32
 MAX_HEAD_DIM = 128
-
-
-class CudaKernel:
-    """ctypes binding of one C entry point of a ``csrc/`` library, with its
-    launch count: it adds one where it launches, and nowhere else."""
-
-    def __init__(self, name: str, source: str, argtypes: list):
-        self.name = name
-        self.source = source
-        self.launches = 0
-        self._argtypes = argtypes
-        self._fn = None
-
-    def _launch(self, *args) -> None:
-        if self._fn is None:
-            lib = cuda_build.load(self.source)
-            fn = getattr(lib, self.name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = self._argtypes
-            err = getattr(lib, os.path.splitext(self.source)[0]
-                          + "_error_string")
-            err.restype = ctypes.c_char_p
-            err.argtypes = [ctypes.c_int]
-            self._err = err
-            self._fn = fn
-        code = self._fn(*args)
-        if code != 0:
-            raise RuntimeError(f"{self.name} launch failed: "
-                               f"{self._err(code).decode()} ({code})")
-        self.launches += 1
 
 
 def _check_kernel_inputs(name: str, *ts) -> None:

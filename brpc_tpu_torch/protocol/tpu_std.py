@@ -7,33 +7,55 @@ The same frames as ``brpc_tpu/protocol/tpu_std.py``::
 
 where ``body_size = meta_size + len(payload) + len(attachment)``.  The
 JAX package frames into its IOBuf; the port packs and cuts ``bytes``.
+
+The same connection also carries the device-attachment lane's "TICI"
+credit-return frames (``brpc_tpu/ici/endpoint.py``'s ack frames)::
+
+    [ "TICI" ][ u32 count ][ count x u64 descriptor id ]
+
+:func:`read_frame` returns either kind.
 """
 
 from __future__ import annotations
 
 import socket
 import struct
-from typing import Any, Tuple
+from typing import Any, NamedTuple, Tuple, Union
 
 from .meta import RpcMeta
 
 MAGIC = b"TRPC"
 HEADER_SIZE = 12
 MAX_BODY_SIZE = 64 * 1024 * 1024
+ACK_MAGIC = b"TICI"
+ACK_HEADER_SIZE = 8
+# ids per TICI frame when packing (the JAX encoder's chunk), and the most
+# one frame may announce when reading (the JAX parser's cap)
+_ACK_CHUNK = 4096
+_ACK_MAX_IDS = 1 << 20
 
 
 class FrameError(ValueError):
     """Bytes that are not a tpu_std frame, or one past the size cap."""
 
 
+class AckFrame(NamedTuple):
+    """One TICI frame: the descriptor ids whose window credit returns."""
+    ids: Tuple[int, ...]
+
+
 def pack_frame(meta: RpcMeta, payload: bytes = b"",
                attachment: bytes = b"") -> bytes:
     """Frame one message; a non-empty ``attachment`` rides after the
-    payload and its size is recorded in the meta."""
+    payload and its size is recorded in the meta.  A body past
+    :data:`MAX_BODY_SIZE` raises :class:`FrameError`: the peer would
+    refuse it."""
     if attachment:
         meta.attachment_size = len(attachment)
     meta_bytes = meta.encode()
     body_size = len(meta_bytes) + len(payload) + len(attachment)
+    if body_size > MAX_BODY_SIZE:
+        raise FrameError(f"body {body_size} exceeds {MAX_BODY_SIZE}")
     return b"".join((MAGIC, struct.pack("<II", body_size, len(meta_bytes)),
                      meta_bytes, payload, attachment))
 
@@ -59,27 +81,51 @@ def unpack_frame(frame: bytes) -> Tuple[RpcMeta, bytes, bytes]:
     meta = RpcMeta.decode(bytes(frame[HEADER_SIZE:HEADER_SIZE + meta_size]))
     if meta is None:
         raise FrameError("malformed meta")
-    body = bytes(frame[HEADER_SIZE + meta_size:])
+    body = memoryview(frame)[HEADER_SIZE + meta_size:]
     if meta.attachment_size > len(body):
         raise FrameError("attachment size exceeds body")
     split = len(body) - meta.attachment_size
-    return meta, body[:split], body[split:]
+    return meta, bytes(body[:split]), bytes(body[split:])
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    buf = bytearray()
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        if not chunk:
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:])
+        if not k:
             raise EOFError("connection closed")
-        buf += chunk
-    return bytes(buf)
+        got += k
+    return buf
 
 
-def read_frame(sock: socket.socket) -> Tuple[RpcMeta, bytes, bytes]:
-    """Read one whole frame from a blocking socket.  Raises EOFError when
-    the peer closes, FrameError on bytes that are not a frame."""
-    header = _recv_exact(sock, HEADER_SIZE)
+def pack_ack_frame(ids) -> bytes:
+    """TICI frame(s) returning the credit of ``ids``, chunked at 4096 ids
+    a frame, back to back."""
+    ids = list(ids)
+    out = []
+    for i in range(0, len(ids), _ACK_CHUNK):
+        chunk = ids[i:i + _ACK_CHUNK]
+        out.append(ACK_MAGIC + struct.pack(f"<I{len(chunk)}Q", len(chunk),
+                                           *chunk))
+    return b"".join(out)
+
+
+def read_frame(sock: socket.socket
+               ) -> Union[Tuple[RpcMeta, bytes, bytes], AckFrame]:
+    """Read one whole frame from a blocking socket: a tpu_std frame as
+    ``(meta, payload, attachment)``, or a TICI frame as an
+    :class:`AckFrame`.  Raises EOFError when the peer closes, FrameError
+    on bytes that are neither."""
+    head = _recv_exact(sock, ACK_HEADER_SIZE)
+    if head[:4] == ACK_MAGIC:
+        (count,) = struct.unpack_from("<I", head, 4)
+        if count > _ACK_MAX_IDS:
+            raise FrameError(f"ack frame of {count} ids")
+        data = _recv_exact(sock, 8 * count)
+        return AckFrame(struct.unpack(f"<{count}Q", data))
+    header = head + _recv_exact(sock, HEADER_SIZE - ACK_HEADER_SIZE)
     body = _recv_exact(sock, frame_size(header) - HEADER_SIZE)
     return unpack_frame(header + body)
 

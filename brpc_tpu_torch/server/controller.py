@@ -1,8 +1,11 @@
 """ServerController — the per-request context handed to service methods.
 
 The slim core of ``brpc_tpu/server/controller.py``: the request meta,
-the peer, the request attachment and error reporting.  Async
-completion, deadlines, streams and device attachments wait for later
+the peer and the connection id, attachments in both directions (bytes,
+and device tensors through the ICI lane: ``request_device_attachment``
+is a :class:`~brpc_tpu_torch.ici.DeviceAttachment` to redeem with
+``.tensor()``, ``response_device_attachment`` a tensor to send back), and
+error reporting.  Async completion, deadlines and streams wait for later
 slices of the port.
 """
 
@@ -16,15 +19,21 @@ from ..protocol.meta import RpcMeta
 
 
 class ServerController:
-    __slots__ = ("request_meta", "remote_side", "request_attachment",
+    __slots__ = ("request_meta", "remote_side", "socket_id",
+                 "request_attachment", "response_attachment",
+                 "request_device_attachment", "response_device_attachment",
                  "_error_code", "_error_text")
 
     def __init__(self, request_meta: RpcMeta,
                  remote_side: Optional[EndPoint] = None,
-                 request_attachment: bytes = b""):
+                 request_attachment: bytes = b"", socket_id: int = 0):
         self.request_meta = request_meta
         self.remote_side = remote_side
+        self.socket_id = socket_id      # the connection (transport.Socket)
         self.request_attachment = request_attachment
+        self.response_attachment = b""  # bytes sent after the response
+        self.request_device_attachment = None
+        self.response_device_attachment = None
         self._error_code = 0
         self._error_text = ""
 

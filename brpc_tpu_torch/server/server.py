@@ -3,9 +3,18 @@
 The slim core of ``brpc_tpu/server/server.py``: ``add_service``,
 ``start``, ``listen_endpoint`` and ``stop``, with one accept thread and
 one thread per connection on blocking sockets.  A connection's requests
-are answered in order.  It speaks tpu_std only; the JAX server's other
-protocols, native engine, admission, tracing and draining wait for
-later slices of the port.
+are answered in order.  Each connection is a
+:class:`~brpc_tpu_torch.transport.Socket`, which carries the device
+attachment lane's state (``brpc_tpu/server/rpc_dispatch.py`` and
+``interceptors.py``): the server learns the peer's fabric domain and pins
+its connection nonce from the request meta, splits the request's device
+attachment off, answers the domain exchange, settles the request
+attachment before it writes the response (so the credit return precedes
+it), sends the response's device attachment through ``prepare_send``
+(``EOVERCROWDED`` when the window stays full), takes inbound TICI ack
+frames, and reclaims a connection's descriptors when it closes.  It
+speaks tpu_std only; the JAX server's other protocols, native engine,
+admission, tracing and draining wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -17,15 +26,20 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..butil.endpoint import EndPoint, parse_endpoint
 from ..butil.status import Errno
+from ..ici.endpoint import (ici_enabled, prepare_send, process_ack,
+                            split_device_attachment)
+from ..ici.fabric import local_domain_id
 from ..protocol.meta import RpcMeta
-from ..protocol.tpu_std import (FrameError, pack_frame, read_frame,
+from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
+from ..transport.socket import Socket
 from .controller import ServerController
 from .service import extract_methods, service_name_of
 
 LOG = logging.getLogger(__name__)
 _ACCEPT_POLL_S = 0.2
 _JOIN_TIMEOUT_S = 5.0
+_POST_TIMEOUT_S = 5.0       # a response descriptor's wait for window credit
 
 
 class Server:
@@ -134,27 +148,43 @@ class Server:
                         EndPoint(host=peer[0], port=peer[1]))
 
     def _serve_conn(self, conn: socket.socket, peer: EndPoint) -> None:
+        sock = Socket(conn, remote_side=peer)
         try:
             while not self._stopping.is_set():
                 try:
-                    meta, payload, att = read_frame(conn)
+                    msg = read_frame(conn)
                 except (EOFError, OSError):
                     return
                 except FrameError as e:
                     LOG.warning("closing %s: %s", peer, e)
                     return
-                conn.sendall(self._dispatch(meta, payload, att, peer))
+                if isinstance(msg, AckFrame):
+                    process_ack(msg.ids, sock)
+                    continue
+                # acks queued while serving ride in front of the response
+                sock.defer_acks = True
+                try:
+                    sock.write(self._dispatch(*msg, sock))
+                finally:
+                    sock.defer_acks = False
+                sock.flush_acks()
         except OSError:
             pass
         finally:
             with self._lock:
                 self._conns.discard(conn)
-            conn.close()
+            sock.close()
 
     def _dispatch(self, meta: RpcMeta, payload: bytes, att: bytes,
-                  peer: EndPoint) -> bytes:
+                  sock: Socket) -> bytes:
         """One request frame's fields -> the response frame."""
-        cntl = ServerController(meta, peer, att)
+        if meta.ici_domain:
+            sock.ici_peer_domain = meta.ici_domain
+        if meta.ici_conn and sock.ici_conn_token is None:
+            sock.ici_conn_token = meta.ici_conn     # first write wins
+        att, dev_att = split_device_attachment(meta, att, sock.id)
+        cntl = ServerController(meta, sock.remote_side, att, sock.id)
+        cntl.request_device_attachment = dev_att
         fn = self._methods.get((meta.service_name, meta.method_name))
         response = None
         if fn is None:
@@ -172,17 +202,48 @@ class Server:
                 LOG.exception("method %s.%s raised", meta.service_name,
                               meta.method_name)
                 cntl.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
+        if dev_att is not None:
+            # the credit return for a request descriptor precedes the
+            # response: redeemed in the handler, its ack is queued; never
+            # redeemed, settle acks it now
+            dev_att.settle()
         out = RpcMeta()
         out.correlation_id = meta.correlation_id
-        body = b""
+        if meta.ici_domain and ici_enabled():
+            out.ici_domain = local_domain_id()   # answer the exchange
         if not cntl.failed:
+            frame = self._response_frame(cntl, out, response, sock)
+            if frame is not None:
+                return frame
+        err = RpcMeta()
+        err.correlation_id = meta.correlation_id
+        err.ici_domain = out.ici_domain
+        err.error_code = cntl.error_code
+        err.error_text = cntl.error_text
+        return pack_frame(err)
+
+    @staticmethod
+    def _response_frame(cntl: ServerController, out: RpcMeta, response,
+                        sock: Socket) -> Optional[bytes]:
+        """The success frame, or None after failing ``cntl``."""
+        try:
+            body = serialize_payload(response)
+        except TypeError as e:
+            cntl.set_failed(Errno.EINTERNAL,
+                            f"response serialization failed: {e}")
+            return None
+        attachment = cntl.response_attachment
+        if cntl.response_device_attachment is not None:
             try:
-                body = serialize_payload(response)
-            except TypeError as e:
-                cntl.set_failed(Errno.EINTERNAL,
-                                f"response serialization failed: {e}")
-        if cntl.failed:
-            out.error_code = cntl.error_code
-            out.error_text = cntl.error_text
-            body = b""
-        return pack_frame(out, body)
+                tail = prepare_send(sock, out, cntl.response_device_attachment,
+                                    timeout_s=_POST_TIMEOUT_S)
+            except RuntimeError as e:
+                cntl.set_failed(Errno.EOVERCROWDED, str(e))
+                return None
+            if tail is not None:
+                attachment = bytes(attachment) + tail if attachment else tail
+        try:
+            return pack_frame(out, body, attachment)
+        except FrameError as e:
+            cntl.set_failed(Errno.EINTERNAL, f"response too large: {e}")
+            return None

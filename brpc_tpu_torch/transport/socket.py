@@ -1,0 +1,121 @@
+"""Socket -- one connection's identity and write path, shared by the
+port's Server and Channel.
+
+The slim core of ``brpc_tpu/transport/socket.py`` for blocking sockets:
+a process-unique id with a registry (:meth:`Socket.address`), the
+addresses of both ends, the device-attachment lane's per-connection state
+(``ici_endpoint``, ``ici_peer_domain``, ``ici_conn_token``), one write
+lock, and the ack queue of TICI credit returns.  Reading stays with the
+owner (the server's connection thread, the channel's call).
+
+Acks.  :meth:`queue_ack` queues descriptor ids.  While ``defer_acks`` is
+set (a server between reading a request and writing its response) they
+ride in front of the next frame written, so a request descriptor's ack
+always precedes its response on the wire.  Otherwise they are written at
+once, unless another thread holds the write lock, in which case that
+writer sends them when it is done.  Queuing never blocks, so it is safe
+from a finalizer.
+"""
+
+from __future__ import annotations
+
+import itertools
+import socket
+import threading
+from typing import Dict, List, Optional
+
+from ..butil.endpoint import EndPoint
+from ..protocol.tpu_std import pack_ack_frame
+
+_registry: Dict[int, "Socket"] = {}
+_registry_lock = threading.Lock()
+_ids = itertools.count(1)
+
+
+def _endpoint(addr) -> Optional[EndPoint]:
+    return EndPoint(host=addr[0], port=addr[1]) if addr else None
+
+
+class Socket:
+    def __init__(self, conn: socket.socket,
+                 remote_side: Optional[EndPoint] = None):
+        self.conn = conn
+        self.remote_side = remote_side or _endpoint(conn.getpeername())
+        self.local_side = _endpoint(conn.getsockname())
+        self.ici_endpoint = None        # lazy IciEndpoint (device payloads)
+        self.ici_peer_domain: Optional[bytes] = None   # learned from meta
+        self.ici_conn_token: Optional[bytes] = None    # client: generated;
+        #                                 server: pinned from the first frame
+        self.defer_acks = False
+        self.failed = False
+        self._write_lock = threading.Lock()
+        self._ack_lock = threading.Lock()
+        self._pending_acks: List[int] = []
+        with _registry_lock:
+            self.id = next(_ids)
+            _registry[self.id] = self
+
+    @staticmethod
+    def address(socket_id: int) -> Optional["Socket"]:
+        """The live socket of an id, or None once it closed."""
+        return _registry.get(socket_id)
+
+    def write(self, data: bytes) -> None:
+        """Write one or more whole frames, queued acks in front.  Raises
+        OSError when the connection is gone (and marks it failed)."""
+        with self._write_lock:
+            self._send(self._take_acks())
+            self._send(data)
+        if not self.defer_acks:
+            self.flush_acks()
+
+    def queue_ack(self, desc_ids) -> None:
+        """Queue credit returns (see the module docstring).  Dropped on a
+        failed socket: the poster's TTL sweep or connection teardown
+        reclaims them."""
+        if self.failed:
+            return
+        with self._ack_lock:
+            self._pending_acks.extend(desc_ids)
+        if not self.defer_acks:
+            self.flush_acks()
+
+    def flush_acks(self) -> None:
+        """Write queued acks now, unless another writer holds the lock
+        (it flushes them after its write)."""
+        while self._pending_acks and not self.failed \
+                and self._write_lock.acquire(blocking=False):
+            try:
+                self._send(self._take_acks())
+            except OSError:
+                pass                    # _send marked the socket failed
+            finally:
+                self._write_lock.release()
+
+    def close(self) -> None:
+        """Close the connection and reclaim every device payload posted on
+        it (the peer can no longer redeem or ack them)."""
+        self.failed = True
+        with _registry_lock:
+            _registry.pop(self.id, None)
+        if self.ici_endpoint is not None:
+            from ..ici.fabric import in_process_fabric
+            in_process_fabric().release_socket(self.id)
+        try:
+            self.conn.close()
+        except OSError:
+            pass
+
+    def _take_acks(self) -> bytes:
+        with self._ack_lock:
+            ids, self._pending_acks = self._pending_acks, []
+        return pack_ack_frame(ids) if ids else b""
+
+    def _send(self, data: bytes) -> None:
+        if not data:
+            return
+        try:
+            self.conn.sendall(data)
+        except OSError:
+            self.failed = True
+            raise

@@ -3,6 +3,8 @@
 A JAX TransformerLM parameter tree, with every leaf turned into a numpy
 array (``jax.tree_util.tree_map(np.asarray, params)`` keeps the
 ``QuantTensor`` nodes), becomes the port's parameter dict on a device;
+so does the EmbeddingPS's flat dict (``emb``, ``w1``, ``b1``, ``w2``,
+``b2``);
 :func:`params_to_numpy` goes back.  The port never imports JAX: a
 quantized leaf is recognised by its ``(q, s)`` fields.
 """
@@ -21,8 +23,9 @@ def _is_quant(leaf) -> bool:
 
 
 def params_from_numpy(tree: dict, device="cuda") -> dict:
-    """Nested dict of numpy arrays (unrolled ``blk{i}`` layout) -> the
-    port's params on ``device``.  Stacked ``scan_layers`` trees raise."""
+    """Nested or flat dict of numpy arrays (the LM's unrolled ``blk{i}``
+    layout, or the EmbeddingPS's flat dict) -> the port's params on
+    ``device``.  Stacked ``scan_layers`` trees raise."""
     dev = resolve_device(device)
 
     def conv(val):

@@ -12,11 +12,16 @@ result line) when a phase fails or CUDA is absent.  Phases:
    3b. hold the backward kernels (``flash_dq``, ``flash_dkdv``) against
    the plain backward, f32 and bf16, causal and not, at the training
    shape and smaller ones;
+   3c. hold the checksum kernel bit-exact against its plain version on
+   payloads of 0 to 2**20+3 words and 64 MiB, in f32, int32 (sums that
+   wrap), bf16, int8 and bool, unaligned and non-contiguous, and show
+   that flipping one element changes the sum;
 4. time the forward kernel, its plain version and the library call at
    the full-width prefill shape, beside the card's bound for the same
    work; 4b. the same for each backward kernel at the training shape
-   (the library yardstick is SDPA's backward), and the library yardstick
-   of the checksum kernel still to port;
+   (the library yardstick is SDPA's backward); 4c. the checksum kernel,
+   its plain version and ``x.view(torch.int32).sum(dtype=torch.int64)``
+   at 64 MiB, beside the bound and the achieved GB/s;
 5. serve ``LM.Info`` and three ``LM.Generate`` requests through the
    port's Server, LMService and Channel at the full width of the repo's
    widest LM, with the kernels' launch counts read around that run;
@@ -30,6 +35,15 @@ result line) when a phase fails or CUDA is absent.  Phases:
    and model FLOP/s, and one more step under ``torch.profiler`` (the
    kernels in its trace, the device busy share);
 9. round-trip the trained parameters through ``TrainCheckpointer``;
+10. serve the full-width EmbeddingPS (``PSConfig()``) through the port's
+    Server, PSService and Channel: Stat, a (256, 16) Lookup against
+    ``embedding_bag`` on the card, Predict, 20 Train calls (labels as a
+    device attachment, then as bytes) with a falling loss, 1 MiB device
+    echoes (the first request inline, then zero-copy descriptors; calls
+    per second over 200), a 64 MiB zero-copy echo and its inline
+    refusal; every echo checksums the payload before the send and after
+    the landing; the checksum launch count equals the calls made, one
+    profiled echo shows the kernel twice, and the fabric ends empty;
 7. print the kernels' JSON line, then the result line.
 """
 
@@ -48,14 +62,23 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from brpc_tpu_torch.butil.flags import set_flag  # noqa: E402
+from brpc_tpu_torch.butil.status import Errno  # noqa: E402
 from brpc_tpu_torch.client import Channel, Controller  # noqa: E402
+from brpc_tpu_torch.ici.endpoint import live_endpoints  # noqa: E402
+from brpc_tpu_torch.ici.fabric import in_process_fabric  # noqa: E402
+from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig  # noqa
 from brpc_tpu_torch.models.lm_service import (LMService,  # noqa: E402
                                               pack_generate_request,
                                               unpack_generated)
+from brpc_tpu_torch.models.ps_service import PSService, pack_ids  # noqa
 from brpc_tpu_torch.models.transformer_lm import (  # noqa: E402
     LMConfig, init_params, make_decode, make_train_step, make_value_and_grad,
     tree_leaves)
 from brpc_tpu_torch.ops import cuda_build  # noqa: E402
+from brpc_tpu_torch.ops.device_ops import (  # noqa: E402
+    CHECKSUM, checksum_u32, checksum_u32_plain, checksum_words_plain,
+    embedding_bag)
 from brpc_tpu_torch.ops.flash_attention import (  # noqa: E402
     FLASH_DKDV, FLASH_DQ, FLASH_FWD, KERNELS, attention_delta,
     flash_attention_bwd_plain, flash_attention_plain)
@@ -109,9 +132,19 @@ BWD_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
 # ||dg|| / ||g|| <= 1e-2 (2.0e-3 measured on the H100)
 DENSE_LOSS_RTOL = 1e-3
 DENSE_GRAD_REL_NORM = 1e-2
-# payload of the checksum yardstick: one f32 (4, 2048, 2048) activation,
-# the size of a block's remat input at the training shape
+# the large device payload: one f32 (4, 2048, 2048) activation, the size
+# of a block's remat input at the training shape (64 MiB, the frame cap:
+# it can travel only device-resident)
 CHECKSUM_BYTES = TRAIN_MICRO * TRAIN_SEQ * 2048 * 4
+# checksum payload sizes in 32-bit words besides the 64 MiB one
+CHECKSUM_WORDS = (0, 1, 127, 8 * 128 + 5, 1000, 2**20 + 3)
+CHECKSUM_INNER = 20
+# the parameter server: the model family's own defaults, full width
+PS_CFG = PSConfig()
+PS_BATCH = (256, PS_CFG.slots)
+PS_TRAIN_CALLS = 20                   # 10 with device labels, 10 as bytes
+ECHO_BYTES = 1 << 20                  # bench.py's device echo payload
+ECHO_CALLS = 200
 
 # Published dense peaks (NVIDIA data sheets): f32 outside the tensor
 # cores, bf16 on the tensor cores, and HBM bandwidth.
@@ -184,8 +217,10 @@ def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> float:
     return 4.0 * b * h * d * pairs
 
 
-def time_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+def time_ms(fn, reps: int = TIMING_REPS, inner: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``inner`` back-to-back
+    calls of ``fn()``, divided by ``inner``, after warm-up.  ``inner`` > 1
+    lets the host enqueue ahead of a kernel shorter than its launch."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -194,10 +229,11 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     return statistics.median(times)
 
 
@@ -279,8 +315,7 @@ def phase_check_bwd() -> dict:
 
 def phase_time_bwd(peaks: dict) -> dict:
     """flash_dq, flash_dkdv, the plain backward and SDPA's backward at the
-    training shape, causal, each beside its bound; then the checksum
-    yardstick."""
+    training shape, causal, each beside its bound."""
     b, s, h, d = TRAIN_SHAPE
     pairs = s * (s + 1) / 2
     res = {}
@@ -326,16 +361,340 @@ def phase_time_bwd(peaks: dict) -> dict:
             f" {plain_ms:.4f} ms; library yardstick, SDPA forward+backward "
             f"minus SDPA forward: {sdpa_all_ms:.4f} - {sdpa_fwd_ms:.4f} = "
             f"{sdpa_bwd_ms:.4f} ms")
-    x = torch.randint(-2**31, 2**31 - 1, (CHECKSUM_BYTES // 4,),
-                      dtype=torch.int32, device="cuda")
-    cs_ms = time_ms(lambda: x.view(torch.int32).sum(dtype=torch.int64))
-    cs_bound = CHECKSUM_BYTES / peaks["bytes"] * 1e3
-    res["checksum"] = dict(payload_bytes=CHECKSUM_BYTES, library_ms=cs_ms,
-                           bound_ms=cs_bound, bound_by="bytes")
-    log(f"  checksum yardstick (kernel not ported): "
-        f"x.view(torch.int32).sum(dtype=torch.int64) over {CHECKSUM_BYTES} B"
-        f" {cs_ms:.4f} ms, bound {cs_bound:.4f} ms (bytes)")
     return res
+
+
+def checksum_payloads():
+    """(label, tensor) pairs of phase 3c, all on the card."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def ints(n, lo, hi, dtype):
+        return torch.randint(lo, hi, (n,), generator=g, device="cuda",
+                             dtype=torch.int64).to(dtype)
+
+    out = []
+    for n in CHECKSUM_WORDS:
+        out.append((f"f32[{n}]", torch.randn(n, generator=g, device="cuda")))
+        out.append((f"int32[{n}]", ints(n, -2**31, 2**31, torch.int32)))
+    n = CHECKSUM_WORDS[-1]
+    out.append((f"bf16[{n}]", torch.randn(n, generator=g, device="cuda")
+                .to(torch.bfloat16)))
+    out.append((f"int8[{n}]", ints(n, -128, 128, torch.int8)))
+    out.append((f"bool[{n}]", ints(n, 0, 2, torch.bool)))
+    big = ints(CHECKSUM_BYTES // 4, -2**31, 2**31, torch.int32)
+    out.append(("int32 64 MiB", big))
+    out.append(("f32 64 MiB", torch.randn(CHECKSUM_BYTES // 4, generator=g,
+                                          device="cuda")))
+    out.append(("int32[1:] (base not 16-byte aligned)", big[1:n + 1]))
+    out.append(("int32 (1024, 2048)[:, ::2] (non-contiguous)",
+                big[:2**21].view(1024, 2048)[:, ::2]))
+    return out
+
+
+def flipped(t: torch.Tensor) -> torch.Tensor:
+    """A flat copy of ``t`` with one element changed."""
+    flat = t.reshape(-1).clone()
+    k = flat.numel() // 2
+    flat[k] = ~flat[k] if t.dtype == torch.bool else flat[k] + 1
+    return flat
+
+
+def phase_check_checksum() -> tuple:
+    """The checksum kernel vs its plain version, bit-exact, on every
+    payload; a one-element change must change the sum.  Returns the
+    number of payloads and the largest |kernel - plain|."""
+    payloads = checksum_payloads()
+    err = 0
+    for label, t in payloads:
+        got = checksum_u32(t)
+        want = checksum_u32_plain(t)
+        err = max(err, abs(got - want))
+        ok = got == want
+        if ok and t.numel():
+            t2 = flipped(t)
+            got2 = checksum_u32(t2)
+            ok = got2 != got and got2 == checksum_u32_plain(t2)
+        log(f"  checksum {label}: kernel {got:#010x} plain {want:#010x} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"checksum kernel disagrees on {label}")
+    torch.cuda.synchronize()
+    return len(payloads), err
+
+
+def phase_time_checksum(peaks: dict) -> dict:
+    """The checksum kernel, its plain version and the library call at
+    64 MiB (and 1 MiB, the echo payload), beside the bound."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    res = {}
+    for nbytes in (CHECKSUM_BYTES, ECHO_BYTES):
+        words = torch.randint(-2**31, 2**31, (nbytes // 4,), generator=g,
+                              device="cuda", dtype=torch.int64).to(
+                                  torch.int32)
+        # 20 calls per event pair: at 1 MiB a launch takes longer on the
+        # host than the kernel on the card
+        ms = time_ms(lambda: CHECKSUM(words), inner=CHECKSUM_INNER)
+        plain_ms = time_ms(lambda: checksum_words_plain(words),
+                           inner=CHECKSUM_INNER)
+        lib_ms = time_ms(lambda: words.view(torch.int32).sum(
+            dtype=torch.int64), inner=CHECKSUM_INNER)
+        bound_ms = nbytes / peaks["bytes"] * 1e3
+        # the whole checksum_u32 call as a caller sees it, on the host
+        # clock: wrapper, launch, and the sync that reads the word back
+        calls = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            checksum_u32(words)
+            calls.append((time.perf_counter() - t0) * 1e3)
+        call_ms = statistics.median(calls)
+        row = dict(payload_bytes=nbytes, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by="bytes",
+                   gb_s=nbytes / ms / 1e6, call_ms=call_ms)
+        res[nbytes] = row
+        log(f"  checksum over {nbytes} B: kernel {ms:.4f} ms "
+            f"({row['gb_s']:.1f} GB/s), plain {plain_ms:.4f} ms, library "
+            f"x.view(torch.int32).sum(dtype=torch.int64) {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms (bytes); one checksum_u32 call on "
+            f"the host clock {call_ms:.4f} ms")
+    return res
+
+
+class CountedChecksum:
+    """``checksum_u32`` on CUDA tensors, counting the calls, so that phase
+    10 can hold the kernel's launch count to them."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, t: torch.Tensor) -> int:
+        if not t.is_cuda:
+            raise AssertionError("phase 10 checksums tensors on the card")
+        self.calls += 1
+        return checksum_u32(t)
+
+
+def ps_call(ch: Channel, method: str, request: bytes = b"", device_att=None,
+            attachment: bytes = b"") -> Controller:
+    cntl = Controller()
+    cntl.timeout_ms = 120_000
+    cntl.request_device_attachment = device_att
+    cntl.request_attachment = attachment
+    c = ch.call_method(f"PS.{method}", request, cntl=cntl)
+    if c.failed:
+        raise RuntimeError(f"PS.{method} failed: [{c.error_code}] "
+                           f"{c.error_text}")
+    return c
+
+
+def echo(ch: Channel, x: torch.Tensor, cs: CountedChecksum):
+    """One EchoTensor call: the payload's checksum before the send and
+    after the landing must agree.  Returns (request went device-resident
+    as seen by the response, response device-resident, landed tensor)."""
+    before = cs(x)
+    c = ps_call(ch, "EchoTensor", device_att=x)
+    att = c.response_device_attachment
+    out = att.tensor()
+    after = cs(out)
+    if before != after or out.shape != x.shape or out.dtype != x.dtype:
+        raise AssertionError(f"echo changed the payload: checksum "
+                             f"{before:#010x} -> {after:#010x}")
+    return att.device_resident, out
+
+
+def wait_fabric_empty(timeout_s: float = 5.0) -> tuple:
+    deadline = time.time() + timeout_s
+    while True:
+        live = in_process_fabric().live_descriptors
+        outstanding = sum(ep.outstanding_bytes for ep in live_endpoints())
+        if (live == 0 and outstanding == 0) or time.time() > deadline:
+            return live, outstanding
+        time.sleep(0.01)
+
+
+def phase_ps() -> dict:
+    """The full-width EmbeddingPS behind the port's RPC, and the device
+    lane at 1 MiB and 64 MiB, with the checksum kernel on every echo; the
+    checksum's launch count is read around the phase."""
+    cs = CountedChecksum()
+    t0 = time.perf_counter()
+    model = EmbeddingPS(PS_CFG, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"  EmbeddingPS {PS_CFG}: table {PS_CFG.vocab * PS_CFG.dim * 4} B, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    srv = Server()
+    ch, ch_echo = Channel(), Channel()
+    try:
+        if srv.add_service(PSService(model), name="PS") != 0 or srv.start(
+                "127.0.0.1:0") != 0:
+            raise RuntimeError("server did not start")
+        ch.init(str(srv.listen_endpoint))
+        ch_echo.init(str(srv.listen_endpoint))
+        CHECKSUM.launches = 0
+        res = ps_model_calls(ch, model, cs)
+        res.update(ps_echoes(ch_echo, cs))
+        live, outstanding = wait_fabric_empty()
+        launches = CHECKSUM.launches
+        log(f"  fabric: {live} live descriptors, {outstanding} outstanding "
+            f"bytes; checksum launches {launches} for {cs.calls} calls")
+        if live or outstanding:
+            raise AssertionError("descriptors left in the fabric")
+        if launches != cs.calls:
+            raise AssertionError(f"checksum launched {launches} times for "
+                                 f"{cs.calls} calls")
+    finally:
+        ch.close()
+        ch_echo.close()
+        srv.stop()
+    res["launches"] = launches
+    return res
+
+
+def ps_model_calls(ch: Channel, model: EmbeddingPS,
+                   cs: CountedChecksum) -> dict:
+    """Stat, Lookup (against embedding_bag on the card, checksummed on
+    both sides), Predict, and Train with a falling loss."""
+    stat = json.loads(ps_call(ch, "Stat").response)
+    log(f"  Stat: {stat}")
+    if stat["vocab"] != PS_CFG.vocab or stat["dim"] != PS_CFG.dim:
+        raise AssertionError("Stat disagrees with the config")
+
+    ids = np.random.default_rng(0).integers(0, PS_CFG.vocab, PS_BATCH,
+                                            dtype=np.int32)
+    t0 = time.perf_counter()
+    c = ps_call(ch, "Lookup", pack_ids(ids))
+    pooled = c.response_device_attachment.tensor()
+    lookup_ms = (time.perf_counter() - t0) * 1e3
+    want = embedding_bag(model.params["emb"], torch.from_numpy(ids).cuda())
+    info = json.loads(c.response)
+    sums = (cs(pooled), cs(want))
+    ok = (info == {"dtype": "float32", "shape": [PS_BATCH[0], PS_CFG.dim]}
+          and torch.equal(pooled, want) and sums[0] == sums[1])
+    log(f"  Lookup {PS_BATCH}: {info}, device-resident "
+        f"{c.response_device_attachment.device_resident}, {lookup_ms:.2f} "
+        f"ms, equal to embedding_bag on the card {torch.equal(pooled, want)},"
+        f" checksums {sums[0]:#010x} / {sums[1]:#010x}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Lookup disagrees with embedding_bag")
+    warm = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        ps_call(ch, "Lookup", pack_ids(ids)).response_device_attachment \
+            .tensor()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    lookup_warm_ms = statistics.median(warm)
+    log(f"  Lookup {PS_BATCH} warm: median {lookup_warm_ms:.3f} ms of 20 "
+        f"calls")
+
+    c = ps_call(ch, "Predict", pack_ids(ids))
+    logits = c.response_device_attachment.tensor()
+    ok = (logits.shape == (PS_BATCH[0], PS_CFG.classes)
+          and bool(torch.isfinite(logits).all())
+          and torch.equal(logits, model.predict(ids)))
+    log(f"  Predict {PS_BATCH}: logits {tuple(logits.shape)}, finite and "
+        f"equal to the model's: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Predict is wrong")
+
+    labels = torch.from_numpy(ids[:, 0] % PS_CFG.classes).cuda()
+    losses, train_ms = [], []
+    for i in range(PS_TRAIN_CALLS):
+        t0 = time.perf_counter()
+        if i < PS_TRAIN_CALLS // 2:
+            c = ps_call(ch, "Train", pack_ids(ids), device_att=labels)
+        else:
+            c = ps_call(ch, "Train", pack_ids(ids),
+                        attachment=labels.cpu().numpy().tobytes())
+        losses.append(json.loads(c.response)["loss"])
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"  Train x{PS_TRAIN_CALLS} (labels as a device attachment, then as "
+        f"bytes): loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"{train_ms[0]:.2f} ms the first call, median "
+        f"{statistics.median(train_ms[1:]):.3f} ms after")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"PS loss not finite and falling: {losses}")
+    return dict(lookup_ms=lookup_ms, lookup_warm_ms=lookup_warm_ms,
+                losses=losses, train_ms=train_ms)
+
+
+def ps_echoes(ch: Channel, cs: CountedChecksum) -> dict:
+    """EchoTensor on a fresh connection: 1 MiB (the first request inline,
+    then ECHO_CALLS zero-copy calls, timed), 64 MiB zero-copy, the 64 MiB
+    inline refusal, and one profiled echo."""
+    x = torch.arange(ECHO_BYTES // 4, dtype=torch.float32, device="cuda")
+    dev0, out0 = echo(ch, x, cs)
+    log(f"  echo 1 MiB, first call on a new connection: request inline "
+        f"(domain exchange), response device-resident {dev0}, equal "
+        f"{torch.equal(out0, x)}")
+    if not torch.equal(out0, x):
+        raise AssertionError("the first echo changed the payload")
+    same = 0
+    t0 = time.perf_counter()
+    for _ in range(ECHO_CALLS):
+        dev, out = echo(ch, x, cs)
+        same += dev and out.data_ptr() == x.data_ptr()
+    echo_s = time.perf_counter() - t0
+    rps = ECHO_CALLS / echo_s
+    log(f"  echo 1 MiB x{ECHO_CALLS}: {rps:.1f} calls/s "
+        f"({echo_s / ECHO_CALLS * 1e3:.3f} ms per call, two checksums "
+        f"included), zero-copy {same}/{ECHO_CALLS}")
+    if same != ECHO_CALLS:
+        raise AssertionError("device echoes were not zero-copy")
+
+    y = torch.randn(CHECKSUM_BYTES // 4, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    t0 = time.perf_counter()
+    dev, out = echo(ch, y, cs)
+    big_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  echo 64 MiB: device-resident {dev}, zero-copy {out is y}, "
+        f"{big_ms:.2f} ms with both checksums")
+    if not (dev and out is y):
+        raise AssertionError("the 64 MiB echo was not zero-copy")
+    set_flag("ici_enabled", False)
+    try:
+        cntl = Controller()
+        cntl.timeout_ms = 60_000
+        cntl.request_device_attachment = y
+        c = ch.call_method("PS.EchoTensor", b"", cntl=cntl)
+    finally:
+        set_flag("ici_enabled", True)
+    log(f"  echo 64 MiB with ici_enabled off (inline, past the frame cap): "
+        f"failed={c.failed} [{c.error_code}] {c.error_text[:70]}")
+    if c.error_code != Errno.EOVERCROWDED:
+        raise AssertionError("the 64 MiB inline echo did not fail cleanly")
+    res = dict(echo_rps=rps, echo_ms=echo_s / ECHO_CALLS * 1e3,
+               echo_64mib_ms=big_ms)
+    res.update(phase_echo_profile(ch, x, cs))
+    return res
+
+
+def phase_echo_profile(ch: Channel, x: torch.Tensor,
+                       cs: CountedChecksum) -> dict:
+    """One 1 MiB echo under torch.profiler: the checksum kernel twice,
+    and where the call's time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        echo(ch, x, cs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in events if "checksum_u32_kernel" in e.name]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    log(f"  profile of one 1 MiB echo: {len(events)} CUDA events, "
+        f"{len(kern)} of checksum_u32_kernel "
+        f"({sum(e.time_range.elapsed_us() for e in kern):.1f} us); device "
+        f"busy {busy_us:.1f} us of {wall_us:.1f} us wall "
+        f"({busy_us / wall_us:.4f})")
+    for e in events:
+        log(f"    {e.time_range.elapsed_us():8.1f} us  {e.name[:80]}")
+    if len(kern) != 2:
+        raise AssertionError(f"one echo's trace shows {len(kern)} checksum "
+                             f"kernels, want 2")
+    return dict(echo_profile_busy_us=busy_us, echo_profile_wall_us=wall_us)
 
 
 def reset_launches() -> None:
@@ -660,10 +1019,14 @@ def main() -> int:
     main_err = phase_check()
     log("[3b] backward kernels vs plain")
     bwd_err = phase_check_bwd()
+    log("[3c] checksum kernel vs plain")
+    n_payloads, cs_err = phase_check_checksum()
     log("[4] timing")
     times = phase_time(peaks)
     log("[4b] backward timing")
     bwd_times = phase_time_bwd(peaks)
+    log("[4c] checksum timing")
+    cs_times = phase_time_checksum(peaks)
 
     cfg = LMConfig(**SLICE_CFG)
     log(f"[5] serving LM at {SLICE_CFG}")
@@ -701,6 +1064,8 @@ def main() -> int:
     train = phase_train(peaks)
     log("[9] checkpoint round trip")
     ckpt_s = phase_checkpoint(train.pop("params"))
+    log(f"[10] parameter server at {PS_CFG} and the device lane")
+    ps = phase_ps()
 
     f32 = times["f32"]
     kernels = [{
@@ -726,11 +1091,25 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    cs_row = cs_times[CHECKSUM_BYTES]
+    kernels.append({
+        "name": CHECKSUM.name, "route": "cuda",
+        "source": "brpc_tpu_torch/ops/csrc/checksum.cu",
+        "replaces": "brpc_tpu/ops/device_ops.py:50",
+        "launches": ps["launches"],
+        "launches_by_path": {"ps": ps["launches"]},
+        "max_abs_err": cs_err,
+        "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
+        "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
+        "library_ms": cs_row["library_ms"]})
     log(f"[7] bf16 at {MAIN_SHAPE} causal: {json.dumps(times['bf16'])}")
     log(f"  backward at {TRAIN_SHAPE} causal: {json.dumps(bwd_times)}")
     log(f"  requests: {json.dumps(rows)}")
     log(f"  decode: {json.dumps(decode)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
+    log(f"  checksum: {n_payloads} payloads bit-exact; timing "
+        f"{json.dumps(cs_times)}")
+    log(f"  ps: {json.dumps(ps)}")
     log(f"  all phases: {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -55,11 +55,19 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == n_modules >= 21
+    assert int(proc.stdout.split()[-1]) == n_modules >= 31
     names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
     assert {"brpc_tpu_torch.utils.checkpoint",
             "brpc_tpu_torch.models.transformer_lm",
-            "brpc_tpu_torch.ops.flash_attention"} <= names
+            "brpc_tpu_torch.ops.flash_attention",
+            "brpc_tpu_torch.ops.device_ops",
+            "brpc_tpu_torch.butil.flags",
+            "brpc_tpu_torch.transport.socket",
+            "brpc_tpu_torch.ici.attachment",
+            "brpc_tpu_torch.ici.fabric",
+            "brpc_tpu_torch.ici.endpoint",
+            "brpc_tpu_torch.models.embedding_ps",
+            "brpc_tpu_torch.models.ps_service"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -127,3 +135,39 @@ def test_training_entry_points_raise_without_cuda(tmp_path):
     assert make_train_step(cfg, device="cpu") is not None
     assert ckpt.restore(like={"w": TensorSpec((2,), torch.float32,
                                               "cpu")})["w"].device.type == "cpu"
+
+
+def test_ps_and_lane_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    import numpy as np
+    from brpc_tpu_torch.ici.attachment import KIND_INLINE, DeviceAttachment
+    from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig
+    from brpc_tpu_torch.models.ps_service import PSService
+    from brpc_tpu_torch.ops.device_ops import bytes_to_tensor, checksum_u32
+    cfg = PSConfig(vocab=8, dim=4, slots=2, hidden=4, classes=2)
+    att = DeviceAttachment(KIND_INLINE, 0, 4, "float32", (1,),
+                           host_bytes=b"\0\0\0\0")
+    for call in (EmbeddingPS, lambda: EmbeddingPS(cfg), PSService,
+                 lambda: checksum_u32(np.arange(4, dtype=np.float32)),
+                 att.tensor,
+                 lambda: bytes_to_tensor(b"\0" * 4, "float32", (1,))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the CPU is served only when asked for
+    assert EmbeddingPS(cfg, device="cpu").device.type == "cpu"
+    assert PSService(EmbeddingPS(cfg, device="cpu")).model.cfg == cfg
+    assert checksum_u32(np.arange(4, dtype=np.float32), device="cpu") == \
+        checksum_u32(torch.arange(4, dtype=torch.float32))
+    assert att.tensor("cpu").device.type == "cpu"
+
+
+def test_cpu_checksum_runs_plain_and_launches_nothing():
+    from brpc_tpu_torch.ops import device_ops
+    before = device_ops.CHECKSUM.launches
+    x = torch.arange(1000, dtype=torch.float32)
+    assert device_ops.checksum_u32(x) == device_ops.checksum_u32_plain(x)
+    assert device_ops.CHECKSUM.launches == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        device_ops.CHECKSUM(x.view(torch.int32))
+    assert device_ops.CHECKSUM.launches == before
