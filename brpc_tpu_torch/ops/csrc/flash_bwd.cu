@@ -9,8 +9,7 @@
 // dp = do . v^T; ds = p * (dp - dd) with dd = rowsum(do * o) computed by the
 // caller; dq = sum_k ds . k * scale with ds rounded to k's dtype;
 // dv = sum_q p^T . do with p rounded to do's dtype; dk = sum_q ds^T . q *
-// scale with ds rounded to q's dtype.  Sums are f32; bf16 inputs are
-// widened on load, so each product term is exact.
+// scale with ds rounded to q's dtype.  Sums are f32.
 //
 // Layout: q/k/v/do are (b, s, h, d) read in place through their strides
 // (the last dimension contiguous); lse and dd are f32 (b, h, s) contiguous;
@@ -18,47 +17,65 @@
 //
 // The Pallas grid carries its accumulators across a sequential grid axis.
 // Here each output tile has one owner block that loops internally, so there
-// are no atomics and the result is deterministic:
-// - flash_dq_kernel: one block per (64-row q tile, head, batch), looping
-//   over 32-key k tiles (k tile <= q tile when causal); dq stays in
-//   registers and is written once.
-// - flash_dkdv_kernel: one block per (64-key k tile, head, batch), looping
-//   over 32-row q tiles (q tile >= k tile when causal); dk and dv stay in
-//   registers and are written once.
+// are no atomics and the result is deterministic.
 //
-// Shared memory at d = 128 in f32 is the constraint.  A warp holds two
-// rows (ty) of 16 columns (tx).  Tiles that 16 lanes read down one column
-// at once get a one-float row pad, which spreads the rows over 16 banks.
-// Tiles that a warp reads two rows at a time, the same column in each, need
-// only the two rows in different banks: they are "paired" (`pair_row`),
-// rows 2m and 2m + 1 of width W sitting W + 1 floats apart in a block of
-// 2W + 1, half a float of padding per row.  dq: q and do 2 x (64 x 128 +
-// 32), k and v 2 x 32 x 129, ds 64 x 32 + 32 floats = 107,136 B.  dkdv: k
-// and v 2 x (64 x 128 + 32), q and do 2 x 32 x 129, p and ds
-// 2 x (64 x 32 + 32) floats = 115,456 B.  Both take dynamic shared memory
-// above 48 KB, and two blocks fit on an SM (228 KB, 1 KB reserved per
-// block).
+// What bounds them: at the training shape (4, 2048, 16, 128) causal, dq
+// does 6 and dkdv 8 FLOPs per head dim per live (q, k) pair, 1.03e11 and
+// 1.38e11 FLOPs over 337 and 404 MB of f32 inputs and outputs: bound by
+// operations.  At 67 TFLOP/s of f32 FMAs that is 1.54 and 2.05 ms; as
+// 3xTF32 on the tensor cores (495 TFLOP/s, three products each) 0.625 and
+// 0.834 ms.
 //
-// What bounds it: at the training shape (4, 2048, 16, 128) causal, dq does
-// 6 and dkdv 8 FLOPs per head dim per live (q, k) pair, 1.0e11 and 1.4e11
-// FLOPs over 337 and 404 MB of f32 inputs and outputs: bound by operations
-// at the card's peak rates (1.54 and 2.05 ms at 67 TFLOP/s f32).  This
-// first version computes every product with f32 FMAs from shared-memory
-// tiles: f32 inputs stay exact (no TF32) and bf16 inputs get the same f32
-// sums as the reference, without the tensor cores.  On an H100 80GB HBM3
-// at 700 W it takes 7.0 (dq) and 7.6 ms (dkdv) there, f32 or bf16
-// (chip_smoke.py phase 4b).  wgmma, TMA and pipelining are later work.
+// flash_dq_kernel runs on the tensor cores with the forward's pieces
+// (flash_mma.cuh, flash_fwd.cu): a block owns a q tile of 16 rows per
+// warp, q tiles heaviest first, over 32-key k/v tiles in a two-stage
+// cp.async ring: s = q.k^T and dp = do.v^T on warp MMA (f32 as 3xTF32,
+// bf16 on m16n8k16), p and ds in registers, ds fed straight into
+// dq += ds.k as the A operand (k read along the key axis: permuted keys
+// for tf32, ldmatrix.trans for bf16).  Only the tiles crossing the
+// diagonal are masked.  f32: 8 warps and 128 rows, q and do read from
+// shared memory per k step (in registers with dq's accumulator they
+// spill), k/v split per use (kept split, the ring would not fit beside q
+// and do): 198 KB, one block per SM.  bf16: 4 warps, q in registers.
+//
+// flash_dkdv_kernel: one block per (64-key k tile, head, batch), looping
+// over 32-row q tiles (q tile >= k tile when causal); dk and dv stay in
+// registers and are written once.  It still computes every product with
+// f32 FMAs from shared-memory tiles, bf16 widened on load.  A warp holds
+// two rows (ty) of 16 columns (tx).  Tiles that 16 lanes read down one
+// column at once get a one-float row pad, which spreads the rows over 16
+// banks.  Tiles that a warp reads two rows at a time, the same column in
+// each, need only the two rows in different banks: they are "paired"
+// (`pair_row`), rows 2m and 2m + 1 of width W sitting W + 1 floats apart in
+// a block of 2W + 1, half a float of padding per row: k and v 2 x (64 x 128
+// + 32), q and do 2 x 32 x 129, p and ds 2 x (64 x 32 + 32) floats =
+// 115,456 B, two blocks per SM.  Its move to flash_mma.cuh is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int NT = 256;       // threads: 16 x 16, ty picks rows, tx columns
-constexpr int DQ_BQ = 64;     // dq: q rows per block
-constexpr int DQ_BK = 32;     // dq: keys per step
+constexpr int NT = 256;       // dkdv threads: 16 x 16, ty rows, tx columns
+constexpr int DQ_BK = 32;     // dq: keys per k tile
 constexpr int KV_BK = 64;     // dkdv: keys per block
 constexpr int KV_BQ = 32;     // dkdv: q rows per step
+
+// The schedule of flash_dq_kernel for each dtype: warps per block (16 q
+// rows each) and the blocks per SM the registers must allow.  q's A
+// fragments stay in registers for bf16 and are read from shared memory
+// per k step for f32, as do's always are (QSource, SmemSource).
+template <typename T>
+struct DqCfg;
+template <>
+struct DqCfg<float> {
+  static constexpr int NW = 8;
+  static constexpr int MINB = 1;
+};
+template <>
+struct DqCfg<__nv_bfloat16> {
+  static constexpr int NW = 4;
+  static constexpr int MINB = 2;
+};
 
 struct Args {
   const void* q;
@@ -127,117 +144,142 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
+// Shared memory of one dq block, in elements: two ring stages, each a k
+// and a v tile, then do, then q unless q passes through a stage before
+// the loop.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT, 2) flash_dq_kernel(Args a) {
-  constexpr int KS = D + 1;        // padded rows of the k/v tiles
-  constexpr int RI = DQ_BQ / 16;   // q rows per thread
-  constexpr int CJ = DQ_BK / 16;   // keys per thread
-  constexpr int DJ = D / 16;       // dq columns per thread
-  extern __shared__ float smem[];
-  float* sq = smem;                              // DQ_BQ x D, paired
-  float* sdo = sq + paired_size(DQ_BQ, D);       // DQ_BQ x D, paired
-  float* sk = sdo + paired_size(DQ_BQ, D);       // DQ_BK x KS
-  float* sv = sk + DQ_BK * KS;                   // DQ_BK x KS
-  float* sds = sv + DQ_BK * KS;                  // DQ_BQ x DQ_BK, paired
+constexpr int dq_smem_elems() {
+  using C = DqCfg<T>;
+  constexpr int LD = flash_mma::tile_ld<T, D>();
+  return 4 * DQ_BK * LD +
+         (flash_mma::q_in_regs<T>() ? 1 : 2) * 16 * C::NW * LD;
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * DQ_BQ, hh = blockIdx.y, bb = blockIdx.z;
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * DqCfg<T>::NW, DqCfg<T>::MINB)
+    flash_dq_kernel(Args a) {
+  using namespace flash_mma;
+  using C = DqCfg<T>;
+  constexpr int NT = 32 * C::NW;  // threads
+  constexpr int BQ = 16 * C::NW;  // q rows per block
+  constexpr int LD = tile_ld<T, D>();
+  constexpr int TILE = DQ_BK * LD;  // elements of one k or v tile
+  constexpr int SS = 2 * TILE;      // one ring stage
+  constexpr int NJ = DQ_BK / 8;     // score n8 tiles of a warp
+  constexpr int NO = D / 8;         // dq n8 tiles of a warp
+  constexpr bool F32 = std::is_same_v<T, float>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // stage st: k at st SS, v at st SS + TILE; then do; then q (or q in
+  // stage 1)
+  T* const ring = reinterpret_cast<T*>(smem_raw);
+  T* const sdo = ring + 2 * SS;
+  constexpr bool Q_REGS = q_in_regs<T>();
+  static_assert(!Q_REGS || BQ * LD <= SS, "q must fit one stage");
+  T* const sq = Q_REGS ? ring + SS : sdo + BQ * LD;
+
+  // q tiles heaviest first, as in the forward
+  const int nq = (a.s + BQ - 1) / BQ, bh = a.b * a.h;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / bh) * BQ;
+  const int hh = blockIdx.x % bh % a.h, bb = blockIdx.x % bh / a.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
   const T* q = static_cast<const T*>(a.q) + bb * a.qs0 + hh * a.qs2;
   const T* k = static_cast<const T*>(a.k) + bb * a.ks0 + hh * a.ks2;
   const T* v = static_cast<const T*>(a.v) + bb * a.vs0 + hh * a.vs2;
   const T* dout = static_cast<const T*>(a.dout) + bb * a.ds0 + hh * a.ds2;
-  const long long row0 = ((long long)bb * a.h + hh) * a.s;
+  const bool kvec = can_vec(k, a.ks1, a.d), vvec = can_vec(v, a.vs1, a.d);
 
-  load_tile<T, D, true>(sq, q, a.qs1, q0, DQ_BQ, a.s, a.d);
-  load_tile<T, D, true>(sdo, dout, a.ds1, q0, DQ_BQ, a.s, a.d);
+  const int k_end = a.causal ? min(q0 + BQ, a.s) : a.s;
+  const int nkt = (k_end + DQ_BK - 1) / DQ_BK;
+  auto load_kv = [&](T* st, int k0) {
+    flash_mma::load_tile<T, DQ_BK, D, NT>(st, k, a.ks1, k0, a.s, a.d, kvec);
+    flash_mma::load_tile<T, DQ_BK, D, NT>(st + TILE, v, a.vs1, k0, a.s, a.d,
+                                          vvec);
+  };
+
+  flash_mma::load_tile<T, BQ, D, NT>(sq, q, a.qs1, q0, a.s, a.d,
+                                     can_vec(q, a.qs1, a.d));
+  flash_mma::load_tile<T, BQ, D, NT>(sdo, dout, a.ds1, q0, a.s, a.d,
+                                     can_vec(dout, a.ds1, a.d));
+  load_kv(ring, 0);
+  cp_async_commit();
+  QSource<T, D> qa;
+  if constexpr (Q_REGS) {
+    // the q tile sits in stage 1 until its fragments are in registers
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  qa.init(sq, warp * 16);
+  SmemSource<T, D> doa;
+  doa.init(sdo, warp * 16);
 
   // rows past seq_len: lse 1e30 gives p = 0, so they add nothing
-  float lse[RI], dd[RI], acc[RI][DJ];
-  int qoff[RI], poff[RI];  // this thread's rows in the paired tiles
+  const float sl = a.scale * LOG2E;
+  const long long rows = ((long long)bb * a.h + hh) * a.s;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  float lse2[2], dd[2];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
-    qoff[i] = pair_row<D>(ty + 16 * i);
-    poff[i] = pair_row<DQ_BK>(ty + 16 * i);
-    lse[i] = row < a.s ? a.lse[row0 + row] : 1e30f;
-    dd[i] = row < a.s ? a.dd[row0 + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < a.s ? a.lse[rows + row] * LOG2E : 1e30f;
+    dd[r] = row < a.s ? a.dd[rows + row] : 0.f;
   }
+  float acc[NO][4] = {};
 
-  const int k_end = a.causal ? min(q0 + DQ_BQ, a.s) : a.s;
-  const int nkt = (k_end + DQ_BK - 1) / DQ_BK;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * DQ_BK;
-    __syncthreads();  // the previous tile's k/v/ds are consumed
-    load_tile<T, D, false>(sk, k, a.ks1, k0, DQ_BK, a.s, a.d);
-    load_tile<T, D, false>(sv, v, a.vs1, k0, DQ_BK, a.s, a.d);
-    __syncthreads();
+    T* const st = ring + (kt & 1) * SS;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; tile kt - 1 (and q) consumed
+    if (kt + 1 < nkt) {
+      load_kv(ring + ((kt + 1) & 1) * SS, k0 + DQ_BK);
+      cp_async_commit();
+    }
 
-    // s = q . k^T and dp = do . v^T for this thread's rows and keys
-    float sc[RI][CJ], dp[RI][CJ];
+    // s = q . k^T and dp = do . v^T for this warp's 16 rows
+    float sc[NJ][4] = {}, dp[NJ][4] = {};
+    if constexpr (F32) {
+      mma_abt3<D, DQ_BK>(sc, qa, RawB{st});
+      mma_abt3<D, DQ_BK>(dp, doa, RawB{st + TILE});
+    } else {
+      mma_abt_bf16<D, DQ_BK>(sc, qa, st);
+      mma_abt_bf16<D, DQ_BK>(dp, doa, st + TILE);
+    }
+
+    // ds = p * (dp - dd), p = exp(s * scale - lse) in log2 units
+    const bool masked =
+        k0 + DQ_BK > a.s || (a.causal && k0 + DQ_BK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float kc[CJ], vc[CJ];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        kc[j] = sk[(tx + 16 * j) * KS + c];
-        vc[j] = sv[(tx + 16 * j) * KS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float qc = sq[qoff[i] + c];
-        const float oc = sdo[qoff[i] + c];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          sc[i][j] = fmaf(qc, kc[j], sc[i][j]);
-          dp[i][j] = fmaf(oc, vc[j], dp[i][j]);
+      for (int c = 0; c < 4; ++c) {
+        float x = sc[j][c] * sl;
+        if (masked) {
+          const int row = row0 + 8 * (c >> 1);
+          const int col = k0 + j * 8 + 2 * t + (c & 1);
+          if (col >= a.s || (a.causal && row < col)) x = -1e30f;
         }
+        const float p = exp2f(x - lse2[c >> 1]);
+        sc[j][c] = p * (dp[j][c] - dd[c >> 1]);
       }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool live = col < a.s && (!a.causal || row >= col);
-        const float p = expf((live ? sc[i][j] * a.scale : -1e30f) - lse[i]);
-        sds[poff[i] + tx + 16 * j] = round_to<T>(p * (dp[i][j] - dd[i]));
-      }
-    }
-    __syncthreads();  // ds tile complete
-
-    // dq += ds . k
-#pragma unroll 4
-    for (int kk = 0; kk < DQ_BK; ++kk) {
-      float kr[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kr[j] = sk[kk * KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float g = sds[poff[i] + kk];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(g, kr[j], acc[i][j]);
-      }
-    }
+    // dq += ds . k, ds rounded to k's dtype
+    if constexpr (F32)
+      mma_pb3<D, DQ_BK>(acc, sc, RawB{st});
+    else
+      mma_pb_bf16<D, DQ_BK>(acc, sc, st);
   }
 
   T* dq = static_cast<T*>(a.g0);
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= a.s) continue;
     T* out = dq + (((long long)bb * a.s + row) * a.h + hh) * a.d;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < a.d) out[col] = from_f<T>(acc[i][j] * a.scale);
+    for (int n = 0; n < NO; ++n) {
+      const int col = n * 8 + 2 * t;
+      store2(out + col, acc[n][2 * r] * a.scale, acc[n][2 * r + 1] * a.scale,
+             a.d - col);
     }
   }
 }
@@ -367,27 +409,14 @@ __global__ void __launch_bounds__(NT, 2) flash_dkdv_kernel(Args a) {
   }
 }
 
-// Dynamic shared memory above 48 KB, and the largest shared-memory
-// carveout, so that two blocks fit on an SM.
-template <typename K>
-cudaError_t allow_smem(K* kernel, size_t smem) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
 template <typename T, int D>
 int launch_dq(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(2 * paired_size(DQ_BQ, D) +
-                                               2 * DQ_BK * (D + 1) +
-                                               paired_size(DQ_BQ, DQ_BK));
-  const cudaError_t err = allow_smem(flash_dq_kernel<T, D>, smem);
+  const size_t smem = sizeof(T) * dq_smem_elems<T, D>();
+  const cudaError_t err = flash_mma::allow_smem(flash_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.s + DQ_BQ - 1) / DQ_BQ, a.h, a.b);
-  flash_dq_kernel<T, D><<<grid, NT, smem, stream>>>(a);
+  const int bq = 16 * DqCfg<T>::NW;
+  const int grid = (a.s + bq - 1) / bq * a.b * a.h;
+  flash_dq_kernel<T, D><<<grid, 32 * DqCfg<T>::NW, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -396,7 +425,8 @@ int launch_dkdv(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(2 * paired_size(KV_BK, D) +
                                                2 * KV_BQ * (D + 1) +
                                                2 * paired_size(KV_BK, KV_BQ));
-  const cudaError_t err = allow_smem(flash_dkdv_kernel<T, D>, smem);
+  const cudaError_t err =
+      flash_mma::allow_smem(flash_dkdv_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.s + KV_BK - 1) / KV_BK, a.h, a.b);
   flash_dkdv_kernel<T, D><<<grid, NT, smem, stream>>>(a);

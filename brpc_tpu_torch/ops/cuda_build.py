@@ -3,11 +3,11 @@
 Each kernel source under ``ops/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``.  Libraries land in ``ops/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  Nothing is built at import: the
-first launch builds, and :func:`build_all` builds every source at once
-(one ``nvcc`` per source, all started together).  A failed build raises;
-there is no fallback.  :class:`CudaKernel` binds one C entry point of a
+named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header builds anew and an unchanged one is
+reused.  Nothing is built at import: the first launch builds, and
+:func:`build_all` builds every source at once (one ``nvcc`` per source,
+all started together).  A failed build raises; there is no fallback.  :class:`CudaKernel` binds one C entry point of a
 library and counts its launches.
 """
 
@@ -44,8 +44,15 @@ def nvcc_path() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``source``, named by a hash of the source, of every
+    ``csrc/*.cuh`` header (any source may include any of them) and of the
+    flags."""
+    digest = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -16,10 +16,13 @@ result line) when a phase fails or CUDA is absent.  Phases:
    payloads of 0 to 2**20+3 words and 64 MiB, in f32, int32 (sums that
    wrap), bf16, int8 and bool, unaligned and non-contiguous, and show
    that flipping one element changes the sum;
-4. time the forward kernel, its plain version and the library call at
-   the full-width prefill shape, beside the card's bound for the same
-   work; 4b. the same for each backward kernel at the training shape
-   (the library yardstick is SDPA's backward); 4c. the checksum kernel,
+4. time the forward kernel, its plain version and the library call
+   (SDPA) at the full-width prefill shape and at the training shape,
+   beside the card's bounds for the same work (f32 FMAs, and the tensor
+   cores: 3xTF32 for f32) and the kernel's ratio to the library call;
+   4b. the same for each backward kernel at the training shape (the
+   library yardstick is SDPA's backward, split 6 : 8 between dq and
+   dkdv by their FLOPs for the ratio); 4c. the checksum kernel,
    its plain version and ``x.view(torch.int32).sum(dtype=torch.int64)``
    at 64 MiB, beside the bound and the achieved GB/s;
 5. serve ``LM.Info`` and three ``LM.Generate`` requests through the
@@ -104,6 +107,11 @@ LSE_TOL = 1e-4
 LOGIT_RTOL = 2e-2
 REQUESTS = [(1, 1024, 32), (1, 1500, 64), (2, 512, 16)]
 TIMING_REPS = 20
+# calls per CUDA-event pair when timing the forward kernel and SDPA: one
+# call per pair let the host's launch cost (the wrapper, ~20-40 us) into a
+# ~0.2 ms prefill-shape time, by as much as the host was slow (0.186 and
+# 0.214 ms on an H100 for 0.168 ms of device time in the phase 6 profile)
+FWD_TIMING_INNER = 10
 
 # Training: bench.py's train-step config (bench.py:3247-3248) letter for
 # letter.  Reduced: the batch, from bench.py's ACC=8 x B=32 x S=2048
@@ -120,6 +128,10 @@ TRAIN_STEPS = 3                                   # timed, after 1 warm-up
 TRAIN_LR = 0.002
 BWD_CHECK_SHAPES = [TRAIN_SHAPE, MAIN_SHAPE, (2, 1000, 16, 128),
                     (1, 129, 4, 64), (1, 40, 2, 16)]
+# the f32 forward picks its schedule by grid size (flash_fwd.cu launch):
+# on an H100 the training shape takes Wide, (2, 1000, 16, 128) Narrow and
+# the others KSplit, so each is checked
+CHECK_SHAPES.append(TRAIN_SHAPE)
 # backward kernels vs the plain backward: |err| <= rtol * |ref| + afrac *
 # max|ref|.  f32: both sum in f32 in another order (2e-4, 2e-5); bf16: ds
 # and p are rounded to bf16 before their products and one rounding can
@@ -147,9 +159,19 @@ ECHO_BYTES = 1 << 20                  # bench.py's device echo payload
 ECHO_CALLS = 200
 
 # Published dense peaks (NVIDIA data sheets): f32 outside the tensor
-# cores, bf16 on the tensor cores, and HBM bandwidth.
-PEAKS = {"sxm": {"f32": 67e12, "bf16": 989e12, "bytes": 3.35e12},
-         "pcie": {"f32": 51e12, "bf16": 756e12, "bytes": 2.0e12}}
+# cores, tf32 and bf16 on the tensor cores, and HBM bandwidth.
+PEAKS = {"sxm": {"f32": 67e12, "tf32": 495e12, "bf16": 989e12,
+                 "bytes": 3.35e12},
+         "pcie": {"f32": 51e12, "tf32": 378e12, "bf16": 756e12,
+                  "bytes": 2.0e12}}
+# The f32 flash kernels run every product as three tf32 MMAs (3xTF32,
+# csrc/flash_mma.cuh): their tensor-core bound is 3 x FLOPs / tf32 peak,
+# beside the f32 FMA bound.
+TF32_PASSES = 3
+# SDPA's backward computes dq, dk and dv in one call; its time is split
+# between flash_dq and flash_dkdv by their FLOPs, 6 : 8 per head dim per
+# live pair, for each kernel's ratio to the library call.
+BWD_LIBRARY_SHARE = {"flash_dq": 6 / 14, "flash_dkdv": 8 / 14}
 
 
 def log(msg: str) -> None:
@@ -237,31 +259,51 @@ def time_ms(fn, reps: int = TIMING_REPS, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def tc_bound_ms(flops: float, key: str, peaks: dict) -> float:
+    """The tensor-core bound: bf16 at its rate, f32 as 3xTF32."""
+    if key == "f32":
+        return TF32_PASSES * flops / peaks["tf32"] * 1e3
+    return flops / peaks[key] * 1e3
+
+
 def phase_time(peaks: dict) -> dict:
-    """Kernel, plain and SDPA times at the main shape, causal."""
-    b, s, h, d = MAIN_SHAPE
+    """Kernel, plain and SDPA times, causal, at the main (prefill) shape
+    and at the training shape, each beside its bounds and its ratio to
+    SDPA in the same run: ``res[shape][dtype]``."""
     res = {}
-    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        q, k, v = qkv(MAIN_SHAPE, dtype, seed=1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = time_ms(lambda: FLASH_FWD(q, k, v, True))
-        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, True))
-        lib_ms = time_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True))
-        es = q.element_size()
-        nbytes = 4 * b * s * h * d * es + b * h * s * 4  # q,k,v,out + lse
-        flops = attention_flops(b, s, h, d, causal=True)
-        by_bytes = nbytes / peaks["bytes"] * 1e3
-        by_ops = flops / peaks[key] * 1e3
-        res[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=max(by_bytes, by_ops),
-                        bound_by="bytes" if by_bytes > by_ops
-                        else "operations", flops=flops, bytes=nbytes)
-        log(f"  time {MAIN_SHAPE} {key} causal: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-            f"{res[key]['bound_ms']:.4f} ms ({res[key]['bound_by']}; "
-            f"{flops:.4g} FLOP, {nbytes} B)")
+    for shape in (MAIN_SHAPE, TRAIN_SHAPE):
+        b, s, h, d = shape
+        res[shape] = {}
+        for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v = qkv(shape, dtype, seed=1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            ms = time_ms(lambda: FLASH_FWD(q, k, v, True),
+                         inner=FWD_TIMING_INNER)
+            plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, True))
+            lib_ms = time_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True),
+                             inner=FWD_TIMING_INNER)
+            es = q.element_size()
+            nbytes = 4 * b * s * h * d * es + b * h * s * 4  # q,k,v,out+lse
+            flops = attention_flops(b, s, h, d, causal=True)
+            by_bytes = nbytes / peaks["bytes"] * 1e3
+            by_ops = flops / peaks[key] * 1e3
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       ratio_to_library=ms / lib_ms,
+                       bound_ms=max(by_bytes, by_ops),
+                       bound_by="bytes" if by_bytes > by_ops
+                       else "operations",
+                       bound_tc_ms=max(by_bytes,
+                                       tc_bound_ms(flops, key, peaks)),
+                       flops=flops, bytes=nbytes)
+            res[shape][key] = row
+            log(f"  time {shape} {key} causal: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (kernel / sdpa "
+                f"{row['ratio_to_library']:.3f}), bound {row['bound_ms']:.4f}"
+                f" ms ({row['bound_by']}; {flops:.4g} FLOP, {nbytes} B), "
+                f"tensor-core bound {row['bound_tc_ms']:.4f} ms, "
+                f"{flops / ms / 1e9:.2f} TFLOP/s")
     return res
 
 
@@ -348,14 +390,23 @@ def phase_time_bwd(peaks: dict) -> dict:
             nbytes = 4 * tensor + 2 * rows + n_out * tensor
             by_bytes = nbytes / peaks["bytes"] * 1e3
             by_ops = flops / peaks[key] * 1e3
+            share_ms = BWD_LIBRARY_SHARE[name] * sdpa_bwd_ms
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
+                       library_share_ms=share_ms,
+                       ratio_to_library=ms / share_ms,
                        bound_ms=max(by_bytes, by_ops),
                        bound_by="bytes" if by_bytes > by_ops
-                       else "operations", flops=flops, bytes=nbytes)
+                       else "operations",
+                       bound_tc_ms=max(by_bytes,
+                                       tc_bound_ms(flops, key, peaks)),
+                       flops=flops, bytes=nbytes)
             res[key][name] = row
             log(f"  time {TRAIN_SHAPE} {key} causal {name}: {ms:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                f"{flops:.4g} FLOP, {nbytes} B), "
+                f"its share of SDPA's backward {share_ms:.4f} ms (ratio "
+                f"{row['ratio_to_library']:.3f}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                f"{flops:.4g} FLOP, {nbytes} B), tensor-core bound "
+                f"{row['bound_tc_ms']:.4f} ms, "
                 f"{flops / ms / 1e9:.2f} TFLOP/s")
         log(f"  time {TRAIN_SHAPE} {key} causal: plain backward (dq, dk, dv)"
             f" {plain_ms:.4f} ms; library yardstick, SDPA forward+backward "
@@ -676,12 +727,20 @@ def phase_echo_profile(ch: Channel, x: torch.Tensor,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # device work launched right after the trace starts can be missing
+        # from it (one memset of the first checksum was, in every run so
+        # far, and once the whole first checksum): a spin kernel and a
+        # short pause first, left out of the events below
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         echo(ch, x, cs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name]
     kern = [e for e in events if "checksum_u32_kernel" in e.name]
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     log(f"  profile of one 1 MiB echo: {len(events)} CUDA events, "
@@ -1067,7 +1126,8 @@ def main() -> int:
     log(f"[10] parameter server at {PS_CFG} and the device lane")
     ps = phase_ps()
 
-    f32 = times["f32"]
+    f32 = times[MAIN_SHAPE]["f32"]
+    f32_train = times[TRAIN_SHAPE]["f32"]
     kernels = [{
         "name": FLASH_FWD.name, "route": "cuda",
         "source": "brpc_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1078,7 +1138,12 @@ def main() -> int:
         "max_abs_err": main_err,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"]}]
+        "library_ms": f32["library_ms"],
+        "ratio_to_library": f32["ratio_to_library"],
+        "bound_tc_ms": f32["bound_tc_ms"],
+        "at_train_shape": {key: f32_train[key] for key in (
+            "ms", "plain_ms", "library_ms", "ratio_to_library", "bound_ms",
+            "bound_tc_ms")}}]
     for kern, line in ((FLASH_DQ, 313), (FLASH_DKDV, 361)):
         row = bwd_times["f32"][kern.name]
         kernels.append({
@@ -1090,7 +1155,10 @@ def main() -> int:
             "max_abs_err": bwd_err[kern.name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"],
+            "library_share_ms": row["library_share_ms"],
+            "ratio_to_library": row["ratio_to_library"],
+            "bound_tc_ms": row["bound_tc_ms"]})
     cs_row = cs_times[CHECKSUM_BYTES]
     kernels.append({
         "name": CHECKSUM.name, "route": "cuda",
@@ -1101,8 +1169,10 @@ def main() -> int:
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
-        "library_ms": cs_row["library_ms"]})
-    log(f"[7] bf16 at {MAIN_SHAPE} causal: {json.dumps(times['bf16'])}")
+        "library_ms": cs_row["library_ms"],
+        "ratio_to_library": cs_row["ms"] / cs_row["library_ms"]})
+    log("[7] forward causal: " + json.dumps(
+        {str(shape): row for shape, row in times.items()}))
     log(f"  backward at {TRAIN_SHAPE} causal: {json.dumps(bwd_times)}")
     log(f"  requests: {json.dumps(rows)}")
     log(f"  decode: {json.dumps(decode)}")

@@ -115,17 +115,37 @@ def test_dispatch_and_errors():
     assert qg.grad.shape == q.shape and torch.isfinite(qg.grad).all()
 
 
+def _card_inputs(shape, dtype, seed, offset):
+    """q, k, v on the card; with ``offset`` each is a view into a wider
+    projection that starts ``offset`` elements in, so rows are not
+    16-byte aligned and the kernel takes its per-element load path."""
+    b, s, h, d = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((b, s, h, 3 * d + offset))
+                          * 0.5).astype(np.float32)).cuda().to(dtype)
+    return [x[..., offset + i * d: offset + (i + 1) * d] for i in range(3)]
+
+
 def test_kernel_on_card():
-    """The CUDA kernel against the plain version (runs where a card is)."""
+    """The CUDA kernel against the plain version (runs where a card is):
+    s not a multiple of the q tile or the 32-key k tile, d = 24
+    (zero-padded to 32), unaligned views (the per-element loads), and both
+    f32 schedules."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; python3 chip_smoke.py runs this "
                     "check and more on the card")
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, BF16_TOL)):
-        for causal in (False, True):
-            q, k, v = (torch.from_numpy(x).cuda().to(dtype)
-                       for x in _qkv(1, 129, 4, 64, seed=5))
-            out, lse = tfa.FLASH_FWD(q, k, v, causal)
-            pout, plse = tfa.flash_attention_plain(q, k, v, causal)
-            torch.testing.assert_close(out.float(), pout.float(),
-                                       rtol=tol, atol=tol)
-            torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    # the f32 forward picks its schedule by grid size (flash_fwd.cu
+    # launch): the (1, 2xxx, 48, 24) grids take Wide, (2, 1000, 16, 24)
+    # Narrow, the small ones KSplit
+    for shape, offset in (((1, 129, 4, 64), 0), ((1, 100, 3, 24), 0),
+                          ((2, 77, 2, 24), 1), ((1, 129, 4, 64), 1),
+                          ((1, 2048, 48, 24), 0), ((1, 2000, 48, 24), 1),
+                          ((2, 1000, 16, 24), 0), ((2, 1000, 16, 24), 1)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, BF16_TOL)):
+            for causal in (False, True):
+                q, k, v = _card_inputs(shape, dtype, sum(shape), offset)
+                out, lse = tfa.FLASH_FWD(q, k, v, causal)
+                pout, plse = tfa.flash_attention_plain(q, k, v, causal)
+                torch.testing.assert_close(out.float(), pout.float(),
+                                           rtol=tol, atol=tol)
+                torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)

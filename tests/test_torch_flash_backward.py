@@ -147,23 +147,32 @@ def test_backward_dispatch_and_errors():
 
 def test_backward_kernels_on_card():
     """flash_dq / flash_dkdv against the plain backward (runs where a card
-    is)."""
+    is): s not a multiple of the tiles, d = 24 (zero-padded to 32), and
+    unaligned q/k/v/do views (the per-element loads)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; python3 chip_smoke.py runs this "
                     "check and more on the card")
-    for dtype in (torch.float32, torch.bfloat16):
-        for causal in (False, True):
-            q, k, v, g = (torch.from_numpy(x).cuda().to(dtype)
-                          for x in _inputs(1, 129, 4, 64, seed=5))
-            out, lse = tfa.FLASH_FWD(q, k, v, causal)
-            dd = tfa.attention_delta(out, g)
-            (dq,) = tfa.FLASH_DQ(q, k, v, g, lse, dd, causal)
-            dk, dv = tfa.FLASH_DKDV(q, k, v, g, lse, dd, causal)
-            want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g,
-                                                 causal)
-            for a, w in zip((dq, dk, dv), want):
-                w = w.float()
-                tol = RTOL if dtype == torch.float32 else BF16_TOL
-                atol = (ATOL if dtype == torch.float32 else BF16_TOL
-                        ) * float(w.abs().max())
-                torch.testing.assert_close(a.float(), w, rtol=tol, atol=atol)
+    for shape, offset in (((1, 129, 4, 64), 0), ((1, 100, 3, 24), 0),
+                          ((2, 77, 2, 24), 1)):
+        b, s, h, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                rng = np.random.default_rng(sum(shape))
+                x = torch.from_numpy(
+                    (rng.standard_normal((b, s, h, 4 * d + offset)) * 0.5)
+                    .astype(np.float32)).cuda().to(dtype)
+                q, k, v, g = (x[..., offset + i * d: offset + (i + 1) * d]
+                              for i in range(4))
+                out, lse = tfa.FLASH_FWD(q, k, v, causal)
+                dd = tfa.attention_delta(out, g)
+                (dq,) = tfa.FLASH_DQ(q, k, v, g, lse, dd, causal)
+                dk, dv = tfa.FLASH_DKDV(q, k, v, g, lse, dd, causal)
+                want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                     causal)
+                for a, w in zip((dq, dk, dv), want):
+                    w = w.float()
+                    tol = RTOL if dtype == torch.float32 else BF16_TOL
+                    atol = (ATOL if dtype == torch.float32 else BF16_TOL
+                            ) * float(w.abs().max())
+                    torch.testing.assert_close(a.float(), w, rtol=tol,
+                                               atol=atol)
