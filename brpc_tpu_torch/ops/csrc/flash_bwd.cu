@@ -38,27 +38,39 @@
 // spill), k/v split per use (kept split, the ring would not fit beside q
 // and do): 198 KB, one block per SM.  bf16: 4 warps, q in registers.
 //
-// flash_dkdv_kernel: one block per (64-key k tile, head, batch), looping
-// over 32-row q tiles (q tile >= k tile when causal); dk and dv stay in
-// registers and are written once.  It still computes every product with
-// f32 FMAs from shared-memory tiles, bf16 widened on load.  A warp holds
-// two rows (ty) of 16 columns (tx).  Tiles that 16 lanes read down one
-// column at once get a one-float row pad, which spreads the rows over 16
-// banks.  Tiles that a warp reads two rows at a time, the same column in
-// each, need only the two rows in different banks: they are "paired"
-// (`pair_row`), rows 2m and 2m + 1 of width W sitting W + 1 floats apart in
-// a block of 2W + 1, half a float of padding per row: k and v 2 x (64 x 128
-// + 32), q and do 2 x 32 x 129, p and ds 2 x (64 x 32 + 32) floats =
-// 115,456 B, two blocks per SM.  Its move to flash_mma.cuh is later work.
+// flash_dkdv_kernel runs on the same pieces, transposed: a warp owns 16
+// keys and a block the keys of its warps, with dk and dv for them in
+// registers, written once; the block walks the q rows in steps of BQ
+// (from its first key when causal; the heaviest key blocks of every head
+// and batch start first).  Per step, in the Pallas kernel's order:
+// s^T = k.q^T, p^T in its place, dv += p^T.do, dp^T = v.do^T, ds^T =
+// p^T (dp^T - dd) in place, dk += ds^T.q.  q and do are the B operand of
+// all four products: they stream through the two-stage cp.async ring with
+// their lse and dd rows and, for f32, are split to tf32 hi/lo once, in
+// place, as each thread's own pieces land (SplitB), so no warp splits a B
+// value.  k and v are the A operand of s^T and dp^T, read from shared
+// memory per k step; p and ds are the A operand of the dv and dk products
+// straight from the accumulators (keys permuted inside each k8 step as in
+// the forward; bf16: packed, which is the reference's rounding).  The A
+// splits take split_tf32_fast: three instructions where a split by
+// cvt.rna.tf32 takes seven, and those splits outnumbered the MMAs.  Keys
+// past seq_len need no mask, their rows are not stored; only the steps
+// that cross the diagonal are masked, and a warp skips the steps that lie
+// wholly above its keys.  Schedule (DkdvCfg), chosen by timings on an
+// H100: f32 8 warps, 128 keys and 16-row steps: k and v 2 x 128 x 132
+// floats, the ring 2 x 4 x 16 x 132 (q, do and their lo halves) and
+// 2 x 32 lse/dd floats = 203,008 B, one block per SM (64 keys of 4 warps
+// with 32-row steps, the same shared memory, ran slower).  bf16:
+// 4 warps, 64 keys, 32-row steps, 70 KB, two blocks per SM.  At d = 128
+// dk and dv take 128 of the 255 registers: the head's bases come from
+// shared memory at each step and the key block from blockIdx.y, so that
+// no per-block value stays live across the products (ptxas spilled them).
 
 #include "flash_mma.cuh"
 
 namespace {
 
-constexpr int NT = 256;       // dkdv threads: 16 x 16, ty rows, tx columns
-constexpr int DQ_BK = 32;     // dq: keys per k tile
-constexpr int KV_BK = 64;     // dkdv: keys per block
-constexpr int KV_BQ = 32;     // dkdv: q rows per step
+constexpr int DQ_BK = 32;  // dq: keys per k tile
 
 // The schedule of flash_dq_kernel for each dtype: warps per block (16 q
 // rows each) and the blocks per SM the registers must allow.  q's A
@@ -74,6 +86,24 @@ struct DqCfg<float> {
 template <>
 struct DqCfg<__nv_bfloat16> {
   static constexpr int NW = 4;
+  static constexpr int MINB = 2;
+};
+
+// The schedule of flash_dkdv_kernel for each dtype: warps per block (16
+// keys each), q rows per step of the q/do ring, and the blocks per SM the
+// registers must allow.
+template <typename T>
+struct DkdvCfg;
+template <>
+struct DkdvCfg<float> {
+  static constexpr int NW = 8;
+  static constexpr int BQ = 16;
+  static constexpr int MINB = 1;
+};
+template <>
+struct DkdvCfg<__nv_bfloat16> {
+  static constexpr int NW = 4;
+  static constexpr int BQ = 32;
   static constexpr int MINB = 2;
 };
 
@@ -94,55 +124,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and widened back: where the reference casts a product's
-// input to the input dtype.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// Offset of row r in a paired tile of width W (see the note above).
-template <int W>
-__device__ __forceinline__ int pair_row(int r) {
-  return (r >> 1) * (2 * W + 1) + (r & 1) * (W + 1);
-}
-
-// Floats of a paired tile of `rows` (even) rows of width W.
-__host__ __device__ constexpr int paired_size(int rows, int w) {
-  return rows * w + rows / 2;
-}
-
-// Load rows [r0, r0 + rows) of one head into a (rows x D) f32 tile, paired
-// or with rows D + 1 floats apart.  Rows past seq_len and columns past d
-// are zero-filled.
-template <typename T, int D, bool PAIRED>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int r0,
-                                          int rows, int s, int d) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += NT) {
-    const int r = idx / D, c = idx - (idx / D) * D;
-    float x = 0.f;
-    if (r0 + r < s && c < d) x = to_f(src[(long long)(r0 + r) * row_stride + c]);
-    dst[(PAIRED ? pair_row<D>(r) : r * (D + 1)) + c] = x;
-  }
-}
 
 // Shared memory of one dq block, in elements: two ring stages, each a k
 // and a v tile, then do, then q unless q passes through a stage before
@@ -284,127 +265,202 @@ __global__ void __launch_bounds__(32 * DqCfg<T>::NW, DqCfg<T>::MINB)
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT, 2) flash_dkdv_kernel(Args a) {
-  constexpr int QS = D + 1;        // padded rows of the q/do tiles
-  constexpr int RI = KV_BK / 16;   // keys per thread
-  constexpr int CJ = KV_BQ / 16;   // q rows per thread
-  constexpr int DJ = D / 16;       // dk/dv columns per thread
-  extern __shared__ float smem[];
-  float* sk = smem;                              // KV_BK x D, paired
-  float* sv = sk + paired_size(KV_BK, D);        // KV_BK x D, paired
-  float* sq = sv + paired_size(KV_BK, D);        // KV_BQ x QS
-  float* sdo = sq + KV_BQ * QS;                  // KV_BQ x QS
-  float* sp = sdo + KV_BQ * QS;                  // KV_BK x KV_BQ, paired
-  float* sds = sp + paired_size(KV_BK, KV_BQ);   // KV_BK x KV_BQ, paired
+// lse and dd of q rows [r0, r0 + ROWS) into dst[0, ROWS) and
+// dst[ROWS, 2 ROWS), by 4-byte cp.async; rows past seq_len get lse 1e30
+// (so p = 0) and dd 0.
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* lse,
+                                          const float* dd, int r0, int s) {
+#pragma unroll
+  for (int m = 0; m < (2 * ROWS + NT - 1) / NT; ++m) {
+    const int i = threadIdx.x + m * NT;
+    if (i >= 2 * ROWS) break;
+    const bool is_dd = i >= ROWS;
+    const int r = r0 + (is_dd ? i - ROWS : i);
+    if (r < s)
+      flash_mma::cp_async4(dst + i, (is_dd ? dd : lse) + r);
+    else
+      dst[i] = is_dd ? 0.f : 1e30f;
+  }
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * KV_BK, hh = blockIdx.y, bb = blockIdx.z;
+// Shared memory of one dkdv block, in bytes: the block's k and v tiles,
+// two ring stages of q and do (and their lo halves for f32), and each
+// stage's lse and dd rows.
+template <typename T, int D>
+constexpr size_t dkdv_smem_bytes() {
+  using C = DkdvCfg<T>;
+  constexpr int parts = std::is_same_v<T, float> ? 4 : 2;
+  return sizeof(T) * (2 * 16 * C::NW + 2 * parts * C::BQ) *
+             flash_mma::tile_ld<T, D>() +
+         sizeof(float) * 4 * C::BQ;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * DkdvCfg<T>::NW, DkdvCfg<T>::MINB)
+    flash_dkdv_kernel(Args a) {
+  using namespace flash_mma;
+  using C = DkdvCfg<T>;
+  constexpr int NT = 32 * C::NW;  // threads
+  constexpr int NK = 16 * C::NW;  // keys per block
+  constexpr int BQ = C::BQ;       // q rows per ring step
+  constexpr int LD = tile_ld<T, D>();
+  constexpr int TILE = BQ * LD;  // elements of one q or do tile
+  constexpr bool F32 = std::is_same_v<T, float>;
+  constexpr int SS = (F32 ? 4 : 2) * TILE;  // one ring stage
+  constexpr int NJ = BQ / 8;                // s^T n8 tiles of a warp
+  constexpr int NO = D / 8;                 // dk/dv n8 tiles of a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // k, v; then stage st: q at st SS, do at + TILE, their lo halves at
+  // + 2 TILE and + 3 TILE (f32); then stage st's lse at 2 st BQ floats
+  // past the ring and its dd BQ floats further
+  T* const sk = reinterpret_cast<T*>(smem_raw);
+  T* const sv = sk + NK * LD;
+  T* const ring = sv + NK * LD;
+  float* const srows = reinterpret_cast<float*>(ring + 2 * SS);
+
+  // grid (b h, key blocks): blocks start in linear order, x fastest, so
+  // the heaviest (first) key block of every head and batch goes first;
+  // and the block's first key is cheap to recompute, not kept live
+  const int k0 = static_cast<int>(blockIdx.y) * NK;
+  const int hh = blockIdx.x % a.h, bb = blockIdx.x / a.h;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  const int kw0 = k0 + warp * 16;  // this warp's keys: kw0 .. kw0 + 15
   const T* q = static_cast<const T*>(a.q) + bb * a.qs0 + hh * a.qs2;
   const T* k = static_cast<const T*>(a.k) + bb * a.ks0 + hh * a.ks2;
   const T* v = static_cast<const T*>(a.v) + bb * a.vs0 + hh * a.vs2;
   const T* dout = static_cast<const T*>(a.dout) + bb * a.ds0 + hh * a.ds2;
-  const long long row0 = ((long long)bb * a.h + hh) * a.s;
-
-  load_tile<T, D, true>(sk, k, a.ks1, k0, KV_BK, a.s, a.d);
-  load_tile<T, D, true>(sv, v, a.vs1, k0, KV_BK, a.s, a.d);
-
-  float dk[RI][DJ], dv[RI][DJ];
-  int koff[RI], poff[RI];  // this thread's keys in the paired tiles
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    koff[i] = pair_row<D>(ty + 16 * i);
-    poff[i] = pair_row<KV_BQ>(ty + 16 * i);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+  const bool qvec = can_vec(q, a.qs1, a.d), dvec = can_vec(dout, a.ds1, a.d);
+  const long long rows = ((long long)bb * a.h + hh) * a.s;
+  // This head's bases, which the step loader and the stores read from
+  // shared memory (after the barrier that follows thread 0's write): kept
+  // in registers across the loop, they made ptxas spill at d = 128.
+  struct Bases {
+    const T* q;
+    const T* dout;
+    const float* lse;
+    const float* dd;
+    T* gk;  // dk and dv at row 0 of this head; rows h d apart
+    T* gv;
+  };
+  __shared__ Bases bases;
+  if (threadIdx.x == 0) {
+    const long long out0 = ((long long)bb * a.s * a.h + hh) * a.d;
+    bases = {q,
+             dout,
+             a.lse + rows,
+             a.dd + rows,
+             static_cast<T*>(a.g0) + out0,
+             static_cast<T*>(a.g1) + out0};
   }
 
-  // causal: q rows below k0 see none of this block's keys
-  for (int q0 = a.causal ? k0 : 0; q0 < a.s; q0 += KV_BQ) {
-    __syncthreads();  // the previous tile's q/do/p/ds are consumed
-    load_tile<T, D, false>(sq, q, a.qs1, q0, KV_BQ, a.s, a.d);
-    load_tile<T, D, false>(sdo, dout, a.ds1, q0, KV_BQ, a.s, a.d);
-    __syncthreads();
+  // causal: q rows below k0 see none of this block's keys.  The step
+  // q0 / BQ starts even, so its ring stage is (q0 / BQ) & 1, and the loop
+  // keeps no count of its own beside q0.
+  static_assert(NK % (2 * BQ) == 0, "the first step must use stage 0");
+  const int q_begin = a.causal ? k0 : 0;
+  auto load_qdo = [&](int stage, int q0, const Bases& src) {
+    T* const dst = ring + stage * SS;
+    load_tile<T, BQ, D, NT>(dst, src.q, a.qs1, q0, a.s, a.d, qvec,
+                            F32 ? dst + 2 * TILE : nullptr);
+    load_tile<T, BQ, D, NT>(dst + TILE, src.dout, a.ds1, q0, a.s, a.d, dvec,
+                            F32 ? dst + 3 * TILE : nullptr);
+    load_rows<BQ, NT>(srows + stage * 2 * BQ, src.lse, src.dd, q0, a.s);
+  };
 
-    // s^T = k . q^T and dp^T = v . do^T for this thread's keys and rows
-    float sc[RI][CJ], dp[RI][CJ];
+  load_tile<T, NK, D, NT>(sk, k, a.ks1, k0, a.s, a.d,
+                          can_vec(k, a.ks1, a.d));
+  load_tile<T, NK, D, NT>(sv, v, a.vs1, k0, a.s, a.d,
+                          can_vec(v, a.vs1, a.d));
+  load_qdo(0, q_begin, {q, dout, a.lse + rows, a.dd + rows, nullptr, nullptr});
+  cp_async_commit();
+  // f32: the A fragments of k and v take the three-instruction split
+  std::conditional_t<F32, SmemA<D, true>, BfSmemA<D>> ka, va;
+  ka.init(sk, warp * 16);
+  va.init(sv, warp * 16);
+
+  const float sl = a.scale * LOG2E;
+  float dk[NO][4] = {}, dv[NO][4] = {};
+
+  for (int q0 = q_begin; q0 < a.s; q0 += BQ) {
+    const int stage = (q0 / BQ) & 1;
+    T* const st = ring + stage * SS;
+    const float* const sr = srows + stage * 2 * BQ;
+    cp_async_wait_all();
+    if constexpr (F32) {
+      split_own<BQ, D, NT>(st, st + 2 * TILE, qvec);
+      split_own<BQ, D, NT>(st + TILE, st + 3 * TILE, dvec);
+    }
+    __syncthreads();  // this step landed; the last one (and k, v) consumed
+    if (q0 + BQ < a.s) {
+      load_qdo(stage ^ 1, q0 + BQ, bases);
+      cp_async_commit();
+    }
+    // causal: every row of this step lies above this warp's keys
+    if (a.causal && q0 + BQ <= kw0) continue;
+
+    // s^T = k . q^T for this warp's 16 keys and the step's BQ rows
+    float sc[NJ][4] = {};
+    if constexpr (F32)
+      mma_abt3<D, BQ>(sc, ka, SplitB{st, st + 2 * TILE});
+    else
+      mma_abt_bf16<D, BQ>(sc, ka, st);
+
+    // p = exp(s scale - lse) in log2 units, in place of s^T; a lane's
+    // keys are kw0 + g (+ 8), its rows q0 + 8 j + 2 t (+ 1)
+    const bool masked = a.causal && q0 < kw0 + 15;
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int j = 0; j < NJ; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(sr + j * 8 + 2 * t);
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qc[CJ], oc[CJ];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        qc[j] = sq[(tx + 16 * j) * QS + c];
-        oc[j] = sdo[(tx + 16 * j) * QS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float kc = sk[koff[i] + c];
-        const float vc = sv[koff[i] + c];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          sc[i][j] = fmaf(kc, qc[j], sc[i][j]);
-          dp[i][j] = fmaf(vc, oc[j], dp[i][j]);
-        }
+      for (int c = 0; c < 4; ++c) {
+        float x = sc[j][c] * sl;
+        if (masked && q0 + j * 8 + 2 * t + (c & 1) < kw0 + g + 8 * (c >> 1))
+          x = -1e30f;
+        sc[j][c] = exp2f(x - ((c & 1) ? l.y : l.x) * LOG2E);
       }
     }
+    // dv += p^T . do, p rounded to do's dtype
+    if constexpr (F32)
+      mma_pb3<D, BQ, true>(dv, sc, SplitB{st + TILE, st + 3 * TILE});
+    else
+      mma_pb_bf16<D, BQ>(dv, sc, st + TILE);
 
+    // dp^T = v . do^T; ds^T = p^T (dp^T - dd), in place of p^T
+    float dp[NJ][4] = {};
+    if constexpr (F32)
+      mma_abt3<D, BQ>(dp, va, SplitB{st + TILE, st + 3 * TILE});
+    else
+      mma_abt_bf16<D, BQ>(dp, va, st + TILE);
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const int row = q0 + tx + 16 * j;
-      // rows past seq_len: lse 1e30 gives p = 0, so they add nothing
-      const float lse = row < a.s ? a.lse[row0 + row] : 1e30f;
-      const float dd = row < a.s ? a.dd[row0 + row] : 0.f;
+    for (int j = 0; j < NJ; ++j) {
+      const float2 e =
+          *reinterpret_cast<const float2*>(sr + BQ + j * 8 + 2 * t);
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int col = k0 + ty + 16 * i;
-        const bool live = col < a.s && (!a.causal || row >= col);
-        const float p = expf((live ? sc[i][j] * a.scale : -1e30f) - lse);
-        sp[poff[i] + tx + 16 * j] = round_to<T>(p);
-        sds[poff[i] + tx + 16 * j] = round_to<T>(p * (dp[i][j] - dd));
-      }
+      for (int c = 0; c < 4; ++c)
+        sc[j][c] *= dp[j][c] - ((c & 1) ? e.y : e.x);
     }
-    __syncthreads();  // p and ds tiles complete
-
-    // dv += p^T . do and dk += ds^T . q
-#pragma unroll 2
-    for (int qq = 0; qq < KV_BQ; ++qq) {
-      float orow[DJ], qrow[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        orow[j] = sdo[qq * QS + tx + 16 * j];
-        qrow[j] = sq[qq * QS + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float p = sp[poff[i] + qq];
-        const float g = sds[poff[i] + qq];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv[i][j] = fmaf(p, orow[j], dv[i][j]);
-          dk[i][j] = fmaf(g, qrow[j], dk[i][j]);
-        }
-      }
-    }
+    // dk += ds^T . q, ds rounded to q's dtype (times scale at the store)
+    if constexpr (F32)
+      mma_pb3<D, BQ, true>(dk, sc, SplitB{st, st + 2 * TILE});
+    else
+      mma_pb_bf16<D, BQ>(dk, sc, st);
   }
 
-  T* gk = static_cast<T*>(a.g0);
-  T* gv = static_cast<T*>(a.g1);
+  T* const gk = bases.gk;
+  T* const gv = bases.gv;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= a.s) continue;
-    const long long off = (((long long)bb * a.s + row) * a.h + hh) * a.d;
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw0 + g + 8 * r;
+    if (key >= a.s) continue;
+    const long long off = (long long)key * a.h * a.d;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < a.d) {
-        gk[off + col] = from_f<T>(dk[i][j] * a.scale);
-        gv[off + col] = from_f<T>(dv[i][j]);
-      }
+    for (int n = 0; n < NO; ++n) {
+      const int col = n * 8 + 2 * t;
+      store2(gk + off + col, dk[n][2 * r] * a.scale,
+             dk[n][2 * r + 1] * a.scale, a.d - col);
+      store2(gv + off + col, dv[n][2 * r], dv[n][2 * r + 1], a.d - col);
     }
   }
 }
@@ -422,14 +478,14 @@ int launch_dq(const Args& a, cudaStream_t stream) {
 
 template <typename T, int D>
 int launch_dkdv(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(2 * paired_size(KV_BK, D) +
-                                               2 * KV_BQ * (D + 1) +
-                                               2 * paired_size(KV_BK, KV_BQ));
-  const cudaError_t err =
-      flash_mma::allow_smem(flash_dkdv_kernel<T, D>, smem);
+  using C = DkdvCfg<T>;
+  constexpr size_t smem = dkdv_smem_bytes<T, D>();
+  static_assert(smem * C::MINB <= 232448, "shared memory of an SM");
+  const cudaError_t err = flash_mma::allow_smem(flash_dkdv_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.s + KV_BK - 1) / KV_BK, a.h, a.b);
-  flash_dkdv_kernel<T, D><<<grid, NT, smem, stream>>>(a);
+  constexpr int nk = 16 * C::NW;
+  const dim3 grid(a.b * a.h, (a.s + nk - 1) / nk);
+  flash_dkdv_kernel<T, D><<<grid, 32 * C::NW, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -61,15 +61,37 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// The same split in three instructions instead of seven.  cvt.rna.tf32
+// compiles to an add, a mask and an Inf/NaN test with a select; here hi =
+// rna_tf32(x) by the add and the mask alone (equal for finite x; a NaN or
+// Inf still reaches the product, through lo = x - hi), and lo goes to the
+// MMA unrounded: the tensor cores read the top 19 bits of a tf32 operand,
+// so lo is truncated instead of rounded, which loses at most 2^-21 of x
+// (beside the 2^-22 of lo_a * lo_b that 3xTF32 drops anyway).
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+template <bool FAST>
+__device__ __forceinline__ void split_a(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (FAST)
+    split_tf32_fast(x, hi, lo);
+  else
+    split_tf32(x, hi, lo);
+}
+
 // A fragment split once, reused across the n tiles of one k step.
 struct SplitA {
   uint32_t hi[4], lo[4];
+  template <bool FAST = false>
   __device__ __forceinline__ void set(float a0, float a1, float a2,
                                       float a3) {
-    split_tf32(a0, hi[0], lo[0]);
-    split_tf32(a1, hi[1], lo[1]);
-    split_tf32(a2, hi[2], lo[2]);
-    split_tf32(a3, hi[3], lo[3]);
+    split_a<FAST>(a0, hi[0], lo[0]);
+    split_a<FAST>(a1, hi[1], lo[1]);
+    split_a<FAST>(a2, hi[2], lo[2]);
+    split_a<FAST>(a3, hi[3], lo[3]);
   }
 };
 
@@ -126,6 +148,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// One 4-byte word, for rows whose values are single floats (lse, dd).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -171,6 +201,10 @@ __device__ __forceinline__ bool can_vec(const T* base, long long stride,
 // stride is not 16-byte aligned).  Either way a __syncthreads must come
 // before another thread reads the tile.
 //
+// The block has NT threads, and each takes a fixed number of pieces: with
+// a count that depends on threadIdx (i = threadIdx.x; i < n; i += NT) ptxas
+// keeps every piece's offsets live across the loop that calls it.
+//
 // With `lo` (f32 only) the tile is kept split for 3xTF32: `dst` gets the
 // tf32 hi parts and `lo` the lo parts.  The per-element path splits as it
 // stores; after a vec load each thread splits the pieces it copied itself
@@ -183,7 +217,11 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
   if (vec) {
     constexpr int EPC = 16 / sizeof(T);
     constexpr int CPR = D / EPC;  // pieces per row
-    for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    constexpr int N = ROWS * CPR;
+#pragma unroll
+    for (int m = 0; m < (N + NT - 1) / NT; ++m) {
+      const int i = threadIdx.x + m * NT;
+      if (N % NT != 0 && i >= N) break;
       const int r = i / CPR, c = (i % CPR) * EPC;
       T* dp = dst + r * LD + c;
       if (r0 + r < s && c < d)
@@ -217,7 +255,11 @@ __device__ __forceinline__ void split_own(float* hi, float* lo, bool vec) {
   if (!vec) return;
   constexpr int LD = tile_ld<float, D>();
   constexpr int CPR = D / 4;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+  constexpr int N = ROWS * CPR;
+#pragma unroll
+  for (int m = 0; m < (N + NT - 1) / NT; ++m) {
+    const int i = threadIdx.x + m * NT;
+    if (N % NT != 0 && i >= N) break;
     const int off = (i / CPR) * LD + (i % CPR) * 4;
     float4 x = *reinterpret_cast<float4*>(hi + off);
     uint4 h, l;
@@ -253,7 +295,7 @@ cudaError_t allow_smem(K* kernel, size_t smem) {
 // use (RawB), or from a tile already split by load_tile (SplitB), which
 // saves each warp the split of every B value it reads.
 
-template <int D>
+template <int D, bool FAST = false>
 struct SmemA {
   const float* r0;  // row g of the warp's 16, column t
   __device__ __forceinline__ void init(const float* tile, int row0) {
@@ -263,8 +305,8 @@ struct SmemA {
   __device__ __forceinline__ SplitA at(int ks) const {
     constexpr int LD = tile_ld<float, D>();
     SplitA s;
-    s.set(r0[ks * 8], r0[ks * 8 + 8 * LD], r0[ks * 8 + 4],
-          r0[ks * 8 + 8 * LD + 4]);
+    s.set<FAST>(r0[ks * 8], r0[ks * 8 + 8 * LD], r0[ks * 8 + 4],
+                r0[ks * 8 + 8 * LD + 4]);
     return s;
   }
 };
@@ -326,7 +368,7 @@ __device__ __forceinline__ void mma_abt3(float (&c)[BK / 8][4], const A& a_src,
 // k index is permuted: logical k t of a k8 step is key 2t and t + 4 is key
 // 2t + 1, in A (c0, c2 -> a0, a1; c1, c3 -> a2, a3) and in B (rows 2t and
 // 2t + 1 of the tile).  A k-sum does not depend on its order.
-template <int D, int BK, class B>
+template <int D, int BK, bool FAST = false, class B>
 __device__ __forceinline__ void mma_pb3(float (&o)[D / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const B& b) {
@@ -335,7 +377,7 @@ __device__ __forceinline__ void mma_pb3(float (&o)[D / 8][4],
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk) {
     SplitA a;
-    a.set(p[kk][0], p[kk][2], p[kk][1], p[kk][3]);
+    a.set<FAST>(p[kk][0], p[kk][2], p[kk][1], p[kk][3]);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       uint32_t h[2], l[2];

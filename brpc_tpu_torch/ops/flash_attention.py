@@ -6,10 +6,10 @@ Counterpart of ``brpc_tpu/ops/flash_attention.py``.  The Pallas forward
 ``_fwd_kernel`` becomes ``csrc/flash_fwd.cu``; the backward kernels
 ``_dq_kernel`` and ``_dkdv_kernel`` become ``flash_dq`` and ``flash_dkdv``
 in ``csrc/flash_bwd.cu`` (CUDA C++ for sm_90a, built by
-:mod:`.cuda_build`, called through ctypes).  The forward and ``flash_dq``
-run on the tensor cores (``csrc/flash_mma.cuh``): f32 inputs as 3xTF32,
-each product as three tf32 MMAs with f32 sums, which keeps f32's
-tolerances; bf16 inputs on bf16 MMA.  On a CUDA tensor
+:mod:`.cuda_build`, called through ctypes).  All three run on the tensor
+cores (``csrc/flash_mma.cuh``): f32 inputs as 3xTF32, each product as
+three tf32 MMAs with f32 sums, which keeps f32's tolerances; bf16 inputs
+on bf16 MMA.  On a CUDA tensor
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` launch those
 kernels or raise; on a CPU tensor they run :func:`flash_attention_plain`
 and :func:`flash_attention_bwd_plain`, the same tile-wise arithmetic in

@@ -7,7 +7,8 @@ imports nothing of JAX or ``brpc_tpu``, and fails (non-zero exit, no
 result line) when a phase fails or CUDA is absent.  Phases:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build every kernel from ``brpc_tpu_torch/ops/csrc`` (nvcc, sm_90a);
+2. build every kernel from ``brpc_tpu_torch/ops/csrc`` (nvcc, sm_90a) and
+   print ptxas's registers and spill bytes of each kernel function;
 3. hold the forward kernel against its plain PyTorch version on the card;
    3b. hold the backward kernels (``flash_dq``, ``flash_dkdv``) against
    the plain backward, f32 and bf16, causal and not, at the training
@@ -54,6 +55,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -126,8 +128,11 @@ TRAIN_STEPS = 3                                   # timed, after 1 warm-up
 # first steps at bench.py's lr (LMConfig's default 0.05) and still at 0.01
 # on the H100; at 0.002 it falls at every step, which phase 8 checks.
 TRAIN_LR = 0.002
+# flash_dkdv has one schedule per dtype (csrc/flash_bwd.cu DkdvCfg), which
+# the training shape takes; (1, 77, 2, 20) has bf16 rows that are not
+# whole 16-byte pieces (the per-element loads) and a ragged head dim
 BWD_CHECK_SHAPES = [TRAIN_SHAPE, MAIN_SHAPE, (2, 1000, 16, 128),
-                    (1, 129, 4, 64), (1, 40, 2, 16)]
+                    (1, 129, 4, 64), (1, 40, 2, 16), (1, 77, 2, 20)]
 # the f32 forward picks its schedule by grid size (flash_fwd.cu launch):
 # on an H100 the training shape takes Wide, (2, 1000, 16, 128) Narrow and
 # the others KSplit, so each is checked
@@ -183,6 +188,30 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_report(log: str) -> list:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of
+    each function in an ``nvcc -Xptxas -v`` log; the kernel's name is its
+    mangled name from the base name on (``flash_dkdv_kernelIfLi128E...``:
+    float, d = 128)."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            label = re.search(r"\d+([a-z_]+_kernel\w*)", m.group(1))
+            name = label.group(1) if label else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return rows
 
 
 def peaks_for(name: str) -> dict:
@@ -1070,9 +1099,9 @@ def main() -> int:
     paths = cuda_build.build_all()
     log(f"[2] built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for src, text in cuda_build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+        for kernel, regs, st, ld in ptxas_report(text):
+            log(f"  {src} {kernel}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
 
     log("[3] kernel vs plain")
     main_err = phase_check()

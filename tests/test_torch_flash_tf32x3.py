@@ -1,15 +1,17 @@
 """The numerics of the tensor-core flash kernels, checked on the CPU before
 any card runs them: every product done as 3xTF32, as
 ``csrc/flash_mma.cuh`` does it (``hi = rna_tf32(x)``, ``lo = rna_tf32(x -
-hi)``, ``a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``), in the kernels' own
-recurrence (32-key tiles, running max in log2 units, ``exp2``).  The
-forward and the dq recurrence are held against the JAX package's Pallas
-``flash_attention`` in interpret mode, as tests/test_torch_flash_attention.py
-and tests/test_torch_flash_backward.py run it, with their cases.
+hi)``, ``a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b``; in the dkdv kernel the
+A operands' lo is truncated instead, ``split_tf32_fast``), in the kernels'
+own recurrence (32-key tiles, running max in log2 units, ``exp2``; dkdv
+key-major over 16-row q tiles).  The forward, the dq and the dk/dv
+recurrences are held against the JAX package's Pallas ``flash_attention``
+in interpret mode, as tests/test_torch_flash_attention.py and
+tests/test_torch_flash_backward.py run it, with their cases.
 
 Tolerances: out and lse 1e-4 abs/rel, as ``chip_smoke.py`` holds the
-forward kernel to its plain version (``TOL``, ``LSE_TOL``); dq rtol 2e-4 /
-atol 2e-5, as the JAX package's gradient tests.  ``rna_tf32`` here is the
+forward kernel to its plain version (``TOL``, ``LSE_TOL``); dq, dk and dv
+rtol 2e-4 / atol 2e-5, as the JAX package's gradient tests.  ``rna_tf32`` here is the
 emulation of ``cvt.rna.tf32.f32``: add 0x1000 to the int32 view and mask
 with 0xFFFFE000 (round to nearest, ties away from zero, on the magnitude).
 Nothing on the main path uses these helpers.
@@ -37,16 +39,34 @@ def rna_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of a tf32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def split(x: torch.Tensor):
     hi = rna_tf32(x)
     return hi, rna_tf32(x - hi)
 
 
-def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def split_fast(x: torch.Tensor):
+    """``split_tf32_fast``: lo = x - hi reaches the MMA unrounded."""
+    hi = rna_tf32(x)
+    return hi, trunc_tf32(x - hi)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor, split_a=split) -> torch.Tensor:
     """``a @ b`` as three tf32 products with f32 sums, small terms first."""
-    ah, al = split(a)
+    ah, al = split_a(a)
     bh, bl = split(b)
     return al @ bh + ah @ bl + ah @ bh
+
+
+def mm3_fast_a(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3xTF32 as the dkdv kernel does it: its A operands (k, v, p, ds)
+    take the fast split per step, its B tiles (q, do) the rounded split
+    once in shared memory."""
+    return mm3(a, b, split_a=split_fast)
 
 
 def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -105,6 +125,33 @@ def dq_emulated(q, k, v, out, lse, do, causal):
     return (dq * scale).permute(0, 2, 1, 3)
 
 
+def dkdv_emulated(q, k, v, out, lse, do, causal, bq=16, mm=mm3_fast_a):
+    """The dkdv kernel's recurrence, key-major: for all keys at once, q
+    tiles of ``bq`` rows in order (from the first key when causal, as for
+    the kernel's first key block), sᵀ = k·qᵀ, pᵀ = exp2(sᵀ·scale·log2e -
+    lse·log2e), dv += pᵀ·do, dpᵀ = v·doᵀ, dsᵀ = pᵀ (dpᵀ - dd), dk += dsᵀ·q;
+    dk times scale at the end.  Returns ``(dk, dv)``."""
+    b, s, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, dof = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
+    dd = (do * out).sum(-1).permute(0, 2, 1)[..., None, :]   # (b, h, 1, s)
+    lse2 = lse[..., None, :] * LOG2E
+    dk = torch.zeros((b, h, s, d))
+    dv = torch.zeros((b, h, s, d))
+    for q0 in range(0, s, bq):
+        q1 = min(q0 + bq, s)
+        x = mm(kf, qf[:, :, q0:q1].transpose(-1, -2)) * scale * LOG2E
+        if causal:
+            keep = torch.arange(q0, q1)[None, :] >= torch.arange(s)[:, None]
+            x = torch.where(keep, x, -1e30)
+        p = torch.exp2(x - lse2[..., q0:q1])
+        dv += mm(p, dof[:, :, q0:q1])
+        ds = p * (mm(vf, dof[:, :, q0:q1].transpose(-1, -2))
+                  - dd[..., q0:q1])
+        dk += mm(ds, qf[:, :, q0:q1])
+    return ((dk * scale).permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3))
+
+
 def _inputs(shape, seed, n=3):
     rng = np.random.default_rng(seed)
     return [(rng.standard_normal(shape) * 0.5).astype(np.float32)
@@ -135,6 +182,16 @@ def test_rna_tf32_rounding():
     y = torch.randn(10000)
     hi, lo = split(y)
     assert ((hi + lo - y).abs() <= y.abs() * 2.0 ** -21).all()
+
+
+def test_fast_split_error_bound():
+    """``split_tf32_fast``: hi is ``cvt.rna``'s, and hi plus the lo that
+    the tensor cores read is within 2^-21 of x."""
+    y = torch.randn(10000) * torch.logspace(-20, 20, 10000)
+    hi, lo = split_fast(y)
+    assert torch.equal(hi, split(y)[0])
+    assert ((hi + lo - y).abs() <= y.abs() * 2.0 ** -21).all()
+    assert (lo.view(torch.int32) & 0x1FFF).eq(0).all()
 
 
 FWD_CASES = [(2, 64, 2, 16), (1, 40, 2, 16), (1, 100, 2, 24), (1, 129, 2, 8)]
@@ -185,3 +242,38 @@ def test_dq_3xtf32_matches_jax_grad(case):
     out, lse = fwd_emulated(tq, tk, tv, causal)
     got = dq_emulated(tq, tk, tv, out, lse, tg, causal)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def _jax_dkdv(q, k, v, g, causal, blocks):
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, causal, *blocks) * g)
+
+    return [np.asarray(x) for x in jax.grad(loss, argnums=(1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))]
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: f"s{c[1]}d{c[3]}{'c' if c[4] else ''}")
+def test_dkdv_3xtf32_matches_jax_grad(case):
+    b, s, h, d, causal, blocks = case
+    q, k, v, g = _inputs((b, s, h, d), seed=s + d, n=4)
+    want_dk, want_dv = _jax_dkdv(q, k, v, g, causal, blocks)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = fwd_emulated(tq, tk, tv, causal)
+    dk, dv = dkdv_emulated(tq, tk, tv, out, lse, tg, causal)
+    np.testing.assert_allclose(dk.numpy(), want_dk, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(dv.numpy(), want_dv, rtol=RTOL, atol=ATOL)
+
+
+def test_dkdv_single_pass_tf32_is_far_worse():
+    """dk through one tf32 pass per product is far further from the JAX
+    gradient than through 3xTF32."""
+    q, k, v, g = _inputs((1, 256, 2, 64), seed=6, n=4)
+    want_dk, _ = _jax_dkdv(q, k, v, g, True, (None, None))
+    ts = [torch.from_numpy(x) for x in (q, k, v, g)]
+    out, lse = fwd_emulated(*ts[:3], True)
+    e3 = np.abs(dkdv_emulated(*ts[:3], out, lse, ts[3], True)[0].numpy()
+                - want_dk).max()
+    e1 = np.abs(dkdv_emulated(*ts[:3], out, lse, ts[3], True, mm=mm1)[0]
+                .numpy() - want_dk).max()
+    assert e3 < 2e-5 and e1 > 50 * e3
