@@ -13,15 +13,27 @@ then on a device attachment to a peer in this process goes as a
 descriptor.  TICI ack frames that arrive ahead of a response are
 processed; the credit for a response descriptor goes back when the
 caller redeems it (or drops it unredeemed), on the connection's ack
-queue.  Naming, load balancing, retries, TLS and the other protocols
-wait for later slices of the port.
+queue.
+
+Streams (``brpc_tpu/client/controller.py``): a call whose controller
+carries a stream (``streaming.stream_create``) puts the stream's id and
+window into the request meta, binds the stream to the connection before
+the write, and the response binds it to the server's stream (a failed
+call, or one the server did not accept it on, closes it).  Stream frames
+arrive after the call returns, and the first may arrive before the
+response: from that call on the connection gets one reader thread, which
+owns every read, hands each response to its waiting call by correlation
+id, and routes TSTR frames to their streams and TICI acks to the lane.
+A call that times out there leaves the connection up (the streams on it
+live on); its late response is dropped.  Naming, load balancing,
+retries, TLS and the other protocols wait for later slices of the port.
 """
 
 from __future__ import annotations
 
 import socket
 import threading
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 from ..butil.endpoint import EndPoint, parse_endpoint
 from ..butil.status import Errno
@@ -30,12 +42,14 @@ from ..ici.endpoint import (ack_unused, conn_nonce_of, ici_enabled,
                             split_device_attachment)
 from ..ici.fabric import local_domain_id
 from ..protocol.meta import RpcMeta
+from ..protocol.streaming import StreamFrame, dispatch
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
 from ..transport.socket import Socket
 from .controller import Controller
 
 _MAX_POST_WAIT_S = 30.0     # a request descriptor's wait for window credit
+_JOIN_TIMEOUT_S = 5.0
 
 
 class ChannelOptions:
@@ -55,6 +69,17 @@ class RpcError(Exception):
         self.text = text
 
 
+class _Waiter:
+    """One call waiting for its response from the reader thread."""
+
+    __slots__ = ("done", "msg", "error")
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.msg = None
+        self.error: Optional[str] = None
+
+
 class Channel:
     def __init__(self, options: Optional[ChannelOptions] = None):
         self.options = options or ChannelOptions()
@@ -62,6 +87,12 @@ class Channel:
         self._sock: Optional[Socket] = None
         self._next_cid = 1
         self._lock = threading.Lock()
+        # reader mode: the thread reading _reader_sock, and the calls
+        # waiting on it by correlation id
+        self._reader: Optional[threading.Thread] = None
+        self._reader_sock: Optional[Socket] = None
+        self._waiters: Dict[int, _Waiter] = {}
+        self._waiters_lock = threading.Lock()
 
     def init(self, addr: Any) -> int:
         """``addr``: "ip:port" or an EndPoint.  0 on success."""
@@ -73,8 +104,12 @@ class Channel:
         return 0
 
     def close(self) -> None:
+        """Close the connection, and with it the streams it carries."""
         with self._lock:
+            reader = self._reader
             self._drop()
+        if reader is not None and reader is not threading.current_thread():
+            reader.join(_JOIN_TIMEOUT_S)
 
     def _drop(self) -> None:
         if self._sock is not None:
@@ -86,16 +121,28 @@ class Channel:
         """Blocking call of ``"Service.Method"`` with a bytes request; the
         response bytes and any error land in the returned controller."""
         c = cntl or Controller()
+        stream = c._stream_to_create
         if self.server is None:
             c.set_failed(Errno.EINTERNAL, "channel not initialized")
-            return c
-        try:
-            payload = serialize_payload(request)
-        except TypeError as e:
-            c.set_failed(Errno.EREQUEST, str(e))
-            return c
+        else:
+            try:
+                payload = serialize_payload(request)
+            except TypeError as e:
+                c.set_failed(Errno.EREQUEST, str(e))
+            else:
+                self._call(c, method_full, payload, stream)
+        if stream is not None and (c.failed
+                                   or not stream._established.is_set()):
+            # a failed call, or one the server accepted no stream on:
+            # the pending stream dies with it
+            stream._close_local(notify_peer=False)
+        return c
+
+    def _call(self, c: Controller, method_full: str, payload: bytes,
+              stream) -> None:
         timeout_ms = c.timeout_ms or self.options.timeout_ms
         svc, _, mth = method_full.rpartition(".")
+        waiter = None
         with self._lock:
             meta = RpcMeta()
             meta.correlation_id = self._next_cid
@@ -104,46 +151,126 @@ class Channel:
             meta.timeout_ms = int(timeout_ms)
             try:
                 sock = self._connect()
-                sock.conn.settimeout(timeout_ms / 1e3)
+                if stream is not None:
+                    meta.stream_id = stream.id
+                    meta.stream_window = stream.options.max_buf_size
+                    if not stream._attach(sock.id):
+                        raise OSError("connection closed")
+                    self._start_reader(sock)
                 frame = self._request_frame(c, sock, meta, payload,
                                             timeout_ms)
                 if frame is None:
-                    return c
-                sock.write(frame)
-                while True:
-                    msg = read_frame(sock.conn)
-                    if not isinstance(msg, AckFrame):
-                        break
-                    process_ack(msg.ids, sock)
+                    return
+                if self._reader_sock is sock:
+                    waiter = _Waiter()
+                    with self._waiters_lock:
+                        self._waiters[meta.correlation_id] = waiter
+                    sock.write(frame)
+                else:
+                    sock.conn.settimeout(timeout_ms / 1e3)
+                    sock.write(frame)
+                    msg = self._read_response(sock)
             except socket.timeout:
                 self._drop()
                 c.set_failed(Errno.ERPCTIMEDOUT,
                              f"deadline {timeout_ms}ms exceeded")
-                return c
+                return
             except (OSError, EOFError, FrameError) as e:
+                if waiter is not None:
+                    with self._waiters_lock:
+                        self._waiters.pop(meta.correlation_id, None)
                 self._drop()
                 c.set_failed(Errno.EFAILEDSOCKET, f"{type(e).__name__}: {e}")
-                return c
-            rmeta, body, ratt = msg
-            if rmeta.correlation_id != meta.correlation_id:
-                ack_unused(rmeta, sock.id)
-                self._drop()
-                c.set_failed(Errno.ERESPONSE,
-                             f"response for call {rmeta.correlation_id}, "
-                             f"expected {meta.correlation_id}")
-                return c
+                return
+        if waiter is not None:
+            if not waiter.done.wait(timeout_ms / 1e3):
+                with self._waiters_lock:
+                    timed_out = self._waiters.pop(meta.correlation_id,
+                                                  None) is not None
+                if timed_out:
+                    c.set_failed(Errno.ERPCTIMEDOUT,
+                                 f"deadline {timeout_ms}ms exceeded")
+                    return
+                waiter.done.wait()      # the reader is handing it over
+            if waiter.error is not None:
+                c.set_failed(Errno.EFAILEDSOCKET, waiter.error)
+                return
+            msg = waiter.msg
+        rmeta, body, ratt = msg
+        if rmeta.correlation_id != meta.correlation_id:
+            ack_unused(rmeta, sock.id)
+            with self._lock:
+                if self._sock is sock:
+                    self._drop()
+            c.set_failed(Errno.ERESPONSE,
+                         f"response for call {rmeta.correlation_id}, "
+                         f"expected {meta.correlation_id}")
+            return
         if rmeta.ici_domain:
             sock.ici_peer_domain = rmeta.ici_domain
         if rmeta.error_code:
             ack_unused(rmeta, sock.id)
             c.set_failed(rmeta.error_code, rmeta.error_text)
-        else:
-            c.response = body
-            c.response_attachment, c.response_device_attachment = \
-                split_device_attachment(rmeta, ratt, sock.id)
-        return c
+            return
+        c.response = body
+        c.response_attachment, c.response_device_attachment = \
+            split_device_attachment(rmeta, ratt, sock.id)
+        if stream is not None and rmeta.stream_id:
+            # the accepted stream rides the connection that answered
+            stream._bind(sock.id, rmeta.stream_id,
+                         peer_window=rmeta.stream_window)
+
+    @staticmethod
+    def _read_response(sock: Socket):
+        """The next response on ``sock``, read inline by a call or by the
+        reader thread; acks and stream frames ahead of it are handed on."""
+        while True:
+            msg = read_frame(sock.conn)
+            if isinstance(msg, AckFrame):
+                process_ack(msg.ids, sock)
+            elif isinstance(msg, StreamFrame):
+                dispatch(msg, sock)
+            else:
+                return msg
+
+    def _start_reader(self, sock: Socket) -> None:
+        """From now on one thread reads ``sock`` (called under the lock,
+        so no call is reading it)."""
+        if self._reader_sock is sock:
+            return
+        sock.conn.settimeout(None)
+        self._reader_sock = sock
+        self._reader = threading.Thread(target=self._read_loop,
+                                        args=(sock,), name="tpu_std-reader",
+                                        daemon=True)
+        self._reader.start()
+
+    def _read_loop(self, sock: Socket) -> None:
+        why = "connection closed"
+        try:
+            while True:
+                msg = self._read_response(sock)
+                with self._waiters_lock:
+                    waiter = self._waiters.pop(msg[0].correlation_id, None)
+                if waiter is None:
+                    ack_unused(msg[0], sock.id)       # its call timed out
+                else:
+                    waiter.msg = msg
+                    waiter.done.set()
+        except (OSError, EOFError, FrameError) as e:
+            why = f"{type(e).__name__}: {e}"
+        finally:
+            sock.close()            # closes the streams it carried
+            with self._waiters_lock:
+                waiters = list(self._waiters.values())
+                self._waiters.clear()
+            for waiter in waiters:
+                waiter.error = why
+                waiter.done.set()
 
     def _connect(self) -> Socket:
+        if self._sock is not None and self._sock.failed:
+            self._drop()
         if self._sock is None:
             conn = socket.create_connection(
                 self.server.to_sockaddr(),

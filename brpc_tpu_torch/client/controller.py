@@ -5,8 +5,9 @@ The slim core of ``brpc_tpu/client/controller.py``: ``timeout_ms``,
 tensor for the ICI lane) in; ``failed`` / ``error_code`` / ``error_text``,
 ``response``, ``response_attachment`` and ``response_device_attachment``
 (a :class:`~brpc_tpu_torch.ici.DeviceAttachment` to redeem with
-``.tensor()``) out.  Retries, backup requests, load balancing and streams
-wait for later slices of the port.
+``.tensor()``) out; ``streaming.stream_create`` sets
+``_stream_to_create``, the stream the call sets up.  Retries, backup
+requests and load balancing wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ class Controller:
     __slots__ = ("timeout_ms", "request_attachment",
                  "request_device_attachment", "response",
                  "response_attachment", "response_device_attachment",
-                 "_error_code", "_error_text")
+                 "_error_code", "_error_text", "_stream_to_create")
 
     def __init__(self):
         self.timeout_ms: Optional[int] = None   # None = the channel's
@@ -29,6 +30,7 @@ class Controller:
         self.response_device_attachment = None
         self._error_code = 0
         self._error_text = ""
+        self._stream_to_create = None   # set by streaming.stream_create
 
     @property
     def failed(self) -> bool:

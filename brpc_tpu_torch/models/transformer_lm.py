@@ -243,6 +243,155 @@ def empty_cache(cfg: LMConfig, batch: int, start_len: int = 1,
     return cache
 
 
+def _rope_at_vec(x, pos, head_dim: int):
+    """Rotary embedding at per-slot positions: ``x`` is (b, 1, heads, hd)
+    and ``pos`` a (b,) tensor, so every slot of a continuous batch
+    rotates at its own depth."""
+    ang = (pos.to(torch.float32)[:, None, None, None]
+           * _freqs(head_dim, x.device)[None, None, None, :])
+    return _rope(x, torch.sin(ang), torch.cos(ang))
+
+
+def _rope_span_vec(x, pos, head_dim: int):
+    """Rotary embedding for a span of positions shared across the batch:
+    ``x`` is (b, s, heads, hd) and ``pos`` an (s,) tensor (a chunk's
+    ``start + arange(chunk)``); the same angles :func:`_rope_tables`
+    gives ``arange(s)``, so a chunk rotates as the whole prompt does."""
+    ang = (pos.to(torch.float32)[None, :, None, None]
+           * _freqs(head_dim, x.device)[None, None, None, :])
+    return _rope(x, torch.sin(ang), torch.cos(ang))
+
+
+def make_batch_decode(cfg: LMConfig, chunk: Optional[int] = None,
+                      device="cuda"):
+    """Continuous-batching decode over a fixed pool of session slots, each
+    at its own position (the streaming service's engine).
+
+    Returns ``(prefill, step)``, or ``(prefill, step, chunk_step)`` with
+    ``chunk`` set:
+
+    - ``prefill`` is :func:`make_decode`'s prompt pass, run per joining
+      session at batch 1; the batcher copies its caches into the slot;
+    - ``step(params, cache, token[b], active[b]) -> (cache, logits)``
+      advances every active slot one token.  ``cache["len"]`` is a (b,)
+      int32 tensor of positions on the device; inactive slots are clamped
+      to ``max_seq - 1``, do not advance, and their logits are garbage;
+    - ``chunk_step(params, cache, slot, start, n, ids[chunk]) -> cache``
+      prefills ``n`` context tokens of one slot at ``start..start+n-1``
+      and sets its len to ``start + n``.  Padding rows (``j >= n``) write
+      garbage to row ``max_seq - 1``, which every admissible session
+      rewrites before the live mask admits it.  The slice attends with
+      the decode step's masked softmax, so a chunk-filled slot equals a
+      whole-prompt insert.
+
+    Cache tensors are updated in place (the JAX package donates them):
+    the returned dict holds the same tensors.  The k/v write of a step is
+    one indexed write per layer and the mask is built from the position
+    tensor, so a step reads nothing back to the host."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    rows_all = torch.arange(cfg.max_seq, device=dev)
+
+    def decode_layer(bp, x, kc, vc, pos, slots):
+        b = x.shape[0]
+        h = _rmsnorm(x, bp["ln1"])
+        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+        shp = (b, 1, cfg.heads, hd)
+        q = _rope_at_vec(q.reshape(shp), pos, hd)
+        k = _rope_at_vec(k.reshape(shp), pos, hd)
+        kc[slots, pos] = k[:, 0]
+        vc[slots, pos] = v.reshape(shp)[:, 0]
+        s_mat = torch.einsum("bqhd,bkhd->bhqk", q, kc) / (hd ** 0.5)
+        live = rows_all[None, :] <= pos[:, None]
+        s_mat = torch.where(live[:, None, None, :], s_mat, -1e30)
+        p = torch.softmax(s_mat, dim=-1)
+        att = torch.einsum("bhqk,bkhd->bqhd", p, vc)
+        x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
+        x = x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+        return x
+
+    def step(params, cache, token, active):
+        cache = dict(cache)
+        token = torch.as_tensor(token, device=dev).long()
+        active = torch.as_tensor(active, device=dev).bool()
+        pos = torch.clamp(cache["len"], max=cfg.max_seq - 1).long()
+        slots = torch.arange(pos.shape[0], device=dev)
+        x = params["embed"][token][:, None, :]
+        for i in range(cfg.depth):
+            x = decode_layer(params[f"blk{i}"], x, cache[f"k{i}"],
+                             cache[f"v{i}"], pos, slots)
+        cache["len"].add_(active.to(cache["len"].dtype))
+        return cache, qmatmul(x[:, 0], params["unembed"])
+
+    prefill, _ = make_decode(cfg, dev)
+    if chunk is None:
+        return prefill, step
+    cw = int(chunk)
+    offsets = torch.arange(cw, device=dev)
+
+    def chunk_layer(bp, x, kc, vc, slot: int, rows, pos):
+        h = _rmsnorm(x, bp["ln1"])
+        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+        shp = (1, cw, cfg.heads, hd)
+        q = _rope_span_vec(q.reshape(shp), pos, hd)
+        k = _rope_span_vec(k.reshape(shp), pos, hd)
+        kc[slot, rows] = k[0]
+        vc[slot, rows] = v.reshape(shp)[0]
+        s_mat = torch.einsum("qhd,khd->hqk", q[0], kc[slot]) / (hd ** 0.5)
+        live = rows_all[None, :] <= pos[:, None]
+        s_mat = torch.where(live[None], s_mat, -1e30)
+        p = torch.softmax(s_mat, dim=-1)
+        att = torch.einsum("hqk,khd->qhd", p, vc[slot])
+        x = x + qmatmul(att.reshape(1, cw, cfg.dim), bp["wo"])
+        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+
+    def chunk_step(params, cache, slot: int, start: int, n: int, ids):
+        cache = dict(cache)
+        ids = torch.as_tensor(ids, device=dev).long()
+        pos = start + offsets
+        last = cfg.max_seq - 1
+        rows = torch.where(offsets < n, torch.clamp(pos, max=last), last)
+        x = params["embed"][ids][None]                 # (1, chunk, dim)
+        for i in range(cfg.depth):
+            x = chunk_layer(params[f"blk{i}"], x, cache[f"k{i}"],
+                            cache[f"v{i}"], int(slot), rows, pos)
+        cache["len"][int(slot)] = int(start) + int(n)
+        return cache
+
+    return prefill, step, chunk_step
+
+
+def empty_batch_cache(cfg: LMConfig, slots: int, device="cuda"):
+    """A fresh slot-pool cache for :func:`make_batch_decode`: ``len`` is
+    the (slots,) int32 position tensor on the device (all zero: every
+    slot free); the layers are :func:`empty_cache`'s."""
+    cache = empty_cache(cfg, slots, device=device)
+    cache["len"] = torch.zeros((slots,), dtype=torch.int32,
+                               device=resolve_device(device))
+    return cache
+
+
+def make_decode_loop(cfg: LMConfig, steps: int, device="cuda"):
+    """Greedy generation of ``steps`` tokens from a prefilled cache:
+    ``(prefill, loop)`` with ``loop(params, cache, token) -> (cache,
+    tokens (steps, b))``, each step feeding the argmax back through
+    :func:`make_decode`'s step.  The JAX package scans the steps inside
+    one compiled program; eager PyTorch runs them as a Python loop."""
+    prefill, decode_step = make_decode(cfg, device)
+
+    def loop(params, cache, token):
+        tok = torch.as_tensor(token, device=resolve_device(device)).long()
+        toks = []
+        for _ in range(steps):
+            cache, logits = decode_step(params, cache, tok)
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok.to(torch.int32))
+        return cache, torch.stack(toks)
+
+    return prefill, loop
+
+
 def _validate_gen_args(cfg: LMConfig, prompt_ids, max_new: int,
                        temperature: float, generator) -> None:
     s = prompt_ids.shape[1]

@@ -33,10 +33,16 @@ from .cuda_build import CudaKernel
 # Key tile of the kernels (csrc/flash_fwd.cu BK, flash_bwd.cu DQ_BK); the
 # plain version walks keys in the same tiles.
 BLOCK_K = 32
+# The kernels' head-dim limit (their q/k/v tiles are instantiated up to
+# d = 128).  The plain versions take any head dim, as the JAX kernel does
+# (it pads d to a multiple of 128).
 MAX_HEAD_DIM = 128
 
 
 def _check_kernel_inputs(name: str, *ts) -> None:
+    if ts[0].shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, not {ts[0].shape[-1]}")
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{name} kernel needs CUDA tensors")
     if ts[0].dtype not in (torch.float32, torch.bfloat16):
@@ -130,8 +136,6 @@ def _check_inputs(q, k, v) -> None:
         raise TypeError("q/k/v must share one dtype")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q/k/v must lie on one device")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[-1]} exceeds {MAX_HEAD_DIM}")
 
 
 def flash_attention_plain(q, k, v, causal: bool = False

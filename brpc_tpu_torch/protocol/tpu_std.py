@@ -13,7 +13,8 @@ credit-return frames (``brpc_tpu/ici/endpoint.py``'s ack frames)::
 
     [ "TICI" ][ u32 count ][ count x u64 descriptor id ]
 
-:func:`read_frame` returns either kind.
+and the streams' "TSTR" frames (:mod:`.streaming`).  :func:`read_frame`
+returns any of the three kinds.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ import struct
 from typing import Any, NamedTuple, Tuple, Union
 
 from .meta import RpcMeta
+from .streaming import HEADER as STREAM_HEADER_SIZE
+from .streaming import MAGIC as STREAM_MAGIC
+from .streaming import StreamFrame
 
 MAGIC = b"TRPC"
 HEADER_SIZE = 12
@@ -113,11 +117,13 @@ def pack_ack_frame(ids) -> bytes:
 
 
 def read_frame(sock: socket.socket
-               ) -> Union[Tuple[RpcMeta, bytes, bytes], AckFrame]:
+               ) -> Union[Tuple[RpcMeta, bytes, bytes], AckFrame,
+                          StreamFrame]:
     """Read one whole frame from a blocking socket: a tpu_std frame as
-    ``(meta, payload, attachment)``, or a TICI frame as an
-    :class:`AckFrame`.  Raises EOFError when the peer closes, FrameError
-    on bytes that are neither."""
+    ``(meta, payload, attachment)``, a TICI frame as an
+    :class:`AckFrame`, or a TSTR frame as a
+    :class:`~.streaming.StreamFrame`.  Raises EOFError when the peer
+    closes, FrameError on bytes that are none of them."""
     head = _recv_exact(sock, ACK_HEADER_SIZE)
     if head[:4] == ACK_MAGIC:
         (count,) = struct.unpack_from("<I", head, 4)
@@ -125,6 +131,13 @@ def read_frame(sock: socket.socket
             raise FrameError(f"ack frame of {count} ids")
         data = _recv_exact(sock, 8 * count)
         return AckFrame(struct.unpack(f"<{count}Q", data))
+    if head[:4] == STREAM_MAGIC:
+        head += _recv_exact(sock, STREAM_HEADER_SIZE - ACK_HEADER_SIZE)
+        flags, dest, size = struct.unpack_from("<BQI", head, 4)
+        if size > MAX_BODY_SIZE:
+            raise FrameError(f"stream frame of {size} bytes exceeds "
+                             f"{MAX_BODY_SIZE}")
+        return StreamFrame(flags, dest, bytes(_recv_exact(sock, size)))
     header = head + _recv_exact(sock, HEADER_SIZE - ACK_HEADER_SIZE)
     body = _recv_exact(sock, frame_size(header) - HEADER_SIZE)
     return unpack_frame(header + body)

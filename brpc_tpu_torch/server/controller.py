@@ -4,9 +4,11 @@ The slim core of ``brpc_tpu/server/controller.py``: the request meta,
 the peer and the connection id, attachments in both directions (bytes,
 and device tensors through the ICI lane: ``request_device_attachment``
 is a :class:`~brpc_tpu_torch.ici.DeviceAttachment` to redeem with
-``.tensor()``, ``response_device_attachment`` a tensor to send back), and
-error reporting.  Async completion, deadlines and streams wait for later
-slices of the port.
+``.tensor()``, ``response_device_attachment`` a tensor to send back),
+error reporting, and the stream handshake (``_remote_stream_id`` from the
+request, set by ``streaming.stream_accept``'s ``_accepted_stream_id`` and
+``_accepted_stream_window`` for the response).  Async completion and
+deadlines wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ class ServerController:
     __slots__ = ("request_meta", "remote_side", "socket_id",
                  "request_attachment", "response_attachment",
                  "request_device_attachment", "response_device_attachment",
-                 "_error_code", "_error_text")
+                 "_error_code", "_error_text", "_remote_stream_id",
+                 "_accepted_stream_id", "_accepted_stream_window")
 
     def __init__(self, request_meta: RpcMeta,
                  remote_side: Optional[EndPoint] = None,
@@ -36,6 +39,9 @@ class ServerController:
         self.response_device_attachment = None
         self._error_code = 0
         self._error_text = ""
+        self._remote_stream_id = request_meta.stream_id
+        self._accepted_stream_id = 0
+        self._accepted_stream_window = 0
 
     @property
     def failed(self) -> bool:

@@ -12,8 +12,14 @@ attachment off, answers the domain exchange, settles the request
 attachment before it writes the response (so the credit return precedes
 it), sends the response's device attachment through ``prepare_send``
 (``EOVERCROWDED`` when the window stays full), takes inbound TICI ack
-frames, and reclaims a connection's descriptors when it closes.  It
-speaks tpu_std only; the JAX server's other protocols, native engine,
+frames, and reclaims a connection's descriptors when it closes.  Streams
+(``brpc_tpu/server/rpc_dispatch.py``): a method accepts the request's
+stream with ``streaming.stream_accept``, the response meta carries the
+accepted stream's id and window, a failed call closes the stream it
+accepted, and inbound TSTR frames (the peer's acks and closes) go to
+their stream.  Frames written by other threads on a stream (a decode
+batcher's tokens) share the connection's write lock with the responses.
+It speaks tpu_std only; the JAX server's other protocols, native engine,
 admission, tracing and draining wait for later slices of the port.
 """
 
@@ -30,6 +36,7 @@ from ..ici.endpoint import (ici_enabled, prepare_send, process_ack,
                             split_device_attachment)
 from ..ici.fabric import local_domain_id
 from ..protocol.meta import RpcMeta
+from ..protocol.streaming import StreamFrame, dispatch
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
 from ..transport.socket import Socket
@@ -161,6 +168,9 @@ class Server:
                 if isinstance(msg, AckFrame):
                     process_ack(msg.ids, sock)
                     continue
+                if isinstance(msg, StreamFrame):
+                    dispatch(msg, sock)
+                    continue
                 # acks queued while serving ride in front of the response
                 sock.defer_acks = True
                 try:
@@ -212,9 +222,18 @@ class Server:
         if meta.ici_domain and ici_enabled():
             out.ici_domain = local_domain_id()   # answer the exchange
         if not cntl.failed:
+            if cntl._accepted_stream_id:
+                out.stream_id = cntl._accepted_stream_id
+                out.stream_window = cntl._accepted_stream_window
             frame = self._response_frame(cntl, out, response, sock)
             if frame is not None:
                 return frame
+        if cntl._accepted_stream_id:
+            # the client never binds a stream of a failed call
+            from ..streaming import find_stream
+            stream = find_stream(cntl._accepted_stream_id)
+            if stream is not None:
+                stream._close_local(notify_peer=False)
         err = RpcMeta()
         err.correlation_id = meta.correlation_id
         err.ici_domain = out.ici_domain

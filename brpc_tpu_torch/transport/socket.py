@@ -5,8 +5,10 @@ The slim core of ``brpc_tpu/transport/socket.py`` for blocking sockets:
 a process-unique id with a registry (:meth:`Socket.address`), the
 addresses of both ends, the device-attachment lane's per-connection state
 (``ici_endpoint``, ``ici_peer_domain``, ``ici_conn_token``), one write
-lock, and the ack queue of TICI credit returns.  Reading stays with the
-owner (the server's connection thread, the channel's call).
+lock, the ack queue of TICI credit returns, and the streams bound to the
+connection (``stream_map``: closing the connection closes them).  Reading
+stays with the owner (the server's connection thread; the channel's call,
+or its reader thread once the connection carries a stream).
 
 Acks.  :meth:`queue_ack` queues descriptor ids.  While ``defer_acks`` is
 set (a server between reading a request and writing its response) they
@@ -51,6 +53,8 @@ class Socket:
         self._write_lock = threading.Lock()
         self._ack_lock = threading.Lock()
         self._pending_acks: List[int] = []
+        self.stream_map: Dict[int, object] = {}   # stream id -> Stream
+        self._stream_lock = threading.Lock()
         with _registry_lock:
             self.id = next(_ids)
             _registry[self.id] = self
@@ -92,12 +96,37 @@ class Socket:
             finally:
                 self._write_lock.release()
 
+    def bind_stream(self, stream) -> bool:
+        """Register a stream riding this connection; False once the
+        connection failed (the stream must then close itself)."""
+        with self._stream_lock:
+            if self.failed:
+                return False
+            self.stream_map[stream.id] = stream
+        return True
+
+    def unbind_stream(self, stream_id: int) -> None:
+        with self._stream_lock:
+            self.stream_map.pop(stream_id, None)
+
     def close(self) -> None:
-        """Close the connection and reclaim every device payload posted on
-        it (the peer can no longer redeem or ack them)."""
+        """Close the connection, close every stream bound to it (a
+        receive-only stream would not learn otherwise), and reclaim every
+        device payload posted on it (the peer can no longer redeem or ack
+        them)."""
         self.failed = True
         with _registry_lock:
             _registry.pop(self.id, None)
+        with self._stream_lock:
+            streams = list(self.stream_map.values())
+            self.stream_map.clear()
+        for stream in streams:
+            stream._on_conn_broken()
+        try:
+            # wakes a thread blocked reading this connection
+            self.conn.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         if self.ici_endpoint is not None:
             from ..ici.fabric import in_process_fabric
             in_process_fabric().release_socket(self.id)

@@ -9,7 +9,9 @@ result line) when a phase fails or CUDA is absent.  Phases:
 1. the card's name and power limit, torch and CUDA versions;
 2. build every kernel from ``brpc_tpu_torch/ops/csrc`` (nvcc, sm_90a) and
    print ptxas's registers and spill bytes of each kernel function;
-3. hold the forward kernel against its plain PyTorch version on the card;
+3. hold the forward kernel against its plain PyTorch version on the card,
+   at every shape the Generate and Decode paths give it and smaller
+   ones, and show that a head dim past its 128 raises there;
    3b. hold the backward kernels (``flash_dq``, ``flash_dkdv``) against
    the plain backward, f32 and bf16, causal and not, at the training
    shape and smaller ones;
@@ -32,6 +34,16 @@ result line) when a phase fails or CUDA is absent.  Phases:
 6. show under ``torch.profiler`` that one request launches the flash
    kernel once per layer, and that the prefill logits through the kernel
    agree with those through dense attention;
+   6b. serve ``LM.Decode`` through the continuous batcher on the same
+   service (8 slots): eight concurrent client streams with prompts of
+   256-1500 tokens and 64 new tokens each, joining while others are
+   mid-stream; every stream closes ``finished``, each session's tokens
+   equal the solo generator's (a token may differ only where the solo
+   run's top-1 margin is a near-tie), ``flash_fwd`` launches once per
+   layer per join; two more sessions through a service with chunked
+   prefill (256-token slices, no flash launch); aggregate tok/s against
+   the one-stream rate, TTFT, decode-round ms, and one profiled round at
+   8 live slots (kernels per round, device busy share);
 8. train that LM at full width (``make_train_step``, remat, gradient
    accumulation): one step's loss and gradient through the kernels
    against dense attention, then a falling finite loss over 4 steps with
@@ -60,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -72,22 +85,25 @@ from brpc_tpu_torch.butil.status import Errno  # noqa: E402
 from brpc_tpu_torch.client import Channel, Controller  # noqa: E402
 from brpc_tpu_torch.ici.endpoint import live_endpoints  # noqa: E402
 from brpc_tpu_torch.ici.fabric import in_process_fabric  # noqa: E402
+from brpc_tpu_torch.models import lm_telemetry  # noqa: E402
 from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig  # noqa
 from brpc_tpu_torch.models.lm_service import (LMService,  # noqa: E402
                                               pack_generate_request,
-                                              unpack_generated)
+                                              sched_counters,
+                                              unpack_generated, unpack_token)
 from brpc_tpu_torch.models.ps_service import PSService, pack_ids  # noqa
 from brpc_tpu_torch.models.transformer_lm import (  # noqa: E402
-    LMConfig, init_params, make_decode, make_train_step, make_value_and_grad,
-    tree_leaves)
+    LMConfig, empty_batch_cache, init_params, make_batch_decode, make_decode,
+    make_train_step, make_value_and_grad, tree_leaves)
 from brpc_tpu_torch.ops import cuda_build  # noqa: E402
 from brpc_tpu_torch.ops.device_ops import (  # noqa: E402
     CHECKSUM, checksum_u32, checksum_u32_plain, checksum_words_plain,
     embedding_bag)
 from brpc_tpu_torch.ops.flash_attention import (  # noqa: E402
     FLASH_DKDV, FLASH_DQ, FLASH_FWD, KERNELS, attention_delta,
-    flash_attention_bwd_plain, flash_attention_plain)
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
 from brpc_tpu_torch.server import Server  # noqa: E402
+from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
     TrainCheckpointer, abstract_like)
 
@@ -108,7 +124,22 @@ LSE_TOL = 1e-4
 # that on: the logits are held to 2e-2 of the largest |logit|
 LOGIT_RTOL = 2e-2
 REQUESTS = [(1, 1024, 32), (1, 1500, 64), (2, 512, 16)]
+# LM.Decode (phase 6b): the service's 8 slots, eight sessions with prompt
+# lengths drawn from [256, 1500] (seed 5) and 64 new tokens each, one
+# client thread each, started DECODE_STAGGER_S apart so that they join
+# while others are mid-stream; then two sessions through a service with
+# 256-token prefill chunks
+DECODE_SLOTS = 8
+DECODE_PROMPT_LENS = (256, 1500)
+DECODE_MAX_NEW = 64
+DECODE_STAGGER_S = 0.1
+DECODE_TIMEOUT_S = 300.0
+CHUNK_TOKENS = 256
+CHUNK_PROMPT_LENS = (700, 1300)
 TIMING_REPS = 20
+# profiles of one echo until the trace holds both checksum kernels (the
+# trace has dropped the first one's events; the launch counter has not)
+ECHO_PROFILE_ATTEMPTS = 3
 # calls per CUDA-event pair when timing the forward kernel and SDPA: one
 # call per pair let the host's launch cost (the wrapper, ~20-40 us) into a
 # ~0.2 ms prefill-shape time, by as much as the host was slow (0.186 and
@@ -137,6 +168,16 @@ BWD_CHECK_SHAPES = [TRAIN_SHAPE, MAIN_SHAPE, (2, 1000, 16, 128),
 # on an H100 the training shape takes Wide, (2, 1000, 16, 128) Narrow and
 # the others KSplit, so each is checked
 CHECK_SHAPES.append(TRAIN_SHAPE)
+# and every shape the serving paths give it: Generate prefills each
+# request's prompt as it is; Decode prefills a join's context (the prompt
+# less its last token, 255-1499 here) padded to a power-of-two bucket,
+# 256-2048 (lm_service.bucketed_prefill)
+for _b, _s, _ in REQUESTS:
+    CHECK_SHAPES.append((_b, _s, 16, 128))
+for _k in range((DECODE_PROMPT_LENS[0] - 2).bit_length(),
+                (DECODE_PROMPT_LENS[1] - 2).bit_length() + 1):
+    CHECK_SHAPES.append((1, 1 << _k, 16, 128))
+CHECK_SHAPES = list(dict.fromkeys(CHECK_SHAPES))
 # backward kernels vs the plain backward: |err| <= rtol * |ref| + afrac *
 # max|ref|.  f32: both sum in f32 in another order (2e-4, 2e-5); bf16: ds
 # and p are rounded to bf16 before their products and one rounding can
@@ -258,6 +299,17 @@ def phase_check() -> float:
                                          f"at {shape} {dtype} {causal}")
                 if shape == MAIN_SHAPE and dtype == torch.float32:
                     main_err = max(main_err, e_out)
+    # head dims past the kernels' 128 raise on the card (the plain version
+    # takes them only on the CPU): no fallback
+    wide = torch.zeros((1, 40, 2, 256), device="cuda")
+    try:
+        flash_attention_fwd(wide, wide, wide, True)
+    except ValueError as e:
+        log(f"  d=256 on the card: ValueError {e}")
+        if "head dims up to 128" not in str(e):
+            raise
+    else:
+        raise AssertionError("flash attention took d=256 on the card")
     return main_err
 
 
@@ -753,26 +805,35 @@ def phase_echo_profile(ch: Channel, x: torch.Tensor,
     """One 1 MiB echo under torch.profiler: the checksum kernel twice,
     and where the call's time goes."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # device work launched right after the trace starts can be missing
-        # from it (one memset of the first checksum was, in every run so
-        # far, and once the whole first checksum): a spin kernel and a
-        # short pause first, left out of the events below
-        torch.cuda._sleep(100_000)
+    for attempt in range(1, ECHO_PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        time.sleep(0.05)
-        t0 = time.perf_counter()
-        echo(ch, x, cs)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "spin_kernel" not in e.name]
-    kern = [e for e in events if "checksum_u32_kernel" in e.name]
+        launches0 = CHECKSUM.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # device work launched right after the trace starts can be
+            # missing from it (one memset of the first checksum was, in
+            # every run so far, and twice the whole first checksum): a
+            # spin kernel and a short pause first, left out of the events
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            echo(ch, x, cs)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        kern = [e for e in events if "checksum_u32_kernel" in e.name]
+        launched = CHECKSUM.launches - launches0
+        if len(kern) == launched or attempt == ECHO_PROFILE_ATTEMPTS:
+            break
+        # the counter saw the launches the trace lost: profile again
+        log(f"  profile attempt {attempt}: the trace shows {len(kern)} of "
+            f"the {launched} checksum launches; profiling again")
     busy_us = sum(e.time_range.elapsed_us() for e in events)
-    log(f"  profile of one 1 MiB echo: {len(events)} CUDA events, "
+    log(f"  profile of one 1 MiB echo (attempt {attempt} of "
+        f"{ECHO_PROFILE_ATTEMPTS}): {len(events)} CUDA events, "
         f"{len(kern)} of checksum_u32_kernel "
         f"({sum(e.time_range.elapsed_us() for e in kern):.1f} us); device "
         f"busy {busy_us:.1f} us of {wall_us:.1f} us wall "
@@ -782,7 +843,8 @@ def phase_echo_profile(ch: Channel, x: torch.Tensor,
     if len(kern) != 2:
         raise AssertionError(f"one echo's trace shows {len(kern)} checksum "
                              f"kernels, want 2")
-    return dict(echo_profile_busy_us=busy_us, echo_profile_wall_us=wall_us)
+    return dict(echo_profile_busy_us=busy_us, echo_profile_wall_us=wall_us,
+                echo_profile_attempts=attempt)
 
 
 def reset_launches() -> None:
@@ -892,6 +954,266 @@ def phase_decode_rate(svc: LMService, cfg: LMConfig) -> dict:
         f"({(gen_ms - pre_ms) / (max_new - 1):.3f} ms per step)")
     return dict(b=b, s=s, max_new=max_new, prefill_ms=pre_ms,
                 completion_ms=gen_ms, decode_tok_s=rate)
+
+
+class DecodeClient:
+    """One LM.Decode session on its own connection: the tokens as they
+    arrive, the close reason, and the time to the first token."""
+
+    def __init__(self, ep, service: str, prompt: np.ndarray, max_new: int):
+        self.prompt, self.max_new = prompt, max_new
+        self.tokens, self.reason, self.ttft_s = [], None, None
+        self.error = None
+        self.done = threading.Event()
+        self._ep, self._service = ep, service
+
+    def run(self) -> None:
+        ch = Channel()
+        ch.init(str(self._ep))
+        cntl = Controller()
+        cntl.timeout_ms = int(DECODE_TIMEOUT_S * 1000)
+
+        def on_received(st, msgs):
+            if self.ttft_s is None:
+                self.ttft_s = time.perf_counter() - t0
+            self.tokens.extend(unpack_token(m) for m in msgs)
+
+        def on_closed(st):
+            self.reason = st.close_reason
+            self.done.set()
+
+        stream_create(cntl, StreamOptions(on_received=on_received,
+                                          on_closed=on_closed))
+        t0 = time.perf_counter()
+        c = ch.call_method(f"{self._service}.Decode",
+                           pack_generate_request(self.prompt[None],
+                                                 self.max_new), cntl=cntl)
+        if c.failed:
+            self.error = f"[{c.error_code}] {c.error_text}"
+            self.done.set()
+        self.done.wait(DECODE_TIMEOUT_S)
+        ch.close()
+
+
+def run_decode_sessions(ep, service: str, prompts, stagger_s: float,
+                        batcher) -> tuple:
+    """Start one client thread per prompt, ``stagger_s`` apart; wait for
+    every stream to close.  Returns the clients, the wall time from the
+    first call to the last close, and the most slots seen live."""
+    clients = [DecodeClient(ep, service, p, DECODE_MAX_NEW) for p in prompts]
+    threads = [threading.Thread(target=c.run) for c in clients]
+    t0 = time.perf_counter()
+    most_live = 0
+    for i, t in enumerate(threads):
+        t.start()
+        if i + 1 < len(threads):
+            time.sleep(stagger_s)
+        most_live = max(most_live, batcher.live_slots())
+    while not all(c.done.is_set() for c in clients):
+        if time.perf_counter() - t0 > DECODE_TIMEOUT_S:
+            raise AssertionError("a decode stream never closed")
+        most_live = max(most_live, batcher.live_slots())
+        time.sleep(0.02)
+    wall_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(10)
+    for i, c in enumerate(clients):
+        if c.error or c.reason != "finished" \
+                or len(c.tokens) != DECODE_MAX_NEW:
+            raise AssertionError(f"decode session {i} (prompt "
+                                 f"{len(c.prompt)}): error {c.error}, "
+                                 f"close {c.reason!r}, {len(c.tokens)} "
+                                 f"tokens")
+    return clients, wall_s, most_live
+
+
+def solo_reference(svc: LMService, cfg: LMConfig, prompt: np.ndarray,
+                   max_new: int) -> tuple:
+    """The service's solo generator's arithmetic (``make_decode``'s
+    prefill of the whole prompt, then one step per token, argmax), with
+    each step's top-1 minus top-2 logit over the largest |logit|."""
+    prefill, step = make_decode(cfg, "cuda")
+    ids = torch.from_numpy(prompt[None].astype(np.int64)).cuda()
+    toks, margins = [], []
+    with torch.inference_mode():
+        cache, logits = prefill(svc.params, ids)
+        for i in range(max_new):
+            top2 = torch.topk(logits[0], 2).values
+            margins.append((top2[0] - top2[1]) / logits[0].abs().max())
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok[0])
+            if i + 1 < max_new:
+                cache, logits = step(svc.params, cache, tok)
+    return (torch.stack(toks).cpu().tolist(),
+            torch.stack(margins).cpu().tolist())
+
+
+def check_tokens(svc: LMService, cfg: LMConfig, clients) -> tuple:
+    """Each session's tokens against the solo reference: equal, or unequal
+    first at a near-tie (margin below LOGIT_RTOL), after which the session
+    is compared no further.  Returns (tokens compared, tokens streamed,
+    near-tie stops)."""
+    compared = ties = 0
+    for i, c in enumerate(clients):
+        want, margins = solo_reference(svc, cfg, c.prompt, c.max_new)
+        if i == 0:
+            gen = svc._gen(torch.from_numpy(c.prompt[None].astype(np.int64))
+                           .cuda(), c.max_new)[0].cpu().tolist()
+            if gen != want:
+                raise AssertionError("the solo reference differs from the "
+                                     "service's generator")
+        for j, (got, ref) in enumerate(zip(c.tokens, want)):
+            if got == ref:
+                compared += 1
+                continue
+            if margins[j] >= LOGIT_RTOL:
+                raise AssertionError(
+                    f"decode session {i} token {j}: {got} against the solo "
+                    f"run's {ref} at a top-1 margin of {margins[j]:.3e} of "
+                    f"the largest |logit|")
+            log(f"  session {i}: token {j} differs at a near-tie (margin "
+                f"{margins[j]:.3e}); compared no further")
+            ties += 1
+            break
+    total = sum(len(c.tokens) for c in clients)
+    if compared < total // 2:
+        raise AssertionError(f"only {compared} of {total} tokens compared")
+    return compared, total, ties
+
+
+def phase_decode(ep, svc: LMService, chunked: LMService, cfg: LMConfig,
+                 one_stream_tok_s: float) -> dict:
+    """LM.Decode through the continuous batcher (phase 6b)."""
+    rng = np.random.default_rng(5)
+    lens = rng.integers(DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1] + 1,
+                        DECODE_SLOTS)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in lens]
+    batcher = svc.batcher()
+    rounds0 = lm_telemetry.phase_counters()["decode_round"]
+    round_ns0 = lm_telemetry.phase_total_ns()["decode_round"]
+    FLASH_FWD.launches = 0
+    clients, wall_s, most_live = run_decode_sessions(
+        ep, "LM", prompts, DECODE_STAGGER_S, batcher)
+    launches = FLASH_FWD.launches
+    rounds = lm_telemetry.phase_counters()["decode_round"] - rounds0
+    round_ms = (lm_telemetry.phase_total_ns()["decode_round"]
+                - round_ns0) / 1e6 / rounds
+    joins = batcher.prefills_run
+    tokens = sum(len(c.tokens) for c in clients)
+    agg = tokens / wall_s
+    ttfts = sorted(c.ttft_s * 1e3 for c in clients)
+    log(f"  {len(clients)} sessions, prompts {sorted(lens.tolist())}, "
+        f"{DECODE_MAX_NEW} new tokens each, all closed 'finished'; up to "
+        f"{most_live} slots live at once; {tokens} tokens in {wall_s:.3f} s "
+        f"= {agg:.1f} tok/s aggregate ({agg / one_stream_tok_s:.2f}x the "
+        f"one-stream decode rate {one_stream_tok_s:.1f} tok/s, prefills "
+        f"included)")
+    log(f"  TTFT median {statistics.median(ttfts):.1f} ms, max "
+        f"{ttfts[-1]:.1f} ms; {rounds} decode rounds, {round_ms:.3f} ms "
+        f"each (step and token read-back), "
+        f"{tokens / rounds:.2f} tokens per round")
+    want = cfg.depth * joins
+    log(f"  flash_fwd launches over the run: {launches} (depth "
+        f"{cfg.depth} x {joins} whole-prompt joins = {want})")
+    if launches != want or joins != len(clients):
+        raise AssertionError("the Decode path did not run the kernel once "
+                             "per layer per join")
+    compared, total, ties = check_tokens(svc, cfg, clients)
+    log(f"  tokens vs the solo generator: {compared} of {total} compared "
+        f"equal, {ties} sessions stopped at a near-tie")
+    batcher.shutdown()
+    res = dict(sessions=len(clients), prompt_lens=lens.tolist(),
+               max_new=DECODE_MAX_NEW, tokens=tokens, wall_s=wall_s,
+               aggregate_tok_s=agg, one_stream_tok_s=one_stream_tok_s,
+               speedup=agg / one_stream_tok_s, most_live=most_live,
+               ttft_ms=ttfts, ttft_median_ms=statistics.median(ttfts),
+               ttft_max_ms=ttfts[-1], rounds=rounds, round_ms=round_ms,
+               launches=launches, compared=compared, near_ties=ties)
+    res.update(phase_decode_chunked(ep, svc, chunked, cfg))
+    res.update(phase_decode_profile(svc, cfg))
+    return res
+
+
+def phase_decode_chunked(ep, svc: LMService, chunked: LMService,
+                         cfg: LMConfig) -> dict:
+    """Two sessions through the service with 256-token prefill chunks:
+    the same token rule, the slices counted, no flash_fwd launch."""
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in CHUNK_PROMPT_LENS]
+    slices0 = sched_counters()["sched_chunk_slice"]
+    FLASH_FWD.launches = 0
+    clients, wall_s, _ = run_decode_sessions(ep, "LMChunked", prompts, 0.0,
+                                             chunked.batcher())
+    launches = FLASH_FWD.launches
+    slices = sched_counters()["sched_chunk_slice"] - slices0
+    want_slices = sum(-(-(n - 1) // CHUNK_TOKENS) for n in CHUNK_PROMPT_LENS)
+    log(f"  chunked ({CHUNK_TOKENS}-token slices), prompts "
+        f"{list(CHUNK_PROMPT_LENS)}: closed 'finished' in {wall_s:.3f} s, "
+        f"{slices} chunk slices (expected {want_slices}), flash_fwd "
+        f"launches {launches} (expected 0)")
+    if slices != want_slices or launches != 0:
+        raise AssertionError("the chunked sessions did not run as sliced")
+    compared, total, ties = check_tokens(svc, cfg, clients)
+    log(f"  chunked tokens vs the solo generator: {compared} of {total} "
+        f"compared equal, {ties} sessions stopped at a near-tie")
+    chunked.batcher().shutdown()
+    return dict(chunk_slices=slices, chunk_compared=compared,
+                chunk_tokens=total, chunk_wall_s=wall_s)
+
+
+def phase_decode_profile(svc: LMService, cfg: LMConfig) -> dict:
+    """One decode round at 8 live slots under torch.profiler, as the
+    batcher runs it (tokens up, the batch step, argmax, tokens back), on
+    a pool whose slots sit at the sessions' end positions."""
+    from torch.profiler import ProfilerActivity, profile
+    _, step = make_batch_decode(cfg, device="cuda")
+    cache = empty_batch_cache(cfg, DECODE_SLOTS, device="cuda")
+    cache["len"].copy_(torch.from_numpy(np.linspace(
+        DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1],
+        DECODE_SLOTS).astype(np.int32) + DECODE_MAX_NEW))
+    tokens = np.arange(DECODE_SLOTS, dtype=np.int32)
+    active = np.ones(DECODE_SLOTS, dtype=bool)
+
+    def round_():
+        nonlocal cache
+        cache, logits = step(svc.params, cache,
+                             torch.from_numpy(tokens).cuda(),
+                             torch.from_numpy(active).cuda())
+        return torch.argmax(logits, dim=-1).cpu()
+
+    with torch.inference_mode():
+        for _ in range(3):
+            round_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)      # see phase_echo_profile
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            round_()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    del cache
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name]
+    by_name: dict = {}
+    for e in events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    log(f"  profile of one decode round at {DECODE_SLOTS} live slots: "
+        f"{len(events)} CUDA events; device busy {busy_us / 1e3:.3f} ms of "
+        f"{wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.4f})")
+    for kname, (n, us) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][1])[:6]:
+        log(f"    {us / 1e3:8.3f} ms  {n:4d}x  {kname[:90]}")
+    if not events:
+        raise AssertionError("the profiled decode round shows no device work")
+    return dict(round_kernels=len(events), round_busy_ms=busy_us / 1e3,
+                round_wall_ms=wall_us / 1e3, round_busy_share=busy_us /
+                wall_us)
 
 
 def phase_logits(svc: LMService, cfg: LMConfig) -> float:
@@ -1119,13 +1441,18 @@ def main() -> int:
     cfg = LMConfig(**SLICE_CFG)
     log(f"[5] serving LM at {SLICE_CFG}")
     t0 = time.perf_counter()
-    svc = LMService(cfg=cfg, device="cuda", seed=0)
+    svc = LMService(cfg=cfg, device="cuda", seed=0,
+                    decode_slots=DECODE_SLOTS)
+    # the same weights behind a second name, with chunked prefill (6b)
+    chunked = LMService(cfg=cfg, params=svc.params, device="cuda",
+                        decode_slots=2, prefill_chunk_tokens=CHUNK_TOKENS)
     log(f"  params: {svc._param_bytes / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     srv = Server()
     ch = Channel()
     try:
-        if srv.add_service(svc, name="LM") != 0 or srv.start(
+        if srv.add_service(svc, name="LM") != 0 or srv.add_service(
+                chunked, name="LMChunked") != 0 or srv.start(
                 "127.0.0.1:0") != 0:
             raise RuntimeError("server did not start")
         ch.init(str(srv.listen_endpoint))
@@ -1142,9 +1469,17 @@ def main() -> int:
         phase_profile(ch, cfg)
         phase_logits(svc, cfg)
         decode = phase_decode_rate(svc, cfg)
+        log(f"[6b] LM.Decode through the continuous batcher, "
+            f"{DECODE_SLOTS} slots")
+        streams = phase_decode(srv.listen_endpoint, svc, chunked, cfg,
+                               decode["decode_tok_s"])
     finally:
         ch.close()
         srv.stop()
+        for service in (svc, chunked):
+            if service._batcher is not None:
+                service._batcher.shutdown()
+    torch.cuda.empty_cache()
 
     log(f"[8] training LM at {TRAIN_CFG}, accum={TRAIN_ACCUM} x microbatch "
         f"{TRAIN_MICRO} x {TRAIN_SEQ} tokens (reduced from bench.py's 8 x "
@@ -1161,8 +1496,10 @@ def main() -> int:
         "name": FLASH_FWD.name, "route": "cuda",
         "source": "brpc_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "brpc_tpu/ops/flash_attention.py:46",
-        "launches": launches + train["launches"][FLASH_FWD.name],
+        "launches": (launches + streams["launches"]
+                     + train["launches"][FLASH_FWD.name]),
         "launches_by_path": {"generate": launches,
+                             "decode": streams["launches"],
                              "train": train["launches"][FLASH_FWD.name]},
         "max_abs_err": main_err,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
@@ -1205,6 +1542,7 @@ def main() -> int:
     log(f"  backward at {TRAIN_SHAPE} causal: {json.dumps(bwd_times)}")
     log(f"  requests: {json.dumps(rows)}")
     log(f"  decode: {json.dumps(decode)}")
+    log(f"  streams: {json.dumps(streams)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  checksum: {n_payloads} payloads bit-exact; timing "
         f"{json.dumps(cs_times)}")

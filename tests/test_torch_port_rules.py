@@ -67,7 +67,11 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.ici.fabric",
             "brpc_tpu_torch.ici.endpoint",
             "brpc_tpu_torch.models.embedding_ps",
-            "brpc_tpu_torch.models.ps_service"} <= names
+            "brpc_tpu_torch.models.ps_service",
+            "brpc_tpu_torch.streaming",
+            "brpc_tpu_torch.protocol.streaming",
+            "brpc_tpu_torch.server.admission",
+            "brpc_tpu_torch.models.lm_telemetry"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -171,3 +175,31 @@ def test_cpu_checksum_runs_plain_and_launches_nothing():
     with pytest.raises(ValueError, match="CUDA tensor"):
         device_ops.CHECKSUM(x.view(torch.int32))
     assert device_ops.CHECKSUM.launches == before
+
+
+def test_decode_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.models.lm_service import ContinuousBatcher, LMService
+    from brpc_tpu_torch.models.transformer_lm import (LMConfig,
+                                                      empty_batch_cache,
+                                                      make_batch_decode,
+                                                      make_decode_loop)
+    cfg = LMConfig(vocab=16, dim=8, heads=2, depth=1, max_seq=8)
+    for call in (lambda: make_batch_decode(cfg),
+                 lambda: make_batch_decode(cfg, chunk=4),
+                 lambda: empty_batch_cache(cfg, 2),
+                 lambda: make_decode_loop(cfg, 2),
+                 lambda: ContinuousBatcher(cfg, None),
+                 lambda: LMService(cfg=cfg, decode_slots=2),
+                 lambda: LMService(cfg=cfg, decode_slots=2,
+                                   prefill_chunk_tokens=4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the CPU is served only when asked for, and the service's batcher
+    # lands where the service does
+    svc = LMService(cfg=cfg, decode_slots=2, device="cpu")
+    assert svc.batcher().device.type == "cpu"
+    assert empty_batch_cache(cfg, 2, device="cpu")["len"].device.type \
+        == "cpu"
+    assert len(make_batch_decode(cfg, chunk=4, device="cpu")) == 3
