@@ -9,10 +9,11 @@ caller's stream and answers ``<u32 max_new>``.  Validation, errors
 ``Decode``'s prefill follow the JAX service, so a client of either sees
 the same answers.
 
-``Decode`` rides :class:`ContinuousBatcher` in contiguous mode, with
-chunked prefill and SLO tiers (:class:`TierRegistry`).  Paged KV and
-speculative decoding (ROADMAP Queue A2) and the disaggregated handoff
-(Queue A3) are not ported yet.
+``Decode`` rides :class:`ContinuousBatcher`, contiguous or paged (a
+block-table page pool with the prefix cache and the host tier of
+``kv/pages.py``), with chunked prefill, SLO tiers (:class:`TierRegistry`)
+and, in paged mode, speculative decoding.  The disaggregated handoff
+(``join_imported``, ``model_fingerprint``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import json
 import logging
 import struct
 import threading
+import time
 from collections import deque
 from time import monotonic_ns as _mono_ns
 from typing import Optional
@@ -30,15 +32,23 @@ import numpy as np
 import torch
 
 from ..butil.status import Errno
+from ..kv.pages import (HostPagePool, PageAllocator, PrefixCache,
+                        count_evict)
 from ..ops.quant import quantize_lm_params, quantized_nbytes
 from ..server.admission import _MAX_TENANTS, normalize_tenant
 from ..server.service import Service
 from ..utils.device import resolve_device
 from . import lm_telemetry as _lmt
-from .lm_telemetry import (PH_CHUNK_SLICE, PH_DECODE_ROUND, PH_STREAM_EMIT)
+from .lm_telemetry import (PH_CATCHUP_SLICE, PH_CHUNK_SLICE,
+                           PH_DECODE_ROUND, PH_HOST_RESUME, PH_HOST_SPILL,
+                           PH_PAGE_ALLOC, PH_PREFIX_LOOKUP, PH_SPEC_DRAFT,
+                           PH_SPEC_VERIFY, PH_STREAM_EMIT)
 from .lm_telemetry import record_phase as _rec_phase
-from .transformer_lm import (LMConfig, empty_batch_cache, init_params,
-                             make_batch_decode, make_scan_generator)
+from .transformer_lm import (LMConfig, empty_batch_cache, empty_paged_cache,
+                             init_params, make_batch_decode,
+                             make_paged_batch_decode, make_paged_io,
+                             make_paged_spec_verify, make_scan_generator,
+                             paged_page_bytes)
 
 LOG = logging.getLogger(__name__)
 
@@ -64,9 +74,11 @@ def unpack_token(chunk) -> int:
 # -- SLO tiers ---------------------------------------------------------------
 
 # Per-tenant latency classes the batcher schedules by.  Rank = index: lower
-# ranks win the chunk budget and drain first from pending.
+# ranks win the chunk budget, drain first from pending, and are spilled
+# last under pool pressure.
 SLO_TIERS = ("interactive", "standard", "batch")
 _TIER_RANK = {t: i for i, t in enumerate(SLO_TIERS)}
+_RANK_BATCH = _TIER_RANK["batch"]
 
 
 class TierRegistry:
@@ -114,8 +126,8 @@ class TierRegistry:
         return self._slo.get(tier, (None, None))
 
 
-# Closed enum: the scheduler's named decisions (only sched_chunk_slice and
-# sched_interactive_first are counted until the paged mode is ported).
+# Closed enums: the scheduler's named decisions and the spec-decode round
+# outcomes.
 SLO_SCHED_EVENTS = (
     "sched_chunk_slice",        # one bounded prefill slice ran
     "sched_catchup_slice",      # slice replaying past a partial prefix hit
@@ -123,8 +135,16 @@ SLO_SCHED_EVENTS = (
     "sched_preempt_batch",      # batch-tier victim spilled under pressure
 )
 
+SPEC_DECODE_EVENTS = (
+    "spec_round",               # one draft+verify round ran
+    "spec_accept",              # draft token confirmed by the target
+    "spec_reject",              # draft token refuted by the target
+    "spec_fallback_plain",      # round fell back to one plain step
+)
+
 _sched_lock = threading.Lock()
 _sched = {r: 0 for r in SLO_SCHED_EVENTS}
+_spec = {r: 0 for r in SPEC_DECODE_EVENTS}
 
 
 def count_sched(event: str, n: int = 1) -> None:
@@ -134,17 +154,42 @@ def count_sched(event: str, n: int = 1) -> None:
         _sched[event] += n
 
 
+def count_spec(event: str, n: int = 1) -> None:
+    if event not in _spec:
+        raise ValueError(f"unregistered spec-decode event: {event}")
+    with _sched_lock:
+        _spec[event] += n
+
+
 def sched_counters() -> dict:
     with _sched_lock:
         return dict(_sched)
 
 
+def spec_counters() -> dict:
+    with _sched_lock:
+        return dict(_spec)
+
+
+def _reset_sched_for_tests() -> None:
+    with _sched_lock:
+        for k in _sched:
+            _sched[k] = 0
+        for k in _spec:
+            _spec[k] = 0
+
+
 class _Session:
     __slots__ = ("stream", "prompt", "max_new", "sent", "slot", "ctx_len",
+                 "last_token",
                  # SLO scheduling: the resolved tier and rank, and the
                  # chunked-prefill watermark (context rows written; fill <
                  # ctx_len: the session holds its slot but is not decoding)
                  "tier", "tier_rank", "fill",
+                 # paged mode: the pages the session holds (the first
+                 # n_alias are prefix-cache aliases, the next n_priv its
+                 # own), and its host-tier state while parked
+                 "pages", "n_alias", "n_priv", "host_handles", "saved_len",
                  # observability: the session's timeline
                  "tl")
 
@@ -155,9 +200,15 @@ class _Session:
         self.sent = 0
         self.slot = -1
         self.ctx_len = 0
+        self.last_token = 0
         self.tier = "standard"
         self.tier_rank = _TIER_RANK["standard"]
         self.fill = 0
+        self.pages: list = []
+        self.n_alias = 0
+        self.n_priv = 0
+        self.host_handles = None
+        self.saved_len = 0
         self.tl = None
 
 
@@ -213,21 +264,45 @@ class ContinuousBatcher:
     ended after ``idle_linger_s`` with nothing to serve.  The thread runs
     under ``torch.inference_mode()`` (grad mode is per thread).
 
+    **Paged mode** (``paged=True``): one shared page pool per layer and a
+    per-slot block table replace the contiguous stripes, so a session
+    holds ``ceil((ctx + max_new) / page)`` pages instead of a ``max_seq``
+    stripe, and the slot count no longer sets the KV bytes.  Besides:
+
+    - a :class:`~brpc_tpu_torch.kv.pages.PrefixCache` lets a re-sent
+      context alias pages already prefilled (refcounted, no bytes moved)
+      and skip prefill for the covered prefix; a partial hit catches the
+      rest up through chunk slices, so its tokens equal the uncached
+      path's;
+    - when the pool runs dry the batcher drops LRU prefix entries and
+      spills a live session's private pages to the
+      :class:`~brpc_tpu_torch.kv.pages.HostPagePool` (``host_slots``
+      pages), parking it; a parked session resumes bit-exact when pages
+      free up.  Beyond that the admitting stream closes under a named
+      ``KV_EVICT_REASONS`` member.
+
     **SLO tiers.**  Sessions resolve their tier from the request's
     TLV-22 identity through a :class:`TierRegistry`; pending joins drain
-    interactive first.  With ``prefill_chunk_tokens`` set (Sarathi-style
-    chunked prefill), each round runs one decode step plus at most that
-    many tokens of prefill slices, interactive sessions first, so a long
-    prompt never holds back the live sessions' next token.  A filling
-    session holds its slot but stays inactive until its context is
-    written; its first token is then teacher-forced as after a
-    whole-prompt prefill, so the stream is the same.
+    interactive first, and a spill victim is chosen tier-then-footprint
+    (batch before standard before interactive, batch victims even before
+    prefix-cache holds when the requester outranks them).  With
+    ``prefill_chunk_tokens`` set (Sarathi-style chunked prefill), each
+    round runs one decode step plus at most that many tokens of prefill
+    slices, interactive sessions first, so a long prompt never holds back
+    the live sessions' next token.  A filling session holds its slot but
+    stays inactive until its context is written; its first token is then
+    teacher-forced as after a whole-prompt prefill, so the stream is the
+    same.
 
-    The KV pool is contiguous: ``slots`` stripes of ``max_seq`` rows per
-    layer, in f32 (paged KV and speculative decoding: ROADMAP Queue A2;
-    sessions imported from a prefill tier: Queue A3).  Emission writes
-    each token on the stream's Python lane (the JAX package's native lane
-    is not ported).
+    **Speculative decoding** (``spec_decode_k``, paged mode only): a
+    draft model (``draft_params``, the target's config) proposes k
+    tokens per active slot in k contiguous steps, and the target verifies
+    them in one width-(k+1) call; accepted prefixes advance ``len`` and a
+    rejection is a ``len`` rewind, so the tokens equal plain decoding's.
+
+    The KV pools are f32.  Emission writes each token on the stream's
+    Python lane (the JAX package's native lane is not ported), and
+    sessions imported from a prefill tier are not ported yet.
     ``PH_DECODE_ROUND`` times a whole round, the step and the read-back of
     its tokens (the JAX package's timer stops at dispatch)."""
 
@@ -237,18 +312,45 @@ class ContinuousBatcher:
     EMIT_TIMEOUT_MS = 200
 
     def __init__(self, cfg: LMConfig, params, slots: int = 8,
-                 idle_linger_s: float = 5.0,
+                 idle_linger_s: float = 5.0, paged: bool = False,
+                 page: int = 16, pages: Optional[int] = None,
+                 host_slots: int = 0, prefix: bool = True,
+                 prefix_budget: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
+                 spec_decode_k: int = 0, draft_params=None,
                  tiers: Optional[TierRegistry] = None, device="cuda"):
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
         self.slots = int(slots)
         self.idle_linger_s = idle_linger_s
-        # chunk_budget 0: whole bucketed prefills, no chunk program
+        # paged-KV knobs (inert unless paged)
+        self.paged = bool(paged)
+        self.page = int(page)
+        self._pps = cfg.max_seq // self.page if self.paged else 0
+        # +1: page 0 is the allocator's reserved garbage page
+        self.num_pages = int(pages) if pages is not None \
+            else self.slots * self._pps + 1
+        self.host_slots = int(host_slots)
+        self.prefix_enabled = bool(prefix)
+        self.prefix_budget = prefix_budget
+        # chunk_budget 0: fresh prompts prefill whole.  The contiguous
+        # pool then builds no chunk program; the paged one builds one of
+        # min(64, max_seq) all the same, because partial prefix hits
+        # always catch up through chunk slices (with no budget bound)
         self.chunk_budget = int(prefill_chunk_tokens) \
             if prefill_chunk_tokens else 0
-        self._chunk_w = min(self.chunk_budget, cfg.max_seq)
+        self._chunk_w = min(self.chunk_budget, cfg.max_seq) \
+            if self.chunk_budget else (min(64, cfg.max_seq)
+                                       if self.paged else 0)
+        self.spec_k = int(spec_decode_k)
+        self.draft_params = draft_params
+        if self.spec_k > 0 and not self.paged:
+            raise ValueError("spec_decode_k requires paged=True "
+                             "(rejection rollback is a block-table "
+                             "len rewind)")
+        if self.spec_k > 0 and draft_params is None:
+            raise ValueError("spec_decode_k requires draft_params")
         self.tiers = tiers
         # the programs and the device KV pool are built on the batcher
         # thread's first iteration, not in a request handler
@@ -266,7 +368,24 @@ class ContinuousBatcher:
         self._thread = None
         self._stopping = False
         self._steps = 0                           # decode steps run
+        # paged-mode engine state (built in _ensure_paged_engine); the
+        # block table is host state, copied to the card at every call
+        self._alloc = None                        # kv.pages.PageAllocator
+        self._prefix = None                       # kv.pages.PrefixCache
+        self._host = None                         # kv.pages.HostPagePool
+        self._bt = np.zeros((self.slots, max(self._pps, 1)), np.int32)
+        self._gather = None
+        self._scatter = None
+        self._page_insert = None
+        # spec-decode engine state (built when spec_k > 0)
+        self._d_prefill = None
+        self._d_step = None
+        self._d_cache = None
+        self._verify = None
+        self._parked: list = []                   # spilled sessions
         self.prefills_run = 0
+        self.spills = 0
+        self.resumes = 0
 
     # -- public -----------------------------------------------------------
 
@@ -305,15 +424,26 @@ class ContinuousBatcher:
         return self._steps
 
     def kv_stats(self) -> dict:
-        return {"paged": False, "steps": self._steps,
-                "prefills_run": self.prefills_run,
-                "sched": sched_counters(),
-                "phases": _lmt.phase_counters()}
+        """The batcher's counters, and in paged mode the allocator's,
+        the prefix cache's and the host tier's."""
+        out = {"paged": self.paged, "steps": self._steps,
+               "prefills_run": self.prefills_run,
+               "spills": self.spills, "resumes": self.resumes,
+               "parked": len(self._parked),
+               "sched": sched_counters(), "spec": spec_counters(),
+               "phases": _lmt.phase_counters()}
+        for key, plane in (("alloc", self._alloc), ("prefix", self._prefix),
+                           ("host", self._host)):
+            if plane is not None:
+                out[key] = plane.stats()
+        return out
 
     def shutdown(self, timeout: float = 30.0) -> bool:
-        """Let the live and queued sessions finish, end the batcher
-        thread, and drop the KV pool (a later join builds it again).
-        False when the thread did not end within ``timeout``."""
+        """Let the live, parked and queued sessions finish, end the
+        batcher thread, and drop the KV pool with the allocator, the
+        prefix cache, the host tier and the draft's pool (a later join
+        builds them again).  False when the thread did not end within
+        ``timeout``."""
         with self._lock:
             self._stopping = True
             thread = self._thread
@@ -322,14 +452,25 @@ class ContinuousBatcher:
             thread.join(timeout)
             if thread.is_alive():
                 return False
-        self._cache = None
+        self._drop_engine_state()
         return True
+
+    def _drop_engine_state(self) -> None:
+        self._cache = None
+        self._d_cache = None
+        self._bt[:] = 0
+        self._alloc = None
+        self._prefix = None
+        self._host = None
 
     # -- internals (batcher thread only past the pending handoff) ---------
 
     def _ensure_engine(self) -> None:
         """Build the step programs and the device KV pool, on the batcher
         thread."""
+        if self.paged:
+            self._ensure_paged_engine()
+            return
         if self._step is None:
             prefill, step, *chunk = make_batch_decode(
                 self.cfg, chunk=self._chunk_w or None, device=self.device)
@@ -341,15 +482,72 @@ class ContinuousBatcher:
             self._cache = empty_batch_cache(self.cfg, self.slots,
                                             self.device)
 
+    def _ensure_paged_engine(self) -> None:
+        """The paged engine: the shared page pools, the paged step, the
+        page I/O and chunk programs, the allocator, prefix cache and host
+        tier, and in spec mode the draft's contiguous engine and the
+        verify program."""
+        cfg, dev = self.cfg, self.device
+        if self._step is None:
+            prefill, step = make_paged_batch_decode(cfg, self.page, dev)
+            self._prefill = functools.partial(prefill, self.params)
+            self._step = functools.partial(step, self.params)
+            self._gather, self._scatter, self._page_insert, chunk = \
+                make_paged_io(cfg, self.page, chunk=self._chunk_w,
+                              device=dev)
+            self._chunk = functools.partial(chunk, self.params)
+            if self.spec_k > 0:
+                d_prefill, d_step = make_batch_decode(cfg, device=dev)
+                self._d_prefill = functools.partial(d_prefill,
+                                                    self.draft_params)
+                self._d_step = functools.partial(d_step, self.draft_params)
+                self._verify = functools.partial(
+                    make_paged_spec_verify(cfg, self.page, self.spec_k + 1,
+                                           dev), self.params)
+        if self._cache is None:
+            self._cache = empty_paged_cache(cfg, self.num_pages, self.slots,
+                                            self.page, dev)
+            self._bt[:] = 0
+        if self.spec_k > 0 and self._d_cache is None:
+            self._d_cache = empty_batch_cache(cfg, self.slots, dev)
+        if self._alloc is None:
+            pb = paged_page_bytes(cfg, self.page)
+            self._alloc = PageAllocator(self.num_pages, self.page, pb)
+            self._prefix = PrefixCache(
+                self._alloc, budget_pages=self.prefix_budget) \
+                if self.prefix_enabled else None
+            if self.host_slots > 0:
+                self._host = HostPagePool(self.host_slots, pb)
+
+    def _pages_for(self, ctx_len: int, max_new: int) -> int:
+        """Pages a session needs end to end: every position it will ever
+        write, rounded up to whole pages."""
+        return max(1, -(-(ctx_len + max_new) // self.page))
+
+    def _bt_dev(self, slot: Optional[int] = None) -> torch.Tensor:
+        """The block table (or one slot's row) on the card, copied at
+        every call: the host changes it between rounds, so no copy is
+        kept, and the copy is blocking, so the host may change it
+        afterwards."""
+        bt = self._bt if slot is None else self._bt[slot]
+        return torch.from_numpy(bt).to(self.device)
+
     def _emit(self, pairs) -> list:
-        """Write one step's tokens, each credit wait bounded by
+        """Write one round's tokens, each credit wait bounded by
         EMIT_TIMEOUT_MS: a stalled session costs the batch one short stall
-        once and is then evicted.  Returns ``(session, reason)`` pairs to
-        evict (stream gone, or out of credit: ``backpressure``)."""
+        once and is then evicted.  A spec round hands a session several
+        tokens; once one of them fails, the rest are skipped, so the stall
+        is one wait, not k + 1.  Returns one ``(session, reason)`` pair per
+        session to evict (stream gone, or out of credit:
+        ``backpressure``)."""
         dead = []
+        failed = set()
         for sess, tok in pairs:
+            if id(sess) in failed:
+                continue
             s = sess.stream
             if s.closed:
+                failed.add(id(sess))
                 dead.append((sess, None))
                 continue
             prev = s.options.write_timeout_s
@@ -359,6 +557,7 @@ class ContinuousBatcher:
             finally:
                 s.options.write_timeout_s = prev
             if rc != 0:
+                failed.add(id(sess))
                 dead.append((sess, "backpressure"
                              if rc == int(Errno.EOVERCROWDED) else None))
         return dead
@@ -369,6 +568,9 @@ class ContinuousBatcher:
         ride the next step (teacher-forced: the step's logits at s-1 are
         the whole prefill's).  Chunked: take the slot now and let
         :meth:`_chunk_round` write the context under the budget."""
+        if self.paged:
+            self._admit_paged(sess)
+            return
         free = next(i for i in range(self.slots) if i not in self._sessions)
         sess.slot = free
         sess.sent = 0
@@ -386,19 +588,288 @@ class ContinuousBatcher:
         self._tokens[free] = int(sess.prompt[-1])
         self._active[free] = True
 
+    # -- paged mode: admit, spill, park, resume -----------------------------
+
+    def _alloc_with_reclaim(self, need: int, rank: int = 1):
+        """Allocate ``need`` pages, reclaiming in SLO order: when the
+        requester outranks the batch tier, spill a batch-tier victim
+        first; then drop LRU prefix-cache entries; then spill whatever
+        the tier-then-footprint policy picks.  ``(pages, None)``, or
+        ``(None, reason)`` with a KV_EVICT_REASONS member."""
+        pages = self._alloc.alloc(need)
+        while pages is None:
+            if rank < _RANK_BATCH \
+                    and self._spill_one(min_rank=_RANK_BATCH) is None:
+                pages = self._alloc.alloc(need)
+                continue
+            if self._prefix is not None and self._prefix.evict_lru():
+                pages = self._alloc.alloc(need)
+                continue
+            why = self._spill_one()
+            if why is not None:
+                return None, why
+            pages = self._alloc.alloc(need)
+        return pages, None
+
+    def _admit_paged(self, sess: _Session) -> None:
+        """Look the context up in the prefix cache, allocate the rest of
+        the session's pages, and fill them: nothing on a full hit, a
+        bucketed prefill inserted into the pages on a miss with no chunk
+        budget, chunk slices otherwise (a fresh prompt under the budget,
+        or a partial hit's catch-up from its page-aligned cover)."""
+        ctx = sess.prompt[:-1]
+        ctx_len = len(ctx)
+        aliased, covered = [], 0
+        if self._prefix is not None:
+            t0 = _mono_ns()
+            aliased, covered = self._prefix.lookup(ctx)
+            _rec_phase(PH_PREFIX_LOOKUP, _mono_ns() - t0)
+        n_total = self._pages_for(ctx_len, sess.max_new)
+        t0 = _mono_ns()
+        priv, why = self._alloc_with_reclaim(n_total - len(aliased),
+                                             rank=sess.tier_rank)
+        _rec_phase(PH_PAGE_ALLOC, _mono_ns() - t0)
+        if priv is None:
+            self._alloc.release_all(aliased)
+            count_evict(why)
+            if not sess.stream.closed:
+                sess.stream.close(reason=why)
+            self._finalize_obs(sess, why)
+            return
+        # free = unoccupied, not merely inactive: a filling session holds
+        # its slot while _active is still False
+        free = next(i for i in range(self.slots) if i not in self._sessions)
+        n_alias = len(aliased)
+        row = np.zeros((self._pps,), np.int32)
+        row[:n_alias] = aliased
+        row[n_alias:n_total] = priv
+        filling = False
+        if covered == ctx_len:
+            # a full hit (or an empty context): the aliased pages are the
+            # context's k/v, as a prefill would write them
+            start_len = ctx_len
+        elif covered == 0 and not self.chunk_budget:
+            cache1, ctx_len = bucketed_prefill(self._prefill, self.cfg,
+                                               sess.prompt)
+            self.prefills_run += 1
+            self._cache = self._page_insert(self._cache,
+                                            torch.from_numpy(row), cache1)
+            start_len = ctx_len
+            if self._prefix is not None:
+                # the context's full pages never change again (decode
+                # writes land at pos >= ctx_len): cache them
+                self._prefix.insert(ctx, priv)
+        else:
+            filling = True
+            sess.fill = covered
+            start_len = covered
+        self._cache = _setlen(self._cache, free, start_len)
+        sess.pages = list(aliased) + list(priv)
+        sess.n_alias = n_alias
+        sess.n_priv = len(priv)
+        sess.ctx_len = ctx_len
+        tl = sess.tl
+        if tl is not None:
+            tl.prefix = "prefix_hit" if n_alias and covered == ctx_len \
+                else "prefix_partial" if covered > 0 else "prefix_miss"
+            tl.pages_peak = max(tl.pages_peak, len(sess.pages))
+        self._bt[free] = row
+        sess.slot = free
+        sess.sent = 0
+        self._sessions[free] = sess
+        if filling:
+            return
+        sess.fill = ctx_len
+        self._tokens[free] = int(sess.prompt[-1])
+        self._active[free] = True
+        if self.spec_k > 0:
+            self._draft_admit(sess)
+
+    def _spill_one(self, min_rank: int = 0) -> Optional[str]:
+        """Park one live session's private pages in the host tier.  The
+        victim is the worst SLO rank (an interactive session is never
+        parked while a batch-tier one exists), then the most private
+        pages, then the highest slot; ``min_rank`` restricts it to ranks
+        >= that.  None on success, else the KV_EVICT_REASONS member
+        naming why nothing could spill."""
+        if self._host is None:
+            return "kv_pool_exhausted"
+        ab = self._host.abort_reason()
+        if ab is not None:
+            return ab
+        victims = [s for s in self._sessions.values()
+                   if s.n_priv > 0 and s.tier_rank >= min_rank]
+        if not victims:
+            return "kv_pool_exhausted"
+        victim = max(victims,
+                     key=lambda s: (s.tier_rank, s.n_priv, -s.slot))
+        if victim.tier_rank >= _RANK_BATCH:
+            count_sched("sched_preempt_batch")
+            if victim.tl is not None:
+                victim.tl.preempts += 1
+        return self._park(victim)
+
+    def _park(self, sess: _Session) -> Optional[str]:
+        """Move a live session's private pages card -> host (one copy per
+        page into its host slot) and free its slot.  Everything the step
+        depends on (the pages' bytes, len, the last fed token, the fill
+        watermark) survives in the session and the host tier, so it
+        resumes bit-exact."""
+        t0 = _mono_ns()
+        if not self._host.begin_spill():
+            return self._host.abort_reason() or "kv_host_tier_full"
+        handles = []
+        try:
+            priv = sess.pages[sess.n_alias:]
+            blk = self._gather(self._cache, torch.tensor(priv))
+            for j in range(len(priv)):
+                h = self._host.stage(blk[j])
+                if h is None:
+                    for hh in handles:
+                        self._host.free(hh)
+                    return "kv_host_tier_full"
+                handles.append(h)
+        finally:
+            self._host.end_spill()
+        sess.host_handles = handles
+        sess.saved_len = int(self._cache["len"][sess.slot])
+        sess.last_token = int(self._tokens[sess.slot])
+        self._alloc.release_all(sess.pages[sess.n_alias:])
+        sess.pages = sess.pages[:sess.n_alias]   # the alias holds remain
+        self._sessions.pop(sess.slot, None)
+        self._active[sess.slot] = False
+        self._bt[sess.slot] = 0
+        sess.slot = -1
+        self._parked.append(sess)
+        self.spills += 1
+        if sess.tl is not None:
+            sess.tl.spills += 1
+        _rec_phase(PH_HOST_SPILL, _mono_ns() - t0)
+        return None
+
+    def _resume(self, sess: _Session) -> bool:
+        """Un-park: allocate private pages again, land the host bytes in
+        them (one copy per page to the card, one scatter), rebuild the
+        block-table row, restore len and the last fed token.  False: stay
+        parked (no slot or no pages yet)."""
+        free = next((i for i in range(self.slots)
+                     if i not in self._sessions), None)
+        if free is None:
+            return False
+        t0 = _mono_ns()
+        priv = self._alloc.alloc(sess.n_priv)
+        while priv is None:
+            # prefix-cache holds are reclaimable: a parked session must
+            # not starve behind redundant cached pages
+            if self._prefix is not None and self._prefix.evict_lru():
+                priv = self._alloc.alloc(sess.n_priv)
+                continue
+            return False
+        hd = self.cfg.dim // self.cfg.heads
+        blk = torch.empty((sess.n_priv, 2 * self.cfg.depth, self.page,
+                           self.cfg.heads, hd), dtype=torch.float32,
+                          device=self.device)
+        for j, h in enumerate(sess.host_handles):
+            blk[j].view(-1).view(torch.uint8).copy_(self._host.fetch(h))
+            self._host.free(h)
+        sess.host_handles = None
+        self._cache = self._scatter(self._cache, torch.tensor(priv), blk)
+        self._cache = _setlen(self._cache, free, sess.saved_len)
+        n_alias = sess.n_alias
+        row = np.zeros((self._pps,), np.int32)
+        row[:n_alias] = sess.pages
+        row[n_alias:n_alias + sess.n_priv] = priv
+        sess.pages = list(sess.pages) + list(priv)
+        self._bt[free] = row
+        self._tokens[free] = sess.last_token
+        # a session parked mid-fill resumes inactive and the chunk rounds
+        # finish its context; an active one rejoins the decode batch
+        self._active[free] = sess.fill >= sess.ctx_len
+        sess.slot = free
+        self._sessions[free] = sess
+        if self._active[free] and self.spec_k > 0:
+            # the draft's context again; its rows of tokens generated
+            # before the spill are not replayed, so acceptance dips until
+            # it re-anchors (the verify keeps the tokens right)
+            self._draft_admit(sess)
+            self._d_cache = _setlen(self._d_cache, free, sess.saved_len)
+        self.resumes += 1
+        tl = sess.tl
+        if tl is not None:
+            tl.resumes += 1
+            tl.pages_peak = max(tl.pages_peak, len(sess.pages))
+        _rec_phase(PH_HOST_RESUME, _mono_ns() - t0)
+        return True
+
+    def _drop_parked(self, sess: _Session, reason: Optional[str]) -> None:
+        """A parked session that will never resume (stream gone, or the
+        host tier aborted): free its host slots and alias holds, close
+        under the named reason."""
+        for h in (sess.host_handles or []):
+            self._host.free(h)
+        sess.host_handles = None
+        self._alloc.release_all(sess.pages)
+        sess.pages = []
+        if reason is not None:
+            count_evict(reason)
+        if not sess.stream.closed:
+            sess.stream.close(reason=reason or "finished")
+        self._finalize_obs(sess, reason or "finished")
+
+    def _service_parked(self) -> None:
+        """Between rounds: resume what fits (interactive first, in spill
+        order within a tier), drop the dead, and after a host-tier abort
+        close everything still parked under its reason."""
+        if not self._parked:
+            return
+        ab = self._host.abort_reason() if self._host is not None else None
+        still = []
+        self._parked.sort(key=lambda s: s.tier_rank)
+        for sess in self._parked:
+            if sess.stream.closed:
+                self._drop_parked(sess, None)
+            elif ab is not None:
+                self._drop_parked(sess, ab)
+            elif not self._resume(sess):
+                still.append(sess)
+        self._parked = still
+
+    # -- rounds: chunk slices, plain steps, spec rounds ----------------------
+
+    def _draft_admit(self, sess: _Session) -> None:
+        """Spec mode: the draft model's bucketed prefill of the context,
+        inserted into its contiguous pool at the session's slot, so the
+        draft's rows stay position-aligned with the target's."""
+        if self._d_cache is None:
+            return
+        cache1, ctx_len = bucketed_prefill(self._d_prefill, self.cfg,
+                                           sess.prompt)
+        self._d_cache = self._insert(self._d_cache, cache1, sess.slot,
+                                     ctx_len)
+
     def _activate(self, sess: _Session) -> None:
         """A fully chunk-filled session goes live: the prompt's last token
-        rides the next step, as after a whole-prompt prefill."""
+        rides the next step, as after a whole-prompt prefill.  A fresh
+        chunked context counts as one prefill and enters the prefix cache
+        as a prefilled one does; a partial hit's catch-up does not."""
+        slot = sess.slot
         sess.fill = sess.ctx_len
-        self._tokens[sess.slot] = int(sess.prompt[-1])
-        self._active[sess.slot] = True
-        self.prefills_run += 1
+        self._tokens[slot] = int(sess.prompt[-1])
+        self._active[slot] = True
+        if sess.n_alias == 0 and sess.ctx_len > 0:
+            self.prefills_run += 1
+            if self.paged and self._prefix is not None:
+                self._prefix.insert(sess.prompt[:-1], sess.pages)
+        if self.spec_k > 0:
+            self._draft_admit(sess)
 
     def _chunk_round(self) -> None:
-        """Spend this round's chunk budget on bounded prefill slices over
-        the filling sessions, interactive tier first.  A filling slot's
-        rows past ``fill`` are garbage, but the mask admits a row only
-        once ``len`` passes it, and a slice has rewritten it by then."""
+        """Spend this round's chunk budget (unbounded when no budget is
+        set: a paged partial hit's catch-up) on bounded prefill slices
+        over the filling sessions, interactive tier first.  A filling
+        slot's rows past ``fill`` are garbage, but the mask admits a row
+        only once ``len`` passes it, and a slice has rewritten it by
+        then."""
         filling = [s for s in self._sessions.values()
                    if s.fill < s.ctx_len]
         if not filling:
@@ -408,34 +879,55 @@ class ContinuousBatcher:
                 and any(s.tier_rank > filling[0].tier_rank
                         for s in filling):
             count_sched("sched_interactive_first")
-        budget = self.chunk_budget
+        budget = self.chunk_budget if self.chunk_budget else 1 << 30
         for sess in filling:
             if budget <= 0:
                 break
             if sess.stream.closed:
                 self._evict(sess, None)
                 continue
+            catchup = sess.n_alias > 0
             while budget > 0 and sess.fill < sess.ctx_len:
                 t0 = _mono_ns()
                 n = int(min(self._chunk_w, sess.ctx_len - sess.fill, budget))
                 ids = np.zeros((self._chunk_w,), np.int32)
                 ids[:n] = sess.prompt[sess.fill:sess.fill + n]
-                self._cache = self._chunk(self._cache, sess.slot, sess.fill,
-                                          n, ids)
+                if self.paged:
+                    self._cache = self._chunk(
+                        self._cache, self._bt_dev(sess.slot), sess.slot,
+                        sess.fill, n, ids)
+                else:
+                    self._cache = self._chunk(self._cache, sess.slot,
+                                              sess.fill, n, ids)
                 sess.fill += n
                 budget -= n
-                count_sched("sched_chunk_slice")
-                _rec_phase(PH_CHUNK_SLICE, _mono_ns() - t0)
+                count_sched("sched_catchup_slice" if catchup
+                            else "sched_chunk_slice")
+                _rec_phase(PH_CATCHUP_SLICE if catchup else PH_CHUNK_SLICE,
+                           _mono_ns() - t0)
             if sess.fill >= sess.ctx_len:
                 self._activate(sess)
+
+    def _spec_ok(self) -> bool:
+        """A spec round needs k + 1 rows of headroom in every active slot;
+        otherwise the round falls back to one plain step."""
+        for slot, sess in self._sessions.items():
+            if self._active[slot] and sess.ctx_len + sess.sent \
+                    + self.spec_k + 1 > self.cfg.max_seq:
+                return False
+        return True
 
     def _plain_round(self):
         """One decode step over the active slots: ``(pairs, finished)``
         for the emit/evict epilogue."""
         t0 = _mono_ns()
-        self._cache, logits = self._step(
-            self._cache, torch.from_numpy(self._tokens).to(self.device),
-            torch.from_numpy(self._active).to(self.device))
+        tokens = torch.from_numpy(self._tokens).to(self.device)
+        active = torch.from_numpy(self._active).to(self.device)
+        if self.paged:
+            self._cache, logits = self._step(self._cache, self._bt_dev(),
+                                             tokens, active)
+        else:
+            self._cache, logits = self._step(self._cache, tokens, active)
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         self._steps += 1
         _rec_phase(PH_DECODE_ROUND, _mono_ns() - t0)
@@ -447,6 +939,57 @@ class ContinuousBatcher:
             self._tokens[slot] = tok
             sess.sent += 1
             pairs.append((sess, tok))
+            if sess.sent >= sess.max_new:
+                finished.append(sess)
+        return pairs, finished
+
+    def _spec_round(self):
+        """One speculative round: k draft steps (each proposal read back),
+        one width-(k+1) verify, then the accepted prefix plus the
+        target's own next token emitted per session.  An accepted row
+        holds the k/v a plain step would have written, and a rejection
+        rewinds ``len`` (the refuted rows sit beyond the mask until a
+        later write replaces them), so the tokens equal plain decoding's.
+        The draft's ``len`` is rewound in place to the accepted rows."""
+        k = self.spec_k
+        count_spec("spec_round")
+        t_round = _mono_ns()
+        active = self._active.copy()
+        act_t = torch.from_numpy(active).to(self.device)
+        cur = self._tokens.copy()
+        drafts = []
+        for _ in range(k):
+            self._d_cache, dl = self._d_step(
+                self._d_cache, torch.from_numpy(cur).to(self.device), act_t)
+            cur = torch.argmax(dl, dim=-1).to(torch.int32).cpu().numpy()
+            drafts.append(cur)
+        t_verify = _mono_ns()
+        _rec_phase(PH_SPEC_DRAFT, t_verify - t_round)
+        u = np.stack([self._tokens] + drafts, axis=1).astype(np.int32)
+        self._cache, out, m = self._verify(
+            self._cache, self._bt_dev(), torch.from_numpy(u).to(self.device),
+            act_t)
+        # after k draft steps the draft's len is L + k; keep L..L+m
+        self._d_cache["len"].sub_(torch.where(act_t, k - 1 - m, 0).to(
+            self._d_cache["len"].dtype))
+        out = out.cpu().numpy()
+        m = m.cpu().numpy()
+        now = _mono_ns()
+        _rec_phase(PH_SPEC_VERIFY, now - t_verify)
+        self._steps += 1
+        _rec_phase(PH_DECODE_ROUND, now - t_round)
+        pairs, finished = [], []
+        for slot, sess in list(self._sessions.items()):
+            if not active[slot]:
+                continue
+            acc = int(m[slot])
+            count_spec("spec_accept", acc)
+            count_spec("spec_reject", k - 1 - acc)
+            for j in range(min(acc + 1, sess.max_new - sess.sent)):
+                tok = int(out[slot, j])
+                self._tokens[slot] = tok
+                sess.sent += 1
+                pairs.append((sess, tok))
             if sess.sent >= sess.max_new:
                 finished.append(sess)
         return pairs, finished
@@ -463,13 +1006,17 @@ class ContinuousBatcher:
     def _evict(self, sess: _Session, reason: Optional[str]) -> None:
         self._sessions.pop(sess.slot, None)
         self._active[sess.slot] = False
+        if self.paged and sess.pages:
+            self._alloc.release_all(sess.pages)
+            sess.pages = []
+            self._bt[sess.slot] = 0
         if not sess.stream.closed:
             sess.stream.close(reason=reason or "finished")
         self._finalize_obs(sess, reason or "finished")
 
     def _next_admits(self):
         """Under the lock: the joins to admit this round (interactive
-        first, FIFO within a tier), or None when the thread should end."""
+        first, FIFO within a tier)."""
         if len(self._pending) > 1:
             self._pending = deque(sorted(self._pending,
                                          key=lambda s: s.tier_rank))
@@ -488,15 +1035,17 @@ class ContinuousBatcher:
             LOG.exception("continuous batcher crashed; closing sessions")
             with self._lock:
                 sessions = list(self._sessions.values()) \
-                    + list(self._pending)
+                    + list(self._pending) + list(self._parked)
                 self._sessions.clear()
                 self._pending.clear()
-                # free every slot, and drop the pool a failed step may have
-                # left half written; the next join rebuilds it.  The
-                # state is reset before anything that can fail again
+                self._parked = []
+                # free every slot, and drop the pools a failed step may
+                # have left half written, with the allocator planes whose
+                # refcounts describe them; the next join rebuilds them.
+                # The state is reset before anything that can fail again
                 self._active[:] = False
                 self._tokens[:] = 0
-                self._cache = None
+                self._drop_engine_state()
                 self._thread = None
             for sess in sessions:
                 try:
@@ -507,10 +1056,16 @@ class ContinuousBatcher:
 
     def _loop(self) -> None:
         while True:
+            if self.paged:
+                # parked sessions rejoin before new admits (they were
+                # serving first), and an aborted host tier closes them
+                self._service_parked()
             with self._lock:
                 admits = self._next_admits()
+                # parked sessions keep the batcher busy: they resume once
+                # another session releases pages
                 idle = not self._sessions and not admits \
-                    and not self._pending
+                    and not self._pending and not self._parked
                 if idle and self._stopping:
                     self._thread = None
                     return
@@ -523,7 +1078,8 @@ class ContinuousBatcher:
                         continue
                 if not self._wake.wait(self.idle_linger_s):
                     with self._lock:
-                        if not self._pending and not self._sessions:
+                        if not self._pending and not self._sessions \
+                                and not self._parked:
                             self._thread = None
                             return
                 continue
@@ -532,9 +1088,20 @@ class ContinuousBatcher:
             # the chunk slices before the step: a fill completed now
             # teacher-forces its first token on this round's step
             self._chunk_round()
+            if not self._sessions:
+                if self._parked:
+                    # only parked sessions, none of which could resume:
+                    # a timed poll, never a busy spin
+                    time.sleep(0.005)
+                continue
             if not self._active.any():
                 continue            # every occupied slot still filling
-            pairs, finished = self._plain_round()
+            if self.spec_k > 0 and self._spec_ok():
+                pairs, finished = self._spec_round()
+            else:
+                if self.spec_k > 0:
+                    count_spec("spec_fallback_plain")
+                pairs, finished = self._plain_round()
             t0 = _mono_ns()
             dead = self._emit(pairs)
             _rec_phase(PH_STREAM_EMIT, _mono_ns() - t0)
@@ -553,14 +1120,20 @@ class LMService(Service):
 
     ``params`` default to :func:`init_params` drawn from a generator
     seeded with ``seed`` on ``device``.  ``Generate`` requests run on the
-    device one at a time; the batcher (``decode_slots`` sessions,
-    ``prefill_chunk_tokens``, ``tiers``) is built on ``device`` at the
-    first ``Decode``."""
+    device one at a time; the batcher (``decode_slots`` sessions; paged
+    with ``paged``, ``page``, ``kv_pages``, ``kv_host_slots`` and
+    ``prefix``; ``prefill_chunk_tokens``; ``spec_decode_k`` with
+    ``draft_params``; ``tiers``) is built on ``device`` at the first
+    ``Decode``."""
 
     def __init__(self, cfg: Optional[LMConfig] = None, params=None,
                  max_new_cap: int = 128, quantize: bool = False,
                  device="cuda", seed: int = 0, decode_slots: int = 8,
+                 paged: bool = False, page: int = 16,
+                 kv_pages: Optional[int] = None, kv_host_slots: int = 0,
+                 prefix: bool = True,
                  prefill_chunk_tokens: Optional[int] = None,
+                 spec_decode_k: int = 0, draft_params=None,
                  tiers: Optional[TierRegistry] = None):
         self.device = resolve_device(device)
         self.cfg = cfg or LMConfig(vocab=256, dim=64, heads=4, depth=2,
@@ -575,7 +1148,14 @@ class LMService(Service):
         self._gen = make_scan_generator(self.cfg, self.params, self.device)
         self._device_lock = threading.Lock()
         self.decode_slots = int(decode_slots)
+        self.paged = bool(paged)
+        self.page = int(page)
+        self.kv_pages = kv_pages
+        self.kv_host_slots = int(kv_host_slots)
+        self.prefix = bool(prefix)
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.spec_decode_k = int(spec_decode_k)
+        self.draft_params = draft_params
         self.tiers = tiers
         self._batcher: Optional[ContinuousBatcher] = None
         self._batcher_lock = threading.Lock()
@@ -585,8 +1165,12 @@ class LMService(Service):
             if self._batcher is None:
                 self._batcher = ContinuousBatcher(
                     self.cfg, self.params, slots=self.decode_slots,
+                    paged=self.paged, page=self.page, pages=self.kv_pages,
+                    host_slots=self.kv_host_slots, prefix=self.prefix,
                     prefill_chunk_tokens=self.prefill_chunk_tokens,
-                    tiers=self.tiers, device=self.device)
+                    spec_decode_k=self.spec_decode_k,
+                    draft_params=self.draft_params, tiers=self.tiers,
+                    device=self.device)
             return self._batcher
 
     @staticmethod

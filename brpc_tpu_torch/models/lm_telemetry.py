@@ -7,9 +7,10 @@
   plain list increments, read racily but monotonically.
 - **Session timelines:** one :class:`SessionTimeline` per decode session
   (tier, tenant, prompt length, TTFT, the largest inter-token gap, close
-  reason), opened at join, fed per step by :func:`on_emit` and judged at
-  close against the tier's targets into the closed ``LM_SLO_VERDICTS``
-  counters.
+  reason; in paged mode its prefix outcome, peak pages, spills, resumes
+  and preemptions), opened at join, fed per step by :func:`on_emit` and
+  judged at close against the tier's targets into the closed
+  ``LM_SLO_VERDICTS`` counters.
 
 The log2 histograms, the flags, the /vars and /metrics exposure, the
 session rings and the windowed snapshot cache wait for a later slice of
@@ -101,7 +102,8 @@ class SessionTimeline:
     batcher thread, judged at close."""
 
     __slots__ = ("tier", "tenant", "prompt_len", "max_new", "join_ns",
-                 "first_ns", "last_ns", "tokens", "itl_max_ns",
+                 "first_ns", "last_ns", "tokens", "itl_max_ns", "prefix",
+                 "pages_peak", "spills", "resumes", "preempts",
                  "close_reason", "verdict")
 
     def __init__(self, tier: str, tenant: str, prompt_len: int,
@@ -115,6 +117,11 @@ class SessionTimeline:
         self.last_ns = 0
         self.tokens = 0
         self.itl_max_ns = 0
+        self.prefix = "fresh"     # refined at a paged admit
+        self.pages_peak = 0
+        self.spills = 0
+        self.resumes = 0
+        self.preempts = 0
         self.close_reason = None
         self.verdict = None
 
@@ -126,7 +133,9 @@ class SessionTimeline:
 
 def open_timeline(tier: str, tenant, prompt_len: int,
                   max_new: int) -> SessionTimeline:
-    """At join (not in the step loop): the session's record."""
+    """At join (not in the step loop): the session's record.  Its
+    ``prefix`` field starts ``fresh``; a paged admit refines it to
+    ``prefix_hit``, ``prefix_partial`` or ``prefix_miss``."""
     from .lm_service import SLO_TIERS
     if tier not in SLO_TIERS:
         raise ValueError(f"unregistered SLO tier: {tier}")

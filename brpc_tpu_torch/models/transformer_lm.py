@@ -3,7 +3,10 @@
 Counterpart of ``brpc_tpu/models/transformer_lm.py``: ``LMConfig``,
 ``init_params``, the rmsnorm/rope helpers, ``make_decode`` (prefill +
 single-token decode step over an f32 ``max_seq`` KV cache),
-``empty_cache`` and the generators for serving; ``make_forward`` and
+``empty_cache`` and the generators for serving; the continuous
+batcher's programs, contiguous (``make_batch_decode``) and paged
+(``make_paged_batch_decode``, ``make_paged_io``,
+``make_paged_spec_verify``); ``make_forward`` and
 ``make_train_step`` (plain SGD, gradient accumulation, remat) for
 training.  The arithmetic follows the JAX code: every weight product goes
 through ``qmatmul`` (bf16 in, f32 out, so autograd runs the backward
@@ -262,6 +265,15 @@ def _rope_span_vec(x, pos, head_dim: int):
     return _rope(x, torch.sin(ang), torch.cos(ang))
 
 
+def _masked_attention(q, kc, vc, live, hd: int):
+    """``softmax(q kᵀ / sqrt(hd))`` over the rows ``live`` admits, times
+    v: the decode step's einsum attention.  ``q`` is (b, w, heads, hd),
+    ``kc``/``vc`` (b, max_seq, heads, hd) and ``live`` (b, w, max_seq)."""
+    s_mat = torch.einsum("bqhd,bkhd->bhqk", q, kc) / (hd ** 0.5)
+    s_mat = torch.where(live[:, None], s_mat, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_mat, dim=-1), vc)
+
+
 def make_batch_decode(cfg: LMConfig, chunk: Optional[int] = None,
                       device="cuda"):
     """Continuous-batching decode over a fixed pool of session slots, each
@@ -302,11 +314,8 @@ def make_batch_decode(cfg: LMConfig, chunk: Optional[int] = None,
         k = _rope_at_vec(k.reshape(shp), pos, hd)
         kc[slots, pos] = k[:, 0]
         vc[slots, pos] = v.reshape(shp)[:, 0]
-        s_mat = torch.einsum("bqhd,bkhd->bhqk", q, kc) / (hd ** 0.5)
-        live = rows_all[None, :] <= pos[:, None]
-        s_mat = torch.where(live[:, None, None, :], s_mat, -1e30)
-        p = torch.softmax(s_mat, dim=-1)
-        att = torch.einsum("bhqk,bkhd->bqhd", p, vc)
+        live = rows_all[None, None, :] <= pos[:, None, None]
+        att = _masked_attention(q, kc, vc, live, hd)
         x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
         x = x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
         return x
@@ -338,11 +347,8 @@ def make_batch_decode(cfg: LMConfig, chunk: Optional[int] = None,
         k = _rope_span_vec(k.reshape(shp), pos, hd)
         kc[slot, rows] = k[0]
         vc[slot, rows] = v.reshape(shp)[0]
-        s_mat = torch.einsum("qhd,khd->hqk", q[0], kc[slot]) / (hd ** 0.5)
-        live = rows_all[None, :] <= pos[:, None]
-        s_mat = torch.where(live[None], s_mat, -1e30)
-        p = torch.softmax(s_mat, dim=-1)
-        att = torch.einsum("hqk,khd->qhd", p, vc[slot])
+        live = rows_all[None, None, :] <= pos[None, :, None]
+        att = _masked_attention(q, kc[slot][None], vc[slot][None], live, hd)
         x = x + qmatmul(att.reshape(1, cw, cfg.dim), bp["wo"])
         return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
 
@@ -370,6 +376,268 @@ def empty_batch_cache(cfg: LMConfig, slots: int, device="cuda"):
     cache["len"] = torch.zeros((slots,), dtype=torch.int32,
                                device=resolve_device(device))
     return cache
+
+
+def _rope_at_mat(x, pos, head_dim: int):
+    """Rotary embedding at per-(slot, offset) positions: ``x`` is (b, w,
+    heads, hd) and ``pos`` a (b, w) tensor (each slot's ``len +
+    arange(w)``), the speculative verify's rows."""
+    ang = (pos.to(torch.float32)[:, :, None, None]
+           * _freqs(head_dim, x.device)[None, None, None, :])
+    return _rope(x, torch.sin(ang), torch.cos(ang))
+
+
+def _check_page(cfg: LMConfig, page: int) -> None:
+    if cfg.max_seq % page:
+        raise ValueError(
+            f"page size {page} must divide max_seq {cfg.max_seq}")
+
+
+def make_paged_batch_decode(cfg: LMConfig, page: int, device="cuda"):
+    """Block-paged continuous batching: :func:`make_batch_decode` with
+    the per-slot stripes replaced by one shared page pool per layer and a
+    per-slot block table, so a session holds only the pages its context
+    needs and two sessions may alias a page (the prefix cache).
+
+    Logical page ``p`` is row block ``p`` of every layer's ``(num_pages,
+    page, heads, hd)`` k and v pools; page 0 is the garbage page, which
+    unallocated block-table entries and inactive slots write and the
+    live mask never admits.  Returns ``(prefill, step)``, with
+    ``step(params, cache, bt, token[b], active[b]) -> (cache, logits)``
+    where ``bt`` is the (slots, max_seq // page) block table, host state
+    passed per call.  The step writes each slot's new k/v row at
+    ``pool[bt[b, pos // page], pos % page]``, gathers ``pool[bt]`` into
+    the (b, max_seq, heads, hd) view the contiguous step attends over,
+    and runs the same masked attention: its tokens equal the contiguous
+    step's.  Pools and ``len`` are updated in place (the JAX package
+    donates them), and the step reads nothing back to the host."""
+    _check_ported(cfg)
+    _check_page(cfg, page)
+    dev = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    rows_all = torch.arange(cfg.max_seq, device=dev)
+
+    def decode_layer(bp, x, pk, pv, bt, pos, slots):
+        b = x.shape[0]
+        h = _rmsnorm(x, bp["ln1"])
+        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+        shp = (b, 1, cfg.heads, hd)
+        q = _rope_at_vec(q.reshape(shp), pos, hd)
+        k = _rope_at_vec(k.reshape(shp), pos, hd)
+        page_idx = bt[slots, pos // page]
+        row = pos % page
+        pk[page_idx, row] = k[:, 0]
+        pv[page_idx, row] = v.reshape(shp)[:, 0]
+        kc = pk[bt].reshape(b, cfg.max_seq, cfg.heads, hd)
+        vc = pv[bt].reshape(b, cfg.max_seq, cfg.heads, hd)
+        live = rows_all[None, None, :] <= pos[:, None, None]
+        att = _masked_attention(q, kc, vc, live, hd)
+        x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
+        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+
+    def step(params, cache, bt, token, active):
+        cache = dict(cache)
+        bt = torch.as_tensor(bt, device=dev).long()
+        token = torch.as_tensor(token, device=dev).long()
+        active = torch.as_tensor(active, device=dev).bool()
+        pos = torch.clamp(cache["len"], max=cfg.max_seq - 1).long()
+        slots = torch.arange(pos.shape[0], device=dev)
+        x = params["embed"][token][:, None, :]
+        for i in range(cfg.depth):
+            x = decode_layer(params[f"blk{i}"], x, cache[f"pk{i}"],
+                             cache[f"pv{i}"], bt, pos, slots)
+        cache["len"].add_(active.to(cache["len"].dtype))
+        return cache, qmatmul(x[:, 0], params["unembed"])
+
+    prefill, _ = make_decode(cfg, dev)
+    return prefill, step
+
+
+def empty_paged_cache(cfg: LMConfig, num_pages: int, slots: int, page: int,
+                      device="cuda"):
+    """A fresh page-pool cache for :func:`make_paged_batch_decode`: one
+    f32 ``(num_pages, page, heads, hd)`` k and v pool per layer (page 0
+    the garbage page) and the (slots,) int32 ``len`` tensor.  The block
+    table is host state (``kv.pages.PageAllocator`` decides it), passed
+    to each call."""
+    _check_ported(cfg)
+    _check_page(cfg, page)
+    dev = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    cache: Dict[str, Any] = {}
+    for i in range(cfg.depth):
+        for kind in ("pk", "pv"):
+            cache[f"{kind}{i}"] = torch.zeros(
+                (num_pages, page, cfg.heads, hd), dtype=torch.float32,
+                device=dev)
+    cache["len"] = torch.zeros((slots,), dtype=torch.int32, device=dev)
+    return cache
+
+
+def paged_page_bytes(cfg: LMConfig, page: int) -> int:
+    """Device bytes one logical page pins across every layer's k and v
+    pools (the allocator's accounting unit)."""
+    hd = cfg.dim // cfg.heads
+    return 2 * cfg.depth * page * cfg.heads * hd * 4       # float32
+
+
+def make_paged_io(cfg: LMConfig, page: int, chunk: Optional[int] = None,
+                  device="cuda"):
+    """Page-granular data motion of the paged cache, every call at a
+    fixed shape (padded to the block-table width with page-0 entries,
+    which only ever write garbage there).  Returns ``(gather, scatter,
+    insert)``, or with ``chunk`` set ``(gather, scatter, insert,
+    chunk_prefill)``:
+
+    - ``gather(cache, page_ids[pps]) -> (pps, 2*depth, page, heads, hd)``:
+      a session's pages as one block, k then v per layer on axis 1;
+    - ``scatter(cache, page_ids[pps], block) -> cache``: the inverse,
+      resume's landing;
+    - ``insert(cache, page_ids[pps], src) -> cache``: a batch-1
+      :func:`make_decode` prefill cache cut into the session's pages;
+    - ``chunk_prefill(params, cache, bt_row[pps], slot, start, n,
+      ids[chunk]) -> cache``: ``n`` context tokens of one slot at
+      ``start..start+n-1``, each row written at ``bt_row[pos // page]``,
+      then the slot's len set to ``start + n``.  Padding entries write
+      page 0; a partial prefix hit's catch-up starts at its page-aligned
+      ``covered``, so aliased pages are never written.  The slice attends
+      over the gathered view under the decode step's mask, so a
+      chunk-filled slot equals a whole-prompt insert.
+
+    Writes land in place in the cache's tensors."""
+    _check_ported(cfg)
+    _check_page(cfg, page)
+    dev = resolve_device(device)
+    pps = cfg.max_seq // page
+    hd = cfg.dim // cfg.heads
+
+    def gather(cache, page_ids):
+        ids = torch.as_tensor(page_ids, device=dev).long()
+        blocks = []
+        for i in range(cfg.depth):
+            blocks.append(cache[f"pk{i}"][ids])
+            blocks.append(cache[f"pv{i}"][ids])
+        return torch.stack(blocks, dim=1)
+
+    def scatter(cache, page_ids, block):
+        ids = torch.as_tensor(page_ids, device=dev).long()
+        block = torch.as_tensor(block, device=dev)
+        for i in range(cfg.depth):
+            cache[f"pk{i}"][ids] = block[:, 2 * i]
+            cache[f"pv{i}"][ids] = block[:, 2 * i + 1]
+        return cache
+
+    def insert(cache, page_ids, src):
+        ids = torch.as_tensor(page_ids, device=dev).long()
+        for i in range(cfg.depth):
+            for kind in ("k", "v"):
+                cache[f"p{kind}{i}"][ids] = src[f"{kind}{i}"][0].reshape(
+                    pps, page, cfg.heads, hd)
+        return cache
+
+    if chunk is None:
+        return gather, scatter, insert
+
+    cw = int(chunk)
+    offsets = torch.arange(cw, device=dev)
+    rows_all = torch.arange(cfg.max_seq, device=dev)
+
+    def chunk_layer(bp, x, pk, pv, bt_row, page_idx, row, pos):
+        h = _rmsnorm(x, bp["ln1"])
+        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+        shp = (1, cw, cfg.heads, hd)
+        q = _rope_span_vec(q.reshape(shp), pos, hd)
+        k = _rope_span_vec(k.reshape(shp), pos, hd)
+        pk[page_idx, row] = k[0]
+        pv[page_idx, row] = v.reshape(shp)[0]
+        kcs = pk[bt_row].reshape(1, cfg.max_seq, cfg.heads, hd)
+        vcs = pv[bt_row].reshape(1, cfg.max_seq, cfg.heads, hd)
+        live = rows_all[None, None, :] <= pos[None, :, None]
+        att = _masked_attention(q, kcs, vcs, live, hd)
+        x = x + qmatmul(att.reshape(1, cw, cfg.dim), bp["wo"])
+        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+
+    def chunk_prefill(params, cache, bt_row, slot: int, start: int, n: int,
+                      ids):
+        bt_row = torch.as_tensor(bt_row, device=dev).long()
+        ids = torch.as_tensor(ids, device=dev).long()
+        pos = int(start) + offsets
+        posc = torch.clamp(pos, max=cfg.max_seq - 1)
+        page_idx = torch.where(offsets < int(n), bt_row[posc // page], 0)
+        row = posc % page
+        x = params["embed"][ids][None]                 # (1, chunk, dim)
+        for i in range(cfg.depth):
+            x = chunk_layer(params[f"blk{i}"], x, cache[f"pk{i}"],
+                            cache[f"pv{i}"], bt_row, page_idx, row, pos)
+        cache["len"][int(slot)] = int(start) + int(n)
+        return cache
+
+    return gather, scatter, insert, chunk_prefill
+
+
+def make_paged_spec_verify(cfg: LMConfig, page: int, width: int,
+                           device="cuda"):
+    """Speculative decoding's target verification over the paged cache:
+    ``width = k + 1`` candidates ``[x0, d1..dk]`` per slot (its pending
+    token and the draft's proposals) written and attended in one call.
+
+    Returns ``verify(params, cache, bt, tokens[b, w], active[b]) ->
+    (cache, out[b, w], accepted[b])``: row ``j`` of ``out`` is the argmax
+    at position ``len + j`` given rows ``0..len+j``, the token a plain
+    step emits after ``tokens[:, :j+1]``; ``accepted`` is the length
+    ``m`` of the draft prefix the target confirms (``d_i == out_{i-1}``),
+    capped at ``k - 1`` so the draft's cache never runs ahead of a row it
+    wrote; active slots' ``len`` advances by ``m + 1``.  Refuted rows keep
+    their garbage beyond the new len, where a later write replaces them
+    before the mask admits them: rollback is a len rewind.  The caller
+    keeps ``len + width <= max_seq`` for every active slot."""
+    _check_ported(cfg)
+    _check_page(cfg, page)
+    w = int(width)
+    if w < 2:
+        raise ValueError("spec verify needs width >= 2 (k >= 1)")
+    dev = resolve_device(device)
+    hd = cfg.dim // cfg.heads
+    rows_all = torch.arange(cfg.max_seq, device=dev)
+    offsets = torch.arange(w, device=dev)
+
+    def verify_layer(bp, x, pk, pv, bt, pos):
+        b = x.shape[0]
+        h = _rmsnorm(x, bp["ln1"])
+        q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
+        shp = (b, w, cfg.heads, hd)
+        q = _rope_at_mat(q.reshape(shp), pos, hd)
+        k = _rope_at_mat(k.reshape(shp), pos, hd)
+        page_idx = bt[torch.arange(b, device=dev)[:, None], pos // page]
+        row = pos % page
+        pk[page_idx, row] = k
+        pv[page_idx, row] = v.reshape(shp)
+        kc = pk[bt].reshape(b, cfg.max_seq, cfg.heads, hd)
+        vc = pv[bt].reshape(b, cfg.max_seq, cfg.heads, hd)
+        live = rows_all[None, None, :] <= pos[:, :, None]
+        att = _masked_attention(q, kc, vc, live, hd)
+        x = x + qmatmul(att.reshape(b, w, cfg.dim), bp["wo"])
+        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+
+    def verify(params, cache, bt, tokens, active):
+        cache = dict(cache)
+        bt = torch.as_tensor(bt, device=dev).long()
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        active = torch.as_tensor(active, device=dev).bool()
+        pos = torch.clamp(cache["len"].long()[:, None] + offsets[None, :],
+                          max=cfg.max_seq - 1)                  # (b, w)
+        x = params["embed"][tokens]                             # (b, w, dim)
+        for i in range(cfg.depth):
+            x = verify_layer(params[f"blk{i}"], x, cache[f"pk{i}"],
+                             cache[f"pv{i}"], bt, pos)
+        out = torch.argmax(qmatmul(x, params["unembed"]), dim=-1)
+        match = (tokens[:, 1:] == out[:, :w - 1]).to(torch.int32)
+        m = torch.clamp(torch.cumprod(match, dim=1).sum(dim=1), max=w - 2)
+        cache["len"].add_(torch.where(active, m + 1, 0).to(
+            cache["len"].dtype))
+        return cache, out.to(torch.int32), m.to(torch.int32)
+
+    return verify
 
 
 def make_decode_loop(cfg: LMConfig, steps: int, device="cuda"):

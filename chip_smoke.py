@@ -44,6 +44,24 @@ result line) when a phase fails or CUDA is absent.  Phases:
    prefill (256-token slices, no flash launch); aggregate tok/s against
    the one-stream rate, TTFT, decode-round ms, and one profiled round at
    8 live slots (kernels per round, device busy share);
+   6c. serve ``LM.Decode`` through the paged batcher (16-token pages of
+   2 MiB at this width) on the same weights: (a) 16 streams through 16
+   slots on the KV bytes of 6b's 8 contiguous slots with a 512 MiB host
+   tier (tokens under the near-tie rule, aggregate tok/s, live round ms,
+   TTFT, peak pages, spills and resumes, ``flash_fwd`` once per layer
+   per whole-prompt join); the paged step against the contiguous step
+   on 6b's eight filled contexts (bit-equal logits and k/v over two
+   steps, with two slots moved through the host tier to spare pages in
+   between); one profiled paged round at 6b's eight positions (the
+   block-table gather's share); (b) prefix sharing: four
+   1073-token prompts on one 1024-token head, then the first again (one
+   prefill, three partial hits caught up by chunk slices, one full hit);
+   (c) four 1000-token sessions on 256 usable pages with a host tier
+   (spills, resumes, their ms); (d) speculative decoding with k = 3 and
+   the target as its own draft against plain paged decoding on the same
+   prompts (accept rate, tokens per round, round ms, ``flash_fwd`` twice
+   per layer per join: target and draft prefill) and one profiled spec
+   round;
 8. train that LM at full width (``make_train_step``, remat, gradient
    accumulation): one step's loss and gradient through the kernels
    against dense attention, then a falling finite loss over 4 steps with
@@ -85,16 +103,19 @@ from brpc_tpu_torch.butil.status import Errno  # noqa: E402
 from brpc_tpu_torch.client import Channel, Controller  # noqa: E402
 from brpc_tpu_torch.ici.endpoint import live_endpoints  # noqa: E402
 from brpc_tpu_torch.ici.fabric import in_process_fabric  # noqa: E402
+from brpc_tpu_torch.kv.pages import (  # noqa: E402
+    HostPagePool, prefix_event_counters)
 from brpc_tpu_torch.models import lm_telemetry  # noqa: E402
 from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig  # noqa
-from brpc_tpu_torch.models.lm_service import (LMService,  # noqa: E402
-                                              pack_generate_request,
-                                              sched_counters,
-                                              unpack_generated, unpack_token)
+from brpc_tpu_torch.models.lm_service import (  # noqa: E402
+    LMService, pack_generate_request, sched_counters, spec_counters,
+    unpack_generated, unpack_token)
 from brpc_tpu_torch.models.ps_service import PSService, pack_ids  # noqa
 from brpc_tpu_torch.models.transformer_lm import (  # noqa: E402
-    LMConfig, empty_batch_cache, init_params, make_batch_decode, make_decode,
-    make_train_step, make_value_and_grad, tree_leaves)
+    LMConfig, empty_batch_cache, empty_paged_cache, init_params,
+    make_batch_decode, make_decode, make_paged_batch_decode, make_paged_io,
+    make_paged_spec_verify, make_train_step, make_value_and_grad,
+    paged_page_bytes, tree_leaves)
 from brpc_tpu_torch.ops import cuda_build  # noqa: E402
 from brpc_tpu_torch.ops.device_ops import (  # noqa: E402
     CHECKSUM, checksum_u32, checksum_u32_plain, checksum_words_plain,
@@ -136,10 +157,32 @@ DECODE_STAGGER_S = 0.1
 DECODE_TIMEOUT_S = 300.0
 CHUNK_TOKENS = 256
 CHUNK_PROMPT_LENS = (700, 1300)
+# LM.Decode through the paged batcher (phase 6c).  A 16-token page holds
+# 2 * 8 layers * 16 * 2048 f32 = 2 MiB of k/v at SLICE_CFG, 128 per slot.
+PAGE = 16
+# (a) 16 slots on the pool bytes of 6b's 8 contiguous slots (+1: page 0,
+# the garbage page), a 512 MiB host tier; 6b's eight prompts and eight
+# more drawn the same way from seed 7
+PAGED_SLOTS = 16
+PAGED_POOL = DECODE_SLOTS * (2048 // PAGE) + 1
+HOST_SLOTS = 256
+# (b) four prompts of 1073 tokens sharing their first 1024: 67-page
+# contexts, 64 pages shared
+PREFIX_HEAD, PREFIX_PROMPT = 1024, 1073
+# (c) four 1000-token sessions need 4 x 67 pages, the pool has 256 usable
+SPILL_SLOTS, SPILL_POOL, SPILL_PROMPT = 4, 2 * (2048 // PAGE) + 1, 1000
+# (d) k = 3 proposals a round from the target itself as its draft
+SPEC_K, SPEC_SLOTS, SPEC_PROMPT_LENS = 3, 4, (256, 1024)
+# the paged step against the contiguous step: slots moved through the host
+# tier to spare pages between the two compared steps
+EXACT_MOVED = 2
 TIMING_REPS = 20
 # profiles of one echo until the trace holds both checksum kernels (the
 # trace has dropped the first one's events; the launch counter has not)
 ECHO_PROFILE_ATTEMPTS = 3
+# short spin kernels that open each profiler trace (trace_preroll): a
+# trace's first device records can go missing
+PREROLL_SPINS = 64
 # calls per CUDA-event pair when timing the forward kernel and SDPA: one
 # call per pair let the host's launch cost (the wrapper, ~20-40 us) into a
 # ~0.2 ms prefill-shape time, by as much as the host was slow (0.186 and
@@ -171,7 +214,9 @@ CHECK_SHAPES.append(TRAIN_SHAPE)
 # and every shape the serving paths give it: Generate prefills each
 # request's prompt as it is; Decode prefills a join's context (the prompt
 # less its last token, 255-1499 here) padded to a power-of-two bucket,
-# 256-2048 (lm_service.bucketed_prefill)
+# 256-2048 (lm_service.bucketed_prefill); the paged Decode of phase 6c,
+# target and draft alike, prefills its contexts (255-1499) in the same
+# buckets
 for _b, _s, _ in REQUESTS:
     CHECK_SHAPES.append((_b, _s, 16, 128))
 for _k in range((DECODE_PROMPT_LENS[0] - 2).bit_length(),
@@ -800,6 +845,18 @@ def ps_echoes(ch: Channel, cs: CountedChecksum) -> dict:
     return res
 
 
+def trace_preroll() -> None:
+    """Open a profiler trace with PREROLL_SPINS short spin kernels and a
+    pause.  The first device records of a trace can be missing from it
+    (after the earlier phases' profiles, once the whole first checksum of
+    an echo and the second's memset); the spins take that loss, and the
+    callers leave spin kernels out of the events."""
+    for _ in range(PREROLL_SPINS):
+        torch.cuda._sleep(1_000)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
 def phase_echo_profile(ch: Channel, x: torch.Tensor,
                        cs: CountedChecksum) -> dict:
     """One 1 MiB echo under torch.profiler: the checksum kernel twice,
@@ -810,30 +867,27 @@ def phase_echo_profile(ch: Channel, x: torch.Tensor,
         launches0 = CHECKSUM.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            # device work launched right after the trace starts can be
-            # missing from it (one memset of the first checksum was, in
-            # every run so far, and twice the whole first checksum): a
-            # spin kernel and a short pause first, left out of the events
-            torch.cuda._sleep(100_000)
-            torch.cuda.synchronize()
-            time.sleep(0.05)
+            trace_preroll()
             t0 = time.perf_counter()
             echo(ch, x, cs)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "spin_kernel" not in e.name]
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [e for e in device if "spin_kernel" not in e.name]
+        spins = len(device) - len(events)
         kern = [e for e in events if "checksum_u32_kernel" in e.name]
         launched = CHECKSUM.launches - launches0
         if len(kern) == launched or attempt == ECHO_PROFILE_ATTEMPTS:
             break
         # the counter saw the launches the trace lost: profile again
         log(f"  profile attempt {attempt}: the trace shows {len(kern)} of "
-            f"the {launched} checksum launches; profiling again")
+            f"the {launched} checksum launches and {spins} of "
+            f"{PREROLL_SPINS} pre-roll spins; profiling again")
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     log(f"  profile of one 1 MiB echo (attempt {attempt} of "
-        f"{ECHO_PROFILE_ATTEMPTS}): {len(events)} CUDA events, "
+        f"{ECHO_PROFILE_ATTEMPTS}; {spins} of {PREROLL_SPINS} pre-roll "
+        f"spins in the trace): {len(events)} CUDA events, "
         f"{len(kern)} of checksum_u32_kernel "
         f"({sum(e.time_range.elapsed_us() for e in kern):.1f} us); device "
         f"busy {busy_us:.1f} us of {wall_us:.1f} us wall "
@@ -844,7 +898,7 @@ def phase_echo_profile(ch: Channel, x: torch.Tensor,
         raise AssertionError(f"one echo's trace shows {len(kern)} checksum "
                              f"kernels, want 2")
     return dict(echo_profile_busy_us=busy_us, echo_profile_wall_us=wall_us,
-                echo_profile_attempts=attempt)
+                echo_profile_attempts=attempt, echo_profile_spins=spins)
 
 
 def reset_launches() -> None:
@@ -1081,13 +1135,20 @@ def check_tokens(svc: LMService, cfg: LMConfig, clients) -> tuple:
     return compared, total, ties
 
 
+def decode_prompts(cfg: LMConfig, seed: int, n: int,
+                   lens_range=DECODE_PROMPT_LENS) -> list:
+    """``n`` prompts of lengths drawn from ``lens_range`` and tokens drawn
+    after them, from one seed."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lens_range[0], lens_range[1] + 1, n)
+    return [rng.integers(0, cfg.vocab, k, dtype=np.int32) for k in lens]
+
+
 def phase_decode(ep, svc: LMService, chunked: LMService, cfg: LMConfig,
                  one_stream_tok_s: float) -> dict:
     """LM.Decode through the continuous batcher (phase 6b)."""
-    rng = np.random.default_rng(5)
-    lens = rng.integers(DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1] + 1,
-                        DECODE_SLOTS)
-    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in lens]
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+    lens = np.asarray([len(p) for p in prompts])
     batcher = svc.batcher()
     rounds0 = lm_telemetry.phase_counters()["decode_round"]
     round_ns0 = lm_telemetry.phase_total_ns()["decode_round"]
@@ -1182,19 +1243,30 @@ def phase_decode_profile(svc: LMService, cfg: LMConfig) -> dict:
                              torch.from_numpy(active).cuda())
         return torch.argmax(logits, dim=-1).cpu()
 
+    prof = profile_round(f"one decode round at {DECODE_SLOTS} live slots",
+                         round_, top=6)
+    del cache
+    return dict(round_kernels=prof["kernels"], round_busy_ms=prof["busy_ms"],
+                round_wall_ms=prof["wall_ms"],
+                round_busy_share=prof["busy_share"])
+
+
+def profile_round(label: str, round_, top: int = 8) -> dict:
+    """One call of ``round_`` under torch.profiler after 3 warm-ups: CUDA
+    events, device busy share, the top kernels, and the share of the
+    gather and indexed-write kernels (the block-table gathers of the
+    paged pools, the k/v row writes)."""
+    from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         for _ in range(3):
             round_()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(100_000)      # see phase_echo_profile
-            torch.cuda.synchronize()
-            time.sleep(0.05)
+            trace_preroll()
             t0 = time.perf_counter()
             round_()
             wall_us = (time.perf_counter() - t0) * 1e6
-    del cache
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and "spin_kernel" not in e.name]
@@ -1203,17 +1275,399 @@ def phase_decode_profile(svc: LMService, cfg: LMConfig) -> dict:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_us = sum(us for _, us in by_name.values())
-    log(f"  profile of one decode round at {DECODE_SLOTS} live slots: "
-        f"{len(events)} CUDA events; device busy {busy_us / 1e3:.3f} ms of "
-        f"{wall_us / 1e3:.3f} ms wall ({busy_us / wall_us:.4f})")
-    for kname, (n, us) in sorted(by_name.items(),
-                                 key=lambda kv: -kv[1][1])[:6]:
+    gather_us = sum(us for name, (_, us) in by_name.items()
+                    if "gather" in name.lower())
+    index_us = gather_us + sum(us for name, (_, us) in by_name.items()
+                               if "index" in name.lower())
+    log(f"  profile of {label}: {len(events)} CUDA events; device busy "
+        f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+        f"({busy_us / wall_us:.4f}); gathers {gather_us / 1e3:.3f} ms "
+        f"({gather_us / max(busy_us, 1e-9):.4f} of busy), with the indexed "
+        f"writes {index_us / 1e3:.3f} ms "
+        f"({index_us / max(busy_us, 1e-9):.4f})")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    for kname, (n, us) in ranked:
         log(f"    {us / 1e3:8.3f} ms  {n:4d}x  {kname[:90]}")
     if not events:
-        raise AssertionError("the profiled decode round shows no device work")
-    return dict(round_kernels=len(events), round_busy_ms=busy_us / 1e3,
-                round_wall_ms=wall_us / 1e3, round_busy_share=busy_us /
-                wall_us)
+        raise AssertionError(f"the profiled {label} shows no device work")
+    return dict(kernels=len(events), busy_ms=busy_us / 1e3,
+                wall_ms=wall_us / 1e3, busy_share=busy_us / wall_us,
+                gather_ms=gather_us / 1e3, gather_share=gather_us / busy_us,
+                index_ms=index_us / 1e3, index_share=index_us / busy_us,
+                top_kernels=[(k[:90], n, us / 1e3) for k, (n, us) in ranked])
+
+
+def phase_snapshot() -> tuple:
+    return lm_telemetry.phase_counters(), lm_telemetry.phase_total_ns()
+
+
+def phase_deltas(snap: tuple) -> dict:
+    """Per step phase since ``snap``: (samples, total ms, ms each)."""
+    counts, totals = phase_snapshot()
+    out = {}
+    for name in counts:
+        n = counts[name] - snap[0][name]
+        ms = (totals[name] - snap[1][name]) / 1e6
+        out[name] = (n, ms, ms / n if n else 0.0)
+    return out
+
+
+def run_counted(ep, service: str, prompts, stagger_s: float, batcher):
+    """``run_decode_sessions`` with the forward kernel's count set to 0
+    just before and read just after: (clients, wall s, most live,
+    launches)."""
+    FLASH_FWD.launches = 0
+    clients, wall_s, most_live = run_decode_sessions(
+        ep, service, prompts, stagger_s, batcher)
+    return clients, wall_s, most_live, FLASH_FWD.launches
+
+
+def hold_tokens(label: str, svc: LMService, cfg: LMConfig, clients) -> dict:
+    compared, total, ties = check_tokens(svc, cfg, clients)
+    log(f"  {label} tokens vs the solo generator: {compared} of {total} "
+        f"compared equal, {ties} sessions stopped at a near-tie")
+    return dict(compared=compared, tokens=total, near_ties=ties)
+
+
+def phase_paged(ep, svc: LMService, paged: dict, cfg: LMConfig) -> dict:
+    """LM.Decode through the paged batcher (phase 6c): its four
+    sub-phases, each on a service of its own, shut down after it.  Returns
+    their results and the forward kernel's launches over them."""
+    res = {"paged_many": phase_paged_many(ep, svc, paged["LMPaged"], cfg),
+           "exact": phase_paged_exact(cfg, svc.params),
+           "prefix": phase_paged_prefix(ep, svc, paged["LMPrefix"], cfg),
+           "spill": phase_paged_spill(ep, svc, paged["LMSpill"], cfg)}
+    res["spec"] = phase_spec(ep, svc, paged["LMSpec"], paged["LMSpecPlain"],
+                             cfg)
+    res["launches_paged"] = sum(res[k]["launches"] for k in (
+        "paged_many", "prefix", "spill")) + res["spec"]["plain_launches"]
+    res["launches_spec"] = res["spec"]["launches"]
+    return res
+
+
+def phase_paged_many(ep, svc: LMService, paged: LMService,
+                     cfg: LMConfig) -> dict:
+    """(a) 16 streams through 16 slots on the pool bytes of 8 contiguous
+    slots, a host tier taking the overflow."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS) \
+        + decode_prompts(cfg, 7, DECODE_SLOTS)
+    batcher = paged.batcher()
+    snap = phase_snapshot()
+    clients, wall_s, most_live, launches = run_counted(
+        ep, "LMPaged", prompts, DECODE_STAGGER_S, batcher)
+    d = phase_deltas(snap)
+    stats = batcher.kv_stats()
+    joins = batcher.prefills_run
+    tokens = sum(len(c.tokens) for c in clients)
+    ttfts = sorted(c.ttft_s * 1e3 for c in clients)
+    rounds, _, round_ms = d["decode_round"]
+    log(f"  (a) {len(clients)} sessions through {PAGED_SLOTS} slots on "
+        f"{PAGED_POOL} pages of {PAGE} tokens ({PAGED_POOL - 1} usable = "
+        f"the bytes of {DECODE_SLOTS} contiguous slots) and {HOST_SLOTS} "
+        f"host slots: all closed 'finished', up to {most_live} live; "
+        f"{tokens} tokens in {wall_s:.3f} s = {tokens / wall_s:.1f} tok/s "
+        f"aggregate; {rounds} rounds, {round_ms:.3f} ms each, "
+        f"{tokens / rounds:.2f} tokens per round")
+    log(f"  TTFT median {statistics.median(ttfts):.1f} ms, max "
+        f"{ttfts[-1]:.1f} ms; peak pages in use "
+        f"{stats['alloc']['peak_in_use']} of {PAGED_POOL - 1}; spills "
+        f"{batcher.spills}, resumes {batcher.resumes}; flash_fwd launches "
+        f"{launches} (depth {cfg.depth} x {joins} whole-prompt joins = "
+        f"{cfg.depth * joins})")
+    if launches != cfg.depth * joins or joins != len(clients):
+        raise AssertionError("the paged Decode path did not run the kernel "
+                             "once per layer per join")
+    if batcher.resumes != batcher.spills:
+        raise AssertionError("a spilled session never resumed")
+    res = dict(sessions=len(clients), tokens=tokens, wall_s=wall_s,
+               aggregate_tok_s=tokens / wall_s, most_live=most_live,
+               rounds=rounds, round_ms=round_ms, ttft_ms=ttfts,
+               ttft_median_ms=statistics.median(ttfts),
+               ttft_max_ms=ttfts[-1],
+               pages_peak=stats["alloc"]["peak_in_use"],
+               spills=batcher.spills, resumes=batcher.resumes,
+               host_spill_ms=d["host_spill"][2],
+               host_resume_ms=d["host_resume"][2], launches=launches,
+               joins=joins)
+    res.update(hold_tokens("(a)", svc, cfg, clients))
+    if not batcher.shutdown():
+        raise AssertionError("the paged batcher did not stop")
+    res["round_profile"] = profile_paged_round(cfg, svc.params)
+    return res
+
+
+def striped_pool(cfg: LMConfig, lens, spare: int = 0) -> tuple:
+    """A full-width page pool whose slot ``s`` holds the whole stripe of
+    pages ``1 + s * pps ...`` at position ``lens[s]``, with ``spare``
+    stripes of free pages after them: the (cache, host block table) a
+    round of the paged batcher meets at those positions."""
+    pps = cfg.max_seq // PAGE
+    slots = len(lens)
+    cache = empty_paged_cache(cfg, 1 + (slots + spare) * pps, slots, PAGE,
+                              device="cuda")
+    cache["len"].copy_(torch.from_numpy(np.asarray(lens, np.int32)))
+    bt = (1 + np.arange(slots * pps, dtype=np.int32)).reshape(slots, pps)
+    return cache, bt
+
+
+def profile_paged_rounds(cfg: LMConfig, params, lens, spec: bool) -> dict:
+    """One round of the paged batcher's programs at ``lens`` under the
+    profiler, as ``_plain_round`` or ``_spec_round`` runs them: the block
+    table and tokens copied up, then one paged step and its argmax read
+    back; or k draft steps on the contiguous draft pool (each proposal
+    read back), one width-(k+1) verify, the draft's len rewound."""
+    n = len(lens)
+    _, step = make_paged_batch_decode(cfg, PAGE, device="cuda")
+    cache, bt = striped_pool(cfg, lens)
+    tokens = np.arange(n, dtype=np.int32)
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+
+    def plain_round():
+        nonlocal cache
+        cache, logits = step(params, cache, torch.from_numpy(bt).cuda(),
+                             torch.from_numpy(tokens).cuda(), active)
+        return torch.argmax(logits, dim=-1).cpu()
+
+    if not spec:
+        prof = profile_round(f"one paged round at {n} live slots",
+                             plain_round)
+        del cache
+        return prof
+    _, d_step = make_batch_decode(cfg, device="cuda")
+    verify = make_paged_spec_verify(cfg, PAGE, SPEC_K + 1, device="cuda")
+    d_cache = empty_batch_cache(cfg, n, device="cuda")
+    d_cache["len"].copy_(cache["len"])
+
+    def spec_round():
+        nonlocal cache, d_cache
+        cur, drafts = tokens, []
+        for _ in range(SPEC_K):
+            d_cache, dl = d_step(params, d_cache,
+                                 torch.from_numpy(cur).cuda(), active)
+            cur = torch.argmax(dl, dim=-1).to(torch.int32).cpu().numpy()
+            drafts.append(cur)
+        u = np.stack([tokens] + drafts, axis=1).astype(np.int32)
+        cache, out, m = verify(params, cache, torch.from_numpy(bt).cuda(),
+                               torch.from_numpy(u).cuda(), active)
+        d_cache["len"].sub_((SPEC_K - 1 - m).to(d_cache["len"].dtype))
+        return out.cpu(), m.cpu()
+
+    prof = profile_round(f"one spec round at {n} live slots", spec_round)
+    del cache, d_cache
+    return prof
+
+
+def profile_paged_round(cfg: LMConfig, params) -> dict:
+    """The paged programs' plain round at 6b's eight profiled positions,
+    for its device time beside 6b's contiguous round."""
+    lens = np.linspace(DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1],
+                       DECODE_SLOTS).astype(np.int32) + DECODE_MAX_NEW
+    return profile_paged_rounds(cfg, params, lens, spec=False)
+
+
+def phase_paged_exact(cfg: LMConfig, params) -> dict:
+    """The paged step against the contiguous step on one filled context at
+    full width.  6b's eight prompts (seed 5) are prefilled once each, and
+    every cache goes both into a contiguous slot and into that slot's
+    pages (``insert``).  Two steps of each program with the same tokens
+    must give bit-equal logits and leave bit-equal k/v.  Between the two
+    steps, ``EXACT_MOVED`` slots move as spill and resume move a session
+    (``gather``, one host-tier slot per page, ``fetch``, one ``scatter``
+    into spare pages, the block table pointed there); their old pages are
+    then filled with NaN.  So where a 6c session's token differs from the
+    solo run, the page motion is not the cause."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+    ctx = [p[:-1] for p in prompts]
+    pps = cfg.max_seq // PAGE
+    prefill, c_step = make_batch_decode(cfg, device="cuda")
+    _, p_step = make_paged_batch_decode(cfg, PAGE, device="cuda")
+    gather, scatter, insert = make_paged_io(cfg, PAGE, device="cuda")
+    ccache = empty_batch_cache(cfg, DECODE_SLOTS, device="cuda")
+    pcache, bt = striped_pool(cfg, [len(c) for c in ctx], spare=EXACT_MOVED)
+    host = HostPagePool(EXACT_MOVED * pps, paged_page_bytes(cfg, PAGE))
+    tokens = torch.tensor([int(p[-1]) for p in prompts], device="cuda")
+    active = torch.ones(DECODE_SLOTS, dtype=torch.bool, device="cuda")
+    errs = []
+    with torch.inference_mode():
+        for slot, c in enumerate(ctx):
+            src, _ = prefill(params, torch.from_numpy(
+                c[None].astype(np.int64)).cuda())
+            for i in range(cfg.depth):
+                ccache[f"k{i}"][slot] = src[f"k{i}"][0]
+                ccache[f"v{i}"][slot] = src[f"v{i}"][0]
+            insert(pcache, bt[slot], src)
+        ccache["len"].copy_(pcache["len"])
+        for n_step in range(2):
+            ccache, c_logits = c_step(params, ccache, tokens, active)
+            bt_dev = torch.from_numpy(bt).cuda().long()
+            pcache, p_logits = p_step(params, pcache, bt_dev, tokens, active)
+            kv_equal = all(torch.equal(
+                pcache[f"p{kind}{i}"][bt_dev].reshape(
+                    ccache[f"{kind}{i}"].shape), ccache[f"{kind}{i}"])
+                for i in range(cfg.depth) for kind in ("k", "v"))
+            errs.append(max_err(p_logits, c_logits))
+            log(f"  paged vs contiguous step {n_step} at {DECODE_SLOTS} "
+                f"slots: logits max |diff| {errs[-1]:.3e}, bit-equal "
+                f"{torch.equal(p_logits, c_logits)}; k/v bit-equal "
+                f"{kv_equal}; len equal "
+                f"{torch.equal(pcache['len'], ccache['len'])}")
+            if not (torch.equal(p_logits, c_logits) and kv_equal
+                    and torch.equal(pcache["len"], ccache["len"])):
+                raise AssertionError("the paged step differs from the "
+                                     "contiguous step on the same context")
+            tokens = torch.argmax(c_logits, dim=-1)
+            if n_step:
+                break
+            for slot in range(EXACT_MOVED):
+                old = torch.from_numpy(bt[slot]).cuda().long()
+                blk = gather(pcache, old)
+                handles = [host.stage(blk[j]) for j in range(pps)]
+                if any(h is None for h in handles):
+                    raise AssertionError("the host tier ran out of slots")
+                back = torch.empty_like(blk)
+                for j, h in enumerate(handles):
+                    back[j].view(-1).view(torch.uint8).copy_(host.fetch(h))
+                    host.free(h)
+                new = 1 + (DECODE_SLOTS + slot) * pps + np.arange(
+                    pps, dtype=np.int32)
+                scatter(pcache, torch.from_numpy(new).cuda().long(), back)
+                for i in range(cfg.depth):
+                    pcache[f"pk{i}"][old] = float("nan")
+                    pcache[f"pv{i}"][old] = float("nan")
+                bt[slot] = new
+    staged = host.stats()["staged"]
+    del ccache, pcache, host
+    return dict(logits_max_abs_diff=errs, moved_slots=EXACT_MOVED,
+                pages_staged=staged)
+
+
+def phase_paged_prefix(ep, svc: LMService, paged: LMService,
+                       cfg: LMConfig) -> dict:
+    """(b) prefix sharing: a miss, three partial hits, one full hit."""
+    rng = np.random.default_rng(11)
+    head = rng.integers(0, cfg.vocab, PREFIX_HEAD, dtype=np.int32)
+    prompts = [np.concatenate([head, rng.integers(
+        0, cfg.vocab, PREFIX_PROMPT - PREFIX_HEAD, dtype=np.int32)])
+        for _ in range(4)]
+    batcher = paged.batcher()
+    ev0 = prefix_event_counters()
+    catchup0 = sched_counters()["sched_catchup_slice"]
+    FLASH_FWD.launches = 0
+    clients = []
+    for group, stagger in ((prompts[:1], 0.0), (prompts[1:], DECODE_STAGGER_S),
+                           (prompts[:1], 0.0)):
+        got, _, _ = run_decode_sessions(ep, "LMPrefix", group, stagger,
+                                        batcher)
+        clients += got
+    launches = FLASH_FWD.launches
+    ev = {k: v - ev0[k] for k, v in prefix_event_counters().items()}
+    catchup = sched_counters()["sched_catchup_slice"] - catchup0
+    ttfts = [c.ttft_s * 1e3 for c in clients]
+    log(f"  (b) prompts of {PREFIX_PROMPT} tokens on one {PREFIX_HEAD}-token "
+        f"head: prefix events {ev}, {catchup} catch-up slices, prefills "
+        f"{batcher.prefills_run}, flash_fwd launches {launches} (expected "
+        f"{cfg.depth}); TTFT ms miss {ttfts[0]:.1f}, partial hits "
+        f"{', '.join(f'{t:.1f}' for t in ttfts[1:4])}, full hit "
+        f"{ttfts[4]:.1f}")
+    if (ev["prefix_miss"], ev["prefix_partial_hit"], ev["prefix_hit"]) \
+            != (1, 3, 1) or launches != cfg.depth \
+            or batcher.prefills_run != 1 or catchup < 3:
+        raise AssertionError("the prefix cache did not alias as expected")
+    res = dict(events=ev, catchup_slices=catchup, launches=launches,
+               ttft_ms=ttfts)
+    res.update(hold_tokens("(b)", svc, cfg, clients))
+    if not batcher.shutdown():
+        raise AssertionError("the paged batcher did not stop")
+    return res
+
+
+def phase_paged_spill(ep, svc: LMService, paged: LMService,
+                      cfg: LMConfig) -> dict:
+    """(c) four sessions that need more pages than the pool holds: spills
+    to the host tier and resumes."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, SPILL_PROMPT, dtype=np.int32)
+               for _ in range(SPILL_SLOTS)]
+    batcher = paged.batcher()
+    snap = phase_snapshot()
+    clients, wall_s, _, launches = run_counted(
+        ep, "LMSpill", prompts, DECODE_STAGGER_S, batcher)
+    d = phase_deltas(snap)
+    joins = batcher.prefills_run
+    log(f"  (c) {SPILL_SLOTS} sessions of {SPILL_PROMPT} tokens on "
+        f"{SPILL_POOL - 1} usable pages with {HOST_SLOTS} host slots: all "
+        f"'finished' in {wall_s:.3f} s; spills {batcher.spills}, resumes "
+        f"{batcher.resumes}; host_spill {d['host_spill'][2]:.3f} ms and "
+        f"host_resume {d['host_resume'][2]:.3f} ms each "
+        f"({d['host_spill'][0]} / {d['host_resume'][0]} samples); "
+        f"flash_fwd launches {launches} (expected {cfg.depth * joins})")
+    if batcher.spills < 1 or batcher.resumes != batcher.spills \
+            or launches != cfg.depth * joins or joins != SPILL_SLOTS:
+        raise AssertionError("the sessions did not spill and resume")
+    res = dict(wall_s=wall_s, spills=batcher.spills,
+               resumes=batcher.resumes, host_spill_ms=d["host_spill"][2],
+               host_resume_ms=d["host_resume"][2], launches=launches)
+    res.update(hold_tokens("(c)", svc, cfg, clients))
+    if not batcher.shutdown():
+        raise AssertionError("the paged batcher did not stop")
+    return res
+
+
+def phase_spec(ep, svc: LMService, spec: LMService, plain: LMService,
+               cfg: LMConfig) -> dict:
+    """(d) speculative decoding against plain paged decoding on the same
+    prompts, then one profiled spec round and one plain round at the
+    same positions."""
+    prompts = decode_prompts(cfg, 8, SPEC_SLOTS, SPEC_PROMPT_LENS)
+    res = {}
+    for name, service in (("plain", plain), ("spec", spec)):
+        batcher = service.batcher()
+        snap = phase_snapshot()
+        spec0 = spec_counters()
+        clients, wall_s, _, launches = run_counted(
+            ep, "LMSpecPlain" if name == "plain" else "LMSpec", prompts,
+            DECODE_STAGGER_S, batcher)
+        d = phase_deltas(snap)
+        sp = {k: v - spec0[k] for k, v in spec_counters().items()}
+        joins = batcher.prefills_run
+        tokens = sum(len(c.tokens) for c in clients)
+        rounds, _, round_ms = d["decode_round"]
+        want = cfg.depth * joins * (2 if name == "spec" else 1)
+        log(f"  (d) {name}: {tokens} tokens in {wall_s:.3f} s = "
+            f"{tokens / wall_s:.1f} tok/s; {rounds} rounds, {round_ms:.3f} "
+            f"ms each, {tokens / rounds:.2f} tokens per round; flash_fwd "
+            f"launches {launches} (expected {want})")
+        if launches != want or joins != len(clients):
+            raise AssertionError(f"the {name} path did not run the kernel "
+                                 f"as expected")
+        row = dict(tokens=tokens, wall_s=wall_s, tok_s=tokens / wall_s,
+                   rounds=rounds, round_ms=round_ms, launches=launches)
+        if name == "spec":
+            proposed = sp["spec_accept"] + sp["spec_reject"]
+            row.update(spec_rounds=sp["spec_round"],
+                       fallbacks=sp["spec_fallback_plain"],
+                       accept_rate=sp["spec_accept"] / max(proposed, 1),
+                       draft_ms=d["spec_draft"][2],
+                       verify_ms=d["spec_verify"][2])
+            log(f"  spec rounds {sp['spec_round']}, fallbacks "
+                f"{sp['spec_fallback_plain']}, accepted {sp['spec_accept']} "
+                f"of {proposed} proposals ({row['accept_rate']:.3f}); draft "
+                f"{row['draft_ms']:.3f} ms and verify {row['verify_ms']:.3f} "
+                f"ms per round")
+            if sp["spec_round"] < 1:
+                raise AssertionError("no spec round ran")
+        row.update(hold_tokens(f"(d) {name}", svc, cfg, clients))
+        if not batcher.shutdown():
+            raise AssertionError("the paged batcher did not stop")
+        res[name] = row
+    lens = np.asarray([len(p) for p in prompts], np.int32) \
+        + DECODE_MAX_NEW // 2
+    for name in ("spec", "plain"):
+        res[name]["round_profile"] = profile_paged_rounds(
+            cfg, svc.params, lens, spec=name == "spec")
+    out = res["spec"]
+    out.update(plain=res["plain"], plain_launches=res["plain"]["launches"])
+    return out
 
 
 def phase_logits(svc: LMService, cfg: LMConfig) -> float:
@@ -1446,13 +1900,32 @@ def main() -> int:
     # the same weights behind a second name, with chunked prefill (6b)
     chunked = LMService(cfg=cfg, params=svc.params, device="cuda",
                         decode_slots=2, prefill_chunk_tokens=CHUNK_TOKENS)
+    # and behind the paged batchers of 6c, each built at its first Decode
+    paged = {
+        "LMPaged": LMService(cfg=cfg, params=svc.params, device="cuda",
+                             decode_slots=PAGED_SLOTS, paged=True, page=PAGE,
+                             kv_pages=PAGED_POOL, kv_host_slots=HOST_SLOTS),
+        "LMPrefix": LMService(cfg=cfg, params=svc.params, device="cuda",
+                              decode_slots=DECODE_SLOTS, paged=True,
+                              page=PAGE),
+        "LMSpill": LMService(cfg=cfg, params=svc.params, device="cuda",
+                             decode_slots=SPILL_SLOTS, paged=True, page=PAGE,
+                             kv_pages=SPILL_POOL, kv_host_slots=HOST_SLOTS),
+        "LMSpec": LMService(cfg=cfg, params=svc.params, device="cuda",
+                            decode_slots=SPEC_SLOTS, paged=True, page=PAGE,
+                            spec_decode_k=SPEC_K, draft_params=svc.params),
+        "LMSpecPlain": LMService(cfg=cfg, params=svc.params, device="cuda",
+                                 decode_slots=SPEC_SLOTS, paged=True,
+                                 page=PAGE)}
     log(f"  params: {svc._param_bytes / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     srv = Server()
     ch = Channel()
     try:
         if srv.add_service(svc, name="LM") != 0 or srv.add_service(
-                chunked, name="LMChunked") != 0 or srv.start(
+                chunked, name="LMChunked") != 0 or any(
+                srv.add_service(service, name=name) != 0
+                for name, service in paged.items()) or srv.start(
                 "127.0.0.1:0") != 0:
             raise RuntimeError("server did not start")
         ch.init(str(srv.listen_endpoint))
@@ -1473,10 +1946,12 @@ def main() -> int:
             f"{DECODE_SLOTS} slots")
         streams = phase_decode(srv.listen_endpoint, svc, chunked, cfg,
                                decode["decode_tok_s"])
+        log(f"[6c] LM.Decode through the paged batcher, {PAGE}-token pages")
+        paged_res = phase_paged(srv.listen_endpoint, svc, paged, cfg)
     finally:
         ch.close()
         srv.stop()
-        for service in (svc, chunked):
+        for service in (svc, chunked, *paged.values()):
             if service._batcher is not None:
                 service._batcher.shutdown()
     torch.cuda.empty_cache()
@@ -1497,9 +1972,13 @@ def main() -> int:
         "source": "brpc_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "brpc_tpu/ops/flash_attention.py:46",
         "launches": (launches + streams["launches"]
+                     + paged_res["launches_paged"]
+                     + paged_res["launches_spec"]
                      + train["launches"][FLASH_FWD.name]),
         "launches_by_path": {"generate": launches,
                              "decode": streams["launches"],
+                             "paged_decode": paged_res["launches_paged"],
+                             "spec_decode": paged_res["launches_spec"],
                              "train": train["launches"][FLASH_FWD.name]},
         "max_abs_err": main_err,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
@@ -1543,6 +2022,7 @@ def main() -> int:
     log(f"  requests: {json.dumps(rows)}")
     log(f"  decode: {json.dumps(decode)}")
     log(f"  streams: {json.dumps(streams)}")
+    log(f"  paged: {json.dumps(paged_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  checksum: {n_payloads} payloads bit-exact; timing "
         f"{json.dumps(cs_times)}")

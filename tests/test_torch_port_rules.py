@@ -55,7 +55,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == n_modules >= 31
+    assert int(proc.stdout.split()[-1]) == n_modules >= 40
     names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
     assert {"brpc_tpu_torch.utils.checkpoint",
             "brpc_tpu_torch.models.transformer_lm",
@@ -71,7 +71,9 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.streaming",
             "brpc_tpu_torch.protocol.streaming",
             "brpc_tpu_torch.server.admission",
-            "brpc_tpu_torch.models.lm_telemetry"} <= names
+            "brpc_tpu_torch.models.lm_telemetry",
+            "brpc_tpu_torch.kv",
+            "brpc_tpu_torch.kv.pages"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -203,3 +205,35 @@ def test_decode_entry_points_raise_without_cuda():
     assert empty_batch_cache(cfg, 2, device="cpu")["len"].device.type \
         == "cpu"
     assert len(make_batch_decode(cfg, chunk=4, device="cpu")) == 3
+
+
+def test_paged_decode_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.models.lm_service import ContinuousBatcher, LMService
+    from brpc_tpu_torch.models.transformer_lm import (LMConfig,
+                                                      empty_paged_cache,
+                                                      make_paged_batch_decode,
+                                                      make_paged_io,
+                                                      make_paged_spec_verify)
+    cfg = LMConfig(vocab=16, dim=8, heads=2, depth=1, max_seq=8)
+    for call in (lambda: make_paged_batch_decode(cfg, 4),
+                 lambda: make_paged_io(cfg, 4),
+                 lambda: make_paged_io(cfg, 4, chunk=4),
+                 lambda: make_paged_spec_verify(cfg, 4, 4),
+                 lambda: empty_paged_cache(cfg, 3, 2, 4),
+                 lambda: ContinuousBatcher(cfg, None, paged=True, page=4),
+                 lambda: LMService(cfg=cfg, decode_slots=2, paged=True,
+                                   page=4),
+                 lambda: LMService(cfg=cfg, decode_slots=2, paged=True,
+                                   page=4, spec_decode_k=3, draft_params={})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the CPU is served only when asked for, and the paged batcher lands
+    # where the service does
+    svc = LMService(cfg=cfg, decode_slots=2, paged=True, page=4,
+                    device="cpu")
+    bat = svc.batcher()
+    assert bat.paged and bat.device.type == "cpu" and bat.num_pages == 5
+    assert empty_paged_cache(cfg, 3, 2, 4, device="cpu")["pk0"].device.type \
+        == "cpu"

@@ -190,6 +190,19 @@ def test_one_delivery_thread_per_stream(served):
     cl.ch.close()
 
 
+def _fill_window_behind_wedge(s, cl):
+    """Four 4-byte messages into a 16-byte window whose handler wedges on
+    the first.  The first goes alone and the handler takes it before the
+    other three are written: the delivery thread dequeues whatever is
+    queued as one batch, and a batch of two or more would reach half the
+    window, so its ack would reopen the window before the handler
+    wedged."""
+    assert s.write(struct.pack("<i", 0)) == 0
+    assert _wait(lambda: len(cl.msgs) == 1)
+    for i in range(1, 4):
+        assert s.write(struct.pack("<i", i)) == 0
+
+
 def test_window_blocks_then_overcrowded(served):
     """A client window of 16 bytes and a wedged handler: four 4-byte
     messages fit, the fifth waits, and with the window still full after
@@ -199,8 +212,7 @@ def test_window_blocks_then_overcrowded(served):
     cl = _Client(srv, window=16, wedge=wedge)
     s = svc.accepted.get(timeout=5)
     try:
-        for i in range(4):
-            assert s.write(struct.pack("<i", i)) == 0
+        _fill_window_behind_wedge(s, cl)
         s.options.write_timeout_s = 0.2
         t0 = time.monotonic()
         assert s.write(b"xxxx") == Errno.EOVERCROWDED
@@ -217,8 +229,7 @@ def test_feedback_acks_reopen_the_window(served):
     wedge = threading.Event()
     cl = _Client(srv, window=16, wedge=wedge)
     s = svc.accepted.get(timeout=5)
-    for i in range(4):
-        assert s.write(struct.pack("<i", i)) == 0
+    _fill_window_behind_wedge(s, cl)
     s.options.write_timeout_s = 10.0
     rc = []
     writer = threading.Thread(target=lambda: rc.extend(
