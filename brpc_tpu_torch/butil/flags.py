@@ -4,7 +4,8 @@ A slimmed copy of ``brpc_tpu/butil/flags.py``: flags declare a default
 and help text; a flag is *reloadable* (``set_flag`` accepts writes) iff it
 registered a validator.  Watchers, listing and the HTTP portal are not
 carried over: the port's flags are the device-attachment lane's
-(``ici/endpoint.py``).
+(``ici/endpoint.py``), the frame cap (``protocol/tpu_std.py``) and the
+KV plane's (``kv/pages.py``, ``kv/transport.py``).
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ import torch
 
 from ..butil.flags import define_flag, get_flag
 from ..ops.device_ops import bytes_to_tensor, dtype_name, tensor_bytes
-from ..protocol.tpu_std import MAX_BODY_SIZE
+from ..protocol.tpu_std import max_body_size
 from ..transport.socket import Socket
 from .attachment import (KIND_INLINE, KIND_INPROC, KIND_TRANSFER,
                          DeviceAttachment, decode_descriptor,
@@ -191,10 +191,11 @@ def prepare_send(sock, meta, tensor, timeout_s: float = 30.0):
         meta.ici_desc = encode_descriptor(KIND_INPROC, desc_id, nbytes,
                                           dtype, shape)
         return None
-    if nbytes >= MAX_BODY_SIZE:
+    limit = max_body_size()
+    if nbytes >= limit:
         raise RuntimeError(
             f"device attachment of {nbytes} bytes cannot ride inline: "
-            f"frames carry at most {MAX_BODY_SIZE} bytes, and the peer is "
+            f"frames carry at most {limit} bytes, and the peer is "
             "not reachable device-resident")
     # fallback: one D2H copy, bytes ride the regular attachment
     data, dtype, shape = tensor_bytes(tensor)

@@ -1,0 +1,185 @@
+"""Disaggregated prefill and decode: the two-tier LM service.
+
+Counterpart of ``brpc_tpu/kv/disagg.py``.  Serving splits prompt
+processing (prefill: compute-bound bursts) from token generation (decode:
+memory-bound, long-lived sessions) and moves each session's KV cache
+between the tiers:
+
+- :class:`PrefillService` answers the same ``LM.Decode`` wire contract as
+  the monolithic :class:`~brpc_tpu_torch.models.lm_service.LMService`:
+  it accepts the client's stream, runs the bucketed prefill (the flash
+  forward kernel on a card), exports the cache as pages and hands the
+  live session to a decode tier through
+  :class:`~brpc_tpu_torch.kv.transport.KvTransport`.  On a handoff
+  failure that proves the decode tier never seated the session it decodes
+  locally with the same cache (the client never sees the topology); a
+  strict tier (``fallback_local=False``), or any ambiguous failure, closes
+  the stream under ``kv_handoff_failed`` and answers EINTERNAL.
+- :class:`DecodeTierService` is the decode tier's surface (``KV.Probe``,
+  ``KV.ImportSession``): it checks the manifest, lands the pages and
+  seats the session in its batcher
+  (:meth:`ContinuousBatcher.join_imported`), whose tokens then stream to
+  the original client over the stream it already holds.
+
+Both tiers run the one ``bucketed_prefill`` and the one batch step, so a
+handed-off session streams the monolithic path's tokens.  Stream adoption
+goes through the process's stream registry, so the decode tier must share
+the prefill tier's process (a decode tier elsewhere answers
+``kv_stream_not_local`` and the prefill tier decodes locally).
+
+Not ported: the fleet load report in the probe answer, the
+``fleet_kv_handoff_failed`` event and the rpcz spans of a handed-off
+session (the port has neither ``fleet`` nor rpcz).
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import struct
+import threading
+from typing import Optional
+
+import torch
+
+from ..butil.status import Errno
+from ..models.lm_service import LMService, bucketed_prefill
+from ..models.transformer_lm import (decode_cache_from_pages,
+                                     export_decode_cache, kv_page_specs,
+                                     make_decode)
+from ..server.service import Service
+from .pages import KvPageError
+from .transport import (KvTransport, decode_manifest, encode_probe_response,
+                        import_pages, stream_auth)
+
+LOG = logging.getLogger(__name__)
+
+
+class DecodeTierService(Service):
+    """``KV.Probe``: the lane-capability handshake; ``KV.ImportSession``:
+    adopt a prefilled session into the continuous batch.  Wraps the tier's
+    :class:`LMService`, which may serve ``LM.Decode`` directly too."""
+
+    def __init__(self, lm: LMService):
+        self.lm = lm
+
+    @classmethod
+    def service_name(cls) -> str:
+        return "KV"
+
+    def Probe(self, cntl, request):
+        return encode_probe_response()
+
+    def ImportSession(self, cntl, request):
+        """Checks, in the JAX service's order: the manifest, the model
+        fingerprint, the session's bounds, the stream-adoption tag, the
+        stream, then the pages.  Every refusal before the pages answers
+        EREQUEST; a page that cannot be imported answers ERESPONSE.  Each
+        error text starts with its ``KV_FALLBACK_REASONS`` name."""
+        from ..streaming import find_stream
+        try:
+            man = decode_manifest(bytes(request))
+        except (KvPageError, struct.error) as e:
+            cntl.set_failed(Errno.EREQUEST,
+                            f"kv_import_rejected: bad manifest: {e}")
+            return None
+        fp = self.lm.model_fingerprint()
+        if man.model_fp != fp:
+            cntl.set_failed(Errno.EREQUEST,
+                            f"kv_model_mismatch: this tier serves "
+                            f"{fp.decode()!r}")
+            return None
+        if not (0 < man.max_new <= self.lm.max_new_cap) \
+                or man.ctx_len + 1 + man.max_new > self.lm.cfg.max_seq \
+                or not (0 <= man.last_token < self.lm.cfg.vocab):
+            cntl.set_failed(Errno.EREQUEST,
+                            "kv_import_rejected: session bounds")
+            return None
+        if man.auth != stream_auth(man.stream_id):
+            # stream ids are enumerable: adopting one needs the tag only a
+            # tier in this process can mint, checked before any page
+            cntl.set_failed(Errno.EREQUEST,
+                            f"kv_stream_not_local: stream {man.stream_id} "
+                            f"is not adoptable here")
+            return None
+        stream = find_stream(man.stream_id)
+        if stream is None or stream.closed:
+            cntl.set_failed(Errno.EREQUEST,
+                            f"kv_stream_not_local: stream {man.stream_id} "
+                            f"is not resolvable here")
+            return None
+        try:
+            pages = import_pages(man, cntl.request_attachment,
+                                 kv_page_specs(self.lm.cfg), self.lm.device)
+            cache1 = decode_cache_from_pages(self.lm.cfg, pages)
+        except KvPageError as e:
+            # loud: a stale or double import fails the handoff (the sender
+            # keeps the session), never seats a session on an empty cache
+            cntl.set_failed(Errno.ERESPONSE, f"kv_import_rejected: {e}")
+            return None
+        self.lm.batcher().join_imported(stream, man.last_token, man.ctx_len,
+                                        man.max_new, cache1,
+                                        tenant=cntl.request_meta.tenant)
+        return b"ok"
+
+
+class PrefillService(LMService):
+    """The prefill tier: ``LM.Decode``-compatible, but each session's
+    decode is handed to the decode tier behind ``decode_channel``.
+    ``Generate`` and ``Info`` are the monolithic service's.
+
+    ``fallback_local=True`` (the default) decodes a session locally after
+    any named handoff failure that proves the decode tier never seated it
+    (``kv_fallback_counters`` then shows what the decode tier declines);
+    ``fallback_local=False`` closes the stream under ``kv_handoff_failed``
+    and answers EINTERNAL instead."""
+
+    def __init__(self, *args, decode_channel=None,
+                 transport: Optional[KvTransport] = None,
+                 fallback_local: bool = True, **kw):
+        super().__init__(*args, **kw)
+        self.decode_channel = decode_channel
+        self.transport = transport or KvTransport()
+        self.fallback_local = fallback_local
+        self._prefill = None
+        self._prefill_lock = threading.Lock()
+
+    def _ensure_prefill(self):
+        with self._prefill_lock:
+            if self._prefill is None:
+                prefill, _step = make_decode(self.cfg, self.device)
+                self._prefill = functools.partial(prefill, self.params)
+            return self._prefill
+
+    def Decode(self, cntl, request):
+        """Prefill, export, hand off; answers ``<u32 max_new>`` once the
+        decode tier (or, after a fallback, this tier's batcher) holds the
+        session."""
+        parsed = self._check_decode_request(cntl, request)
+        if parsed is None:
+            return None
+        prompt, max_new, stream = parsed
+        with torch.inference_mode():
+            cache1, ctx_len = bucketed_prefill(self._ensure_prefill(),
+                                               self.cfg, prompt[0])
+        last_token = int(prompt[0][-1])
+        res = self.transport.handoff(
+            self.decode_channel, stream.id, ctx_len, last_token, max_new,
+            self.model_fingerprint(), export_decode_cache(self.cfg, cache1),
+            owner=("kv", cntl.socket_id))
+        if res.ok:
+            return struct.pack("<I", max_new)
+        if self.fallback_local and not res.ambiguous:
+            # the same cache joins the local batch: token-identical, and
+            # the prefill is not run again.  Only after a failure that
+            # proves the decode tier never seated the session: two
+            # batchers on one client stream would break at-most-once
+            LOG.info("kv handoff fell back to local decode (%s)",
+                     res.reason)
+            self.batcher().join_imported(stream, last_token, ctx_len,
+                                         max_new, cache1,
+                                         tenant=cntl.request_meta.tenant)
+            return struct.pack("<I", max_new)
+        stream.close(reason="kv_handoff_failed")
+        cntl.set_failed(Errno.EINTERNAL, f"kv handoff failed: {res.reason}")
+        return None

@@ -22,14 +22,28 @@ packages):
   page holds the f32 bytes of ``(2 * depth, page, heads, hd)``, the JAX
   package's layout.
 
-Not here yet: the export registry (``KvPageStore``, the descriptors,
-``drain_settle``) of the disaggregated handoff, and ``count_evict``'s
-fleet event (the port has no ``fleet``).
+The export half, for the disaggregated handoff (``kv/transport.py``,
+``kv/disagg.py``):
+
+- :class:`KvPageStore` — the process's fixed page export table.  A
+  prefill tier *exports* each page of a session's cache (the live tensor
+  is posted on the in-process fabric, ``ici/fabric.py``, and pinned under
+  a fresh generation), *describes* it in 16 bytes (page id, generation,
+  size), and the decode tier *imports* it once, consuming the fabric
+  entry; the exporter *releases* it after the handoff's response.  A
+  double free, a stale generation, a size mismatch and a second import
+  all raise :class:`KvPageError`.  Pages carry an owner key (the client
+  connection) so a dying socket sweeps them (:func:`on_socket_closed`);
+  :func:`drain_settle` waits, deadline-bound, for every exported page
+  and every host-tier spill in flight to settle.
+
+Not here: ``count_evict``'s fleet event (the port has no ``fleet``).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import struct
 import threading
 import weakref
@@ -37,6 +51,15 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..butil.flags import define_flag, get_flag
+
+LOG = logging.getLogger(__name__)
+
+define_flag("kv_pages", 256,
+            "size of the KV page export table (exported-but-unsettled "
+            "pages; bounded so leaks surface as exhaustion)",
+            validator=lambda v: isinstance(v, int) and 0 < v <= 65535)
 
 # stream close reasons the allocator can emit: every session the paged
 # batcher refuses or abandons closes under exactly one of these
@@ -87,17 +110,22 @@ def prefix_event_counters() -> Dict[str, int]:
 
 class KvPageError(Exception):
     """A page operation this process cannot honour: a double or stale
-    free, an alias of a dead page, a stale host handle.  A bug by
-    construction, so it raises instead of freeing the page's next
-    tenant."""
+    free, an alias of a dead page, a stale host handle, or an export
+    descriptor that is stale, imported twice or of the wrong size.  A bug
+    by construction, so it raises instead of freeing the page's next
+    tenant (the handoff service answers ERESPONSE: a decode tier never
+    seats a session on an empty cache)."""
 
 
 def _reset_for_tests() -> None:
+    global _store
     with _evict_lock:
         for k in _evicts:
             _evicts[k] = 0
         for k in _prefix_events:
             _prefix_events[k] = 0
+    with _reg_lock:
+        _store = None
 
 
 class PageAllocator:
@@ -506,3 +534,207 @@ def host_inflight_spills() -> int:
     """Host-tier spills in flight across every live pool (0 when no host
     tier exists)."""
     return sum(pool.inflight() for pool in list(_host_pools))
+
+
+# -- the export registry (the disaggregated handoff) -------------------------
+
+_DESC_FMT = "<IIQ"          # page_id, generation, nbytes
+DESC_BYTES = struct.calcsize(_DESC_FMT)
+
+
+class KvPageHandle:
+    """Sender-side lease of one exported page (settled exactly once)."""
+
+    __slots__ = ("page_id", "gen", "nbytes")
+
+    def __init__(self, page_id: int, gen: int, nbytes: int):
+        self.page_id = page_id
+        self.gen = gen
+        self.nbytes = nbytes
+
+    def describe(self) -> bytes:
+        return struct.pack(_DESC_FMT, self.page_id, self.gen, self.nbytes)
+
+
+def decode_desc(data: bytes) -> Tuple[int, int, int]:
+    if len(data) != DESC_BYTES:
+        raise KvPageError(f"malformed kv page descriptor "
+                          f"({len(data)} bytes)")
+    return struct.unpack(_DESC_FMT, data)
+
+
+class _Rec:
+    __slots__ = ("desc_id", "nbytes", "owner", "imported")
+
+    def __init__(self, desc_id: int, nbytes: int, owner):
+        self.desc_id = desc_id
+        self.nbytes = nbytes
+        self.owner = owner
+        self.imported = False
+
+
+class KvPageStore:
+    """The process's page export table: fixed size, generation-checked
+    (the host tier's slot model applied to live tensors)."""
+
+    def __init__(self, npages: int):
+        self.npages = int(npages)
+        self._lock = threading.Lock()
+        self._recs: List[Optional[_Rec]] = [None] * self.npages
+        self._gen = [0] * self.npages
+        self._free = list(range(self.npages))
+        self.exported = 0            # lifetime counters (stats)
+        self.imported = 0
+        self.swept = 0
+
+    def export_array(self, array, nbytes: int,
+                     owner=None) -> Optional[KvPageHandle]:
+        """Register one page (a live tensor) for transfer: it is posted on
+        the in-process fabric, kept alive and addressable until imported,
+        released or swept.  None when the table is full (the caller falls
+        back under a named reason: exhaustion is backpressure)."""
+        from ..ici.fabric import in_process_fabric
+        with self._lock:
+            if not self._free:
+                return None
+            page_id = self._free.pop()
+            self._gen[page_id] += 1
+            gen = self._gen[page_id]
+        desc_id = in_process_fabric().post(array, nbytes)
+        with self._lock:
+            self._recs[page_id] = _Rec(desc_id, nbytes, owner)
+            self.exported += 1
+        return KvPageHandle(page_id, gen, nbytes)
+
+    def import_page(self, page_id: int, gen: int, nbytes: int):
+        """Resolve a descriptor into its tensor, consuming the fabric
+        entry: the importer owns the tensor from here on.  A stale
+        generation, an unknown page, a size mismatch or a second import
+        raises :class:`KvPageError`."""
+        from ..ici.fabric import in_process_fabric
+        with self._lock:
+            rec = self._recs[page_id] \
+                if 0 <= page_id < self.npages else None
+            if rec is None or self._gen[page_id] != gen:
+                raise KvPageError(
+                    f"stale kv page import (page {page_id} gen {gen})")
+            if rec.imported:
+                raise KvPageError(f"kv page {page_id} already imported")
+            if rec.nbytes != nbytes:
+                raise KvPageError(f"kv page {page_id} size mismatch "
+                                  f"({nbytes} != {rec.nbytes})")
+            desc_id = rec.desc_id
+            rec.imported = True
+        arr = in_process_fabric().take(desc_id)
+        if arr is None:
+            # released or swept between the record check and the take
+            raise KvPageError(f"kv page {page_id} no longer registered")
+        with self._lock:
+            self.imported += 1
+        return arr
+
+    def release(self, page_id: int, gen: int) -> None:
+        """Settle one exported page (the sender's end of a handoff).  A
+        double free or a stale generation raises: a silent no-op would one
+        day free the table slot's next tenant."""
+        from ..ici.fabric import in_process_fabric
+        with self._lock:
+            rec = self._recs[page_id] \
+                if 0 <= page_id < self.npages else None
+            if rec is None or self._gen[page_id] != gen:
+                raise KvPageError(f"double/stale kv page free (page "
+                                  f"{page_id} gen {gen})")
+            self._recs[page_id] = None
+            self._free.append(page_id)
+            desc_id, imported = rec.desc_id, rec.imported
+        if not imported:
+            # never imported: drop the fabric registration here
+            in_process_fabric().release(desc_id)
+
+    def settle_handles(self, handles) -> None:
+        """Release a handoff's whole page set, each page once."""
+        for h in handles:
+            self.release(h.page_id, h.gen)
+
+    def release_owner(self, owner) -> int:
+        """Reclaim every page tagged with ``owner`` (its connection died
+        before the handoff settled).  Soft: the sweep races legitimate
+        settles and throws at neither."""
+        from ..ici.fabric import in_process_fabric
+        stale = []
+        with self._lock:
+            for page_id, rec in enumerate(self._recs):
+                if rec is not None and rec.owner == owner:
+                    self._recs[page_id] = None
+                    self._free.append(page_id)
+                    if not rec.imported:
+                        stale.append(rec.desc_id)
+                    self.swept += 1
+        for desc_id in stale:
+            in_process_fabric().release(desc_id)
+        return len(stale)
+
+    def outstanding(self) -> int:
+        with self._lock:
+            return self.npages - len(self._free)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"pages": self.npages,
+                    "outstanding": self.npages - len(self._free),
+                    "exported": self.exported,
+                    "imported": self.imported,
+                    "swept": self.swept}
+
+
+_reg_lock = threading.Lock()
+_store: Optional[KvPageStore] = None
+
+
+def process_kv_store() -> KvPageStore:
+    """The process's export table, built at first use at ``kv_pages``
+    pages."""
+    global _store
+    with _reg_lock:
+        if _store is None:
+            _store = KvPageStore(int(get_flag("kv_pages")))
+        return _store
+
+
+def on_socket_closed(owner) -> None:
+    """Sweep the pages exported for a dead connection (its handoff will
+    never settle); ``Socket.close`` calls it."""
+    with _reg_lock:
+        store = _store
+    if store is not None:
+        n = store.release_owner(owner)
+        if n:
+            LOG.info("kv page sweep: %d page(s) of dead owner %r", n, owner)
+
+
+def outstanding_pages() -> int:
+    """Exported pages not yet settled (0 when no page was ever
+    exported)."""
+    with _reg_lock:
+        store = _store
+    return store.outstanding() if store is not None else 0
+
+
+def drain_settle(deadline_mono_s: float) -> int:
+    """Wait, until ``deadline_mono_s`` (``time.monotonic()``), for every
+    exported page to settle and every host-tier spill in flight to land.
+    At the deadline each pool still mid-spill is aborted, so its batcher
+    closes the parked sessions under ``kv_spill_drain_aborted``.  Returns
+    the pages plus spills still outstanding then (0: settled)."""
+    import time as _time
+    ev = threading.Event()
+    while True:
+        n = outstanding_pages() + host_inflight_spills()
+        if n == 0:
+            return 0
+        if _time.monotonic() >= deadline_mono_s:
+            for pool in list(_host_pools):
+                if pool.inflight():
+                    pool.drain_abort("kv_spill_drain_aborted")
+            return n
+        ev.wait(0.005)     # timed: the drain stays deadline-bound

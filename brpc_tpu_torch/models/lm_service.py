@@ -12,8 +12,11 @@ the same answers.
 ``Decode`` rides :class:`ContinuousBatcher`, contiguous or paged (a
 block-table page pool with the prefix cache and the host tier of
 ``kv/pages.py``), with chunked prefill, SLO tiers (:class:`TierRegistry`)
-and, in paged mode, speculative decoding.  The disaggregated handoff
-(``join_imported``, ``model_fingerprint``) is not ported yet.
+and, in paged mode, speculative decoding.  A decode tier's batcher also
+seats sessions prefilled on another tier
+(:meth:`ContinuousBatcher.join_imported`, the disaggregated handoff of
+``kv/disagg.py``), and :meth:`LMService.model_fingerprint` names what the
+two tiers must agree on.
 """
 
 from __future__ import annotations
@@ -180,8 +183,11 @@ def _reset_sched_for_tests() -> None:
 
 
 class _Session:
-    __slots__ = ("stream", "prompt", "max_new", "sent", "slot", "ctx_len",
-                 "last_token",
+    __slots__ = ("stream", "prompt", "max_new", "sent", "slot",
+                 # an imported session (join_imported) has no prompt: its
+                 # prefill ran on another tier, whose per-layer caches it
+                 # carries in cache1 until the admit inserts them
+                 "cache1", "ctx_len", "last_token",
                  # SLO scheduling: the resolved tier and rank, and the
                  # chunked-prefill watermark (context rows written; fill <
                  # ctx_len: the session holds its slot but is not decoding)
@@ -193,12 +199,13 @@ class _Session:
                  # observability: the session's timeline
                  "tl")
 
-    def __init__(self, stream, prompt: np.ndarray, max_new: int):
+    def __init__(self, stream, prompt: Optional[np.ndarray], max_new: int):
         self.stream = stream
         self.prompt = prompt
         self.max_new = max_new
         self.sent = 0
         self.slot = -1
+        self.cache1 = None
         self.ctx_len = 0
         self.last_token = 0
         self.tier = "standard"
@@ -300,9 +307,15 @@ class ContinuousBatcher:
     them in one width-(k+1) call; accepted prefixes advance ``len`` and a
     rejection is a ``len`` rewind, so the tokens equal plain decoding's.
 
+    **Imported sessions** (:meth:`join_imported`): a session prefilled on
+    another tier joins with that tier's cache and its last prompt token;
+    the admit inserts the cache as a local prefill's (into the session's
+    pages in paged mode, with no prefix lookup or insert), so its tokens
+    equal the monolithic path's.  It has no prompt, so a spec round waits
+    while one is active (the draft has no context to prefill).
+
     The KV pools are f32.  Emission writes each token on the stream's
-    Python lane (the JAX package's native lane is not ported), and
-    sessions imported from a prefill tier are not ported yet.
+    Python lane (the JAX package's native lane is not ported).
     ``PH_DECODE_ROUND`` times a whole round, the step and the read-back of
     its tokens (the JAX package's timer stops at dispatch)."""
 
@@ -398,7 +411,25 @@ class ContinuousBatcher:
                         int(max_new))
         self._assign_tier(sess, tenant)
         sess.tl = _lmt.open_timeline(sess.tier, tenant, len(prompt),
-                                     int(max_new))
+                                     int(max_new), "fresh")
+        self._enqueue(sess)
+
+    def join_imported(self, stream, last_token: int, ctx_len: int,
+                      max_new: int, cache1, tenant=None) -> None:
+        """Queue a session whose prefill ran on another tier (the
+        disaggregated handoff).  ``cache1`` is the per-layer batch-1 cache
+        (``transformer_lm.decode_cache_from_pages``'s layout) holding
+        ``ctx_len`` context rows; it is inserted between steps as a local
+        prefill's would be, and ``last_token`` (the prompt's last) rides
+        the next step, so the stream carries the monolithic path's
+        tokens."""
+        sess = _Session(stream, None, int(max_new))
+        sess.cache1 = cache1
+        sess.ctx_len = int(ctx_len)
+        sess.last_token = int(last_token)
+        self._assign_tier(sess, tenant)
+        sess.tl = _lmt.open_timeline(sess.tier, tenant, int(ctx_len) + 1,
+                                     int(max_new), "imported")
         self._enqueue(sess)
 
     def _assign_tier(self, sess: _Session, tenant) -> None:
@@ -567,7 +598,11 @@ class ContinuousBatcher:
         power-of-two bucket, insert it, and let the prompt's last token
         ride the next step (teacher-forced: the step's logits at s-1 are
         the whole prefill's).  Chunked: take the slot now and let
-        :meth:`_chunk_round` write the context under the budget."""
+        :meth:`_chunk_round` write the context under the budget.
+        Imported: insert the carried cache instead of a prefill.  An
+        imported session enters fully filled, so the fill paths
+        (:meth:`_chunk_round`, :meth:`_activate`) never see it without a
+        prompt."""
         if self.paged:
             self._admit_paged(sess)
             return
@@ -575,17 +610,24 @@ class ContinuousBatcher:
         sess.slot = free
         sess.sent = 0
         self._sessions[free] = sess
-        if self.chunk_budget and len(sess.prompt) > 1:
+        if sess.cache1 is None and self.chunk_budget \
+                and len(sess.prompt) > 1:
             self._cache = _setlen(self._cache, free, 0)
             sess.ctx_len = len(sess.prompt) - 1
             sess.fill = 0
             return
-        cache1, ctx_len = bucketed_prefill(self._prefill, self.cfg,
-                                           sess.prompt)
-        self.prefills_run += 1
+        if sess.cache1 is not None:
+            cache1, ctx_len, last = sess.cache1, sess.ctx_len, \
+                sess.last_token
+            sess.cache1 = None       # the pool owns the rows after insert
+        else:
+            cache1, ctx_len = bucketed_prefill(self._prefill, self.cfg,
+                                               sess.prompt)
+            self.prefills_run += 1
+            last = int(sess.prompt[-1])
         self._cache = self._insert(self._cache, cache1, free, ctx_len)
         sess.ctx_len = sess.fill = ctx_len       # fully prefilled: active
-        self._tokens[free] = int(sess.prompt[-1])
+        self._tokens[free] = last
         self._active[free] = True
 
     # -- paged mode: admit, spill, park, resume -----------------------------
@@ -616,14 +658,21 @@ class ContinuousBatcher:
         the session's pages, and fill them: nothing on a full hit, a
         bucketed prefill inserted into the pages on a miss with no chunk
         budget, chunk slices otherwise (a fresh prompt under the budget,
-        or a partial hit's catch-up from its page-aligned cover)."""
-        ctx = sess.prompt[:-1]
-        ctx_len = len(ctx)
+        or a partial hit's catch-up from its page-aligned cover).  An
+        imported session's carried cache is inserted into its pages; it
+        has no tokens to look up, so it neither hits nor enters the
+        prefix cache."""
+        imported = sess.cache1 is not None
         aliased, covered = [], 0
-        if self._prefix is not None:
-            t0 = _mono_ns()
-            aliased, covered = self._prefix.lookup(ctx)
-            _rec_phase(PH_PREFIX_LOOKUP, _mono_ns() - t0)
+        if imported:
+            ctx_len = sess.ctx_len
+        else:
+            ctx = sess.prompt[:-1]
+            ctx_len = len(ctx)
+            if self._prefix is not None:
+                t0 = _mono_ns()
+                aliased, covered = self._prefix.lookup(ctx)
+                _rec_phase(PH_PREFIX_LOOKUP, _mono_ns() - t0)
         n_total = self._pages_for(ctx_len, sess.max_new)
         t0 = _mono_ns()
         priv, why = self._alloc_with_reclaim(n_total - len(aliased),
@@ -644,7 +693,13 @@ class ContinuousBatcher:
         row[:n_alias] = aliased
         row[n_alias:n_total] = priv
         filling = False
-        if covered == ctx_len:
+        if imported:
+            self._cache = self._page_insert(self._cache,
+                                            torch.from_numpy(row),
+                                            sess.cache1)
+            sess.cache1 = None
+            start_len = ctx_len
+        elif covered == ctx_len:
             # a full hit (or an empty context): the aliased pages are the
             # context's k/v, as a prefill would write them
             start_len = ctx_len
@@ -670,8 +725,9 @@ class ContinuousBatcher:
         sess.ctx_len = ctx_len
         tl = sess.tl
         if tl is not None:
-            tl.prefix = "prefix_hit" if n_alias and covered == ctx_len \
-                else "prefix_partial" if covered > 0 else "prefix_miss"
+            if not imported:
+                tl.prefix = "prefix_hit" if n_alias and covered == ctx_len \
+                    else "prefix_partial" if covered > 0 else "prefix_miss"
             tl.pages_peak = max(tl.pages_peak, len(sess.pages))
         self._bt[free] = row
         sess.slot = free
@@ -680,7 +736,8 @@ class ContinuousBatcher:
         if filling:
             return
         sess.fill = ctx_len
-        self._tokens[free] = int(sess.prompt[-1])
+        self._tokens[free] = sess.last_token if imported \
+            else int(sess.prompt[-1])
         self._active[free] = True
         if self.spec_k > 0:
             self._draft_admit(sess)
@@ -787,7 +844,8 @@ class ContinuousBatcher:
         self._active[free] = sess.fill >= sess.ctx_len
         sess.slot = free
         self._sessions[free] = sess
-        if self._active[free] and self.spec_k > 0:
+        if self._active[free] and self.spec_k > 0 \
+                and sess.prompt is not None:
             # the draft's context again; its rows of tokens generated
             # before the spill are not replayed, so acceptance dips until
             # it re-anchors (the verify keeps the tokens right)
@@ -839,8 +897,10 @@ class ContinuousBatcher:
     def _draft_admit(self, sess: _Session) -> None:
         """Spec mode: the draft model's bucketed prefill of the context,
         inserted into its contiguous pool at the session's slot, so the
-        draft's rows stay position-aligned with the target's."""
-        if self._d_cache is None:
+        draft's rows stay position-aligned with the target's.  An imported
+        session has no prompt to draft from (and :meth:`_spec_ok` holds
+        spec rounds while it is live)."""
+        if self._d_cache is None or sess.prompt is None:
             return
         cache1, ctx_len = bucketed_prefill(self._d_prefill, self.cfg,
                                            sess.prompt)
@@ -909,11 +969,16 @@ class ContinuousBatcher:
                 self._activate(sess)
 
     def _spec_ok(self) -> bool:
-        """A spec round needs k + 1 rows of headroom in every active slot;
+        """A spec round needs k + 1 rows of headroom in every active slot,
+        and a prompt to draft from (an imported session has none);
         otherwise the round falls back to one plain step."""
         for slot, sess in self._sessions.items():
-            if self._active[slot] and sess.ctx_len + sess.sent \
-                    + self.spec_k + 1 > self.cfg.max_seq:
+            if not self._active[slot]:
+                continue
+            if sess.prompt is None:
+                return False
+            if sess.ctx_len + sess.sent + self.spec_k + 1 \
+                    > self.cfg.max_seq:
                 return False
         return True
 
@@ -1198,6 +1263,16 @@ class LMService(Service):
         if (prompt < 0).any() or (prompt >= self.cfg.vocab).any():
             return "prompt ids out of vocab"
         return None
+
+    def model_fingerprint(self) -> bytes:
+        """What the disaggregated handoff's two tiers must agree on before
+        pages move: the architecture and the weight image's size (the JAX
+        package's string, byte for byte).  ``param_bytes`` stands in for
+        a weight hash, so same-shape tiers with different weights match;
+        a deployment versions its weights itself."""
+        c = self.cfg
+        return (f"{c.vocab}:{c.dim}:{c.heads}:{c.depth}:{c.max_seq}:"
+                f"{self._param_bytes}:{int(self.quantized)}").encode()
 
     def Generate(self, cntl, request):
         parsed = self._parse_request(cntl, request, "generate")

@@ -7,10 +7,11 @@
   plain list increments, read racily but monotonically.
 - **Session timelines:** one :class:`SessionTimeline` per decode session
   (tier, tenant, prompt length, TTFT, the largest inter-token gap, close
-  reason; in paged mode its prefix outcome, peak pages, spills, resumes
-  and preemptions), opened at join, fed per step by :func:`on_emit` and
-  judged at close against the tier's targets into the closed
-  ``LM_SLO_VERDICTS`` counters.
+  reason; its source, ``fresh`` or ``imported`` from a prefill tier, which
+  a paged admit of a fresh session refines to its prefix outcome; peak
+  pages, spills, resumes and preemptions), opened at join, fed per step
+  by :func:`on_emit` and judged at close against the tier's targets into
+  the closed ``LM_SLO_VERDICTS`` counters.
 
 The log2 histograms, the flags, the /vars and /metrics exposure, the
 session rings and the windowed snapshot cache wait for a later slice of
@@ -107,7 +108,7 @@ class SessionTimeline:
                  "close_reason", "verdict")
 
     def __init__(self, tier: str, tenant: str, prompt_len: int,
-                 max_new: int):
+                 max_new: int, source: str):
         self.tier = tier
         self.tenant = tenant
         self.prompt_len = prompt_len
@@ -117,7 +118,7 @@ class SessionTimeline:
         self.last_ns = 0
         self.tokens = 0
         self.itl_max_ns = 0
-        self.prefix = "fresh"     # refined at a paged admit
+        self.prefix = source      # fresh|imported, refined at admit
         self.pages_peak = 0
         self.spills = 0
         self.resumes = 0
@@ -131,18 +132,20 @@ class SessionTimeline:
         return (self.first_ns - self.join_ns) / 1e6
 
 
-def open_timeline(tier: str, tenant, prompt_len: int,
-                  max_new: int) -> SessionTimeline:
+def open_timeline(tier: str, tenant, prompt_len: int, max_new: int,
+                  source: str) -> SessionTimeline:
     """At join (not in the step loop): the session's record.  Its
-    ``prefix`` field starts ``fresh``; a paged admit refines it to
-    ``prefix_hit``, ``prefix_partial`` or ``prefix_miss``."""
+    ``prefix`` field starts at ``source``, ``fresh`` (a prompt) or
+    ``imported`` (a cache from a prefill tier); a paged admit refines a
+    fresh one to ``prefix_hit``, ``prefix_partial`` or
+    ``prefix_miss``."""
     from .lm_service import SLO_TIERS
     if tier not in SLO_TIERS:
         raise ValueError(f"unregistered SLO tier: {tier}")
     if isinstance(tenant, (bytes, bytearray, memoryview)):
         tenant = bytes(tenant).decode("utf-8", "replace")
     return SessionTimeline(tier, str(tenant or "-"), int(prompt_len),
-                           int(max_new))
+                           int(max_new), source)
 
 
 def on_emit(pairs) -> None:

@@ -3,7 +3,9 @@
 Counterpart of ``brpc_tpu/models/transformer_lm.py``: ``LMConfig``,
 ``init_params``, the rmsnorm/rope helpers, ``make_decode`` (prefill +
 single-token decode step over an f32 ``max_seq`` KV cache),
-``empty_cache`` and the generators for serving; the continuous
+``empty_cache`` and the generators for serving; the cache's page list
+for the disaggregated handoff (``kv_page_specs``,
+``export_decode_cache``, ``decode_cache_from_pages``); the continuous
 batcher's programs, contiguous (``make_batch_decode``) and paged
 (``make_paged_batch_decode``, ``make_paged_io``,
 ``make_paged_spec_verify``); ``make_forward`` and
@@ -243,6 +245,48 @@ def empty_cache(cfg: LMConfig, batch: int, start_len: int = 1,
             cache[f"{kind}{i}"] = torch.zeros(
                 (batch, cfg.max_seq, cfg.heads, hd), dtype=torch.float32,
                 device=dev)
+    return cache
+
+
+def kv_page_specs(cfg: LMConfig, batch: int = 1):
+    """Ordered ``(shape, dtype, nbytes)`` of a decode cache's transferable
+    KV pages: k then v per layer, the order :func:`export_decode_cache`
+    emits and the import side rebuilds from.  The layout is the model's
+    (like :func:`empty_cache`'s); the wire carries sizes only, to check
+    them."""
+    _check_ported(cfg)
+    hd = cfg.dim // cfg.heads
+    shape = (batch, cfg.max_seq, cfg.heads, hd)
+    nbytes = batch * cfg.max_seq * cfg.heads * hd * 4      # float32
+    return [(shape, "float32", nbytes) for _ in range(2 * cfg.depth)]
+
+
+def export_decode_cache(cfg: LMConfig, cache):
+    """A prefilled :func:`make_decode` cache (batch 1) as its page list
+    ``[(tensor, nbytes), ...]`` in :func:`kv_page_specs` order.  No data
+    moves: the pages are the live cache tensors, whole ``max_seq`` rows
+    each; the transport decides whether they travel as descriptors or as
+    bytes."""
+    _check_ported(cfg)
+    pages = []
+    for i in range(cfg.depth):
+        for key in (f"k{i}", f"v{i}"):
+            t = cache[key]
+            pages.append((t, t.numel() * t.element_size()))
+    return pages
+
+
+def decode_cache_from_pages(cfg: LMConfig, arrays):
+    """Imported page tensors (in :func:`kv_page_specs` order) back into
+    the per-layer cache dict the batcher's slot insert consumes."""
+    if len(arrays) != 2 * cfg.depth:
+        raise ValueError(f"expected {2 * cfg.depth} pages, got "
+                         f"{len(arrays)}")
+    cache = {}
+    it = iter(arrays)
+    for i in range(cfg.depth):
+        cache[f"k{i}"] = next(it)
+        cache[f"v{i}"] = next(it)
     return cache
 
 

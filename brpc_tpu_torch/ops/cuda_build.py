@@ -109,12 +109,14 @@ def load(source: str) -> ctypes.CDLL:
 
 class CudaKernel:
     """ctypes binding of one C entry point of a ``csrc/`` library, with its
-    launch count: it adds one where it launches, and nowhere else."""
+    launch count: it adds one where it launches, and nowhere else (under a
+    lock: a prefill tier launches from one thread per connection)."""
 
     def __init__(self, name: str, source: str, argtypes: list):
         self.name = name
         self.source = source
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._argtypes = argtypes
         self._fn = None
 
@@ -134,4 +136,5 @@ class CudaKernel:
         if code != 0:
             raise RuntimeError(f"{self.name} launch failed: "
                                f"{self._err(code).decode()} ({code})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

@@ -15,6 +15,11 @@ credit-return frames (``brpc_tpu/ici/endpoint.py``'s ack frames)::
 
 and the streams' "TSTR" frames (:mod:`.streaming`).  :func:`read_frame`
 returns any of the three kinds.
+
+A frame's body is capped by the live flag ``max_body_size`` (64 MiB by
+default, as in the JAX package), read at every send and receive.  The
+port refuses an oversized frame already at send (:func:`pack_frame`
+raises); the JAX package checks the cap only where a frame is received.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import socket
 import struct
 from typing import Any, NamedTuple, Tuple, Union
 
+from ..butil.flags import define_flag, get_flag
 from .meta import RpcMeta
 from .streaming import HEADER as STREAM_HEADER_SIZE
 from .streaming import MAGIC as STREAM_MAGIC
@@ -30,13 +36,22 @@ from .streaming import StreamFrame
 
 MAGIC = b"TRPC"
 HEADER_SIZE = 12
-MAX_BODY_SIZE = 64 * 1024 * 1024
+MAX_BODY_SIZE = 64 * 1024 * 1024       # the default of max_body_size
 ACK_MAGIC = b"TICI"
 ACK_HEADER_SIZE = 8
 # ids per TICI frame when packing (the JAX encoder's chunk), and the most
 # one frame may announce when reading (the JAX parser's cap)
 _ACK_CHUNK = 4096
 _ACK_MAX_IDS = 1 << 20
+
+
+define_flag("max_body_size", MAX_BODY_SIZE, "largest acceptable frame body",
+            validator=lambda v: isinstance(v, int) and v > 0)
+
+
+def max_body_size() -> int:
+    """The frame-size cap now (the ``max_body_size`` flag)."""
+    return get_flag("max_body_size")
 
 
 class FrameError(ValueError):
@@ -52,14 +67,15 @@ def pack_frame(meta: RpcMeta, payload: bytes = b"",
                attachment: bytes = b"") -> bytes:
     """Frame one message; a non-empty ``attachment`` rides after the
     payload and its size is recorded in the meta.  A body past
-    :data:`MAX_BODY_SIZE` raises :class:`FrameError`: the peer would
+    :func:`max_body_size` raises :class:`FrameError`: the peer would
     refuse it."""
     if attachment:
         meta.attachment_size = len(attachment)
     meta_bytes = meta.encode()
     body_size = len(meta_bytes) + len(payload) + len(attachment)
-    if body_size > MAX_BODY_SIZE:
-        raise FrameError(f"body {body_size} exceeds {MAX_BODY_SIZE}")
+    limit = max_body_size()
+    if body_size > limit:
+        raise FrameError(f"body {body_size} exceeds {limit}")
     return b"".join((MAGIC, struct.pack("<II", body_size, len(meta_bytes)),
                      meta_bytes, payload, attachment))
 
@@ -69,8 +85,9 @@ def frame_size(header: bytes) -> int:
     if header[:4] != MAGIC:
         raise FrameError(f"bad magic {bytes(header[:4])!r}")
     body_size, meta_size = struct.unpack_from("<II", header, 4)
-    if body_size > MAX_BODY_SIZE:
-        raise FrameError(f"body {body_size} exceeds {MAX_BODY_SIZE}")
+    limit = max_body_size()
+    if body_size > limit:
+        raise FrameError(f"body {body_size} exceeds {limit}")
     if meta_size > body_size:
         raise FrameError("meta larger than body")
     return HEADER_SIZE + body_size
@@ -134,9 +151,10 @@ def read_frame(sock: socket.socket
     if head[:4] == STREAM_MAGIC:
         head += _recv_exact(sock, STREAM_HEADER_SIZE - ACK_HEADER_SIZE)
         flags, dest, size = struct.unpack_from("<BQI", head, 4)
-        if size > MAX_BODY_SIZE:
+        limit = max_body_size()
+        if size > limit:
             raise FrameError(f"stream frame of {size} bytes exceeds "
-                             f"{MAX_BODY_SIZE}")
+                             f"{limit}")
         return StreamFrame(flags, dest, bytes(_recv_exact(sock, size)))
     header = head + _recv_exact(sock, HEADER_SIZE - ACK_HEADER_SIZE)
     body = _recv_exact(sock, frame_size(header) - HEADER_SIZE)

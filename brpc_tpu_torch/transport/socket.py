@@ -112,8 +112,8 @@ class Socket:
     def close(self) -> None:
         """Close the connection, close every stream bound to it (a
         receive-only stream would not learn otherwise), and reclaim every
-        device payload posted on it (the peer can no longer redeem or ack
-        them)."""
+        device payload posted on it and every KV page exported for it (the
+        peer can no longer redeem, ack or import them)."""
         self.failed = True
         with _registry_lock:
             _registry.pop(self.id, None)
@@ -130,6 +130,10 @@ class Socket:
         if self.ici_endpoint is not None:
             from ..ici.fabric import in_process_fabric
             in_process_fabric().release_socket(self.id)
+        # KV pages exported for this connection's sessions (a handoff in
+        # flight when the client died) are swept the same way
+        from ..kv.pages import on_socket_closed
+        on_socket_closed(("kv", self.id))
         try:
             self.conn.close()
         except OSError:

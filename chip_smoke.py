@@ -62,6 +62,22 @@ result line) when a phase fails or CUDA is absent.  Phases:
    prompts (accept rate, tokens per round, round ms, ``flash_fwd`` twice
    per layer per join: target and draft prefill) and one profiled spec
    round;
+   6d. serve ``LM.Decode`` disaggregated on the same weights: prefill
+   tiers (``PrefillService``) prefill each session (the flash kernel once
+   per layer) and hand its 16 KV pages (256 MiB) to a decode tier
+   (``DecodeTierService`` over an ``LMService``) in the same process,
+   whose batcher streams the tokens to the original client stream: (a)
+   6b's eight prompts over the ici lane (the pages stay where they are)
+   into 8 contiguous slots, TTFT beside 6b's, no fallback, no page left
+   exported, no prefill on the decode tier; (b) 6b's two chunk prompts
+   over the copy lane (the page bytes ride the RPC attachment, the frame
+   cap raised to 512 MiB for it), then over the ici lane, the unary
+   Decode ms of each and the copy lane's GB/s over the difference; (c)
+   the copy lane at the default 64 MiB cap (refused where it is framed:
+   ``kv_import_rejected``, decoded on the prefill tier from the same
+   cache) and a strict tier (EINTERNAL, the stream closed
+   ``kv_handoff_failed``); (d) four of 6b's prompts into 6c (a)'s paged
+   decode tier (no prefix events); tokens under the near-tie rule;
 8. train that LM at full width (``make_train_step``, remat, gradient
    accumulation): one step's loss and gradient through the kernels
    against dense attention, then a falling finite loss over 4 steps with
@@ -98,24 +114,30 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from brpc_tpu_torch.butil.flags import set_flag  # noqa: E402
+from brpc_tpu_torch.butil.flags import get_flag, set_flag  # noqa: E402
 from brpc_tpu_torch.butil.status import Errno  # noqa: E402
 from brpc_tpu_torch.client import Channel, Controller  # noqa: E402
 from brpc_tpu_torch.ici.endpoint import live_endpoints  # noqa: E402
 from brpc_tpu_torch.ici.fabric import in_process_fabric  # noqa: E402
+from brpc_tpu_torch.kv import (  # noqa: E402
+    DecodeTierService, KvTransport, PrefillService, kv_fallback_counters,
+    kv_stats, outstanding_pages)
+from brpc_tpu_torch.kv.transport import (  # noqa: E402
+    LANE_COPY, SessionManifest, decode_manifest, encode_manifest,
+    import_pages)
 from brpc_tpu_torch.kv.pages import (  # noqa: E402
     HostPagePool, prefix_event_counters)
 from brpc_tpu_torch.models import lm_telemetry  # noqa: E402
 from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig  # noqa
 from brpc_tpu_torch.models.lm_service import (  # noqa: E402
-    LMService, pack_generate_request, sched_counters, spec_counters,
-    unpack_generated, unpack_token)
+    LMService, bucketed_prefill, pack_generate_request, sched_counters,
+    spec_counters, unpack_generated, unpack_token)
 from brpc_tpu_torch.models.ps_service import PSService, pack_ids  # noqa
 from brpc_tpu_torch.models.transformer_lm import (  # noqa: E402
-    LMConfig, empty_batch_cache, empty_paged_cache, init_params,
-    make_batch_decode, make_decode, make_paged_batch_decode, make_paged_io,
-    make_paged_spec_verify, make_train_step, make_value_and_grad,
-    paged_page_bytes, tree_leaves)
+    LMConfig, empty_batch_cache, empty_paged_cache, export_decode_cache,
+    init_params, kv_page_specs, make_batch_decode, make_decode,
+    make_paged_batch_decode, make_paged_io, make_paged_spec_verify,
+    make_train_step, make_value_and_grad, paged_page_bytes, tree_leaves)
 from brpc_tpu_torch.ops import cuda_build  # noqa: E402
 from brpc_tpu_torch.ops.device_ops import (  # noqa: E402
     CHECKSUM, checksum_u32, checksum_u32_plain, checksum_words_plain,
@@ -123,6 +145,9 @@ from brpc_tpu_torch.ops.device_ops import (  # noqa: E402
 from brpc_tpu_torch.ops.flash_attention import (  # noqa: E402
     FLASH_DKDV, FLASH_DQ, FLASH_FWD, KERNELS, attention_delta,
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
+from brpc_tpu_torch.protocol.meta import RpcMeta  # noqa: E402
+from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
+    MAX_BODY_SIZE, max_body_size, pack_frame, unpack_frame)
 from brpc_tpu_torch.server import Server  # noqa: E402
 from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -176,6 +201,18 @@ SPEC_K, SPEC_SLOTS, SPEC_PROMPT_LENS = 3, 4, (256, 1024)
 # the paged step against the contiguous step: slots moved through the host
 # tier to spare pages between the two compared steps
 EXACT_MOVED = 2
+# LM.Decode disaggregated (phase 6d): a session's pages are the k and v of
+# 8 layers, (1, 2048, 16, 128) f32 each: 16 x 16 MiB.  The copy lane's
+# attachment needs the frame cap raised from its 64 MiB default; the
+# paged decode tier takes four of 6b's prompts
+DISAGG_SESSION_BYTES = 268_435_456
+DISAGG_COPY_CAP = 512 * 1024 * 1024
+DISAGG_PAGED_SESSIONS = 4
+# the prefill tiers of 6d on one Server: lane, strict, and the decode tier
+DISAGG_PREFILL = {"Prefill": (None, False, "dec"),
+                  "PrefillCopy": ("copy", False, "dec"),
+                  "PrefillStrict": ("copy", True, "dec"),
+                  "PrefillPaged": (None, False, "dec_paged")}
 TIMING_REPS = 20
 # profiles of one echo until the trace holds both checksum kernels (the
 # trace has dropped the first one's events; the launch counter has not)
@@ -1017,6 +1054,7 @@ class DecodeClient:
     def __init__(self, ep, service: str, prompt: np.ndarray, max_new: int):
         self.prompt, self.max_new = prompt, max_new
         self.tokens, self.reason, self.ttft_s = [], None, None
+        self.call_s = None          # the unary call's return
         self.error = None
         self.done = threading.Event()
         self._ep, self._service = ep, service
@@ -1042,6 +1080,7 @@ class DecodeClient:
         c = ch.call_method(f"{self._service}.Decode",
                            pack_generate_request(self.prompt[None],
                                                  self.max_new), cntl=cntl)
+        self.call_s = time.perf_counter() - t0
         if c.failed:
             self.error = f"[{c.error_code}] {c.error_text}"
             self.done.set()
@@ -1189,7 +1228,8 @@ def phase_decode(ep, svc: LMService, chunked: LMService, cfg: LMConfig,
                speedup=agg / one_stream_tok_s, most_live=most_live,
                ttft_ms=ttfts, ttft_median_ms=statistics.median(ttfts),
                ttft_max_ms=ttfts[-1], rounds=rounds, round_ms=round_ms,
-               launches=launches, compared=compared, near_ties=ties)
+               launches=launches, compared=compared, near_ties=ties,
+               session_tokens=[c.tokens for c in clients])
     res.update(phase_decode_chunked(ep, svc, chunked, cfg))
     res.update(phase_decode_profile(svc, cfg))
     return res
@@ -1670,6 +1710,301 @@ def phase_spec(ep, svc: LMService, spec: LMService, plain: LMService,
     return out
 
 
+def kv_deltas(kv0: dict, fb0: dict) -> tuple:
+    """The handoff stats since ``kv0`` and the fallback reasons counted
+    since ``fb0`` (only those that moved)."""
+    kv = {k: v - kv0[k] for k, v in kv_stats().items()}
+    fb = {k: v - fb0[k] for k, v in kv_fallback_counters().items()
+          if v != fb0[k]}
+    return kv, fb
+
+
+def phase_disagg(ep, svc: LMService, tiers: dict, cfg: LMConfig,
+                 six_b: dict) -> dict:
+    """LM.Decode through prefill tiers handing sessions to a decode tier
+    (phase 6d): four sub-phases, each decode tier's and prefill tier's
+    batcher shut down after its own.  Returns their results and the
+    forward kernel's launches over them (all on the prefill tiers)."""
+    total = sum(n for _, _, n in kv_page_specs(cfg))
+    if total != DISAGG_SESSION_BYTES:
+        raise AssertionError(f"a session's pages hold {total} bytes")
+    mem0 = torch.cuda.memory_allocated()
+    res = {"ici": phase_disagg_ici(ep, svc, tiers, cfg, six_b),
+           "copy": phase_disagg_copy(ep, svc, tiers, cfg),
+           "over_cap": phase_disagg_over_cap(ep, svc, tiers, cfg),
+           "paged": phase_disagg_paged(ep, svc, tiers, cfg)}
+    res["launches"] = sum(r["launches"] for r in res.values())
+    mem1 = torch.cuda.memory_allocated()
+    log(f"  allocated on the card before 6d {mem0 / 1e9:.3f} GB, after "
+        f"{mem1 / 1e9:.3f} GB")
+    res["allocated_gb"] = [mem0 / 1e9, mem1 / 1e9]
+    return res
+
+
+def phase_disagg_ici(ep, svc: LMService, tiers: dict, cfg: LMConfig,
+                     six_b: dict) -> dict:
+    """(a) 6b's eight prompts over the ici lane into 8 contiguous decode
+    slots."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+    dec = tiers["dec"].batcher()
+    kv0, fb0 = kv_stats(), kv_fallback_counters()
+    snap = phase_snapshot()
+    clients, wall_s, most_live, launches = run_counted(
+        ep, "Prefill", prompts, DECODE_STAGGER_S, dec)
+    d = phase_deltas(snap)
+    kv, fb = kv_deltas(kv0, fb0)
+    tokens = sum(len(c.tokens) for c in clients)
+    ttfts = sorted(c.ttft_s * 1e3 for c in clients)
+    calls = sorted(c.call_s * 1e3 for c in clients)
+    rounds, _, round_ms = d["decode_round"]
+    left = outstanding_pages()
+    same = sum(c.tokens == t for c, t in zip(clients,
+                                             six_b["session_tokens"]))
+    log(f"  (a) {len(clients)} sessions over the ici lane into "
+        f"{DECODE_SLOTS} decode slots: all closed 'finished', up to "
+        f"{most_live} live; {tokens} tokens in {wall_s:.3f} s = "
+        f"{tokens / wall_s:.1f} tok/s aggregate; {rounds} rounds, "
+        f"{round_ms:.3f} ms each; {same} of {len(clients)} sessions "
+        f"streamed 6b's tokens exactly")
+    log(f"  TTFT median {statistics.median(ttfts):.1f} ms, max "
+        f"{ttfts[-1]:.1f} ms (6b, monolithic, same prompts: "
+        f"{six_b['ttft_median_ms']:.1f}, {six_b['ttft_max_ms']:.1f}); unary "
+        f"Decode (prefill and handoff) median "
+        f"{statistics.median(calls):.1f} ms, max {calls[-1]:.1f} ms")
+    log(f"  handoffs {kv}; fallbacks {fb or 'none'}; flash_fwd launches "
+        f"{launches} (depth {cfg.depth} x {len(prompts)} = "
+        f"{cfg.depth * len(prompts)}); decode tier prefills "
+        f"{dec.prefills_run}; pages left exported {left}")
+    if kv["ici_sessions"] != len(prompts) or kv["sessions"] != len(prompts) \
+            or kv["local_fallbacks"] or fb or dec.prefills_run or left \
+            or launches != cfg.depth * len(prompts):
+        raise AssertionError("the ici handoffs did not run as expected")
+    res = dict(sessions=len(clients), tokens=tokens, wall_s=wall_s,
+               aggregate_tok_s=tokens / wall_s, most_live=most_live,
+               rounds=rounds, round_ms=round_ms, ttft_ms=ttfts,
+               ttft_median_ms=statistics.median(ttfts),
+               ttft_max_ms=ttfts[-1], call_ms=calls,
+               call_median_ms=statistics.median(calls), handoffs=kv,
+               same_as_6b=same, launches=launches)
+    res.update(hold_tokens("(a)", svc, cfg, clients))
+    if not dec.shutdown():
+        raise AssertionError("the decode tier's batcher did not stop")
+    return res
+
+
+def phase_disagg_copy(ep, svc: LMService, tiers: dict,
+                      cfg: LMConfig) -> dict:
+    """(b) 6b's two chunk prompts over the copy lane, one session at a
+    time, with the frame cap at DISAGG_COPY_CAP for the 256 MiB
+    attachment; then the same two over the ici lane."""
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in CHUNK_PROMPT_LENS]
+    dec = tiers["dec"].batcher()
+    cap0 = get_flag("max_body_size")
+    if not set_flag("max_body_size", DISAGG_COPY_CAP):
+        raise AssertionError("max_body_size refused the copy lane's cap")
+    rows = {}
+    try:
+        for lane, service in (("copy", "PrefillCopy"), ("ici", "Prefill")):
+            kv0, fb0 = kv_stats(), kv_fallback_counters()
+            FLASH_FWD.launches = 0
+            clients = []
+            for p in prompts:
+                clients += run_decode_sessions(ep, service, [p], 0.0, dec)[0]
+            launches = FLASH_FWD.launches
+            kv, fb = kv_deltas(kv0, fb0)
+            calls = [c.call_s * 1e3 for c in clients]
+            log(f"  (b) {lane} lane, prompts {list(CHUNK_PROMPT_LENS)} one "
+                f"after the other: unary Decode "
+                f"{', '.join(f'{ms:.1f}' for ms in calls)} ms, TTFT "
+                f"{', '.join(f'{c.ttft_s * 1e3:.1f}' for c in clients)} ms; "
+                f"{kv[f'{lane}_sessions']} {lane} sessions, "
+                f"{kv['bytes_moved']} bytes moved; fallbacks "
+                f"{fb or 'none'}; flash_fwd launches {launches}")
+            if kv[f"{lane}_sessions"] != len(prompts) or fb \
+                    or kv["bytes_moved"] != len(prompts) \
+                    * DISAGG_SESSION_BYTES or kv["local_fallbacks"] \
+                    or launches != cfg.depth * len(prompts):
+                raise AssertionError(f"the {lane}-lane handoffs did not run "
+                                     f"as expected")
+            row = dict(call_ms=calls,
+                       ttft_ms=[c.ttft_s * 1e3 for c in clients],
+                       bytes_moved=kv["bytes_moved"], launches=launches)
+            row.update(hold_tokens(f"(b) {lane}", svc, cfg, clients))
+            rows[lane] = row
+        steps = copy_lane_steps(tiers["PrefillCopy"], cfg, prompts[0])
+    finally:
+        set_flag("max_body_size", cap0)
+    extra = [c - i for c, i in zip(rows["copy"]["call_ms"],
+                                   rows["ici"]["call_ms"])]
+    gb_s = [DISAGG_SESSION_BYTES / (ms / 1e3) / 1e9 if ms > 0 else None
+            for ms in extra]
+    log(f"  (b) the copy lane costs {', '.join(f'{ms:.1f}' for ms in extra)} "
+        f"ms more per session than the ici lane: "
+        f"{', '.join(f'{g:.2f}' if g else '-' for g in gb_s)} GB/s over "
+        f"{DISAGG_SESSION_BYTES} bytes (device to host, two host copies "
+        f"to frame it, the loopback, two on receipt, host to device)")
+    if not dec.shutdown():
+        raise AssertionError("the decode tier's batcher did not stop")
+    return dict(copy=rows["copy"], ici=rows["ici"], copy_extra_ms=extra,
+                copy_gb_s=gb_s, copy_steps_ms=steps,
+                launches=rows["copy"]["launches"] + rows["ici"]["launches"])
+
+
+def copy_lane_steps(tier: PrefillService, cfg: LMConfig,
+                    prompt: np.ndarray) -> dict:
+    """One session's copy-lane work outside the RPC, each step timed on
+    the host clock: staging (16 device-to-host copies and the join into
+    one attachment), framing, unframing, and landing (a private copy of
+    the attachment and 16 host-to-device copies).  What the copy lane
+    costs beyond these is the loopback and the reads around it.  The
+    landed pages must equal the exported ones."""
+    with torch.inference_mode():
+        cache1, ctx_len = bucketed_prefill(tier._ensure_prefill(), cfg,
+                                           prompt)
+    pages = export_decode_cache(cfg, cache1)
+    torch.cuda.synchronize()
+    ms = {}
+    t0 = time.perf_counter()
+    _, descs, att, _, _ = KvTransport()._prepare_pages(LANE_COPY, pages,
+                                                       None)
+    ms["stage"] = (time.perf_counter() - t0) * 1e3
+    manifest = encode_manifest(SessionManifest(
+        LANE_COPY, 1, b"\0" * 8, ctx_len, 0, 1, b"", descs))
+    t0 = time.perf_counter()
+    frame = pack_frame(RpcMeta(), manifest, att)
+    ms["frame"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, payload, got_att = unpack_frame(frame)
+    ms["unframe"] = (time.perf_counter() - t0) * 1e3
+    del frame
+    t0 = time.perf_counter()
+    landed = import_pages(decode_manifest(payload), got_att,
+                          kv_page_specs(cfg), "cuda")
+    torch.cuda.synchronize()
+    ms["land"] = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(a, b) for a, (b, _) in zip(landed, pages)):
+        raise AssertionError("the copy lane's pages did not land exactly")
+    log(f"  (b) one session's copy-lane steps outside the RPC: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+        + f" ({DISAGG_SESSION_BYTES} bytes, pages landed bit-equal)")
+    return ms
+
+
+def failing_session(ep, service: str, prompt: np.ndarray) -> tuple:
+    """One Decode call expected to fail: (error code, error text, the
+    stream's close reason, tokens received), once its stream closed."""
+    ch = Channel()
+    ch.init(str(ep))
+    cntl = Controller()
+    cntl.timeout_ms = int(DECODE_TIMEOUT_S * 1000)
+    toks, why, closed = [], [], threading.Event()
+
+    def on_closed(st):
+        why.append(st.close_reason)
+        closed.set()
+
+    stream_create(cntl, StreamOptions(
+        on_received=lambda st, msgs: toks.extend(unpack_token(m)
+                                                 for m in msgs),
+        on_closed=on_closed))
+    c = ch.call_method(f"{service}.Decode",
+                       pack_generate_request(prompt[None], DECODE_MAX_NEW),
+                       cntl=cntl)
+    ok = closed.wait(DECODE_TIMEOUT_S)
+    ch.close()
+    if not ok:
+        raise AssertionError(f"{service}'s stream never closed")
+    return c.error_code, c.error_text, why[0], toks
+
+
+def phase_disagg_over_cap(ep, svc: LMService, tiers: dict,
+                          cfg: LMConfig) -> dict:
+    """(c) the copy lane at the default frame cap: the 256 MiB handoff is
+    refused where it is framed (``kv_import_rejected``, provably before
+    the decode tier saw it), so the session decodes on the prefill tier
+    from the same cache; then a strict tier closes its stream
+    ``kv_handoff_failed``."""
+    if max_body_size() != MAX_BODY_SIZE:
+        raise AssertionError("the frame cap is not at its default")
+    prompt = np.random.default_rng(6).integers(
+        0, cfg.vocab, CHUNK_PROMPT_LENS[0], dtype=np.int32)
+    local = tiers["PrefillCopy"].batcher()
+    kv0, fb0 = kv_stats(), kv_fallback_counters()
+    clients, _, _, launches = run_counted(ep, "PrefillCopy", [prompt], 0.0,
+                                          local)
+    kv, fb = kv_deltas(kv0, fb0)
+    log(f"  (c) copy lane at the {MAX_BODY_SIZE}-byte cap: closed "
+        f"'finished' after a local fallback; fallbacks {fb}, local "
+        f"fallbacks {kv['local_fallbacks']}, handoffs {kv['sessions']}; "
+        f"flash_fwd launches {launches}, prefills on the prefill tier's "
+        f"batcher {local.prefills_run}")
+    if fb != {"kv_import_rejected": 1} or kv["local_fallbacks"] != 1 \
+            or kv["sessions"] or launches != cfg.depth or local.prefills_run:
+        raise AssertionError("the over-cap session did not fall back as "
+                             "named")
+    res = dict(fallbacks=fb, local_fallbacks=kv["local_fallbacks"],
+               call_ms=clients[0].call_s * 1e3)
+    res.update(hold_tokens("(c)", svc, cfg, clients))
+    if not local.shutdown():
+        raise AssertionError("the prefill tier's batcher did not stop")
+    kv0, fb0 = kv_stats(), kv_fallback_counters()
+    FLASH_FWD.launches = 0
+    code, text, reason, toks = failing_session(ep, "PrefillStrict", prompt)
+    strict_launches = FLASH_FWD.launches
+    kv, fb = kv_deltas(kv0, fb0)
+    log(f"  (c) strict tier: [{code}] {text!r}, stream closed {reason!r} "
+        f"after {len(toks)} tokens; fallbacks {fb}; flash_fwd launches "
+        f"{strict_launches}")
+    if code != int(Errno.EINTERNAL) or reason != "kv_handoff_failed" \
+            or toks or fb != {"kv_import_rejected": 1} \
+            or strict_launches != cfg.depth:
+        raise AssertionError("the strict tier did not close as named")
+    res.update(strict_error=[code, text], strict_close=reason,
+               launches=launches + strict_launches)
+    return res
+
+
+def phase_disagg_paged(ep, svc: LMService, tiers: dict,
+                       cfg: LMConfig) -> dict:
+    """(d) four of 6b's prompts over the ici lane into 6c (a)'s paged
+    decode tier: the imported caches land in pages, with no prefix
+    lookup, no prefix insert and no prefill there."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)[:DISAGG_PAGED_SESSIONS]
+    dec = tiers["dec_paged"].batcher()
+    kv0, fb0 = kv_stats(), kv_fallback_counters()
+    ev0 = prefix_event_counters()
+    clients, wall_s, most_live, launches = run_counted(
+        ep, "PrefillPaged", prompts, DECODE_STAGGER_S, dec)
+    kv, fb = kv_deltas(kv0, fb0)
+    ev = {k: v - ev0[k] for k, v in prefix_event_counters().items()
+          if v != ev0[k]}
+    alloc = dec.kv_stats()["alloc"]
+    need = [-(-(len(p) - 1 + DECODE_MAX_NEW) // PAGE) for p in prompts]
+    log(f"  (d) {len(clients)} sessions over the ici lane into {PAGED_SLOTS} "
+        f"paged slots on {PAGED_POOL} pages: all closed 'finished' in "
+        f"{wall_s:.3f} s, up to {most_live} live; peak pages "
+        f"{alloc['peak_in_use']} (the sessions need {need}, {sum(need)} "
+        f"together), {alloc['in_use']} in use after; prefix events "
+        f"{ev or 'none'}; decode tier prefills {dec.prefills_run}; "
+        f"handoffs {kv['ici_sessions']} ici, fallbacks {fb or 'none'}; "
+        f"flash_fwd launches {launches}")
+    if kv["ici_sessions"] != len(prompts) or fb or kv["local_fallbacks"] \
+            or ev or dec.prefills_run or alloc["in_use"] \
+            or not max(need) <= alloc["peak_in_use"] <= sum(need) \
+            or launches != cfg.depth * len(prompts):
+        raise AssertionError("the paged decode tier did not take the "
+                             "handoffs as expected")
+    res = dict(sessions=len(clients), wall_s=wall_s, most_live=most_live,
+               pages_peak=alloc["peak_in_use"], pages_needed=need,
+               launches=launches)
+    res.update(hold_tokens("(d)", svc, cfg, clients))
+    if not dec.shutdown():
+        raise AssertionError("the paged decode tier's batcher did not stop")
+    return res
+
+
 def phase_logits(svc: LMService, cfg: LMConfig) -> float:
     """Prefill logits through the kernel vs through dense attention."""
     ids = torch.from_numpy(np.random.default_rng(2).integers(
@@ -1866,8 +2201,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    name = torch.cuda.get_device_name(0)
-    peaks = peaks_for(name)
+    device_name = torch.cuda.get_device_name(0)
+    peaks = peaks_for(device_name)
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
@@ -1917,6 +2252,24 @@ def main() -> int:
         "LMSpecPlain": LMService(cfg=cfg, params=svc.params, device="cuda",
                                  decode_slots=SPEC_SLOTS, paged=True,
                                  page=PAGE)}
+    # and the tiers of 6d: two decode tiers (contiguous, and 6c (a)'s
+    # paged one), each on a Server of its own, and the prefill tiers
+    # pointed at them (one local slot each, for a fallback)
+    tiers = {
+        "dec": LMService(cfg=cfg, params=svc.params, device="cuda",
+                         decode_slots=DECODE_SLOTS),
+        "dec_paged": LMService(cfg=cfg, params=svc.params, device="cuda",
+                               decode_slots=PAGED_SLOTS, paged=True,
+                               page=PAGE, kv_pages=PAGED_POOL,
+                               kv_host_slots=HOST_SLOTS)}
+    dec_srv = {name: Server() for name in ("dec", "dec_paged")}
+    dec_ch = {name: Channel() for name in dec_srv}
+    for tier, (lane, strict, dec) in DISAGG_PREFILL.items():
+        tiers[tier] = PrefillService(
+            cfg=cfg, params=svc.params, device="cuda", decode_slots=1,
+            decode_channel=dec_ch[dec], transport=KvTransport(
+                force_lane=lane), fallback_local=not strict)
+    pre_srv = Server()
     log(f"  params: {svc._param_bytes / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     srv = Server()
@@ -1948,13 +2301,43 @@ def main() -> int:
                                decode["decode_tok_s"])
         log(f"[6c] LM.Decode through the paged batcher, {PAGE}-token pages")
         paged_res = phase_paged(srv.listen_endpoint, svc, paged, cfg)
+        log("[6d] LM.Decode disaggregated: prefill tiers hand each session's "
+            "KV pages to a decode tier")
+        for tier, server in dec_srv.items():
+            if server.add_service(tiers[tier], name="LM") != 0 \
+                    or server.add_service(DecodeTierService(tiers[tier]),
+                                          name="KV") != 0 \
+                    or server.start("127.0.0.1:0") != 0:
+                raise RuntimeError("a decode tier did not start")
+            dec_ch[tier].init(str(server.listen_endpoint))
+        if any(pre_srv.add_service(tiers[tier], name=tier) != 0
+               for tier in DISAGG_PREFILL) \
+                or pre_srv.start("127.0.0.1:0") != 0:
+            raise RuntimeError("the prefill tiers did not start")
+        disagg = phase_disagg(pre_srv.listen_endpoint, svc, tiers, cfg,
+                              streams)
     finally:
         ch.close()
         srv.stop()
-        for service in (svc, chunked, *paged.values()):
+        pre_srv.stop()
+        for tier, server in dec_srv.items():
+            server.stop()
+            dec_ch[tier].close()
+        for service in (svc, chunked, *paged.values(), *tiers.values()):
             if service._batcher is not None:
                 service._batcher.shutdown()
     torch.cuda.empty_cache()
+    log(f"  allocated on the card after the serving phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # cuBLAS keeps a workspace on the card for every handle, that is for
+    # every thread that has run a GEMM at the same time as others: 6d's
+    # prefill tiers run one thread per connection.  Dropped here, so
+    # phase 8 measures training alone
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        log(f"  allocated after dropping the cuBLAS workspaces: "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
 
     log(f"[8] training LM at {TRAIN_CFG}, accum={TRAIN_ACCUM} x microbatch "
         f"{TRAIN_MICRO} x {TRAIN_SEQ} tokens (reduced from bench.py's 8 x "
@@ -1973,12 +2356,13 @@ def main() -> int:
         "replaces": "brpc_tpu/ops/flash_attention.py:46",
         "launches": (launches + streams["launches"]
                      + paged_res["launches_paged"]
-                     + paged_res["launches_spec"]
+                     + paged_res["launches_spec"] + disagg["launches"]
                      + train["launches"][FLASH_FWD.name]),
         "launches_by_path": {"generate": launches,
                              "decode": streams["launches"],
                              "paged_decode": paged_res["launches_paged"],
                              "spec_decode": paged_res["launches_spec"],
+                             "disagg": disagg["launches"],
                              "train": train["launches"][FLASH_FWD.name]},
         "max_abs_err": main_err,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
@@ -2023,6 +2407,7 @@ def main() -> int:
     log(f"  decode: {json.dumps(decode)}")
     log(f"  streams: {json.dumps(streams)}")
     log(f"  paged: {json.dumps(paged_res)}")
+    log(f"  disagg: {json.dumps(disagg)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  checksum: {n_payloads} payloads bit-exact; timing "
         f"{json.dumps(cs_times)}")
@@ -2031,7 +2416,7 @@ def main() -> int:
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -37,7 +37,11 @@ def test_enums_match_jax():
         with pytest.raises(ValueError):
             bad()
     assert tkv.PageAllocator is tpages.PageAllocator
-    assert "KvPageStore" not in tkv.__all__      # the handoff's, not here
+    # the package exports the handoff's registry too, as the JAX one does
+    assert tkv.KvPageStore is tpages.KvPageStore
+    assert {"KvPageStore", "process_kv_store", "drain_settle",
+            "KvTransport", "PrefillService", "DecodeTierService"} \
+        <= set(tkv.__all__)
 
 
 def test_counters_count_and_reset():

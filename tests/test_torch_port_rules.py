@@ -55,7 +55,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == n_modules >= 40
+    assert int(proc.stdout.split()[-1]) == n_modules >= 42
     names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
     assert {"brpc_tpu_torch.utils.checkpoint",
             "brpc_tpu_torch.models.transformer_lm",
@@ -73,7 +73,9 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.server.admission",
             "brpc_tpu_torch.models.lm_telemetry",
             "brpc_tpu_torch.kv",
-            "brpc_tpu_torch.kv.pages"} <= names
+            "brpc_tpu_torch.kv.pages",
+            "brpc_tpu_torch.kv.transport",
+            "brpc_tpu_torch.kv.disagg"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -237,3 +239,27 @@ def test_paged_decode_entry_points_raise_without_cuda():
     assert bat.paged and bat.device.type == "cpu" and bat.num_pages == 5
     assert empty_paged_cache(cfg, 3, 2, 4, device="cpu")["pk0"].device.type \
         == "cpu"
+
+
+def test_disagg_entry_points_raise_without_cuda():
+    """A prefill tier and a decode tier's service need ``device="cpu"``
+    on a host without CUDA; asked for, both tiers land on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.kv import DecodeTierService, PrefillService
+    from brpc_tpu_torch.models.lm_service import LMService
+    from brpc_tpu_torch.models.transformer_lm import LMConfig
+    cfg = LMConfig(vocab=16, dim=8, heads=2, depth=1, max_seq=8)
+    for call in (lambda: PrefillService(cfg=cfg),
+                 lambda: PrefillService(cfg=cfg, device="cuda:0",
+                                        fallback_local=False),
+                 lambda: DecodeTierService(LMService(cfg=cfg,
+                                                     decode_slots=2))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    pre = PrefillService(cfg=cfg, device="cpu")
+    dec = LMService(cfg=cfg, device="cpu", decode_slots=2, paged=True,
+                    page=4)
+    assert pre.device.type == dec.device.type == "cpu"
+    assert DecodeTierService(dec).lm.batcher().device.type == "cpu"
+    assert pre.model_fingerprint() == dec.model_fingerprint()
