@@ -16,7 +16,9 @@ and, in paged mode, speculative decoding.  A decode tier's batcher also
 seats sessions prefilled on another tier
 (:meth:`ContinuousBatcher.join_imported`, the disaggregated handoff of
 ``kv/disagg.py``), and :meth:`LMService.model_fingerprint` names what the
-two tiers must agree on.
+two tiers must agree on.  MoE configs serve through every program;
+``scan_layers`` configs serve ``Generate`` only, and ``Decode`` answers
+them EREQUEST, as the JAX service does.
 """
 
 from __future__ import annotations
@@ -1310,6 +1312,8 @@ class LMService(Service):
         b, s = prompt.shape
         err = "Decode streams one session per call" if b != 1 or s == 0 \
             else self._limits_error(prompt, max_new)
+        if not err and self.cfg.scan_layers:
+            err = "Decode serves unrolled configs only"
         if err:
             cntl.set_failed(Errno.EREQUEST, err)
             return None

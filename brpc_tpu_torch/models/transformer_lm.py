@@ -18,9 +18,18 @@ root, rope splits each head in halves, and attention goes through
 ``ops.flash_attention.attention`` — the hand-written CUDA kernels, forward
 and backward, on the card when ``use_flash`` is set.
 
-MoE blocks (``moe_experts > 0``) and ``scan_layers`` are not ported yet
-and raise ``NotImplementedError``; so do ``mesh``/``sp_axis`` (ring
-attention and sharded training wait for the port's ``parallel/`` slice).
+MoE blocks (``moe_experts > 0``) swap each block's MLP for
+:mod:`.moe`'s FFN in every program, routing each row of the program's
+``(rows, tokens, dim)`` activations on its own, as the JAX package does.
+``scan_layers`` configs keep their weights stacked under
+``params["blocks"]`` (leading depth axis) and their decode caches as
+``(depth, b, max_seq, heads, hd)`` tensors; the JAX package scans one
+compiled layer over them, the port runs the same layer in a Python loop
+over per-layer views, so a stacked tree gives the tokens of its unrolled
+twin bit for bit.  What the JAX package refuses, the port refuses with
+its words: ``scan_layers`` in the batch, paged and spec programs and the
+KV page list, and ``scan_layers`` with MoE in ``make_decode``;
+``mesh``/``sp_axis`` raise until the port's ``parallel/`` slice.
 """
 
 from __future__ import annotations
@@ -33,8 +42,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import attention
-from ..ops.quant import qmatmul
+from ..ops.quant import QuantTensor, qmatmul
 from ..utils.device import resolve_device
+from . import moe
 
 
 class LMConfig:
@@ -68,23 +78,29 @@ class LMConfig:
         self.attn_impl = attn_impl
         self.scan_layers = scan_layers
 
+    def moe_cfg(self) -> moe.MoEConfig:
+        return moe.MoEConfig(dim=self.dim, hidden=self.dim * self.mlp_mult,
+                             num_experts=self.moe_experts,
+                             capacity_factor=self.moe_capacity,
+                             aux_loss_weight=self.moe_aux_weight,
+                             top_k=self.moe_top_k)
 
-def _check_ported(cfg: LMConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet")
+
+def _refuse_scan(cfg: LMConfig, what: str) -> None:
     if cfg.scan_layers:
-        raise NotImplementedError("scan_layers is not ported yet")
+        raise NotImplementedError(what)
 
 
 def init_params(generator: torch.Generator, cfg: LMConfig,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters in the JAX package's layout and scales (normal
     draws times 1/sqrt(dim), ``w2`` further over ``mlp_mult``, unit norm
-    gains), drawn from ``generator`` on ``device`` — the generator must
-    live on that device.  The values differ from the JAX package's
+    gains; an MoE block's ``moe`` subtree from :func:`.moe.init_params`),
+    drawn from ``generator`` on ``device`` — the generator must live on
+    that device.  ``scan_layers`` stacks the blocks under ``"blocks"``
+    along a leading depth axis.  The values differ from the JAX package's
     ``PRNGKey`` draws; parity tests carry the JAX params over with
     :func:`brpc_tpu_torch.utils.convert.params_from_numpy`."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     scale = 1.0 / math.sqrt(cfg.dim)
 
@@ -98,15 +114,50 @@ def init_params(generator: torch.Generator, cfg: LMConfig,
     }
     h = cfg.dim * cfg.mlp_mult
     for i in range(cfg.depth):
-        params[f"blk{i}"] = {
+        blk = {
             "wqkv": normal(cfg.dim, 3 * cfg.dim),
             "wo": normal(cfg.dim, cfg.dim),
             "ln1": torch.ones(cfg.dim, device=dev),
             "ln2": torch.ones(cfg.dim, device=dev),
-            "w1": normal(cfg.dim, h),
-            "w2": normal(h, cfg.dim, mult=scale / cfg.mlp_mult),
         }
+        if cfg.moe_experts > 0:
+            blk["moe"] = moe.init_params(generator, cfg.moe_cfg(), dev)
+        else:
+            blk["w1"] = normal(cfg.dim, h)
+            blk["w2"] = normal(h, cfg.dim, mult=scale / cfg.mlp_mult)
+        params[f"blk{i}"] = blk
+    if cfg.scan_layers:
+        params["blocks"] = _stack([params.pop(f"blk{i}")
+                                   for i in range(cfg.depth)])
     return params
+
+
+def _stack(blocks: list) -> dict:
+    """Per-layer trees -> one tree of stacked (depth, ...) tensors."""
+    return {k: _stack([b[k] for b in blocks]) if isinstance(v, dict)
+            else torch.stack([b[k] for b in blocks])
+            for k, v in blocks[0].items()}
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree: views, no copies (a QuantTensor's
+    slice is ``(q[i], s[i])``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _layer(v, i)
+        elif isinstance(v, QuantTensor):
+            out[k] = QuantTensor(v.q[i], v.s[i])
+        else:
+            out[k] = v[i]
+    return out
+
+
+def _blocks(cfg: LMConfig, params) -> list:
+    """Every block's parameters in order, unrolled or stacked."""
+    if cfg.scan_layers:
+        return [_layer(params["blocks"], i) for i in range(cfg.depth)]
+    return [params[f"blk{i}"] for i in range(cfg.depth)]
 
 
 def _rmsnorm(x, g):
@@ -148,6 +199,17 @@ def _mlp(bp, h):
                    bp["w2"])
 
 
+def _ffn(cfg: LMConfig):
+    """The block's feed-forward, ``(bp, h) -> (out, aux)``: the gelu MLP
+    (aux None), or the MoE FFN routing each row of ``h`` (rows, tokens,
+    dim) on its own — a decode step's slots, a chunk's whole padded
+    slice, a verify's k + 1 candidates, a prefill's whole bucket."""
+    if cfg.moe_experts > 0:
+        mcfg = cfg.moe_cfg()
+        return lambda bp, h: moe.forward_grouped(bp["moe"], h, mcfg)
+    return lambda bp, h: (_mlp(bp, h), None)
+
+
 def _qkv_heads(cfg: LMConfig, bp, h, sin, cos):
     """q, k (rope applied) and v, each (b, s, heads, head_dim) f32."""
     b, s = h.shape[0], h.shape[1]
@@ -168,24 +230,28 @@ def make_decode(cfg: LMConfig, device="cuda"):
       The returned dict is new, but the cache tensors are updated IN
       PLACE (the JAX package donates them for the same effect): a caller
       that needs the old cache clones it first.
+
+    ``scan_layers`` configs keep the caches stacked, ``cache["k"]`` and
+    ``cache["v"]`` of shape ``(depth, b, max_seq, heads, hd)``; with MoE
+    blocks they raise, as in the JAX package.
     """
-    _check_ported(cfg)
+    if cfg.scan_layers and cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "scanned decode does not support MoE blocks — use "
+            "scan_layers=False for MoE serving")
     dev = resolve_device(device)
     hd = cfg.dim // cfg.heads
     impl = "flash" if cfg.use_flash else cfg.attn_impl
+    ffn = _ffn(cfg)
 
-    def prefill_layer(bp, x, sin, cos):
+    def prefill_layer(bp, x, sin, cos, kc, vc):
         b, s = x.shape[0], x.shape[1]
         q, k, v = _qkv_heads(cfg, bp, _rmsnorm(x, bp["ln1"]), sin, cos)
-        kc = torch.zeros((b, cfg.max_seq, cfg.heads, hd),
-                         dtype=torch.float32, device=dev)
-        vc = torch.zeros_like(kc)
         kc[:, :s] = k
         vc[:, :s] = v
         att = attention(q, k, v, causal=cfg.causal, impl=impl)
         x = x + qmatmul(att.reshape(b, s, cfg.dim), bp["wo"])
-        x = x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
-        return x, kc, vc
+        return x + ffn(bp, _rmsnorm(x, bp["ln2"]))[0]
 
     def decode_layer(bp, x, kc, vc, pos: int):
         b = x.shape[0]
@@ -202,8 +268,7 @@ def make_decode(cfg: LMConfig, device="cuda"):
         p = torch.softmax(s_mat, dim=-1)
         att = torch.einsum("bhqk,bkhd->bqhd", p, vc)
         x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
-        x = x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
-        return x, kc, vc
+        return x + ffn(bp, _rmsnorm(x, bp["ln2"]))[0]
 
     def prefill(params, ids):
         ids = torch.as_tensor(ids, device=dev).long()
@@ -212,10 +277,10 @@ def make_decode(cfg: LMConfig, device="cuda"):
             raise ValueError(f"seq {s} exceeds max_seq {cfg.max_seq}")
         x = params["embed"][ids]
         sin, cos = _rope_tables(s, hd, dev)
-        cache: Dict[str, Any] = {"len": s}
-        for i in range(cfg.depth):
-            x, kc, vc = prefill_layer(params[f"blk{i}"], x, sin, cos)
-            cache[f"k{i}"], cache[f"v{i}"] = kc, vc
+        cache = empty_cache(cfg, b, start_len=s, device=dev)
+        for i, bp in enumerate(_blocks(cfg, params)):
+            kc, vc = _layer_kv(cfg, cache, i)
+            x = prefill_layer(bp, x, sin, cos, kc, vc)
         return cache, qmatmul(x[:, -1], params["unembed"])
 
     def decode_step(params, cache, token):
@@ -223,23 +288,35 @@ def make_decode(cfg: LMConfig, device="cuda"):
         pos = int(cache["len"])
         token = torch.as_tensor(token, device=dev).long()
         x = params["embed"][token][:, None, :]       # (b, 1, d)
-        for i in range(cfg.depth):
-            x, kc, vc = decode_layer(params[f"blk{i}"], x,
-                                     cache[f"k{i}"], cache[f"v{i}"], pos)
-            cache[f"k{i}"], cache[f"v{i}"] = kc, vc
+        for i, bp in enumerate(_blocks(cfg, params)):
+            x = decode_layer(bp, x, *_layer_kv(cfg, cache, i), pos)
         cache["len"] = pos + 1
         return cache, qmatmul(x[:, 0], params["unembed"])
 
     return prefill, decode_step
 
 
+def _layer_kv(cfg: LMConfig, cache, i: int):
+    """Layer ``i``'s k and v cache tensors (views of the stacked ones
+    under ``scan_layers``)."""
+    if cfg.scan_layers:
+        return cache["k"][i], cache["v"][i]
+    return cache[f"k{i}"], cache[f"v{i}"]
+
+
 def empty_cache(cfg: LMConfig, batch: int, start_len: int = 1,
                 device="cuda"):
-    """A fresh KV cache in the layout ``make_decode``'s steps expect."""
-    _check_ported(cfg)
+    """A fresh KV cache in the layout ``make_decode``'s steps expect:
+    ``(batch, max_seq, heads, hd)`` f32 per layer, or for ``scan_layers``
+    two stacked ``(depth, batch, max_seq, heads, hd)`` tensors."""
     dev = resolve_device(device)
     hd = cfg.dim // cfg.heads
     cache: Dict[str, Any] = {"len": int(start_len)}
+    if cfg.scan_layers:
+        shape = (cfg.depth, batch, cfg.max_seq, cfg.heads, hd)
+        cache["k"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+        return cache
     for i in range(cfg.depth):
         for kind in ("k", "v"):
             cache[f"{kind}{i}"] = torch.zeros(
@@ -254,7 +331,8 @@ def kv_page_specs(cfg: LMConfig, batch: int = 1):
     emits and the import side rebuilds from.  The layout is the model's
     (like :func:`empty_cache`'s); the wire carries sizes only, to check
     them."""
-    _check_ported(cfg)
+    _refuse_scan(cfg, "paged KV export supports unrolled layers only (the "
+                      "continuous batcher's serving shape)")
     hd = cfg.dim // cfg.heads
     shape = (batch, cfg.max_seq, cfg.heads, hd)
     nbytes = batch * cfg.max_seq * cfg.heads * hd * 4      # float32
@@ -267,7 +345,7 @@ def export_decode_cache(cfg: LMConfig, cache):
     moves: the pages are the live cache tensors, whole ``max_seq`` rows
     each; the transport decides whether they travel as descriptors or as
     bytes."""
-    _check_ported(cfg)
+    _refuse_scan(cfg, "paged KV export supports unrolled layers only")
     pages = []
     for i in range(cfg.depth):
         for key in (f"k{i}", f"v{i}"):
@@ -344,10 +422,12 @@ def make_batch_decode(cfg: LMConfig, chunk: Optional[int] = None,
     the returned dict holds the same tensors.  The k/v write of a step is
     one indexed write per layer and the mask is built from the position
     tensor, so a step reads nothing back to the host."""
-    _check_ported(cfg)
+    _refuse_scan(cfg, "batch decode supports unrolled layers only — "
+                      "scan_layers serving uses make_decode per shard")
     dev = resolve_device(device)
     hd = cfg.dim // cfg.heads
     rows_all = torch.arange(cfg.max_seq, device=dev)
+    ffn = _ffn(cfg)
 
     def decode_layer(bp, x, kc, vc, pos, slots):
         b = x.shape[0]
@@ -361,8 +441,7 @@ def make_batch_decode(cfg: LMConfig, chunk: Optional[int] = None,
         live = rows_all[None, None, :] <= pos[:, None, None]
         att = _masked_attention(q, kc, vc, live, hd)
         x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
-        x = x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
-        return x
+        return x + ffn(bp, _rmsnorm(x, bp["ln2"]))[0]
 
     def step(params, cache, token, active):
         cache = dict(cache)
@@ -394,7 +473,7 @@ def make_batch_decode(cfg: LMConfig, chunk: Optional[int] = None,
         live = rows_all[None, None, :] <= pos[None, :, None]
         att = _masked_attention(q, kc[slot][None], vc[slot][None], live, hd)
         x = x + qmatmul(att.reshape(1, cw, cfg.dim), bp["wo"])
-        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+        return x + ffn(bp, _rmsnorm(x, bp["ln2"]))[0]
 
     def chunk_step(params, cache, slot: int, start: int, n: int, ids):
         cache = dict(cache)
@@ -455,11 +534,12 @@ def make_paged_batch_decode(cfg: LMConfig, page: int, device="cuda"):
     and runs the same masked attention: its tokens equal the contiguous
     step's.  Pools and ``len`` are updated in place (the JAX package
     donates them), and the step reads nothing back to the host."""
-    _check_ported(cfg)
+    _refuse_scan(cfg, "paged batch decode supports unrolled layers only")
     _check_page(cfg, page)
     dev = resolve_device(device)
     hd = cfg.dim // cfg.heads
     rows_all = torch.arange(cfg.max_seq, device=dev)
+    ffn = _ffn(cfg)
 
     def decode_layer(bp, x, pk, pv, bt, pos, slots):
         b = x.shape[0]
@@ -477,7 +557,7 @@ def make_paged_batch_decode(cfg: LMConfig, page: int, device="cuda"):
         live = rows_all[None, None, :] <= pos[:, None, None]
         att = _masked_attention(q, kc, vc, live, hd)
         x = x + qmatmul(att.reshape(b, 1, cfg.dim), bp["wo"])
-        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+        return x + ffn(bp, _rmsnorm(x, bp["ln2"]))[0]
 
     def step(params, cache, bt, token, active):
         cache = dict(cache)
@@ -504,7 +584,6 @@ def empty_paged_cache(cfg: LMConfig, num_pages: int, slots: int, page: int,
     the garbage page) and the (slots,) int32 ``len`` tensor.  The block
     table is host state (``kv.pages.PageAllocator`` decides it), passed
     to each call."""
-    _check_ported(cfg)
     _check_page(cfg, page)
     dev = resolve_device(device)
     hd = cfg.dim // cfg.heads
@@ -549,7 +628,6 @@ def make_paged_io(cfg: LMConfig, page: int, chunk: Optional[int] = None,
       chunk-filled slot equals a whole-prompt insert.
 
     Writes land in place in the cache's tensors."""
-    _check_ported(cfg)
     _check_page(cfg, page)
     dev = resolve_device(device)
     pps = cfg.max_seq // page
@@ -585,6 +663,7 @@ def make_paged_io(cfg: LMConfig, page: int, chunk: Optional[int] = None,
     cw = int(chunk)
     offsets = torch.arange(cw, device=dev)
     rows_all = torch.arange(cfg.max_seq, device=dev)
+    ffn = _ffn(cfg)
 
     def chunk_layer(bp, x, pk, pv, bt_row, page_idx, row, pos):
         h = _rmsnorm(x, bp["ln1"])
@@ -599,7 +678,7 @@ def make_paged_io(cfg: LMConfig, page: int, chunk: Optional[int] = None,
         live = rows_all[None, None, :] <= pos[None, :, None]
         att = _masked_attention(q, kcs, vcs, live, hd)
         x = x + qmatmul(att.reshape(1, cw, cfg.dim), bp["wo"])
-        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+        return x + ffn(bp, _rmsnorm(x, bp["ln2"]))[0]
 
     def chunk_prefill(params, cache, bt_row, slot: int, start: int, n: int,
                       ids):
@@ -635,7 +714,7 @@ def make_paged_spec_verify(cfg: LMConfig, page: int, width: int,
     their garbage beyond the new len, where a later write replaces them
     before the mask admits them: rollback is a len rewind.  The caller
     keeps ``len + width <= max_seq`` for every active slot."""
-    _check_ported(cfg)
+    _refuse_scan(cfg, "spec verify supports unrolled layers only")
     _check_page(cfg, page)
     w = int(width)
     if w < 2:
@@ -644,6 +723,7 @@ def make_paged_spec_verify(cfg: LMConfig, page: int, width: int,
     hd = cfg.dim // cfg.heads
     rows_all = torch.arange(cfg.max_seq, device=dev)
     offsets = torch.arange(w, device=dev)
+    ffn = _ffn(cfg)
 
     def verify_layer(bp, x, pk, pv, bt, pos):
         b = x.shape[0]
@@ -661,7 +741,7 @@ def make_paged_spec_verify(cfg: LMConfig, page: int, width: int,
         live = rows_all[None, None, :] <= pos[:, :, None]
         att = _masked_attention(q, kc, vc, live, hd)
         x = x + qmatmul(att.reshape(b, w, cfg.dim), bp["wo"])
-        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+        return x + ffn(bp, _rmsnorm(x, bp["ln2"]))[0]
 
     def verify(params, cache, bt, tokens, active):
         cache = dict(cache)
@@ -785,23 +865,26 @@ def _rebuild(tree, leaves):
 
 def make_forward(cfg: LMConfig, mesh=None, sp_axis=None, device="cuda"):
     """Forward fn: ``(params, ids[b, s], with_aux=False) -> logits[b, s,
-    vocab]`` f32, or ``(logits, aux)`` with ``with_aux`` (aux is 0 for
-    the dense MLP).  With ``cfg.remat`` each block runs under
-    ``torch.utils.checkpoint`` and is recomputed in the backward pass, as
-    ``jax.checkpoint`` does: the flash forward kernel then runs twice per
-    block.  ``mesh``/``sp_axis`` raise ``NotImplementedError``."""
-    _check_ported(cfg)
+    vocab]`` f32, or ``(logits, aux)`` with ``with_aux``: the sum over
+    blocks of each MoE block's aux loss (0 for the dense MLP).  Unrolled
+    and stacked (``scan_layers``) params both run.  With ``cfg.remat``
+    each block runs under ``torch.utils.checkpoint`` and is recomputed in
+    the backward pass, as ``jax.checkpoint`` does: the flash forward
+    kernel then runs twice per block.  ``mesh``/``sp_axis`` raise
+    ``NotImplementedError``."""
     _check_unsharded(mesh, sp_axis)
     dev = resolve_device(device)
     hd = cfg.dim // cfg.heads
     impl = "flash" if cfg.use_flash else cfg.attn_impl
+    ffn = _ffn(cfg)
 
     def block(bp, x, sin, cos):
         b, s, _ = x.shape
         q, k, v = _qkv_heads(cfg, bp, _rmsnorm(x, bp["ln1"]), sin, cos)
         att = attention(q, k, v, causal=cfg.causal, impl=impl)
         x = x + qmatmul(att.reshape(b, s, cfg.dim), bp["wo"])
-        return x + _mlp(bp, _rmsnorm(x, bp["ln2"]))
+        out, aux = ffn(bp, _rmsnorm(x, bp["ln2"]))
+        return x + out, aux
 
     def forward(params, ids, with_aux: bool = False):
         ids = torch.as_tensor(ids, device=dev).long()
@@ -810,14 +893,14 @@ def make_forward(cfg: LMConfig, mesh=None, sp_axis=None, device="cuda"):
             raise ValueError(f"seq {s} exceeds max_seq {cfg.max_seq}")
         x = params["embed"][ids]
         sin, cos = _rope_tables(s, hd, dev)
-        for i in range(cfg.depth):
-            bp = params[f"blk{i}"]
-            x = (checkpoint(block, bp, x, sin, cos, use_reentrant=False)
-                 if cfg.remat else block(bp, x, sin, cos))
+        aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+        for bp in _blocks(cfg, params):
+            x, aux = (checkpoint(block, bp, x, sin, cos, use_reentrant=False)
+                      if cfg.remat else block(bp, x, sin, cos))
+            if aux is not None:
+                aux_total = aux_total + aux
         logits = qmatmul(x, params["unembed"])
-        if with_aux:
-            return logits, torch.zeros((), dtype=torch.float32, device=dev)
-        return logits
+        return (logits, aux_total) if with_aux else logits
 
     return forward
 

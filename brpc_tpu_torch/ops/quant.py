@@ -30,8 +30,9 @@ class QuantTensor(NamedTuple):
 
 
 def quantize_int8(w, contract_axis: int = 0) -> QuantTensor:
-    """Symmetric per-channel quantization of a 2D weight; scales are per
-    channel of the axis that is NOT ``contract_axis``.  Idempotent."""
+    """Symmetric per-channel quantization: scales are taken over
+    ``contract_axis`` (0 for a 2-D ``x @ w`` weight, 1 for a stacked
+    (depth, in, out) one), one per remaining index.  Idempotent."""
     if isinstance(w, QuantTensor):
         return w
     w = torch.as_tensor(w, dtype=torch.float32)
@@ -63,16 +64,20 @@ _LM_QUANT_KEYS = ("wqkv", "wo", "w1", "w2")
 
 def quantize_lm_params(params: dict) -> dict:
     """Quantize a TransformerLM parameter dict for serving: the block
-    matmul weights and the unembedding go int8; embeddings and norm gains
-    stay.  Returns a new dict; the original is untouched.  Unrolled
-    ``blk{i}`` layouts only (``scan_layers`` is not ported yet)."""
+    matmul weights and the unembedding go int8; embeddings, norm gains and
+    MoE subtrees stay.  Returns a new dict; the original is untouched.
+    Unrolled ``blk{i}`` trees and stacked ``scan_layers`` trees are both
+    served: a stacked (depth, in, out) weight quantizes with the
+    contraction on axis 1, so its scales are per (layer, out channel) and
+    layer ``i`` is ``QuantTensor(q[i], s[i])``."""
     out: dict = {}
     for key, val in params.items():
         if key == "unembed":
             out[key] = quantize_int8(val)
-        elif key == "blocks":
-            raise NotImplementedError(
-                "stacked scan_layers params are not ported yet")
+        elif key == "blocks" and isinstance(val, dict):
+            out[key] = {bk: quantize_int8(bv, contract_axis=1)
+                        if bk in _LM_QUANT_KEYS else bv
+                        for bk, bv in val.items()}
         elif key.startswith("blk") and isinstance(val, dict):
             out[key] = {bk: quantize_int8(bv) if bk in _LM_QUANT_KEYS
                         else bv for bk, bv in val.items()}

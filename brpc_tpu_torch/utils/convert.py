@@ -24,8 +24,8 @@ def _is_quant(leaf) -> bool:
 
 def params_from_numpy(tree: dict, device="cuda") -> dict:
     """Nested or flat dict of numpy arrays (the LM's unrolled ``blk{i}``
-    layout, or the EmbeddingPS's flat dict) -> the port's params on
-    ``device``.  Stacked ``scan_layers`` trees raise."""
+    or stacked ``blocks`` layout, MoE subtrees included, or the
+    EmbeddingPS's flat dict) -> the port's params on ``device``."""
     dev = resolve_device(device)
 
     def conv(val):
@@ -35,9 +35,6 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
             return QuantTensor(conv(val.q), conv(val.s))
         return torch.from_numpy(np.array(val, copy=True)).to(dev)
 
-    if "blocks" in tree:
-        raise NotImplementedError(
-            "stacked scan_layers params are not ported yet")
     return {k: conv(v) for k, v in tree.items()}
 
 

@@ -78,6 +78,18 @@ result line) when a phase fails or CUDA is absent.  Phases:
    cache) and a strict tier (EINTERNAL, the stream closed
    ``kv_handoff_failed``); (d) four of 6b's prompts into 6c (a)'s paged
    decode tier (no prefix events); tokens under the near-tie rule;
+   5s. serve ``scan_layers`` Generate: the same weights stacked on a
+   leading depth axis, int8, against the unrolled int8 service (equal
+   tokens, the flash kernel once per layer), and ``Decode`` refusing the
+   stacked config with EREQUEST;
+   6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
+   2.32 B params): Info and two Generate requests, one profiled request,
+   the prefill logits through the kernel against dense attention with
+   the share of (token, layer) top-2 sets routed alike (every flip
+   printed with its router margin), ``forward_grouped`` on the card
+   against the CPU (equal routing, close output), 6b's eight Decode
+   streams and one profiled round, four paged sessions with 256-token
+   chunks, two sessions over the ici lane with the monolithic tokens;
 8. train that LM at full width (``make_train_step``, remat, gradient
    accumulation): one step's loss and gradient through the kernels
    against dense attention, then a falling finite loss over 4 steps with
@@ -85,6 +97,10 @@ result line) when a phase fails or CUDA is absent.  Phases:
    and model FLOP/s, and one more step under ``torch.profiler`` (the
    kernels in its trace, the device busy share);
 9. round-trip the trained parameters through ``TrainCheckpointer``;
+   8m. train the MoE LM (remat, accum 1 x 2 x 2048): the loss through the
+   kernels against dense attention (the gradient's distance reported), a
+   falling loss over 1 + 2 steps with 16 / 8 / 8 launches a step, step
+   time, tokens/s, peak memory and one profiled step;
 10. serve the full-width EmbeddingPS (``PSConfig()``) through the port's
     Server, PSService and Channel: Stat, a (256, 16) Lookup against
     ``embedding_bag`` on the card, Predict, 20 Train calls (labels as a
@@ -127,7 +143,7 @@ from brpc_tpu_torch.kv.transport import (  # noqa: E402
     import_pages)
 from brpc_tpu_torch.kv.pages import (  # noqa: E402
     HostPagePool, prefix_event_counters)
-from brpc_tpu_torch.models import lm_telemetry  # noqa: E402
+from brpc_tpu_torch.models import lm_telemetry, moe  # noqa: E402
 from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig  # noqa
 from brpc_tpu_torch.models.lm_service import (  # noqa: E402
     LMService, bucketed_prefill, pack_generate_request, sched_counters,
@@ -239,6 +255,39 @@ TRAIN_STEPS = 3                                   # timed, after 1 warm-up
 # first steps at bench.py's lr (LMConfig's default 0.05) and still at 0.01
 # on the H100; at 0.002 it falls at every step, which phase 8 checks.
 TRAIN_LR = 0.002
+# MoE serving and training (phases 6e, 8m): SLICE_CFG with its MLP swapped
+# for the repo's MoE FFN (models/moe.py): 8 experts as wide as the dense
+# MLP (hidden 8192), top-2 routing as GShard and Mixtral of Experts
+# (arXiv:2401.04088: 8 experts, top-2), but with the repo's two-matrix
+# GELU experts, not Mixtral's SwiGLU.  About 2.32 B params, 9.3 GB in f32;
+# nothing is cut for serving
+MOE_CFG = dict(SLICE_CFG, moe_experts=8, moe_top_k=2, moe_capacity=2.0,
+               moe_aux_weight=0.01)
+MOE_REQUESTS = [(1, 1024, 32), (2, 512, 16)]
+# (4) four of 6b's prompts through a paged service with 256-token prefill
+# chunks; (5) two of them handed off over the ici lane
+MOE_PAGED_SESSIONS = 4
+MOE_DISAGG_SESSIONS = 2
+# the card's forward_grouped against the CPU's on one layer's weights: a
+# (1, 2048, 2048) input drawn until every token's sorted router
+# probabilities, down to the third, lie MOE_ROUTE_MARGIN apart (the two
+# devices' f32 routers differ by ~1e-7, so no choice can flip); the
+# output within MOE_OUT_TOL of its largest |value| (the bf16 expert
+# products of the two devices may round an element the other way)
+MOE_GROUP_SHAPE = (1, 2048, 2048)
+MOE_ROUTE_MARGIN = 1e-5
+MOE_OUT_TOL = 1e-2
+# training: the batch cut from bench.py's ACC=8 x B=32 x 2048 to accum 1 x
+# microbatch 2 x 2048 (9.3 GB of f32 params, as much again in gradients
+# and in the new params); widths and depth whole.  The loss through the
+# kernels is held to DENSE_LOSS_RTOL of the loss through dense attention;
+# the gradient ratio is reported, not held: a routing choice that flips
+# between the two runs moves a token's gradient from one expert to another
+MOE_TRAIN_CFG = dict(MOE_CFG, remat=True)
+MOE_TRAIN_ACCUM, MOE_TRAIN_MICRO, MOE_TRAIN_STEPS = 1, 2, 2
+# scan_layers (phase 5s): SLICE_CFG's weights stacked, int8, Generate only
+SCAN_CFG = dict(SLICE_CFG, scan_layers=True)
+SCAN_REQUEST = (1, 1024, 32)
 # flash_dkdv has one schedule per dtype (csrc/flash_bwd.cu DkdvCfg), which
 # the training shape takes; (1, 77, 2, 20) has bf16 rows that are not
 # whole 16-byte pieces (the per-element loads) and a ragged head dim
@@ -248,6 +297,10 @@ BWD_CHECK_SHAPES = [TRAIN_SHAPE, MAIN_SHAPE, (2, 1000, 16, 128),
 # on an H100 the training shape takes Wide, (2, 1000, 16, 128) Narrow and
 # the others KSplit, so each is checked
 CHECK_SHAPES.append(TRAIN_SHAPE)
+# the MoE train step's attention (phase 8m)
+MOE_TRAIN_SHAPE = (MOE_TRAIN_MICRO, TRAIN_SEQ, 16, 128)
+CHECK_SHAPES.append(MOE_TRAIN_SHAPE)
+BWD_CHECK_SHAPES.insert(1, MOE_TRAIN_SHAPE)
 # and every shape the serving paths give it: Generate prefills each
 # request's prompt as it is; Decode prefills a join's context (the prompt
 # less its last token, 255-1499 here) padded to a power-of-two bucket,
@@ -947,11 +1000,12 @@ def read_launches() -> dict:
     return {kern.name: kern.launches for kern in KERNELS}
 
 
-def generate(ch: Channel, prompt: np.ndarray, max_new: int) -> np.ndarray:
+def generate(ch: Channel, prompt: np.ndarray, max_new: int,
+             service: str = "LM") -> np.ndarray:
     cntl = Controller()
     cntl.timeout_ms = 600_000
-    c = ch.call_method("LM.Generate", pack_generate_request(prompt, max_new),
-                       cntl=cntl)
+    c = ch.call_method(f"{service}.Generate",
+                       pack_generate_request(prompt, max_new), cntl=cntl)
     if c.failed:
         raise RuntimeError(f"Generate failed: [{c.error_code}] "
                            f"{c.error_text}")
@@ -2027,44 +2081,53 @@ def phase_logits(svc: LMService, cfg: LMConfig) -> float:
     return err
 
 
-def train_launches(cfg: LMConfig) -> dict:
+def train_launches(cfg: LMConfig, accum: int = TRAIN_ACCUM) -> dict:
     """Kernel launches one train step must make: the forward kernel twice
     per block and microbatch (remat recomputes it), each backward kernel
     once."""
-    n = cfg.depth * TRAIN_ACCUM
+    n = cfg.depth * accum
     return {FLASH_FWD.name: 2 * n if cfg.remat else n,
             FLASH_DQ.name: n, FLASH_DKDV.name: n}
 
 
-def phase_train(peaks: dict) -> dict:
-    """Train the slice's LM at full width: one step's loss and gradient
-    at the initial params through the kernels against dense attention;
-    then 1 warm-up and TRAIN_STEPS timed steps on one fixed batch, the
-    launch counts read around every step; one more step under the
-    profiler."""
-    cfg = LMConfig(**TRAIN_CFG)
+def phase_train(peaks: dict, base: dict = TRAIN_CFG,
+                accum: int = TRAIN_ACCUM, micro: int = TRAIN_MICRO,
+                steps: int = TRAIN_STEPS, hold_grad: bool = True) -> dict:
+    """Train an LM at full width: one step's loss and gradient at the
+    initial params through the kernels against dense attention; then 1
+    warm-up and ``steps`` timed steps on one fixed batch, the launch
+    counts read around every step; one more step under the profiler.  The
+    model FLOPs count each token's active params (an MoE token visits
+    top_k of the experts)."""
+    cfg = LMConfig(**base)
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                          "cuda")
     nparams = sum(p.numel() for p in tree_leaves(params))
-    ids = torch.randint(0, cfg.vocab, (TRAIN_ACCUM * TRAIN_MICRO, TRAIN_SEQ),
+    experts = sum(p.numel() for i in range(cfg.depth)
+                  for p in params[f"blk{i}"].get("moe", {}).values()
+                  if p.dim() == 3)
+    active = nparams - experts + experts * cfg.moe_top_k // max(
+        cfg.moe_experts, 1)
+    ids = torch.randint(0, cfg.vocab, (accum * micro, TRAIN_SEQ),
                         generator=torch.Generator(device="cuda")
                         .manual_seed(1), device="cuda")
     labels = ids.roll(-1, -1)
     tokens = ids.numel()
-    log(f"  {nparams / 1e6:.1f} M params, batch {tuple(ids.shape)} as "
-        f"accum={TRAIN_ACCUM} x {TRAIN_MICRO}, lr {TRAIN_LR}")
-    res = phase_train_vs_dense(params, ids, labels)
-    train_step = make_train_step(cfg, accum=TRAIN_ACCUM)
+    log(f"  {nparams / 1e6:.1f} M params ({active / 1e6:.1f} M active per "
+        f"token), batch {tuple(ids.shape)} as accum={accum} x {micro}, lr "
+        f"{TRAIN_LR}")
+    res = phase_train_vs_dense(params, ids, labels, base, accum, hold_grad)
+    train_step = make_train_step(cfg, accum=accum)
 
     def step(params, ids, labels):
         return train_step(params, ids, labels, TRAIN_LR)
 
-    want = train_launches(cfg)
+    want = train_launches(cfg, accum)
     log(f"  launches per step expected {want}")
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
     total = dict.fromkeys(want, 0)
-    for i in range(1 + TRAIN_STEPS):
+    for i in range(1 + steps):
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -2084,24 +2147,26 @@ def phase_train(peaks: dict) -> dict:
         raise AssertionError(f"loss not finite and falling: {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = statistics.median(secs[1:])
-    model_flops = 6.0 * nparams * tokens
-    res.update(params_m=nparams / 1e6, tokens_per_step=tokens,
+    model_flops = 6.0 * active * tokens
+    res.update(params_m=nparams / 1e6, active_params_m=active / 1e6,
+               tokens_per_step=tokens,
                losses=losses, step_s=secs, step_ms=step_s * 1e3,
                tokens_per_s=tokens / step_s,
                model_tflops=model_flops / step_s / 1e12,
                share_of_bf16_peak=model_flops / step_s / peaks["bf16"],
                peak_mem_gb=peak_gb, launches=total)
-    log(f"  step {step_s * 1e3:.1f} ms (median of {TRAIN_STEPS}), "
+    log(f"  step {step_s * 1e3:.1f} ms (median of {steps}), "
         f"{res['tokens_per_s']:.0f} tokens/s, 6*N*T/time "
         f"{res['model_tflops']:.2f} TFLOP/s = {res['share_of_bf16_peak']:.4f}"
         f" of the {peaks['bf16'] / 1e12:.0f} TFLOP/s bf16 peak; peak memory "
         f"{peak_gb:.2f} GB")
-    res.update(phase_train_profile(step, params, ids, labels, cfg))
+    res.update(phase_train_profile(step, params, ids, labels, cfg, accum))
     res["params"] = params
     return res
 
 
-def phase_train_profile(step, params, ids, labels, cfg: LMConfig) -> dict:
+def phase_train_profile(step, params, ids, labels, cfg: LMConfig,
+                        accum: int) -> dict:
     """One step under torch.profiler: the backward kernels in its CUDA
     trace, the device busy share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -2129,22 +2194,24 @@ def phase_train_profile(step, params, ids, labels, cfg: LMConfig) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for kname, (n, us) in top:
         log(f"    {us / 1e3:9.3f} ms  {n:5d}x  {kname[:90]}")
-    if seen != train_launches(cfg):
+    if seen != train_launches(cfg, accum):
         raise AssertionError(f"one step's trace shows {seen}, want "
-                             f"{train_launches(cfg)}")
+                             f"{train_launches(cfg, accum)}")
     return dict(profile_busy_ms=busy_us / 1e3, profile_wall_ms=wall_us / 1e3,
                 busy_share=busy_us / wall_us,
                 top_kernels=[(k[:90], n, us / 1e3) for k, (n, us) in top])
 
 
-def phase_train_vs_dense(params, ids, labels) -> dict:
+def phase_train_vs_dense(params, ids, labels, base: dict, accum: int,
+                         hold_grad: bool) -> dict:
     """One step's loss and gradient through the kernels vs through dense
-    attention, on the same params and batch."""
+    attention, on the same params and batch (the gradient held only with
+    ``hold_grad``)."""
     out = {}
     for impl in ("flash", "dense"):
-        cfg = LMConfig(**{**TRAIN_CFG, "use_flash": impl == "flash",
+        cfg = LMConfig(**{**base, "use_flash": impl == "flash",
                           "attn_impl": impl})
-        vg = make_value_and_grad(cfg, accum=TRAIN_ACCUM)
+        vg = make_value_and_grad(cfg, accum=accum)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, grads = vg(params, ids, labels)
@@ -2156,10 +2223,13 @@ def phase_train_vs_dense(params, ids, labels) -> dict:
     norm = sum(float(b.double().pow(2).sum()) for b in dg)
     rel = (diff / norm) ** 0.5
     loss_rel = abs(fl - dl) / abs(dl)
-    ok = loss_rel <= DENSE_LOSS_RTOL and rel <= DENSE_GRAD_REL_NORM
+    ok = loss_rel <= DENSE_LOSS_RTOL and (rel <= DENSE_GRAD_REL_NORM
+                                          or not hold_grad)
+    grad_tol = DENSE_GRAD_REL_NORM if hold_grad else "reported, not held"
+    del out, fg, dg
     log(f"  one step, kernels vs dense attention: loss {fl:.6f} vs {dl:.6f}"
         f" (rel {loss_rel:.3e}, tolerance {DENSE_LOSS_RTOL}), gradient "
-        f"||dg||/||g|| {rel:.3e} (tolerance {DENSE_GRAD_REL_NORM}): "
+        f"||dg||/||g|| {rel:.3e} (tolerance {grad_tol}): "
         f"{'ok' if ok else 'FAIL'}; value_and_grad {fs * 1e3:.1f} ms flash, "
         f"{ds * 1e3:.1f} ms dense (one call each)")
     if not ok:
@@ -2191,6 +2261,352 @@ def phase_checkpoint(params: dict) -> float:
     if not ok:
         raise AssertionError("the restored params differ")
     return dt
+
+
+class RouteLog:
+    """While active, keeps ``(experts, probs)`` of every ``moe.route``
+    call: the routing of each MoE block the programs run."""
+
+    def __enter__(self):
+        self.calls = []
+        self._route = moe.route
+
+        def route(params, x, cfg):
+            out = self._route(params, x, cfg)
+            self.calls.append((out[2].detach(), out[0].detach()))
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+
+def router_margin(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Per token, the smallest gap between its sorted router
+    probabilities down to the (k+1)-th: how far each choice is from
+    flipping."""
+    top = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).amin(dim=-1)
+
+
+def phase_scan(svc: LMService, cfg: LMConfig) -> dict:
+    """Phase 5s: ``scan_layers`` Generate.  The serving weights stacked
+    along a leading depth axis, int8, behind one LMService; the same
+    weights unrolled, int8, behind another.  One Generate each: equal
+    tokens, ``flash_fwd`` once per layer on the stacked path; Decode on
+    the stacked service answers EREQUEST with the JAX package's text."""
+    scan_cfg = LMConfig(**SCAN_CFG)
+    p = svc.params
+    stacked = {"embed": p["embed"], "unembed": p["unembed"],
+               "blocks": {k: torch.stack([p[f"blk{i}"][k]
+                                          for i in range(cfg.depth)])
+                          for k in p["blk0"]}}
+    scan = LMService(cfg=scan_cfg, params=stacked, device="cuda",
+                     quantize=True)
+    flat = LMService(cfg=cfg, params=p, device="cuda", quantize=True)
+    srv, ch = Server(), Channel()
+    try:
+        if srv.add_service(scan, name="LMScan") != 0 or srv.add_service(
+                flat, name="LMInt8") != 0 or srv.start("127.0.0.1:0") != 0:
+            raise RuntimeError("the scan services did not start")
+        ch.init(str(srv.listen_endpoint))
+        b, s, max_new = SCAN_REQUEST
+        prompt = np.random.default_rng(9).integers(0, cfg.vocab, (b, s),
+                                                   dtype=np.int32)
+        FLASH_FWD.launches = 0
+        t0 = time.perf_counter()
+        got = generate(ch, prompt, max_new, "LMScan")
+        dt = time.perf_counter() - t0
+        launches = FLASH_FWD.launches
+        want = generate(ch, prompt, max_new, "LMInt8")
+        same = bool(np.array_equal(got, want))
+        code, text = refused_decode(ch, "LMScan", prompt[:, :8])
+        log(f"  scan_layers int8 Generate b={b} s={s} max_new={max_new}: "
+            f"{dt * 1e3:.1f} ms end to end (first call); tokens equal to "
+            f"the unrolled int8 service's on the same weights: {same}; "
+            f"flash_fwd launches {launches} (expected {cfg.depth}); Decode "
+            f"answered [{code}] {text!r}")
+        if not same or launches != cfg.depth \
+                or (code, text) != (int(Errno.EREQUEST),
+                                    "Decode serves unrolled configs only"):
+            raise AssertionError("the scan_layers path did not serve as "
+                                 "the unrolled one")
+        return dict(ms=dt * 1e3, launches=launches, same_tokens=same,
+                    param_bytes=scan._param_bytes,
+                    decode_refusal=[code, text])
+    finally:
+        ch.close()
+        srv.stop()
+
+
+def refused_decode(ch: Channel, service: str, prompt: np.ndarray) -> tuple:
+    """A Decode call with a stream attached that the service must refuse:
+    ``(error code, error text)``."""
+    cntl = Controller()
+    cntl.timeout_ms = 60_000
+    stream_create(cntl, StreamOptions())
+    c = ch.call_method(f"{service}.Decode",
+                       pack_generate_request(prompt, 4), cntl=cntl)
+    return (c.error_code, c.error_text) if c.failed else (0, "")
+
+
+def phase_moe() -> dict:
+    """Phase 6e: the MoE LM at MOE_CFG, full width and depth, through
+    Generate, Decode (contiguous, paged with chunked prefill) and the
+    disaggregated handoff; each service and the weights freed after."""
+    cfg = LMConfig(**MOE_CFG)
+    t0 = time.perf_counter()
+    svc = LMService(cfg=cfg, device="cuda", seed=0,
+                    decode_slots=DECODE_SLOTS)
+    paged = LMService(cfg=cfg, params=svc.params, device="cuda",
+                      decode_slots=DECODE_SLOTS, paged=True, page=PAGE,
+                      prefill_chunk_tokens=CHUNK_TOKENS)
+    dec = LMService(cfg=cfg, params=svc.params, device="cuda",
+                    decode_slots=DECODE_SLOTS)
+    dec_ch = Channel()
+    pre = PrefillService(cfg=cfg, params=svc.params, device="cuda",
+                         decode_slots=1, decode_channel=dec_ch,
+                         transport=KvTransport(), fallback_local=False)
+    log(f"  params: {svc._param_bytes / 1e9:.3f} GB "
+        f"({sum(x.numel() for x in tree_leaves(svc.params)) / 1e9:.3f} B), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    srv, dec_srv, pre_srv, ch = Server(), Server(), Server(), Channel()
+    res = {}
+    try:
+        if srv.add_service(svc, name="LM") != 0 or srv.add_service(
+                paged, name="LMPaged") != 0 \
+                or dec_srv.add_service(dec, name="LM") != 0 \
+                or dec_srv.add_service(DecodeTierService(dec),
+                                       name="KV") != 0 \
+                or pre_srv.add_service(pre, name="Prefill") != 0 \
+                or any(x.start("127.0.0.1:0") != 0
+                       for x in (srv, dec_srv, pre_srv)):
+            raise RuntimeError("the MoE services did not start")
+        ch.init(str(srv.listen_endpoint))
+        dec_ch.init(str(dec_srv.listen_endpoint))
+        FLASH_FWD.launches = 0
+        res["generate"] = phase_moe_generate(ch, cfg)
+        res["launches_generate"] = FLASH_FWD.launches
+        want = cfg.depth * len(MOE_REQUESTS)
+        log(f"  flash_fwd launches over the Generate requests: "
+            f"{res['launches_generate']} (expected {want})")
+        if res["launches_generate"] != want:
+            raise AssertionError("the MoE Generate path did not run the "
+                                 "kernel once per layer per request")
+        phase_profile(ch, cfg)
+        res["logits"] = phase_moe_logits(svc.params, cfg)
+        res["group"] = phase_moe_group(svc.params["blk0"]["moe"], cfg)
+        res["decode"] = phase_moe_decode(srv.listen_endpoint, svc, cfg)
+        res["round_profile"] = phase_decode_profile(svc, cfg)
+        res["paged"] = phase_moe_paged(srv.listen_endpoint, paged, cfg)
+        res["disagg"] = phase_moe_disagg(pre_srv.listen_endpoint, dec, cfg,
+                                         res["decode"])
+        log(f"  flash_fwd launches by MoE path: generate "
+            f"{res['launches_generate']}, decode "
+            f"{res['decode']['launches']}, paged "
+            f"{res['paged']['launches']}, disagg "
+            f"{res['disagg']['launches']}")
+    finally:
+        ch.close()
+        dec_ch.close()
+        for x in (srv, dec_srv, pre_srv):
+            x.stop()
+        for service in (svc, paged, dec, pre):
+            if service._batcher is not None:
+                service._batcher.shutdown()
+    return res
+
+
+def phase_moe_generate(ch: Channel, cfg: LMConfig) -> list:
+    info = json.loads(ch.call("LM.Info", b"", timeout_ms=60_000))
+    log(f"  LM.Info: {info}")
+    if info["dim"] != cfg.dim or info["depth"] != cfg.depth:
+        raise AssertionError(f"Info disagrees with the config: {info}")
+    rng = np.random.default_rng(0)
+    rows = []
+    for i, (b, s, max_new) in enumerate(MOE_REQUESTS):
+        prompt = rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+        t0 = time.perf_counter()
+        out = generate(ch, prompt, max_new)
+        dt = time.perf_counter() - t0
+        if out.shape != (b, max_new) or out.min() < 0 \
+                or out.max() >= cfg.vocab:
+            raise AssertionError(f"bad MoE Generate answer {out.shape}")
+        rows.append(dict(b=b, s=s, max_new=max_new, ms=dt * 1e3,
+                         tok_s=b * max_new / dt, warmup=i == 0))
+        log(f"  Generate b={b} s={s} max_new={max_new}: {dt * 1e3:.1f} ms "
+            f"end to end, {b * max_new / dt:.1f} generated tok/s"
+            f"{' [warm-up]' if i == 0 else ''}; first ids "
+            f"{out[0, :6].tolist()}")
+    return rows
+
+
+def phase_moe_logits(params: dict, cfg: LMConfig) -> dict:
+    """Prefill logits through the kernel vs through dense attention, and
+    the share of (token, layer) top-2 sets the two runs route alike;
+    every flip printed with its router margin."""
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, 1024))).cuda()
+    dense_cfg = LMConfig(**{**MOE_CFG, "use_flash": False,
+                            "attn_impl": "dense"})
+    with torch.inference_mode():
+        with RouteLog() as fl:
+            _, flash_logits = make_decode(cfg, "cuda")[0](params, ids)
+        with RouteLog() as dn:
+            _, dense_logits = make_decode(dense_cfg, "cuda")[0](params, ids)
+    k, n = cfg.moe_top_k, ids.shape[1]
+    same = flips = 0
+    for layer, ((ef, pf), (ed, _)) in enumerate(zip(fl.calls, dn.calls)):
+        sf = ef.reshape(k, n).T.sort(dim=-1).values
+        sd = ed.reshape(k, n).T.sort(dim=-1).values
+        agree = (sf == sd).all(dim=-1)
+        same += int(agree.sum())
+        margin = router_margin(pf[0], k)
+        for t in torch.nonzero(~agree).flatten().tolist():
+            flips += 1
+            log(f"  routing flip: layer {layer} token {t}: "
+                f"{sf[t].tolist()} through the kernel, {sd[t].tolist()} "
+                f"through dense attention, router margin "
+                f"{float(margin[t]):.3e}")
+    share = same / (len(fl.calls) * n)
+    err = max_err(flash_logits, dense_logits)
+    top = float(dense_logits.abs().max())
+    ok = err <= LOGIT_RTOL * top and len(fl.calls) == cfg.depth
+    log(f"  prefill logits, kernel vs dense attention: max abs err "
+        f"{err:.3e}, max |logit| {top:.3f}, ratio {err / top:.3e} "
+        f"(tolerance {LOGIT_RTOL}: {'ok' if ok else 'FAIL'}); top-2 sets "
+        f"equal for {same} of {len(fl.calls) * n} (token, layer) pairs "
+        f"({share:.6f}), {flips} flips")
+    if not ok or not torch.isfinite(flash_logits).all():
+        raise AssertionError("MoE prefill logits through the kernel "
+                             "disagree")
+    return dict(max_abs_err=err, ratio=err / top, route_share=share,
+                flips=flips)
+
+
+def phase_moe_group(lp: dict, cfg: LMConfig) -> dict:
+    """``forward_grouped`` on the card against the same function on the
+    CPU, one layer's weights: equal routing, close output; and its time
+    on the card."""
+    mcfg = cfg.moe_cfg()
+    cpu = {k: v.cpu() for k, v in lp.items()}
+    with torch.inference_mode():
+        for seed in range(20):
+            x = torch.randn(MOE_GROUP_SHAPE,
+                            generator=torch.Generator().manual_seed(seed))
+            margin = float(router_margin(moe.route(cpu, x, mcfg)[0],
+                                         mcfg.top_k).min())
+            if margin >= MOE_ROUTE_MARGIN:
+                break
+        else:
+            raise AssertionError("no input clears the router margin")
+        t0 = time.perf_counter()
+        want, want_aux = moe.forward_grouped(cpu, x, mcfg)
+        cpu_s = time.perf_counter() - t0
+        _, _, we, _, wk = moe.route(cpu, x, mcfg)
+        xc = x.cuda()
+        got, aux = moe.forward_grouped(lp, xc, mcfg)
+        _, _, ge, _, gk = moe.route(lp, xc, mcfg)
+        ms = time_ms(lambda: moe.forward_grouped(lp, xc, mcfg), reps=5)
+    same = bool(torch.equal(ge.cpu(), we) and torch.equal(gk.cpu(), wk))
+    err = max_err(got.cpu(), want)
+    top = float(want.abs().max())
+    aux_rel = abs(float(aux) - float(want_aux)) / float(want_aux)
+    ok = same and err <= MOE_OUT_TOL * top and aux_rel <= 1e-5
+    log(f"  forward_grouped {MOE_GROUP_SHAPE}, layer 0's experts, card vs "
+        f"CPU (input seed {seed}, router margin {margin:.3e}): routing "
+        f"equal {same} ({int((~wk).sum())} of {wk.numel()} slots dropped), "
+        f"out max abs err {err:.3e} of max |out| {top:.3f} (tolerance "
+        f"{MOE_OUT_TOL} of it), aux rel err {aux_rel:.3e}: "
+        f"{'ok' if ok else 'FAIL'}; {ms:.3f} ms on the card, "
+        f"{cpu_s * 1e3:.0f} ms on the CPU")
+    if not ok:
+        raise AssertionError("forward_grouped on the card disagrees with "
+                             "the CPU")
+    return dict(route_equal=same, max_abs_err=err, ratio=err / top,
+                aux_rel=aux_rel, ms=ms, margin=margin, seed=seed)
+
+
+def phase_moe_decode(ep, svc: LMService, cfg: LMConfig) -> dict:
+    """(3) 6b's eight prompts through 8 contiguous slots."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+    batcher = svc.batcher()
+    snap = phase_snapshot()
+    clients, wall_s, most_live, launches = run_counted(
+        ep, "LM", prompts, DECODE_STAGGER_S, batcher)
+    rounds, _, round_ms = phase_deltas(snap)["decode_round"]
+    tokens = sum(len(c.tokens) for c in clients)
+    ttfts = sorted(c.ttft_s * 1e3 for c in clients)
+    joins = batcher.prefills_run
+    log(f"  (3) {len(clients)} sessions, prompts "
+        f"{sorted(len(p) for p in prompts)}: all closed 'finished', up to "
+        f"{most_live} live; {tokens} tokens in {wall_s:.3f} s = "
+        f"{tokens / wall_s:.1f} tok/s aggregate; {rounds} rounds, "
+        f"{round_ms:.3f} ms each; TTFT median "
+        f"{statistics.median(ttfts):.1f} ms, max {ttfts[-1]:.1f} ms; "
+        f"flash_fwd launches {launches} (depth {cfg.depth} x {joins} joins)")
+    if launches != cfg.depth * joins or joins != len(clients) \
+            or any(not 0 <= t < cfg.vocab for c in clients for t in c.tokens):
+        raise AssertionError("the MoE Decode path did not run as expected")
+    batcher.shutdown()
+    return dict(sessions=len(clients), tokens=tokens, wall_s=wall_s,
+                aggregate_tok_s=tokens / wall_s, rounds=rounds,
+                round_ms=round_ms, ttft_ms=ttfts,
+                ttft_median_ms=statistics.median(ttfts), launches=launches,
+                session_tokens=[c.tokens for c in clients])
+
+
+def phase_moe_paged(ep, paged: LMService, cfg: LMConfig) -> dict:
+    """(4) four of (3)'s prompts through a paged service with 256-token
+    prefill chunks: every context filled by chunk slices, each routed as
+    one (1, 256) row with its padding."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)[:MOE_PAGED_SESSIONS]
+    slices0 = sched_counters()["sched_chunk_slice"]
+    snap = phase_snapshot()
+    clients, wall_s, most_live, launches = run_counted(
+        ep, "LMPaged", prompts, DECODE_STAGGER_S, paged.batcher())
+    rounds, _, round_ms = phase_deltas(snap)["decode_round"]
+    slices = sched_counters()["sched_chunk_slice"] - slices0
+    least = sum(-(-(len(p) - 1) // CHUNK_TOKENS) for p in prompts)
+    tokens = sum(len(c.tokens) for c in clients)
+    log(f"  (4) {len(clients)} paged sessions, {CHUNK_TOKENS}-token "
+        f"chunks: all closed 'finished' in {wall_s:.3f} s, "
+        f"{tokens / wall_s:.1f} tok/s, {rounds} rounds of {round_ms:.3f} "
+        f"ms; {slices} chunk "
+        f"slices (at least {least}), flash_fwd launches {launches} "
+        f"(expected 0)")
+    if launches or slices < least:
+        raise AssertionError("the paged MoE sessions did not run as sliced")
+    paged.batcher().shutdown()
+    return dict(sessions=len(clients), wall_s=wall_s,
+                aggregate_tok_s=tokens / wall_s, rounds=rounds,
+                round_ms=round_ms, chunk_slices=slices, launches=launches)
+
+
+def phase_moe_disagg(pre_ep, dec: LMService, cfg: LMConfig,
+                     mono: dict) -> dict:
+    """(5) two of (3)'s prompts prefilled on a prefill tier and handed off
+    over the ici lane: their tokens equal (3)'s exactly."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)[:MOE_DISAGG_SESSIONS]
+    kv0, fb0 = kv_stats(), kv_fallback_counters()
+    clients, wall_s, _, launches = run_counted(
+        pre_ep, "Prefill", prompts, DECODE_STAGGER_S, dec.batcher())
+    kv, fb = kv_deltas(kv0, fb0)
+    same = sum(c.tokens == t for c, t in zip(clients,
+                                             mono["session_tokens"]))
+    log(f"  (5) {len(clients)} sessions over the ici lane: handoffs {kv}, "
+        f"fallbacks {fb or 'none'}; {same} of {len(clients)} streamed (3)'s "
+        f"tokens exactly; flash_fwd launches {launches} on the prefill "
+        f"tier, decode tier prefills {dec.batcher().prefills_run}")
+    if kv["ici_sessions"] != len(prompts) or fb or same != len(clients) \
+            or dec.batcher().prefills_run \
+            or launches != cfg.depth * len(prompts):
+        raise AssertionError("the MoE handoffs did not stream (3)'s tokens")
+    dec.batcher().shutdown()
+    return dict(sessions=len(clients), wall_s=wall_s, handoffs=kv,
+                same_as_monolithic=same, launches=launches)
 
 
 def main() -> int:
@@ -2316,6 +2732,8 @@ def main() -> int:
             raise RuntimeError("the prefill tiers did not start")
         disagg = phase_disagg(pre_srv.listen_endpoint, svc, tiers, cfg,
                               streams)
+        log(f"[5s] scan_layers Generate at {SCAN_CFG}, int8")
+        scan = phase_scan(svc, cfg)
     finally:
         ch.close()
         srv.stop()
@@ -2339,31 +2757,54 @@ def main() -> int:
         log(f"  allocated after dropping the cuBLAS workspaces: "
             f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
 
+    del svc, chunked, paged, tiers
+    torch.cuda.empty_cache()
+    log(f"[6e] MoE LM at {MOE_CFG}")
+    moe_res = phase_moe()
+    torch.cuda.empty_cache()
+    if clear is not None:
+        clear()
+    log(f"  allocated on the card after 6e: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
     log(f"[8] training LM at {TRAIN_CFG}, accum={TRAIN_ACCUM} x microbatch "
         f"{TRAIN_MICRO} x {TRAIN_SEQ} tokens (reduced from bench.py's 8 x "
         f"32 x 2048)")
     train = phase_train(peaks)
     log("[9] checkpoint round trip")
     ckpt_s = phase_checkpoint(train.pop("params"))
+    torch.cuda.empty_cache()
+    log(f"[8m] training the MoE LM at {MOE_TRAIN_CFG}, accum="
+        f"{MOE_TRAIN_ACCUM} x microbatch {MOE_TRAIN_MICRO} x {TRAIN_SEQ} "
+        f"tokens (reduced from bench.py's 8 x 32 x 2048)")
+    moe_train = phase_train(peaks, MOE_TRAIN_CFG, MOE_TRAIN_ACCUM,
+                            MOE_TRAIN_MICRO, MOE_TRAIN_STEPS,
+                            hold_grad=False)
+    del moe_train["params"]
+    torch.cuda.empty_cache()
     log(f"[10] parameter server at {PS_CFG} and the device lane")
     ps = phase_ps()
 
     f32 = times[MAIN_SHAPE]["f32"]
     f32_train = times[TRAIN_SHAPE]["f32"]
+    fwd_paths = {"generate": launches,
+                 "decode": streams["launches"],
+                 "paged_decode": paged_res["launches_paged"],
+                 "spec_decode": paged_res["launches_spec"],
+                 "disagg": disagg["launches"],
+                 "scan_generate": scan["launches"],
+                 "moe_generate": moe_res["launches_generate"],
+                 "moe_decode": moe_res["decode"]["launches"],
+                 "moe_paged_decode": moe_res["paged"]["launches"],
+                 "moe_disagg": moe_res["disagg"]["launches"],
+                 "train": train["launches"][FLASH_FWD.name],
+                 "moe_train": moe_train["launches"][FLASH_FWD.name]}
     kernels = [{
         "name": FLASH_FWD.name, "route": "cuda",
         "source": "brpc_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "brpc_tpu/ops/flash_attention.py:46",
-        "launches": (launches + streams["launches"]
-                     + paged_res["launches_paged"]
-                     + paged_res["launches_spec"] + disagg["launches"]
-                     + train["launches"][FLASH_FWD.name]),
-        "launches_by_path": {"generate": launches,
-                             "decode": streams["launches"],
-                             "paged_decode": paged_res["launches_paged"],
-                             "spec_decode": paged_res["launches_spec"],
-                             "disagg": disagg["launches"],
-                             "train": train["launches"][FLASH_FWD.name]},
+        "launches": sum(fwd_paths.values()),
+        "launches_by_path": fwd_paths,
         "max_abs_err": main_err,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
@@ -2379,8 +2820,11 @@ def main() -> int:
             "name": kern.name, "route": "cuda",
             "source": "brpc_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"brpc_tpu/ops/flash_attention.py:{line}",
-            "launches": train["launches"][kern.name],
-            "launches_by_path": {"train": train["launches"][kern.name]},
+            "launches": (train["launches"][kern.name]
+                         + moe_train["launches"][kern.name]),
+            "launches_by_path": {
+                "train": train["launches"][kern.name],
+                "moe_train": moe_train["launches"][kern.name]},
             "max_abs_err": bwd_err[kern.name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2408,7 +2852,10 @@ def main() -> int:
     log(f"  streams: {json.dumps(streams)}")
     log(f"  paged: {json.dumps(paged_res)}")
     log(f"  disagg: {json.dumps(disagg)}")
+    log(f"  scan: {json.dumps(scan)}")
+    log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
+    log(f"  moe_train: {json.dumps(moe_train)}")
     log(f"  checksum: {n_payloads} payloads bit-exact; timing "
         f"{json.dumps(cs_times)}")
     log(f"  ps: {json.dumps(ps)}")

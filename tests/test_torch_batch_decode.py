@@ -265,12 +265,23 @@ def _margins(cfg, params, cache, logits, steps):
 
 
 def test_moe_and_scan_layers_raise():
-    for kw in (dict(moe_experts=2), dict(scan_layers=True)):
-        cfg = tlm.LMConfig(**KW, **kw)
-        with pytest.raises(NotImplementedError):
-            tlm.make_batch_decode(cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tlm.empty_batch_cache(cfg, 2, device="cpu")
+    """MoE blocks build the batch programs and pool; scan_layers raises
+    in make_batch_decode with the JAX text, and its pool is stacked, as
+    the JAX package's empty_batch_cache gives it."""
+    moe = tlm.LMConfig(**KW, moe_experts=2)
+    assert len(tlm.make_batch_decode(moe, chunk=4, device="cpu")) == 3
+    assert set(tlm.empty_batch_cache(moe, 2, device="cpu")) \
+        == set(jlm.empty_batch_cache(jlm.LMConfig(**KW, moe_experts=2), 2))
+    scan = tlm.LMConfig(**KW, scan_layers=True)
+    with pytest.raises(NotImplementedError) as ours:
+        tlm.make_batch_decode(scan, device="cpu")
+    with pytest.raises(NotImplementedError) as theirs:
+        jlm.make_batch_decode(jlm.LMConfig(**KW, scan_layers=True))
+    assert str(ours.value) == str(theirs.value)
+    pool = tlm.empty_batch_cache(scan, 2, device="cpu")
+    assert set(pool) == {"len", "k", "v"}
+    assert tuple(pool["k"].shape) == (KW["depth"], 2, KW["max_seq"],
+                                      KW["heads"], KW["dim"] // KW["heads"])
 
 
 def _wide_head_qkvg():

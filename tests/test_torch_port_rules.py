@@ -59,6 +59,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
     assert {"brpc_tpu_torch.utils.checkpoint",
             "brpc_tpu_torch.models.transformer_lm",
+            "brpc_tpu_torch.models.moe",
             "brpc_tpu_torch.ops.flash_attention",
             "brpc_tpu_torch.ops.device_ops",
             "brpc_tpu_torch.butil.flags",

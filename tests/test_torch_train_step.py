@@ -175,7 +175,16 @@ def test_mesh_and_unported_configs_raise():
             fn(cfg, mesh=object(), device="cpu")
         with pytest.raises(NotImplementedError, match="parallel/ slice"):
             fn(cfg, sp_axis="sp", device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tlm.make_train_step(tlm.LMConfig(**KW, moe_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        tlm.make_forward(tlm.LMConfig(**KW, scan_layers=True), device="cpu")
+    # MoE and scan_layers configs train (their parity with the JAX package
+    # is in test_torch_moe_lm.py and test_torch_scan_layers.py): one step
+    # each, finite loss, every parameter moved
+    ids = torch.from_numpy(_batch(b=2, s=8)[0]).long()
+    for kw in (dict(moe_experts=4, moe_top_k=2), dict(scan_layers=True)):
+        mcfg = tlm.LMConfig(**KW, **kw)
+        params = tlm.init_params(torch.Generator().manual_seed(0), mcfg,
+                                 device="cpu")
+        new, loss = tlm.make_train_step(mcfg, device="cpu")(params, ids,
+                                                            ids.roll(-1, 1))
+        assert torch.isfinite(loss)
+        assert all(not torch.equal(a, b) for a, b in zip(
+            tlm.tree_leaves(new), tlm.tree_leaves(params)))

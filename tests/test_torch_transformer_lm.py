@@ -165,13 +165,23 @@ def test_sampling_reproducible_and_validated(pair):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError):
-        tlm.make_decode(tlm.LMConfig(moe_experts=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tlm.make_decode(tlm.LMConfig(scan_layers=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tlm.init_params(torch.Generator(), tlm.LMConfig(moe_experts=2),
-                        device="cpu")
+    """MoE and scan_layers configs build make_decode and init_params; only
+    their combination raises in make_decode, with the JAX package's
+    text."""
+    for kw in (dict(moe_experts=2), dict(scan_layers=True)):
+        assert len(tlm.make_decode(tlm.LMConfig(**kw), device="cpu")) == 2
+    moe = tlm.init_params(torch.Generator(), tlm.LMConfig(moe_experts=2),
+                          device="cpu")
+    assert set(moe["blk0"]) == {"wqkv", "wo", "ln1", "ln2", "moe"}
+    scan = tlm.init_params(torch.Generator(), tlm.LMConfig(scan_layers=True),
+                           device="cpu")
+    assert set(scan) == {"embed", "unembed", "blocks"}
+    both = dict(moe_experts=2, scan_layers=True)
+    with pytest.raises(NotImplementedError, match="MoE") as ours:
+        tlm.make_decode(tlm.LMConfig(**both), device="cpu")
+    with pytest.raises(NotImplementedError) as theirs:
+        jlm.make_decode(jlm.LMConfig(**both))
+    assert str(ours.value) == str(theirs.value)
 
 
 def test_init_params_layout():
