@@ -15,6 +15,17 @@ processed; the credit for a response descriptor goes back when the
 caller redeems it (or drops it unredeemed), on the connection's ack
 queue.
 
+The shm data plane (``transport/shm_ring.py``, the JAX controller's
+lane): a request attachment of ``rpc_shm_threshold`` bytes or more to a
+peer on this host rides a descriptor into this process's ring once the
+peer has accepted the ring offer (the first eligible request carries
+it); slot releases owed to the peer ride the next request; a response
+descriptor is resolved into a view of the peer's ring (the
+``response_attachment``, a ``memoryview`` whose release settles its
+slot); and the request's slot lease is settled once the call has an
+outcome.  Every ineligible shape rides the frame, byte for byte as
+before, under a named reason.
+
 Streams (``brpc_tpu/client/controller.py``): a call whose controller
 carries a stream (``streaming.stream_create``) puts the stream's id and
 window into the request meta, binds the stream to the connection before
@@ -45,6 +56,7 @@ from ..protocol.meta import RpcMeta
 from ..protocol.streaming import StreamFrame, dispatch
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
+from ..transport import shm_ring
 from ..transport.socket import Socket
 from .controller import Controller
 
@@ -143,6 +155,7 @@ class Channel:
         timeout_ms = c.timeout_ms or self.options.timeout_ms
         svc, _, mth = method_full.rpartition(".")
         waiter = None
+        lease, offered = None, False        # the shm lane's, for this call
         with self._lock:
             meta = RpcMeta()
             meta.correlation_id = self._next_cid
@@ -157,8 +170,8 @@ class Channel:
                     if not stream._attach(sock.id):
                         raise OSError("connection closed")
                     self._start_reader(sock)
-                frame = self._request_frame(c, sock, meta, payload,
-                                            timeout_ms)
+                frame, lease, offered = self._request_frame(
+                    c, sock, meta, payload, timeout_ms)
                 if frame is None:
                     return
                 if self._reader_sock is sock:
@@ -172,6 +185,7 @@ class Channel:
                     msg = self._read_response(sock)
             except socket.timeout:
                 self._drop()
+                shm_ring.client_complete(lease)
                 c.set_failed(Errno.ERPCTIMEDOUT,
                              f"deadline {timeout_ms}ms exceeded")
                 return
@@ -180,6 +194,7 @@ class Channel:
                     with self._waiters_lock:
                         self._waiters.pop(meta.correlation_id, None)
                 self._drop()
+                shm_ring.client_complete(lease)
                 c.set_failed(Errno.EFAILEDSOCKET, f"{type(e).__name__}: {e}")
                 return
         if waiter is not None:
@@ -188,16 +203,19 @@ class Channel:
                     timed_out = self._waiters.pop(meta.correlation_id,
                                                   None) is not None
                 if timed_out:
+                    shm_ring.client_complete(lease)
                     c.set_failed(Errno.ERPCTIMEDOUT,
                                  f"deadline {timeout_ms}ms exceeded")
                     return
                 waiter.done.wait()      # the reader is handing it over
             if waiter.error is not None:
+                shm_ring.client_complete(lease)
                 c.set_failed(Errno.EFAILEDSOCKET, waiter.error)
                 return
             msg = waiter.msg
         rmeta, body, ratt = msg
         if rmeta.correlation_id != meta.correlation_id:
+            shm_ring.client_complete(lease)
             ack_unused(rmeta, sock.id)
             with self._lock:
                 if self._sock is sock:
@@ -208,6 +226,20 @@ class Channel:
             return
         if rmeta.ici_domain:
             sock.ici_peer_domain = rmeta.ici_domain
+        view = settle = None
+        if rmeta.shm_offer or rmeta.shm_accept or rmeta.shm_desc \
+                or offered or lease is not None:
+            # learn the accept and the server's ring, settle the request
+            # slot, resolve a response descriptor (an error answer proves
+            # nothing about the capability)
+            try:
+                view, settle = shm_ring.client_on_response_meta(
+                    sock, rmeta, offered_now=offered and not rmeta.error_code,
+                    staged_slot=lease)
+            except shm_ring.ShmDescriptorError as e:
+                ack_unused(rmeta, sock.id)
+                c.set_failed(Errno.ERESPONSE, str(e))
+                return
         if rmeta.error_code:
             ack_unused(rmeta, sock.id)
             c.set_failed(rmeta.error_code, rmeta.error_text)
@@ -215,6 +247,10 @@ class Channel:
         c.response = body
         c.response_attachment, c.response_device_attachment = \
             split_device_attachment(rmeta, ratt, sock.id)
+        if view is not None:
+            # the attachment rode the ring: its slot recycles when the
+            # caller drops the view
+            c.response_attachment = shm_ring.settled_view(view, settle)
         if stream is not None and rmeta.stream_id:
             # the accepted stream rides the connection that answered
             stream._bind(sock.id, rmeta.stream_id,
@@ -281,14 +317,16 @@ class Channel:
 
     @staticmethod
     def _request_frame(c: Controller, sock: Socket, meta: RpcMeta,
-                       payload: bytes, timeout_ms: int) -> Optional[bytes]:
-        """The request frame, with the domain exchange and the device
-        attachment; None after failing ``c``."""
+                       payload: bytes, timeout_ms: int):
+        """``(frame, shm slot lease, offer carried)``: the request frame,
+        with the domain exchange, the device attachment and the shm lane;
+        the frame is None after failing ``c``."""
         if ici_enabled():
             meta.ici_domain = local_domain_id()
             meta.ici_conn = conn_nonce_of(sock)
         attachment = c.request_attachment
-        if c.request_device_attachment is not None:
+        device = c.request_device_attachment is not None
+        if device:
             # with ici off prepare_send sends the bytes inline itself: the
             # attachment is never dropped
             wait_s = min(_MAX_POST_WAIT_S, max(0.001, timeout_ms / 1e3))
@@ -297,14 +335,21 @@ class Channel:
                                     timeout_s=wait_s)
             except RuntimeError as e:
                 c.set_failed(Errno.EOVERCROWDED, str(e))
-                return None
+                return None, None, False
             if tail is not None:
                 attachment = bytes(attachment) + tail if attachment else tail
+        extra, lease, offered = b"", None, False
+        if attachment or sock.shm is not None:
+            extra, wire, lease, offered = shm_ring.client_prepare(
+                sock, attachment or None, device=device)
+            attachment = b"" if wire is None else wire
         try:
-            return pack_frame(meta, payload, attachment)
+            return pack_frame(meta, payload, attachment, extra), lease, \
+                offered
         except FrameError as e:
+            shm_ring.client_complete(lease)
             c.set_failed(Errno.EREQUEST, str(e))
-            return None
+            return None, None, False
 
     def call(self, method_full: str, request: Any,
              timeout_ms: Optional[int] = None) -> bytes:

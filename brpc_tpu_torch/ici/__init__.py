@@ -5,13 +5,16 @@ acks while the tensor stays where it lies, the way an RDMA message
 carries keys instead of payload bytes.
 
 - :mod:`fabric`     -- how posted tensors reach their redeemer (the
-  in-process registry);
+  in-process registry, and the CUDA IPC fabric for other processes on
+  the same card);
+- :mod:`cuda_ipc`   -- the CUDA IPC export and pull behind it
+  (``ops/csrc/ipc.cu``);
 - :mod:`endpoint`   -- per-connection window + ack flow control, the
   descriptor lifecycle, the send and redeem paths, the TTL sweep;
 - :mod:`attachment` -- the user-facing :class:`DeviceAttachment` and the
   descriptor codec.
 
-Not ported yet: the cross-process transfer fabric and ``block_pool``.
+Not ported yet: ``block_pool``.
 """
 
 from .attachment import DeviceAttachment

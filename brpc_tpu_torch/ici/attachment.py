@@ -7,9 +7,11 @@ both ends:
   ``cntl.response_device_attachment = tensor`` (server);
 - receiver: ``cntl.request_device_attachment.tensor(device=...)``.
 
-On the wire it is either a *descriptor* (the peer shares this process's
-fabric: the payload stays where it is) or raw bytes in the regular
-attachment (the fallback).  The descriptor codec here is the JAX
+On the wire it is either a *descriptor* -- ``KIND_INPROC`` when the peer
+shares this process (the payload stays where it is), ``KIND_TRANSFER``
+when it shares the card from another process (the receiver pulls a copy
+over CUDA IPC) -- or raw bytes in the regular attachment (the
+fallback).  The descriptor codec here is the JAX
 package's byte for byte; the transfer and flow control live in
 ``endpoint.py``.
 """
@@ -22,7 +24,8 @@ from typing import Optional, Tuple
 # descriptor kinds
 KIND_INLINE = 0          # payload rides the byte attachment (fallback)
 KIND_INPROC = 1          # redeem from this process's registry
-KIND_TRANSFER = 2        # pull from the peer's transfer server (not ported)
+KIND_TRANSFER = 2        # pull from the peer over CUDA IPC (the JAX
+#                          package's: from its PJRT transfer server)
 
 
 def encode_descriptor(kind: int, desc_id: int, nbytes: int, dtype: str,
@@ -80,12 +83,14 @@ class DeviceAttachment:
         return self.kind != KIND_INLINE
 
     def tensor(self, device="cuda"):
-        """The attached tensor on ``device``.  A descriptor redeems the
-        posted tensor itself (the same object when it already lies on
-        ``device``: zero copies); inline bytes land with one H2D copy.
-        ``device=None`` leaves a descriptor's tensor where it was posted
-        and lands inline bytes on the CPU.  Raises without CUDA unless a
-        CPU device (or None) is asked for."""
+        """The attached tensor on ``device``.  An in-process descriptor
+        redeems the posted tensor itself (the same object when it already
+        lies on ``device``: zero copies); a transfer descriptor lands one
+        device-to-device copy in a fresh tensor; inline bytes land with
+        one H2D copy.  ``device=None`` leaves an in-process tensor where
+        it was posted, lands a transfer on this process's card and inline
+        bytes on the CPU.  Raises without CUDA unless a CPU device (or
+        None) is asked for."""
         from ..utils.device import resolve_device
         dev = resolve_device(device) if device is not None else None
         if self._tensor is None:

@@ -1,14 +1,23 @@
 """IciEndpoint -- per-connection device data plane with window + ack flow
-control.  The port of ``brpc_tpu/ici/endpoint.py`` without its
-cross-process transfer branch.
+control.  The port of ``brpc_tpu/ici/endpoint.py``.
 
 - Posting a tensor counts its bytes against ``ici_window_bytes`` on the
   connection; the receiver's redemption sends a "TICI" ack frame on the
   same connection; the ack returns the credit and releases the tensor.
 - Send path: when the peer's domain (learned from RpcMeta on the first
   exchange) is reachable by the in-process fabric, the tensor goes as a
-  descriptor and stays where it is; otherwise its bytes ride the regular
-  attachment (the fallback, also taken when ``ici_enabled`` is off).
+  ``KIND_INPROC`` descriptor and stays where it is; when it names this
+  card from another process and this process's transfer fabric is up
+  (``ici_transfer_enabled``), the tensor goes as a ``KIND_TRANSFER``
+  descriptor carrying its CUDA IPC export; otherwise its bytes ride the
+  regular attachment (the fallback, also taken when ``ici_enabled`` is
+  off).
+- Receive path: ``KIND_TRANSFER`` is pulled into a fresh tensor through
+  the transfer fabric, and acked once the copy is done and the mapping
+  closed.  An ``extra`` that is not the port's export blob raises.
+- Acks release on the in-process fabric first, then on the transfer
+  fabric; the dead-connection and TTL sweeps run on both (the JAX package
+  sweeps only its in-process fabric).
 - TICI frames are packed and read by ``protocol/tpu_std.py``; the
   connection's ack queue is ``transport/socket.py``'s.
 """
@@ -32,7 +41,9 @@ from ..transport.socket import Socket
 from .attachment import (KIND_INLINE, KIND_INPROC, KIND_TRANSFER,
                          DeviceAttachment, decode_descriptor,
                          encode_descriptor)
-from .fabric import in_process_fabric
+from .fabric import (decode_export_blob, in_process_fabric,
+                     installed_transfer_fabric, peer_transfer_addr,
+                     transfer_fabric)
 
 LOG = logging.getLogger(__name__)
 
@@ -68,11 +79,12 @@ class IciEndpoint:
         self.acked_count = 0
 
     def post(self, tensor: Any, nbytes: int, timeout_s: float = 30.0,
-             conn_key=None) -> Optional[int]:
-        """Reserve window credit and post to the in-process fabric.
-        Returns the descriptor id, or None if the window stayed full for
-        ``timeout_s`` (the EOVERCROWDED case).  A payload larger than the
-        whole window is admitted when nothing else is in flight."""
+             conn_key=None, fabric=None) -> Optional[int]:
+        """Reserve window credit and post to ``fabric`` (default: the
+        in-process one).  Returns the descriptor id, or None if the window
+        stayed full for ``timeout_s`` (the EOVERCROWDED case).  A payload
+        larger than the whole window is admitted when nothing else is in
+        flight."""
         _ensure_sweeper()
         window = int(get_flag("ici_window_bytes", 256 * 1024 * 1024))
         with self._cond:
@@ -83,9 +95,13 @@ class IciEndpoint:
                 return None
             self.outstanding_bytes += nbytes
             self.posted_count += 1
-        return in_process_fabric().post(tensor, nbytes, self._on_release,
-                                        socket_id=self.socket_id,
-                                        conn_key=conn_key)
+        try:
+            return (fabric or in_process_fabric()).post(
+                tensor, nbytes, self._on_release, socket_id=self.socket_id,
+                conn_key=conn_key)
+        except BaseException:
+            self._on_release(nbytes)        # a failed export takes no credit
+            raise
 
     def _on_release(self, nbytes: int) -> None:
         with self._cond:
@@ -191,6 +207,21 @@ def prepare_send(sock, meta, tensor, timeout_s: float = 30.0):
         meta.ici_desc = encode_descriptor(KIND_INPROC, desc_id, nbytes,
                                           dtype, shape)
         return None
+    # another process on this card: the payload moves device to device
+    # over CUDA IPC; descriptors and acks ride the connection as usual
+    xfab = transfer_fabric() if ici_enabled() and nbytes \
+        and peer_transfer_addr(peer) is not None else None
+    if xfab is not None and xfab.can_reach(peer):
+        desc_id = endpoint_of(sock).post(tensor, nbytes,
+                                         timeout_s=timeout_s, fabric=xfab)
+        if desc_id is None:
+            raise RuntimeError(
+                "ICI window full: posted device payloads awaiting ack "
+                f"exceed ici_window_bytes on socket {sock.id}")
+        meta.ici_desc = encode_descriptor(KIND_TRANSFER, desc_id, nbytes,
+                                          dtype, shape,
+                                          extra=xfab.export_blob(desc_id))
+        return None
     limit = max_body_size()
     if nbytes >= limit:
         raise RuntimeError(
@@ -247,10 +278,20 @@ def redeem_attachment(att: DeviceAttachment, device=None):
         _send_ack(att._socket_id, (att.desc_id,))
         return t
     if att.kind == KIND_TRANSFER:
-        raise RuntimeError(
-            "the peer sent a cross-process transfer descriptor "
-            "(KIND_TRANSFER); the port has no transfer fabric yet, so "
-            "peers in other processes must send device attachments inline")
+        blob = decode_export_blob(att._extra)
+        if (blob.dtype, blob.shape) != (att.dtype, tuple(att.shape)):
+            raise RuntimeError(
+                f"transfer descriptor {att.desc_id}: its export is a "
+                f"{blob.dtype} {blob.shape}, the descriptor says "
+                f"{att.dtype} {tuple(att.shape)}")
+        fab = transfer_fabric()
+        if fab is None:
+            raise RuntimeError(
+                "the peer sent a transfer descriptor but this process has "
+                "no transfer fabric (set ici_transfer_enabled)")
+        t = fab.redeem(blob, att.desc_id, device)
+        _send_ack(att._socket_id, (att.desc_id,))
+        return t
     return bytes_to_tensor(att._host_bytes, att.dtype, att.shape,
                            device=device if device is not None else "cpu")
 
@@ -274,17 +315,21 @@ def ack_unused(meta, socket_id: int) -> None:
         kind, desc_id = decode_descriptor(meta.ici_desc)[:2]
     except (struct.error, IndexError, UnicodeDecodeError):
         return
-    if kind == KIND_INPROC:
+    if kind in (KIND_INPROC, KIND_TRANSFER):
         _send_ack(socket_id, (desc_id,))
 
 
 def process_ack(desc_ids, sock) -> None:
-    """An inbound TICI frame: release each descriptor, only if it was
-    posted on this connection (forged acks are dropped)."""
+    """An inbound TICI frame: release each descriptor on the in-process
+    fabric, else on the transfer fabric, only if it was posted on this
+    connection (forged acks are dropped)."""
     fabric = in_process_fabric()
+    xfab = installed_transfer_fabric()
     sid = getattr(sock, "id", None)
     for desc_id in desc_ids:
-        fabric.release(desc_id, only_socket=sid)
+        if not fabric.release(desc_id, only_socket=sid) \
+                and xfab is not None:
+            xfab.release(desc_id, only_socket=sid)
 
 
 # -- descriptor TTL sweep --------------------------------------------------
@@ -310,5 +355,8 @@ def _sweep_loop() -> None:
         ttl = float(get_flag("ici_desc_ttl_s", 120))
         wake.wait(max(ttl / 4, 5.0))
         n = in_process_fabric().sweep_expired(ttl)
+        xfab = installed_transfer_fabric()
+        if xfab is not None:
+            n += xfab.sweep_expired(ttl)
         if n:
             LOG.warning("ICI ttl sweep reclaimed %d descriptors", n)

@@ -9,10 +9,15 @@ closed reason enums.  The lanes, probed per peer and chosen per handoff:
            process's): the pages were posted on the in-process fabric at
            export, the wire carries 16-byte descriptors, and the import
            is an alias of the exporter's tensors (no byte moves).
-    shm    same host, another process: the JAX package stages pages in a
-           shared-memory ring.  The port has no ring, so this lane is
-           never enabled here and a handoff that would take it rides the
-           copy lane under ``kv_shm_unavailable``.
+    shm    same host, another process (``transport/shm_ring.py``): each
+           page is copied once from the card into a slot of this
+           process's ring, the wire carries the 24-byte slot descriptors,
+           and the import lands each page from the ring on the decode
+           tier's device before it returns (the slots recycle when the
+           handoff settles).  A page larger than a slot demotes the
+           handoff to copy under ``kv_page_over_slot``, a full ring under
+           ``kv_ring_exhausted``, and no ring at all under
+           ``kv_shm_unavailable``.
     copy   the fallback: the page bytes ride the handoff RPC's attachment
            (one device-to-host copy per page to send, one host-to-device
            copy per page to land).  Every arrival here is counted under a
@@ -33,6 +38,7 @@ import socket
 import struct
 import threading
 import time
+import warnings
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -41,6 +47,8 @@ import torch
 
 from ..butil.flags import define_flag, get_flag
 from ..butil.status import Errno
+from ..ops.device_ops import torch_dtype
+from ..transport import shm_ring
 from .pages import KvPageError, decode_desc, process_kv_store
 
 LOG = logging.getLogger(__name__)
@@ -202,15 +210,15 @@ def decode_manifest(data: bytes) -> SessionManifest:
 
 def encode_probe_response() -> bytes:
     """The decode tier's capability answer: its fabric domain token, its
-    host token, and whether it offers the shm lane (never: this package
-    has no ring), so the sender picks a lane before moving a byte."""
+    host token, and whether it offers the shm lane, so the sender picks a
+    lane before moving a byte."""
     from ..ici.fabric import local_domain_id
     dom = local_domain_id()
     host = _host_token()
     return (_PROBE_MAGIC
             + struct.pack("<H", len(dom)) + dom
             + struct.pack("<H", len(host)) + host
-            + struct.pack("<B", 0))
+            + struct.pack("<B", 1 if shm_ring.lane_enabled() else 0))
 
 
 def decode_probe_response(data: bytes):
@@ -335,7 +343,7 @@ class KvTransport:
         """``(lane, demotion reason)``: the reason is None on the cheapest
         lane, else it names why the cheaper lanes were out of reach."""
         from ..ici.fabric import in_process_fabric
-        dom, host, _peer_shm = info
+        dom, host, peer_shm = info
         if not bool(get_flag("kv_transfer_enabled")):
             return LANE_COPY, "kv_disabled"
         if self.force_lane is not None:
@@ -344,8 +352,8 @@ class KvTransport:
         if in_process_fabric().can_reach(dom):
             return LANE_ICI, None
         if host == _host_token():
-            # the shm lane would be next, whatever the peer offers, but
-            # this package has no ring
+            if peer_shm and shm_ring.lane_enabled():
+                return LANE_SHM, None
             return LANE_COPY, "kv_shm_unavailable"
         return LANE_COPY, "kv_peer_remote"
 
@@ -356,7 +364,7 @@ class KvTransport:
         settles the leases."""
         store = process_kv_store()
         descs: List[bytes] = []
-        leases: List[Any] = []
+        leases: List[Tuple[str, Any]] = []
         if lane == LANE_ICI:
             for tensor, nbytes in pages:
                 h = store.export_array(tensor, nbytes, owner=owner)
@@ -365,13 +373,29 @@ class KvTransport:
                     return self._prepare_pages(LANE_COPY, pages, owner)[:4] \
                         + ("kv_pages_exhausted",)
                 descs.append(h.describe())
-                leases.append(h)
+                leases.append(("page", h))
             return lane, descs, None, leases, None
         if lane == LANE_SHM:
-            # no ring in this package (the JAX package's answer when its
-            # ring cannot be built)
-            return self._prepare_pages(LANE_COPY, pages, owner)[:4] \
-                + ("kv_shm_unavailable",)
+            ring = shm_ring.process_tx_ring()
+            demote = None if ring is not None else "kv_shm_unavailable"
+            for tensor, nbytes in pages:
+                if demote is not None:
+                    break
+                if nbytes > ring.slot_bytes:
+                    demote = "kv_page_over_slot"
+                    break
+                # one copy, from the page's device straight into the slot
+                staged = shm_ring.stage_page(tensor, owner=owner)
+                if staged is None:
+                    demote = "kv_ring_exhausted"
+                    break
+                descs.append(staged[0])
+                leases.append(("slot", staged[1]))
+            if demote is not None:
+                self._settle(leases)
+                return self._prepare_pages(LANE_COPY, pages, owner)[:4] \
+                    + (demote,)
+            return lane, descs, None, leases, None
         # copy lane: the page bytes ride the attachment back to back; each
         # descriptor is the page's length (the order carries the layout)
         parts = []
@@ -382,12 +406,16 @@ class KvTransport:
 
     @staticmethod
     def _settle(leases) -> None:
-        """Release every page lease of a handoff attempt (the response,
-        success or failure, proves the peer is done with them)."""
+        """Release every lease of a handoff attempt, exported pages and
+        ring slots (the response, success or failure, proves the peer is
+        done with them)."""
         store = process_kv_store()
-        for h in leases:
+        for kind, lease in leases:
+            if kind == "slot":
+                shm_ring.client_complete(lease)
+                continue
             try:
-                store.release(h.page_id, h.gen)
+                store.release(lease.page_id, lease.gen)
             except KvPageError:
                 pass      # swept by a dead-owner sweep mid-handoff
 
@@ -463,8 +491,11 @@ def import_pages(manifest: SessionManifest, attachment, page_specs,
     on an empty cache).
 
     The ici lane returns the exporter's tensors themselves (moved only if
-    they lie on another device); the copy lane lands each page with one
-    host-to-device copy from a private copy of the attachment."""
+    they lie on another device); the shm lane lands each page with one
+    copy from its ring slot onto ``device`` before returning (the slot
+    recycles once the handoff settles); the copy lane lands each page
+    with one host-to-device copy from a private copy of the
+    attachment."""
     if len(manifest.descs) != len(page_specs):
         raise KvPageError(f"page count mismatch ({len(manifest.descs)} "
                           f"descriptors for {len(page_specs)} pages)")
@@ -495,5 +526,23 @@ def import_pages(manifest: SessionManifest, attachment, page_specs,
             raise KvPageError("trailing bytes in kv copy-lane blob")
         return out
     if manifest.lane == LANE_SHM:
-        raise KvPageError("the shm kv lane is not available here")
+        for d, (shape, dtype, nbytes) in zip(manifest.descs, page_specs):
+            parsed = shm_ring.decode_desc(d)
+            if parsed is None:
+                raise KvPageError("malformed shm kv page descriptor")
+            rid, _slot, off, n = parsed
+            if n != nbytes:
+                raise KvPageError(f"kv page size mismatch ({n} != {nbytes})")
+            view = shm_ring.resolve(rid, off, n)
+            if view is None:
+                raise KvPageError("unresolvable shm kv page descriptor")
+            with warnings.catch_warnings():
+                # a peer's ring is mapped read-only; nothing writes through
+                # this transient view, which the copy below leaves behind
+                warnings.simplefilter("ignore", UserWarning)
+                host = torch.frombuffer(view, dtype=torch.uint8)
+            page = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+            page.view(-1).view(torch.uint8).copy_(host)
+            out.append(page)
+        return out
     raise KvPageError(f"unknown kv lane {manifest.lane}")

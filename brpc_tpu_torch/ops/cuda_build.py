@@ -2,7 +2,8 @@
 
 Each kernel source under ``ops/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``.  Libraries land in ``ops/_build/`` (listed in ``.gitignore``),
+``ctypes``; so is ``ipc.cu``, the CUDA IPC interface of the transfer
+fabric, which launches no kernel.  Libraries land in ``ops/_build/`` (listed in ``.gitignore``),
 named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
 flags, so an edited source or header builds anew and an unchanged one is
 reused.  Nothing is built at import: the first launch builds, and
@@ -26,7 +27,10 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "checksum.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "checksum.cu", "ipc.cu")
+# link flags of one source: the CUDA IPC interface also calls the driver
+# API (cuMemGetAddressRange)
+LINK_FLAGS = {"ipc.cu": ["-lcuda"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,15 +56,28 @@ def _lib_path(source: str) -> str:
     for name in [source, *headers]:
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(name.encode() + b"\0" + f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(source)).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+
+
+def _flags(source: str) -> List[str]:
+    link = LINK_FLAGS.get(source, [])
+    if "-lcuda" in link:
+        # the driver library to link against is the toolkit's stub; the
+        # loader finds the driver's own libcuda.so.1 at run time
+        stubs = os.path.join(os.path.dirname(os.path.dirname(nvcc_path())),
+                             "lib64", "stubs")
+        if os.path.isdir(stubs):
+            link = [f"-L{stubs}", *link]
+    return NVCC_FLAGS + link
 
 
 def _start(source: str, out: str) -> subprocess.Popen:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+    cmd = [nvcc_path(), *_flags(source), "-o", tmp,
+           os.path.join(CSRC, source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 

@@ -4,7 +4,9 @@ A copy of ``brpc_tpu/protocol/meta.py``: the same tag-length-value
 registry (tags 1-23), encoded in the same order, so the port and the JAX
 package read each other's frames byte for byte.  Unknown tags are skipped
 (forward compatibility).  Each field is one byte of tag, a little-endian
-u32 length and the value.
+u32 length and the value.  The shm data plane appends its TLVs (18-21)
+pre-encoded after the encoded fields, as the JAX package does
+(:func:`encode_tlv`, ``tpu_std.pack_frame``'s ``extra_meta``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,18 @@ _T_SHM_RELEASE = 20     # bytes: slot credits returned to the ring owner
 _T_SHM_DESC = 21        # bytes: (ring_id, slot, offset, len)
 _T_TENANT = 22          # utf-8: caller's tenant identity
 _T_LAME_DUCK = 23       # u8: response-side drain signal
+
+
+# the shm data plane's tags, for pre-encoded TLVs (transport/shm_ring.py)
+TAG_SHM_OFFER = _T_SHM_OFFER
+TAG_SHM_ACCEPT = _T_SHM_ACCEPT
+TAG_SHM_RELEASE = _T_SHM_RELEASE
+TAG_SHM_DESC = _T_SHM_DESC
+
+
+def encode_tlv(tag: int, data: bytes) -> bytes:
+    """One field as wire bytes (the JAX package's pre-encoded form)."""
+    return bytes([tag]) + struct.pack("<I", len(data)) + data
 
 
 class CompressType:

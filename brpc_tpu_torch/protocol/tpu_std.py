@@ -64,14 +64,15 @@ class AckFrame(NamedTuple):
 
 
 def pack_frame(meta: RpcMeta, payload: bytes = b"",
-               attachment: bytes = b"") -> bytes:
+               attachment: bytes = b"", extra_meta: bytes = b"") -> bytes:
     """Frame one message; a non-empty ``attachment`` rides after the
-    payload and its size is recorded in the meta.  A body past
-    :func:`max_body_size` raises :class:`FrameError`: the peer would
-    refuse it."""
+    payload and its size is recorded in the meta.  ``extra_meta`` is
+    pre-encoded TLV bytes appended inside the meta region (the shm data
+    plane's).  A body past :func:`max_body_size` raises
+    :class:`FrameError`: the peer would refuse it."""
     if attachment:
         meta.attachment_size = len(attachment)
-    meta_bytes = meta.encode()
+    meta_bytes = meta.encode() + extra_meta
     body_size = len(meta_bytes) + len(payload) + len(attachment)
     limit = max_body_size()
     if body_size > limit:

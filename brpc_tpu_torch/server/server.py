@@ -19,6 +19,16 @@ accepted stream's id and window, a failed call closes the stream it
 accepted, and inbound TSTR frames (the peer's acks and closes) go to
 their stream.  Frames written by other threads on a stream (a decode
 batcher's tokens) share the connection's write lock with the responses.
+The shm data plane (``brpc_tpu/server/interceptors.py`` and
+``rpc_dispatch.py``, ``transport/shm_ring.py``): the server takes a
+request's ring offer, accept and release TLVs, resolves a request
+descriptor into a view of the client's ring (an unresolvable one answers
+EREQUEST), answers every response of that request with the accept and
+its own ring's spec, and moves a response attachment of the threshold
+or more onto the ring once it can (re-describing the request's slot when
+the handler echoes its view; the rest under a named reason), after the
+response has serialized.  ``stop`` waits a bounded time for this
+process's ring slots to settle.
 It speaks tpu_std only; the JAX server's other protocols, native engine,
 admission, tracing and draining wait for later slices of the port.
 """
@@ -28,9 +38,11 @@ from __future__ import annotations
 import logging
 import socket
 import threading
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..butil.endpoint import EndPoint, parse_endpoint
+from ..butil.flags import get_flag
 from ..butil.status import Errno
 from ..ici.endpoint import (ici_enabled, prepare_send, process_ack,
                             split_device_attachment)
@@ -39,6 +51,7 @@ from ..protocol.meta import RpcMeta
 from ..protocol.streaming import StreamFrame, dispatch
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
+from ..transport import shm_ring
 from ..transport.socket import Socket
 from .controller import ServerController
 from .service import extract_methods, service_name_of
@@ -47,6 +60,7 @@ LOG = logging.getLogger(__name__)
 _ACCEPT_POLL_S = 0.2
 _JOIN_TIMEOUT_S = 5.0
 _POST_TIMEOUT_S = 5.0       # a response descriptor's wait for window credit
+_DRAIN_S = 1.0              # stop's wait for the ring's slots to settle
 
 
 class Server:
@@ -124,6 +138,10 @@ class Server:
                 pass
         for t in threads:
             t.join(_JOIN_TIMEOUT_S)
+        left = shm_ring.drain_settle(time.monotonic() + _DRAIN_S)
+        if left:
+            LOG.warning("stop: %d shm slot(s) of this process still "
+                        "outstanding", left)
         self._listener.close()
         self._listener = None
         self._listen_endpoint = None
@@ -193,6 +211,19 @@ class Server:
         if meta.ici_conn and sock.ici_conn_token is None:
             sock.ici_conn_token = meta.ici_conn     # first write wins
         att, dev_att = split_device_attachment(meta, att, sock.id)
+        shm_extra, handle = b"", None
+        if meta.shm_offer or meta.shm_accept or meta.shm_release \
+                or meta.shm_desc:
+            view, handle, shm_extra = shm_ring.server_on_request_meta(sock,
+                                                                       meta)
+            if view is not None:
+                att = view      # the attachment never rode the frame
+            elif meta.shm_desc:
+                if dev_att is not None:
+                    dev_att.settle()
+                return self._error_frame(meta, Errno.EREQUEST,
+                                         "unresolvable shm attachment "
+                                         "descriptor", shm_extra)
         cntl = ServerController(meta, sock.remote_side, att, sock.id)
         cntl.request_device_attachment = dev_att
         fn = self._methods.get((meta.service_name, meta.method_name))
@@ -225,7 +256,8 @@ class Server:
             if cntl._accepted_stream_id:
                 out.stream_id = cntl._accepted_stream_id
                 out.stream_window = cntl._accepted_stream_window
-            frame = self._response_frame(cntl, out, response, sock)
+            frame = self._response_frame(cntl, out, response, sock, handle,
+                                         shm_extra)
             if frame is not None:
                 return frame
         if cntl._accepted_stream_id:
@@ -234,17 +266,26 @@ class Server:
             stream = find_stream(cntl._accepted_stream_id)
             if stream is not None:
                 stream._close_local(notify_peer=False)
+        return self._error_frame(meta, cntl.error_code, cntl.error_text,
+                                 shm_extra, out.ici_domain)
+
+    @staticmethod
+    def _error_frame(meta: RpcMeta, code: int, text: str, shm_extra: bytes,
+                     ici_domain: bytes = b"") -> bytes:
         err = RpcMeta()
         err.correlation_id = meta.correlation_id
-        err.ici_domain = out.ici_domain
-        err.error_code = cntl.error_code
-        err.error_text = cntl.error_text
-        return pack_frame(err)
+        err.ici_domain = ici_domain
+        err.error_code = code
+        err.error_text = text
+        return pack_frame(err, extra_meta=shm_extra)
 
     @staticmethod
     def _response_frame(cntl: ServerController, out: RpcMeta, response,
-                        sock: Socket) -> Optional[bytes]:
-        """The success frame, or None after failing ``cntl``."""
+                        sock: Socket, handle, shm_extra: bytes
+                        ) -> Optional[bytes]:
+        """The success frame, or None after failing ``cntl``.  The
+        response attachment moves to the ring only once the response has
+        serialized, so a failure cannot strand a staged slot."""
         try:
             body = serialize_payload(response)
         except TypeError as e:
@@ -252,17 +293,31 @@ class Server:
                             f"response serialization failed: {e}")
             return None
         attachment = cntl.response_attachment
-        if cntl.response_device_attachment is not None:
+        device = cntl.response_device_attachment is not None
+        if device:
             try:
                 tail = prepare_send(sock, out, cntl.response_device_attachment,
                                     timeout_s=_POST_TIMEOUT_S)
             except RuntimeError as e:
                 cntl.set_failed(Errno.EOVERCROWDED, str(e))
                 return None
-            if tail is not None:
-                attachment = bytes(attachment) + tail if attachment else tail
+        shm_desc = b""
+        if attachment:
+            if sock.shm is not None and not device:
+                shm_desc, attachment = shm_ring.describe_response_att(
+                    sock, attachment, handle)
+                attachment = attachment or b""
+            elif shm_ring.lane_enabled() and len(attachment) >= int(
+                    get_flag("rpc_shm_threshold")):
+                # kept off the ring by the response's shape, or the peer
+                # never spoke a shm TLV
+                shm_ring.count_fallback("shm_device_combo" if device
+                                        else "shm_peer_no_cap")
+        if device and tail is not None:
+            attachment = bytes(attachment) + tail if attachment else tail
         try:
-            return pack_frame(out, body, attachment)
+            return pack_frame(out, body, attachment, shm_extra + shm_desc)
         except FrameError as e:
+            shm_ring.unstage_response(shm_desc)
             cntl.set_failed(Errno.EINTERNAL, f"response too large: {e}")
             return None

@@ -4,7 +4,8 @@ port's Server and Channel.
 The slim core of ``brpc_tpu/transport/socket.py`` for blocking sockets:
 a process-unique id with a registry (:meth:`Socket.address`), the
 addresses of both ends, the device-attachment lane's per-connection state
-(``ici_endpoint``, ``ici_peer_domain``, ``ici_conn_token``), one write
+(``ici_endpoint``, ``ici_peer_domain``, ``ici_conn_token``), the shm data
+plane's negotiation state (``shm``, a ``shm_ring.ShmSockState``), one write
 lock, the ack queue of TICI credit returns, and the streams bound to the
 connection (``stream_map``: closing the connection closes them).  Reading
 stays with the owner (the server's connection thread; the channel's call,
@@ -48,6 +49,7 @@ class Socket:
         self.ici_peer_domain: Optional[bytes] = None   # learned from meta
         self.ici_conn_token: Optional[bytes] = None    # client: generated;
         #                                 server: pinned from the first frame
+        self.shm = None                 # lazy shm_ring.ShmSockState
         self.defer_acks = False
         self.failed = False
         self._write_lock = threading.Lock()
@@ -112,8 +114,9 @@ class Socket:
     def close(self) -> None:
         """Close the connection, close every stream bound to it (a
         receive-only stream would not learn otherwise), and reclaim every
-        device payload posted on it and every KV page exported for it (the
-        peer can no longer redeem, ack or import them)."""
+        device payload posted on it, every shm ring slot it consumed and
+        every KV page exported for it (the peer can no longer redeem, ack,
+        release or import them)."""
         self.failed = True
         with _registry_lock:
             _registry.pop(self.id, None)
@@ -128,8 +131,17 @@ class Socket:
         except OSError:
             pass
         if self.ici_endpoint is not None:
-            from ..ici.fabric import in_process_fabric
+            from ..ici.fabric import (in_process_fabric,
+                                      installed_transfer_fabric)
             in_process_fabric().release_socket(self.id)
+            xfab = installed_transfer_fabric()
+            if xfab is not None:
+                xfab.release_socket(self.id)
+        if self.shm is not None:
+            # slots whose release TLVs can no longer arrive
+            from . import shm_ring
+            shm_ring.on_socket_closed(("resp", self.id))
+            shm_ring.on_socket_closed(("req", self.id))
         # KV pages exported for this connection's sessions (a handoff in
         # flight when the client died) are swept the same way
         from ..kv.pages import on_socket_closed

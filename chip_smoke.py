@@ -7,7 +7,8 @@ imports nothing of JAX or ``brpc_tpu``, and fails (non-zero exit, no
 result line) when a phase fails or CUDA is absent.  Phases:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build every kernel from ``brpc_tpu_torch/ops/csrc`` (nvcc, sm_90a) and
+2. build every kernel from ``brpc_tpu_torch/ops/csrc`` (nvcc, sm_90a),
+   and the CUDA IPC interface of the transfer fabric (``ipc.cu``), and
    print ptxas's registers and spill bytes of each kernel function;
 3. hold the forward kernel against its plain PyTorch version on the card,
    at every shape the Generate and Decode paths give it and smaller
@@ -77,7 +78,13 @@ result line) when a phase fails or CUDA is absent.  Phases:
    ``kv_import_rejected``, decoded on the prefill tier from the same
    cache) and a strict tier (EINTERNAL, the stream closed
    ``kv_handoff_failed``); (d) four of 6b's prompts into 6c (a)'s paged
-   decode tier (no prefix events); tokens under the near-tie rule;
+   decode tier (no prefix events); tokens under the near-tie rule; (e)
+   the forced shm lane, in one process, on a ring rebuilt with 16 MiB
+   slots: 6b's eight prompts (each page copied once from the card into a
+   slot and landed from it; 6b's tokens exactly, no fallback, no slot
+   left), then 6b's two chunk prompts over the shm and the ici lane, the
+   shm lane's extra ms per session beside (b)'s copy lane, and its
+   staging and landing timed apart;
    5s. serve ``scan_layers`` Generate: the same weights stacked on a
    leading depth axis, int8, against the unrolled int8 service (equal
    tokens, the flash kernel once per layer), and ``Decode`` refusing the
@@ -110,6 +117,19 @@ result line) when a phase fails or CUDA is absent.  Phases:
     refusal; every echo checksums the payload before the send and after
     the landing; the checksum launch count equals the calls made, one
     profiled echo shows the kernel twice, and the fabric ends empty;
+    10x. the same EmbeddingPS in a child process on the same card (it
+    imports only ``brpc_tpu_torch``), ``ici_transfer_enabled`` on in both:
+    Stat, Lookup, Predict and Train as in 10, 200 1 MiB echoes and one
+    of 64 MiB over the CUDA IPC transfer lane (every device leg
+    ``KIND_TRANSFER`` with no inline byte; each payload the output of a
+    kernel launched just before its call, three of them queued behind a
+    ~50 ms spin so that the child's read is right only if it waits on the
+    post's event; the checksum kernel on both ends, the sums equal; no
+    live descriptor in either process), then the
+    same echoes inline between the same processes for comparison;
+    10s. 1 MiB byte echoes between the two processes over the shm data
+    plane, on and off in turns (the lane engaged, the child's answers
+    re-describing our slots, every slot back);
 7. print the kernels' JSON line, then the result line.
 """
 
@@ -118,6 +138,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -134,12 +155,16 @@ from brpc_tpu_torch.butil.flags import get_flag, set_flag  # noqa: E402
 from brpc_tpu_torch.butil.status import Errno  # noqa: E402
 from brpc_tpu_torch.client import Channel, Controller  # noqa: E402
 from brpc_tpu_torch.ici.endpoint import live_endpoints  # noqa: E402
-from brpc_tpu_torch.ici.fabric import in_process_fabric  # noqa: E402
+from brpc_tpu_torch.ici import cuda_ipc  # noqa: E402
+from brpc_tpu_torch.ici.attachment import (  # noqa: E402
+    KIND_INLINE, KIND_TRANSFER)
+from brpc_tpu_torch.ici.fabric import (  # noqa: E402
+    in_process_fabric, transfer_fabric)
 from brpc_tpu_torch.kv import (  # noqa: E402
     DecodeTierService, KvTransport, PrefillService, kv_fallback_counters,
     kv_stats, outstanding_pages)
 from brpc_tpu_torch.kv.transport import (  # noqa: E402
-    LANE_COPY, SessionManifest, decode_manifest, encode_manifest,
+    LANE_COPY, LANE_SHM, SessionManifest, decode_manifest, encode_manifest,
     import_pages)
 from brpc_tpu_torch.kv.pages import (  # noqa: E402
     HostPagePool, prefix_event_counters)
@@ -166,6 +191,7 @@ from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
     MAX_BODY_SIZE, max_body_size, pack_frame, unpack_frame)
 from brpc_tpu_torch.server import Server  # noqa: E402
 from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
+from brpc_tpu_torch.transport import shm_ring  # noqa: E402
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
     TrainCheckpointer, abstract_like)
 
@@ -224,9 +250,17 @@ EXACT_MOVED = 2
 DISAGG_SESSION_BYTES = 268_435_456
 DISAGG_COPY_CAP = 512 * 1024 * 1024
 DISAGG_PAGED_SESSIONS = 4
+# 6d (e): the shm lane stages each 16 MiB page in a slot of this process's
+# ring, so the ring is rebuilt with 16 MiB slots; 16 hold one session, and
+# 6b's staggered sessions overlap their handoffs (with 16, three of eight
+# found the ring full in one run: kv_ring_exhausted), so it holds all
+# eight at once: 128 slots, 2 GiB
+KV_SHM_SLOT_BYTES = 16 * 1024 * 1024
+KV_SHM_SLOTS = DECODE_SLOTS * 2 * SLICE_CFG["depth"]
 # the prefill tiers of 6d on one Server: lane, strict, and the decode tier
 DISAGG_PREFILL = {"Prefill": (None, False, "dec"),
                   "PrefillCopy": ("copy", False, "dec"),
+                  "PrefillShm": ("shm", False, "dec"),
                   "PrefillStrict": ("copy", True, "dec"),
                   "PrefillPaged": (None, False, "dec_paged")}
 TIMING_REPS = 20
@@ -338,6 +372,115 @@ PS_BATCH = (256, PS_CFG.slots)
 PS_TRAIN_CALLS = 20                   # 10 with device labels, 10 as bytes
 ECHO_BYTES = 1 << 20                  # bench.py's device echo payload
 ECHO_CALLS = 200
+# Phases 10x and 10s: the same service in a child process on the same card
+# (tests/test_ici_xfer.py's child server, bench.py:557-651's interleaved
+# shm/byte echoes).  The child imports only brpc_tpu_torch; its port is
+# read on a thread, bounded by CHILD_START_S
+CHILD_START_S = 180.0
+INLINE_ECHO_CALLS = 50                # the inline lane, for comparison
+INLINE_CAP = 160 * 1024 * 1024        # frames for the inline 64 MiB echo
+SHM_ROUNDS = 5                        # shm on / off, order alternating
+SHM_BLOCK = 40                        # 1 MiB echoes per arm and round
+IPC_STEP_REPS = 50                    # each transfer step timed alone
+# 10x's held echoes: the payload's kernel is queued behind a spin of
+# HOLD_CYCLES (about 50 ms on an H100) on the posting stream, so the child
+# reads the right bytes only if it waits on the post's event
+HELD_ECHOES = 3
+HOLD_CYCLES = 100_000_000
+XPROC_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from brpc_tpu_torch.butil.flags import set_flag
+from brpc_tpu_torch.butil.status import Errno
+from brpc_tpu_torch.ici import cuda_ipc
+from brpc_tpu_torch.ici.fabric import in_process_fabric, transfer_fabric
+from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig
+from brpc_tpu_torch.models.ps_service import PSService
+from brpc_tpu_torch.ops.device_ops import CHECKSUM, checksum_u32
+from brpc_tpu_torch.server import Server, Service
+from brpc_tpu_torch.transport import shm_ring
+
+assert set_flag("ici_transfer_enabled", True)
+
+
+def leg(cntl):
+    att = cntl.request_device_attachment
+    return {"kind": att.kind if att is not None else None,
+            "inline": len(cntl.request_attachment)}
+
+
+class CheckedPS(PSService):
+    # the echo checksums what landed here and reports the request's leg
+    def EchoTensor(self, cntl, request):
+        if cntl.request_device_attachment is None:
+            cntl.set_failed(Errno.EREQUEST, "no device attachment")
+            return None
+        info = leg(cntl)
+        t = cntl.request_device_attachment.tensor(self.model.device)
+        cntl.response_device_attachment = t
+        info["sum"] = checksum_u32(t)
+        return json.dumps(info).encode()
+
+    def Train(self, cntl, request):
+        info = leg(cntl)
+        out = super().Train(cntl, request)
+        if out is None:
+            return None
+        return json.dumps(dict(json.loads(out), **info)).encode()
+
+
+class Ctl(Service):
+    def Stats(self, cntl, request):
+        f = transfer_fabric()
+        return json.dumps({
+            "live": f.live_descriptors if f is not None else None,
+            "address": f.address.decode() if f is not None else None,
+            "inproc_live": in_process_fabric().live_descriptors,
+            "checksum_launches": CHECKSUM.launches,
+            "shm": shm_ring.shm_stats(),
+            "shm_fallbacks": {k: v for k, v in
+                              shm_ring.shm_fallback_counters().items() if v},
+            "tx_outstanding": shm_ring.outstanding_tx_slots(),
+            "foreign": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "brpc_tpu"))}
+        ).encode()
+
+    def Flag(self, cntl, request):
+        name, value = json.loads(request)
+        if not set_flag(name, value):
+            cntl.set_failed(Errno.EREQUEST, f"flag {name} refused {value!r}")
+            return None
+        return b"ok"
+
+    def Bytes(self, cntl, request):
+        cntl.response_attachment = cntl.request_attachment
+        return b"ok"
+
+    def Export(self, cntl, request):
+        # a 1 MiB tensor exported by hand, for the parent to time pulls
+        self.held = torch.arange(int(request), dtype=torch.float32,
+                                 device="cuda")
+        self.exp = cuda_ipc.export(self.held)
+        return json.dumps({"handle": self.exp.mem_handle.hex(),
+                           "offset": self.exp.offset,
+                           "event": self.exp.event_handle.hex()}).encode()
+
+    def Release(self, cntl, request):
+        cuda_ipc.destroy_event(self.exp)
+        self.held = self.exp = None
+        return b"ok"
+
+
+srv = Server()
+srv.add_service(CheckedPS(EmbeddingPS(PSConfig(), device="cuda", seed=0)),
+                name="PS")
+srv.add_service(Ctl(), name="Ctl")
+assert srv.start("127.0.0.1:0") == 0
+print(f"PORT={srv.listen_endpoint.port}", flush=True)
+sys.stdin.readline()            # the parent closes stdin to stop us
+srv.stop()
+"""
 
 # Published dense peaks (NVIDIA data sheets): f32 outside the tensor
 # cores, tf32 and bf16 on the tensor cores, and HBM bandwidth.
@@ -741,15 +884,27 @@ class CountedChecksum:
 
 
 def ps_call(ch: Channel, method: str, request: bytes = b"", device_att=None,
-            attachment: bytes = b"") -> Controller:
+            attachment: bytes = b"", legs=None,
+            service: str = "PS") -> Controller:
+    """One call; ``legs`` (a list) gets each device leg as ``(method,
+    "request" or "response", kind, inline bytes)``: the request's as the
+    child of phase 10x reports it in its JSON answer."""
     cntl = Controller()
     cntl.timeout_ms = 120_000
     cntl.request_device_attachment = device_att
     cntl.request_attachment = attachment
-    c = ch.call_method(f"PS.{method}", request, cntl=cntl)
+    c = ch.call_method(f"{service}.{method}", request, cntl=cntl)
     if c.failed:
-        raise RuntimeError(f"PS.{method} failed: [{c.error_code}] "
+        raise RuntimeError(f"{service}.{method} failed: [{c.error_code}] "
                            f"{c.error_text}")
+    if legs is not None:
+        if device_att is not None:
+            info = json.loads(c.response)
+            legs.append((method, "request", info["kind"], info["inline"]))
+        att = c.response_device_attachment
+        if att is not None:
+            legs.append((method, "response", att.kind,
+                         len(c.response_attachment)))
     return c
 
 
@@ -817,7 +972,7 @@ def phase_ps() -> dict:
 
 
 def ps_model_calls(ch: Channel, model: EmbeddingPS,
-                   cs: CountedChecksum) -> dict:
+                   cs: CountedChecksum, legs=None) -> dict:
     """Stat, Lookup (against embedding_bag on the card, checksummed on
     both sides), Predict, and Train with a falling loss."""
     stat = json.loads(ps_call(ch, "Stat").response)
@@ -828,7 +983,7 @@ def ps_model_calls(ch: Channel, model: EmbeddingPS,
     ids = np.random.default_rng(0).integers(0, PS_CFG.vocab, PS_BATCH,
                                             dtype=np.int32)
     t0 = time.perf_counter()
-    c = ps_call(ch, "Lookup", pack_ids(ids))
+    c = ps_call(ch, "Lookup", pack_ids(ids), legs=legs)
     pooled = c.response_device_attachment.tensor()
     lookup_ms = (time.perf_counter() - t0) * 1e3
     want = embedding_bag(model.params["emb"], torch.from_numpy(ids).cuda())
@@ -846,14 +1001,14 @@ def ps_model_calls(ch: Channel, model: EmbeddingPS,
     warm = []
     for _ in range(20):
         t0 = time.perf_counter()
-        ps_call(ch, "Lookup", pack_ids(ids)).response_device_attachment \
-            .tensor()
+        ps_call(ch, "Lookup", pack_ids(ids),
+                legs=legs).response_device_attachment.tensor()
         warm.append((time.perf_counter() - t0) * 1e3)
     lookup_warm_ms = statistics.median(warm)
     log(f"  Lookup {PS_BATCH} warm: median {lookup_warm_ms:.3f} ms of 20 "
         f"calls")
 
-    c = ps_call(ch, "Predict", pack_ids(ids))
+    c = ps_call(ch, "Predict", pack_ids(ids), legs=legs)
     logits = c.response_device_attachment.tensor()
     ok = (logits.shape == (PS_BATCH[0], PS_CFG.classes)
           and bool(torch.isfinite(logits).all())
@@ -868,9 +1023,10 @@ def ps_model_calls(ch: Channel, model: EmbeddingPS,
     for i in range(PS_TRAIN_CALLS):
         t0 = time.perf_counter()
         if i < PS_TRAIN_CALLS // 2:
-            c = ps_call(ch, "Train", pack_ids(ids), device_att=labels)
+            c = ps_call(ch, "Train", pack_ids(ids), device_att=labels,
+                        legs=legs)
         else:
-            c = ps_call(ch, "Train", pack_ids(ids),
+            c = ps_call(ch, "Train", pack_ids(ids), legs=legs,
                         attachment=labels.cpu().numpy().tobytes())
         losses.append(json.loads(c.response)["loss"])
         train_ms.append((time.perf_counter() - t0) * 1e3)
@@ -933,6 +1089,344 @@ def ps_echoes(ch: Channel, cs: CountedChecksum) -> dict:
                echo_64mib_ms=big_ms)
     res.update(phase_echo_profile(ch, x, cs))
     return res
+
+
+def spawn_child() -> tuple:
+    """The child server of phases 10x and 10s, on this card:
+    ``(process, "127.0.0.1:port")``.  Its port is read on a thread,
+    bounded by CHILD_START_S; a child that does not come up is killed and
+    fails the run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", XPROC_CHILD, root],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True)
+    got = {}
+
+    def read_port():
+        for line in proc.stdout:
+            if line.startswith("PORT="):
+                got["port"] = int(line.strip().split("=")[1])
+                return
+
+    reader = threading.Thread(target=read_port, daemon=True)
+    reader.start()
+    reader.join(CHILD_START_S)
+    if "port" not in got:
+        proc.kill()
+        proc.wait(10)
+        raise AssertionError(f"the child server did not come up (exit "
+                             f"{proc.poll()})")
+    return proc, f"127.0.0.1:{got['port']}"
+
+
+def stop_child(proc) -> int:
+    """Close the child's stdin (it stops its server and exits); kill it if
+    it does not exit in 30 s.  Returns its exit code."""
+    try:
+        proc.stdin.close()
+        return proc.wait(30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(10)
+        return -9
+
+
+def child_stats(ch: Channel) -> dict:
+    return json.loads(ps_call(ch, "Stats", service="Ctl").response)
+
+
+def child_flag(ch: Channel, name: str, value) -> None:
+    ps_call(ch, "Flag", json.dumps([name, value]).encode(), service="Ctl")
+
+
+def phase_xproc(in_proc: dict) -> dict:
+    """Phases 10x and 10s: a child process on this card serves the
+    full-width EmbeddingPS with ``ici_transfer_enabled`` on in both
+    processes (10x), and byte echoes over the shm data plane (10s)."""
+    if not set_flag("ici_transfer_enabled", True):
+        raise AssertionError("ici_transfer_enabled refused")
+    proc, addr = spawn_child()
+    ch = Channel()
+    try:
+        ch.init(addr)
+        log("[10x] device tensors between two processes: the CUDA IPC "
+            "transfer lane")
+        xfer = phase_xfer(ch, addr, in_proc)
+        log("[10s] byte attachments between the same two processes: the "
+            "shm data plane")
+        shm = phase_shm_echo(ch, addr)
+        stats = child_stats(ch)
+    finally:
+        ch.close()
+        rc = stop_child(proc)
+        set_flag("ici_transfer_enabled", False)
+    log(f"  the child exited {rc}; modules of JAX or brpc_tpu it loaded: "
+        f"{stats['foreign'] or 'none'}")
+    if rc != 0 or stats["foreign"]:
+        raise AssertionError("the child failed or imported JAX")
+    return dict(xfer=xfer, shm=shm)
+
+
+def xecho(ch: Channel, x: torch.Tensor, cs: CountedChecksum, legs: list):
+    """One EchoTensor to the child.  ``x`` is the output of a kernel
+    launched just before the call and not waited for: the post's event
+    orders the child's read after it.  Three checksums must agree: ``x``
+    here after the call, what landed in the child, what came back."""
+    c = ps_call(ch, "EchoTensor", device_att=x, legs=legs)
+    out = c.response_device_attachment.tensor()
+    sums = (cs(x), json.loads(c.response)["sum"], cs(out))
+    if len(set(sums)) != 1 or not torch.equal(out, x):
+        raise AssertionError(f"the echo changed the payload: checksums "
+                             f"{[hex(v) for v in sums]}")
+    return out
+
+
+def held_echoes(ch: Channel, base: torch.Tensor, cs: CountedChecksum,
+                legs: list) -> None:
+    """HELD_ECHOES xechoes whose payload still holds -1s when the call
+    starts: its kernel waits behind a spin of HOLD_CYCLES on this stream,
+    and nothing here waits for it before the post.  The three checksums
+    agree only if the child's read waited on the post's event."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    end.record()
+    end.synchronize()
+    call_ms = []
+    for k in range(HELD_ECHOES):
+        x = torch.full_like(base, -1.0)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        torch.add(base, 1000.0 + k, out=x)
+        t0 = time.perf_counter()
+        xecho(ch, x, cs, legs)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"  {HELD_ECHOES} held echoes (payload written behind a spin of "
+        f"{start.elapsed_time(end):.1f} ms, not waited for before the "
+        f"post): checksums equal; calls "
+        f"{', '.join(f'{ms:.1f}' for ms in call_ms)} ms")
+
+
+def ipc_steps(ch: Channel) -> dict:
+    """Where a transfer leg's time goes, each step timed alone on the host
+    clock over IPC_STEP_REPS calls at 1 MiB: an export here (handle,
+    offset, an event recorded; its event destroyed), a pull of a tensor
+    the child exported (open, wait, D2D copy, sync, close), a plain D2D
+    copy with a sync, and a checksum."""
+    n = ECHO_BYTES // 4
+    info = json.loads(ps_call(ch, "Export", str(n).encode(),
+                              service="Ctl").response)
+    mh, eh = bytes.fromhex(info["handle"]), bytes.fromhex(info["event"])
+    dev = torch.cuda.current_device()
+    x = torch.zeros(n, device="cuda")
+
+    def pull():
+        return cuda_ipc.pull(dev, mh, info["offset"], eh, ECHO_BYTES,
+                             torch.float32, (n,), torch.device("cuda", dev))
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IPC_STEP_REPS):
+            fn()
+        return (time.perf_counter() - t0) / IPC_STEP_REPS * 1e3
+
+    try:
+        if not torch.equal(pull(), torch.arange(n, dtype=torch.float32,
+                                                device="cuda")):
+            raise AssertionError("a pull of the child's export differs")
+        ms = {"export": timed(lambda: cuda_ipc.destroy_event(
+                  cuda_ipc.export(x))),
+              "pull": timed(pull),
+              "copy": timed(lambda: (x.clone(), torch.cuda.synchronize())),
+              "checksum": timed(lambda: checksum_u32(x))}
+    finally:
+        ps_call(ch, "Release", service="Ctl")
+    log("  one transfer leg's steps at 1 MiB, each alone: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items())
+        + " (the pull: open, wait, copy, sync, close)")
+    return ms
+
+
+def check_legs(legs: list, kind: int, label: str) -> None:
+    bad = [leg for leg in legs if leg[2] != kind or leg[3] != 0]
+    log(f"  {label}: {len(legs)} device legs, {len(bad)} not kind {kind} "
+        f"with 0 inline bytes{': ' + str(bad[:4]) if bad else ''}")
+    if bad or not legs:
+        raise AssertionError(f"{label}: a leg left its lane")
+
+
+def phase_xfer(ch: Channel, addr: str, in_proc: dict) -> dict:
+    """10x: Stat, Lookup, Predict and Train as phase 10 does them (against
+    a replica of the child's seed-0 model here), ECHO_CALLS 1 MiB echoes
+    and one of 64 MiB over the transfer lane, then the same echoes inline
+    (a fresh connection with the device lane off here) beside them."""
+    cs = CountedChecksum()
+    model = EmbeddingPS(PS_CFG, device="cuda", seed=0)
+    legs = []
+    CHECKSUM.launches = 0
+    res = ps_model_calls(ch, model, cs, legs)
+    xfab = transfer_fabric()
+    log(f"  this process's transfer address {xfab.address.decode()}; the "
+        f"child's {child_stats(ch)['address']}")
+    base = torch.arange(ECHO_BYTES // 4, dtype=torch.float32, device="cuda")
+    xecho(ch, base + 0.5, cs, legs)
+    held_echoes(ch, base, cs, legs)
+    t0 = time.perf_counter()
+    for i in range(ECHO_CALLS):
+        xecho(ch, base + float(i), cs, legs)
+    echo_s = time.perf_counter() - t0
+    rps = ECHO_CALLS / echo_s
+    y0 = torch.randn(CHECKSUM_BYTES // 4, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(9))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = ps_call(ch, "EchoTensor", device_att=y0 * 2.0, legs=legs)
+    big = c.response_device_attachment.tensor()
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    sums = (cs(y0 * 2.0), json.loads(c.response)["sum"], cs(big))
+    if len(set(sums)) != 1 or not torch.equal(big, y0 * 2.0):
+        raise AssertionError("the 64 MiB echo changed the payload")
+    launches = CHECKSUM.launches
+    stats = child_stats(ch)
+    echoes = ECHO_CALLS + HELD_ECHOES + 2
+    log(f"  PS over the transfer lane: Lookup warm {res['lookup_warm_ms']:.3f}"
+        f" ms (phase 10 in one process: {in_proc['lookup_warm_ms']:.3f}); "
+        f"Train loss {res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}")
+    log(f"  echo 1 MiB x{ECHO_CALLS} over the transfer lane: {rps:.1f} "
+        f"calls/s ({echo_s / ECHO_CALLS * 1e3:.3f} ms per call, three "
+        f"checksums included; phase 10 in one process: "
+        f"{in_proc['echo_rps']:.1f} calls/s)")
+    log(f"  echo 64 MiB over the transfer lane: {big_ms:.2f} ms, "
+        f"{2 * CHECKSUM_BYTES / (big_ms / 1e3) / 1e9:.2f} GB/s over both "
+        f"legs (phase 10 in one process: {in_proc['echo_64mib_ms']:.2f} ms, "
+        f"zero-copy); checksums {sums[0]:#010x} x3")
+    check_legs(legs, KIND_TRANSFER, "10x transfer lane")
+    live, child_live = xfab.live_descriptors, stats["live"]
+    log(f"  live descriptors: {live} here, {child_live} in the child; "
+        f"checksum launches {launches} here for {cs.calls} calls, "
+        f"{stats['checksum_launches']} in the child for {echoes} echoes")
+    if live or child_live or in_process_fabric().live_descriptors \
+            or launches != cs.calls \
+            or stats["checksum_launches"] != echoes:
+        raise AssertionError("descriptors left, or checksums not launched "
+                             "as counted")
+    res.update(echo_rps=rps, echo_ms=echo_s / ECHO_CALLS * 1e3,
+               echo_64mib_ms=big_ms,
+               echo_64mib_gb_s=2 * CHECKSUM_BYTES / (big_ms / 1e3) / 1e9,
+               legs=len(legs), launches=launches,
+               child_launches=stats["checksum_launches"])
+    res["steps_ms"] = ipc_steps(ch)
+    res.update(phase_xfer_inline(ch, addr, cs, base, y0))
+    res["child_launches"] = child_stats(ch)["checksum_launches"]
+    return res
+
+
+def phase_xfer_inline(ch: Channel, addr: str, cs: CountedChecksum,
+                      base: torch.Tensor, y0: torch.Tensor) -> dict:
+    """The inline lane between the same two processes, for comparison: a
+    fresh connection with ``ici_enabled`` off here (so neither side learns
+    the other's domain), the frame cap raised on both sides for 64 MiB."""
+    cap0 = get_flag("max_body_size")
+    legs = []
+    ch2 = Channel()
+    launches0, calls0 = CHECKSUM.launches, cs.calls
+    set_flag("ici_enabled", False)
+    set_flag("max_body_size", INLINE_CAP)
+    child_flag(ch, "max_body_size", INLINE_CAP)
+    try:
+        ch2.init(addr)
+        xecho(ch2, base + 0.5, cs, legs)
+        t0 = time.perf_counter()
+        for i in range(INLINE_ECHO_CALLS):
+            xecho(ch2, base + float(i), cs, legs)
+        rps = INLINE_ECHO_CALLS / (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xecho(ch2, y0 * 3.0, cs, legs)
+        big_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ch2.close()
+        set_flag("ici_enabled", True)
+        set_flag("max_body_size", cap0)
+        child_flag(ch, "max_body_size", cap0)
+    launches = CHECKSUM.launches - launches0
+    inline = [leg for leg in legs if leg[2] == KIND_INLINE]
+    log(f"  inline lane between the same processes: 1 MiB x"
+        f"{INLINE_ECHO_CALLS} {rps:.1f} calls/s; 64 MiB {big_ms:.2f} ms, "
+        f"{2 * CHECKSUM_BYTES / (big_ms / 1e3) / 1e9:.2f} GB/s over both "
+        f"legs (three checksums each included); {len(inline)} of "
+        f"{len(legs)} legs inline")
+    if len(inline) != len(legs) or launches != cs.calls - calls0:
+        raise AssertionError("the inline comparison left the inline lane, "
+                             "or its checksums were not launched as counted")
+    return dict(launches_inline=launches,
+                inline_echo_rps=rps, inline_echo_64mib_ms=big_ms,
+                inline_echo_64mib_gb_s=2 * CHECKSUM_BYTES
+                / (big_ms / 1e3) / 1e9)
+
+
+def phase_shm_echo(ch: Channel, addr: str) -> dict:
+    """10s: 1 MiB byte echoes between the two processes on one fresh
+    connection, the shm data plane on and off in both processes in turns
+    (bench.py:557-651's paired rounds, order alternating); the child
+    echoes the request's view, so its answer re-describes our slot."""
+    att = bytes(range(256)) * (ECHO_BYTES // 256)
+    want = np.frombuffer(att, np.uint8)
+    st0, fb0 = shm_ring.shm_stats(), shm_ring.shm_fallback_counters()
+    ch3 = Channel()
+    rates = {True: [], False: []}
+
+    def one() -> None:
+        # compared through numpy in both arms: ``memoryview == bytes``
+        # goes byte by byte (~4 ms a MiB), ``bytes == bytes`` by memcmp
+        c = ps_call(ch3, "Bytes", attachment=att, service="Ctl")
+        if not np.array_equal(np.frombuffer(c.response_attachment, np.uint8),
+                              want):
+            raise AssertionError("a shm echo changed the payload")
+
+    try:
+        ch3.init(addr)
+        for _ in range(3):
+            one()                       # the handshake, both ways
+        for r in range(SHM_ROUNDS):
+            for on in ((True, False) if r % 2 == 0 else (False, True)):
+                set_flag("rpc_shm_data_plane", on)
+                child_flag(ch, "rpc_shm_data_plane", on)
+                one()
+                t0 = time.perf_counter()
+                for _ in range(SHM_BLOCK):
+                    one()
+                dt = time.perf_counter() - t0
+                rates[on].append(SHM_BLOCK * 2 * len(att) / dt / 1e9)
+        left = shm_ring.outstanding_tx_slots()
+    finally:
+        set_flag("rpc_shm_data_plane", True)
+        child_flag(ch, "rpc_shm_data_plane", True)
+        ch3.close()
+    st = {k: v - st0[k] for k, v in shm_ring.shm_stats().items()}
+    fb = {k: v - fb0[k] for k, v in shm_ring.shm_fallback_counters().items()
+          if v != fb0[k]}
+    cstats = child_stats(ch)
+    ratios = sorted(a / b for a, b in zip(rates[True], rates[False]))
+    log(f"  1 MiB echoes, {SHM_ROUNDS} rounds of {SHM_BLOCK} per arm: shm "
+        f"lane {', '.join(f'{g:.3f}' for g in rates[True])} GB/s, byte "
+        f"lane {', '.join(f'{g:.3f}' for g in rates[False])} GB/s (both "
+        f"directions); median ratio {ratios[len(ratios) // 2]:.3f}")
+    log(f"  here: {st}, fallbacks {fb}, {left} tx slots outstanding; the "
+        f"child: {cstats['shm']}, fallbacks {cstats['shm_fallbacks']}, "
+        f"{cstats['tx_outstanding']} tx slots outstanding")
+    if not (st["staged"] and st["resolved"]
+            and cstats["shm"]["desc_reused"] >= 1) or left \
+            or cstats["tx_outstanding"] \
+            or not set(fb) <= set(shm_ring.FALLBACK_REASONS):
+        raise AssertionError("the shm lane did not engage, or left slots")
+    return dict(shm_gb_s=rates[True], byte_gb_s=rates[False],
+                ratio_median=ratios[len(ratios) // 2], staged=st["staged"],
+                child_desc_reused=cstats["shm"]["desc_reused"],
+                fallbacks=fb)
 
 
 def trace_preroll() -> None:
@@ -1784,10 +2278,12 @@ def phase_disagg(ep, svc: LMService, tiers: dict, cfg: LMConfig,
         raise AssertionError(f"a session's pages hold {total} bytes")
     mem0 = torch.cuda.memory_allocated()
     res = {"ici": phase_disagg_ici(ep, svc, tiers, cfg, six_b),
-           "copy": phase_disagg_copy(ep, svc, tiers, cfg),
-           "over_cap": phase_disagg_over_cap(ep, svc, tiers, cfg),
-           "paged": phase_disagg_paged(ep, svc, tiers, cfg)}
+           "copy": phase_disagg_copy(ep, svc, tiers, cfg)}
+    shm = phase_disagg_shm(ep, svc, tiers, cfg, six_b, res["copy"])
+    res["over_cap"] = phase_disagg_over_cap(ep, svc, tiers, cfg)
+    res["paged"] = phase_disagg_paged(ep, svc, tiers, cfg)
     res["launches"] = sum(r["launches"] for r in res.values())
+    res["shm"] = shm
     mem1 = torch.cuda.memory_allocated()
     log(f"  allocated on the card before 6d {mem0 / 1e9:.3f} GB, after "
         f"{mem1 / 1e9:.3f} GB")
@@ -1904,6 +2400,152 @@ def phase_disagg_copy(ep, svc: LMService, tiers: dict,
     return dict(copy=rows["copy"], ici=rows["ici"], copy_extra_ms=extra,
                 copy_gb_s=gb_s, copy_steps_ms=steps,
                 launches=rows["copy"]["launches"] + rows["ici"]["launches"])
+
+
+def shm_dir_line(path: str) -> str:
+    st = os.statvfs(path)
+    return (f"{path}: {st.f_blocks * st.f_frsize} bytes, "
+            f"{st.f_bavail * st.f_frsize} free")
+
+
+def phase_disagg_shm(ep, svc: LMService, tiers: dict, cfg: LMConfig,
+                     six_b: dict, copy: dict) -> dict:
+    """(e) the KV handoff on the forced shm lane, in one process: 6b's eight
+    prompts through ``PrefillShm`` into 8 contiguous decode slots (each
+    page copied once from the card into a slot of this process's ring and
+    landed from it on the decode tier), every session 6b's tokens exactly,
+    no fallback, no slot left; then 6b's two chunk prompts one at a time
+    over the shm lane and over the ici lane, and the shm lane's steps
+    outside the RPC.  The ring is rebuilt with KV_SHM_SLOTS slots of
+    KV_SHM_SLOT_BYTES for the phase, and rebuilt from the flags as they
+    were after it."""
+    for d in ("/dev/shm", os.environ.get("TMPDIR") or "/tmp"):
+        if os.path.isdir(d):
+            log(f"  (e) {shm_dir_line(d)}")
+    saved = {k: get_flag(k) for k in ("rpc_shm_slot_bytes", "rpc_shm_slots")}
+    if not shm_ring.reset_tx_ring():
+        raise AssertionError("shm ring slots outstanding before 6d (e)")
+    if not (set_flag("rpc_shm_slot_bytes", KV_SHM_SLOT_BYTES)
+            and set_flag("rpc_shm_slots", KV_SHM_SLOTS)):
+        raise AssertionError("the shm ring flags refused 6d (e)'s sizes")
+    dec = tiers["dec"].batcher()
+    try:
+        t0 = time.perf_counter()
+        ring = shm_ring.process_tx_ring()
+        if ring is None:
+            raise AssertionError("no shm ring could be made for 6d (e)")
+        log(f"  (e) ring of {ring.nslots} x {ring.slot_bytes} bytes in "
+            f"{os.path.dirname(ring.path)}, made in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+        kv0, fb0 = kv_stats(), kv_fallback_counters()
+        st0 = shm_ring.shm_stats()
+        clients, wall_s, most_live, launches = run_counted(
+            ep, "PrefillShm", prompts, DECODE_STAGGER_S, dec)
+        kv, fb = kv_deltas(kv0, fb0)
+        staged = shm_ring.shm_stats()["staged"] - st0["staged"]
+        left = shm_ring.outstanding_tx_slots()
+        same = sum(c.tokens == t for c, t in zip(clients,
+                                                 six_b["session_tokens"]))
+        tokens = sum(len(c.tokens) for c in clients)
+        ttfts = sorted(c.ttft_s * 1e3 for c in clients)
+        log(f"  (e) {len(clients)} sessions over the shm lane into "
+            f"{DECODE_SLOTS} decode slots: all closed 'finished', up to "
+            f"{most_live} live; {tokens} tokens in {wall_s:.3f} s; "
+            f"{same} of {len(clients)} sessions streamed 6b's tokens "
+            f"exactly; TTFT median {statistics.median(ttfts):.1f} ms, max "
+            f"{ttfts[-1]:.1f} ms; handoffs {kv}; fallbacks {fb or 'none'}; "
+            f"{staged} pages staged, {left} slots outstanding; flash_fwd "
+            f"launches {launches}; decode tier prefills {dec.prefills_run}")
+        n_pages = len(kv_page_specs(cfg))
+        if kv["shm_sessions"] != len(prompts) or kv["sessions"] \
+                != len(prompts) or kv["local_fallbacks"] or fb or left \
+                or staged != n_pages * len(prompts) or dec.prefills_run \
+                or same != len(prompts) \
+                or launches != cfg.depth * len(prompts):
+            raise AssertionError("the shm handoffs did not run as expected")
+        rng = np.random.default_rng(6)
+        pair = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+                for n in CHUNK_PROMPT_LENS]
+        rows = {}
+        for lane, service in (("shm", "PrefillShm"), ("ici", "Prefill")):
+            kv0, fb0 = kv_stats(), kv_fallback_counters()
+            FLASH_FWD.launches = 0
+            clients2 = []
+            for p in pair:
+                clients2 += run_decode_sessions(ep, service, [p], 0.0,
+                                                dec)[0]
+            pair_launches = FLASH_FWD.launches
+            kv, fb = kv_deltas(kv0, fb0)
+            rows[lane] = [c.call_s * 1e3 for c in clients2]
+            log(f"  (e) {lane} lane, prompts {list(CHUNK_PROMPT_LENS)} one "
+                f"after the other: unary Decode "
+                f"{', '.join(f'{ms:.1f}' for ms in rows[lane])} ms; "
+                f"{kv[f'{lane}_sessions']} {lane} sessions; fallbacks "
+                f"{fb or 'none'}; flash_fwd launches {pair_launches}")
+            if kv[f"{lane}_sessions"] != len(pair) or fb \
+                    or pair_launches != cfg.depth * len(pair):
+                raise AssertionError(f"the {lane}-lane handoffs of 6d (e) "
+                                     f"did not run as expected")
+            if lane == "shm":
+                launches += pair_launches
+        steps = shm_lane_steps(tiers["PrefillShm"], cfg, pair[0])
+    finally:
+        if not dec.shutdown():
+            raise AssertionError("the decode tier's batcher did not stop")
+        reset = shm_ring.reset_tx_ring()
+        for k, v in saved.items():
+            set_flag(k, v)
+        if not reset:
+            raise AssertionError("shm ring slots outstanding after 6d (e)")
+    extra = [a - b for a, b in zip(rows["shm"], rows["ici"])]
+    log(f"  (e) the shm lane costs {', '.join(f'{ms:.1f}' for ms in extra)} "
+        f"ms more per session than the ici lane (6d (b)'s copy lane: "
+        f"{', '.join(f'{ms:.1f}' for ms in copy['copy_extra_ms'])} ms); "
+        f"{DISAGG_SESSION_BYTES} bytes a session, one device-to-host copy "
+        f"into the ring and one host-to-device copy out of it")
+    return dict(sessions=len(prompts), same_as_6b=same, ttft_ms=ttfts,
+                wall_s=wall_s, shm_ms=rows["shm"], ici_ms=rows["ici"],
+                shm_extra_ms=extra, shm_steps_ms=steps,
+                copy_extra_ms=copy["copy_extra_ms"], launches=launches)
+
+
+def shm_lane_steps(tier: PrefillService, cfg: LMConfig,
+                   prompt: np.ndarray) -> dict:
+    """One session's shm-lane work outside the RPC, on the host clock:
+    staging (16 copies from the card into ring slots) and landing (16
+    copies from the slots onto the card).  The landed pages must equal
+    the exported ones; the slots are settled after."""
+    with torch.inference_mode():
+        cache1, ctx_len = bucketed_prefill(tier._ensure_prefill(), cfg,
+                                           prompt)
+    pages = export_decode_cache(cfg, cache1)
+    torch.cuda.synchronize()
+    ms = {}
+    t0 = time.perf_counter()
+    lane, descs, _, leases, why = KvTransport()._prepare_pages(LANE_SHM,
+                                                              pages, None)
+    ms["stage"] = (time.perf_counter() - t0) * 1e3
+    if lane != LANE_SHM or why is not None:
+        raise AssertionError(f"the shm lane demoted to {lane} under {why}")
+    try:
+        t0 = time.perf_counter()
+        landed = import_pages(SessionManifest(
+            LANE_SHM, 1, b"\0" * 8, ctx_len, 0, 1, b"", descs), None,
+            kv_page_specs(cfg), "cuda")
+        torch.cuda.synchronize()
+        ms["land"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        KvTransport._settle(leases)
+    if not all(torch.equal(a, b) for a, (b, _) in zip(landed, pages)):
+        raise AssertionError("the shm lane's pages did not land exactly")
+    log(f"  (e) one session's shm-lane steps outside the RPC: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+        + f" ({DISAGG_SESSION_BYTES} bytes, "
+        f"{DISAGG_SESSION_BYTES / (ms['stage'] / 1e3) / 1e9:.2f} GB/s "
+        f"staged, {DISAGG_SESSION_BYTES / (ms['land'] / 1e3) / 1e9:.2f} "
+        f"GB/s landed; pages bit-equal)")
+    return ms
 
 
 def copy_lane_steps(tier: PrefillService, cfg: LMConfig,
@@ -2784,6 +3426,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[10] parameter server at {PS_CFG} and the device lane")
     ps = phase_ps()
+    xproc = phase_xproc(ps)
 
     f32 = times[MAIN_SHAPE]["f32"]
     f32_train = times[TRAIN_SHAPE]["f32"]
@@ -2792,6 +3435,7 @@ def main() -> int:
                  "paged_decode": paged_res["launches_paged"],
                  "spec_decode": paged_res["launches_spec"],
                  "disagg": disagg["launches"],
+                 "disagg_shm": disagg["shm"]["launches"],
                  "scan_generate": scan["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
@@ -2837,8 +3481,13 @@ def main() -> int:
         "name": CHECKSUM.name, "route": "cuda",
         "source": "brpc_tpu_torch/ops/csrc/checksum.cu",
         "replaces": "brpc_tpu/ops/device_ops.py:50",
-        "launches": ps["launches"],
-        "launches_by_path": {"ps": ps["launches"]},
+        "launches": (ps["launches"] + xproc["xfer"]["launches"]
+                     + xproc["xfer"]["launches_inline"]
+                     + xproc["xfer"]["child_launches"]),
+        "launches_by_path": {
+            "ps": ps["launches"], "xproc": xproc["xfer"]["launches"],
+            "xproc_inline": xproc["xfer"]["launches_inline"],
+            "xproc_child": xproc["xfer"]["child_launches"]},
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
@@ -2859,6 +3508,7 @@ def main() -> int:
     log(f"  checksum: {n_payloads} payloads bit-exact; timing "
         f"{json.dumps(cs_times)}")
     log(f"  ps: {json.dumps(ps)}")
+    log(f"  xproc: {json.dumps(xproc)}")
     log(f"  all phases: {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
@@ -2868,5 +3518,13 @@ def main() -> int:
     return 0
 
 
+def exit_on_sigterm(signum, frame) -> None:
+    """A run ended by SIGTERM (a time limit) unwinds like an error: the
+    child is stopped and the shm rings (6d (e)'s is 2 GiB of tmpfs) are
+    unlinked by their ``finally`` and ``atexit`` hooks."""
+    raise SystemExit(128 + signum)
+
+
 if __name__ == "__main__":
+    signal.signal(signal.SIGTERM, exit_on_sigterm)
     sys.exit(main())

@@ -468,15 +468,17 @@ def test_ignored_request_attachment_settles_before_response(server):
 
 
 def test_transfer_descriptor_raises_and_acks():
-    """A KIND_TRANSFER descriptor (the JAX cross-process fabric) cannot be
-    redeemed by the port: tensor() raises, and the handle still returns
-    the poster's credit."""
+    """A KIND_TRANSFER descriptor of the JAX cross-process fabric (its
+    ``extra`` is a PJRT transfer address, not the port's CUDA IPC export
+    blob) is refused: tensor() raises naming the foreign ``extra`` and
+    never opens it, and the handle still returns the poster's credit."""
     meta = RpcMeta()
     meta.ici_desc = encode_descriptor(KIND_TRANSFER, 42, 16, "float32", (4,),
                                       extra=b"10.0.0.1:1234")
     _, att = split_device_attachment(meta, b"", 0)
     assert att is not None and att.device_resident
-    with pytest.raises(RuntimeError, match="transfer"):
+    with pytest.raises(RuntimeError,
+                       match=r"extra b'10\.0\.0\.1:1234' is not a CUDA IPC"):
         att.tensor("cpu")
     assert not att._redeemed
     att.settle()

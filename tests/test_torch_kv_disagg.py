@@ -5,9 +5,10 @@ the decode tier's batcher streams the tokens to the original client.
 
 - end to end: two-tier tokens equal the port's monolithic tokens and JAX
   ``generate``'s on the ici lane, the copy lane, and a forced shm lane
-  (which demotes to copy), into a contiguous, a paged and a spec decode
-  tier; the ici lane aliases the exporter's tensors and sends no
-  attachment; a handed-off session joins a live batch;
+  (the pages staged in this process's shm ring, every slot back after
+  the handoff), into a contiguous, a paged and a spec decode tier; the
+  ici lane aliases the exporter's tensors and sends no attachment; a
+  handed-off session joins a live batch;
 - lifecycle: a stale import answers ERESPONSE and seats nothing, a forged
   stream adoption is refused before any page resolves, an ambiguous
   handoff never decodes twice, a dead client connection sweeps its pages;
@@ -45,6 +46,7 @@ from brpc_tpu.kv import transport as jtr
 from brpc_tpu.models import lm_service as jsvc
 from brpc_tpu.models import transformer_lm as jlm
 from brpc_tpu.server import Server as JServer
+from brpc_tpu.transport import shm_ring as jshm
 from brpc_tpu_torch.butil.flags import get_flag, set_flag
 from brpc_tpu_torch.butil.status import Errno
 from brpc_tpu_torch.client import Channel, Controller
@@ -56,6 +58,7 @@ from brpc_tpu_torch.models import lm_service as tsvc
 from brpc_tpu_torch.models import transformer_lm as tlm
 from brpc_tpu_torch.server import Server
 from brpc_tpu_torch.streaming import Stream, StreamOptions, stream_create
+from brpc_tpu_torch.transport import shm_ring as tshm
 from brpc_tpu_torch.transport.socket import Socket
 from brpc_tpu_torch.utils.convert import params_from_numpy
 
@@ -69,9 +72,11 @@ N = 6                     # new tokens per session
 def _fresh_kv():
     tpages._reset_for_tests()
     ttr._reset_for_tests()
+    tshm._reset_for_tests()
     yield
     tpages._reset_for_tests()
     ttr._reset_for_tests()
+    tshm._reset_for_tests()
 
 
 @pytest.fixture(scope="module")
@@ -222,8 +227,13 @@ def test_two_tier_tokens_identical_to_monolithic(params, prompts, monolithic,
                                                  lane):
     """The prefill tier exports each session's pages and the decode tier
     imports them mid-request; the tokens equal the port's monolithic
-    Decode and JAX ``generate``.  A forced shm lane rides the copy lane
-    under ``kv_shm_unavailable`` (the port has no ring)."""
+    Decode and JAX ``generate``.  A forced shm lane stages every page in
+    the ring and hands every slot back (where this host can make no ring
+    it rides the copy lane under ``kv_shm_unavailable``)."""
+    if lane == "shm" and not tshm.shm_supported():
+        landed, fallbacks = "copy", {"kv_shm_unavailable": 2}
+    else:
+        landed, fallbacks = lane or "ici", {}
     t = _Tiers(params[1], lane=lane)
     try:
         for key in ("p8", "p5"):
@@ -231,14 +241,15 @@ def test_two_tier_tokens_identical_to_monolithic(params, prompts, monolithic,
             toks, reason, _ = _stream_decode(t.ep, p, N)
             assert (toks, reason) == monolithic[key], key
         st = ttr.kv_stats()
-        landed = "copy" if lane == "shm" else lane or "ici"
         assert st["sessions"] == st[f"{landed}_sessions"] == 2
         assert st["local_fallbacks"] == 0
         assert st["pages_moved"] == 2 * 2 * CFG["depth"]
         assert st["bytes_moved"] == 2 * sum(
             n for _, _, n in tlm.kv_page_specs(tlm.LMConfig(**CFG)))
-        assert _fallback_counts() == (
-            {"kv_shm_unavailable": 2} if lane == "shm" else {})
+        assert _fallback_counts() == fallbacks
+        if landed == "shm":
+            assert tshm.shm_stats()["staged"] == 2 * 2 * CFG["depth"]
+            assert tshm.outstanding_tx_slots() == 0
         bat = t.dec.batcher()
         assert bat.steps_run() >= N and bat.prefills_run == 0
         assert tpages.outstanding_pages() == 0
@@ -611,10 +622,12 @@ def test_fallback_stream_not_local(params, prompts):
     ("same-host-shm", "kv_shm_unavailable"),
     ("other-host", "kv_peer_remote")])
 def test_fallback_lane_demotions(params, prompts, monkeypatch, peer, reason):
-    """A peer outside this process: on this host the shm lane would be
-    next, which the port lacks (also when the peer offers it); on another
-    host (the prefill side's host token patched) there is no fabric.  The
-    handoff still completes on the copy lane, under the named reason."""
+    """A peer outside this process.  On this host the shm lane is next: a
+    peer that offers it gets it while this process's lane is on, and the
+    copy lane under ``kv_shm_unavailable`` once the lane is off; a peer
+    that offers no ring gets the copy lane under that reason at once.  On
+    another host (the prefill side's host token patched) there is no
+    fabric.  Each handoff completes, on the lane named."""
     t = _Tiers(params[1])
     try:
         host = ttr._host_token()
@@ -624,6 +637,14 @@ def test_fallback_lane_demotions(params, prompts, monkeypatch, peer, reason):
         t.pre.transport._peers[t.dch] = (
             (b"0" * 16, host, peer == "same-host-shm"),
             time.monotonic() + TIMEOUT)
+        if peer == "same-host-shm" and tshm.lane_enabled():
+            p, want = prompts["p8"]
+            toks, close_reason, _ = _stream_decode(t.ep, p, N)
+            assert (toks, close_reason) == (want[:N], "finished")
+            assert ttr.kv_stats()["shm_sessions"] == 1
+            assert _fallback_counts() == {}
+            assert tshm.outstanding_tx_slots() == 0
+            monkeypatch.setattr(tshm, "lane_enabled", lambda: False)
         _fallback_session(t.ep, *prompts["p8"], reason, lands="copy")
     finally:
         t.stop()
@@ -817,7 +838,8 @@ def _jax_reset():
 def test_jax_prefill_tier_to_port_decode_tier(params, prompts):
     """A JAX ``PrefillService`` pointed at the port's decode tier: the
     probe, the manifest and the fingerprint interoperate, the lane is
-    copy (no shared fabric: ``kv_shm_unavailable``), and the import ends
+    shm (the port's probe offers its ring; copy under
+    ``kv_shm_unavailable`` where a package has none), and the import ends
     at the auth check (``kv_stream_not_local``: each package keys its own
     tag), so the JAX tier decodes locally with ``generate``'s tokens."""
     jp, tp = params
@@ -842,7 +864,8 @@ def test_jax_prefill_tier_to_port_decode_tier(params, prompts):
             == (want[:N], "finished")
         fb = jtr.kv_fallback_counters()
         assert (fb["kv_stream_not_local"], fb["kv_shm_unavailable"]) \
-            == (1, 1)
+            == (1, 0 if _both_rings() else 1)
+        assert jshm.outstanding_tx_slots() == 0
         assert fb["kv_probe_failed"] == fb["kv_model_mismatch"] == 0
         assert jtr.kv_stats()["local_fallbacks"] == 1
         assert dec._batcher is None            # the port seated nothing
@@ -852,9 +875,17 @@ def test_jax_prefill_tier_to_port_decode_tier(params, prompts):
         _jax_reset()
 
 
+def _both_rings() -> bool:
+    """Both packages' shm lanes are up here, so each prefill tier takes
+    the shm lane to the other's decode tier (it stages its pages in its
+    own ring and settles them after the refusal)."""
+    return tshm.lane_enabled() and jshm.lane_enabled()
+
+
 def test_port_prefill_tier_to_jax_decode_tier(params, prompts):
     """The port's ``PrefillService`` pointed at the JAX decode tier: the
-    same path the other way (copy lane under ``kv_shm_unavailable``, then
+    same path the other way (the shm lane, or the copy lane under
+    ``kv_shm_unavailable`` where a package has no ring; then
     ``kv_stream_not_local``), decoded locally by the port."""
     jp, tp = params
     _jax_reset()
@@ -874,8 +905,10 @@ def test_port_prefill_tier_to_jax_decode_tier(params, prompts):
         p, want = prompts["p8"]
         assert _stream_decode(psrv.listen_endpoint, p, N)[:2] \
             == (want[:N], "finished")
-        assert _fallback_counts() == {"kv_stream_not_local": 1,
-                                      "kv_shm_unavailable": 1}
+        assert _fallback_counts() == (
+            {"kv_stream_not_local": 1} if _both_rings() else
+            {"kv_stream_not_local": 1, "kv_shm_unavailable": 1})
+        assert tshm.outstanding_tx_slots() == 0
         assert ttr.kv_stats()["local_fallbacks"] == 1
         assert jtr.kv_stats()["sessions"] == 0
     finally:

@@ -11,6 +11,10 @@ pages) and the model's page list (``kv_page_specs``,
   ``Socket``), leaks nothing over 1000 cycles, and ``drain_settle``
   reports what is left at its deadline;
 - copy-lane pages cross between the packages bit-exact, both ways;
+- the shm lane stages each page once into the port's ring, demotes under
+  ``kv_page_over_slot``, ``kv_ring_exhausted`` and (no ring)
+  ``kv_shm_unavailable``, settles every slot, and its pages cross between
+  the packages bit-exact both ways (each resolving the other's ring);
 - ``model_fingerprint`` is the JAX package's string.
 
 Params: the JAX ``init_params(PRNGKey(0))`` tree through numpy into
@@ -38,20 +42,38 @@ from brpc_tpu_torch.ici.fabric import in_process_fabric, local_domain_id
 from brpc_tpu_torch.kv import pages as tpages
 from brpc_tpu_torch.kv import transport as ttr
 from brpc_tpu_torch.models import lm_service as tsvc
+from brpc_tpu_torch.butil.flags import get_flag, set_flag
 from brpc_tpu_torch.models import transformer_lm as tlm
+from brpc_tpu_torch.transport import shm_ring as tshm
 from brpc_tpu_torch.transport.socket import Socket
 from brpc_tpu_torch.utils.convert import params_from_numpy
 
 CFG = dict(vocab=64, dim=32, heads=4, depth=2, max_seq=32, remat=False)
 
 
+_SHM_FLAGS = ("rpc_shm_slot_bytes", "rpc_shm_slots")
+
+
+@pytest.fixture()
+def needs_shm():
+    """Skip where this host can make no shm ring (decided per test, not
+    at import)."""
+    if not tshm.shm_supported():
+        pytest.skip("no tmpfs/mmap shm ring here")
+
+
 @pytest.fixture(autouse=True)
 def _fresh_kv():
+    saved = {k: get_flag(k) for k in _SHM_FLAGS}
     tpages._reset_for_tests()
     ttr._reset_for_tests()
+    tshm._reset_for_tests()
     yield
+    for k, v in saved.items():
+        assert set_flag(k, v)
     tpages._reset_for_tests()
     ttr._reset_for_tests()
+    tshm._reset_for_tests()
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +144,7 @@ def test_probe_answer_parses_both_ways():
         assert dom == local_domain_id()
         assert in_process_fabric().can_reach(dom)
         assert host == ttr._host_token() == jshm._host_token()
-        assert shm is False                       # the port has no ring
+        assert shm is tshm.lane_enabled()         # the port's ring
     assert ttr.decode_probe_report(ours) is None
     assert jtr.decode_probe_report(ours) is None
     report = {"slots_free": 3, "tier": "decode"}
@@ -296,21 +318,106 @@ def test_copy_lane_import_pages_checks_and_lands_exactly():
         ttr.import_pages(_copy_manifest(ttr, bad, 7), att, specs, "cpu")
     with pytest.raises(tpages.KvPageError, match="trailing"):
         ttr.import_pages(man, att + b"\0\0\0\0", specs, "cpu")
+    # an shm manifest holding copy-lane descriptors, or naming a ring this
+    # process never mapped, fails loudly
     shm = ttr.SessionManifest(ttr.LANE_SHM, 1, b"\0" * 8, 7, 0, 4, b"fp",
                               descs)
-    with pytest.raises(tpages.KvPageError, match="shm"):
+    with pytest.raises(tpages.KvPageError, match="malformed shm"):
+        ttr.import_pages(shm, None, specs, "cpu")
+    shm.descs = [tshm.encode_desc(b"\xde" * 8, 0, 0, n) for _, _, n in specs]
+    with pytest.raises(tpages.KvPageError, match="unresolvable shm"):
         ttr.import_pages(shm, None, specs, "cpu")
 
 
-def test_shm_lane_demotes_to_copy():
-    """The port has no ring: a handoff pinned to the shm lane stages its
-    pages for the copy lane under ``kv_shm_unavailable``."""
-    page = torch.ones(4)
-    lane, descs, att, leases, reason = ttr.KvTransport()._prepare_pages(
+def test_shm_lane_demotes_to_copy(monkeypatch):
+    """A handoff pinned to the shm lane stages each page into this
+    process's ring (one copy) under a slot lease, and its descriptor
+    resolves to the page's bytes; it demotes to the copy lane under
+    ``kv_shm_unavailable`` only where no ring can be made here."""
+    page = torch.arange(4, dtype=torch.float32)
+    tr = ttr.KvTransport()
+    if tshm.shm_supported():
+        lane, descs, att, leases, reason = tr._prepare_pages(
+            ttr.LANE_SHM, [(page, 16)], None)
+        assert (lane, reason, att) == (ttr.LANE_SHM, None, None)
+        rid, _slot, off, n = tshm.decode_desc(descs[0])
+        assert bytes(tshm.resolve(rid, off, n)) == page.numpy().tobytes()
+        assert [k for k, _ in leases] == ["slot"]
+        assert tshm.outstanding_tx_slots() == 1
+        tr._settle(leases)
+        assert tshm.outstanding_tx_slots() == 0
+    monkeypatch.setattr(tshm, "process_tx_ring", lambda: None)
+    lane, descs, att, leases, reason = tr._prepare_pages(
         ttr.LANE_SHM, [(page, 16)], None)
     assert (lane, reason, leases) == (ttr.LANE_COPY, "kv_shm_unavailable", [])
     assert att == page.numpy().tobytes()
     assert descs == [struct.pack("<I", 16)]
+
+
+def _pages(n, numel=1024):
+    rng = np.random.default_rng(n)
+    return [(torch.from_numpy(rng.standard_normal(numel).astype(np.float32)),
+             numel * 4) for _ in range(n)]
+
+
+@pytest.mark.parametrize("flag,value,reason", [
+    ("rpc_shm_slot_bytes", 4096, "kv_page_over_slot"),
+    ("rpc_shm_slots", 2, "kv_ring_exhausted")])
+def test_shm_lane_demotions_are_named(needs_shm, flag, value, reason):
+    """Pages larger than a slot, or more pages than free slots: the
+    handoff demotes to the copy lane under its reason, and the slots
+    staged before the demotion are settled."""
+    assert set_flag(flag, value)
+    pages = _pages(4, numel=2048)                  # 8 KiB pages
+    lane, descs, att, leases, why = ttr.KvTransport()._prepare_pages(
+        ttr.LANE_SHM, pages, None)
+    assert (lane, why, leases) == (ttr.LANE_COPY, reason, [])
+    assert att == b"".join(p.numpy().tobytes() for p, _ in pages)
+    assert tshm.outstanding_tx_slots() == 0
+
+
+def test_shm_lane_pages_cross_packages_bit_exact(needs_shm, params, prompt):
+    """A port prefill's pages, staged by the port's shm lane, are read by
+    the JAX package's ``shm_ring.resolve`` (its import, after mapping the
+    port's ring) bit-equal to the port's tensors; a JAX prefill's pages,
+    staged in the JAX ring, land in the port bit-equal to the JAX
+    arrays."""
+    jp, tp = params
+    jcfg, tcfg = jlm.LMConfig(**CFG), tlm.LMConfig(**CFG)
+    jshm._reset_for_tests()
+    try:
+        tcache, tctx = _port_prefill(tp, prompt)
+        tpg = tlm.export_decode_cache(tcfg, tcache)
+        lane, descs, _att, leases, _ = ttr.KvTransport()._prepare_pages(
+            ttr.LANE_SHM, tpg, None)
+        assert lane == ttr.LANE_SHM
+        assert jshm.attach_spec(tshm.process_tx_ring().spec()) \
+            == tshm.process_tx_ring().ring_id
+        man = ttr.SessionManifest(ttr.LANE_SHM, 1, b"\0" * 8, tctx, 0, 4,
+                                  b"fp", descs)
+        back = jtr.import_pages(jtr.decode_manifest(ttr.encode_manifest(man)),
+                                None, jlm.kv_page_specs(jcfg))
+        for arr, (t, _n) in zip(back, tpg):
+            assert np.array_equal(np.asarray(arr), t.numpy())
+        ttr.KvTransport._settle(leases)
+        assert tshm.outstanding_tx_slots() == 0
+
+        jcache, jctx = _jax_prefill(jp, prompt)
+        jpg = jlm.export_decode_cache(jcfg, jcache)
+        lane, descs, _att, jleases, _ = jtr.KvTransport()._prepare_pages(
+            jtr.LANE_SHM, jpg, None)
+        assert lane == jtr.LANE_SHM
+        assert tshm.attach_spec(jshm.process_tx_ring().spec()) \
+            == jshm.process_tx_ring().ring_id
+        man = jtr.SessionManifest(jtr.LANE_SHM, 1, b"\0" * 8, jctx, 0, 4,
+                                  b"fp", descs)
+        got = ttr.import_pages(ttr.decode_manifest(jtr.encode_manifest(man)),
+                               None, tlm.kv_page_specs(tcfg), "cpu")
+        for t, (arr, _n) in zip(got, jpg):
+            assert np.array_equal(t.numpy(), np.asarray(arr))
+        jtr.KvTransport._settle(jleases)
+    finally:
+        jshm._reset_for_tests()
 
 
 def _jax_prefill(jp, prompt):

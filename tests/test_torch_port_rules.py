@@ -55,7 +55,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == n_modules >= 42
+    assert int(proc.stdout.split()[-1]) == n_modules >= 44
     names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
     assert {"brpc_tpu_torch.utils.checkpoint",
             "brpc_tpu_torch.models.transformer_lm",
@@ -64,6 +64,8 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.ops.device_ops",
             "brpc_tpu_torch.butil.flags",
             "brpc_tpu_torch.transport.socket",
+            "brpc_tpu_torch.transport.shm_ring",
+            "brpc_tpu_torch.ici.cuda_ipc",
             "brpc_tpu_torch.ici.attachment",
             "brpc_tpu_torch.ici.fabric",
             "brpc_tpu_torch.ici.endpoint",
@@ -264,3 +266,36 @@ def test_disagg_entry_points_raise_without_cuda():
     assert pre.device.type == dec.device.type == "cpu"
     assert DecodeTierService(dec).lm.batcher().device.type == "cpu"
     assert pre.model_fingerprint() == dec.model_fingerprint()
+
+
+def test_transfer_fabric_entry_points_raise_without_cuda():
+    """The CUDA IPC fabric's entry points raise on a host without CUDA,
+    and with ``ici_transfer_enabled`` on such a host has no transfer
+    fabric (its device attachments to other processes go inline)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.butil.flags import set_flag
+    from brpc_tpu_torch.ici import cuda_ipc, fabric
+    fab = fabric.CudaIpcFabric()
+    assert not fab.supported()
+    blob = fabric.ExportBlob(fabric.ipc_address(b"h", b"GPU-0"), b"\0" * 64,
+                             0, b"\0" * 64, "float32", (4,))
+    for call in (fab.start,
+                 lambda: fab.post(torch.ones(4), 16),
+                 lambda: cuda_ipc.export(torch.ones(4)),
+                 lambda: cuda_ipc.pull(0, b"\0" * 64, 0, b"\0" * 64, 16,
+                                       torch.float32, (4,), "cpu")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with pytest.raises(RuntimeError, match="cannot map"):
+        fab.redeem(blob, 1)
+    assert fab.live_descriptors == 0 and fab.address == b""
+    fabric.set_transfer_fabric(None)
+    assert set_flag("ici_transfer_enabled", True)
+    try:
+        assert fabric.transfer_fabric() is None
+        assert fabric.transfer_ready() is None
+        assert b"@" not in fabric.local_domain_id()
+    finally:
+        assert set_flag("ici_transfer_enabled", False)
+        fabric.set_transfer_fabric(None)
