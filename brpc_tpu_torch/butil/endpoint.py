@@ -1,33 +1,50 @@
-"""EndPoint — where a peer lives: ``host:port`` (IPv4, IPv6, hostname).
+"""EndPoint — where a peer lives: ``host:port`` (IPv4, IPv6, hostname),
+or a rank of a device mesh, ``ici://<mesh>/<index>``.
 
-The network half of ``brpc_tpu/butil/endpoint.py``; the ICI device
-coordinates and unix sockets of the JAX package are not carried over.
+The port of ``brpc_tpu/butil/endpoint.py`` without its unix sockets.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Tuple
+
+_ICI_RE = re.compile(r"^ici://([A-Za-z0-9_\-\.]+)/(\d+)$")
 
 
 @dataclass(frozen=True, order=True)
 class EndPoint:
     host: str = ""
     port: int = 0
+    # device coordinate fields (exclusive with host/port)
+    mesh: str = ""
+    device_index: int = -1
+
+    @property
+    def is_device(self) -> bool:
+        return self.device_index >= 0
 
     def __str__(self) -> str:
+        if self.is_device:
+            return f"ici://{self.mesh}/{self.device_index}"
         if ":" in self.host:  # ipv6 literal
             return f"[{self.host}]:{self.port}"
         return f"{self.host}:{self.port}"
 
     def to_sockaddr(self) -> Tuple[str, int]:
+        if self.is_device:
+            raise ValueError(f"{self} is a device endpoint, not a sockaddr")
         return (self.host, self.port)
 
 
 def parse_endpoint(text: str, default_port: int = 0) -> EndPoint:
-    """Parse ``host:port``, ``[v6]:port``, a bare IPv6 literal, or a bare
-    host (uses ``default_port``)."""
+    """Parse ``host:port``, ``[v6]:port``, ``ici://mesh/idx``, a bare IPv6
+    literal, or a bare host (uses ``default_port``)."""
     text = text.strip()
+    m = _ICI_RE.match(text)
+    if m:
+        return EndPoint(mesh=m.group(1), device_index=int(m.group(2)))
     if text.startswith("["):  # [ipv6]:port
         close = text.index("]")
         host = text[1:close]

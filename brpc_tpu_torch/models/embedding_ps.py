@@ -2,14 +2,19 @@
 pooled by :func:`~brpc_tpu_torch.ops.device_ops.embedding_bag` under a
 dense scoring tower.
 
-The port of ``brpc_tpu/models/embedding_ps.py`` on one device: the same
-config, the same parameter names and shapes, the same forward (bf16
-products, f32 master weights), loss and SGD step.  Parameters are a flat
-dict of tensors.  :meth:`EmbeddingPS.train_step` updates them in place,
-standing in for the JAX step's buffer donation.  The JAX package's mesh
-(the vocab-sharded table, the tensor-parallel tower: ``param_specs``,
-``batch_specs``, ``shard_batch``) waits for the port's parallel slice and
-raises ``NotImplementedError``.
+The port of ``brpc_tpu/models/embedding_ps.py``: the same config, the
+same parameter names and shapes, the same forward (bf16 products, f32
+master weights), loss and SGD step.  Parameters are a flat dict of
+tensors.  :meth:`EmbeddingPS.train_step` updates them in place, standing
+in for the JAX step's buffer donation.
+
+On a ``("dp", "tp")`` mesh (one process per rank) the table is
+vocab-partitioned over tp, the tower tensor-parallel (``w1``/``b1`` cut
+by column, ``w2`` by row, ``b2`` whole) and the batch cut over dp
+(:func:`param_specs`, :func:`batch_specs`).  A rank looks up the rows it
+holds and the pooled rows sum over tp; the tower's partial logits sum
+over tp; the gradients average over dp.  The JAX package gets all of
+this from GSPMD and the params' shardings.
 """
 
 from __future__ import annotations
@@ -21,10 +26,9 @@ import numpy as np
 import torch
 
 from ..ops.device_ops import embedding_bag
+from ..parallel.mesh_transport import Axis, _all_reduce, mesh_axis, psum, pvary
+from ..utils.convert import shard_from_numpy
 from ..utils.device import resolve_device
-
-_PARALLEL = ("sharding the parameter server over a mesh waits for the "
-             "port's parallel slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,63 +59,112 @@ def init_params(gen: torch.Generator, cfg: PSConfig,
     }
 
 
-def forward(params: Dict[str, torch.Tensor], ids) -> torch.Tensor:
+def _bag(params, ids, tp: Optional[Axis]):
+    """The pooled embeddings; over tp, each rank's rows (zero for ids it
+    does not hold), summed.  Ids follow ``embedding_bag``: negative ones
+    count from the end, a bag with an id out of range is NaN."""
+    if tp is None:
+        return embedding_bag(params["emb"], ids)
+    table = params["emb"]
+    rows = table.shape[0]
+    vocab = rows * tp.size
+    ids = torch.as_tensor(ids, device=table.device).long()
+    valid = ((ids >= -vocab) & (ids < vocab)).all(dim=1, keepdim=True)
+    local = ids.remainder(vocab) - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    emb = table[local.clamp(0, rows - 1)] * mine[..., None]
+    pooled = psum(emb.mean(dim=1), tp)
+    return torch.where(valid, pooled, float("nan"))
+
+
+def forward(params: Dict[str, torch.Tensor], ids,
+            tp: Optional[Axis] = None) -> torch.Tensor:
     """ids (batch, slots) -> logits (batch, classes), f32.  Both products
-    take bf16 operands and give a bf16 result, then add an f32 bias."""
-    x = embedding_bag(params["emb"], ids)
+    take bf16 operands and give a bf16 result, then add an f32 bias.
+    With ``tp`` the params are the rank's shard and the logits whole."""
+    x = _bag(params, ids, tp)
     bf = torch.bfloat16
+    if tp is not None:
+        x = pvary(x, tp)
     h = torch.clamp_min(
         (x.to(bf) @ params["w1"].to(bf)).float() + params["b1"], 0.0)
-    return (h.to(bf) @ params["w2"].to(bf)).float() + params["b2"]
+    y = (h.to(bf) @ params["w2"].to(bf)).float()
+    if tp is not None:
+        y = psum(y, tp)
+    return y + params["b2"]
 
 
-def loss_fn(params, ids, labels) -> torch.Tensor:
+def loss_fn(params, ids, labels, tp: Optional[Axis] = None) -> torch.Tensor:
     """Mean softmax cross-entropy of the logits against ``labels``."""
-    logp = torch.log_softmax(forward(params, ids), dim=-1)
+    logp = torch.log_softmax(forward(params, ids, tp), dim=-1)
     labels = torch.as_tensor(labels, device=logp.device).long()
     return -logp.gather(1, labels[:, None]).mean()
 
 
-def _value_and_grad(params, ids, labels):
+def _value_and_grad(params, ids, labels, tp: Optional[Axis] = None,
+                    dp: Optional[Axis] = None):
     leaves = [p.detach().requires_grad_(True) for p in params.values()]
     with torch.enable_grad():
-        loss = loss_fn(dict(zip(params, leaves)), ids, labels)
+        loss = loss_fn(dict(zip(params, leaves)), ids, labels, tp)
         grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), grads
+    loss = loss.detach()
+    if dp is not None:
+        loss = _all_reduce(dp, loss) / dp.size
+        grads = [_all_reduce(dp, g) / dp.size for g in grads]
+    return loss, grads
 
 
-def sgd_train_step(params, ids, labels, lr: float):
+def sgd_train_step(params, ids, labels, lr: float, mesh=None):
     """One SGD step, pure: ``(new params, loss)``; ``params`` is left as
-    it was."""
-    loss, grads = _value_and_grad(params, ids, labels)
+    it was.  With ``mesh`` the rank's shards and batch block go in and
+    the loss is the whole batch's."""
+    tp, dp = mesh_axis(mesh, "tp"), mesh_axis(mesh, "dp")
+    loss, grads = _value_and_grad(params, ids, labels, tp, dp)
     with torch.no_grad():
         new = {k: p - lr * g for (k, p), g in zip(params.items(), grads)}
     return new, loss
 
 
 def param_specs(cfg: PSConfig):
-    raise NotImplementedError(_PARALLEL)
+    """Per dim, how a ``("dp", "tp")`` mesh shards each parameter."""
+    return {
+        "emb": ("tp", None),      # vocab-partitioned (ep-style)
+        "w1": (None, "tp"),       # tower tensor-parallel
+        "b1": ("tp",),
+        "w2": ("tp", None),
+        "b2": (),
+    }
 
 
 def batch_specs():
-    raise NotImplementedError(_PARALLEL)
+    return ("dp", None), ("dp",)
 
 
 class EmbeddingPS:
-    """Config + parameters on one device.  ``params`` (a flat dict, e.g.
-    from ``utils.convert.params_from_numpy``) replaces the random ones
-    made from ``seed``."""
+    """Config + parameters on one device, or this rank's shard of them on
+    a ``("dp", "tp")`` mesh.  ``params`` (a flat dict, e.g. from
+    ``utils.convert.params_from_numpy``) replaces the random ones made
+    from ``seed``; on a mesh the whole params (the same on every rank,
+    from ``seed`` or ``params``) are cut to the rank's shard."""
 
     def __init__(self, cfg: Optional[PSConfig] = None, device="cuda",
                  seed: int = 0, params: Optional[Dict] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_PARALLEL)
         self.device = resolve_device(device)
         self.cfg = cfg or PSConfig()
-        self.mesh = None
+        self.mesh = mesh
+        self._tp, self._dp = mesh_axis(mesh, "tp"), mesh_axis(mesh, "dp")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a "
+                             f"{self.device.type} model")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(gen, self.cfg, self.device)
+        if mesh is not None:
+            coords = {ax.name: (ax.rank, ax.size)
+                      for ax in (self._tp, self._dp) if ax is not None}
+            params = shard_from_numpy(
+                {k: v.detach().cpu().numpy() for k, v in params.items()},
+                param_specs(self.cfg), coords, self.device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
 
     def _ids(self, ids) -> torch.Tensor:
@@ -122,20 +175,30 @@ class EmbeddingPS:
     @torch.no_grad()
     def lookup(self, ids) -> torch.Tensor:
         """Serve path: the pooled embeddings alone (the PS read RPC)."""
-        return embedding_bag(self.params["emb"], self._ids(ids))
+        return _bag(self.params, self._ids(ids), self._tp)
 
     @torch.no_grad()
     def predict(self, ids) -> torch.Tensor:
-        return forward(self.params, self._ids(ids))
+        return forward(self.params, self._ids(ids), self._tp)
 
     def train_step(self, ids, labels) -> float:
-        """One SGD step on the stored parameters, in place; the loss."""
+        """One SGD step on the stored parameters, in place; the loss (on
+        a mesh, the whole batch's: pass this rank's block)."""
         loss, grads = _value_and_grad(self.params, self._ids(ids),
-                                      self._ids(labels))
+                                      self._ids(labels), self._tp, self._dp)
         with torch.no_grad():
             for p, g in zip(self.params.values(), grads):
                 p.sub_(self.cfg.lr * g)
         return float(loss)
 
     def shard_batch(self, ids, labels):
-        raise NotImplementedError(_PARALLEL)
+        """The whole batch -> this rank's block of it (the batch over
+        dp); unchanged without a mesh."""
+        ids, labels = self._ids(ids), self._ids(labels)
+        if self._dp is None:
+            return ids, labels
+        n, r = self._dp.size, self._dp.rank
+        if ids.shape[0] % n:
+            raise ValueError(f"batch {ids.shape[0]} does not split over "
+                             f"dp {n}")
+        return ids.chunk(n)[r], labels.chunk(n)[r]

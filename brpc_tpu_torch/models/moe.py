@@ -14,17 +14,20 @@ is a gather), the experts run as one batched bf16 product, and each
 token gathers its K outputs back and sums them, weighted, in choice
 order.  No step sums with atomics, so a recomputed block (remat) gives
 the same values.  :func:`forward_grouped` routes every row of a ``(G, N,
-d)`` input on its own, vectorised over the rows.
+d)`` input on its own, vectorised over the rows, on one device or with
+the experts cut over a mesh axis (expert parallelism).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh_transport import Axis, psum, pvary
 from ..utils.device import resolve_device
 
 
@@ -69,10 +72,33 @@ def init_params(generator: torch.Generator, cfg: MoEConfig,
                          mult=scale / 2)}
 
 
-def param_specs(cfg: MoEConfig, ep_axis: str = "ep"):
-    raise NotImplementedError(
-        "expert-parallel sharding (param_specs) arrives with the parallel/ "
-        "slice of the port")
+def param_specs(cfg: MoEConfig, ep_axis: str = "ep") -> Dict[str, Any]:
+    """Per dim, how an ``ep_axis`` mesh shards each parameter: the router
+    whole, the experts cut on their expert dim (expert parallelism)."""
+    return {"wg": (None, None), "w1": (ep_axis, None, None),
+            "w2": (ep_axis, None, None)}
+
+
+# pinned_routing's choices while it is active (None otherwise)
+_pinned: Optional[Iterator[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def pinned_routing(choices: Iterable[torch.Tensor]):
+    """Test-only: inside, each :func:`route` call takes its experts from
+    ``choices`` (one ``(G, K*N)`` tensor per call, in call order, as
+    ``route`` returns them) instead of its router's top k; the gates are
+    the router's probabilities of those experts, renormalised as usual.
+    A run of the same program replays another run's routing this way
+    (its forward, and remat's recompute in the backward, in order)."""
+    global _pinned
+    if _pinned is not None:
+        raise RuntimeError("routing is already pinned")
+    _pinned = iter(choices)
+    try:
+        yield
+    finally:
+        _pinned = None
 
 
 def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,7 +124,11 @@ def route(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
     E, K = cfg.num_experts, cfg.top_k
     C = cfg.capacity(N)
     probs = torch.softmax(x @ params["wg"], dim=-1)       # f32 router
-    topv, tope = _top_k(probs, K)                          # (G, N, K)
+    if _pinned is None:
+        topv, tope = _top_k(probs, K)                      # (G, N, K)
+    else:
+        tope = next(_pinned).to(probs.device).reshape(G, K, N).transpose(1, 2)
+        topv = torch.gather(probs, -1, tope)
     if K > 1:
         # renormalised over the chosen experts (Mixtral); K = 1 keeps the
         # raw probability as the gate, so the router still gets gradient
@@ -110,37 +140,57 @@ def route(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig):
     return probs, gates, experts, pos, pos < C
 
 
-def forward_grouped(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig
+def forward_grouped(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig,
+                    ep: Optional[Axis] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grouped MoE: ``x`` (G, N, d) -> ``(out (G, N, d), aux ())``.  Each
     row routes on its own (capacity per row) and aux is the mean over the
-    rows, as the JAX package's ``vmap`` of :func:`forward`."""
+    rows, as the JAX package's ``vmap`` of :func:`forward`.
+
+    With ``ep`` (an expert-parallel mesh axis; ``x`` replicated over it,
+    ``w1``/``w2`` this rank's E/n experts under :func:`param_specs`) every
+    rank routes alike from the whole router, runs its experts' rows of the
+    ``(E * C)`` table and sums its slots' share of each token; the shares
+    sum over the axis.  The tokens and gates enter the rank-local part
+    through ``pvary``, so their gradients sum over the axis too."""
     G, N, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
     C = cfg.capacity(N)
     probs, gates, experts, pos, kept = route(params, x, cfg)
-    # each kept slot's row in the (E * C) expert table; dropped slots go
-    # to the spare row E * C, which is cut off before the experts run
-    slot = torch.where(kept, experts * C + pos, E * C)     # (G, K*N)
+    El = params["w1"].shape[0]                              # experts here
+    e0 = 0
+    if ep is not None:
+        if El * ep.size != E:
+            raise ValueError(f"{El} experts on each of {ep.size} ranks are "
+                             f"not {E}")
+        e0 = ep.rank * El
+        x, gates = pvary(x, ep), pvary(gates, ep)
+    mine = kept & (experts >= e0) & (experts < e0 + El)
+    # each kept slot's row in this rank's (El * C) expert table; dropped
+    # slots (and other ranks' experts) go to the spare row El * C, which
+    # is cut off before the experts run
+    slot = torch.where(mine, (experts - e0) * C + pos, El * C)  # (G, K*N)
     rows = torch.arange(G, device=x.device)[:, None].expand(G, K * N)
     xb = x.to(torch.bfloat16)
     src = xb.unsqueeze(1).expand(G, K, N, d).reshape(G, K * N, d)
-    table = x.new_zeros((G, E * C + 1, d), dtype=torch.bfloat16)
+    table = x.new_zeros((G, El * C + 1, d), dtype=torch.bfloat16)
     table = table.index_put((rows, slot), src)
-    expert_in = table[:, :E * C].reshape(G, E, C, d).transpose(0, 1)
-    expert_in = expert_in.reshape(E, G * C, d)
+    expert_in = table[:, :El * C].reshape(G, El, C, d).transpose(0, 1)
+    expert_in = expert_in.reshape(El, G * C, d)
     h = torch.bmm(expert_in, params["w1"].to(torch.bfloat16))
     h = F.gelu(h.float(), approximate="tanh").to(torch.bfloat16)
-    expert_out = torch.bmm(h, params["w2"].to(torch.bfloat16))  # (E, G*C, d)
-    expert_out = expert_out.reshape(E, G, C, d).transpose(0, 1).reshape(
-        G, E * C, d).float()
+    expert_out = torch.bmm(h, params["w2"].to(torch.bfloat16))  # (El, G*C, d)
+    expert_out = expert_out.reshape(El, G, C, d).transpose(0, 1).reshape(
+        G, El * C, d).float()
     expert_out = torch.cat([expert_out, x.new_zeros((G, 1, d))], dim=1)
     y = expert_out[rows, slot]                               # (G, K*N, d)
-    w = (gates * kept).reshape(G, K, N, 1)
+    w = (gates * mine).reshape(G, K, N, 1)
     y = y.reshape(G, K, N, d)
     out = y[:, 0] * w[:, 0]
     for k in range(1, K):
         out = out + y[:, k] * w[:, k]
+    if ep is not None:
+        out = psum(out, ep)
     # load balancing (Switch Transformer): the share of first choices per
     # expert times the mean router probability, times E
     frac = F.one_hot(experts[:, :N], E).float().mean(dim=1)  # (G, E)
@@ -148,10 +198,10 @@ def forward_grouped(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig
     return out, aux.mean()
 
 
-def forward(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig,
+            ep: Optional[Axis] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over one group: ``x`` (T, d) -> ``(out (T, d), aux ())``."""
-    out, aux = forward_grouped(params, x[None], cfg)
+    out, aux = forward_grouped(params, x[None], cfg, ep)
     return out[0], aux
 
 

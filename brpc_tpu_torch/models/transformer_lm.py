@@ -10,9 +10,12 @@ batcher's programs, contiguous (``make_batch_decode``) and paged
 (``make_paged_batch_decode``, ``make_paged_io``,
 ``make_paged_spec_verify``); ``make_forward`` and
 ``make_train_step`` (plain SGD, gradient accumulation, remat) for
-training.  The arithmetic follows the JAX code: every weight product goes
-through ``qmatmul`` (bf16 in, f32 out, so autograd runs the backward
-products in bf16 as JAX does), the MLP uses the tanh form of gelu
+training, on one device or one rank of a mesh (dp x tp (+ep for MoE),
+and sequence parallelism through ring attention: ``param_specs``,
+``batch_specs``, ``mesh=``, ``sp_axis=``).  The arithmetic follows the
+JAX code: every weight product goes through ``qmatmul`` (bf16 in, f32
+out, so autograd runs the backward products in bf16 as JAX does), the
+MLP uses the tanh form of gelu
 (``jax.nn.gelu``'s default), rmsnorm puts eps 1e-6 inside the square
 root, rope splits each head in halves, and attention goes through
 ``ops.flash_attention.attention`` — the hand-written CUDA kernels, forward
@@ -28,8 +31,7 @@ compiled layer over them, the port runs the same layer in a Python loop
 over per-layer views, so a stacked tree gives the tokens of its unrolled
 twin bit for bit.  What the JAX package refuses, the port refuses with
 its words: ``scan_layers`` in the batch, paged and spec programs and the
-KV page list, and ``scan_layers`` with MoE in ``make_decode``;
-``mesh``/``sp_axis`` raise until the port's ``parallel/`` slice.
+KV page list, and ``scan_layers`` with MoE in ``make_decode``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import attention
 from ..ops.quant import QuantTensor, qmatmul
+from ..parallel.mesh_transport import (_all_reduce, all_gather,
+                                       all_gather_sum_grad, mesh_axis, psum,
+                                       pvary)
+from ..parallel.ring_attention import make_ring_attention
 from ..utils.device import resolve_device
 from . import moe
 
@@ -171,9 +177,10 @@ def _freqs(head_dim: int, device) -> torch.Tensor:
                                     device=device) / half)
 
 
-def _rope_tables(seq: int, head_dim: int, device="cpu"):
-    """sin/cos tables for rotary embedding, shaped (1, s, 1, d/2)."""
-    pos = torch.arange(seq, dtype=torch.float32,
+def _rope_tables(seq: int, head_dim: int, device="cpu", offset: int = 0):
+    """sin/cos tables for rotary embedding, shaped (1, s, 1, d/2), for
+    positions ``offset`` .. ``offset + seq - 1``."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
                        device=device)[None, :, None, None]
     ang = pos * _freqs(head_dim, device)[None, None, None, :]
     return torch.sin(ang), torch.cos(ang)
@@ -210,11 +217,15 @@ def _ffn(cfg: LMConfig):
     return lambda bp, h: (_mlp(bp, h), None)
 
 
-def _qkv_heads(cfg: LMConfig, bp, h, sin, cos):
-    """q, k (rope applied) and v, each (b, s, heads, head_dim) f32."""
+def _qkv_heads(cfg: LMConfig, bp, h, sin, cos, heads: int = 0):
+    """q, k (rope applied) and v, each (b, s, heads, head_dim) f32;
+    ``heads`` those of ``bp["wqkv"]`` (a tp rank's share; all by
+    default)."""
     b, s = h.shape[0], h.shape[1]
-    q, k, v = qmatmul(h, bp["wqkv"]).split(cfg.dim, dim=-1)
-    shp = (b, s, cfg.heads, cfg.dim // cfg.heads)
+    heads = heads or cfg.heads
+    hd = cfg.dim // cfg.heads
+    q, k, v = qmatmul(h, bp["wqkv"]).split(heads * hd, dim=-1)
+    shp = (b, s, heads, hd)
     q, k = (_rope(t.reshape(shp), sin, cos) for t in (q, k))
     return q, k, v.reshape(shp)
 
@@ -842,11 +853,170 @@ def generate(params, cfg: LMConfig, prompt_ids, max_new: int,
 
 # -- training ---------------------------------------------------------------
 
-def _check_unsharded(mesh, sp_axis) -> None:
-    if mesh is not None or sp_axis is not None:
-        raise NotImplementedError(
-            "mesh / sp_axis (ring attention, sharded training) arrive with "
-            "the parallel/ slice of the port")
+def param_specs(cfg: LMConfig) -> Dict[str, Any]:
+    """How a ``("dp", "tp")`` mesh shards each parameter, per dim: ``None``
+    (whole), an axis name, or ``("tp", 3)`` for ``wqkv``'s fused dim.  As
+    in the JAX package, the attention and MLP projections cut their wide
+    dim over tp, the embeddings their vocab, and MoE experts go over tp
+    (expert parallelism, :func:`.moe.param_specs`).  JAX's ``P(None,
+    "tp")`` over the fused ``(dim, 3 * dim)`` ``wqkv`` works because GSPMD
+    cuts it globally; a rank's explicit shard is q, k and v *each* cut by
+    head group, which ``("tp", 3)`` says: three equal pieces, each cut
+    over tp (:func:`~..utils.convert.shard_from_numpy` reads it)."""
+    specs: Dict[str, Any] = {"embed": ("tp", None), "unembed": (None, "tp")}
+    blk: Dict[str, Any] = {"wqkv": (None, ("tp", 3)), "wo": ("tp", None),
+                           "ln1": (None,), "ln2": (None,)}
+    if cfg.moe_experts > 0:
+        blk["moe"] = moe.param_specs(cfg.moe_cfg(), ep_axis="tp")
+    else:
+        blk["w1"] = (None, "tp")
+        blk["w2"] = ("tp", None)
+    if cfg.scan_layers:
+        # stacked weights: a whole leading depth dim, then the layer's spec
+        specs["blocks"] = _map_specs(blk, lambda sp: (None,) + tuple(sp))
+    else:
+        for i in range(cfg.depth):
+            specs[f"blk{i}"] = blk
+    return specs
+
+
+def _map_specs(tree: dict, fn) -> dict:
+    return {k: _map_specs(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def batch_specs():
+    """ids and labels: the batch over dp (with ``sp_axis``, the sequence
+    over sp as well: each rank passes its block)."""
+    return ("dp", None), ("dp", None)
+
+
+class _Par:
+    """The LM's view of a mesh, per rank: ``tp`` cuts heads, the MLP's
+    hidden dim, the vocab and (MoE) the experts; ``dp`` the batch; ``sp``
+    (``sp_axis``) the sequence, attended by ring attention.  Without a
+    mesh every axis is None and each method is the unsharded step
+    (``sp_axis`` alone is ignored, as in the JAX package)."""
+
+    def __init__(self, cfg: LMConfig, mesh, sp_axis):
+        names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+        extra = set(names) - {"dp", "tp", sp_axis}
+        if extra:
+            raise ValueError(f"the LM's mesh takes axes dp, tp and the "
+                             f"sp_axis, not {sorted(extra)}")
+        if mesh is not None and sp_axis is not None and sp_axis not in names:
+            raise ValueError(f"mesh has no axis {sp_axis!r}")
+        self.tp = mesh_axis(mesh, "tp")
+        self.dp = mesh_axis(mesh, "dp")
+        self.sp = mesh_axis(mesh, sp_axis)
+        n_tp = self.tp.size if self.tp else 1
+        if cfg.heads % n_tp or cfg.vocab % n_tp or (
+                cfg.moe_experts % n_tp if cfg.moe_experts else 0):
+            raise ValueError(f"heads {cfg.heads}, vocab {cfg.vocab} and "
+                             f"experts {cfg.moe_experts} must divide by "
+                             f"tp {n_tp}")
+        self.heads = cfg.heads // n_tp
+        # the axes over which the loss is a mean and the gradients sum
+        self.batch = [a for a in (self.dp, self.sp) if a is not None]
+
+    def embed(self, table, ids):
+        """tp: each rank looks up the vocab rows it holds, zero elsewhere,
+        and the rows sum over tp."""
+        if self.tp is None:
+            return table[ids]
+        rows = table.shape[0]
+        local = ids - self.tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = table[local.clamp(0, rows - 1)] * mine[..., None]
+        return psum(x, self.tp)
+
+    def unembed(self, x, w):
+        """tp: the logits of this rank's vocab columns, all-gathered
+        before the log-softmax (a vocab-parallel loss would not gather)."""
+        if self.tp is None:
+            return qmatmul(x, w)
+        return all_gather(qmatmul(pvary(x, self.tp), w), self.tp, -1)
+
+    def enter(self, h):
+        return pvary(h, self.tp) if self.tp is not None else h
+
+    def leave(self, y):
+        return psum(y, self.tp) if self.tp is not None else y
+
+
+def make_forward(cfg: LMConfig, mesh=None, sp_axis=None, device="cuda"):
+    """Forward fn: ``(params, ids[b, s], with_aux=False) -> logits[b, s,
+    vocab]`` f32, or ``(logits, aux)`` with ``with_aux``: the sum over
+    blocks of each MoE block's aux loss (0 for the dense MLP).  Unrolled
+    and stacked (``scan_layers``) params both run.  With ``cfg.remat``
+    each block runs under ``torch.utils.checkpoint`` and is recomputed in
+    the backward pass, as ``jax.checkpoint`` does: the flash forward
+    kernel then runs twice per block.
+
+    With ``mesh`` (a DeviceMesh with axes among ``dp``, ``tp`` and
+    ``sp_axis``) the function runs on one rank: ``params`` is the rank's
+    shard under :func:`param_specs`, ``ids`` its block under
+    :func:`batch_specs` (the batch over dp and, with ``sp_axis``, the
+    sequence over sp), and the logits are the rank's block, whole over
+    the vocab.  Tensor parallelism is Megatron's: a replicated activation
+    enters each column-cut product through ``pvary`` and each row-cut
+    product's partial sums leave through ``psum``.  With ``sp_axis`` the
+    attention is ring attention and rope takes global positions; an MoE
+    block gathers the sequence over sp and routes whole rows, as the JAX
+    program (one global forward) does.  The JAX package gets the dp and
+    tp shardings from where its params live; here ``mesh`` names them."""
+    dev = resolve_device(device)
+    par = _Par(cfg, mesh, sp_axis)
+    hd = cfg.dim // cfg.heads
+    width = par.heads * hd
+    impl = "flash" if cfg.use_flash else cfg.attn_impl
+    mcfg = cfg.moe_cfg() if cfg.moe_experts > 0 else None
+    sp = par.sp
+    if sp is not None:
+        attend = make_ring_attention(mesh, sp_axis, causal=cfg.causal)
+    else:
+        def attend(q, k, v):
+            return attention(q, k, v, causal=cfg.causal, impl=impl)
+
+    def ffn(bp, h):
+        if mcfg is None:
+            return par.leave(_mlp(bp, par.enter(h))), None
+        if sp is None:
+            return moe.forward_grouped(bp["moe"], h, mcfg, ep=par.tp)
+        # routing takes whole rows: gather the sequence over sp (the
+        # backward reduce-scatters, as each rank keeps its own block)
+        sl = h.shape[1]
+        out, aux = moe.forward_grouped(
+            bp["moe"], all_gather_sum_grad(h, sp, 1), mcfg, ep=par.tp)
+        return out[:, sp.rank * sl:(sp.rank + 1) * sl], aux
+
+    def block(bp, x, sin, cos):
+        b, s, _ = x.shape
+        q, k, v = _qkv_heads(cfg, bp, par.enter(_rmsnorm(x, bp["ln1"])),
+                             sin, cos, par.heads)
+        att = attend(q, k, v)
+        x = x + par.leave(qmatmul(att.reshape(b, s, width), bp["wo"]))
+        out, aux = ffn(bp, _rmsnorm(x, bp["ln2"]))
+        return x + out, aux
+
+    def forward(params, ids, with_aux: bool = False):
+        ids = torch.as_tensor(ids, device=dev).long()
+        s = ids.shape[-1]
+        n_sp, offset = (sp.size, sp.rank * s) if sp is not None else (1, 0)
+        if s * n_sp > cfg.max_seq:
+            raise ValueError(f"seq {s * n_sp} exceeds max_seq {cfg.max_seq}")
+        x = par.embed(params["embed"], ids)
+        sin, cos = _rope_tables(s, hd, dev, offset)
+        aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+        for bp in _blocks(cfg, params):
+            x, aux = (checkpoint(block, bp, x, sin, cos, use_reentrant=False)
+                      if cfg.remat else block(bp, x, sin, cos))
+            if aux is not None:
+                aux_total = aux_total + aux
+        logits = par.unembed(x, params["unembed"])
+        return (logits, aux_total) if with_aux else logits
+
+    return forward
 
 
 def tree_leaves(tree) -> list:
@@ -863,57 +1033,21 @@ def _rebuild(tree, leaves):
             for k, v in tree.items()}
 
 
-def make_forward(cfg: LMConfig, mesh=None, sp_axis=None, device="cuda"):
-    """Forward fn: ``(params, ids[b, s], with_aux=False) -> logits[b, s,
-    vocab]`` f32, or ``(logits, aux)`` with ``with_aux``: the sum over
-    blocks of each MoE block's aux loss (0 for the dense MLP).  Unrolled
-    and stacked (``scan_layers``) params both run.  With ``cfg.remat``
-    each block runs under ``torch.utils.checkpoint`` and is recomputed in
-    the backward pass, as ``jax.checkpoint`` does: the flash forward
-    kernel then runs twice per block.  ``mesh``/``sp_axis`` raise
-    ``NotImplementedError``."""
-    _check_unsharded(mesh, sp_axis)
-    dev = resolve_device(device)
-    hd = cfg.dim // cfg.heads
-    impl = "flash" if cfg.use_flash else cfg.attn_impl
-    ffn = _ffn(cfg)
-
-    def block(bp, x, sin, cos):
-        b, s, _ = x.shape
-        q, k, v = _qkv_heads(cfg, bp, _rmsnorm(x, bp["ln1"]), sin, cos)
-        att = attention(q, k, v, causal=cfg.causal, impl=impl)
-        x = x + qmatmul(att.reshape(b, s, cfg.dim), bp["wo"])
-        out, aux = ffn(bp, _rmsnorm(x, bp["ln2"]))
-        return x + out, aux
-
-    def forward(params, ids, with_aux: bool = False):
-        ids = torch.as_tensor(ids, device=dev).long()
-        s = ids.shape[-1]
-        if s > cfg.max_seq:
-            raise ValueError(f"seq {s} exceeds max_seq {cfg.max_seq}")
-        x = params["embed"][ids]
-        sin, cos = _rope_tables(s, hd, dev)
-        aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-        for bp in _blocks(cfg, params):
-            x, aux = (checkpoint(block, bp, x, sin, cos, use_reentrant=False)
-                      if cfg.remat else block(bp, x, sin, cos))
-            if aux is not None:
-                aux_total = aux_total + aux
-        logits = qmatmul(x, params["unembed"])
-        return (logits, aux_total) if with_aux else logits
-
-    return forward
-
-
 def make_value_and_grad(cfg: LMConfig, mesh=None, sp_axis=None,
                         accum: int = 1, device="cuda"):
     """``value_and_grad(params, ids, labels) -> (loss, grads)``: the loss
     of :func:`make_train_step` (mean next-token NLL of the f32
     log-softmax, plus aux) and its gradient, a dict shaped like
     ``params``.  ``accum > 1`` runs the batch as ``accum`` microbatches
-    one after another and averages their losses and gradients."""
+    one after another and averages their losses and gradients.
+
+    On a mesh, the loss and gradients are this rank's (its shard's
+    gradient, under :func:`param_specs`), with the loss the mean over the
+    whole batch: each rank's loss and gradients are averaged over dp and
+    sp after the backward pass (ranks hold equal token counts)."""
     forward = make_forward(cfg, mesh, sp_axis, device)
     dev = resolve_device(device)
+    batch_axes = _Par(cfg, mesh, sp_axis).batch
 
     def loss_fn(params, ids, labels):
         logits, aux = forward(params, ids, with_aux=True)
@@ -948,6 +1082,9 @@ def make_value_and_grad(cfg: LMConfig, mesh=None, sp_axis=None,
                     acc.add_(gi)
             loss = loss / accum
             grads = [g / accum for g in grads]
+        for ax in batch_axes:
+            loss = _all_reduce(ax, loss) / ax.size
+            grads = [_all_reduce(ax, g) / ax.size for g in grads]
         return loss, _rebuild(params, iter(grads))
 
     return value_and_grad

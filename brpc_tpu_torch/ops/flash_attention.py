@@ -272,10 +272,16 @@ def flash_attention(q, k, v, causal: bool = False):
     return FlashAttention.apply(q, k, v, causal)
 
 
-# Carried over from the JAX package, where it is a TPU measurement (v5e);
-# not yet measured on the H100.  The dispatcher keeps its shape: dense
-# below the crossover, the kernel at or above it, and dense on the CPU.
-DENSE_FLASH_CROSSOVER = 2048
+# The first prefill length from which the flash kernel stays faster than
+# dense attention, causal f32 at (1, s, 16, 128), CUDA-event medians
+# (chip_smoke.py phase 11 (i); NVIDIA H100 80GB HBM3, 700.00 W):
+#     s      128    256    512    768    1024   1536   2048
+#     dense  0.205  0.225  0.247  0.494  0.395  0.877  1.445 ms
+#     flash  0.084  0.067  0.089  0.103  0.152  0.343  0.510 ms
+# Flash is faster at every length measured, so the crossover is the
+# shortest one.  The dispatcher keeps its shape: dense below the
+# crossover, the kernel at or above it, and dense on the CPU.
+DENSE_FLASH_CROSSOVER = 128
 
 
 def dense_attention(q, k, v, causal: bool = False):

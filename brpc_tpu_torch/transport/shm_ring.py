@@ -140,6 +140,14 @@ def _ring_dirs() -> Iterator[str]:
             yield d
 
 
+def _local_ring_dirs() -> Iterator[str]:
+    """Where a ring whose users are all in this process goes:
+    ``tempfile.gettempdir()`` alone, so that nothing of it is left in
+    shared memory when the process is killed before it unlinks the
+    file."""
+    yield tempfile.gettempdir()
+
+
 _avail: Optional[bool] = None
 _avail_lock = threading.Lock()
 
@@ -245,11 +253,12 @@ class ShmRing:
     steals from the others when it is empty.  The file stays linked while
     the ring lives (peers attach by path) and is unlinked on close."""
 
-    def __init__(self, slot_bytes: int, nslots: int, shards: int = 1):
+    def __init__(self, slot_bytes: int, nslots: int, shards: int = 1,
+                 local_only: bool = False):
         self.slot_bytes = slot_bytes
         self.nslots = nslots
         self.size = slot_bytes * nslots
-        self.fd, self.path = self._allocate(self.size)
+        self.fd, self.path = self._allocate(self.size, local_only)
         try:
             self.mm = mmap.mmap(self.fd, self.size)
         except BaseException:
@@ -275,11 +284,11 @@ class ShmRing:
         mv.release()
 
     @staticmethod
-    def _allocate(size: int) -> Tuple[int, str]:
+    def _allocate(size: int, local_only: bool = False) -> Tuple[int, str]:
         """A file of ``size`` allocated bytes in the first ring directory
         that holds it; OSError when none does."""
         errors = []
-        for d in _ring_dirs():
+        for d in _local_ring_dirs() if local_only else _ring_dirs():
             fd, path = tempfile.mkstemp(prefix="brpc_tpu_ring_", dir=d)
             try:
                 os.posix_fallocate(fd, 0, size)
@@ -428,6 +437,7 @@ class AttachedRing:
 _reg_lock = threading.Lock()
 _tx_ring: Optional[ShmRing] = None
 _tx_failed = False
+_tx_local_only = False      # the next tx ring serves this process alone
 _attached: Dict[bytes, Optional[AttachedRing]] = {}   # None: declined
 
 
@@ -445,7 +455,8 @@ def process_tx_ring() -> Optional[ShmRing]:
             shards = int(get_flag("rpc_shm_shards")) \
                 or max(1, min(4, os.cpu_count() or 1))
             _tx_ring = ShmRing(int(get_flag("rpc_shm_slot_bytes")),
-                               int(get_flag("rpc_shm_slots")), shards=shards)
+                               int(get_flag("rpc_shm_slots")), shards=shards,
+                               local_only=_tx_local_only)
         except (OSError, ValueError) as e:
             LOG.warning("shm tx ring declined: %s", e)
             _tx_failed = True
@@ -455,17 +466,20 @@ def process_tx_ring() -> Optional[ShmRing]:
         return _tx_ring
 
 
-def reset_tx_ring() -> bool:
+def reset_tx_ring(local_only: bool = False) -> bool:
     """Close this process's tx ring, so that the next use builds one from
-    the flags as they are then.  Refused (False) while a slot is
-    outstanding.  Connections that negotiated the old ring must be
-    reopened: their peers hold descriptors of it."""
-    global _tx_ring, _tx_failed
+    the flags as they are then; with ``local_only`` for users in this
+    process alone (under ``tempfile.gettempdir()``, not the tmpfs).
+    Refused (False) while a slot is outstanding.  Connections that
+    negotiated the old ring must be reopened: their peers hold
+    descriptors of it."""
+    global _tx_ring, _tx_failed, _tx_local_only
     with _reg_lock:
         ring = _tx_ring
         if ring is not None and ring.free_count() != ring.nslots:
             return False
         _tx_ring, _tx_failed = None, False
+        _tx_local_only = local_only
     if ring is not None:
         ring.close()
     return True
@@ -560,9 +574,10 @@ def drain_settle(deadline_mono_s: float) -> int:
 
 def _reset_for_tests() -> None:
     """Drop the process-wide state (tests negotiate from scratch)."""
-    global _tx_ring, _tx_failed
+    global _tx_ring, _tx_failed, _tx_local_only
     with _reg_lock:
         ring, _tx_ring, _tx_failed = _tx_ring, None, False
+        _tx_local_only = False
         _attached.clear()
     if ring is not None:
         ring.close()

@@ -15,7 +15,8 @@ result line) when a phase fails or CUDA is absent.  Phases:
    ones, and show that a head dim past its 128 raises there;
    3b. hold the backward kernels (``flash_dq``, ``flash_dkdv``) against
    the plain backward, f32 and bf16, causal and not, at the training
-   shape and smaller ones;
+   shape and smaller ones, and f32 causal past the training length
+   ((4, 4096, 16, 128) and (1, 8192, 16, 128));
    3c. hold the checksum kernel bit-exact against its plain version on
    payloads of 0 to 2**20+3 words and 64 MiB, in f32, int32 (sums that
    wrap), bf16, int8 and bool, unaligned and non-contiguous, and show
@@ -105,9 +106,28 @@ result line) when a phase fails or CUDA is absent.  Phases:
    kernels in its trace, the device busy share);
 9. round-trip the trained parameters through ``TrainCheckpointer``;
    8m. train the MoE LM (remat, accum 1 x 2 x 2048): the loss through the
-   kernels against dense attention (the gradient's distance reported), a
-   falling loss over 1 + 2 steps with 16 / 8 / 8 launches a step, step
-   time, tokens/s, peak memory and one profiled step;
+   kernels against dense attention, the gradient too with the dense arm
+   replaying the kernel arm's expert choices (its distance with its own
+   routing reported), a falling loss over 1 + 2 steps with 16 / 8 / 8
+   launches a step, step time, tokens/s, peak memory and one profiled
+   step;
+11. the parallel paths at world size one, one NCCL process group (a
+    rendezvous file under the run's temp dir): (a) every MeshTransport
+    method on the card against JAX's n = 1 results; (b) the dp x tp train
+    step at phase 8's params and batch against the unsharded step (loss,
+    new params, bit-equality), 32 / 16 / 16 launches a step, step ms
+    beside phase 8's and one profiled step; (c) the sp forward (ring
+    attention) at (1, 2048) against dense attention; (d) Ulysses over the
+    flash kernel at (4, 2048, 16, 128): one launch a call, the output
+    against the plain version, its ms beside a bare flash_attention call;
+    (e) one MoE dp x tp (+ep) step against 8m's loss; (f)
+    ``dryrun_multichip(world=1, device="cuda")``; (g)
+    ``multiproc_dryrun.run``: a gloo PS step across two processes on the
+    CPU, then device echoes on the card over ``KIND_TRANSFER``,
+    checksummed on both ends; (h) ``profiling.collect_device_trace``
+    around (b)'s step (the Chrome trace names the flash kernels); (i)
+    dense attention against the flash kernel over s = 128 ... 2048, the
+    table that sets ``DENSE_FLASH_CROSSOVER``;
 10. serve the full-width EmbeddingPS (``PSConfig()``) through the port's
     Server, PSService and Channel: Stat, a (256, 16) Lookup against
     ``embedding_bag`` on the card, Predict, 20 Train calls (labels as a
@@ -142,6 +162,8 @@ import signal
 import statistics
 import subprocess
 import sys
+import io
+import tarfile
 import tempfile
 import threading
 import time
@@ -168,6 +190,7 @@ from brpc_tpu_torch.kv.transport import (  # noqa: E402
     import_pages)
 from brpc_tpu_torch.kv.pages import (  # noqa: E402
     HostPagePool, prefix_event_counters)
+from brpc_tpu_torch import profiling  # noqa: E402
 from brpc_tpu_torch.models import lm_telemetry, moe  # noqa: E402
 from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig  # noqa
 from brpc_tpu_torch.models.lm_service import (  # noqa: E402
@@ -177,15 +200,24 @@ from brpc_tpu_torch.models.ps_service import PSService, pack_ids  # noqa
 from brpc_tpu_torch.models.transformer_lm import (  # noqa: E402
     LMConfig, empty_batch_cache, empty_paged_cache, export_decode_cache,
     init_params, kv_page_specs, make_batch_decode, make_decode,
-    make_paged_batch_decode, make_paged_io, make_paged_spec_verify,
-    make_train_step, make_value_and_grad, paged_page_bytes, tree_leaves)
+    make_forward, make_paged_batch_decode, make_paged_io,
+    make_paged_spec_verify, make_train_step, make_value_and_grad,
+    paged_page_bytes, tree_leaves)
 from brpc_tpu_torch.ops import cuda_build  # noqa: E402
 from brpc_tpu_torch.ops.device_ops import (  # noqa: E402
     CHECKSUM, checksum_u32, checksum_u32_plain, checksum_words_plain,
     embedding_bag)
 from brpc_tpu_torch.ops.flash_attention import (  # noqa: E402
-    FLASH_DKDV, FLASH_DQ, FLASH_FWD, KERNELS, attention_delta,
+    DENSE_FLASH_CROSSOVER, FLASH_DKDV, FLASH_DQ, FLASH_FWD, KERNELS,
+    attention_delta, dense_attention, flash_attention,
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
+from brpc_tpu_torch.parallel import (  # noqa: E402
+    MeshTransport, make_mesh, multiproc_dryrun)
+from brpc_tpu_torch.parallel.multiproc_dryrun import (  # noqa: E402
+    dryrun_multichip)
+from brpc_tpu_torch.parallel.ring_attention import (  # noqa: E402
+    make_ulysses_attention)
+from brpc_tpu_torch.parallel.spmd import init_world  # noqa: E402
 from brpc_tpu_torch.protocol.meta import RpcMeta  # noqa: E402
 from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
     MAX_BODY_SIZE, max_body_size, pack_frame, unpack_frame)
@@ -264,6 +296,18 @@ DISAGG_PREFILL = {"Prefill": (None, False, "dec"),
                   "PrefillStrict": ("copy", True, "dec"),
                   "PrefillPaged": (None, False, "dec_paged")}
 TIMING_REPS = 20
+# the dense/flash crossover (phase 11 (i)): prefill lengths, b = 1
+CROSSOVER_SEQS = (128, 256, 512, 768, 1024, 1536, 2048)
+# phase 11 (c): the sp forward against dense attention.  Held as phase 6
+# holds the kernel's prefill logits against dense attention's (LOGIT_RTOL
+# of the largest |logit|): the two attentions agree to ~1e-6, but at this
+# width and depth a bf16 product downstream can round the other way.  The
+# share of logits outside the JAX ring test's elementwise tolerance
+# (tests/test_transformer_lm.py: rtol 3e-2, atol 8e-3, set on a 2-layer,
+# dim-32 model) is reported beside it
+SP_RTOL, SP_ATOL = 3e-2, 8e-3
+# phase 11 (h): the device trace's window
+TRACE_SECONDS = 2.0
 # profiles of one echo until the trace holds both checksum kernels (the
 # trace has dropped the first one's events; the launch counter has not)
 ECHO_PROFILE_ATTEMPTS = 3
@@ -314,9 +358,11 @@ MOE_OUT_TOL = 1e-2
 # training: the batch cut from bench.py's ACC=8 x B=32 x 2048 to accum 1 x
 # microbatch 2 x 2048 (9.3 GB of f32 params, as much again in gradients
 # and in the new params); widths and depth whole.  The loss through the
-# kernels is held to DENSE_LOSS_RTOL of the loss through dense attention;
-# the gradient ratio is reported, not held: a routing choice that flips
-# between the two runs moves a token's gradient from one expert to another
+# kernels is held to DENSE_LOSS_RTOL of the loss through dense attention,
+# and the gradient to DENSE_GRAD_REL_NORM with the dense arm replaying the
+# kernel arm's expert choices (moe.pinned_routing); the gradient with the
+# dense arm's own routing is reported, not held: a routing choice that
+# flips between the two runs moves a token's gradient to another expert
 MOE_TRAIN_CFG = dict(MOE_CFG, remat=True)
 MOE_TRAIN_ACCUM, MOE_TRAIN_MICRO, MOE_TRAIN_STEPS = 1, 2, 2
 # scan_layers (phase 5s): SLICE_CFG's weights stacked, int8, Generate only
@@ -335,6 +381,11 @@ CHECK_SHAPES.append(TRAIN_SHAPE)
 MOE_TRAIN_SHAPE = (MOE_TRAIN_MICRO, TRAIN_SEQ, 16, 128)
 CHECK_SHAPES.append(MOE_TRAIN_SHAPE)
 BWD_CHECK_SHAPES.insert(1, MOE_TRAIN_SHAPE)
+# past the training length, f32 causal only, at the unchanged BWD_TOL: the
+# 3xTF32 split truncates lo (flash_mma.cuh split_tf32_fast), so dk and dv
+# sum more truncated terms as s grows.  b = 1 at 8192 keeps the plain
+# version's (b, h, s, s) f32 scores at 4 GiB
+BWD_LONG_SHAPES = [(4, 4096, 16, 128), (1, 8192, 16, 128)]
 # and every shape the serving paths give it: Generate prefills each
 # request's prompt as it is; Decode prefills a join's context (the prompt
 # less its last token, 255-1499 here) padded to a power-of-two bucket,
@@ -712,6 +763,64 @@ def phase_check_bwd() -> dict:
                     errs[FLASH_DKDV.name] = max(errs[FLASH_DKDV.name], e[1],
                                                 e[2])
     return errs
+
+
+def phase_check_bwd_long() -> dict:
+    """flash_dq / flash_dkdv vs the plain backward past the training
+    length (BWD_LONG_SHAPES), f32 causal, at BWD_TOL; returns each shape's
+    max abs errors."""
+    res = {}
+    for shape in BWD_LONG_SHAPES:
+        q, k, v, out, lse, do, dd = bwd_inputs(shape, torch.float32, True,
+                                               seed=sum(shape) + 1)
+        (dq,) = FLASH_DQ(q, k, v, do, lse, dd, True)
+        dk, dv = FLASH_DKDV(q, k, v, do, lse, dd, True)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+        got = (dq, dk, dv)
+        e = [max_err(a, r) for a, r in zip(got, ref)]
+        top = max(float(r.abs().max()) for r in ref)
+        ok = all(bwd_within(a, r, torch.float32) for a, r in zip(got, ref))
+        log(f"  check bwd {shape} float32 causal=True: dq err {e[0]:.3e} dk "
+            f"err {e[1]:.3e} dv err {e[2]:.3e} (max |ref| {top:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        res[str(shape)] = dict(dq=e[0], dk=e[1], dv=e[2], max_ref=top)
+        del q, k, v, out, lse, do, dd, dq, dk, dv, ref, got
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"flash backward disagrees with plain at "
+                                 f"{shape} float32 causal (BWD_TOL)")
+    return res
+
+
+def phase_crossover() -> dict:
+    """Dense attention against the flash kernel (``flash_attention``),
+    causal f32 at SLICE_CFG's heads and head dim, b = 1, over
+    CROSSOVER_SEQS: CUDA-event medians, as phase 4.  ``crossover`` is the
+    first s from which flash stays faster (None if it never does)."""
+    h = SLICE_CFG["heads"]
+    d = SLICE_CFG["dim"] // h
+    rows = []
+    with torch.inference_mode():
+        for s in CROSSOVER_SEQS:
+            q, k, v = qkv((1, s, h, d), torch.float32, seed=s)
+            dense = time_ms(lambda: dense_attention(q, k, v, True),
+                            inner=FWD_TIMING_INNER)
+            flash = time_ms(lambda: flash_attention(q, k, v, True),
+                            inner=FWD_TIMING_INNER)
+            rows.append(dict(s=s, dense_ms=dense, flash_ms=flash))
+    crossover = None
+    for i, row in enumerate(rows):
+        if all(r["flash_ms"] < r["dense_ms"] for r in rows[i:]):
+            crossover = row["s"]
+            break
+    table = " ".join(f"s={r['s']}: dense {r['dense_ms']:.4f} / flash "
+                     f"{r['flash_ms']:.4f} ms;" for r in rows)
+    log(f"  crossover (1, s, {h}, {d}) f32 causal: {table} flash stays "
+        f"faster from s={crossover}; DENSE_FLASH_CROSSOVER = "
+        f"{DENSE_FLASH_CROSSOVER}")
+    return dict(rows=rows, crossover=crossover,
+                constant=DENSE_FLASH_CROSSOVER)
 
 
 def phase_time_bwd(peaks: dict) -> dict:
@@ -2417,13 +2526,12 @@ def phase_disagg_shm(ep, svc: LMService, tiers: dict, cfg: LMConfig,
     no fallback, no slot left; then 6b's two chunk prompts one at a time
     over the shm lane and over the ici lane, and the shm lane's steps
     outside the RPC.  The ring is rebuilt with KV_SHM_SLOTS slots of
-    KV_SHM_SLOT_BYTES for the phase, and rebuilt from the flags as they
-    were after it."""
-    for d in ("/dev/shm", os.environ.get("TMPDIR") or "/tmp"):
-        if os.path.isdir(d):
-            log(f"  (e) {shm_dir_line(d)}")
+    KV_SHM_SLOT_BYTES for the phase, for this process alone (so under
+    ``tempfile.gettempdir()``, not /dev/shm), and rebuilt from the flags
+    as they were after it."""
+    log(f"  (e) {shm_dir_line(tempfile.gettempdir())}")
     saved = {k: get_flag(k) for k in ("rpc_shm_slot_bytes", "rpc_shm_slots")}
-    if not shm_ring.reset_tx_ring():
+    if not shm_ring.reset_tx_ring(local_only=True):
         raise AssertionError("shm ring slots outstanding before 6d (e)")
     if not (set_flag("rpc_shm_slot_bytes", KV_SHM_SLOT_BYTES)
             and set_flag("rpc_shm_slots", KV_SHM_SLOTS)):
@@ -2734,7 +2842,7 @@ def train_launches(cfg: LMConfig, accum: int = TRAIN_ACCUM) -> dict:
 
 def phase_train(peaks: dict, base: dict = TRAIN_CFG,
                 accum: int = TRAIN_ACCUM, micro: int = TRAIN_MICRO,
-                steps: int = TRAIN_STEPS, hold_grad: bool = True) -> dict:
+                steps: int = TRAIN_STEPS) -> dict:
     """Train an LM at full width: one step's loss and gradient at the
     initial params through the kernels against dense attention; then 1
     warm-up and ``steps`` timed steps on one fixed batch, the launch
@@ -2742,23 +2850,18 @@ def phase_train(peaks: dict, base: dict = TRAIN_CFG,
     model FLOPs count each token's active params (an MoE token visits
     top_k of the experts)."""
     cfg = LMConfig(**base)
-    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
-                         "cuda")
+    params, ids, labels = train_batch(cfg, accum, micro)
     nparams = sum(p.numel() for p in tree_leaves(params))
     experts = sum(p.numel() for i in range(cfg.depth)
                   for p in params[f"blk{i}"].get("moe", {}).values()
                   if p.dim() == 3)
     active = nparams - experts + experts * cfg.moe_top_k // max(
         cfg.moe_experts, 1)
-    ids = torch.randint(0, cfg.vocab, (accum * micro, TRAIN_SEQ),
-                        generator=torch.Generator(device="cuda")
-                        .manual_seed(1), device="cuda")
-    labels = ids.roll(-1, -1)
     tokens = ids.numel()
     log(f"  {nparams / 1e6:.1f} M params ({active / 1e6:.1f} M active per "
         f"token), batch {tuple(ids.shape)} as accum={accum} x {micro}, lr "
         f"{TRAIN_LR}")
-    res = phase_train_vs_dense(params, ids, labels, base, accum, hold_grad)
+    res = phase_train_vs_dense(params, ids, labels, base, accum)
     train_step = make_train_step(cfg, accum=accum)
 
     def step(params, ids, labels):
@@ -2844,41 +2947,355 @@ def phase_train_profile(step, params, ids, labels, cfg: LMConfig,
                 top_kernels=[(k[:90], n, us / 1e3) for k, (n, us) in top])
 
 
-def phase_train_vs_dense(params, ids, labels, base: dict, accum: int,
-                         hold_grad: bool) -> dict:
+def phase_train_vs_dense(params, ids, labels, base: dict, accum: int
+                         ) -> dict:
     """One step's loss and gradient through the kernels vs through dense
-    attention, on the same params and batch (the gradient held only with
-    ``hold_grad``)."""
-    out = {}
-    for impl in ("flash", "dense"):
+    attention, on the same params and batch.  An MoE config routes each
+    arm from its own attention's output, and a near-tie can route a token
+    another way: its dense arm runs twice, with its own routing (the
+    gradient's distance reported) and with the kernel arm's expert
+    choices replayed (``moe.pinned_routing``; that gradient held)."""
+    moe_cfg = base.get("moe_experts", 0) > 0
+
+    def run(impl, pinned=None):
         cfg = LMConfig(**{**base, "use_flash": impl == "flash",
                           "attn_impl": impl})
         vg = make_value_and_grad(cfg, accum=accum)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, grads = vg(params, ids, labels)
+        if pinned is None:
+            loss, grads = vg(params, ids, labels)
+        else:
+            with moe.pinned_routing(pinned):
+                loss, grads = vg(params, ids, labels)
         loss = float(loss)
         torch.cuda.synchronize()
-        out[impl] = (loss, tree_leaves(grads), time.perf_counter() - t0)
-    (fl, fg, fs), (dl, dg, ds) = out["flash"], out["dense"]
-    diff = sum(float((a - b).double().pow(2).sum()) for a, b in zip(fg, dg))
-    norm = sum(float(b.double().pow(2).sum()) for b in dg)
-    rel = (diff / norm) ** 0.5
+        return loss, tree_leaves(grads), time.perf_counter() - t0
+
+    def rel_norm(g, ref):
+        diff = sum(float((a - b).double().pow(2).sum())
+                   for a, b in zip(g, ref))
+        norm = sum(float(b.double().pow(2).sum()) for b in ref)
+        return (diff / norm) ** 0.5
+
+    with RouteLog() as routes:
+        fl, fg, fs = run("flash")
+    dl, dg, ds = run("dense")
+    rel = rel_norm(fg, dg)
+    del dg
     loss_rel = abs(fl - dl) / abs(dl)
-    ok = loss_rel <= DENSE_LOSS_RTOL and (rel <= DENSE_GRAD_REL_NORM
-                                          or not hold_grad)
-    grad_tol = DENSE_GRAD_REL_NORM if hold_grad else "reported, not held"
-    del out, fg, dg
+    out = dict(dense_loss_rel=loss_rel, dense_grad_rel_norm=rel,
+               vg_flash_ms=fs * 1e3, vg_dense_ms=ds * 1e3)
+    held = rel
+    if moe_cfg:
+        pl, pg, _ = run("dense", [experts for experts, _ in routes.calls])
+        held = rel_norm(fg, pg)
+        del pg
+        out.update(pinned_loss_rel=abs(fl - pl) / abs(pl),
+                   pinned_grad_rel_norm=held)
+        log(f"  the dense arm with the kernel arm's routing "
+            f"({len(routes.calls)} route calls replayed): loss {pl:.6f} (rel "
+            f"{out['pinned_loss_rel']:.3e}), gradient ||dg||/||g|| "
+            f"{held:.3e}; with its own routing {rel:.3e} (reported)")
+    del fg
+    ok = loss_rel <= DENSE_LOSS_RTOL and held <= DENSE_GRAD_REL_NORM
     log(f"  one step, kernels vs dense attention: loss {fl:.6f} vs {dl:.6f}"
         f" (rel {loss_rel:.3e}, tolerance {DENSE_LOSS_RTOL}), gradient "
-        f"||dg||/||g|| {rel:.3e} (tolerance {grad_tol}): "
-        f"{'ok' if ok else 'FAIL'}; value_and_grad {fs * 1e3:.1f} ms flash, "
-        f"{ds * 1e3:.1f} ms dense (one call each)")
+        f"||dg||/||g|| {held:.3e}{' (routing pinned)' if moe_cfg else ''} "
+        f"(tolerance {DENSE_GRAD_REL_NORM}): {'ok' if ok else 'FAIL'}; "
+        f"value_and_grad {fs * 1e3:.1f} ms flash, {ds * 1e3:.1f} ms dense "
+        f"(one call each)")
     if not ok:
         raise AssertionError("the step through the kernels disagrees with "
                              "dense attention")
-    return dict(dense_loss_rel=loss_rel, dense_grad_rel_norm=rel,
-                vg_flash_ms=fs * 1e3, vg_dense_ms=ds * 1e3)
+    return out
+
+
+# -- phase 11: the parallel paths at world size one ------------------------
+
+def phase_parallel(train: dict, moe_train: dict) -> dict:
+    """Phase 11, in one process group of world size one over NCCL (a
+    rendezvous file under the run's temp dir): (a) the collectives, (b)
+    the dp x tp step at TRAIN_CFG, (c) the sp forward, (d) Ulysses over
+    the flash kernel, (e) the MoE dp x tp (+ep) step, (f) the tiny dry run
+    of every parallel path, (g) two processes (gloo step, device echo),
+    (h) a device trace of a (b) step, (i) the dense/flash crossover."""
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        init_world(0, 1, "cuda", os.path.join(d, "rendezvous"))
+        try:
+            log("[11a] collectives at world size one")
+            res["collectives"] = phase_collectives()
+            log(f"[11b] dp x tp train step at {TRAIN_CFG}")
+            res["dp_tp"] = phase_dp_tp_step(train)
+            log("[11c] sequence-parallel forward (ring attention)")
+            res["sp_forward"] = phase_sp_forward()
+            log(f"[11d] Ulysses over the flash kernel at {TRAIN_SHAPE}")
+            res["ulysses"] = phase_ulysses()
+            torch.cuda.empty_cache()
+            log(f"[11e] MoE dp x tp (+ep) train step at {MOE_TRAIN_CFG}")
+            res["moe_dp_tp"] = phase_moe_dp_tp_step(moe_train)
+            torch.cuda.empty_cache()
+        finally:
+            torch.distributed.destroy_process_group()
+    log("[11f] dryrun_multichip(world=1, device='cuda')")
+    t0 = time.perf_counter()
+    lines = dryrun_multichip(1, "cuda")
+    for line in lines:
+        log(f"  {line}")
+    res["dryrun_multichip"] = dict(lines=lines,
+                                   s=time.perf_counter() - t0)
+    log("[11g] two processes: a gloo PS step on the CPU, a device echo")
+    t0 = time.perf_counter()
+    lines = multiproc_dryrun.run(2, 2, echo_device="cuda")
+    for line in lines:
+        log(f"  {line}")
+    echo_launches = sum(int(m.group(1)) for m in (
+        re.search(r"checksum launches (\d+)", line) for line in lines) if m)
+    if echo_launches != 3 * multiproc_dryrun.ECHOES:
+        raise AssertionError(f"the echoes' checksums launched "
+                             f"{echo_launches} kernels, want "
+                             f"{3 * multiproc_dryrun.ECHOES}")
+    res["two_processes"] = dict(lines=lines, s=time.perf_counter() - t0,
+                                checksum_launches=echo_launches)
+    log("[11i] dense attention against the flash kernel")
+    res["crossover"] = phase_crossover()
+    return res
+
+
+def phase_collectives() -> dict:
+    """(a) every MeshTransport method on a cuda tensor at world size one:
+    JAX's n = 1 results (each the input itself), on the card, through
+    NCCL; a CPU tensor on the cuda mesh raises."""
+    backend = torch.distributed.get_backend()
+    tr = MeshTransport(make_mesh((1,), ("ici",), "cuda"), "ici")
+    x = torch.arange(4 * 8, dtype=torch.float32, device="cuda").reshape(4, 8)
+    got = {"scatter": tr.scatter(x.cpu().numpy(), 0),
+           "gather": torch.from_numpy(tr.gather(x)).cuda(),
+           "replicate": tr.replicate(x.cpu().numpy()),
+           "ring_shift": tr.ring_shift(x, 1), "all_gather": tr.all_gather(x),
+           "psum": tr.psum(x), "reduce_scatter": tr.reduce_scatter(x),
+           "all_to_all": tr.all_to_all(x, 1, 0)}
+    torch.cuda.synchronize()
+    bad = [k for k, v in got.items() if not (v.is_cuda and torch.equal(v, x))]
+    try:
+        tr.psum(x.cpu())
+        refused = False
+    except ValueError:
+        refused = True
+    log(f"  backend {backend}; {len(got)} methods equal to JAX's n = 1 "
+        f"results on the card: {'ok' if not bad else bad}; a CPU tensor "
+        f"refused: {refused}; {tr.endpoint(0)}")
+    if backend != "nccl" or bad or not refused:
+        raise AssertionError("a collective disagrees at world size one")
+    return dict(backend=backend, methods=sorted(got))
+
+
+def train_batch(cfg: LMConfig, accum: int, micro: int) -> tuple:
+    """Phase 8's params (seed 0) and batch (seed 1)."""
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         "cuda")
+    ids = torch.randint(0, cfg.vocab, (accum * micro, TRAIN_SEQ),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1), device="cuda")
+    return params, ids, ids.roll(-1, -1)
+
+
+def update_distance(old: dict, new_a: dict, new_b: dict) -> tuple:
+    """||new_a - new_b|| / ||new_b - old|| over every leaf (the distance
+    of the two updates, relative to the update), and whether the new
+    params are bit-equal."""
+    diff = norm = 0.0
+    equal = True
+    for o, a, b in zip(tree_leaves(old), tree_leaves(new_a),
+                       tree_leaves(new_b)):
+        diff += float((a - b).double().pow(2).sum())
+        norm += float((b - o).double().pow(2).sum())
+        equal = equal and torch.equal(a, b)
+    return (diff / norm) ** 0.5, equal
+
+
+def phase_dp_tp_step(train: dict) -> dict:
+    """(b) make_train_step(mesh=dp x tp) at TRAIN_CFG on phase 8's params
+    and batch: loss and new params against the unsharded step, launches
+    per step, step ms beside phase 8's, one profiled step."""
+    cfg = LMConfig(**TRAIN_CFG)
+    mesh = make_mesh((1, 1), ("dp", "tp"), "cuda")
+    params, ids, labels = train_batch(cfg, TRAIN_ACCUM, TRAIN_MICRO)
+    plain = make_train_step(cfg, accum=TRAIN_ACCUM)
+    sharded = make_train_step(cfg, mesh=mesh, accum=TRAIN_ACCUM)
+    want_new, want_loss = plain(params, ids, labels, TRAIN_LR)
+    want_loss = float(want_loss)
+    want = train_launches(cfg)
+    reset_launches()
+    new, loss = sharded(params, ids, labels, TRAIN_LR)
+    loss = float(loss)
+    got = read_launches()
+    dist_rel, equal = update_distance(params, new, want_new)
+    del new, want_new
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    ok = (loss_rel <= DENSE_LOSS_RTOL and dist_rel <= DENSE_GRAD_REL_NORM
+          and got == want)
+    log(f"  loss {loss:.6f} vs the unsharded step's {want_loss:.6f} (rel "
+        f"{loss_rel:.3e}, tolerance {DENSE_LOSS_RTOL}); new params "
+        f"||d new|| / ||update|| {dist_rel:.3e} (tolerance "
+        f"{DENSE_GRAD_REL_NORM}); bit-equal: {equal}; launches {got} "
+        f"(expected {want}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the dp x tp step disagrees with the unsharded "
+                             "step")
+
+    def step(params, ids, labels):
+        return sharded(params, ids, labels, TRAIN_LR)
+
+    secs = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, l_i = step(params, ids, labels)
+        float(l_i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if read_launches() != want:
+            raise AssertionError("a dp x tp step launched other counts")
+    step_ms = statistics.median(secs[1:]) * 1e3
+    log(f"  step {step_ms:.1f} ms (median of 2 after a warm-up; phase 8's "
+        f"unsharded step {train['step_ms']:.1f} ms)")
+    res = dict(loss=loss, unsharded_loss=want_loss, loss_rel=loss_rel,
+               update_rel=dist_rel, bit_equal=equal, launches=got,
+               step_ms=step_ms, step_s=secs, phase8_step_ms=train["step_ms"])
+    res.update(phase_train_profile(step, params, ids, labels, cfg,
+                                   TRAIN_ACCUM))
+    log("[11h] profiling.collect_device_trace around (b)'s step")
+    res["trace"] = phase_device_trace(step, params, ids, labels)
+    return res
+
+
+def phase_device_trace(step, params, ids, labels) -> dict:
+    """(h) profiling.collect_device_trace over a window in which another
+    thread runs (b)'s step again and again: the archive holds a Chrome
+    trace that names the flash kernels."""
+    stop = threading.Event()
+    errors, steps = [], [0]
+
+    def loop():
+        try:
+            while not stop.is_set():
+                float(step(params, ids, labels)[1])
+                steps[0] += 1
+        except Exception as e:  # re-raised on the main thread below
+            errors.append(e)
+
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+    try:
+        data, name = profiling.collect_device_trace(TRACE_SECONDS)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    if errors or t.is_alive():
+        raise AssertionError(f"the traced steps failed: {errors}")
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+        member = tar.getmember("device_trace/trace.json")
+        trace = json.load(tar.extractfile(member))
+    names = [e.get("name", "") for e in trace.get("traceEvents", [])]
+    seen = {kern.name: sum(f"{kern.name}_kernel" in n for n in names)
+            for kern in (FLASH_FWD, FLASH_DQ, FLASH_DKDV)}
+    log(f"  device trace {name}: {len(data)} bytes gzipped, {len(names)} "
+        f"events over {TRACE_SECONDS} s, {steps[0]} steps run meanwhile; "
+        f"kernel events {seen}")
+    if not data or not seen[FLASH_FWD.name]:
+        raise AssertionError("the device trace does not name flash_fwd")
+    return dict(bytes=len(data), events=len(names), steps=steps[0],
+                kernel_events=seen)
+
+
+def phase_sp_forward() -> dict:
+    """(c) make_forward(mesh=sp, sp_axis="sp") at TRAIN_CFG on (1, 2048)
+    against the unsharded forward with dense attention."""
+    cfg = LMConfig(**TRAIN_CFG)
+    dense_cfg = LMConfig(**{**TRAIN_CFG, "use_flash": False,
+                            "attn_impl": "dense"})
+    mesh = make_mesh((1,), ("sp",), "cuda")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         "cuda")
+    ids = torch.randint(0, cfg.vocab, (1, TRAIN_SEQ),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(2), device="cuda")
+    with torch.no_grad():
+        got = make_forward(cfg, mesh=mesh, sp_axis="sp")(params, ids)
+        want = make_forward(dense_cfg)(params, ids)
+    err = max_err(got, want)
+    top = float(want.abs().max())
+    outside = float((~torch.isclose(got, want, rtol=SP_RTOL, atol=SP_ATOL))
+                    .float().mean())
+    ok = err <= LOGIT_RTOL * top and bool(torch.isfinite(got).all())
+    log(f"  logits {tuple(got.shape)}: max abs err {err:.3e} against dense "
+        f"attention, max |logit| {top:.3f}, ratio {err / top:.3e} "
+        f"(tolerance {LOGIT_RTOL}): {'ok' if ok else 'FAIL'}; share outside "
+        f"rtol {SP_RTOL} / atol {SP_ATOL}: {outside:.3e}")
+    if not ok:
+        raise AssertionError("the sp forward disagrees")
+    return dict(max_abs_err=err, max_logit=top, share_outside_jax_tol=outside,
+                shape=list(got.shape))
+
+
+def phase_ulysses() -> dict:
+    """(d) Ulysses with use_flash at (4, 2048, 16, 128) f32 causal: one
+    flash_fwd launch a call, the output against the plain version, its
+    ms beside a bare flash_attention call."""
+    mesh = make_mesh((1,), ("sp",), "cuda")
+    uly = make_ulysses_attention(mesh, "sp", causal=True, use_flash=True)
+    q, k, v = qkv(TRAIN_SHAPE, torch.float32, seed=11)
+    with torch.inference_mode():
+        reset_launches()
+        out = uly(q, k, v)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        plain, _ = flash_attention_plain(q, k, v, True)
+        err = max_err(out, plain)
+        ok = within(out, plain, TOL[torch.float32]) and launches == {
+            FLASH_FWD.name: 1, FLASH_DQ.name: 0, FLASH_DKDV.name: 0}
+        ms = time_ms(lambda: uly(q, k, v))
+        bare_ms = time_ms(lambda: flash_attention(q, k, v, True))
+    log(f"  launches {launches}; out err {err:.3e} against the plain version "
+        f"(tolerance {TOL[torch.float32]}): {'ok' if ok else 'FAIL'}; "
+        f"{ms:.4f} ms a call against {bare_ms:.4f} ms for flash_attention "
+        f"alone (the two all_to_alls at n = 1: {ms - bare_ms:+.4f} ms)")
+    if not ok:
+        raise AssertionError("Ulysses over the flash kernel disagrees")
+    return dict(launches=launches[FLASH_FWD.name], max_abs_err=err, ms=ms,
+                flash_ms=bare_ms, all_to_all_ms=ms - bare_ms)
+
+
+def phase_moe_dp_tp_step(moe_train: dict) -> dict:
+    """(e) one MoE dp x tp (+ep) step at MOE_TRAIN_CFG on 8m's params and
+    batch: its loss against 8m's unsharded loss at the same params."""
+    cfg = LMConfig(**MOE_TRAIN_CFG)
+    mesh = make_mesh((1, 1), ("dp", "tp"), "cuda")
+    params, ids, labels = train_batch(cfg, MOE_TRAIN_ACCUM, MOE_TRAIN_MICRO)
+    want = train_launches(cfg, MOE_TRAIN_ACCUM)
+    step = make_train_step(cfg, mesh=mesh, accum=MOE_TRAIN_ACCUM)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, loss = step(params, ids, labels, TRAIN_LR)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_launches()
+    ref = moe_train["losses"][0]
+    rel = abs(loss - ref) / abs(ref)
+    ok = rel <= DENSE_LOSS_RTOL and got == want
+    log(f"  loss {loss:.6f} vs 8m's unsharded {ref:.6f} (rel {rel:.3e}, "
+        f"tolerance {DENSE_LOSS_RTOL}; equal: {loss == ref}); launches {got} "
+        f"(expected {want}); {secs * 1e3:.1f} ms (first call): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the MoE dp x tp step disagrees")
+    return dict(loss=loss, unsharded_loss=ref, loss_rel=rel,
+                equal=loss == ref, launches=got, ms=secs * 1e3)
 
 
 def phase_checkpoint(params: dict) -> float:
@@ -3276,6 +3693,8 @@ def main() -> int:
     main_err = phase_check()
     log("[3b] backward kernels vs plain")
     bwd_err = phase_check_bwd()
+    bwd_long = phase_check_bwd_long()
+    torch.cuda.empty_cache()
     log("[3c] checksum kernel vs plain")
     n_payloads, cs_err = phase_check_checksum()
     log("[4] timing")
@@ -3420,9 +3839,11 @@ def main() -> int:
         f"{MOE_TRAIN_ACCUM} x microbatch {MOE_TRAIN_MICRO} x {TRAIN_SEQ} "
         f"tokens (reduced from bench.py's 8 x 32 x 2048)")
     moe_train = phase_train(peaks, MOE_TRAIN_CFG, MOE_TRAIN_ACCUM,
-                            MOE_TRAIN_MICRO, MOE_TRAIN_STEPS,
-                            hold_grad=False)
+                            MOE_TRAIN_MICRO, MOE_TRAIN_STEPS)
     del moe_train["params"]
+    torch.cuda.empty_cache()
+    log("[11] the parallel paths at world size one (NCCL)")
+    par = phase_parallel(train, moe_train)
     torch.cuda.empty_cache()
     log(f"[10] parameter server at {PS_CFG} and the device lane")
     ps = phase_ps()
@@ -3442,7 +3863,11 @@ def main() -> int:
                  "moe_paged_decode": moe_res["paged"]["launches"],
                  "moe_disagg": moe_res["disagg"]["launches"],
                  "train": train["launches"][FLASH_FWD.name],
-                 "moe_train": moe_train["launches"][FLASH_FWD.name]}
+                 "moe_train": moe_train["launches"][FLASH_FWD.name],
+                 "parallel_train": par["dp_tp"]["launches"][FLASH_FWD.name],
+                 "ulysses": par["ulysses"]["launches"],
+                 "moe_parallel_train":
+                     par["moe_dp_tp"]["launches"][FLASH_FWD.name]}
     kernels = [{
         "name": FLASH_FWD.name, "route": "cuda",
         "source": "brpc_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3465,10 +3890,15 @@ def main() -> int:
             "source": "brpc_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"brpc_tpu/ops/flash_attention.py:{line}",
             "launches": (train["launches"][kern.name]
-                         + moe_train["launches"][kern.name]),
+                         + moe_train["launches"][kern.name]
+                         + par["dp_tp"]["launches"][kern.name]
+                         + par["moe_dp_tp"]["launches"][kern.name]),
             "launches_by_path": {
                 "train": train["launches"][kern.name],
-                "moe_train": moe_train["launches"][kern.name]},
+                "moe_train": moe_train["launches"][kern.name],
+                "parallel_train": par["dp_tp"]["launches"][kern.name],
+                "moe_parallel_train":
+                    par["moe_dp_tp"]["launches"][kern.name]},
             "max_abs_err": bwd_err[kern.name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -3483,11 +3913,13 @@ def main() -> int:
         "replaces": "brpc_tpu/ops/device_ops.py:50",
         "launches": (ps["launches"] + xproc["xfer"]["launches"]
                      + xproc["xfer"]["launches_inline"]
-                     + xproc["xfer"]["child_launches"]),
+                     + xproc["xfer"]["child_launches"]
+                     + par["two_processes"]["checksum_launches"]),
         "launches_by_path": {
             "ps": ps["launches"], "xproc": xproc["xfer"]["launches"],
             "xproc_inline": xproc["xfer"]["launches_inline"],
-            "xproc_child": xproc["xfer"]["child_launches"]},
+            "xproc_child": xproc["xfer"]["child_launches"],
+            "dryrun_echo": par["two_processes"]["checksum_launches"]},
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
@@ -3495,7 +3927,8 @@ def main() -> int:
         "ratio_to_library": cs_row["ms"] / cs_row["library_ms"]})
     log("[7] forward causal: " + json.dumps(
         {str(shape): row for shape, row in times.items()}))
-    log(f"  backward at {TRAIN_SHAPE} causal: {json.dumps(bwd_times)}")
+    log(f"  backward at {TRAIN_SHAPE} causal: {json.dumps(bwd_times)}; "
+        f"past the training length: {json.dumps(bwd_long)}")
     log(f"  requests: {json.dumps(rows)}")
     log(f"  decode: {json.dumps(decode)}")
     log(f"  streams: {json.dumps(streams)}")
@@ -3509,6 +3942,12 @@ def main() -> int:
         f"{json.dumps(cs_times)}")
     log(f"  ps: {json.dumps(ps)}")
     log(f"  xproc: {json.dumps(xproc)}")
+    log(f"  parallel: {json.dumps(par)}")
+    log("  crossover: " + " ".join(
+        f"s={r['s']} dense {r['dense_ms']:.4f} flash {r['flash_ms']:.4f} ms;"
+        for r in par["crossover"]["rows"])
+        + f" flash faster from s={par['crossover']['crossover']} "
+        f"(DENSE_FLASH_CROSSOVER = {DENSE_FLASH_CROSSOVER}; {card})")
     log(f"  all phases: {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -126,13 +126,37 @@ def test_embedding_ps_learns():
     assert last < first * 0.3, (first, last)
 
 
-def test_mesh_and_sharding_raise():
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tps.EmbeddingPS(tps.PSConfig(**CFG), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tps.param_specs(tps.PSConfig(**CFG))
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tps.batch_specs()
-    model = tps.EmbeddingPS(tps.PSConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        model.shard_batch(np.zeros((2, 4), np.int32), np.zeros(2, np.int32))
+def test_mesh_and_sharding_raise(tmp_path, params, batch):
+    """The specs are the JAX package's; a mesh runs (multi-rank parity is
+    in test_torch_sharded_training.py): at world size one the sharded
+    model takes the unsharded step to the bit.  What raises: a mesh of
+    another device than the model's, a batch dp does not divide."""
+    from brpc_tpu_torch.parallel import make_mesh
+    from brpc_tpu_torch.parallel.spmd import init_world
+    cfg = tps.PSConfig(**CFG)
+    assert tps.param_specs(cfg) == {
+        k: tuple(v) for k, v in jps.param_specs(jps.PSConfig(**CFG)).items()}
+    assert tps.batch_specs() == tuple(tuple(s) for s in jps.batch_specs())
+    tp = {k: v.clone() for k, v in params[1].items()}
+    ids, labels = batch
+    plain = tps.EmbeddingPS(cfg, device="cpu",
+                            params={k: v.clone() for k, v in tp.items()})
+    assert plain.shard_batch(ids, labels)[0].shape == ids.shape
+    init_world(0, 1, "cpu", str(tmp_path / "rendezvous"))
+    try:
+        mesh = make_mesh((1, 1), ("dp", "tp"), "cpu")
+        model = tps.EmbeddingPS(cfg, device="cpu", params=tp, mesh=mesh)
+        assert model.mesh is mesh
+        assert model.train_step(*model.shard_batch(ids, labels)) == \
+            plain.train_step(ids, labels)
+        for k in tp:
+            assert torch.equal(model.params[k], plain.params[k]), k
+        with pytest.raises(ValueError, match="does not split"):
+            model._dp.size = 3
+            model.shard_batch(ids[:4], labels[:4])
+        cuda_mesh = type("M", (), {"device_type": "cuda",
+                                   "mesh_dim_names": ()})()
+        with pytest.raises(ValueError, match="cuda mesh for a cpu model"):
+            tps.EmbeddingPS(cfg, device="cpu", mesh=cuda_mesh)
+    finally:
+        torch.distributed.destroy_process_group()

@@ -132,8 +132,10 @@ def test_init_layout_and_scales():
         assert tp[k].dtype == torch.float32
     assert abs(float(tp["w1"].std()) * math.sqrt(DIM) - 1.0) < 0.1
     assert abs(float(tp["w2"].std()) * math.sqrt(DIM) * 2 - 1.0) < 0.1
-    with pytest.raises(NotImplementedError, match="parallel/ slice"):
-        tmoe.param_specs(cfg)
+    # expert parallelism: the JAX package's specs, per dim
+    assert tmoe.param_specs(cfg) == {
+        k: tuple(v) for k, v in jmoe.param_specs(jmoe.MoEConfig(
+            dim=DIM, hidden=HIDDEN, num_experts=4)).items()}
 
 
 @pytest.mark.parametrize("E,K,cap", CASES)
@@ -255,3 +257,42 @@ def test_train_step_losses_match_jax(K):
         tl.append(float(loss))
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
     assert tl[-1] < tl[0], tl
+
+
+def test_pinned_routing_reproduces_the_routed_forward(monkeypatch):
+    """``moe.pinned_routing`` replays recorded expert choices: an MoE LM's
+    loss and gradient (remat on: the forward's routing, then the
+    recompute's, in call order) equal the routed run's to the bit.
+    chip_smoke.py phase 8m runs its dense-attention arm with the kernel
+    arm's choices this way.  Other choices change the output."""
+    from brpc_tpu_torch.models import transformer_lm as tlm
+    cfg = tlm.LMConfig(vocab=64, dim=DIM, heads=2, depth=2, max_seq=32,
+                       moe_experts=4, moe_top_k=2, remat=True)
+    params = tlm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, 16)))
+    vg = tlm.make_value_and_grad(cfg, device="cpu")
+    calls = []
+    route = tmoe.route
+
+    def recorded(p, x, c):
+        out = route(p, x, c)
+        calls.append(out[2].clone())
+        return out
+
+    monkeypatch.setattr(tmoe, "route", recorded)
+    loss, grads = vg(params, ids, ids.roll(-1, 1))
+    monkeypatch.undo()
+    assert len(calls) == 2 * cfg.depth          # forward, then recompute
+    with tmoe.pinned_routing(calls):
+        loss2, grads2 = vg(params, ids, ids.roll(-1, 1))
+        with pytest.raises(RuntimeError, match="already pinned"):
+            with tmoe.pinned_routing([]):
+                pass
+    assert torch.equal(loss, loss2)
+    for a, b in zip(tlm.tree_leaves(grads), tlm.tree_leaves(grads2)):
+        assert torch.equal(a, b)
+    # each token's other experts instead: the pin takes effect
+    other = [(c + 1) % cfg.moe_experts for c in calls]
+    with tmoe.pinned_routing(other):
+        loss3, _ = vg(params, ids, ids.roll(-1, 1))
+    assert not torch.equal(loss, loss3)

@@ -55,7 +55,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == n_modules >= 44
+    assert int(proc.stdout.split()[-1]) == n_modules >= 51
     names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
     assert {"brpc_tpu_torch.utils.checkpoint",
             "brpc_tpu_torch.models.transformer_lm",
@@ -78,7 +78,14 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.kv",
             "brpc_tpu_torch.kv.pages",
             "brpc_tpu_torch.kv.transport",
-            "brpc_tpu_torch.kv.disagg"} <= names
+            "brpc_tpu_torch.kv.disagg",
+            "brpc_tpu_torch.parallel",
+            "brpc_tpu_torch.parallel.mesh_transport",
+            "brpc_tpu_torch.parallel.spmd",
+            "brpc_tpu_torch.parallel.ring_attention",
+            "brpc_tpu_torch.parallel.pipeline",
+            "brpc_tpu_torch.parallel.multiproc_dryrun",
+            "brpc_tpu_torch.profiling"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -171,6 +178,28 @@ def test_ps_and_lane_entry_points_raise_without_cuda():
     assert checksum_u32(np.arange(4, dtype=np.float32), device="cpu") == \
         checksum_u32(torch.arange(4, dtype=torch.float32))
     assert att.tensor("cpu").device.type == "cpu"
+
+
+def test_parallel_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.parallel import (MeshTransport, default_mesh,
+                                         global_mesh_transport, make_mesh)
+    from brpc_tpu_torch.parallel.multiproc_dryrun import (dryrun_multichip,
+                                                          run)
+    from brpc_tpu_torch.parallel.spmd import SpmdPool, init_world, run_spmd
+    init = str(tmp_path / "rendezvous")
+    for call in (default_mesh, MeshTransport, global_mesh_transport,
+                 lambda: make_mesh((1,), ("ici",)),
+                 lambda: init_world(0, 1, init_file=init),
+                 lambda: SpmdPool(1, init_dir=str(tmp_path)),
+                 lambda: run_spmd(print, 1, init_dir=str(tmp_path)),
+                 lambda: dryrun_multichip(1), lambda: run(2, 2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # nothing was spawned and no group was made on the way
+    assert not torch.distributed.is_initialized()
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_cpu_checksum_runs_plain_and_launches_nothing():

@@ -531,6 +531,33 @@ def test_jax_client_on_port_server_both_ways_bit_exact(needs_shm, server):
     assert jshm.outstanding_tx_slots() == 0
 
 
+# -- where a ring lives ----------------------------------------------------
+
+def test_ring_for_this_process_alone_lives_in_tempdir(monkeypatch, tmp_path):
+    """A tx ring rebuilt with ``reset_tx_ring(local_only=True)`` (users in
+    this process only, as chip_smoke.py's 6d (e)) is made under
+    ``tempfile.gettempdir()``, never in /dev/shm; the next plain reset
+    puts rings back in the shared directories (a ring for other
+    processes)."""
+    import tempfile
+    local, shared = tmp_path / "tmp", tmp_path / "shm"
+    local.mkdir()
+    shared.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(local))
+    monkeypatch.setattr(shm_ring, "_ring_dirs", lambda: iter([str(shared)]))
+    monkeypatch.setattr(shm_ring, "_avail", True)
+    assert shm_ring.reset_tx_ring(local_only=True)
+    ring = shm_ring.process_tx_ring()
+    assert os.path.dirname(ring.path) == str(local)
+    assert list(shared.iterdir()) == []
+    assert shm_ring.reset_tx_ring()
+    assert not os.path.exists(ring.path)
+    ring = shm_ring.process_tx_ring()
+    assert os.path.dirname(ring.path) == str(shared)
+    assert list(local.iterdir()) == []
+    assert shm_ring.reset_tx_ring()
+
+
 # -- a ring that does not fit ------------------------------------------------
 
 def test_fallocate_decline_moves_on_then_declines(monkeypatch, tmp_path):

@@ -168,13 +168,33 @@ def test_seq_longer_than_max_seq_raises():
                                             torch.zeros((1, 33), dtype=int))
 
 
-def test_mesh_and_unported_configs_raise():
+@pytest.fixture
+def world_one(tmp_path):
+    """A gloo process group of this process alone (world size one)."""
+    from brpc_tpu_torch.parallel.spmd import init_world
+    init_world(0, 1, "cpu", str(tmp_path / "rendezvous"))
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_mesh_and_unported_configs_raise(world_one):
+    """A mesh runs (multi-rank parity is in test_torch_sharded_training.py);
+    what raises is a mesh the LM cannot use: an axis other than dp, tp and
+    the sp axis, an sp axis the mesh lacks, heads that tp does not
+    divide.  ``sp_axis`` without a mesh is ignored, as in the JAX
+    package."""
+    from brpc_tpu_torch.parallel import make_mesh
     cfg = tlm.LMConfig(**KW)
     for fn in (tlm.make_forward, tlm.make_train_step):
-        with pytest.raises(NotImplementedError, match="parallel/ slice"):
-            fn(cfg, mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="parallel/ slice"):
-            fn(cfg, sp_axis="sp", device="cpu")
+        with pytest.raises(ValueError, match="not \\['pp'\\]"):
+            fn(cfg, mesh=make_mesh((1, 1), ("dp", "pp"), "cpu"),
+               device="cpu")
+        with pytest.raises(ValueError, match="no axis 'sp'"):
+            fn(cfg, mesh=make_mesh((1, 1), ("dp", "tp"), "cpu"),
+               sp_axis="sp", device="cpu")
+        assert fn(cfg, sp_axis="sp", device="cpu") is not None
     # MoE and scan_layers configs train (their parity with the JAX package
     # is in test_torch_moe_lm.py and test_torch_scan_layers.py): one step
     # each, finite loss, every parameter moved
@@ -188,3 +208,25 @@ def test_mesh_and_unported_configs_raise():
         assert torch.isfinite(loss)
         assert all(not torch.equal(a, b) for a, b in zip(
             tlm.tree_leaves(new), tlm.tree_leaves(params)))
+
+
+@pytest.mark.parametrize("names,sp_axis", [(("dp", "tp"), None),
+                                           (("dp", "sp"), "sp")],
+                         ids=["dp_tp", "sp"])
+def test_world_one_mesh_step_equals_unsharded(world_one, jparams, names,
+                                              sp_axis):
+    """At world size one the sharded step is the unsharded one: the same
+    loss and new params to the bit (chip_smoke.py phase 11 (b) runs this
+    at full width on the card)."""
+    from brpc_tpu_torch.parallel import make_mesh
+    mesh = make_mesh((1, 1), names, "cpu")
+    ids, labels = (torch.from_numpy(x) for x in _batch())
+    cfg = tlm.LMConfig(**KW)
+    tp = _port_params(jparams)
+    want_new, want_loss = tlm.make_train_step(cfg, accum=2, device="cpu")(
+        tp, ids, labels)
+    new, loss = tlm.make_train_step(cfg, mesh=mesh, sp_axis=sp_axis,
+                                    accum=2, device="cpu")(tp, ids, labels)
+    assert torch.equal(loss, want_loss)
+    for a, b in zip(tlm.tree_leaves(new), tlm.tree_leaves(want_new)):
+        assert torch.equal(a, b)
