@@ -2,10 +2,10 @@
 
 A slimmed copy of ``brpc_tpu/butil/flags.py``: flags declare a default
 and help text; a flag is *reloadable* (``set_flag`` accepts writes) iff it
-registered a validator.  Watchers, listing and the HTTP portal are not
-carried over: the port's flags are the device-attachment lane's
-(``ici/endpoint.py``), the frame cap (``protocol/tpu_std.py``) and the
-KV plane's (``kv/pages.py``, ``kv/transport.py``).
+registered a validator, and watchers (``watch_flag``) run after every
+accepted write, so that a live consumer with a cached copy (rpcz's and
+lm_telemetry's enable gates) resyncs.  Listing and the HTTP portal are not
+carried over.
 """
 
 from __future__ import annotations
@@ -65,4 +65,24 @@ def set_flag(name: str, value: Any) -> bool:
     if not f.validator(typed):
         return False
     f.value = typed
+    for fn in tuple(_watchers.get(name, ())):  # snapshot: a concurrent
+        # watch_flag() must not mutate the list we iterate
+        try:
+            fn(typed)
+        except Exception:               # a broken watcher must not veto
+            from .logging_util import LOG
+            LOG.exception("flag watcher for %r raised", name)
+    return True
+
+
+_watchers: dict = {}
+
+
+def watch_flag(name: str, fn: Callable[[Any], None]) -> None:
+    """Call ``fn(new_value)`` after every successful live-set of
+    ``name``.  Watchers are process-lifetime (no unwatch)."""
+    _watchers.setdefault(name, []).append(fn)
+
+
+def any_value(v) -> bool:
     return True

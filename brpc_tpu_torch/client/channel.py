@@ -36,7 +36,9 @@ response: from that call on the connection gets one reader thread, which
 owns every read, hands each response to its waiting call by correlation
 id, and routes TSTR frames to their streams and TICI acks to the lane.
 A call that times out there leaves the connection up (the streams on it
-live on); its late response is dropped.  Naming, load balancing,
+live on); its late response is dropped.  A call with ``cntl.trace_id``
+set is traced (``Controller._begin_trace_span``): its client span
+finishes with the call's outcome.  Naming, load balancing,
 retries, TLS and the other protocols wait for later slices of the port.
 """
 
@@ -134,6 +136,10 @@ class Channel:
         response bytes and any error land in the returned controller."""
         c = cntl or Controller()
         stream = c._stream_to_create
+        if c.trace_id:
+            # an explicitly traced call: its client span opens before the
+            # request is framed, so the meta carries this hop's span id
+            c._begin_trace_span(method_full)
         if self.server is None:
             c.set_failed(Errno.EINTERNAL, "channel not initialized")
         else:
@@ -148,6 +154,7 @@ class Channel:
             # a failed call, or one the server accepted no stream on:
             # the pending stream dies with it
             stream._close_local(notify_peer=False)
+        c._end_trace_span(self.server)
         return c
 
     def _call(self, c: Controller, method_full: str, payload: bytes,
@@ -162,6 +169,7 @@ class Channel:
             self._next_cid += 1
             meta.service_name, meta.method_name = svc, mth
             meta.timeout_ms = int(timeout_ms)
+            meta.trace_id, meta.span_id = c.trace_id, c.span_id
             try:
                 sock = self._connect()
                 if stream is not None:

@@ -6,20 +6,27 @@ tensor for the ICI lane) in; ``failed`` / ``error_code`` / ``error_text``,
 ``response``, ``response_attachment`` and ``response_device_attachment``
 (a :class:`~brpc_tpu_torch.ici.DeviceAttachment` to redeem with
 ``.tensor()``) out; ``streaming.stream_create`` sets
-``_stream_to_create``, the stream the call sets up.  Retries, backup
-requests and load balancing wait for later slices of the port.
+``_stream_to_create``, the stream the call sets up.  Tracing: a call
+whose ``trace_id`` is set (with ``span_id``, the caller's span, as the
+parent) opens an rpcz client span, and the request carries the trace id
+and that span's id in its meta TLVs, so the server span parents to it.
+Retries, backup requests and load balancing wait for later slices of the
+port.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
+from ..rpcz import start_client_span
+
 
 class Controller:
     __slots__ = ("timeout_ms", "request_attachment",
                  "request_device_attachment", "response",
                  "response_attachment", "response_device_attachment",
-                 "_error_code", "_error_text", "_stream_to_create")
+                 "_error_code", "_error_text", "_stream_to_create",
+                 "trace_id", "span_id", "_client_span")
 
     def __init__(self):
         self.timeout_ms: Optional[int] = None   # None = the channel's
@@ -31,6 +38,28 @@ class Controller:
         self._error_code = 0
         self._error_text = ""
         self._stream_to_create = None   # set by streaming.stream_create
+        self.trace_id = 0
+        self.span_id = 0
+        self._client_span = None        # rpcz Span of a traced call
+
+    def _begin_trace_span(self, method_full: str) -> None:
+        """Open the client half of an explicitly traced call: the client
+        span parents to the span id the caller carried in, and the call's
+        own span id replaces it on the wire, so the server span links back
+        to this hop."""
+        if not self.trace_id or self._client_span is not None:
+            return
+        span = start_client_span(method_full, self.trace_id, self.span_id)
+        if span is not None:
+            self._client_span = span
+            self.span_id = span.span_id
+
+    def _end_trace_span(self, remote_side) -> None:
+        span = self._client_span
+        if span is not None:
+            self._client_span = None
+            span.remote_side = str(remote_side or "")
+            span.finish(self._error_code)
 
     @property
     def failed(self) -> bool:

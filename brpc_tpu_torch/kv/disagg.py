@@ -27,9 +27,16 @@ goes through the process's stream registry, so the decode tier must share
 the prefill tier's process (a decode tier elsewhere answers
 ``kv_stream_not_local`` and the prefill tier decodes locally).
 
-Not ported: the fleet load report in the probe answer, the
-``fleet_kv_handoff_failed`` event and the rpcz spans of a handed-off
-session (the port has neither ``fleet`` nor rpcz).
+A traced ``LM.Decode`` stitches across the handoff under one trace id:
+the prefill tier's ``LMService.DecodeSession`` span (``lm_join``,
+``lm_chunk_slice``, then ``lm_handoff``, or
+``lm_evict:kv_handoff_failed``) hands its ids to the ImportSession call's
+trace TLVs, and the decode tier opens ``KV.DecodeTierSession`` under that
+call's server span, backdated to the import's arrival, which its batcher
+annotates and finishes.
+
+Not ported: the fleet load report in the probe answer and the
+``fleet_kv_handoff_failed`` event (the port has no ``fleet`` yet).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import functools
 import logging
 import struct
 import threading
+from time import monotonic_ns
 from typing import Optional
 
 import torch
@@ -47,6 +55,7 @@ from ..models.lm_service import LMService, bucketed_prefill
 from ..models.transformer_lm import (decode_cache_from_pages,
                                      export_decode_cache, kv_page_specs,
                                      make_decode)
+from ..rpcz import Span, backdate_span
 from ..server.service import Service
 from .pages import KvPageError
 from .transport import (KvTransport, decode_manifest, encode_probe_response,
@@ -77,6 +86,7 @@ class DecodeTierService(Service):
         EREQUEST; a page that cannot be imported answers ERESPONSE.  Each
         error text starts with its ``KV_FALLBACK_REASONS`` name."""
         from ..streaming import find_stream
+        recv_ns = monotonic_ns()
         try:
             man = decode_manifest(bytes(request))
         except (KvPageError, struct.error) as e:
@@ -117,9 +127,21 @@ class DecodeTierService(Service):
             # keeps the session), never seats a session on an empty cache
             cntl.set_failed(Errno.ERESPONSE, f"kv_import_rejected: {e}")
             return None
+        # the decode tier's half of the stitched trace: the handoff call
+        # carried the prefill request's trace id, so its server span is
+        # forced under that id; the session span is its child, backdated
+        # to the import's arrival so that it covers the page import
+        span = None
+        req_span = cntl.span
+        if req_span is not None:
+            span = Span("KV.DecodeTierSession", trace_id=req_span.trace_id,
+                        parent_span_id=req_span.span_id)
+            span.remote_side = req_span.remote_side
+            backdate_span(span, recv_ns)
         self.lm.batcher().join_imported(stream, man.last_token, man.ctx_len,
                                         man.max_new, cache1,
-                                        tenant=cntl.request_meta.tenant)
+                                        tenant=cntl.request_meta.tenant,
+                                        span=span)
         return b"ok"
 
 
@@ -159,15 +181,28 @@ class PrefillService(LMService):
         if parsed is None:
             return None
         prompt, max_new, stream = parsed
+        # the prefill tier's half of the stitched trace: a sampled or
+        # traced Decode gets a forced session span whose chunk-slice event
+        # covers the whole-prompt prefill this tier runs
+        span = self._session_span(cntl)
+        if span is not None:
+            span.annotate("lm_join")
         with torch.inference_mode():
             cache1, ctx_len = bucketed_prefill(self._ensure_prefill(),
                                                self.cfg, prompt[0])
+        if span is not None:
+            span.annotate("lm_chunk_slice")
         last_token = int(prompt[0][-1])
         res = self.transport.handoff(
             self.decode_channel, stream.id, ctx_len, last_token, max_new,
             self.model_fingerprint(), export_decode_cache(self.cfg, cache1),
-            owner=("kv", cntl.socket_id))
+            owner=("kv", cntl.socket_id),
+            trace=(span.trace_id, span.span_id) if span is not None
+            else None)
         if res.ok:
+            if span is not None:
+                span.annotate("lm_handoff")
+                span.finish(0)
             return struct.pack("<I", max_new)
         if self.fallback_local and not res.ambiguous:
             # the same cache joins the local batch: token-identical, and
@@ -178,8 +213,12 @@ class PrefillService(LMService):
                      res.reason)
             self.batcher().join_imported(stream, last_token, ctx_len,
                                          max_new, cache1,
-                                         tenant=cntl.request_meta.tenant)
+                                         tenant=cntl.request_meta.tenant,
+                                         span=span)
             return struct.pack("<I", max_new)
         stream.close(reason="kv_handoff_failed")
+        if span is not None:
+            span.annotate("lm_evict:kv_handoff_failed")
+            span.finish(int(Errno.EINTERNAL))
         cntl.set_failed(Errno.EINTERNAL, f"kv handoff failed: {res.reason}")
         return None

@@ -421,10 +421,13 @@ class KvTransport:
 
     def handoff(self, channel, stream_id: int, ctx_len: int,
                 last_token: int, max_new: int, model_fp: bytes, pages,
-                owner: Any = None) -> HandoffResult:
+                owner: Any = None, trace: Any = None) -> HandoffResult:
         """Hand one live session to ``channel``'s peer.  ``pages`` is the
         ordered ``(tensor, nbytes)`` list of
-        ``transformer_lm.export_decode_cache``.  Never raises: on a False
+        ``transformer_lm.export_decode_cache``.  ``trace`` (optional
+        ``(trace_id, span_id)``) rides the ImportSession call's ordinary
+        trace TLVs, so the decode tier's spans join the request's trace
+        with no new wire format.  Never raises: on a False
         result the caller still owns the session (it decodes locally or
         closes the stream under a named reason), and every lease is
         settled."""
@@ -450,6 +453,8 @@ class KvTransport:
         from ..client import Controller
         cntl = Controller()
         cntl.timeout_ms = self.import_timeout_ms
+        if trace is not None:
+            cntl.trace_id, cntl.span_id = trace
         if att:
             cntl.request_attachment = att
         try:

@@ -37,9 +37,11 @@ import numpy as np
 import torch
 
 from ..butil.status import Errno
+from ..bvar.multi_dimension import PassiveDimension
 from ..kv.pages import (HostPagePool, PageAllocator, PrefixCache,
                         count_evict)
 from ..ops.quant import quantize_lm_params, quantized_nbytes
+from ..rpcz import Span
 from ..server.admission import _MAX_TENANTS, normalize_tenant
 from ..server.service import Service
 from ..utils.device import resolve_device
@@ -184,6 +186,14 @@ def _reset_sched_for_tests() -> None:
             _spec[k] = 0
 
 
+# the sched and spec counters as labeled bvar families, as the JAX
+# service exposes them
+_sched_var = PassiveDimension(("event",), lambda: sched_counters(),
+                              name="lm_slo_sched_total")
+_spec_var = PassiveDimension(("event",), lambda: spec_counters(),
+                             name="lm_spec_decode_total")
+
+
 class _Session:
     __slots__ = ("stream", "prompt", "max_new", "sent", "slot",
                  # an imported session (join_imported) has no prompt: its
@@ -198,8 +208,9 @@ class _Session:
                  # n_alias are prefix-cache aliases, the next n_priv its
                  # own), and its host-tier state while parked
                  "pages", "n_alias", "n_priv", "host_handles", "saved_len",
-                 # observability: the session's timeline
-                 "tl")
+                 # observability: the session's timeline and its rpcz
+                 # decode-session span
+                 "tl", "span")
 
     def __init__(self, stream, prompt: Optional[np.ndarray], max_new: int):
         self.stream = stream
@@ -219,6 +230,7 @@ class _Session:
         self.host_handles = None
         self.saved_len = 0
         self.tl = None
+        self.span = None
 
 
 def bucketed_prefill(prefill, cfg: LMConfig, prompt: np.ndarray):
@@ -405,33 +417,42 @@ class ContinuousBatcher:
     # -- public -----------------------------------------------------------
 
     def join(self, stream, prompt: np.ndarray, max_new: int,
-             tenant=None) -> None:
+             tenant=None, span=None) -> None:
         """Queue a session; it enters the live batch between steps.
         ``tenant`` (the request's TLV-22 identity, bytes or str) resolves
-        its SLO tier."""
+        its SLO tier.  ``span`` (an rpcz Span, optional) is the session's
+        decode-session span: the batcher annotates its step events on it
+        and finishes it at evict."""
         sess = _Session(stream, np.ascontiguousarray(prompt, np.int32),
                         int(max_new))
         self._assign_tier(sess, tenant)
+        sess.span = span
         sess.tl = _lmt.open_timeline(sess.tier, tenant, len(prompt),
                                      int(max_new), "fresh")
+        if span is not None:
+            span.annotate("lm_join")
         self._enqueue(sess)
 
     def join_imported(self, stream, last_token: int, ctx_len: int,
-                      max_new: int, cache1, tenant=None) -> None:
+                      max_new: int, cache1, tenant=None,
+                      span=None) -> None:
         """Queue a session whose prefill ran on another tier (the
         disaggregated handoff).  ``cache1`` is the per-layer batch-1 cache
         (``transformer_lm.decode_cache_from_pages``'s layout) holding
         ``ctx_len`` context rows; it is inserted between steps as a local
         prefill's would be, and ``last_token`` (the prompt's last) rides
         the next step, so the stream carries the monolithic path's
-        tokens."""
+        tokens.  ``span`` as in :meth:`join`."""
         sess = _Session(stream, None, int(max_new))
         sess.cache1 = cache1
         sess.ctx_len = int(ctx_len)
         sess.last_token = int(last_token)
         self._assign_tier(sess, tenant)
+        sess.span = span
         sess.tl = _lmt.open_timeline(sess.tier, tenant, int(ctx_len) + 1,
                                      int(max_new), "imported")
+        if span is not None:
+            span.annotate("lm_join")
         self._enqueue(sess)
 
     def _assign_tier(self, sess: _Session, tenant) -> None:
@@ -803,6 +824,8 @@ class ContinuousBatcher:
         self.spills += 1
         if sess.tl is not None:
             sess.tl.spills += 1
+        if sess.span is not None:
+            sess.span.annotate("lm_spill")
         _rec_phase(PH_HOST_SPILL, _mono_ns() - t0)
         return None
 
@@ -858,6 +881,8 @@ class ContinuousBatcher:
         if tl is not None:
             tl.resumes += 1
             tl.pages_peak = max(tl.pages_peak, len(sess.pages))
+        if sess.span is not None:
+            sess.span.annotate("lm_resume")
         _rec_phase(PH_HOST_RESUME, _mono_ns() - t0)
         return True
 
@@ -967,6 +992,8 @@ class ContinuousBatcher:
                             else "sched_chunk_slice")
                 _rec_phase(PH_CATCHUP_SLICE if catchup else PH_CHUNK_SLICE,
                            _mono_ns() - t0)
+                if sess.span is not None:
+                    sess.span.annotate("lm_chunk_slice")
             if sess.fill >= sess.ctx_len:
                 self._activate(sess)
 
@@ -1062,13 +1089,19 @@ class ContinuousBatcher:
         return pairs, finished
 
     def _finalize_obs(self, sess: _Session, reason: str) -> None:
-        """Session close: judge and count the SLO verdict."""
+        """Session close: judge and count the SLO verdict, move the
+        timeline into the ring, and close out the decode-session span."""
         tl = sess.tl
         if tl is not None:
             sess.tl = None
             ttft_t, itl_t = self.tiers.slo_of(sess.tier) \
                 if self.tiers is not None else (None, None)
             _lmt.close_timeline(tl, reason, ttft_t, itl_t)
+        sp = sess.span
+        if sp is not None:
+            sess.span = None
+            sp.annotate("lm_evict:" + reason)
+            sp.finish(0)
 
     def _evict(self, sess: _Session, reason: Optional[str]) -> None:
         self._sessions.pop(sess.slot, None)
@@ -1338,8 +1371,26 @@ class LMService(Service):
         prompt, max_new, stream = parsed
         # the request's TLV-22 identity picks the session's SLO tier
         self.batcher().join(stream, prompt[0].copy(), max_new,
-                            tenant=cntl.request_meta.tenant)
+                            tenant=cntl.request_meta.tenant,
+                            span=self._session_span(cntl))
         return struct.pack("<I", max_new)
+
+    @staticmethod
+    def _session_span(cntl):
+        """The decode-session rpcz span: when the Decode call has a server
+        span (forced by a propagated trace id, or passively sampled), the
+        session, which outlives the call, gets a forced child span under
+        the same trace id, so the batcher's step events (join, chunk
+        slices, first token, evict) land in the request's trace; across a
+        disaggregated handoff too, since the handoff's controller carries
+        the trace on its ordinary TLVs."""
+        req_span = cntl.span
+        if req_span is None:
+            return None
+        span = Span("LMService.DecodeSession", trace_id=req_span.trace_id,
+                    parent_span_id=req_span.span_id)
+        span.remote_side = req_span.remote_side
+        return span
 
     def Info(self, cntl, request):
         c = self.cfg

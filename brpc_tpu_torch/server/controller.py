@@ -7,8 +7,9 @@ is a :class:`~brpc_tpu_torch.ici.DeviceAttachment` to redeem with
 ``.tensor()``, ``response_device_attachment`` a tensor to send back),
 error reporting, and the stream handshake (``_remote_stream_id`` from the
 request, set by ``streaming.stream_accept``'s ``_accepted_stream_id`` and
-``_accepted_stream_window`` for the response).  Async completion and
-deadlines wait for later slices of the port.
+``_accepted_stream_window`` for the response), and ``span``, the
+request's rpcz server span (None when the request was not sampled).
+Async completion and deadlines wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ class ServerController:
                  "request_attachment", "response_attachment",
                  "request_device_attachment", "response_device_attachment",
                  "_error_code", "_error_text", "_remote_stream_id",
-                 "_accepted_stream_id", "_accepted_stream_window")
+                 "_accepted_stream_id", "_accepted_stream_window", "span")
 
     def __init__(self, request_meta: RpcMeta,
                  remote_side: Optional[EndPoint] = None,
@@ -42,6 +43,7 @@ class ServerController:
         self._remote_stream_id = request_meta.stream_id
         self._accepted_stream_id = 0
         self._accepted_stream_window = 0
+        self.span = None                # rpcz Span, set by the server
 
     @property
     def failed(self) -> bool:
@@ -55,6 +57,12 @@ class ServerController:
         else:
             self._error_code = int(code_or_text)
             self._error_text = text
+
+    def annotate(self, text: str) -> None:
+        """Add a note to the request's rpcz span (a no-op when the request
+        was not sampled)."""
+        if self.span is not None:
+            self.span.annotate(text)
 
     @property
     def error_code(self) -> int:

@@ -29,8 +29,20 @@ or more onto the ring once it can (re-describing the request's slot when
 the handler echoes its view; the rest under a named reason), after the
 response has serialized.  ``stop`` waits a bounded time for this
 process's ring slots to settle.
+Observability (``brpc_tpu/server/interceptors.py``'s tpu_std epilogue):
+each method has a :class:`~brpc_tpu_torch.server.method_status.MethodStatus`
+(a latency recorder and an error counter, exposed as
+``rpc_server_<service>_<method>``), settled once per request after its
+response has serialized, the error path included, with the latency from
+the frame's arrival; and each request of a known method gets an rpcz
+server span (``rpcz.start_server_span``: forced for a traced request,
+passively sampled under ``rpcz_max_samples_per_second`` otherwise),
+backdated to the frame's arrival, on ``cntl.span`` for the handler, and
+finished with the response's size and error code.  ``start`` starts the
+bvar file dump when its flag is on.
 It speaks tpu_std only; the JAX server's other protocols, native engine,
-admission, tracing and draining wait for later slices of the port.
+admission, concurrency limiters and draining wait for later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from ..butil.endpoint import EndPoint, parse_endpoint
 from ..butil.flags import get_flag
 from ..butil.status import Errno
+from ..bvar.dump import ensure_dumper
 from ..ici.endpoint import (ici_enabled, prepare_send, process_ack,
                             split_device_attachment)
 from ..ici.fabric import local_domain_id
@@ -51,9 +64,11 @@ from ..protocol.meta import RpcMeta
 from ..protocol.streaming import StreamFrame, dispatch
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
+from ..rpcz import backdate_span, start_server_span
 from ..transport import shm_ring
 from ..transport.socket import Socket
 from .controller import ServerController
+from .method_status import MethodStatus
 from .service import extract_methods, service_name_of
 
 LOG = logging.getLogger(__name__)
@@ -67,6 +82,7 @@ class Server:
     def __init__(self):
         self._services: Dict[str, Any] = {}
         self._methods: Dict[Tuple[str, str], Callable] = {}
+        self._status: Dict[Tuple[str, str], MethodStatus] = {}
         self._listener: Optional[socket.socket] = None
         self._listen_endpoint: Optional[EndPoint] = None
         self._threads: list = []
@@ -91,7 +107,13 @@ class Server:
         self._services[sname] = service
         for mname, fn in methods.items():
             self._methods[(sname, mname)] = fn
+            self._status[(sname, mname)] = MethodStatus(f"{sname}.{mname}")
         return 0
+
+    def method_status(self, full_name: str) -> Optional[MethodStatus]:
+        """``"Service.Method"``'s MethodStatus (None for an unknown one)."""
+        svc, _, mth = full_name.rpartition(".")
+        return self._status.get((svc, mth))
 
     def start(self, addr: Any = "127.0.0.1:0") -> int:
         """Listen on ``addr`` ("ip:port"; port 0 picks a free one) and
@@ -116,6 +138,7 @@ class Server:
         self._listen_endpoint = EndPoint(host=host, port=port)
         self._stopping.clear()
         self._spawn(self._accept_loop, "tpu_std-accept")
+        ensure_dumper()     # a no-op unless the bvar_dump flag is on
         return 0
 
     @property
@@ -183,6 +206,7 @@ class Server:
                 except FrameError as e:
                     LOG.warning("closing %s: %s", peer, e)
                     return
+                recv_ns = time.monotonic_ns()
                 if isinstance(msg, AckFrame):
                     process_ack(msg.ids, sock)
                     continue
@@ -192,7 +216,7 @@ class Server:
                 # acks queued while serving ride in front of the response
                 sock.defer_acks = True
                 try:
-                    sock.write(self._dispatch(*msg, sock))
+                    sock.write(self._dispatch(*msg, sock, recv_ns))
                 finally:
                     sock.defer_acks = False
                 sock.flush_acks()
@@ -204,8 +228,27 @@ class Server:
             sock.close()
 
     def _dispatch(self, meta: RpcMeta, payload: bytes, att: bytes,
-                  sock: Socket) -> bytes:
-        """One request frame's fields -> the response frame."""
+                  sock: Socket, recv_ns: int) -> bytes:
+        """One request frame's fields -> the response frame.  A known
+        method's MethodStatus and span are settled here, once, after the
+        response frame exists (``recv_ns``: the frame's arrival on the
+        monotonic clock)."""
+        status = self._status.get((meta.service_name, meta.method_name))
+        if status is None:
+            # an unknown method: no status and no span, as in the JAX
+            # package
+            return self._answer(meta, payload, att, sock, None, recv_ns)[0]
+        status.on_requested()
+        frame, code, span = self._answer(meta, payload, att, sock, status,
+                                         recv_ns)
+        status.on_responded(code, (time.monotonic_ns() - recv_ns) // 1000)
+        if span is not None:
+            span.finish(code)
+        return frame
+
+    def _answer(self, meta: RpcMeta, payload: bytes, att: bytes,
+                sock: Socket, status: Optional[MethodStatus], recv_ns: int):
+        """``(response frame, error code, span or None)``."""
         if meta.ici_domain:
             sock.ici_peer_domain = meta.ici_domain
         if meta.ici_conn and sock.ici_conn_token is None:
@@ -223,9 +266,17 @@ class Server:
                     dev_att.settle()
                 return self._error_frame(meta, Errno.EREQUEST,
                                          "unresolvable shm attachment "
-                                         "descriptor", shm_extra)
+                                         "descriptor", shm_extra), \
+                    int(Errno.EREQUEST), None
         cntl = ServerController(meta, sock.remote_side, att, sock.id)
         cntl.request_device_attachment = dev_att
+        if status is not None:
+            span = start_server_span(status.full_name, meta,
+                                     sock.remote_side)
+            if span is not None:
+                span.request_size = len(payload) + len(att)
+                backdate_span(span, recv_ns)
+                cntl.span = span
         fn = self._methods.get((meta.service_name, meta.method_name))
         response = None
         if fn is None:
@@ -259,7 +310,7 @@ class Server:
             frame = self._response_frame(cntl, out, response, sock, handle,
                                          shm_extra)
             if frame is not None:
-                return frame
+                return frame, 0, cntl.span
         if cntl._accepted_stream_id:
             # the client never binds a stream of a failed call
             from ..streaming import find_stream
@@ -267,7 +318,8 @@ class Server:
             if stream is not None:
                 stream._close_local(notify_peer=False)
         return self._error_frame(meta, cntl.error_code, cntl.error_text,
-                                 shm_extra, out.ici_domain)
+                                 shm_extra, out.ici_domain), \
+            cntl.error_code, cntl.span
 
     @staticmethod
     def _error_frame(meta: RpcMeta, code: int, text: str, shm_extra: bytes,
@@ -315,6 +367,8 @@ class Server:
                                         else "shm_peer_no_cap")
         if device and tail is not None:
             attachment = bytes(attachment) + tail if attachment else tail
+        if cntl.span is not None:
+            cntl.span.response_size = len(body) + len(attachment or b"")
         try:
             return pack_frame(out, body, attachment, shm_extra + shm_desc)
         except FrameError as e:

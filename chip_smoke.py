@@ -90,6 +90,24 @@ result line) when a phase fails or CUDA is absent.  Phases:
    leading depth axis, int8, against the unrolled int8 service (equal
    tokens, the flash kernel once per layer), and ``Decode`` refusing the
    stacked config with EREQUEST;
+   12. observability on the serving phases' services and servers: (a)
+   three traced Generate calls (a client and a server span each, the
+   server span parented to the client span, ``flash_fwd`` depth x 3, the
+   medians of the wire, queue and handler legs from the spans' stamps,
+   MethodStatus's p50 and p99); (b) a traced Decode on the contiguous
+   batcher (its ``LMService.DecodeSession`` span under the Decode server
+   span: ``lm_join`` ... ``lm_first_token`` ... ``lm_evict:finished``, the
+   first token's offset beside the host TTFT); (c) a traced Decode through
+   the ici-lane prefill tier (one trace id over both tiers' server and
+   session spans and the handoff's client and server spans, 6b's tokens,
+   the stitched tree printed); (d) 6c (c)'s spill setup traced (``lm_spill``
+   then ``lm_resume`` on every parked session's span, as often as the
+   batcher spilled); (e) MethodStatus counted every Generate, the
+   Prometheus families present, 6b's per-tier TTFT and ITL quantiles from
+   the histograms; (f) the observer effect, by ``bench.py``'s paired
+   A/B methods: ``lm_telemetry`` on against off over decode sessions, and
+   traced against untraced 128-byte echoes, each beside its off-against-off
+   noise;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -155,6 +173,7 @@ result line) when a phase fails or CUDA is absent.  Phases:
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -190,7 +209,8 @@ from brpc_tpu_torch.kv.transport import (  # noqa: E402
     import_pages)
 from brpc_tpu_torch.kv.pages import (  # noqa: E402
     HostPagePool, prefix_event_counters)
-from brpc_tpu_torch import profiling  # noqa: E402
+from brpc_tpu_torch import profiling, rpcz_stitch  # noqa: E402
+from brpc_tpu_torch.bvar import find_exposed, render_prometheus  # noqa
 from brpc_tpu_torch.models import lm_telemetry, moe  # noqa: E402
 from brpc_tpu_torch.models.embedding_ps import EmbeddingPS, PSConfig  # noqa
 from brpc_tpu_torch.models.lm_service import (  # noqa: E402
@@ -221,7 +241,8 @@ from brpc_tpu_torch.parallel.spmd import init_world  # noqa: E402
 from brpc_tpu_torch.protocol.meta import RpcMeta  # noqa: E402
 from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
     MAX_BODY_SIZE, max_body_size, pack_frame, unpack_frame)
-from brpc_tpu_torch.server import Server  # noqa: E402
+from brpc_tpu_torch.rpcz import global_span_store  # noqa: E402
+from brpc_tpu_torch.server import Server, Service  # noqa: E402
 from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
 from brpc_tpu_torch.transport import shm_ring  # noqa: E402
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -295,6 +316,19 @@ DISAGG_PREFILL = {"Prefill": (None, False, "dec"),
                   "PrefillShm": ("shm", False, "dec"),
                   "PrefillStrict": ("copy", True, "dec"),
                   "PrefillPaged": (None, False, "dec_paged")}
+# Phase 12: traced calls on the serving phases' services, and the observer
+# effect by bench.py's methods (bench.py:1520-1626: 5 rounds of 6
+# sessions x 32 tokens an arm; bench.py:2178-2259: 7 rounds of 0.4 s
+# arms), cut to 4 sessions x 16 tokens an arm and 5 rounds of 0.25 s
+# echo arms, so that (f) with its third pair takes under 20 s
+TRACE_GENERATE = 3                 # traced (1, 1024, 32) Generate calls
+TRACE_DECODE_PROMPT = 1024
+OBS_ROUNDS = 5
+OBS_SESSIONS = 4
+OBS_PROMPT = 64
+OBS_NEW = 16
+ECHO_ROUNDS = 5
+ECHO_ARM_S = 0.25
 TIMING_REPS = 20
 # the dense/flash crossover (phase 11 (i)): prefill lengths, b = 1
 CROSSOVER_SEQS = (128, 256, 512, 768, 1024, 1536, 2048)
@@ -1708,8 +1742,10 @@ class DecodeClient:
     """One LM.Decode session on its own connection: the tokens as they
     arrive, the close reason, and the time to the first token."""
 
-    def __init__(self, ep, service: str, prompt: np.ndarray, max_new: int):
+    def __init__(self, ep, service: str, prompt: np.ndarray, max_new: int,
+                 trace_id: int = 0):
         self.prompt, self.max_new = prompt, max_new
+        self.trace_id = trace_id
         self.tokens, self.reason, self.ttft_s = [], None, None
         self.call_s = None          # the unary call's return
         self.error = None
@@ -1721,6 +1757,7 @@ class DecodeClient:
         ch.init(str(self._ep))
         cntl = Controller()
         cntl.timeout_ms = int(DECODE_TIMEOUT_S * 1000)
+        cntl.trace_id = self.trace_id
 
         def on_received(st, msgs):
             if self.ttft_s is None:
@@ -1746,11 +1783,13 @@ class DecodeClient:
 
 
 def run_decode_sessions(ep, service: str, prompts, stagger_s: float,
-                        batcher) -> tuple:
-    """Start one client thread per prompt, ``stagger_s`` apart; wait for
-    every stream to close.  Returns the clients, the wall time from the
-    first call to the last close, and the most slots seen live."""
-    clients = [DecodeClient(ep, service, p, DECODE_MAX_NEW) for p in prompts]
+                        batcher, trace_ids=None) -> tuple:
+    """Start one client thread per prompt, ``stagger_s`` apart (each call
+    traced under its ``trace_ids`` entry, if given); wait for every stream
+    to close.  Returns the clients, the wall time from the first call to
+    the last close, and the most slots seen live."""
+    clients = [DecodeClient(ep, service, p, DECODE_MAX_NEW, tid)
+               for p, tid in zip(prompts, trace_ids or [0] * len(prompts))]
     threads = [threading.Thread(target=c.run) for c in clients]
     t0 = time.perf_counter()
     most_live = 0
@@ -1848,10 +1887,12 @@ def phase_decode(ep, svc: LMService, chunked: LMService, cfg: LMConfig,
     batcher = svc.batcher()
     rounds0 = lm_telemetry.phase_counters()["decode_round"]
     round_ns0 = lm_telemetry.phase_total_ns()["decode_round"]
+    hists0 = tier_hists()
     FLASH_FWD.launches = 0
     clients, wall_s, most_live = run_decode_sessions(
         ep, "LM", prompts, DECODE_STAGGER_S, batcher)
     launches = FLASH_FWD.launches
+    hists1 = tier_hists()
     rounds = lm_telemetry.phase_counters()["decode_round"] - rounds0
     round_ms = (lm_telemetry.phase_total_ns()["decode_round"]
                 - round_ns0) / 1e6 / rounds
@@ -1886,7 +1927,9 @@ def phase_decode(ep, svc: LMService, chunked: LMService, cfg: LMConfig,
                ttft_ms=ttfts, ttft_median_ms=statistics.median(ttfts),
                ttft_max_ms=ttfts[-1], rounds=rounds, round_ms=round_ms,
                launches=launches, compared=compared, near_ties=ties,
-               session_tokens=[c.tokens for c in clients])
+               session_tokens=[c.tokens for c in clients],
+               tier_ttft_ms=hist_rows(hists0[0], hists1[0]),
+               tier_itl_ms=hist_rows(hists0[1], hists1[1]))
     res.update(phase_decode_chunked(ep, svc, chunked, cfg))
     res.update(phase_decode_profile(svc, cfg))
     return res
@@ -3400,6 +3443,480 @@ def phase_scan(svc: LMService, cfg: LMConfig) -> dict:
         srv.stop()
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: observability at full width (rpcz spans, MethodStatus, bvar,
+# lm_telemetry)
+# ---------------------------------------------------------------------------
+
+_trace_ids = itertools.count(0x12A0_0001)     # a fresh id for each trace
+
+
+def trace_spans(trace_id: int, want: set, timeout_s: float = 30.0) -> list:
+    """The spans of ``trace_id`` in this process's store once it holds a
+    span of every ``(method, is_server)`` in ``want`` (a session span
+    finishes on its batcher's thread, after the stream has closed)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        spans = global_span_store().by_trace(trace_id)
+        have = {(s.full_method, s.is_server) for s in spans}
+        if want <= have:
+            return spans
+        if time.monotonic() > deadline:
+            raise AssertionError(f"trace {trace_id:x} holds {sorted(have)}; "
+                                 f"missing {sorted(want - have)}")
+        time.sleep(0.01)
+
+
+def one_span(spans: list, method: str, server: bool = True):
+    found = [s for s in spans
+             if s.full_method == method and s.is_server == server]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} {method} spans "
+                             f"({'server' if server else 'client'})")
+    return found[0]
+
+
+def notes(span) -> list:
+    return [text for _, text in span.annotations]
+
+
+def hold_session_notes(span, label: str, middle: tuple = (),
+                       last: str = "lm_evict:finished") -> list:
+    """A session span's annotations start with ``lm_join``, hold each of
+    ``middle`` in that order, and end with ``last``."""
+    n = notes(span)
+    at = [n.index(t) if t in n else -1 for t in middle]
+    if not n or n[0] != "lm_join" or n[-1] != last or -1 in at \
+            or at != sorted(at):
+        raise AssertionError(f"{label} session span notes {n}")
+    return n
+
+
+def phase_obs_generate(ch: Channel, cfg: LMConfig, srv: Server) -> dict:
+    """(a) Traced Generate: a client and a server span per call, the
+    server span parented to the client span; the legs of a call split by
+    the spans' stamps; MethodStatus's percentiles over the calls."""
+    rng = np.random.default_rng(12)
+    b, s, max_new = REQUESTS[0]
+    rows = []
+    FLASH_FWD.launches = 0
+    for _ in range(TRACE_GENERATE):
+        tid = next(_trace_ids)
+        prompt = rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+        cntl = Controller()
+        cntl.timeout_ms = 600_000
+        cntl.trace_id = tid
+        t0 = time.perf_counter()
+        c = ch.call_method("LM.Generate", pack_generate_request(prompt,
+                                                                max_new),
+                           cntl=cntl)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if c.failed:
+            raise RuntimeError(f"traced Generate failed: [{c.error_code}] "
+                               f"{c.error_text}")
+        if unpack_generated(c.response).shape != (b, max_new):
+            raise AssertionError("bad traced Generate shape")
+        spans = trace_spans(tid, {("LM.Generate", True),
+                                  ("LM.Generate", False)})
+        client = one_span(spans, "LM.Generate", server=False)
+        server = one_span(spans, "LM.Generate")
+        if len(spans) != 2 or server.parent_span_id != client.span_id \
+                or server.error_code or client.error_code \
+                or client.span_id != cntl.span_id:
+            raise AssertionError(
+                f"trace {tid:x}: {[x.describe() for x in spans]}")
+        rows.append(dict(
+            host_ms=host_ms, client_us=client.latency_us,
+            wire_us=client.latency_us - (server.end_us - server.received_us),
+            queue_us=server.start_us - server.received_us,
+            handler_us=server.end_us - server.start_us,
+            request_size=server.request_size,
+            response_size=server.response_size))
+    launches = FLASH_FWD.launches
+    # the sampler folds the calls' latencies into its window once a second
+    time.sleep(1.1)
+    st = srv.method_status("LM.Generate")
+    p50_ms, p99_ms = st.latency.p50() / 1e3, st.latency.p99() / 1e3
+    med = {k: statistics.median(r[k] for r in rows)
+           for k in ("host_ms", "client_us", "wire_us", "queue_us",
+                     "handler_us")}
+    log(f"  (a) {TRACE_GENERATE} traced Generate b={b} s={s} "
+        f"max_new={max_new}: each a client span and a server span parented "
+        f"to it, error 0; medians: host {med['host_ms']:.2f} ms, client "
+        f"span {med['client_us'] / 1e3:.3f} ms = wire "
+        f"{med['wire_us'] / 1e3:.3f} + queue {med['queue_us'] / 1e3:.3f} + "
+        f"handler {med['handler_us'] / 1e3:.3f} ms; request "
+        f"{rows[0]['request_size']} B, response {rows[0]['response_size']} "
+        f"B; MethodStatus p50 {p50_ms:.2f} ms, p99 {p99_ms:.2f} ms over "
+        f"its window; flash_fwd launches {launches} (depth {cfg.depth} x "
+        f"{TRACE_GENERATE})")
+    if launches != cfg.depth * TRACE_GENERATE:
+        raise AssertionError("a traced Generate did not run the kernel once "
+                             "per layer")
+    return dict(rows=rows, medians=med, launches=launches,
+                status_p50_ms=p50_ms, status_p99_ms=p99_ms)
+
+
+def phase_obs_decode(ep, svc: LMService, cfg: LMConfig) -> dict:
+    """(b) One traced Decode through the contiguous batcher: its session
+    span under the Decode server span, join ... first token ... evict."""
+    tid = next(_trace_ids)
+    prompt = np.random.default_rng(13).integers(0, cfg.vocab,
+                                                TRACE_DECODE_PROMPT,
+                                                dtype=np.int32)
+    FLASH_FWD.launches = 0
+    client = DecodeClient(ep, "LM", prompt, DECODE_MAX_NEW, trace_id=tid)
+    client.run()
+    launches = FLASH_FWD.launches
+    if client.error or client.reason != "finished" \
+            or len(client.tokens) != DECODE_MAX_NEW:
+        raise AssertionError(f"traced Decode: error {client.error}, close "
+                             f"{client.reason!r}, {len(client.tokens)} "
+                             f"tokens")
+    spans = trace_spans(tid, {("LM.Decode", True), ("LM.Decode", False),
+                              ("LMService.DecodeSession", True)})
+    server = one_span(spans, "LM.Decode")
+    sess = one_span(spans, "LMService.DecodeSession")
+    if sess.parent_span_id != server.span_id \
+            or one_span(spans, "LM.Decode", False).span_id \
+            != server.parent_span_id:
+        raise AssertionError("the session span is not under the Decode "
+                             "server span")
+    n = hold_session_notes(sess, "(b)", ("lm_first_token",))
+    first_us = [us for us, t in sess.annotations
+                if t == "lm_first_token"][0]
+    span_ttft_ms = (first_us - sess.received_us) / 1e3
+    host_ttft_ms = client.ttft_s * 1e3
+    log(f"  (b) traced Decode, prompt {TRACE_DECODE_PROMPT}, "
+        f"{DECODE_MAX_NEW} new tokens: session span notes {n}; "
+        f"lm_first_token {span_ttft_ms:.1f} ms after the session span's "
+        f"start, host-clock TTFT {host_ttft_ms:.1f} ms; session span "
+        f"{sess.latency_us / 1e3:.1f} ms; flash_fwd launches {launches}")
+    if launches != cfg.depth:
+        raise AssertionError("the traced Decode's join did not run the "
+                             "kernel once per layer")
+    return dict(notes=n, span_ttft_ms=span_ttft_ms,
+                host_ttft_ms=host_ttft_ms,
+                session_ms=sess.latency_us / 1e3, launches=launches)
+
+
+def phase_obs_disagg(pre_ep, tiers: dict, cfg: LMConfig,
+                     six_b: dict) -> dict:
+    """(c) One traced Decode through the ici-lane prefill tier: one trace
+    id from the client through both tiers, each session span under its
+    tier's server span; 6b's tokens for the same prompt."""
+    tid = next(_trace_ids)
+    prompt = decode_prompts(cfg, 5, DECODE_SLOTS)[0]
+    kv0, fb0 = kv_stats(), kv_fallback_counters()
+    FLASH_FWD.launches = 0
+    client = DecodeClient(pre_ep, "Prefill", prompt, DECODE_MAX_NEW,
+                          trace_id=tid)
+    client.run()
+    launches = FLASH_FWD.launches
+    kv, fb = kv_deltas(kv0, fb0)
+    if client.error or client.reason != "finished":
+        raise AssertionError(f"traced handoff: error {client.error}, close "
+                             f"{client.reason!r}")
+    spans = trace_spans(tid, {("Prefill.Decode", True),
+                              ("LMService.DecodeSession", True),
+                              ("KV.ImportSession", False),
+                              ("KV.ImportSession", True),
+                              ("KV.DecodeTierSession", True)})
+    decode = one_span(spans, "Prefill.Decode")
+    pre = one_span(spans, "LMService.DecodeSession")
+    imp_c = one_span(spans, "KV.ImportSession", server=False)
+    imp_s = one_span(spans, "KV.ImportSession")
+    dec = one_span(spans, "KV.DecodeTierSession")
+    pre_n = hold_session_notes(pre, "(c) prefill", ("lm_chunk_slice",),
+                               last="lm_handoff")
+    dec_n = hold_session_notes(dec, "(c) decode tier", ("lm_first_token",))
+    if pre.parent_span_id != decode.span_id \
+            or imp_c.parent_span_id != pre.span_id \
+            or imp_s.parent_span_id != imp_c.span_id \
+            or dec.parent_span_id != imp_s.span_id \
+            or len(spans) != 6 or {s.trace_id for s in spans} != {tid}:
+        raise AssertionError("the handoff's spans are not one tree")
+    same = client.tokens == six_b["session_tokens"][0]
+    records = [s.describe() for s in spans]
+    roots = rpcz_stitch.build_tree(records)
+    tree = rpcz_stitch.render_tree_text(records)
+    log(f"  (c) traced Decode over the ici lane: prefill session notes "
+        f"{pre_n}, decode-tier session notes {dec_n[:2]} ... "
+        f"{dec_n[-1:]}; {len(roots)} root; tokens equal to 6b's for the "
+        f"same prompt: {same}; handoffs {kv}, fallbacks {fb or 'none'}; "
+        f"flash_fwd launches {launches}")
+    for line in tree.rstrip().splitlines():
+        log(f"    {line}")
+    if not same or len(roots) != 1 or kv["ici_sessions"] != 1 or fb \
+            or launches != cfg.depth:
+        raise AssertionError("the traced handoff did not run as 6d (a)")
+    tiers["dec"].batcher().shutdown()
+    return dict(prefill_notes=pre_n, decode_notes=dec_n, tree=tree,
+                launches=launches,
+                import_ms=(imp_s.end_us - imp_s.received_us) / 1e3)
+
+
+def phase_obs_spill(ep, paged: LMService, cfg: LMConfig) -> dict:
+    """(d) 6c (c)'s spill setup with every session traced: the parked
+    sessions' spans carry lm_spill, then lm_resume, as often as the
+    batcher spilled and resumed."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, SPILL_PROMPT, dtype=np.int32)
+               for _ in range(SPILL_SLOTS)]
+    tids = [next(_trace_ids) for _ in prompts]
+    batcher = paged.batcher()
+    spills0, resumes0 = batcher.spills, batcher.resumes
+    FLASH_FWD.launches = 0
+    run_decode_sessions(ep, "LMSpill", prompts, DECODE_STAGGER_S, batcher,
+                        trace_ids=tids)
+    launches = FLASH_FWD.launches
+    spills = batcher.spills - spills0
+    resumes = batcher.resumes - resumes0
+    sessions = [one_span(trace_spans(t, {("LMService.DecodeSession",
+                                          True)}),
+                         "LMService.DecodeSession") for t in tids]
+    parked = []
+    for sess in sessions:
+        n = hold_session_notes(sess, "(d)", ("lm_first_token",))
+        if "lm_spill" in n:
+            hold_session_notes(sess, "(d) parked", ("lm_spill",
+                                                    "lm_resume"))
+            parked.append(n)
+    n_spill = sum(notes(s).count("lm_spill") for s in sessions)
+    n_resume = sum(notes(s).count("lm_resume") for s in sessions)
+    log(f"  (d) {SPILL_SLOTS} traced sessions on LMSpill: spills {spills}, "
+        f"resumes {resumes}; lm_spill {n_spill} and lm_resume {n_resume} "
+        f"annotations; a parked session's notes "
+        f"{parked[0] if parked else None}; "
+        f"flash_fwd launches {launches}")
+    if not spills or n_spill != spills or n_resume != resumes \
+            or resumes != spills or launches != cfg.depth * SPILL_SLOTS:
+        raise AssertionError("the parked sessions' spans do not carry "
+                             "their spills and resumes")
+    if not batcher.shutdown():
+        raise AssertionError("the paged batcher did not stop")
+    return dict(spills=spills, resumes=resumes, parked_notes=parked,
+                launches=launches)
+
+
+def tier_hists() -> tuple:
+    """Copies of lm_telemetry's per-tier TTFT and ITL log2 histograms."""
+    return ({t: list(h) for t, h in lm_telemetry._tier_ttft.items()},
+            {t: list(h) for t, h in lm_telemetry._tier_itl.items()})
+
+
+def hist_rows(before: dict, after: dict) -> dict:
+    """p50/p95/p99 (ms, the bucket's upper bound) per tier of what the
+    histograms gained between two copies."""
+    out = {}
+    for tier, h in after.items():
+        d = [a - b for a, b in zip(h, before.get(tier, [0] * len(h)))]
+        if sum(d):
+            out[tier] = {q: lm_telemetry._hist_quantile_ms(d, f)
+                         for q, f in (("p50", 0.5), ("p95", 0.95),
+                                      ("p99", 0.99))}
+    return out
+
+
+def phase_obs_counters(srv: Server, six_b: dict) -> dict:
+    """(e) MethodStatus counted every Generate made on this server, the
+    exposition holds the families, and 6b's TTFT and ITL quantiles from
+    the tier histograms."""
+    st = srv.method_status("LM.Generate")
+    want = len(REQUESTS) + 1 + TRACE_GENERATE   # phases 5, 6 and 12 (a)
+    count, errors = st.latency.count(), st.errors.get_value()
+    text = render_prometheus()
+    families = ("rpc_server_lm_generate_latency",
+                "rpc_server_lm_generate_count", "lm_step_phase_ns",
+                "lm_ttft_ms", "lm_itl_ms")
+    missing = [f for f in families if f"# TYPE {f} " not in text]
+    # the first server to register LM.Generate exposes its recorder: ours
+    exposed = find_exposed("rpc_server_lm_generate") is st.latency
+    ttft, itl = six_b["tier_ttft_ms"], six_b["tier_itl_ms"]
+    log(f"  (e) LM.Generate MethodStatus: {count} calls (expected {want}: "
+        f"phase 5, the profiled request, (a)), {errors} errors; exposition "
+        f"{len(text.splitlines())} lines, families "
+        f"{'all present' if not missing else f'missing {missing}'}")
+    log(f"  6b's tier histograms: TTFT {ttft} ms, ITL {itl} ms (log2 "
+        f"buckets' upper bounds); 6b's host-clock TTFT median "
+        f"{six_b['ttft_median_ms']:.1f} ms")
+    if count != want or errors or missing or not exposed \
+            or f"rpc_server_lm_generate_count {want}\n" not in text:
+        raise AssertionError("the counters did not count what was served")
+    return dict(generate_count=count, errors=errors,
+                exposition_lines=len(text.splitlines()),
+                tier_ttft_ms=ttft, tier_itl_ms=itl)
+
+
+class TokenSink:
+    """A stream as the batcher sees one (``bench.py``'s ``Rec``): counts
+    the tokens written and keeps the close reason."""
+
+    def __init__(self):
+        self.closed = False
+        self.close_reason = None
+        self.n = 0
+        self.id = 0
+        self.options = StreamOptions()
+
+    def write(self, data) -> int:
+        self.n += 1
+        return 0
+
+    def close(self, reason=None) -> None:
+        self.closed = True
+        self.close_reason = reason
+
+
+def paired_ab(arm, a, b, rounds: int) -> tuple:
+    """``bench.py``'s paired A/B: ``arm(a)`` against ``arm(b)`` (rates)
+    in alternating order; the median per-round (B - A) / B in percent,
+    and every round's."""
+    pcts = []
+    for r in range(rounds):
+        if r % 2 == 0:
+            qa, qb = arm(a), arm(b)
+        else:
+            qb = arm(b)
+            qa = arm(a)
+        pcts.append((qb - qa) / qb * 100)
+    return statistics.median(pcts), pcts
+
+
+class Echo(Service):
+    def Echo(self, cntl, request):
+        return request
+
+
+def phase_obs_overhead(svc: LMService, cfg: LMConfig) -> dict:
+    """(f) The observer effect, by ``bench.py``'s methods: lm_telemetry on
+    against off over decode sessions on the contiguous batcher, and
+    traced against untraced 128-byte echoes over tpu_std, each beside
+    its A-against-A control; and untraced echoes with rpcz on (passive
+    sampling, what every earlier phase paid) against rpcz off."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab, OBS_PROMPT, dtype=np.int32)
+               for _ in range(OBS_SESSIONS)]
+    bat = svc.batcher()
+    FLASH_FWD.launches = 0
+
+    def telemetry_arm(on: bool) -> float:
+        set_flag("lm_telemetry", on)
+        sinks = [TokenSink() for _ in prompts]
+        t0 = time.perf_counter()
+        for sink, p in zip(sinks, prompts):
+            bat.join(sink, p, OBS_NEW)
+        while not all(s.closed for s in sinks):
+            if time.perf_counter() - t0 > DECODE_TIMEOUT_S:
+                raise AssertionError("an observer-effect session never "
+                                     "closed")
+            time.sleep(0.001)
+        dt = time.perf_counter() - t0
+        if any(s.close_reason != "finished" or s.n != OBS_NEW
+               for s in sinks):
+            raise AssertionError("an observer-effect session did not "
+                                 "finish")
+        return sum(s.n for s in sinks) / dt
+
+    try:
+        telemetry_arm(True)
+        telemetry_arm(False)
+        tel_pct, tel_rounds = paired_ab(telemetry_arm, True, False,
+                                        OBS_ROUNDS)
+        tel_noise, tel_noise_rounds = paired_ab(telemetry_arm, False, False,
+                                                OBS_ROUNDS)
+    finally:
+        set_flag("lm_telemetry", True)
+    launches = FLASH_FWD.launches
+    bat.shutdown()
+    t_mid = time.perf_counter()
+    srv, ch = Server(), Channel()
+    payload = bytes(128)
+    try:
+        if srv.add_service(Echo(), name="TR") != 0 \
+                or srv.start("127.0.0.1:0") != 0:
+            raise RuntimeError("the echo server did not start")
+        ch.init(str(srv.listen_endpoint))
+
+        def echo_arm(mode: str, secs: float = ECHO_ARM_S) -> float:
+            """Echo calls a second: ``traced`` (a fresh trace id each),
+            ``passive`` (untraced, rpcz on) or ``off`` (rpcz off)."""
+            set_flag("enable_rpcz", mode != "off")
+            n = 0
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < secs:
+                cntl = Controller()
+                cntl.timeout_ms = 10_000
+                if mode == "traced":
+                    cntl.trace_id = next(_trace_ids)
+                c = ch.call_method("TR.Echo", payload, cntl=cntl)
+                if c.failed or c.response != payload:
+                    raise RuntimeError(f"echo failed: {c.error_text}")
+                n += 1
+            return n / (time.perf_counter() - t0)
+
+        for mode in ("traced", "passive", "off"):
+            echo_arm(mode, 0.2)
+        echo_pct, echo_rounds = paired_ab(echo_arm, "traced", "passive",
+                                          ECHO_ROUNDS)
+        passive_pct, passive_rounds = paired_ab(echo_arm, "passive", "off",
+                                                ECHO_ROUNDS)
+        echo_noise, echo_noise_rounds = paired_ab(echo_arm, "passive",
+                                                  "passive", ECHO_ROUNDS)
+        traced_qps, plain_qps = echo_arm("traced"), echo_arm("passive")
+    finally:
+        set_flag("enable_rpcz", True)
+        ch.close()
+        srv.stop()
+    global_span_store().clear()         # the echoes recorded ~1e4 spans
+    t_end = time.perf_counter()
+    log(f"  (f) lm_telemetry on vs off, {OBS_SESSIONS} sessions x "
+        f"{OBS_NEW} tokens (prompt {OBS_PROMPT}) a arm, {OBS_ROUNDS} "
+        f"rounds: overhead_pct {tel_pct:.2f} (rounds "
+        f"{[round(x, 2) for x in tel_rounds]}), noise_pct {tel_noise:.2f} "
+        f"(rounds {[round(x, 2) for x in tel_noise_rounds]}); "
+        f"{t_mid - t_start:.1f} s; flash_fwd launches {launches}")
+    log(f"  (f) traced vs untraced 128-byte echoes, {ECHO_ROUNDS} rounds "
+        f"of {ECHO_ARM_S} s arms: overhead_pct {echo_pct:.2f} (rounds "
+        f"{[round(x, 2) for x in echo_rounds]}), noise_pct "
+        f"{echo_noise:.2f} (rounds "
+        f"{[round(x, 2) for x in echo_noise_rounds]}); untraced with rpcz "
+        f"on vs off: overhead_pct {passive_pct:.2f} (rounds "
+        f"{[round(x, 2) for x in passive_rounds]}); traced "
+        f"{traced_qps:.0f} calls/s, untraced {plain_qps:.0f}; "
+        f"{t_end - t_mid:.1f} s")
+    return dict(telemetry_overhead_pct=tel_pct, telemetry_rounds=tel_rounds,
+                telemetry_noise_pct=tel_noise,
+                telemetry_noise_rounds=tel_noise_rounds,
+                trace_overhead_pct=echo_pct, trace_rounds=echo_rounds,
+                trace_noise_pct=echo_noise,
+                trace_noise_rounds=echo_noise_rounds,
+                passive_overhead_pct=passive_pct,
+                passive_rounds=passive_rounds,
+                traced_qps=traced_qps, untraced_qps=plain_qps,
+                launches=launches, seconds=t_end - t_start)
+
+
+def phase_observability(ep, pre_ep, ch: Channel, srv: Server,
+                        svc: LMService, paged: dict, tiers: dict,
+                        cfg: LMConfig, six_b: dict) -> dict:
+    """Phase 12, on the serving phases' services and servers."""
+    t0 = time.perf_counter()
+    res = {"generate": phase_obs_generate(ch, cfg, srv),
+           "decode": phase_obs_decode(ep, svc, cfg),
+           "disagg": phase_obs_disagg(pre_ep, tiers, cfg, six_b),
+           "spill": phase_obs_spill(ep, paged["LMSpill"], cfg)}
+    res["counters"] = phase_obs_counters(srv, six_b)
+    res["overhead"] = phase_obs_overhead(svc, cfg)
+    res["launches"] = sum(r["launches"] for r in res.values()
+                          if isinstance(r, dict) and "launches" in r)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 12: {res['seconds']:.1f} s; flash_fwd launches "
+        f"{res['launches']}")
+    return res
+
+
 def refused_decode(ch: Channel, service: str, prompt: np.ndarray) -> tuple:
     """A Decode call with a stream attached that the service must refuse:
     ``(error code, error text)``."""
@@ -3795,6 +4312,11 @@ def main() -> int:
                               streams)
         log(f"[5s] scan_layers Generate at {SCAN_CFG}, int8")
         scan = phase_scan(svc, cfg)
+        log("[12] observability: rpcz spans, MethodStatus, bvar, "
+            "lm_telemetry")
+        obs = phase_observability(srv.listen_endpoint,
+                                  pre_srv.listen_endpoint, ch, srv, svc,
+                                  paged, tiers, cfg, streams)
     finally:
         ch.close()
         srv.stop()
@@ -3858,6 +4380,7 @@ def main() -> int:
                  "disagg": disagg["launches"],
                  "disagg_shm": disagg["shm"]["launches"],
                  "scan_generate": scan["launches"],
+                 "observability": obs["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -3935,6 +4458,7 @@ def main() -> int:
     log(f"  paged: {json.dumps(paged_res)}")
     log(f"  disagg: {json.dumps(disagg)}")
     log(f"  scan: {json.dumps(scan)}")
+    log(f"  observability: {json.dumps(obs)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

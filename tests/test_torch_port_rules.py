@@ -55,7 +55,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == n_modules >= 51
+    assert int(proc.stdout.split()[-1]) == n_modules >= 73
     names = {m.name for m in pkgutil.walk_packages([PKG], "brpc_tpu_torch.")}
     assert {"brpc_tpu_torch.utils.checkpoint",
             "brpc_tpu_torch.models.transformer_lm",
@@ -85,7 +85,50 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.parallel.ring_attention",
             "brpc_tpu_torch.parallel.pipeline",
             "brpc_tpu_torch.parallel.multiproc_dryrun",
-            "brpc_tpu_torch.profiling"} <= names
+            "brpc_tpu_torch.profiling",
+            "brpc_tpu_torch.butil.fast_rand",
+            "brpc_tpu_torch.butil.time_utils",
+            "brpc_tpu_torch.butil.logging_util",
+            "brpc_tpu_torch.butil.flat_map",
+            "brpc_tpu_torch.rpcz",
+            "brpc_tpu_torch.rpcz_stitch",
+            "brpc_tpu_torch.server.method_status"} <= names
+    assert {f"brpc_tpu_torch.bvar.{m}" for m in _BVAR_MODULES} <= names
+
+
+_BVAR_MODULES = ("variable", "reducer", "sampler", "window", "percentile",
+                 "latency_recorder", "passive_status", "multi_dimension",
+                 "collector", "trend", "prometheus", "default_variables",
+                 "dump")
+
+_IMPORT_ONE = r"""
+import importlib, importlib.abc, sys
+sys.modules["jax"] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "brpc_tpu" or name.startswith("brpc_tpu."):
+            raise ImportError("the port must not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+importlib.import_module(sys.argv[1])
+print("imported", sys.argv[1])
+"""
+
+
+@pytest.mark.parametrize("module", ["brpc_tpu_torch.bvar",
+                                    "brpc_tpu_torch.rpcz",
+                                    "brpc_tpu_torch.rpcz_stitch"])
+def test_observability_imports_alone_with_jax_and_brpc_tpu_blocked(module):
+    """The observability framework stands on its own: each of its entry
+    modules imports in a fresh interpreter with ``jax`` and every
+    ``brpc_tpu`` module refused."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["imported", module]
 
 
 @pytest.mark.parametrize("path", _port_files(),
