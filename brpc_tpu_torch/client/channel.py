@@ -38,18 +38,43 @@ id, and routes TSTR frames to their streams and TICI acks to the lane.
 A call that times out there leaves the connection up (the streams on it
 live on); its late response is dropped.  A call with ``cntl.trace_id``
 set is traced (``Controller._begin_trace_span``): its client span
-finishes with the call's outcome.  Naming, load balancing,
-retries, TLS and the other protocols wait for later slices of the port.
+finishes with the call's outcome.
+
+Retries and backup requests (``brpc_tpu/client/channel.py:20-116`` and
+the JAX ``Controller``'s attempt machinery): a call reserves
+``max_retry + 2`` correlation ids and attempt k carries ``base + k`` on
+the wire, as the JAX client's ranged id does, so a server sees the same
+frames from both.  Every attempt stamps what is left of the call's one
+deadline (TLV 13).  An attempt that fails under the retry policy is
+retried while ``max_retry`` allows and the channel's
+:class:`~brpc_tpu_torch.deadline.RetryBudget` grants a token, after
+``retry_backoff_ms`` of exponential backoff with jitter (none for the
+fail-fast codes).  A backup attempt goes out ``backup_request_ms`` after
+the call began if it is still pending, drawing from the same budget;
+the first answer wins and the losers' responses are dropped without
+error.  Inside a server handler the call's timeout is capped by the
+inherited deadline (``deadline.cap_timeout_ms``) and an expired one
+fails fast with ``ERPCTIMEDOUT``.  ``connection_type``: ``"single"``
+(one connection per channel, calls serialized on it), ``"pooled"``
+(a free list of connections, one per concurrent attempt) or ``"short"``
+(a connection per attempt).  The port's server answers a connection's
+requests in order, so a backup on ``"single"`` is sent but queues
+behind its primary and can only lose; hedging wants ``"pooled"``.
+Naming, load balancing, TLS and the other protocols wait for later
+slices of the port.
 """
 
 from __future__ import annotations
 
+import queue
 import socket
 import threading
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 from ..butil.endpoint import EndPoint, parse_endpoint
 from ..butil.status import Errno
+from ..deadline import RetryBudget, backoff_ms, cap_timeout_ms
 from ..ici.endpoint import (ack_unused, conn_nonce_of, ici_enabled,
                             prepare_send, process_ack,
                             split_device_attachment)
@@ -60,20 +85,38 @@ from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
 from ..transport import shm_ring
 from ..transport.socket import Socket
-from .controller import Controller
+from .controller import _FAIL_FAST, Controller
 
 _MAX_POST_WAIT_S = 30.0     # a request descriptor's wait for window credit
 _JOIN_TIMEOUT_S = 5.0
+_CONNECTION_TYPES = ("single", "pooled", "short")
 
 
 class ChannelOptions:
-    """Defaults mirror the JAX package's: timeout 500 ms, connect 1 s."""
+    """Defaults mirror the JAX package's: timeout 500 ms, connect 1 s,
+    3 retries, no backup request, one connection, a retry budget of 100
+    tokens refilled 0.1 per success, no backoff (5 s cap)."""
 
-    __slots__ = ("timeout_ms", "connect_timeout_ms")
+    __slots__ = ("timeout_ms", "connect_timeout_ms", "max_retry",
+                 "backup_request_ms", "connection_type", "tenant",
+                 "retry_budget_max", "retry_budget_ratio",
+                 "retry_backoff_ms", "retry_backoff_max_ms")
 
     def __init__(self):
         self.timeout_ms = 500
         self.connect_timeout_ms = 1000
+        self.max_retry = 3
+        self.backup_request_ms = -1
+        self.connection_type = "single"
+        # this channel's tenant identity, stamped on every request as
+        # meta TLV 22 (the server's per-tenant fair admission key)
+        self.tenant = ""
+        # every retry and backup attempt draws from one token bucket;
+        # max <= 0 disables it
+        self.retry_budget_max = 100.0
+        self.retry_budget_ratio = 0.1
+        self.retry_backoff_ms = 0
+        self.retry_backoff_max_ms = 5000
 
 
 class RpcError(Exception):
@@ -94,10 +137,42 @@ class _Waiter:
         self.error: Optional[str] = None
 
 
+class _Call:
+    """One call's attempts: their results arrive on ``results`` as
+    ``(version, kind, data)``; ``kind`` is ``"msg"`` (``data``: the
+    response frame's fields, its socket, shm lease and offer flag),
+    ``"err"`` (``(code, text)``) or ``"timeout"``."""
+
+    __slots__ = ("c", "method", "payload", "stream", "cid_base", "deadline",
+                 "timeout_ms", "ctype", "hedged", "results", "done",
+                 "leases", "staged", "lock")
+
+    def __init__(self, c, method, payload, stream, cid_base, deadline,
+                 timeout_ms, ctype, hedged):
+        self.c, self.method, self.payload = c, method, payload
+        self.stream = stream
+        self.cid_base = cid_base
+        self.deadline = deadline            # time.monotonic(), or None
+        self.timeout_ms = timeout_ms
+        self.ctype = ctype
+        self.hedged = hedged
+        self.results: "queue.Queue" = queue.Queue()
+        self.done = False
+        self.leases: list = []              # every attempt's shm lease
+        self.staged = False                 # an attempt staged a slot
+        self.lock = threading.Lock()
+
+    def remaining_s(self) -> Optional[float]:
+        if self.deadline is None:
+            return None
+        return self.deadline - time.monotonic()
+
+
 class Channel:
     def __init__(self, options: Optional[ChannelOptions] = None):
         self.options = options or ChannelOptions()
         self.server: Optional[EndPoint] = None
+        self.load_balancer = None       # the cluster client's, not ported
         self._sock: Optional[Socket] = None
         self._next_cid = 1
         self._lock = threading.Lock()
@@ -107,6 +182,12 @@ class Channel:
         self._reader_sock: Optional[Socket] = None
         self._waiters: Dict[int, _Waiter] = {}
         self._waiters_lock = threading.Lock()
+        self._inline: Optional[Socket] = None   # read inline by a call
+        self._want_reader: Optional[Socket] = None   # reader wanted after
+        self._pool: List[Socket] = []   # idle "pooled" connections
+        self._pool_lock = threading.Lock()
+        self._retry_budget: Optional[RetryBudget] = None
+        self._retry_budget_lock = threading.Lock()
 
     def init(self, addr: Any) -> int:
         """``addr``: "ip:port" or an EndPoint.  0 on success."""
@@ -118,10 +199,14 @@ class Channel:
         return 0
 
     def close(self) -> None:
-        """Close the connection, and with it the streams it carries."""
+        """Close the connections, and with them the streams they carry."""
         with self._lock:
             reader = self._reader
             self._drop()
+        with self._pool_lock:
+            pool, self._pool = self._pool, []
+        for sock in pool:
+            sock.close()
         if reader is not None and reader is not threading.current_thread():
             reader.join(_JOIN_TIMEOUT_S)
 
@@ -130,11 +215,42 @@ class Channel:
             self._sock.close()
             self._sock = None
 
+    # -- retry hardening ---------------------------------------------------
+
+    def retry_budget(self) -> Optional[RetryBudget]:
+        """This channel's retry-throttling token bucket (None when
+        ``retry_budget_max <= 0``)."""
+        if self.options.retry_budget_max <= 0:
+            return None
+        if self._retry_budget is None:
+            with self._retry_budget_lock:
+                # two threads racing the first retry share one bucket
+                if self._retry_budget is None:
+                    self._retry_budget = RetryBudget(
+                        self.options.retry_budget_max,
+                        self.options.retry_budget_ratio)
+        return self._retry_budget
+
+    def acquire_retry_token(self) -> bool:
+        """Spend one retry/backup token; True when the attempt may go
+        (always, with the budget disabled)."""
+        budget = self.retry_budget()
+        return True if budget is None else budget.acquire()
+
+    def on_call_success(self) -> None:
+        """Refill the retry budget on a successful response."""
+        budget = self._retry_budget
+        if budget is not None:
+            budget.on_success()
+
+    # -- calls -------------------------------------------------------------
+
     def call_method(self, method_full: str, request: Any,
                     cntl: Optional[Controller] = None) -> Controller:
         """Blocking call of ``"Service.Method"`` with a bytes request; the
         response bytes and any error land in the returned controller."""
         c = cntl or Controller()
+        c._channel = self
         stream = c._stream_to_create
         if c.trace_id:
             # an explicitly traced call: its client span opens before the
@@ -148,7 +264,7 @@ class Channel:
             except TypeError as e:
                 c.set_failed(Errno.EREQUEST, str(e))
             else:
-                self._call(c, method_full, payload, stream)
+                self._launch(c, method_full, payload, stream)
         if stream is not None and (c.failed
                                    or not stream._established.is_set()):
             # a failed call, or one the server accepted no stream on:
@@ -157,19 +273,236 @@ class Channel:
         c._end_trace_span(self.server)
         return c
 
-    def _call(self, c: Controller, method_full: str, payload: bytes,
-              stream) -> None:
-        timeout_ms = c.timeout_ms or self.options.timeout_ms
-        svc, _, mth = method_full.rpartition(".")
-        waiter = None
-        lease, offered = None, False        # the shm lane's, for this call
+    def _launch(self, c: Controller, method_full: str, payload: bytes,
+                stream) -> None:
+        opts = self.options
+        timeout_ms = opts.timeout_ms if c.timeout_ms is None \
+            else c.timeout_ms
+        # issued from a deadline'd handler, the call never outlives the
+        # upstream budget, and fails fast once it is gone
+        timeout_ms, expired = cap_timeout_ms(timeout_ms)
+        if expired:
+            c.set_failed(Errno.ERPCTIMEDOUT,
+                         "inherited deadline already expired (doomed "
+                         "downstream call failed fast)")
+            return
+        c.timeout_ms = timeout_ms
+        if c.max_retry is None:
+            c.max_retry = opts.max_retry
+        if c.backup_request_ms is None:
+            c.backup_request_ms = opts.backup_request_ms
+        if c.connection_type is None:
+            c.connection_type = opts.connection_type
+        if stream is not None:
+            # a stream binds to one long-lived connection: no second
+            # attempt could get a second server to accept it
+            c.max_retry = 0
+            c.backup_request_ms = -1
+            c.connection_type = "single"
+        if c.connection_type not in _CONNECTION_TYPES:
+            c.set_failed(Errno.EINTERNAL, "unknown connection_type "
+                         f"{c.connection_type!r}")
+            return
+        t0 = time.monotonic()
+        deadline = t0 + timeout_ms / 1e3 \
+            if timeout_ms and timeout_ms > 0 else None
+        backup = c.backup_request_ms
+        hedged = bool(backup and backup > 0
+                      and backup < (timeout_ms or 1 << 30))
         with self._lock:
-            meta = RpcMeta()
-            meta.correlation_id = self._next_cid
-            self._next_cid += 1
-            meta.service_name, meta.method_name = svc, mth
-            meta.timeout_ms = int(timeout_ms)
-            meta.trace_id, meta.span_id = c.trace_id, c.span_id
+            cid_base = self._next_cid
+            self._next_cid += c.max_retry + 2
+        call = _Call(c, method_full, payload, stream, cid_base, deadline,
+                     timeout_ms, c.connection_type, hedged)
+        self._run(call, t0 + backup / 1e3 if hedged else None)
+
+    def _run(self, call: _Call, backup_at: Optional[float]) -> None:
+        """The attempts of one call until it has an outcome (the JAX
+        ``Controller``'s ``_retry_locked``, ``_on_id_error`` and backoff
+        trampolines, on the caller's thread)."""
+        c = call.c
+        live = {0}
+        nretry = 0
+        last_err = None
+        pending = None          # (version, time) of a backed-off retry
+        self._start(call, 0)
+        while True:
+            try:
+                version, kind, data = call.results.get_nowait()
+            except queue.Empty:
+                now = time.monotonic()
+                if backup_at is not None and now >= backup_at:
+                    backup_at = None
+                    if nretry < c.max_retry and self.acquire_retry_token():
+                        c.has_backup_request = True
+                        nretry += 1
+                        c.retried_count = nretry
+                        live.add(nretry)
+                        self._start(call, nretry)
+                    continue
+                if pending is not None and now >= pending[1]:
+                    version, pending = pending[0], None
+                    if version == nretry:
+                        self._start(call, version)
+                        continue
+                    # a backup took this version's place during the
+                    # backoff: retire it rather than duplicate the cid
+                    live.discard(version)
+                    if not live:
+                        code, text = last_err or (
+                            int(Errno.ERPCTIMEDOUT),
+                            "all attempts failed during retry backoff")
+                        self._finish(call, code, text)
+                        return
+                    continue
+                if call.deadline is not None and now >= call.deadline:
+                    self._finish(call, int(Errno.ERPCTIMEDOUT),
+                                 f"deadline {call.timeout_ms}ms exceeded")
+                    return
+                wakes = [t for t in (call.deadline, backup_at,
+                                     pending[1] if pending else None)
+                         if t is not None]
+                wait = max(0.0, min(wakes) - now) if wakes else None
+                try:
+                    version, kind, data = call.results.get(timeout=wait)
+                except queue.Empty:
+                    continue
+            if version not in live:
+                self._discard(call, kind, data)     # a stale attempt's
+                continue
+            if kind == "timeout":
+                self._finish(call, int(Errno.ERPCTIMEDOUT),
+                             f"deadline {call.timeout_ms}ms exceeded")
+                return
+            if kind == "msg":
+                code, text = data[0].error_code, data[0].error_text
+                if not code:
+                    self._win(call, data)
+                    return
+            else:
+                code, text = data
+            live.discard(version)
+            if c.retry_policy(c, code) and nretry < c.max_retry \
+                    and self.acquire_retry_token():
+                if kind == "msg":
+                    self._discard(call, kind, data)
+                nretry += 1
+                c.retried_count = nretry
+                live.add(nretry)
+                delay = 0.0 if code in _FAIL_FAST else backoff_ms(
+                    self.options.retry_backoff_ms, nretry,
+                    self.options.retry_backoff_max_ms)
+                if delay > 0:
+                    pending = (nretry, time.monotonic() + delay / 1e3)
+                else:
+                    self._start(call, nretry)
+                continue
+            if kind == "msg":
+                self._win(call, data)       # the server's error answer
+                return
+            if live:
+                # another attempt is still out: it decides the call, and
+                # this failure is kept for a retired backoff version
+                last_err = (code, text)
+                continue
+            self._finish(call, code, text)
+            return
+
+    def _start(self, call: _Call, version: int) -> None:
+        """Issue attempt ``version``: inline, or on a thread of its own
+        when the call may hedge (its result lands on ``call.results``
+        either way)."""
+        if call.hedged:
+            threading.Thread(target=self._attempt, args=(call, version),
+                             name="tpu_std-attempt", daemon=True).start()
+        else:
+            self._attempt(call, version)
+
+    def _finish(self, call: _Call, code: int, text: str) -> None:
+        with call.lock:
+            call.done = True
+            leases, call.leases = call.leases, []
+        for lease in leases:
+            shm_ring.client_complete(lease)
+        if code:
+            call.c.set_failed(code, text)
+        else:
+            self.on_call_success()      # refill the retry budget
+        self._drain_results(call)
+
+    def _drain_results(self, call: _Call) -> None:
+        """Attempts that answered after the outcome: their responses are
+        dropped (their socket is released by the attempt itself)."""
+        while True:
+            try:
+                _, kind, data = call.results.get_nowait()
+            except queue.Empty:
+                return
+            self._discard(call, kind, data)
+
+    def _discard(self, call: _Call, kind: str, data) -> None:
+        """Drop a response no one takes: the credit of a device
+        descriptor on it goes back, and a pooled or short connection that
+        carried it closes (it may hold an unread frame)."""
+        if kind != "msg":
+            return
+        rmeta, _, _, sock, _, _ = data
+        ack_unused(rmeta, sock.id)
+        if call.ctype != "single":
+            sock.close()
+
+    def _attempt(self, call: _Call, version: int) -> None:
+        c = call.c
+        meta = RpcMeta()
+        meta.correlation_id = call.cid_base + version
+        meta.service_name, _, meta.method_name = call.method.rpartition(".")
+        left = call.remaining_s()
+        if left is not None:
+            # every attempt stamps what is left of the call's budget
+            meta.timeout_ms = max(1, int(left * 1000))
+        meta.trace_id, meta.span_id = c.trace_id, c.span_id
+        if self.options.tenant:
+            meta.tenant = str(self.options.tenant).encode("utf-8")
+        try:
+            if call.ctype == "single":
+                result = self._attempt_single(call, meta)
+            else:
+                result = self._attempt_owned(call, meta)
+        except Exception as e:     # never leave the call without a result
+            result = ("err", (int(Errno.EINTERNAL),
+                              f"{type(e).__name__}: {e}"))
+        call.results.put((version,) + result)
+        with call.lock:
+            late = call.done
+        if late:
+            self._drain_results(call)
+
+    def _stage(self, call: _Call, sock: Socket, meta: RpcMeta,
+               timeout_s: Optional[float]):
+        """The attempt's request frame and shm lease: ``(frame, lease,
+        offered, error)`` (``error`` a ``(code, text)`` or None).  A
+        later attempt while an earlier one staged a slot stays off the
+        shm lane (the earlier descriptor may still be unread)."""
+        with call.lock:
+            multi = call.staged
+        frame, lease, offered, err = self._request_frame(
+            call.c, sock, meta, call.payload, timeout_s, multi)
+        if lease is not None:
+            with call.lock:
+                call.staged = True
+                call.leases.append(lease)
+        return frame, lease, offered, err
+
+    def _attempt_single(self, call: _Call, meta: RpcMeta) -> tuple:
+        """One attempt on the channel's shared connection.  A call alone
+        on it writes and reads its response inline; a call that arrives
+        while another reads inline waits for its response by correlation
+        id, and the reading call hands it over (and, done, hands the
+        connection to a reader thread).  A stream, or a call that may
+        hedge, reads through the reader thread from the start."""
+        stream = call.stream
+        waiter = None
+        with self._lock:
             try:
                 sock = self._connect()
                 if stream is not None:
@@ -177,61 +510,157 @@ class Channel:
                     meta.stream_window = stream.options.max_buf_size
                     if not stream._attach(sock.id):
                         raise OSError("connection closed")
+                if self._reader_sock is not sock and self._inline is not sock \
+                        and (stream is not None or call.hedged):
                     self._start_reader(sock)
-                frame, lease, offered = self._request_frame(
-                    c, sock, meta, payload, timeout_ms)
-                if frame is None:
-                    return
-                if self._reader_sock is sock:
+                left = call.remaining_s()
+                frame, lease, offered, err = self._stage(call, sock, meta,
+                                                         left)
+                if err is not None:
+                    return "err", err
+                if self._reader_sock is sock or self._inline is sock:
+                    # the reader thread, or the call reading inline,
+                    # hands this call its response; a stream or a hedged
+                    # call keeps the reader once the inline call is done
+                    if stream is not None or call.hedged:
+                        self._want_reader = sock
                     waiter = _Waiter()
                     with self._waiters_lock:
                         self._waiters[meta.correlation_id] = waiter
                     sock.write(frame)
                 else:
-                    sock.conn.settimeout(timeout_ms / 1e3)
-                    sock.write(frame)
-                    msg = self._read_response(sock)
-            except socket.timeout:
-                self._drop()
-                shm_ring.client_complete(lease)
-                c.set_failed(Errno.ERPCTIMEDOUT,
-                             f"deadline {timeout_ms}ms exceeded")
-                return
+                    self._inline = sock
+                    sock.conn.settimeout(None if left is None
+                                         else max(left, 1e-3))
             except (OSError, EOFError, FrameError) as e:
                 if waiter is not None:
                     with self._waiters_lock:
                         self._waiters.pop(meta.correlation_id, None)
                 self._drop()
-                shm_ring.client_complete(lease)
-                c.set_failed(Errno.EFAILEDSOCKET, f"{type(e).__name__}: {e}")
-                return
-        if waiter is not None:
-            if not waiter.done.wait(timeout_ms / 1e3):
-                with self._waiters_lock:
-                    timed_out = self._waiters.pop(meta.correlation_id,
-                                                  None) is not None
-                if timed_out:
-                    shm_ring.client_complete(lease)
-                    c.set_failed(Errno.ERPCTIMEDOUT,
-                                 f"deadline {timeout_ms}ms exceeded")
-                    return
-                waiter.done.wait()      # the reader is handing it over
-            if waiter.error is not None:
-                shm_ring.client_complete(lease)
-                c.set_failed(Errno.EFAILEDSOCKET, waiter.error)
-                return
-            msg = waiter.msg
-        rmeta, body, ratt = msg
-        if rmeta.correlation_id != meta.correlation_id:
-            shm_ring.client_complete(lease)
-            ack_unused(rmeta, sock.id)
-            with self._lock:
+                return "err", (int(Errno.EFAILEDSOCKET),
+                               f"{type(e).__name__}: {e}")
+        if waiter is None:
+            return self._read_inline(sock, frame, meta, lease, offered)
+        left = call.remaining_s()
+        if not waiter.done.wait(None if left is None else max(left, 0.0)):
+            with self._waiters_lock:
+                timed_out = self._waiters.pop(meta.correlation_id,
+                                              None) is not None
+            if timed_out:
+                return "timeout", None
+            waiter.done.wait()      # its response is being handed over
+        if waiter.error is not None:
+            return "err", (int(Errno.EFAILEDSOCKET), waiter.error)
+        msg = waiter.msg
+        return "msg", (msg[0], msg[1], msg[2], sock, lease, offered)
+
+    def _read_inline(self, sock: Socket, frame: bytes, meta: RpcMeta,
+                     lease, offered) -> tuple:
+        """Write ``frame`` and read until its response, handing any other
+        call's response on the way to its waiter; then give the
+        connection to a reader thread if calls are waiting on it."""
+        result = None
+        try:
+            sock.write(frame)
+            while result is None:
+                msg = self._read_response(sock)
+                if msg[0].correlation_id == meta.correlation_id:
+                    result = "msg", (msg[0], msg[1], msg[2], sock, lease,
+                                     offered)
+                else:
+                    self._hand_over(msg, sock)
+        except socket.timeout:
+            result = "timeout", None
+        except (OSError, EOFError, FrameError) as e:
+            result = "err", (int(Errno.EFAILEDSOCKET),
+                             f"{type(e).__name__}: {e}")
+        with self._lock:
+            self._inline = None
+            if result[0] != "msg":
+                # a late response would be read as the next call's: the
+                # connection goes, with every call waiting on it
                 if self._sock is sock:
                     self._drop()
-            c.set_failed(Errno.ERESPONSE,
-                         f"response for call {rmeta.correlation_id}, "
-                         f"expected {meta.correlation_id}")
-            return
+                else:
+                    sock.close()
+                self._fail_waiters(f"connection dropped: {result[0]}")
+            else:
+                with self._waiters_lock:
+                    waiting = bool(self._waiters)
+                if (waiting or self._want_reader is sock) \
+                        and self._sock is sock and not sock.failed:
+                    self._start_reader(sock)
+            self._want_reader = None
+        return result
+
+    def _hand_over(self, msg, sock: Socket) -> None:
+        with self._waiters_lock:
+            waiter = self._waiters.pop(msg[0].correlation_id, None)
+        if waiter is None:
+            ack_unused(msg[0], sock.id)       # its call has an outcome
+        else:
+            waiter.msg = msg
+            waiter.done.set()
+
+    def _fail_waiters(self, why: str) -> None:
+        with self._waiters_lock:
+            waiters = list(self._waiters.values())
+            self._waiters.clear()
+        for waiter in waiters:
+            waiter.error = why
+            waiter.done.set()
+
+    def _attempt_owned(self, call: _Call, meta: RpcMeta) -> tuple:
+        """One attempt on a connection of its own: from the pool
+        (``"pooled"``) or fresh (``"short"``).  A pooled connection goes
+        back to the pool only after a call it won."""
+        sock = None
+        if call.ctype == "pooled":
+            with self._pool_lock:
+                while self._pool and sock is None:
+                    s = self._pool.pop()
+                    if not s.failed:
+                        sock = s
+        try:
+            if sock is None:
+                sock = self._dial()
+            left = call.remaining_s()
+            frame, lease, offered, err = self._stage(call, sock, meta, left)
+            if err is not None:
+                sock.close()
+                return "err", err
+            sock.conn.settimeout(None if left is None else max(left, 1e-3))
+            sock.write(frame)
+            msg = self._read_response(sock)
+        except socket.timeout:
+            sock.close()
+            return "timeout", None
+        except (OSError, EOFError, FrameError) as e:
+            if sock is not None:
+                sock.close()
+            return "err", (int(Errno.EFAILEDSOCKET),
+                           f"{type(e).__name__}: {e}")
+        if msg[0].correlation_id != meta.correlation_id:
+            ack_unused(msg[0], sock.id)
+            sock.close()
+            return "err", (int(Errno.ERESPONSE),
+                           f"response for call {msg[0].correlation_id}, "
+                           f"expected {meta.correlation_id}")
+        return "msg", (msg[0], msg[1], msg[2], sock, lease, offered)
+
+    def _win(self, call: _Call, data) -> None:
+        """The call's outcome is this response (success or the server's
+        error answer): settle its shm lease and resolve its descriptor,
+        split its device attachment, bind the stream."""
+        c = call.c
+        rmeta, body, ratt, sock, lease, offered = data
+        with call.lock:
+            call.done = True
+            others = [x for x in call.leases if x is not lease]
+            call.leases = []
+        for other in others:
+            shm_ring.client_complete(other)
+        owned = call.ctype != "single"
         if rmeta.ici_domain:
             sock.ici_peer_domain = rmeta.ici_domain
         view = settle = None
@@ -246,12 +675,18 @@ class Channel:
                     staged_slot=lease)
             except shm_ring.ShmDescriptorError as e:
                 ack_unused(rmeta, sock.id)
+                if owned:
+                    sock.close()
                 c.set_failed(Errno.ERESPONSE, str(e))
+                self._drain_results(call)
                 return
         if rmeta.error_code:
             ack_unused(rmeta, sock.id)
+            self._release_owned(call, sock, ok=False)
             c.set_failed(rmeta.error_code, rmeta.error_text)
+            self._drain_results(call)
             return
+        self.on_call_success()
         c.response = body
         c.response_attachment, c.response_device_attachment = \
             split_device_attachment(rmeta, ratt, sock.id)
@@ -259,10 +694,23 @@ class Channel:
             # the attachment rode the ring: its slot recycles when the
             # caller drops the view
             c.response_attachment = shm_ring.settled_view(view, settle)
-        if stream is not None and rmeta.stream_id:
+        if call.stream is not None and rmeta.stream_id:
             # the accepted stream rides the connection that answered
-            stream._bind(sock.id, rmeta.stream_id,
-                         peer_window=rmeta.stream_window)
+            call.stream._bind(sock.id, rmeta.stream_id,
+                              peer_window=rmeta.stream_window)
+        self._release_owned(call, sock, ok=True)
+        self._drain_results(call)
+
+    def _release_owned(self, call: _Call, sock: Socket, ok: bool) -> None:
+        """A won pooled connection returns to the pool; every other owned
+        connection closes."""
+        if call.ctype == "single":
+            return
+        if ok and call.ctype == "pooled" and not sock.failed:
+            with self._pool_lock:
+                self._pool.append(sock)
+        else:
+            sock.close()
 
     @staticmethod
     def _read_response(sock: Socket):
@@ -293,42 +741,35 @@ class Channel:
         why = "connection closed"
         try:
             while True:
-                msg = self._read_response(sock)
-                with self._waiters_lock:
-                    waiter = self._waiters.pop(msg[0].correlation_id, None)
-                if waiter is None:
-                    ack_unused(msg[0], sock.id)       # its call timed out
-                else:
-                    waiter.msg = msg
-                    waiter.done.set()
+                self._hand_over(self._read_response(sock), sock)
         except (OSError, EOFError, FrameError) as e:
             why = f"{type(e).__name__}: {e}"
         finally:
             sock.close()            # closes the streams it carried
-            with self._waiters_lock:
-                waiters = list(self._waiters.values())
-                self._waiters.clear()
-            for waiter in waiters:
-                waiter.error = why
-                waiter.done.set()
+            self._fail_waiters(why)
+
+    def _dial(self) -> Socket:
+        conn = socket.create_connection(
+            self.server.to_sockaddr(),
+            timeout=self.options.connect_timeout_ms / 1e3)
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        return Socket(conn)
 
     def _connect(self) -> Socket:
         if self._sock is not None and self._sock.failed:
             self._drop()
         if self._sock is None:
-            conn = socket.create_connection(
-                self.server.to_sockaddr(),
-                timeout=self.options.connect_timeout_ms / 1e3)
-            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            self._sock = Socket(conn)
+            self._sock = self._dial()
         return self._sock
 
     @staticmethod
     def _request_frame(c: Controller, sock: Socket, meta: RpcMeta,
-                       payload: bytes, timeout_ms: int):
-        """``(frame, shm slot lease, offer carried)``: the request frame,
-        with the domain exchange, the device attachment and the shm lane;
-        the frame is None after failing ``c``."""
+                       payload: bytes, timeout_s: Optional[float],
+                       multi_attempt: bool = False):
+        """``(frame, shm slot lease, offer carried, error)``: the request
+        frame, with the domain exchange, the device attachment and the
+        shm lane; ``error`` is a ``(code, text)`` and the frame None when
+        it cannot be built."""
         if ici_enabled():
             meta.ici_domain = local_domain_id()
             meta.ici_conn = conn_nonce_of(sock)
@@ -337,27 +778,27 @@ class Channel:
         if device:
             # with ici off prepare_send sends the bytes inline itself: the
             # attachment is never dropped
-            wait_s = min(_MAX_POST_WAIT_S, max(0.001, timeout_ms / 1e3))
+            wait_s = _MAX_POST_WAIT_S if timeout_s is None else \
+                min(_MAX_POST_WAIT_S, max(0.001, timeout_s))
             try:
                 tail = prepare_send(sock, meta, c.request_device_attachment,
                                     timeout_s=wait_s)
             except RuntimeError as e:
-                c.set_failed(Errno.EOVERCROWDED, str(e))
-                return None, None, False
+                return None, None, False, (int(Errno.EOVERCROWDED), str(e))
             if tail is not None:
                 attachment = bytes(attachment) + tail if attachment else tail
         extra, lease, offered = b"", None, False
         if attachment or sock.shm is not None:
             extra, wire, lease, offered = shm_ring.client_prepare(
-                sock, attachment or None, device=device)
+                sock, attachment or None, device=device,
+                multi_attempt=multi_attempt)
             attachment = b"" if wire is None else wire
         try:
             return pack_frame(meta, payload, attachment, extra), lease, \
-                offered
+                offered, None
         except FrameError as e:
             shm_ring.client_complete(lease)
-            c.set_failed(Errno.EREQUEST, str(e))
-            return None, None, False
+            return None, None, False, (int(Errno.EREQUEST), str(e))
 
     def call(self, method_full: str, request: Any,
              timeout_ms: Optional[int] = None) -> bytes:

@@ -10,26 +10,62 @@ tensor for the ICI lane) in; ``failed`` / ``error_code`` / ``error_text``,
 whose ``trace_id`` is set (with ``span_id``, the caller's span, as the
 parent) opens an rpcz client span, and the request carries the trace id
 and that span's id in its meta TLVs, so the server span parents to it.
-Retries, backup requests and load balancing wait for later slices of the
-port.
+
+Retries and backup requests (``brpc_tpu/client/controller.py:58-80``,
+``:344-370``): ``max_retry`` and ``backup_request_ms`` (None: the
+channel's), ``connection_type`` (None: the channel's; ``"single"``,
+``"pooled"`` or ``"short"``) and ``retry_policy`` (default
+:func:`default_retry_policy`, the JAX package's ``_RETRIABLE`` and
+``_FAIL_FAST`` sets) in; ``retried_count`` and ``has_backup_request``
+out.  A stream-creating call gets no retry, no backup and the single
+connection.  Load balancing waits for the cluster client slice, so the
+fail-fast codes (``ELIMIT``, ``ELAMEDUCK``) are never retried here, as
+the JAX policy decides on a channel without a load balancer.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
+from ..butil.status import Errno
 from ..rpcz import start_client_span
+
+# errors worth retrying on another attempt (≈ DefaultRetryPolicy)
+_RETRIABLE = {int(Errno.EFAILEDSOCKET), int(Errno.EEOF),
+              int(Errno.ELOGOFF), int(Errno.EUNUSED)}
+_ELIMIT = int(Errno.ELIMIT)
+_ELAMEDUCK = int(Errno.ELAMEDUCK)
+# errors the server answered in microseconds precisely so the caller can
+# go elsewhere right now: retried immediately (no backoff) and only when
+# a load balancer can pick a different replica
+_FAIL_FAST = (_ELIMIT, _ELAMEDUCK)
+
+
+def default_retry_policy(cntl: "Controller", error_code: int) -> bool:
+    if error_code in _FAIL_FAST:
+        ch = getattr(cntl, "_channel", None)
+        return ch is not None and ch.load_balancer is not None
+    return error_code in _RETRIABLE
 
 
 class Controller:
-    __slots__ = ("timeout_ms", "request_attachment",
+    __slots__ = ("timeout_ms", "max_retry", "backup_request_ms",
+                 "connection_type", "retry_policy", "request_attachment",
                  "request_device_attachment", "response",
                  "response_attachment", "response_device_attachment",
+                 "retried_count", "has_backup_request",
                  "_error_code", "_error_text", "_stream_to_create",
-                 "trace_id", "span_id", "_client_span")
+                 "trace_id", "span_id", "_client_span", "_channel")
 
     def __init__(self):
         self.timeout_ms: Optional[int] = None   # None = the channel's
+        self.max_retry: Optional[int] = None
+        self.backup_request_ms: Optional[int] = None
+        self.connection_type: Optional[str] = None
+        self.retry_policy: Callable = default_retry_policy
+        self.retried_count = 0
+        self.has_backup_request = False
+        self._channel = None            # the channel of the call
         self.request_attachment: bytes = b""
         self.request_device_attachment: Any = None
         self.response: Any = None       # response bytes

@@ -35,6 +35,13 @@ trace TLVs, and the decode tier opens ``KV.DecodeTierSession`` under that
 call's server span, backdated to the import's arrival, which its batcher
 annotates and finishes.
 
+The handoff's RPCs (``KV.Probe``, ``KV.ImportSession``) are issued on the
+``Decode`` handler's own call stack, so they inherit the request's
+remaining deadline (``deadline.inherit_deadline`` around the handler,
+``deadline.cap_timeout_ms`` in the channel): a handoff whose budget is
+gone fails fast and ends at the JAX package's reason, ``kv_probe_failed``
+before the probe is cached and ``kv_import_rejected`` (ambiguous) after.
+
 Not ported: the fleet load report in the probe answer and the
 ``fleet_kv_handoff_failed`` event (the port has no ``fleet`` yet).
 """

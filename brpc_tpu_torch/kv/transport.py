@@ -23,7 +23,10 @@ closed reason enums.  The lanes, probed per peer and chosen per handoff:
            copy per page to land).  Every arrival here is counted under a
            named reason: there is no "unknown" bucket.
 
-The handoff RPC (``KV.ImportSession``) is an ordinary unary call.  The
+The handoff RPC (``KV.ImportSession``) is an ordinary unary call, so it
+passes the decode tier's admission and deadline plane like any other
+request, and issued from a handler it inherits that request's remaining
+budget (as ``brpc_tpu/kv/transport.py:25`` says of the JAX one).  The
 probe answer carries no load-report tail (the port has no ``fleet``),
 but :func:`decode_probe_report` parses one.
 """

@@ -1,5 +1,5 @@
 from .controller import ServerController
-from .server import Server
+from .server import Server, ServerOptions
 from .service import Service
 
-__all__ = ["Server", "ServerController", "Service"]
+__all__ = ["Server", "ServerController", "ServerOptions", "Service"]

@@ -7,14 +7,20 @@ is a :class:`~brpc_tpu_torch.ici.DeviceAttachment` to redeem with
 ``.tensor()``, ``response_device_attachment`` a tensor to send back),
 error reporting, and the stream handshake (``_remote_stream_id`` from the
 request, set by ``streaming.stream_accept``'s ``_accepted_stream_id`` and
-``_accepted_stream_window`` for the response), and ``span``, the
-request's rpcz server span (None when the request was not sampled).
-Async completion and deadlines wait for later slices of the port.
+``_accepted_stream_window`` for the response), ``span``, the
+request's rpcz server span (None when the request was not sampled),
+``server``, the serving :class:`~brpc_tpu_torch.server.Server` (a
+stream accepted on it is closed by its drain), and the deadline API of
+``brpc_tpu/server/controller.py:127-146``: ``deadline_us`` (the absolute
+monotonic-µs deadline, 0 for none; the server re-anchors it at the
+frame's arrival), ``deadline_remaining_ms()`` and ``deadline_expired``.
+Async completion waits for a later slice of the port.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from time import monotonic_ns as _mono_ns
+from typing import Any, Optional
 
 from ..butil.endpoint import EndPoint
 from ..butil.status import Errno
@@ -26,7 +32,8 @@ class ServerController:
                  "request_attachment", "response_attachment",
                  "request_device_attachment", "response_device_attachment",
                  "_error_code", "_error_text", "_remote_stream_id",
-                 "_accepted_stream_id", "_accepted_stream_window", "span")
+                 "_accepted_stream_id", "_accepted_stream_window", "span",
+                 "server", "begin_time_us", "deadline_us")
 
     def __init__(self, request_meta: RpcMeta,
                  remote_side: Optional[EndPoint] = None,
@@ -44,6 +51,31 @@ class ServerController:
         self._accepted_stream_id = 0
         self._accepted_stream_window = 0
         self.span = None                # rpcz Span, set by the server
+        self.server: Any = None
+        self.begin_time_us = _mono_ns() // 1000
+        # absolute monotonic-µs deadline from the request's propagated
+        # remaining budget (TLV 13), 0 = none; deadline.arm re-anchors it
+        # at the frame's arrival, so this default is the latest possible
+        tmo = request_meta.timeout_ms
+        self.deadline_us = self.begin_time_us + tmo * 1000 if tmo > 0 \
+            else 0
+
+    # -- deadline plane ----------------------------------------------------
+
+    def deadline_remaining_ms(self) -> Optional[float]:
+        """Remaining budget of this request's propagated deadline in ms
+        (negative once expired), or None when it carries no deadline.
+        Downstream calls on the handler's own call stack inherit it
+        (``deadline.inherit_deadline``)."""
+        if not self.deadline_us:
+            return None
+        return (self.deadline_us - _mono_ns() // 1000) / 1000.0
+
+    @property
+    def deadline_expired(self) -> bool:
+        """True once the request's propagated deadline has passed."""
+        return bool(self.deadline_us) \
+            and _mono_ns() // 1000 >= self.deadline_us
 
     @property
     def failed(self) -> bool:

@@ -1,9 +1,10 @@
 """Server — serves registered services over tpu_std.
 
 The slim core of ``brpc_tpu/server/server.py``: ``add_service``,
-``start``, ``listen_endpoint`` and ``stop``, with one accept thread and
-one thread per connection on blocking sockets.  A connection's requests
-are answered in order.  Each connection is a
+``start``, ``listen_endpoint`` and ``stop``, with one accept thread and,
+per connection on blocking sockets, a reader thread that takes each frame
+off the socket as it arrives (stamping its arrival) and a worker thread
+that answers the connection's requests in order.  Each connection is a
 :class:`~brpc_tpu_torch.transport.Socket`, which carries the device
 attachment lane's state (``brpc_tpu/server/rpc_dispatch.py`` and
 ``interceptors.py``): the server learns the peer's fabric domain and pins
@@ -17,7 +18,7 @@ frames, and reclaims a connection's descriptors when it closes.  Streams
 stream with ``streaming.stream_accept``, the response meta carries the
 accepted stream's id and window, a failed call closes the stream it
 accepted, and inbound TSTR frames (the peer's acks and closes) go to
-their stream.  Frames written by other threads on a stream (a decode
+their stream, on the reader, while a request is being served.  Frames written by other threads on a stream (a decode
 batcher's tokens) share the connection's write lock with the responses.
 The shm data plane (``brpc_tpu/server/interceptors.py`` and
 ``rpc_dispatch.py``, ``transport/shm_ring.py``): the server takes a
@@ -40,25 +41,58 @@ passively sampled under ``rpcz_max_samples_per_second`` otherwise),
 backdated to the frame's arrival, on ``cntl.span`` for the handler, and
 finished with the response's size and error code.  ``start`` starts the
 bvar file dump when its flag is on.
-It speaks tpu_std only; the JAX server's other protocols, native engine,
-admission, concurrency limiters and draining wait for later slices of
-the port.
+
+The overload plane (``brpc_tpu/server/server.py:352-371``, ``:444-507``
+and the classic lane's order in ``interceptors.compile_rpc_chain``):
+:class:`ServerOptions` carries ``max_concurrency`` (an int, or a
+``make_limiter`` spec or limiter for the whole server),
+``method_max_concurrency`` (per ``"Service.Method"``, with ``"*"`` as
+the default spec) and the tenant fair-admission capacity and weights.
+A request of a known method runs, in order: admission
+(``server/admission.py``, CoDel's sojourn measured from the frame's
+arrival), the deadline arm at that arrival and the shed
+(``deadline.maybe_shed``, lane ``"tpu_std"``), the handler inside
+``inherit_deadline``, and the settle through
+``MethodStatus.on_responded`` and ``on_request_out(tenant=...)`` on
+every outcome.  A rejection or a shed runs no user code; a shed still
+gets its span and its MethodStatus error count, a rejection neither (as
+in the JAX lane, where it is answered before the controller exists).
+The drain plane (``:813-916``, ``:50-167``): :meth:`Server.drain` pauses
+accepting, answers new requests ``ELAMEDUCK`` through admission, sets
+the lame-duck TLV on every response while draining, closes the server's
+streams under ``lame_duck``, waits for in-flight requests, force-closes
+the connections at grace expiry (``drain_grace_expired``), then settles
+the shm ring's slots and the exported KV pages and host spills;
+:meth:`join` waits for in-flight work bounded by the grace,
+``graceful_quit_on_sigterm`` drains every live server on SIGTERM, and
+``server_drain_state`` / ``drain_inflight_remaining`` are exposed.
+It speaks tpu_std only.  Cut, each for a later slice of the port: the
+other protocols and the native engine (so the client demux's settle in
+``drain``), ``publish``/``unpublish`` and the fleet hooks of ``drain``
+and ``stop`` (fleet and naming), and ``export_listeners`` (hot restart).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import socket
 import threading
 import time
+import weakref
+from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..butil.endpoint import EndPoint, parse_endpoint
-from ..butil.flags import get_flag
+from ..butil.flags import define_flag, get_flag
 from ..butil.status import Errno
 from ..bvar.dump import ensure_dumper
-from ..ici.endpoint import (ici_enabled, prepare_send, process_ack,
-                            split_device_attachment)
+from ..bvar.passive_status import PassiveStatus
+from ..deadline import arm as _arm_deadline
+from ..deadline import inherit_deadline
+from ..deadline import maybe_shed as _maybe_shed
+from ..ici.endpoint import (ack_unused, ici_enabled, prepare_send,
+                            process_ack, split_device_attachment)
 from ..ici.fabric import local_domain_id
 from ..protocol.meta import RpcMeta
 from ..protocol.streaming import StreamFrame, dispatch
@@ -77,22 +111,228 @@ _JOIN_TIMEOUT_S = 5.0
 _POST_TIMEOUT_S = 5.0       # a response descriptor's wait for window credit
 _DRAIN_S = 1.0              # stop's wait for the ring's slots to settle
 
+# -- operability plane (graceful drain / lame duck) -------------------------
+
+define_flag("drain_grace_ms", 5000,
+            "graceful-drain grace: how long Server.drain() (and a "
+            "post-stop join()) waits for in-flight requests, staged "
+            "shm slots and exported KV pages to settle before "
+            "force-closing stragglers with the named reason "
+            "'drain_grace_expired'",
+            validator=lambda v: isinstance(v, int) and v > 0)
+define_flag("enable_lame_duck", True,
+            "emit the lame-duck drain signal (tpu_std meta TLV 23) on "
+            "every response while draining: clients re-resolve "
+            "immediately with no breaker penalty.  Off = drain still "
+            "rejects new work (ELAMEDUCK) but peers only learn per "
+            "rejection",
+            validator=lambda v: isinstance(v, bool))
+define_flag("graceful_quit_on_sigterm", False,
+            "install a SIGTERM handler that drains every live server "
+            "(lame-duck, bounded in-flight + stream settle) and then "
+            "stops it — the brpc -graceful_quit_on_sigterm shape.  Read "
+            "at Server.start(); the handler can only install from the "
+            "main thread",
+            validator=lambda v: isinstance(v, bool))
+
+# drain phases (ints so the bvar graphs)
+DRAIN_SERVING, DRAIN_DRAINING, DRAIN_STOPPED = 0, 1, 2
+_DRAIN_PHASE_NAMES = ("serving", "draining", "stopped")
+# the named force-close reason at grace expiry
+DRAIN_FORCE_CLOSE_REASON = "drain_grace_expired"
+
+_live_servers: "weakref.WeakSet[Server]" = weakref.WeakSet()
+_sigterm_installed = False
+
+
+def _install_sigterm_drain() -> None:
+    """``-graceful_quit_on_sigterm``: SIGTERM -> ``drain()`` then
+    ``stop()`` on every live server, on a worker thread (the handler
+    itself only spawns it).  A process parked in
+    ``run_until_asked_to_quit()``/``join()`` then returns from main.  A
+    second SIGTERM restores the default disposition and re-delivers.
+    Installable from the main thread only; elsewhere a warning."""
+    global _sigterm_installed
+    if _sigterm_installed:
+        return
+    import signal as _signal
+
+    _drain_started = [False]
+
+    def _on_sigterm(_signum, _frame):
+        if _drain_started[0]:
+            _signal.signal(_signal.SIGTERM, _signal.SIG_DFL)
+            os.kill(os.getpid(), _signal.SIGTERM)
+            return
+        _drain_started[0] = True
+
+        def _drain_all():
+            for s in list(_live_servers):
+                if not s._started:
+                    continue
+                # one server's failure must not leave the rest serving
+                try:
+                    s.drain()
+                except Exception:
+                    LOG.exception("sigterm drain failed for %s",
+                                  s._listen_endpoint)
+                finally:
+                    try:
+                        s.stop()
+                    except Exception:
+                        LOG.exception("sigterm stop failed for %s",
+                                      s._listen_endpoint)
+
+        threading.Thread(target=_drain_all, name="sigterm-drain",
+                         daemon=True).start()
+
+    try:
+        _signal.signal(_signal.SIGTERM, _on_sigterm)
+        _sigterm_installed = True
+    except ValueError:
+        LOG.warning("graceful_quit_on_sigterm: not on the main "
+                    "thread; SIGTERM handler not installed")
+
+
+def _drain_state_now() -> int:
+    """The highest drain phase across started servers (0 once nothing
+    serves or drains)."""
+    st = DRAIN_SERVING
+    for s in list(_live_servers):
+        if s._started:
+            st = max(st, s._drain_state)
+    return st
+
+
+def _drain_inflight_now() -> int:
+    """In-flight requests still settling on draining servers."""
+    n = 0
+    for s in list(_live_servers):
+        if s._drain_state == DRAIN_DRAINING:
+            n += s._inflight
+    return n
+
+
+_drain_state_var = PassiveStatus(_drain_state_now,
+                                 name="server_drain_state")
+_drain_inflight_var = PassiveStatus(_drain_inflight_now,
+                                    name="drain_inflight_remaining")
+
+
+def _ensure_drain_vars() -> None:
+    """Re-expose the drain gauges at every Server construction: a test's
+    registry wipe must not drop them for the rest of the process."""
+    from ..bvar.variable import find_exposed
+    for name, var in (("server_drain_state", _drain_state_var),
+                      ("drain_inflight_remaining", _drain_inflight_var)):
+        if find_exposed(name) is not var:
+            var.expose(name)
+
+
+class ServerOptions:
+    """The overload plane's half of ``brpc_tpu/server/server.py``'s
+    ServerOptions (the other options belong to lanes not ported)."""
+
+    __slots__ = ("max_concurrency", "method_max_concurrency",
+                 "tenant_fair_capacity", "tenant_weights")
+
+    def __init__(self):
+        # server-wide in-flight cap: an int (0 = off), or a make_limiter
+        # spec ("auto" / "timeout[:ms]" / "constant:N") or a
+        # ConcurrencyLimiter instance
+        self.max_concurrency: Any = 0
+        # "Service.Method" -> int cap, spec or ConcurrencyLimiter; "*" is
+        # the default spec for every method without its own entry
+        self.method_max_concurrency: Dict[str, Any] = {}
+        # per-tenant fair admission: the concurrency the tenant scheduler
+        # divides (0 = account, never reject), weights default to 1
+        self.tenant_fair_capacity = 0
+        self.tenant_weights: Dict[str, float] = {}
+
+
+class _RequestQueue:
+    """One connection's request frames, in arrival order, between its
+    reader and its worker.  ``close`` drops what is queued; whichever of
+    the two sees the connection last closes it (``close`` says whether
+    the worker is idle, ``finish_item`` whether it was closed meanwhile)."""
+
+    def __init__(self):
+        self._items: deque = deque()
+        self._cond = threading.Condition()
+        self._closed = False
+        self._busy = False
+
+    def put(self, item) -> None:
+        with self._cond:
+            self._items.append(item)
+            self._cond.notify()
+
+    def get(self):
+        with self._cond:
+            self._cond.wait_for(lambda: self._items or self._closed)
+            if self._closed:
+                return None
+            self._busy = True
+            return self._items.popleft()
+
+    def finish_item(self) -> bool:
+        """The worker is done with its item: True when the queue closed
+        meanwhile (the worker then closes the connection)."""
+        with self._cond:
+            self._busy = False
+            return self._closed
+
+    def close(self) -> bool:
+        """True when no item is being served (the caller then closes the
+        connection)."""
+        with self._cond:
+            self._closed = True
+            self._items.clear()
+            self._cond.notify()
+            return not self._busy
+
+
+class _MethodEntry:
+    __slots__ = ("fn", "status")
+
+    def __init__(self, fn: Callable, status: MethodStatus):
+        self.fn = fn
+        self.status = status
+
 
 class Server:
-    def __init__(self):
+    def __init__(self, options: Optional[ServerOptions] = None):
+        self.options = options or ServerOptions()
         self._services: Dict[str, Any] = {}
-        self._methods: Dict[Tuple[str, str], Callable] = {}
-        self._status: Dict[Tuple[str, str], MethodStatus] = {}
+        self._methods: Dict[Tuple[str, str], _MethodEntry] = {}
         self._listener: Optional[socket.socket] = None
         self._listen_endpoint: Optional[EndPoint] = None
         self._threads: list = []
-        self._conns: set = set()
+        self._workers: list = []        # one per connection that asked
+        self._conns: Dict[socket.socket, Optional[Socket]] = {}
         self._lock = threading.Lock()
         self._stopping = threading.Event()
+        self._accept_paused = False
+        self._started = False
+        self._stopped_event = threading.Event()
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        # the drain rendezvous shares the in-flight lock, so
+        # on_request_out's decrement and its notify are one section
+        self._drain_state = DRAIN_SERVING
+        self._drain_cv = threading.Condition(self._inflight_lock)
+        self._drain_force_closed = 0
+        self._admission = None          # lazy AdmissionControl
+        self._server_limiter = None     # from a spec'd max_concurrency
+        self._server_limiter_spec = None
+        _live_servers.add(self)
+        _ensure_drain_vars()
 
     def add_service(self, service: Any, name: str = "") -> int:
         """Register ``service`` under ``name`` (default: its class name);
-        its public methods become ``name.Method``.  0 on success."""
+        its public methods become ``name.Method``, each with its
+        MethodStatus and the cap or limiter ``method_max_concurrency``
+        gives it.  0 on success."""
         if self._listener is not None:
             LOG.error("add_service after start")
             return -1
@@ -104,16 +344,101 @@ class Server:
         if not methods:
             LOG.error("service %s has no public methods", sname)
             return -1
+        from ..policy.concurrency_limiter import (ConcurrencyLimiter,
+                                                  make_limiter)
+        default_mc = self.options.method_max_concurrency.get("*", 0)
+        if isinstance(default_mc, ConcurrencyLimiter):
+            # one instance shared by every method would mix their
+            # latencies into one adaptive state: a spec gets a fresh
+            # limiter per method
+            LOG.error("method_max_concurrency['*'] must be a spec "
+                      "(e.g. \"auto\"), not a limiter instance")
+            return -1
         self._services[sname] = service
         for mname, fn in methods.items():
-            self._methods[(sname, mname)] = fn
-            self._status[(sname, mname)] = MethodStatus(f"{sname}.{mname}")
+            full = f"{sname}.{mname}"
+            mc = self.options.method_max_concurrency.get(full, default_mc)
+            limiter = None
+            if isinstance(mc, ConcurrencyLimiter):
+                limiter, mc = mc, 0
+            elif isinstance(mc, str):
+                limiter = make_limiter(mc)
+                mc = 0
+            self._methods[(sname, mname)] = _MethodEntry(
+                fn, MethodStatus(full, max_concurrency=mc, limiter=limiter))
         return 0
+
+    def find_method(self, service_name: str,
+                    method_name: str) -> Optional[_MethodEntry]:
+        return self._methods.get((service_name, method_name))
 
     def method_status(self, full_name: str) -> Optional[MethodStatus]:
         """``"Service.Method"``'s MethodStatus (None for an unknown one)."""
         svc, _, mth = full_name.rpartition(".")
-        return self._status.get((svc, mth))
+        entry = self._methods.get((svc, mth))
+        return entry.status if entry is not None else None
+
+    # -- server-wide concurrency + admission (overload plane) -------------
+
+    @property
+    def admission(self):
+        """This server's AdmissionControl (lazy)."""
+        ctl = self._admission
+        if ctl is None:
+            from .admission import AdmissionControl
+            with self._inflight_lock:
+                if self._admission is None:
+                    self._admission = AdmissionControl(self)
+                ctl = self._admission
+        return ctl
+
+    def server_limiter(self):
+        """The server-wide limiter when ``options.max_concurrency`` is a
+        spec or a limiter (None for the int cap), parsed again whenever
+        the option changes."""
+        mc = self.options.max_concurrency
+        if isinstance(mc, int):
+            return None
+        if mc is not self._server_limiter_spec:
+            from ..policy.concurrency_limiter import (ConcurrencyLimiter,
+                                                      make_limiter)
+            self._server_limiter = mc if isinstance(mc, ConcurrencyLimiter) \
+                else make_limiter(mc)
+            self._server_limiter_spec = mc
+        return self._server_limiter
+
+    def on_request_in(self) -> bool:
+        lim = self.server_limiter()
+        limit = lim.max_concurrency() if lim is not None \
+            else self.options.max_concurrency
+        with self._inflight_lock:
+            if limit > 0 and self._inflight >= limit:
+                return False
+            self._inflight += 1
+            return True
+
+    def on_request_out(self, tenant=None, error_code: int = 0,
+                       latency_us: float = 0.0) -> None:
+        """Settle one admitted request: the in-flight count (the last one
+        wakes ``drain``/``join``), the server-wide limiter's feed and the
+        tenant's fair-admission slot."""
+        with self._inflight_lock:
+            if self._inflight > 0:
+                self._inflight -= 1
+            if self._inflight == 0:
+                self._drain_cv.notify_all()
+        if error_code or latency_us:
+            lim = self._server_limiter
+            if lim is not None:
+                lim.on_responded(error_code, latency_us)
+        if tenant is not None and self._admission is not None:
+            self._admission.release(tenant)
+
+    @property
+    def inflight(self) -> int:
+        return self._inflight
+
+    # -- lifecycle ---------------------------------------------------------
 
     def start(self, addr: Any = "127.0.0.1:0") -> int:
         """Listen on ``addr`` ("ip:port"; port 0 picks a free one) and
@@ -137,6 +462,13 @@ class Server:
         self._listener = lsock
         self._listen_endpoint = EndPoint(host=host, port=port)
         self._stopping.clear()
+        self._accept_paused = False
+        self._started = True
+        self._drain_state = DRAIN_SERVING
+        self._drain_force_closed = 0
+        self._stopped_event.clear()
+        if bool(get_flag("graceful_quit_on_sigterm", False)):
+            _install_sigterm_drain()
         self._spawn(self._accept_loop, "tpu_std-accept")
         ensure_dumper()     # a no-op unless the bvar_dump flag is on
         return 0
@@ -146,14 +478,20 @@ class Server:
         return self._listen_endpoint
 
     def stop(self) -> int:
-        """Close the listener and every connection, and join the threads
-        (a request being served is let finish, up to a timeout)."""
+        """Close the listener and every connection and join the threads;
+        a request being served is let finish, all of them together
+        bounded by a timeout (``join`` waits for them up to the drain
+        grace).  After a completed :meth:`drain` nothing is in flight to
+        cut."""
         if self._listener is None:
             return 0
+        self._started = False
+        self._drain_state = DRAIN_STOPPED
         self._stopping.set()
         with self._lock:
             conns = list(self._conns)
-            threads = list(self._threads)
+            threads, self._threads = self._threads, []
+            workers, self._workers = self._workers, []
         for conn in conns:
             try:
                 conn.shutdown(socket.SHUT_RDWR)
@@ -161,6 +499,14 @@ class Server:
                 pass
         for t in threads:
             t.join(_JOIN_TIMEOUT_S)
+        self._stopped_event.set()
+        with self._inflight_lock:
+            # joiners wake even if in-flight never settles: their wait is
+            # grace-bounded
+            self._drain_cv.notify_all()
+        until = time.monotonic() + _JOIN_TIMEOUT_S
+        for t in workers:
+            t.join(max(0.0, until - time.monotonic()))
         left = shm_ring.drain_settle(time.monotonic() + _DRAIN_S)
         if left:
             LOG.warning("stop: %d shm slot(s) of this process still "
@@ -168,20 +514,135 @@ class Server:
         self._listener.close()
         self._listener = None
         self._listen_endpoint = None
-        self._threads = []
         return 0
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Block until ``stop()`` and every in-flight request has settled,
+        the latter bounded by ``drain_grace_ms``."""
+        self._stopped_event.wait(timeout)
+        if not self._stopped_event.is_set():
+            return                      # the caller's timeout
+        deadline = time.monotonic() + \
+            int(get_flag("drain_grace_ms", 5000)) / 1e3
+        with self._inflight_lock:
+            while self._inflight > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    LOG.warning("join(): %d request(s) still in flight "
+                                "at drain-grace expiry", self._inflight)
+                    return
+                self._drain_cv.wait(min(left, 0.05))
+
+    def run_until_asked_to_quit(self) -> None:
+        try:
+            self.join()
+        except KeyboardInterrupt:
+            self.stop()
+
+    # -- operability plane: drain / lame duck ------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._drain_state == DRAIN_DRAINING
+
+    @property
+    def drain_phase(self) -> str:
+        return _DRAIN_PHASE_NAMES[self._drain_state]
+
+    @property
+    def lame_duck_signal_on(self) -> bool:
+        """True while responses carry the lame-duck signal."""
+        return self._drain_state == DRAIN_DRAINING \
+            and bool(get_flag("enable_lame_duck", True))
+
+    @property
+    def drain_force_closed(self) -> int:
+        return self._drain_force_closed
+
+    def _wait_inflight_zero(self, deadline_mono: float) -> bool:
+        with self._inflight_lock:
+            while self._inflight > 0:
+                left = deadline_mono - time.monotonic()
+                if left <= 0:
+                    return False
+                self._drain_cv.wait(min(left, 0.05))
+            return True
+
+    def _force_close_stragglers(self) -> int:
+        """Grace expired: close the live connections, each with the named
+        reason, so a client sees a closed connection and an operator a
+        counted event, never a silent hang."""
+        with self._lock:
+            socks = [s for s in self._conns.values() if s is not None]
+        for sock in socks:
+            sock.close()
+        n = len(socks)
+        self._drain_force_closed += n
+        if n:
+            LOG.warning("drain grace expired: force-closed %d "
+                        "connection(s) (%s)", n, DRAIN_FORCE_CLOSE_REASON)
+        return n
+
+    def drain(self, grace_ms: Optional[int] = None) -> int:
+        """Enter lame duck and finish in-flight work (≈ the graceful half
+        of brpc ``Server::Stop``):
+
+        1. stop accepting (the listener stays open) and stamp the
+           lame-duck signal on every response;
+        2. answer new requests ``ELAMEDUCK`` through admission;
+        3. close the streams this server accepted, each after a short
+           settle of its window, with the reason ``lame_duck``;
+        4. wait, bounded by ``grace_ms`` (default the ``drain_grace_ms``
+           flag), for in-flight requests; at grace expiry force-close
+           the connections under ``drain_grace_expired``;
+        5. within the same deadline, settle this process's shm ring
+           slots, exported KV pages and host-tier spills in flight.
+
+        0 when everything settled inside the grace, -1 otherwise.
+        ``stop()`` afterwards is client-invisible.  Idempotent while
+        draining."""
+        if not self._started:
+            return -1
+        if self._drain_state == DRAIN_DRAINING:
+            return 0
+        grace = int(grace_ms if grace_ms is not None
+                    else get_flag("drain_grace_ms", 5000))
+        deadline = time.monotonic() + grace / 1e3
+        self._drain_state = DRAIN_DRAINING
+        self._accept_paused = True
+        from ..streaming import drain_server_streams
+        drain_server_streams(self, deadline)
+        settled = self._wait_inflight_zero(deadline)
+        if not settled:
+            self._force_close_stragglers()
+        # data-plane residue inside the same deadline (process-wide
+        # gauges: a co-hosted client's traffic counts too)
+        from ..kv import pages as _kv_pages
+        shm_left = shm_ring.drain_settle(deadline)
+        kv_left = _kv_pages.drain_settle(deadline)
+        if shm_left or kv_left:
+            LOG.warning("drain grace expired with %d shm slot(s) and %d "
+                        "kv page(s) or spill(s) unsettled", shm_left,
+                        kv_left)
+        return 0 if settled and not shm_left and not kv_left else -1
 
     # -- internals ---------------------------------------------------------
 
-    def _spawn(self, target, name: str, *args) -> None:
+    def _spawn(self, target, name: str, *args) -> threading.Thread:
         t = threading.Thread(target=target, args=args, name=name,
                              daemon=True)
         with self._lock:
             self._threads.append(t)
         t.start()
+        return t
 
     def _accept_loop(self) -> None:
         while not self._stopping.is_set():
+            if self._accept_paused:
+                # draining: the listener stays open, new connections wait
+                # in its backlog
+                self._stopping.wait(_ACCEPT_POLL_S)
+                continue
             try:
                 conn, peer = self._listener.accept()
             except socket.timeout:
@@ -191,12 +652,21 @@ class Server:
             conn.settimeout(None)
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             with self._lock:
-                self._conns.add(conn)
+                self._conns[conn] = None
             self._spawn(self._serve_conn, "tpu_std-conn", conn,
                         EndPoint(host=peer[0], port=peer[1]))
 
     def _serve_conn(self, conn: socket.socket, peer: EndPoint) -> None:
+        """The connection's reader: every frame is taken off the socket as
+        it arrives (its arrival stamped for the deadline plane and
+        CoDel); acks and stream frames are handled at once, requests are
+        queued for the connection's worker, which answers them in
+        order."""
         sock = Socket(conn, remote_side=peer)
+        with self._lock:
+            self._conns[conn] = sock
+        work = _RequestQueue()
+        worker = None
         try:
             while not self._stopping.is_set():
                 try:
@@ -213,38 +683,86 @@ class Server:
                 if isinstance(msg, StreamFrame):
                     dispatch(msg, sock)
                     continue
-                # acks queued while serving ride in front of the response
-                sock.defer_acks = True
-                try:
-                    sock.write(self._dispatch(*msg, sock, recv_ns))
-                finally:
-                    sock.defer_acks = False
-                sock.flush_acks()
-        except OSError:
-            pass
+                if worker is None:
+                    worker = threading.Thread(
+                        target=self._work_conn, args=(conn, sock, work),
+                        name="tpu_std-work", daemon=True)
+                    with self._lock:
+                        self._workers.append(worker)
+                    worker.start()
+                work.put((msg, recv_ns))
         finally:
-            with self._lock:
-                self._conns.discard(conn)
-            sock.close()
+            # requests still queued have no one to answer: dropped; one
+            # being served finishes first, and its worker closes the
+            # connection
+            if work.close():
+                self._close_conn(conn, sock)
+
+    def _work_conn(self, conn: socket.socket, sock: Socket,
+                   work: _RequestQueue) -> None:
+        while True:
+            item = work.get()
+            if item is None:
+                return
+            msg, recv_ns = item
+            # acks queued while serving ride in front of the response
+            sock.defer_acks = True
+            try:
+                frame = self._dispatch(*msg, sock, recv_ns)
+                sock.write(frame)
+            except OSError:
+                pass            # the connection is gone: dropped
+            finally:
+                sock.defer_acks = False
+            sock.flush_acks()
+            if work.finish_item():
+                self._close_conn(conn, sock)
+                return
+
+    def _close_conn(self, conn: socket.socket, sock: Socket) -> None:
+        with self._lock:
+            self._conns.pop(conn, None)
+        sock.close()
 
     def _dispatch(self, meta: RpcMeta, payload: bytes, att: bytes,
                   sock: Socket, recv_ns: int) -> bytes:
-        """One request frame's fields -> the response frame.  A known
-        method's MethodStatus and span are settled here, once, after the
-        response frame exists (``recv_ns``: the frame's arrival on the
-        monotonic clock)."""
-        status = self._status.get((meta.service_name, meta.method_name))
-        if status is None:
-            # an unknown method: no status and no span, as in the JAX
-            # package
+        """One request frame's fields -> the response frame
+        (``recv_ns``: the frame's arrival on the monotonic clock).  A
+        known method runs admission first; an admitted one is settled
+        here, once, after its response frame exists: MethodStatus, the
+        server's in-flight count and tenant slot, and its span."""
+        entry = self._methods.get((meta.service_name, meta.method_name))
+        if entry is None:
+            # an unknown method: no admission, status or span, as in the
+            # JAX package
             return self._answer(meta, payload, att, sock, None, recv_ns)[0]
-        status.on_requested()
-        frame, code, span = self._answer(meta, payload, att, sock, status,
-                                         recv_ns)
-        status.on_responded(code, (time.monotonic_ns() - recv_ns) // 1000)
+        if not self._started:
+            return self._reject(meta, sock, int(Errno.ELOGOFF),
+                                "server is stopping")
+        rej = self.admission.admit(entry, "tpu_std", meta.tenant,
+                                   recv_ns // 1000)
+        if rej is not None:
+            return self._reject(meta, sock, rej.code, rej.text)
+        frame, code, span = self._answer(meta, payload, att, sock,
+                                         entry.status, recv_ns)
+        latency_us = (time.monotonic_ns() - recv_ns) // 1000
+        entry.status.on_responded(code, latency_us)
+        self.on_request_out(tenant=meta.tenant, error_code=code,
+                            latency_us=latency_us)
         if span is not None:
             span.finish(code)
         return frame
+
+    def _reject(self, meta: RpcMeta, sock: Socket, code: int,
+                text: str) -> bytes:
+        """A request answered before its controller exists (admission,
+        a stopping server): the client's posted device-window credit
+        goes back, and while draining the frame carries the lame-duck
+        signal."""
+        if meta.ici_desc:
+            ack_unused(meta, sock.id)
+        return self._error_frame(meta, code, text, b"",
+                                 lame_duck=self.lame_duck_signal_on)
 
     def _answer(self, meta: RpcMeta, payload: bytes, att: bytes,
                 sock: Socket, status: Optional[MethodStatus], recv_ns: int):
@@ -270,6 +788,8 @@ class Server:
                     int(Errno.EREQUEST), None
         cntl = ServerController(meta, sock.remote_side, att, sock.id)
         cntl.request_device_attachment = dev_att
+        cntl.server = self
+        shed = False
         if status is not None:
             span = start_server_span(status.full_name, meta,
                                      sock.remote_side)
@@ -277,9 +797,17 @@ class Server:
                 span.request_size = len(payload) + len(att)
                 backdate_span(span, recv_ns)
                 cntl.span = span
-        fn = self._methods.get((meta.service_name, meta.method_name))
+            # the deadline plane, after admission and before user code:
+            # TLV 13's budget anchored at the frame's arrival (an
+            # explicit on-wire 0 is expired at arrival), then the shed
+            if meta.timeout_ms or meta.timeout_present:
+                _arm_deadline(cntl, meta.timeout_ms, recv_ns // 1000)
+                shed = _maybe_shed(cntl, "tpu_std", status.full_name)
+        entry = self._methods.get((meta.service_name, meta.method_name))
         response = None
-        if fn is None:
+        if shed:
+            pass                # answered ERPCTIMEDOUT by maybe_shed
+        elif entry is None:
             known = meta.service_name in self._services
             cntl.set_failed(Errno.ENOMETHOD if known else Errno.ENOSERVICE,
                             f"unknown {meta.service_name}."
@@ -289,7 +817,8 @@ class Server:
                             f"unsupported compress_type {meta.compress_type}")
         else:
             try:
-                response = fn(cntl, payload)
+                with inherit_deadline(cntl):
+                    response = entry.fn(cntl, payload)
             except Exception as e:  # a failing method answers EINTERNAL
                 LOG.exception("method %s.%s raised", meta.service_name,
                               meta.method_name)
@@ -303,6 +832,9 @@ class Server:
         out.correlation_id = meta.correlation_id
         if meta.ici_domain and ici_enabled():
             out.ici_domain = local_domain_id()   # answer the exchange
+        lame_duck = self.lame_duck_signal_on
+        if lame_duck:
+            out.lame_duck = 1   # draining: in-flight work still answers
         if not cntl.failed:
             if cntl._accepted_stream_id:
                 out.stream_id = cntl._accepted_stream_id
@@ -318,17 +850,20 @@ class Server:
             if stream is not None:
                 stream._close_local(notify_peer=False)
         return self._error_frame(meta, cntl.error_code, cntl.error_text,
-                                 shm_extra, out.ici_domain), \
+                                 shm_extra, out.ici_domain, lame_duck), \
             cntl.error_code, cntl.span
 
     @staticmethod
     def _error_frame(meta: RpcMeta, code: int, text: str, shm_extra: bytes,
-                     ici_domain: bytes = b"") -> bytes:
+                     ici_domain: bytes = b"",
+                     lame_duck: bool = False) -> bytes:
         err = RpcMeta()
         err.correlation_id = meta.correlation_id
         err.ici_domain = ici_domain
         err.error_code = code
         err.error_text = text
+        if lame_duck:
+            err.lame_duck = 1
         return pack_frame(err, extra_meta=shm_extra)
 
     @staticmethod

@@ -18,8 +18,18 @@ same connection.
 - ``close(reason=...)`` sends an ordered ``F_CLOSE`` whose payload names
   the reason; the peer hands it to ``on_closed`` after every message sent
   before it.  A connection that closes closes every stream bound to it.
+- The server drain (``brpc_tpu/streaming.py:267``, ``:357-375``): a
+  stream accepted on a server is tagged with it; :func:`server_streams`
+  lists a server's live streams and :func:`drain_server_streams` closes
+  each with ``drain_close``, a bounded settle of its current window and
+  then an ``F_CLOSE`` carrying ``lame_duck``.  The port's streams share
+  one settle window where the JAX package gives each its own in turn,
+  so a drain of N streams waits 0.25 s, not N times that.  A stream open that
+  reaches a draining server is refused by admission (``ELAMEDUCK``)
+  before the handler could accept it, so the client's pending stream
+  closes with the failed call, as in the JAX package.
 
-The JAX package's native write lane and server drain are not ported.
+The JAX package's native write lane is not ported.
 """
 
 from __future__ import annotations
@@ -29,8 +39,9 @@ import logging
 import os
 import struct
 import threading
+import time
 from collections import deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from .butil.status import Errno
 from .protocol.streaming import (F_CLOSE, F_DATA, F_FEEDBACK, F_RST,
@@ -40,6 +51,7 @@ from .transport.socket import Socket
 LOG = logging.getLogger(__name__)
 
 DEFAULT_WINDOW = 2 * 1024 * 1024
+_SETTLE_CAP_S = 0.25        # a draining stream's window settle, at most
 _CLOSE_SENTINEL = object()     # ordered close marker in the deliver queue
 
 
@@ -131,6 +143,7 @@ class Stream:
         # the named close reason: set by close(reason=...) or from the
         # peer's F_CLOSE payload; on_closed reads it
         self.close_reason: Optional[str] = None
+        self._server = None             # the server that accepted it
         self._established = threading.Event()
         self._closed = False
         self._close_lock = threading.Lock()
@@ -269,6 +282,24 @@ class Stream:
         local close."""
         self._close_local(notify_peer=True, reason=reason)
 
+    def drain_close(self, reason: str, settle_timeout_s: float) -> None:
+        """The drain's close: give the current window a short bounded
+        settle (a producer mid-window may finish), then close with the
+        named ``reason``.  The ``F_CLOSE`` follows every data frame
+        already written, so delivery never truncates; the wait is capped
+        at 0.25 s, well below a drain's grace, because receivers ack at
+        half-window granularity and ``produced == consumed`` may never
+        hold."""
+        if self._closed:
+            return
+        cap = min(max(settle_timeout_s, 0.0), _SETTLE_CAP_S)
+        with self._cond:
+            self._cond.wait_for(
+                lambda: self._closed
+                or self._produced <= self._remote_consumed,
+                timeout=cap)
+        self.close(reason=reason)
+
     def _close_local(self, notify_peer: bool,
                      reason: Optional[str] = None) -> None:
         with self._close_lock:
@@ -315,8 +346,32 @@ def stream_accept(cntl, options: Optional[StreamOptions] = None
     if not peer_id:
         return None
     s = Stream(options)
+    s._server = getattr(cntl, "server", None)   # the drain's enumeration
     s._bind(cntl.socket_id, peer_id,
             peer_window=cntl.request_meta.stream_window)
     cntl._accepted_stream_id = s.id
     cntl._accepted_stream_window = s.options.max_buf_size
     return s
+
+
+def server_streams(server) -> List[Stream]:
+    """Live streams accepted by ``server``."""
+    with _streams_lock:
+        return [s for s in _streams.values() if s._server is server]
+
+
+def drain_server_streams(server, deadline_mono: float,
+                         reason: str = "lame_duck") -> int:
+    """End every live stream a draining server accepted: each gets the
+    bounded window settle, then an ``F_CLOSE`` carrying ``reason``.  The
+    streams share one settle window (at most ``drain_close``'s 0.25 s,
+    within ``deadline_mono``, the drain's grace): their producers run on
+    during it, so N streams settle in one window, not N.  Returns how
+    many streams were closed."""
+    window_end = min(deadline_mono, time.monotonic() + _SETTLE_CAP_S)
+    n = 0
+    for s in server_streams(server):
+        s.drain_close(reason, settle_timeout_s=max(
+            window_end - time.monotonic(), 0.0))
+        n += 1
+    return n

@@ -108,6 +108,28 @@ result line) when a phase fails or CUDA is absent.  Phases:
    A/B methods: ``lm_telemetry`` on against off over decode sessions, and
    traced against untraced 128-byte echoes, each beside its off-against-off
    noise;
+   13. the overload and drain planes on the same services: (a) two
+   Generate calls from two threads on one connection, the second's budget
+   under the first's handler time: it is shed (``ERPCTIMEDOUT``, its
+   handler never run, ``deadline_shed_total`` +1, ``flash_fwd`` launched
+   for the first alone, whose tokens are phase 5's); (b) goodput under
+   overload, ``bench.py``'s paired, interleaved A/B: bursts of 4 calls
+   on one connection with budgets of 2.5 times a lone request's latency,
+   shedding on against off (completed-within-budget calls per second, sheds, launches
+   per completed call); (c) admission on servers of their own: a method
+   cap of 2 with 2 calls in flight and 4 more, one after another,
+   beside them (4 ``ELIMIT`` in under 5 ms, no launch for them), an "auto" limiter under a 16-call burst, a fair
+   capacity of 2 with one tenant flooding; (d) a drain of a server
+   carrying 6c (c)'s spill setup and the plain LM during 8 staggered
+   Decode streams (6c (c)'s four prompts and four of 256 tokens) and a
+   Generate (the Generate finishes, a new one gets
+   ``ELAMEDUCK`` with the lame-duck TLV, every stream closes
+   ``lame_duck`` with a prefix of its solo tokens, no page held, spilled
+   or exported after, ``server_drain_state`` 1 then 0), then a handler
+   outlasting a 200 ms grace (-1, one connection force-closed); (e) a
+   pooled backup beside its primary (2 x depth launches), a retry after
+   the server drops the connection, no backup once the retry budget is
+   drained;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -194,7 +216,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from brpc_tpu_torch.butil.flags import get_flag, set_flag  # noqa: E402
 from brpc_tpu_torch.butil.status import Errno  # noqa: E402
-from brpc_tpu_torch.client import Channel, Controller  # noqa: E402
+from brpc_tpu_torch import deadline  # noqa: E402
+from brpc_tpu_torch.client import (  # noqa: E402
+    Channel, ChannelOptions, Controller)
 from brpc_tpu_torch.ici.endpoint import live_endpoints  # noqa: E402
 from brpc_tpu_torch.ici import cuda_ipc  # noqa: E402
 from brpc_tpu_torch.ici.attachment import (  # noqa: E402
@@ -208,7 +232,7 @@ from brpc_tpu_torch.kv.transport import (  # noqa: E402
     LANE_COPY, LANE_SHM, SessionManifest, decode_manifest, encode_manifest,
     import_pages)
 from brpc_tpu_torch.kv.pages import (  # noqa: E402
-    HostPagePool, prefix_event_counters)
+    HostPagePool, host_inflight_spills, prefix_event_counters)
 from brpc_tpu_torch import profiling, rpcz_stitch  # noqa: E402
 from brpc_tpu_torch.bvar import find_exposed, render_prometheus  # noqa
 from brpc_tpu_torch.models import lm_telemetry, moe  # noqa: E402
@@ -240,11 +264,15 @@ from brpc_tpu_torch.parallel.ring_attention import (  # noqa: E402
 from brpc_tpu_torch.parallel.spmd import init_world  # noqa: E402
 from brpc_tpu_torch.protocol.meta import RpcMeta  # noqa: E402
 from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
-    MAX_BODY_SIZE, max_body_size, pack_frame, unpack_frame)
+    MAX_BODY_SIZE, AckFrame, max_body_size, pack_frame, read_frame,
+    unpack_frame)
 from brpc_tpu_torch.rpcz import global_span_store  # noqa: E402
-from brpc_tpu_torch.server import Server, Service  # noqa: E402
+from brpc_tpu_torch.server import Server, Service, admission  # noqa
+from brpc_tpu_torch.server.server import (  # noqa: E402
+    DRAIN_FORCE_CLOSE_REASON, ServerOptions)
 from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
 from brpc_tpu_torch.transport import shm_ring  # noqa: E402
+from brpc_tpu_torch.transport.socket import Socket  # noqa: E402
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
     TrainCheckpointer, abstract_like)
 
@@ -329,6 +357,31 @@ OBS_PROMPT = 64
 OBS_NEW = 16
 ECHO_ROUNDS = 5
 ECHO_ARM_S = 0.25
+# Phase 13, the overload and drain planes on the same services: (a) the
+# queued call's budget, under a (1, 1024, 32) Generate's handler time;
+# (b) bench.py:2258-2400's paired A/B, cut from its native slim lane's
+# 2 ms handler and bursts of 24 to bursts of 4 Generate (1, 512, 8) on
+# one connection with budgets of 2.5 L (at 2 L the second call of a
+# burst ends on its deadline), 3 rounds of 1.5 s arms; (c) a
+# method cap of 2 under 6 calls, an "auto" burst of 16 small calls, a
+# fair capacity of 2 with one tenant flooding 4; (d) 6c (c)'s four
+# 1000-token sessions and four of 256 tokens (eight of 1000 spill in
+# cascade on the 4-slot pool until a late join finds the 256-page host
+# tier full), 128 new tokens each, 20 ms apart, so none ends before the
+# drain, drained with a 5 s grace; then a 200 ms grace outlasted; (e) a
+# 50 ms backup
+SHED_BUDGET_MS = 100
+GOODPUT_REQUEST = (1, 512, 8)
+GOODPUT_K = 4
+GOODPUT_BUDGET_L = 2.5
+GOODPUT_ROUNDS = 3
+GOODPUT_ARM_S = 1.5
+ADMIT_CAP, ADMIT_CALLS = 2, 6
+AUTO_BURST, AUTO_REQUEST = 16, (1, 128, 4)
+TENANT_CAPACITY, TENANT_FLOOD = 2, 4
+DRAIN_STREAMS, DRAIN_GRACE_MS, HOLD_GRACE_MS = 8, 5000, 200
+DRAIN_STAGGER_S, DRAIN_MAX_NEW, DRAIN_SHORT_PROMPT = 0.02, 128, 256
+BACKUP_MS = 50
 TIMING_REPS = 20
 # the dense/flash crossover (phase 11 (i)): prefill lengths, b = 1
 CROSSOVER_SEQS = (128, 256, 512, 768, 1024, 1536, 2048)
@@ -1668,6 +1721,8 @@ def phase_serve(ch: Channel, cfg: LMConfig) -> list:
         tps = b * max_new / dt
         rows.append(dict(b=b, s=s, max_new=max_new, ms=dt * 1e3,
                          tok_s=tps, warmup=i == 0))
+        if i == 0:
+            rows[0]["tokens"] = out[0].tolist()     # phase 13's reference
         log(f"  Generate b={b} s={s} max_new={max_new}: {dt * 1e3:.1f} ms "
             f"end to end, {tps:.1f} generated tok/s (prefill included)"
             f"{' [warm-up]' if i == 0 else ''}; first ids "
@@ -3917,6 +3972,611 @@ def phase_observability(ep, pre_ep, ch: Channel, srv: Server,
     return res
 
 
+# -- phase 13: the overload and drain planes ----------------------------------
+
+def gen_call(ch: Channel, prompt: np.ndarray, max_new: int, timeout_ms: int,
+             service: str = "LM", cntl: Controller = None) -> Controller:
+    """One Generate, its outcome in the returned controller."""
+    cntl = cntl or Controller()
+    cntl.timeout_ms = timeout_ms
+    return ch.call_method(f"{service}.Generate",
+                          pack_generate_request(prompt, max_new), cntl=cntl)
+
+
+def wait_until(pred, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def shed_count(method: str) -> int:
+    return deadline.shed_counters().get(("tpu_std", method), 0)
+
+
+def admission_delta(before: dict) -> dict:
+    after = admission.admission_counters()
+    return {f"{t}/{v}": n - before.get((t, v), 0)
+            for (t, v), n in sorted(after.items()) if n != before.get((t, v),
+                                                                      0)}
+
+
+def serve_lm(services: dict, options: ServerOptions = None) -> Server:
+    server = Server(options)
+    for name, service in services.items():
+        if server.add_service(service, name=name) != 0:
+            raise RuntimeError(f"{name} did not register")
+    if server.start("127.0.0.1:0") != 0:
+        raise RuntimeError("a phase 13 server did not start")
+    return server
+
+
+def phase_rob_shed(ch: Channel, srv: Server, cfg: LMConfig,
+                   ref: tuple) -> dict:
+    """(a) Two Generate calls from two threads on one connection: the
+    second, whose budget is shorter than the first's handler time, waits
+    behind it on the in-order server and is shed without running."""
+    prompt, want = ref
+    out = {}
+    sheds0 = shed_count("LM.Generate")
+    FLASH_FWD.launches = 0
+    first = threading.Thread(target=lambda: out.__setitem__(
+        "first", gen_call(ch, prompt, len(want), 600_000)))
+    first.start()
+    wait_until(lambda: srv.inflight == 1, 30, "the first Generate")
+    t0 = time.perf_counter()
+    second = gen_call(ch, prompt, len(want), SHED_BUDGET_MS)
+    second_ms = (time.perf_counter() - t0) * 1e3
+    first.join(600)
+    c = out["first"]
+    if c.failed:
+        raise RuntimeError(f"(a)'s first Generate failed: {c.error_text}")
+    wait_until(lambda: shed_count("LM.Generate") == sheds0 + 1, 30,
+               "the shed")
+    launches = FLASH_FWD.launches
+    toks = unpack_generated(c.response)[0].tolist()
+    log(f"  (a) two Generate {prompt.shape} x {len(want)} on one "
+        f"connection: the first answered with phase 5's tokens "
+        f"{toks == want}; the second ({SHED_BUDGET_MS} ms budget) "
+        f"[{second.error_code}] after {second_ms:.1f} ms, "
+        f"deadline_shed_total{{lane=\"tpu_std\",method=\"LM.Generate\"}} "
+        f"+{shed_count('LM.Generate') - sheds0}; flash_fwd launches "
+        f"{launches} (depth {cfg.depth}); {card_line()}")
+    if second.error_code != int(Errno.ERPCTIMEDOUT) or toks != want \
+            or launches != cfg.depth:
+        raise AssertionError("(a): the queued Generate was not shed alone")
+    return dict(second_ms=second_ms, sheds=1, launches=launches)
+
+
+def goodput_arm(ch: Channel, prompt: np.ndarray, max_new: int,
+                budget_ms: int, seconds: float) -> tuple:
+    """Bursts of GOODPUT_K Generates from as many threads on ``ch``'s one
+    connection, each burst closed by an ``LM.Info`` behind it (the
+    in-order server answers it once the burst is through, shed or run),
+    for ``seconds``: (completed within the budget per second, completed,
+    failed)."""
+    done = [0, 0]
+    lock = threading.Lock()
+
+    def client():
+        c = gen_call(ch, prompt, max_new, budget_ms)
+        with lock:
+            done[1 if c.failed else 0] += 1
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        threads = [threading.Thread(target=client)
+                   for _ in range(GOODPUT_K)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        ch.call("LM.Info", b"", timeout_ms=600_000)
+    wall = time.perf_counter() - t0
+    return done[0] / wall, done[0], done[1]
+
+
+def phase_rob_goodput(ch: Channel, srv: Server, cfg: LMConfig) -> dict:
+    """(b) Goodput under overload, after bench.py:2258-2400's paired,
+    interleaved A/B of closed-loop bursts: GOODPUT_K calls at once on one
+    connection, each budget GOODPUT_BUDGET_L x L (L: one warm request
+    alone), so a burst offers twice what a budget holds; shedding on
+    against off."""
+    b, s, max_new = GOODPUT_REQUEST
+    prompt = np.random.default_rng(13).integers(0, cfg.vocab, (b, s),
+                                                dtype=np.int32)
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen_call(ch, prompt, max_new, 600_000)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    L = statistics.median(lat[1:])
+    budget = max(1, int(GOODPUT_BUDGET_L * L))
+    rows = {True: [], False: []}
+    try:
+        for r in range(GOODPUT_ROUNDS):
+            for on in ([True, False] if r % 2 == 0 else [False, True]):
+                set_flag("enable_deadline_shed", on)
+                sheds0 = shed_count("LM.Generate")
+                FLASH_FWD.launches = 0
+                qps, good, bad = goodput_arm(ch, prompt, max_new, budget,
+                                             GOODPUT_ARM_S)
+                launches = FLASH_FWD.launches
+                rows[on].append(dict(
+                    goodput_per_s=qps, completed=good, failed=bad,
+                    sheds=shed_count("LM.Generate") - sheds0,
+                    launches=launches,
+                    launches_per_completed=launches / max(good, 1)))
+    finally:
+        set_flag("enable_deadline_shed", True)
+    med = {on: statistics.median(x["goodput_per_s"] for x in rows[on])
+           for on in rows}
+    log(f"  (b) L = {L:.1f} ms for Generate {GOODPUT_REQUEST} alone, "
+        f"budget {budget} ms, bursts of {GOODPUT_K} on one connection, "
+        f"{GOODPUT_ROUNDS} rounds of {GOODPUT_ARM_S} s arms; {card_line()}")
+    for on in (True, False):
+        log(f"      shedding {'on ' if on else 'off'}: goodput "
+            + ", ".join(f"{x['goodput_per_s']:.2f}/s ({x['completed']} ok, "
+                        f"{x['failed']} failed, {x['sheds']} shed, "
+                        f"{x['launches_per_completed']:.1f} launches per "
+                        f"completed)" for x in rows[on])
+            + f"; median {med[on]:.2f}/s")
+    if not all(x["completed"] and x["sheds"] for x in rows[True]) \
+            or any(x["sheds"] for x in rows[False]):
+        raise AssertionError("(b): shedding on did not shed, or off did")
+    return dict(L_ms=L, budget_ms=budget, on=rows[True], off=rows[False],
+                median_on=med[True], median_off=med[False],
+                launches=sum(x["launches"] for on in rows
+                             for x in rows[on]))
+
+
+def connected_channels(ep, n: int, tenants=None) -> list:
+    """``n`` channels without retries, each connected by an ``LM.Info``."""
+    chans = []
+    for i in range(n):
+        opts = ChannelOptions()
+        opts.tenant = tenants[i] if tenants else ""
+        opts.max_retry = 0
+        c = Channel(opts)
+        c.init(str(ep))
+        c.call("LM.Info", b"", timeout_ms=60_000)
+        chans.append(c)
+    return chans
+
+
+def concurrent_generates(ep, n: int, prompt: np.ndarray, max_new: int,
+                         tenants=None) -> list:
+    """``n`` Generates at once, each on a connection of its own (made
+    before the start): ``(error code, host ms, tokens or None)`` each."""
+    chans = connected_channels(ep, n, tenants)
+    gate = threading.Barrier(n)
+    out = [None] * n
+
+    def run(i):
+        gate.wait()
+        t0 = time.perf_counter()
+        c = gen_call(chans[i], prompt, max_new, 600_000)
+        ms = (time.perf_counter() - t0) * 1e3
+        out[i] = (c.error_code, ms, None if c.failed
+                  else unpack_generated(c.response)[0].tolist())
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    for c in chans:
+        c.close()
+    return out
+
+
+def phase_rob_admission(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(c) A method cap of ADMIT_CAP with ADMIT_CALLS Generates in
+    flight together; an "auto" limiter under an AUTO_BURST burst; two
+    tenants under a fair capacity, one flooding."""
+    prompt, want = ref
+    elimit = int(Errno.ELIMIT)
+    opts = ServerOptions()
+    opts.method_max_concurrency = {"LM.Generate": ADMIT_CAP}
+    server = serve_lm({"LM": svc}, opts)
+    try:
+        before = admission.admission_counters()
+        extra = connected_channels(server.listen_endpoint,
+                                   ADMIT_CALLS - ADMIT_CAP)
+        FLASH_FWD.launches = 0
+        capped = {}
+        t = threading.Thread(target=lambda: capped.__setitem__(
+            "res", concurrent_generates(server.listen_endpoint, ADMIT_CAP,
+                                        prompt, len(want))))
+        t.start()
+        st = server.method_status("LM.Generate")
+        wait_until(lambda: st.inflight == ADMIT_CAP, 60, "the capped calls")
+        # the calls over the cap, one after another while both capped
+        # calls are in flight: each refusal timed alone beside the
+        # running Generate, not among a burst of client threads
+        rejected = []
+        for c in extra:
+            t0 = time.perf_counter()
+            code = gen_call(c, prompt, len(want), 600_000).error_code
+            rejected.append(((time.perf_counter() - t0) * 1e3, code))
+            c.close()
+        t.join(600)
+        launches = FLASH_FWD.launches
+        verdicts = admission_delta(before)
+    finally:
+        server.stop()
+    served = [tok for code, _, tok in capped["res"] if code == 0]
+    log(f"  (c) method cap {ADMIT_CAP} on LM.Generate: {len(served)} "
+        f"served (phase 5's tokens: {all(x == want for x in served)}), "
+        f"then {len(rejected)} calls over the cap answered "
+        + ", ".join(f"[{code}] in {ms:.2f}" for ms, code in rejected)
+        + f" ms; flash_fwd launches {launches}; overload_admission_total "
+        f"+{verdicts}; {card_line()}")
+    if len(served) != ADMIT_CAP \
+            or any(code != elimit or ms >= 5.0 for ms, code in rejected) \
+            or launches != cfg.depth * ADMIT_CAP \
+            or any(x != want for x in served) \
+            or verdicts.get("-/method_cap") != len(rejected):
+        raise AssertionError("(c): the method cap did not hold")
+    cap = dict(served=len(served), elimit=len(rejected),
+               elimit_ms=[ms for ms, _ in rejected], launches=launches,
+               verdicts=verdicts)
+
+    opts = ServerOptions()
+    opts.method_max_concurrency = {"LM.Generate": "auto"}
+    server = serve_lm({"LM": svc}, opts)
+    try:
+        st = server.method_status("LM.Generate")
+        limit0 = st.live_max_concurrency()
+        b, s, n_new = AUTO_REQUEST
+        small = np.random.default_rng(14).integers(0, cfg.vocab, (b, s),
+                                                   dtype=np.int32)
+        FLASH_FWD.launches = 0
+        res = concurrent_generates(server.listen_endpoint, AUTO_BURST,
+                                   small, n_new)
+        auto_launches = FLASH_FWD.launches
+        limit1 = st.live_max_concurrency()
+    finally:
+        server.stop()
+    codes = [code for code, _, _ in res]
+    log(f"  (c) \"auto\" limiter ({st.limiter_kind()}) on LM.Generate, a "
+        f"{AUTO_BURST}-call burst of {AUTO_REQUEST}: live limit {limit0} "
+        f"before, {limit1} after; {codes.count(0)} served, "
+        f"{codes.count(elimit)} ELIMIT; flash_fwd launches {auto_launches}")
+    if st.limiter_kind() != "auto" or codes.count(0) + codes.count(elimit) \
+            != AUTO_BURST or auto_launches != cfg.depth * codes.count(0):
+        raise AssertionError("(c): the auto limiter's burst went wrong")
+    auto = dict(limit_before=limit0, limit_after=limit1,
+                served=codes.count(0), elimit=codes.count(elimit),
+                launches=auto_launches)
+
+    opts = ServerOptions()
+    opts.tenant_fair_capacity = TENANT_CAPACITY
+    server = serve_lm({"LM": svc}, opts)
+    try:
+        before = admission.admission_counters()
+        FLASH_FWD.launches = 0
+        flood = {}
+        hot = threading.Thread(target=lambda: flood.__setitem__(
+            "res", concurrent_generates(server.listen_endpoint,
+                                        TENANT_FLOOD, prompt, len(want),
+                                        ["hot"] * TENANT_FLOOD)))
+        hot.start()
+        wait_until(lambda: server.inflight >= TENANT_CAPACITY, 60,
+                   "the hot tenant's calls")
+        victim = concurrent_generates(server.listen_endpoint, 1, prompt,
+                                      len(want), ["victim"])[0]
+        hot.join(600)
+        launches = FLASH_FWD.launches
+        verdicts = admission_delta(before)
+    finally:
+        server.stop()
+    hot_codes = [code for code, _, _ in flood["res"]]
+    log(f"  (c) tenant_fair_capacity {TENANT_CAPACITY}: 'hot' floods "
+        f"{TENANT_FLOOD} calls -> {hot_codes.count(0)} served, "
+        f"{hot_codes.count(elimit)} ELIMIT; 'victim' [{victim[0]}] in "
+        f"{victim[1]:.1f} ms; flash_fwd launches {launches}; "
+        f"overload_admission_total +{verdicts}")
+    if hot_codes.count(0) != TENANT_CAPACITY or victim[0] != 0 \
+            or verdicts.get("hot/tenant_quota") \
+            != TENANT_FLOOD - TENANT_CAPACITY \
+            or launches != cfg.depth * (TENANT_CAPACITY + 1):
+        raise AssertionError("(c): fair admission did not protect the "
+                             "victim")
+    fair = dict(hot_served=hot_codes.count(0),
+                hot_elimit=hot_codes.count(elimit), victim_code=victim[0],
+                victim_ms=victim[1], launches=launches, verdicts=verdicts)
+    return dict(method_cap=cap, auto=auto, fair=fair,
+                launches=cap["launches"] + auto_launches + launches)
+
+
+class HoldSvc:
+    """``Hold`` blocks its connection's worker until released."""
+
+    def __init__(self):
+        self.release = threading.Event()
+        self.holding = 0
+
+    def Hold(self, cntl, request):
+        self.holding += 1
+        self.release.wait(60)
+        return b"released"
+
+
+class CloseOnce:
+    """``Generate`` closes its connection unanswered the first time, then
+    serves through ``lm`` (a server that loses a connection mid-call)."""
+
+    def __init__(self, lm: LMService):
+        self.lm = lm
+        self.closed = 0
+
+    def Generate(self, cntl, request):
+        if not self.closed:
+            self.closed += 1
+            Socket.address(cntl.socket_id).close()
+            return b""
+        return self.lm.Generate(cntl, request)
+
+
+def session_pages(batcher) -> tuple:
+    """Pages the batcher's sessions hold (the allocator's in use less the
+    prefix cache's), host spills in flight, pages left exported."""
+    st = batcher.kv_stats()
+    held = st["alloc"]["in_use"] - st.get("prefix", {}).get("nodes", 0) \
+        if "alloc" in st else 0
+    return held, host_inflight_spills(), outstanding_pages()
+
+
+def solo_prefix(svc: LMService, cfg: LMConfig, prompt: np.ndarray,
+                tokens: list) -> bool:
+    """``tokens`` are the solo generator's first ones, under check_tokens'
+    near-tie rule (unequal first where the solo run's top-1 margin is
+    below LOGIT_RTOL, and compared no further)."""
+    if not tokens:
+        return True
+    want, margins = solo_reference(svc, cfg, prompt, len(tokens))
+    for got, ref, margin in zip(tokens, want, margins):
+        if got != ref:
+            return margin < LOGIT_RTOL
+    return True
+
+
+def raw_generate(conn, cid: int, prompt: np.ndarray, max_new: int) -> RpcMeta:
+    meta = RpcMeta()
+    meta.correlation_id = cid
+    meta.service_name, meta.method_name = "LM", "Generate"
+    meta.timeout_ms = 60_000
+    conn.sendall(pack_frame(meta, pack_generate_request(prompt, max_new)))
+    while True:
+        msg = read_frame(conn)
+        if not isinstance(msg, AckFrame):
+            return msg[0]
+
+
+def phase_rob_drain(svc: LMService, spill: LMService, cfg: LMConfig,
+                    ref: tuple) -> dict:
+    """(d) Drain a server of its own carrying 6c (c)'s spill setup and the
+    plain LM during DRAIN_STREAMS staggered Decode streams (at least one
+    parked in the host tier) and one Generate in flight; then a second
+    drain whose grace a held handler outlasts."""
+    import socket as pysock
+    prompt, want = ref
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, SPILL_PROMPT, dtype=np.int32)
+               for _ in range(SPILL_SLOTS)]
+    prompts += [rng.integers(0, cfg.vocab, DRAIN_SHORT_PROMPT,
+                             dtype=np.int32)
+                for _ in range(DRAIN_STREAMS - SPILL_SLOTS)]
+    server = serve_lm({"LMSpill": spill, "LM": svc})
+    batcher = spill.batcher()
+    spills0 = batcher.spills
+    probe = pysock.create_connection(("127.0.0.1",
+                                      server.listen_endpoint.port))
+    try:
+        clients = [DecodeClient(server.listen_endpoint, "LMSpill", p,
+                                DRAIN_MAX_NEW) for p in prompts]
+        threads = [threading.Thread(target=c.run) for c in clients]
+        FLASH_FWD.launches = 0
+        for t in threads:
+            t.start()
+            time.sleep(DRAIN_STAGGER_S)
+        wait_until(lambda: batcher.spills > spills0
+                   and any(c.tokens for c in clients), 120,
+                   "a spill and a first token")
+        gen = {}
+        gen_channel = Channel()
+        gen_channel.init(str(server.listen_endpoint))
+        g = threading.Thread(target=lambda: gen.__setitem__(
+            "c", gen_call(gen_channel, prompt, len(want), 600_000)))
+        g.start()
+        gen_status = server.method_status("LM.Generate")
+        wait_until(lambda: gen_status.inflight >= 1, 60, "the Generate")
+        drained = {}
+        t0 = time.perf_counter()
+        d = threading.Thread(target=lambda: drained.__setitem__(
+            "rc", server.drain(DRAIN_GRACE_MS)))
+        d.start()
+        wait_until(lambda: server.draining, 10, "the drain")
+        state_during = find_exposed("server_drain_state").get_value()
+        lame = raw_generate(probe, 7, prompt, len(want))
+        d.join(60)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        g.join(600)
+        for c in clients:
+            if not c.done.wait(60):
+                raise AssertionError("(d): a stream never closed")
+        for t in threads:
+            t.join(10)
+        wait_until(lambda: session_pages(batcher) == (0, 0, 0), 60,
+                   "the drained sessions' pages")
+        left = session_pages(batcher)
+        launches = FLASH_FWD.launches
+        spills = batcher.spills - spills0
+        gen_channel.close()
+    finally:
+        probe.close()
+        server.stop()
+    state_after = find_exposed("server_drain_state").get_value()
+    gc = gen["c"]
+    gen_ok = not gc.failed \
+        and unpack_generated(gc.response)[0].tolist() == want
+    reasons = [c.reason for c in clients]
+    prefix_ok = [solo_prefix(svc, cfg, c.prompt, c.tokens) for c in clients]
+    log(f"  (d) drain of a server carrying LMSpill and LM, "
+        f"{DRAIN_STREAMS} Decode streams ({spills} spills) and a Generate "
+        f"in flight: drain rc {drained.get('rc')} in {drain_ms:.1f} ms; the "
+        f"Generate finished with phase 5's tokens {gen_ok}; a new Generate "
+        f"[{lame.error_code}] lame_duck TLV {lame.lame_duck}; stream "
+        f"reasons {reasons}, tokens delivered "
+        f"{[len(c.tokens) for c in clients]}, prefixes of their solo runs "
+        f"{all(prefix_ok)}; pages held by sessions, host spills in flight, "
+        f"pages exported {left}; server_drain_state {state_during} during, "
+        f"{state_after} after stop; flash_fwd launches {launches}; "
+        f"{card_line()}")
+    if drained.get("rc") != 0 or not gen_ok \
+            or lame.error_code != int(Errno.ELAMEDUCK) or lame.lame_duck != 1 \
+            or set(reasons) != {"lame_duck"} or not all(prefix_ok) \
+            or left != (0, 0, 0) or spills < 1 or state_during != 1 \
+            or state_after != 0:
+        raise AssertionError("(d): the drain did not settle as it should")
+    res = dict(rc=drained["rc"], drain_ms=drain_ms, spills=spills,
+               tokens=[len(c.tokens) for c in clients], left=left,
+               launches=launches)
+
+    hold = HoldSvc()
+    server = serve_lm({"Hold": hold})
+    try:
+        opts = ChannelOptions()
+        opts.max_retry = 0
+        opts.timeout_ms = 30_000
+        ch = Channel(opts)
+        ch.init(str(server.listen_endpoint))
+        out = {}
+        t = threading.Thread(target=lambda: out.__setitem__(
+            "c", ch.call_method("Hold.Hold", b"")))
+        t.start()
+        wait_until(lambda: hold.holding == 1, 10, "the held handler")
+        t0 = time.perf_counter()
+        rc = server.drain(HOLD_GRACE_MS)
+        grace_ms = (time.perf_counter() - t0) * 1e3
+        t.join(10)
+        forced = server.drain_force_closed
+        hold.release.set()
+        ch.close()
+    finally:
+        hold.release.set()
+        server.stop()
+    code = out["c"].error_code if "c" in out else None
+    log(f"  (d) a handler held past a {HOLD_GRACE_MS} ms grace: drain rc "
+        f"{rc} after {grace_ms:.1f} ms, force-closed {forced} connection "
+        f"({DRAIN_FORCE_CLOSE_REASON}); the held call [{code}]")
+    if rc != -1 or forced != 1 or code != int(Errno.EFAILEDSOCKET):
+        raise AssertionError("(d): the grace did not force-close the "
+                             "straggler")
+    res.update(grace_rc=rc, grace_ms=grace_ms, force_closed=forced)
+    return res
+
+
+def phase_rob_retries(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(e) A pooled backup that runs beside its primary; a retry after
+    the server drops the connection; no backup once the budget is
+    drained."""
+    prompt, want = ref
+    flaky = CloseOnce(svc)
+    server = serve_lm({"LM": svc, "LMFlaky": flaky})
+    try:
+        opts = ChannelOptions()
+        opts.connection_type = "pooled"
+        opts.backup_request_ms = BACKUP_MS
+        ch = Channel(opts)
+        ch.init(str(server.listen_endpoint))
+        FLASH_FWD.launches = 0
+        t0 = time.perf_counter()
+        c = gen_call(ch, prompt, len(want), 600_000)
+        hedge_ms = (time.perf_counter() - t0) * 1e3
+        wait_until(lambda: FLASH_FWD.launches >= 2 * cfg.depth, 60,
+                   "the backup's run")
+        hedge_launches = FLASH_FWD.launches
+        hedge_ok = not c.failed \
+            and unpack_generated(c.response)[0].tolist() == want
+        hedge = dict(ms=hedge_ms, has_backup=c.has_backup_request,
+                     retried=c.retried_count, launches=hedge_launches)
+        ch.close()
+
+        ch = Channel()
+        ch.init(str(server.listen_endpoint))
+        FLASH_FWD.launches = 0
+        c = gen_call(ch, prompt, len(want), 600_000, service="LMFlaky")
+        retry_launches = FLASH_FWD.launches
+        retry_ok = not c.failed \
+            and unpack_generated(c.response)[0].tolist() == want
+        retry = dict(retried=c.retried_count, launches=retry_launches,
+                     closed=flaky.closed)
+        ch.close()
+
+        opts = ChannelOptions()
+        opts.connection_type = "pooled"
+        opts.backup_request_ms = BACKUP_MS
+        opts.retry_budget_max = 4
+        ch = Channel(opts)
+        ch.init(str(server.listen_endpoint))
+        budget = ch.retry_budget()
+        while budget.acquire():
+            pass
+        FLASH_FWD.launches = 0
+        c = gen_call(ch, prompt, len(want), 600_000)
+        time.sleep(0.2)
+        drained_launches = FLASH_FWD.launches
+        drained = dict(has_backup=c.has_backup_request,
+                       launches=drained_launches,
+                       denied=budget.denied_count)
+        drained_ok = not c.failed
+        ch.close()
+    finally:
+        server.stop()
+    log(f"  (e) pooled backup at {BACKUP_MS} ms: has_backup_request "
+        f"{hedge['has_backup']}, retried_count {hedge['retried']}, tokens "
+        f"equal {hedge_ok}, {hedge_ms:.1f} ms, flash_fwd launches "
+        f"{hedge_launches} (2 x depth); a dropped connection: "
+        f"retried_count {retry['retried']}, tokens equal {retry_ok}, "
+        f"launches {retry_launches}; budget drained: has_backup_request "
+        f"{drained['has_backup']}, launches {drained_launches}, denied "
+        f"{drained['denied']}; {card_line()}")
+    if not hedge_ok or not hedge["has_backup"] or hedge["retried"] != 1 \
+            or hedge_launches != 2 * cfg.depth or not retry_ok \
+            or retry["retried"] != 1 or retry_launches != cfg.depth \
+            or not drained_ok or drained["has_backup"] \
+            or drained_launches != cfg.depth:
+        raise AssertionError("(e): retries and backups went wrong")
+    return dict(hedge=hedge, retry=retry, budget_drained=drained,
+                launches=hedge_launches + retry_launches + drained_launches)
+
+
+def phase_robustness(ch: Channel, srv: Server, svc: LMService,
+                     paged: dict, cfg: LMConfig, rows: list) -> dict:
+    """Phase 13, on the serving phases' services: the shed, goodput under
+    overload, admission, the drain, retries and backups."""
+    t0 = time.perf_counter()
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab, REQUESTS[0][:2], dtype=np.int32)
+    ref = (prompt, rows[0]["tokens"])
+    res = {"shed": phase_rob_shed(ch, srv, cfg, ref),
+           "goodput": phase_rob_goodput(ch, srv, cfg),
+           "admission": phase_rob_admission(svc, cfg, ref),
+           "drain": phase_rob_drain(svc, paged["LMSpill"], cfg, ref),
+           "retries": phase_rob_retries(svc, cfg, ref)}
+    if not paged["LMSpill"].batcher().shutdown():
+        raise AssertionError("the drained batcher did not stop")
+    res["launches"] = sum(r["launches"] for r in res.values()
+                          if isinstance(r, dict) and "launches" in r)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 13: {res['seconds']:.1f} s; flash_fwd launches "
+        f"{res['launches']}")
+    return res
+
+
 def refused_decode(ch: Channel, service: str, prompt: np.ndarray) -> tuple:
     """A Decode call with a stream attached that the service must refuse:
     ``(error code, error text)``."""
@@ -4317,6 +4977,9 @@ def main() -> int:
         obs = phase_observability(srv.listen_endpoint,
                                   pre_srv.listen_endpoint, ch, srv, svc,
                                   paged, tiers, cfg, streams)
+        log("[13] overload and drain: the shed, goodput under overload, "
+            "admission, the drain, retries and backups")
+        rob = phase_robustness(ch, srv, svc, paged, cfg, rows)
     finally:
         ch.close()
         srv.stop()
@@ -4381,6 +5044,7 @@ def main() -> int:
                  "disagg_shm": disagg["shm"]["launches"],
                  "scan_generate": scan["launches"],
                  "observability": obs["launches"],
+                 "robustness": rob["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -4459,6 +5123,7 @@ def main() -> int:
     log(f"  disagg: {json.dumps(disagg)}")
     log(f"  scan: {json.dumps(scan)}")
     log(f"  observability: {json.dumps(obs)}")
+    log(f"  robustness: {json.dumps(rob)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

@@ -285,11 +285,23 @@ def _lm_lines(text):
     return sorted(out)
 
 
+def _expose_lm_families():
+    """Put both packages' ``lm_*`` families into the same registry state:
+    an earlier test in this process may have cleared one package's bvar
+    registry (``tests/test_bvar.py``, ``tests/test_torch_bvar.py``), and
+    ``lm_service``'s two families are exposed only at its import."""
+    for lmt, svc, *_ in PAIRS:
+        lmt.expose_lm_variables()
+        svc._sched_var.expose("lm_slo_sched_total")
+        svc._spec_var.expose("lm_spec_decode_total")
+
+
 def test_exposed_families_render_like_jax(clock):
     for lmt, *_ in PAIRS:
         for i, ns in enumerate(_phase_ns(5, 50)):
             lmt.record_phase(i % len(lmt.LM_STEP_PHASES), ns)
         _run_sessions(lmt, clock, SESSIONS)
+    _expose_lm_families()
     mine, theirs = _lm_lines(trender()), _lm_lines(jrender())
     assert mine == theirs
     for family in ("lm_step_phase_ns", "lm_step_phase_total",
@@ -297,6 +309,33 @@ def test_exposed_families_render_like_jax(clock):
                    "lm_windowed"):
         assert f"# TYPE {family} gauge" in mine
     assert 'lm_ttft_ms{tier="batch",quantile="p99"} 268.435' in mine
+
+
+def test_exposed_families_render_alike_after_registry_clears(clock):
+    """The repair above, shown: with both packages' registries cleared (as
+    ``tests/test_bvar.py`` and ``tests/test_torch_bvar.py`` clear them),
+    re-exposing the ``lm_*`` families gives equal renders again, the two
+    families ``lm_service`` exposes at import among them."""
+    from brpc_tpu.bvar import variable as jvariable
+    from brpc_tpu_torch.bvar import variable as tvariable
+    saved = [(mod, dict(mod._registry)) for mod in (jvariable, tvariable)]
+    try:
+        for mod, _ in saved:
+            mod.clear_registry_for_tests()
+        for lmt, *_ in PAIRS:
+            _run_sessions(lmt, clock, SESSIONS)
+        assert _lm_lines(trender()) == _lm_lines(jrender()) == []
+        _expose_lm_families()
+        mine, theirs = _lm_lines(trender()), _lm_lines(jrender())
+        assert mine == theirs
+        for family in ("lm_slo_sched_total", "lm_spec_decode_total",
+                       "lm_ttft_ms", "lm_step_phase_ns"):
+            assert f"# TYPE {family} gauge" in mine
+    finally:
+        for mod, reg in saved:
+            with mod._registry_lock:
+                mod._registry.clear()
+                mod._registry.update(reg)
 
 
 # -- the slice as a whole ----------------------------------------------------
