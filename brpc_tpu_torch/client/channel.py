@@ -1,10 +1,13 @@
-"""Channel — the client stub, over one blocking tpu_std connection.
+"""Channel — the client stub, over blocking tpu_std connections.
 
 The slim core of ``brpc_tpu/client/channel.py``: ``init`` against one
-server ("ip:port"), then ``call_method`` / ``call``.  Calls on one
-channel are serialized over its connection; a call that times out or
-loses the connection closes it (reclaiming the device payloads posted on
-it), and the next call reconnects.
+server ("ip:port"), or a cluster (a naming URL, ``"list://a:1,b:2"``,
+``"file:///path"``, ``"dns://host:port"``, ``"watch://host:port/path"``,
+``"mesh://name"``, with a load balancer's name: ``"rr"``, ``"wrr"``,
+``"random"``, ``"wr"``, ``"c_murmurhash"``, ``"c_md5"``, ``"la"``,
+``"dynpart"``), then ``call_method`` / ``call``.  A call that times out
+or loses a connection closes it (reclaiming the device payloads posted
+on it), and the next call reconnects.
 
 Device attachments (``brpc_tpu/client/controller.py``'s ICI lane): every
 request advertises this process's fabric domain and the connection
@@ -60,8 +63,27 @@ fails fast with ``ERPCTIMEDOUT``.  ``connection_type``: ``"single"``
 (a connection per attempt).  The port's server answers a connection's
 requests in order, so a backup on ``"single"`` is sent but queues
 behind its primary and can only lose; hedging wants ``"pooled"``.
-Naming, load balancing, TLS and the other protocols wait for later
-slices of the port.
+
+The cluster client (``brpc_tpu/client/controller.py:405-421``): the
+connection state above lives per server, one sub-channel per endpoint
+the balancer has picked, and every attempt (the first, each retry and
+each backup) picks its server through
+:class:`~brpc_tpu_torch.client.load_balancer_with_naming.LoadBalancerWithNaming`
+and takes its connection from that server's sub-channel; a stream binds
+to the connection of the server that answered it.  A failed attempt's
+server joins ``excluded_servers``; a draining server's lame-duck TLV (or
+its ``ELAMEDUCK``) marks it in the lame-duck registry and a clean answer
+clears the mark; each finished call is fed back to the balancer (and to
+the circuit breaker, with ``enable_circuit_breaker``; on a single-server
+channel straight to the breaker).  Two divergences from the JAX
+package, as in brpc itself: a backup request excludes the servers of the
+attempts still out, so a consistent-hashing balancer hedges on another
+replica (the JAX backup asks the balancer again with the same key and
+lands where its primary is), and each attempt that fails and is
+superseded feeds the breaker with its own server and error (the JAX
+client feeds only the call's final server), so a dead replica that the
+retries route around still trips its breaker.  TLS and the other
+protocols wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -73,6 +95,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from ..butil.endpoint import EndPoint, parse_endpoint
+from ..butil.logging_util import LOG
 from ..butil.status import Errno
 from ..deadline import RetryBudget, backoff_ms, cap_timeout_ms
 from ..ici.endpoint import (ack_unused, conn_nonce_of, ici_enabled,
@@ -85,7 +108,9 @@ from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
 from ..transport import shm_ring
 from ..transport.socket import Socket
-from .controller import _FAIL_FAST, Controller
+from .circuit_breaker import global_circuit_breaker_map
+from .controller import _ELAMEDUCK, _FAIL_FAST, Controller
+from .naming_service import global_lame_ducks
 
 _MAX_POST_WAIT_S = 30.0     # a request descriptor's wait for window credit
 _JOIN_TIMEOUT_S = 5.0
@@ -94,13 +119,15 @@ _CONNECTION_TYPES = ("single", "pooled", "short")
 
 class ChannelOptions:
     """Defaults mirror the JAX package's: timeout 500 ms, connect 1 s,
-    3 retries, no backup request, one connection, a retry budget of 100
-    tokens refilled 0.1 per success, no backoff (5 s cap)."""
+    3 retries, no backup request, one connection, no circuit breaker, a
+    retry budget of 100 tokens refilled 0.1 per success, no backoff (5 s
+    cap)."""
 
     __slots__ = ("timeout_ms", "connect_timeout_ms", "max_retry",
                  "backup_request_ms", "connection_type", "tenant",
-                 "retry_budget_max", "retry_budget_ratio",
-                 "retry_backoff_ms", "retry_backoff_max_ms")
+                 "enable_circuit_breaker", "retry_budget_max",
+                 "retry_budget_ratio", "retry_backoff_ms",
+                 "retry_backoff_max_ms")
 
     def __init__(self):
         self.timeout_ms = 500
@@ -111,6 +138,9 @@ class ChannelOptions:
         # this channel's tenant identity, stamped on every request as
         # meta TLV 22 (the server's per-tenant fair admission key)
         self.tenant = ""
+        # isolate a failing server from selection (off by default, as in
+        # brpc's channel.h:49-77)
+        self.enable_circuit_breaker = False
         # every retry and backup attempt draws from one token bucket;
         # max <= 0 disables it
         self.retry_budget_max = 100.0
@@ -127,14 +157,18 @@ class RpcError(Exception):
 
 
 class _Waiter:
-    """One call waiting for its response from the reader thread."""
+    """One attempt waiting for its response from the reader thread, which
+    delivers the response onto the call's results itself: two attempts of
+    one call on one connection then reach the call in the order their
+    responses arrived."""
 
-    __slots__ = ("done", "msg", "error")
+    __slots__ = ("done", "error", "call", "version", "lease", "offered")
 
-    def __init__(self):
+    def __init__(self, call: "_Call", version: int, lease, offered: bool):
         self.done = threading.Event()
-        self.msg = None
         self.error: Optional[str] = None
+        self.call, self.version = call, version
+        self.lease, self.offered = lease, offered
 
 
 class _Call:
@@ -145,7 +179,7 @@ class _Call:
 
     __slots__ = ("c", "method", "payload", "stream", "cid_base", "deadline",
                  "timeout_ms", "ctype", "hedged", "results", "done",
-                 "leases", "staged", "lock")
+                 "leases", "staged", "lock", "conns")
 
     def __init__(self, c, method, payload, stream, cid_base, deadline,
                  timeout_ms, ctype, hedged):
@@ -161,6 +195,7 @@ class _Call:
         self.leases: list = []              # every attempt's shm lease
         self.staged = False                 # an attempt staged a slot
         self.lock = threading.Lock()
+        self.conns: Dict[int, "Channel"] = {}   # version -> its server's
 
     def remaining_s(self) -> Optional[float]:
         if self.deadline is None:
@@ -172,7 +207,11 @@ class Channel:
     def __init__(self, options: Optional[ChannelOptions] = None):
         self.options = options or ChannelOptions()
         self.server: Optional[EndPoint] = None
-        self.load_balancer = None       # the cluster client's, not ported
+        # a cluster channel's LoadBalancerWithNaming, and one sub-channel
+        # (the connection state of one server) per endpoint it picked
+        self.load_balancer = None
+        self._subs: Dict[EndPoint, "Channel"] = {}
+        self._subs_lock = threading.Lock()
         self._sock: Optional[Socket] = None
         self._next_cid = 1
         self._lock = threading.Lock()
@@ -189,17 +228,38 @@ class Channel:
         self._retry_budget: Optional[RetryBudget] = None
         self._retry_budget_lock = threading.Lock()
 
-    def init(self, addr: Any) -> int:
-        """``addr``: "ip:port" or an EndPoint.  0 on success."""
+    def init(self, addr: Any, lb_name: str = "") -> int:
+        """``addr``: "ip:port" or an EndPoint for one server, or a naming
+        URL with a load balancer's name (default ``"rr"``) for a cluster.
+        0 on success."""
+        text = str(addr)
+        if not isinstance(addr, EndPoint) and "://" in text:
+            from .load_balancer_with_naming import LoadBalancerWithNaming
+            lb = LoadBalancerWithNaming()
+            if lb.init(text, lb_name or "rr",
+                       self.options.enable_circuit_breaker) != 0:
+                LOG.error("failed to init naming/LB for %s", text)
+                lb.stop()
+                return -1
+            self.load_balancer = lb
+            return 0
         try:
             self.server = addr if isinstance(addr, EndPoint) \
-                else parse_endpoint(str(addr))
+                else parse_endpoint(text)
         except ValueError:
             return -1
         return 0
 
     def close(self) -> None:
-        """Close the connections, and with them the streams they carry."""
+        """Close the connections, and with them the streams they carry.
+        A cluster channel also closes its sub-channels and ends its naming
+        refresh (its balancer keeps the last server list)."""
+        with self._subs_lock:
+            subs = list(self._subs.values())
+        for sub in subs:
+            sub.close()
+        if self.load_balancer is not None:
+            self.load_balancer.stop()
         with self._lock:
             reader = self._reader
             self._drop()
@@ -209,6 +269,17 @@ class Channel:
             sock.close()
         if reader is not None and reader is not threading.current_thread():
             reader.join(_JOIN_TIMEOUT_S)
+
+    def _sub(self, ep: EndPoint) -> "Channel":
+        """The sub-channel holding ``ep``'s connections."""
+        sub = self._subs.get(ep)
+        if sub is None:
+            with self._subs_lock:
+                sub = self._subs.get(ep)
+                if sub is None:
+                    sub = self._subs[ep] = Channel(self.options)
+                    sub.server = ep
+        return sub
 
     def _drop(self) -> None:
         if self._sock is not None:
@@ -256,7 +327,7 @@ class Channel:
             # an explicitly traced call: its client span opens before the
             # request is framed, so the meta carries this hop's span id
             c._begin_trace_span(method_full)
-        if self.server is None:
+        if self.server is None and self.load_balancer is None:
             c.set_failed(Errno.EINTERNAL, "channel not initialized")
         else:
             try:
@@ -270,7 +341,7 @@ class Channel:
             # a failed call, or one the server accepted no stream on:
             # the pending stream dies with it
             stream._close_local(notify_peer=False)
-        c._end_trace_span(self.server)
+        c._end_trace_span(c.remote_side)
         return c
 
     def _launch(self, c: Controller, method_full: str, payload: bytes,
@@ -315,6 +386,41 @@ class Channel:
         call = _Call(c, method_full, payload, stream, cid_base, deadline,
                      timeout_ms, c.connection_type, hedged)
         self._run(call, t0 + backup / 1e3 if hedged else None)
+        c.latency_us = int((time.monotonic() - t0) * 1e6)
+        self._feedback(c)
+
+    def _feedback(self, c: Controller) -> None:
+        """The finished call's outcome to the balancer (which feeds the
+        breaker when it is on), or on a single-server channel to the
+        process-wide breaker map."""
+        if self.load_balancer is not None:
+            self.load_balancer.feedback(c)
+        elif self.options.enable_circuit_breaker \
+                and c.remote_side is not None:
+            global_circuit_breaker_map().on_call(
+                c.remote_side, c.error_code, c.latency_us)
+
+    def _on_attempt_answer(self, c: Controller, version: int, rmeta) -> None:
+        """The lame-duck registry learns from every answer of a live
+        attempt: a draining server's TLV (or its ``ELAMEDUCK`` without
+        one) marks it, a clean answer clears a restarted successor."""
+        remote = c.attempt_remotes.get(version, c.remote_side)
+        if rmeta.lame_duck or rmeta.error_code == _ELAMEDUCK:
+            global_lame_ducks().mark(remote)
+        elif not rmeta.error_code:
+            global_lame_ducks().clear(remote)
+
+    def _on_attempt_superseded(self, c: Controller, version: int,
+                               code: int) -> None:
+        """A failed attempt that does not decide the call: its server is
+        excluded from the call's later picks and feeds the breaker (the
+        deciding outcome goes through :meth:`_feedback`)."""
+        remote = c.attempt_remotes.get(version)
+        if remote is None:
+            return
+        c.excluded_servers.add(remote)
+        if self.options.enable_circuit_breaker:
+            global_circuit_breaker_map().on_call(remote, code, 0)
 
     def _run(self, call: _Call, backup_at: Optional[float]) -> None:
         """The attempts of one call until it has an outcome (the JAX
@@ -335,6 +441,11 @@ class Channel:
                     backup_at = None
                     if nretry < c.max_retry and self.acquire_retry_token():
                         c.has_backup_request = True
+                        # the backup goes to another server than the
+                        # attempts still out (brpc's backup request)
+                        c.excluded_servers.update(
+                            c.attempt_remotes[v] for v in live
+                            if v in c.attempt_remotes)
                         nretry += 1
                         c.retried_count = nretry
                         live.add(nretry)
@@ -376,14 +487,16 @@ class Channel:
                 return
             if kind == "msg":
                 code, text = data[0].error_code, data[0].error_text
+                self._on_attempt_answer(c, version, data[0])
                 if not code:
-                    self._win(call, data)
+                    self._win(call, version, data)
                     return
             else:
                 code, text = data
             live.discard(version)
             if c.retry_policy(c, code) and nretry < c.max_retry \
                     and self.acquire_retry_token():
+                self._on_attempt_superseded(c, version, code)
                 if kind == "msg":
                     self._discard(call, kind, data)
                 nretry += 1
@@ -398,20 +511,35 @@ class Channel:
                     self._start(call, nretry)
                 continue
             if kind == "msg":
-                self._win(call, data)       # the server's error answer
+                self._win(call, version, data)  # the server's error answer
                 return
             if live:
                 # another attempt is still out: it decides the call, and
                 # this failure is kept for a retired backoff version
+                self._on_attempt_superseded(c, version, code)
                 last_err = (code, text)
                 continue
             self._finish(call, code, text)
             return
 
     def _start(self, call: _Call, version: int) -> None:
-        """Issue attempt ``version``: inline, or on a thread of its own
-        when the call may hedge (its result lands on ``call.results``
-        either way)."""
+        """Pick attempt ``version``'s server (the balancer's, on a cluster
+        channel) and issue it: inline, or on a thread of its own when the
+        call may hedge (its result lands on ``call.results`` either
+        way)."""
+        c = call.c
+        if self.load_balancer is None:
+            remote, conn = self.server, self
+        else:
+            remote = self.load_balancer.select_server(c)
+            if remote is None:
+                call.results.put((version, "err", (int(Errno.EINTERNAL),
+                                                   "no server available")))
+                return
+            conn = self._sub(remote)
+        c.remote_side = remote
+        c.attempt_remotes[version] = remote
+        call.conns[version] = conn
         if call.hedged:
             threading.Thread(target=self._attempt, args=(call, version),
                              name="tpu_std-attempt", daemon=True).start()
@@ -463,14 +591,21 @@ class Channel:
         meta.trace_id, meta.span_id = c.trace_id, c.span_id
         if self.options.tenant:
             meta.tenant = str(self.options.tenant).encode("utf-8")
+        conn = call.conns[version]
         try:
             if call.ctype == "single":
-                result = self._attempt_single(call, meta)
+                result = conn._attempt_single(call, meta)
             else:
-                result = self._attempt_owned(call, meta)
+                result = conn._attempt_owned(call, meta)
         except Exception as e:     # never leave the call without a result
             result = ("err", (int(Errno.EINTERNAL),
                               f"{type(e).__name__}: {e}"))
+        if result is not None:      # else the reader delivered it
+            self._deliver(call, version, result)
+
+    def _deliver(self, call: _Call, version: int, result: tuple) -> None:
+        """Attempt ``version``'s result onto the call; one that lands
+        after the call's outcome is dropped at once."""
         call.results.put((version,) + result)
         with call.lock:
             late = call.done
@@ -493,13 +628,15 @@ class Channel:
                 call.leases.append(lease)
         return frame, lease, offered, err
 
-    def _attempt_single(self, call: _Call, meta: RpcMeta) -> tuple:
+    def _attempt_single(self, call: _Call, meta: RpcMeta):
         """One attempt on the channel's shared connection.  A call alone
         on it writes and reads its response inline; a call that arrives
         while another reads inline waits for its response by correlation
         id, and the reading call hands it over (and, done, hands the
         connection to a reader thread).  A stream, or a call that may
-        hedge, reads through the reader thread from the start."""
+        hedge, reads through the reader thread from the start.  The
+        result, or None when the response was handed over: the hand-over
+        delivers it onto the call."""
         stream = call.stream
         waiter = None
         with self._lock:
@@ -524,7 +661,8 @@ class Channel:
                     # call keeps the reader once the inline call is done
                     if stream is not None or call.hedged:
                         self._want_reader = sock
-                    waiter = _Waiter()
+                    waiter = _Waiter(call, meta.correlation_id
+                                     - call.cid_base, lease, offered)
                     with self._waiters_lock:
                         self._waiters[meta.correlation_id] = waiter
                     sock.write(frame)
@@ -551,8 +689,7 @@ class Channel:
             waiter.done.wait()      # its response is being handed over
         if waiter.error is not None:
             return "err", (int(Errno.EFAILEDSOCKET), waiter.error)
-        msg = waiter.msg
-        return "msg", (msg[0], msg[1], msg[2], sock, lease, offered)
+        return None                 # the reader delivered the response
 
     def _read_inline(self, sock: Socket, frame: bytes, meta: RpcMeta,
                      lease, offered) -> tuple:
@@ -599,7 +736,9 @@ class Channel:
         if waiter is None:
             ack_unused(msg[0], sock.id)       # its call has an outcome
         else:
-            waiter.msg = msg
+            self._deliver(waiter.call, waiter.version, (
+                "msg", (msg[0], msg[1], msg[2], sock, waiter.lease,
+                        waiter.offered)))
             waiter.done.set()
 
     def _fail_waiters(self, why: str) -> None:
@@ -648,11 +787,13 @@ class Channel:
                            f"expected {meta.correlation_id}")
         return "msg", (msg[0], msg[1], msg[2], sock, lease, offered)
 
-    def _win(self, call: _Call, data) -> None:
-        """The call's outcome is this response (success or the server's
-        error answer): settle its shm lease and resolve its descriptor,
-        split its device attachment, bind the stream."""
+    def _win(self, call: _Call, version: int, data) -> None:
+        """The call's outcome is attempt ``version``'s response (success or
+        the server's error answer): settle its shm lease and resolve its
+        descriptor, split its device attachment, bind the stream."""
         c = call.c
+        conn = call.conns[version]
+        c.remote_side = c.attempt_remotes.get(version, c.remote_side)
         rmeta, body, ratt, sock, lease, offered = data
         with call.lock:
             call.done = True
@@ -682,7 +823,7 @@ class Channel:
                 return
         if rmeta.error_code:
             ack_unused(rmeta, sock.id)
-            self._release_owned(call, sock, ok=False)
+            conn._release_owned(call, sock, ok=False)
             c.set_failed(rmeta.error_code, rmeta.error_text)
             self._drain_results(call)
             return
@@ -698,7 +839,7 @@ class Channel:
             # the accepted stream rides the connection that answered
             call.stream._bind(sock.id, rmeta.stream_id,
                               peer_window=rmeta.stream_window)
-        self._release_owned(call, sock, ok=True)
+        conn._release_owned(call, sock, ok=True)
         self._drain_results(call)
 
     def _release_owned(self, call: _Call, sock: Socket, ok: bool) -> None:

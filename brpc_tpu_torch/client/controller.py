@@ -18,14 +18,24 @@ channel's), ``connection_type`` (None: the channel's; ``"single"``,
 :func:`default_retry_policy`, the JAX package's ``_RETRIABLE`` and
 ``_FAIL_FAST`` sets) in; ``retried_count`` and ``has_backup_request``
 out.  A stream-creating call gets no retry, no backup and the single
-connection.  Load balancing waits for the cluster client slice, so the
-fail-fast codes (``ELIMIT``, ``ELAMEDUCK``) are never retried here, as
-the JAX policy decides on a channel without a load balancer.
+connection.
+
+The cluster client (``brpc_tpu/client/controller.py:405-421``,
+``:697-706``, ``:1026-1036``): ``request_code`` (the consistent-hashing
+key) in; every attempt picks its server through the channel's load
+balancer, records it in ``attempt_remotes`` (attempt version ->
+EndPoint) and ``remote_side`` (in the end, the server of the attempt
+that decided the call), and a failed attempt's server joins
+``excluded_servers``, so a retry goes elsewhere; ``latency_us`` is the
+call's, fed back to the balancer with its outcome.  With a balancer the
+fail-fast codes (``ELIMIT``, ``ELAMEDUCK``) are retried at once on
+another replica; on a single-server channel they are not, as the JAX
+policy decides.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional, Set
 
 from ..butil.status import Errno
 from ..rpcz import start_client_span
@@ -53,9 +63,11 @@ class Controller:
                  "connection_type", "retry_policy", "request_attachment",
                  "request_device_attachment", "response",
                  "response_attachment", "response_device_attachment",
-                 "retried_count", "has_backup_request",
-                 "_error_code", "_error_text", "_stream_to_create",
-                 "trace_id", "span_id", "_client_span", "_channel")
+                 "retried_count", "has_backup_request", "request_code",
+                 "excluded_servers", "remote_side", "attempt_remotes",
+                 "latency_us", "_error_code", "_error_text",
+                 "_stream_to_create", "trace_id", "span_id", "_client_span",
+                 "_channel")
 
     def __init__(self):
         self.timeout_ms: Optional[int] = None   # None = the channel's
@@ -66,6 +78,11 @@ class Controller:
         self.retried_count = 0
         self.has_backup_request = False
         self._channel = None            # the channel of the call
+        self.request_code = 0           # consistent-hashing key
+        self.excluded_servers: Set = set()  # retries avoid these
+        self.remote_side = None         # the server that answered
+        self.attempt_remotes: Dict[int, Any] = {}   # version -> EndPoint
+        self.latency_us = 0
         self.request_attachment: bytes = b""
         self.request_device_attachment: Any = None
         self.response: Any = None       # response bytes

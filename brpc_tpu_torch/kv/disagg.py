@@ -42,8 +42,9 @@ remaining deadline (``deadline.inherit_deadline`` around the handler,
 gone fails fast and ends at the JAX package's reason, ``kv_probe_failed``
 before the probe is cached and ``kv_import_rejected`` (ambiguous) after.
 
-Not ported: the fleet load report in the probe answer and the
-``fleet_kv_handoff_failed`` event (the port has no ``fleet`` yet).
+Fleet (``brpc_tpu/kv/disagg.py:70-80``, ``:242-243``): ``KV.Probe``
+answers with the cached load report as its tail, and a strict tier's
+failed handoff records ``fleet_kv_handoff_failed``.
 """
 
 from __future__ import annotations
@@ -84,7 +85,12 @@ class DecodeTierService(Service):
         return "KV"
 
     def Probe(self, cntl, request):
-        return encode_probe_response()
+        # capability answer + the fleet load-report tail: the prefill
+        # tier reads live slot availability from the handshake it makes
+        # before moving a byte
+        from .. import fleet
+        return encode_probe_response(
+            report=fleet.report_cache().get(cntl.server))
 
     def ImportSession(self, cntl, request):
         """Checks, in the JAX service's order: the manifest, the model
@@ -224,6 +230,8 @@ class PrefillService(LMService):
                                          span=span)
             return struct.pack("<I", max_new)
         stream.close(reason="kv_handoff_failed")
+        from .. import fleet
+        fleet.record_event("fleet_kv_handoff_failed", str(res.reason))
         if span is not None:
             span.annotate("lm_evict:kv_handoff_failed")
             span.finish(int(Errno.EINTERNAL))

@@ -89,6 +89,8 @@ def count_evict(reason: str) -> None:
         raise ValueError(f"unnamed kv evict reason {reason!r}")
     with _evict_lock:
         _evicts[reason] += 1
+    from .. import fleet
+    fleet.record_event("fleet_kv_evict", reason)
 
 
 def count_prefix(event: str) -> None:

@@ -27,8 +27,9 @@ The handoff RPC (``KV.ImportSession``) is an ordinary unary call, so it
 passes the decode tier's admission and deadline plane like any other
 request, and issued from a handler it inherits that request's remaining
 budget (as ``brpc_tpu/kv/transport.py:25`` says of the JAX one).  The
-probe answer carries no load-report tail (the port has no ``fleet``),
-but :func:`decode_probe_report` parses one.
+probe answer may carry the fleet load-report tail
+(:func:`encode_probe_response`'s ``report``), and
+:func:`decode_probe_report` parses one.
 """
 
 from __future__ import annotations
@@ -211,17 +212,26 @@ def decode_manifest(data: bytes) -> SessionManifest:
                            descs)
 
 
-def encode_probe_response() -> bytes:
+def encode_probe_response(report: Optional[dict] = None) -> bytes:
     """The decode tier's capability answer: its fabric domain token, its
     host token, and whether it offers the shm lane, so the sender picks a
-    lane before moving a byte."""
+    lane before moving a byte.
+
+    With ``report`` (a ``fleet.build_load_report`` dict) a versioned
+    load-report tail follows the capability fields: ``<I len>`` + JSON.
+    Decoders that stop at the shm byte never read it, so the tail is
+    wire-compatible both ways."""
     from ..ici.fabric import local_domain_id
     dom = local_domain_id()
     host = _host_token()
-    return (_PROBE_MAGIC
-            + struct.pack("<H", len(dom)) + dom
-            + struct.pack("<H", len(host)) + host
-            + struct.pack("<B", 1 if shm_ring.lane_enabled() else 0))
+    out = (_PROBE_MAGIC
+           + struct.pack("<H", len(dom)) + dom
+           + struct.pack("<H", len(host)) + host
+           + struct.pack("<B", 1 if shm_ring.lane_enabled() else 0))
+    if report is not None:
+        blob = json.dumps(report, default=str).encode("utf-8")
+        out += struct.pack("<I", len(blob)) + blob
+    return out
 
 
 def decode_probe_response(data: bytes):
@@ -246,8 +256,7 @@ def decode_probe_response(data: bytes):
 
 def decode_probe_report(data: bytes) -> Optional[dict]:
     """The versioned load-report tail of a probe answer (``<I len>`` +
-    JSON, sent by the JAX package's fleet-aware tiers), or None when there
-    is none or it is malformed."""
+    JSON), or None when there is none or it is malformed."""
     try:
         if data[:4] != _PROBE_MAGIC:
             return None

@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import fleet
 from ..butil.status import Errno
 from ..bvar.multi_dimension import PassiveDimension
 from ..kv.pages import (HostPagePool, PageAllocator, PrefixCache,
@@ -822,6 +823,8 @@ class ContinuousBatcher:
         sess.slot = -1
         self._parked.append(sess)
         self.spills += 1
+        fleet.record_event("fleet_host_spill",
+                           f"tier={getattr(sess, 'tier', '?')}")
         if sess.tl is not None:
             sess.tl.spills += 1
         if sess.span is not None:

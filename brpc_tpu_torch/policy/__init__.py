@@ -1,9 +1,8 @@
-"""Pluggable policies (≈ brpc's src/brpc/policy/).
-
-The port's copy of ``brpc_tpu/policy/`` holds the concurrency limiters
-only; the load balancers and the naming services (``load_balancers``,
-``naming``, ``remote_naming``) wait for the fleet and cluster client
-slice."""
+"""Pluggable policies (≈ brpc's src/brpc/policy/): the concurrency
+limiters, the load balancers (``load_balancers``) and the naming services
+(``naming``, ``remote_naming``), copies of ``brpc_tpu/policy/``'s.  The
+balancers and the naming schemes register themselves when their module
+is imported (``Channel.init`` with a naming URL imports both)."""
 
 from .concurrency_limiter import (AutoLimiter, ConcurrencyLimiter,
                                   ConstantLimiter, TimeoutLimiter,

@@ -66,10 +66,17 @@ the shm ring's slots and the exported KV pages and host spills;
 :meth:`join` waits for in-flight work bounded by the grace,
 ``graceful_quit_on_sigterm`` drains every live server on SIGTERM, and
 ``server_drain_state`` / ``drain_inflight_remaining`` are exposed.
-It speaks tpu_std only.  Cut, each for a later slice of the port: the
-other protocols and the native engine (so the client demux's settle in
-``drain``), ``publish``/``unpublish`` and the fleet hooks of ``drain``
-and ``stop`` (fleet and naming), and ``export_listeners`` (hot restart).
+Fleet membership (``:731-762``, ``:843-848``, ``:899-900``):
+:meth:`Server.publish` adds the server's ``host:port`` to a ``file://``
+naming list (the format ``FileNamingService`` reads) and
+:meth:`unpublish` takes it out; ``start`` records ``fleet_restart``,
+``drain`` unpublishes first and then calls ``fleet.on_server_drain``
+(the drain and lame-duck events, a final report that says draining, the
+registry's deregister), and ``stop`` unpublishes and calls
+``fleet.on_server_stop``.  :attr:`methods` is the method table the load
+report reads.  It speaks tpu_std only.  Cut, each for a later slice of
+the port: the other protocols and the native engine (so the client
+demux's settle in ``drain``), and ``export_listeners`` (hot restart).
 """
 
 from __future__ import annotations
@@ -194,6 +201,34 @@ def _install_sigterm_drain() -> None:
                     "thread; SIGTERM handler not installed")
 
 
+def _publish_file_edit(path: str, line: str, add: bool) -> None:
+    """Atomically add/remove one server line in a file-NS list (the
+    ``file://`` naming source): read-modify-replace under an flock so
+    replicas publishing while a draining neighbor unpublishes cannot
+    lose each other's lines."""
+    import fcntl
+    lockp = path + ".lock"
+    with open(lockp, "a+") as lk:
+        fcntl.flock(lk.fileno(), fcntl.LOCK_EX)
+        try:
+            try:
+                with open(path) as f:
+                    lines = [ln.strip() for ln in f if ln.strip()]
+            except FileNotFoundError:
+                lines = []
+            if add:
+                if line not in lines:
+                    lines.append(line)
+            else:
+                lines = [ln for ln in lines if ln != line]
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write("".join(ln + "\n" for ln in lines))
+            os.replace(tmp, path)
+        finally:
+            fcntl.flock(lk.fileno(), fcntl.LOCK_UN)
+
+
 def _drain_state_now() -> int:
     """The highest drain phase across started servers (0 once nothing
     serves or drains)."""
@@ -293,9 +328,10 @@ class _RequestQueue:
 
 
 class _MethodEntry:
-    __slots__ = ("fn", "status")
+    __slots__ = ("service", "fn", "status")
 
-    def __init__(self, fn: Callable, status: MethodStatus):
+    def __init__(self, service: Any, fn: Callable, status: MethodStatus):
+        self.service = service
         self.fn = fn
         self.status = status
 
@@ -325,6 +361,7 @@ class Server:
         self._admission = None          # lazy AdmissionControl
         self._server_limiter = None     # from a spec'd max_concurrency
         self._server_limiter_spec = None
+        self._published: Optional[Tuple[str, str]] = None
         _live_servers.add(self)
         _ensure_drain_vars()
 
@@ -365,8 +402,15 @@ class Server:
                 limiter = make_limiter(mc)
                 mc = 0
             self._methods[(sname, mname)] = _MethodEntry(
-                fn, MethodStatus(full, max_concurrency=mc, limiter=limiter))
+                service, fn,
+                MethodStatus(full, max_concurrency=mc, limiter=limiter))
         return 0
+
+    @property
+    def methods(self) -> Dict[Tuple[str, str], _MethodEntry]:
+        """``(service, method)`` -> its entry (``service``, ``fn``,
+        ``status``)."""
+        return self._methods
 
     def find_method(self, service_name: str,
                     method_name: str) -> Optional[_MethodEntry]:
@@ -471,6 +515,8 @@ class Server:
             _install_sigterm_drain()
         self._spawn(self._accept_loop, "tpu_std-accept")
         ensure_dumper()     # a no-op unless the bvar_dump flag is on
+        from .. import fleet
+        fleet.on_server_start(self)     # flight recorder: restart event
         return 0
 
     @property
@@ -487,6 +533,9 @@ class Server:
             return 0
         self._started = False
         self._drain_state = DRAIN_STOPPED
+        self.unpublish()
+        from .. import fleet
+        fleet.on_server_stop(self)      # flight recorder + reporter reap
         self._stopping.set()
         with self._lock:
             conns = list(self._conns)
@@ -559,6 +608,35 @@ class Server:
     def drain_force_closed(self) -> int:
         return self._drain_force_closed
 
+    def publish(self, target: str) -> int:
+        """Add this server's address to a ``file://`` naming list (one
+        ``host:port`` per line, what ``FileNamingService`` reads).
+        ``drain()`` unpublishes first, so new clients stop resolving here
+        before the lame-duck signal reaches connected ones."""
+        if self._listen_endpoint is None:
+            return -1
+        path = target[len("file://"):] if target.startswith("file://") \
+            else target
+        line = f"{self._listen_endpoint.host}:{self._listen_endpoint.port}"
+        try:
+            _publish_file_edit(path, line, add=True)
+        except OSError as e:
+            LOG.error("publish to %s failed: %s", path, e)
+            return -1
+        self._published = (path, line)
+        return 0
+
+    def unpublish(self) -> None:
+        pub = self._published
+        if pub is None:
+            return
+        self._published = None
+        path, line = pub
+        try:
+            _publish_file_edit(path, line, add=False)
+        except OSError as e:
+            LOG.warning("unpublish from %s failed: %s", path, e)
+
     def _wait_inflight_zero(self, deadline_mono: float) -> bool:
         with self._inflight_lock:
             while self._inflight > 0:
@@ -587,6 +665,7 @@ class Server:
         """Enter lame duck and finish in-flight work (≈ the graceful half
         of brpc ``Server::Stop``):
 
+        0. unpublish, and tell the fleet registry (``fleet.on_server_drain``);
         1. stop accepting (the listener stays open) and stamp the
            lame-duck signal on every response;
         2. answer new requests ``ELAMEDUCK`` through admission;
@@ -609,6 +688,12 @@ class Server:
                     else get_flag("drain_grace_ms", 5000))
         deadline = time.monotonic() + grace / 1e3
         self._drain_state = DRAIN_DRAINING
+        self.unpublish()
+        # fleet visibility within one report interval: the drain and
+        # lame-duck events, a final report that says "draining", and
+        # the registry's deregister (1 s RPCs, outside the grace)
+        from .. import fleet
+        fleet.on_server_drain(self)
         self._accept_paused = True
         from ..streaming import drain_server_streams
         drain_server_streams(self, deadline)

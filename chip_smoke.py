@@ -130,6 +130,29 @@ result line) when a phase fails or CUDA is absent.  Phases:
    pooled backup beside its primary (2 x depth launches), a retry after
    the server drops the connection, no backup once the retry budget is
    drained;
+   14. the LM across replicas, on the same weights: two paged replicas
+   (4 slots each), each an ``LMService`` on a ``Server`` of its own in
+   this process: (a) four (1, 1024, 32) Generates through
+   ``list://A,B`` with ``"rr"`` (2 and 2, phase 5's tokens, ``flash_fwd``
+   4 x depth), then ``"la"`` beside a (1, 1500, 64) loop on A (the share
+   sent to B); (b) 6c (b)'s five sessions through ``"c_murmurhash"``
+   keyed by their head (all on one replica: 1 miss, 3 partial hits, 1
+   hit, one prefill, the other replica none), then five on another head
+   through ``"rr"`` (a prefill on each replica); tokens under 6b's
+   near-tie rule; (c) a backup across replicas: the primary pinned to A
+   (busy with a (1, 1500, 64)), the 50 ms backup won on B, its ms beside
+   a lone call's; (d) a ``ParallelChannel`` over A and B (both phase 5's
+   tokens) and a ``SelectiveChannel`` with a dead sub-channel; (e)
+   ``list://A,<dead port>`` with the circuit breaker (every call
+   succeeds, one ``fleet_breaker_trip``, no attempt dials the dead port
+   while it is isolated); (f) a fleet registry with both replicas
+   reporting every 0.2 s (``ok``, slots and KV in each report), 6d's
+   decode tier's ``KV.Probe`` with its load-report tail, federation
+   labels; (g) two client threads looping (1, 512, 8) over a ``file://``
+   list while A drains with a 2 s grace: no call fails, A's
+   ``ELAMEDUCK`` answers retried on B, A unlisted after the naming
+   refresh, the registry showing it ``draining`` within one report
+   interval;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -382,6 +405,24 @@ TENANT_CAPACITY, TENANT_FLOOD = 2, 4
 DRAIN_STREAMS, DRAIN_GRACE_MS, HOLD_GRACE_MS = 8, 5000, 200
 DRAIN_STAGGER_S, DRAIN_MAX_NEW, DRAIN_SHORT_PROMPT = 0.02, 128, 256
 BACKUP_MS = 50
+# Phase 14, the LM across replicas: two paged replicas of phase 5's
+# weights (4 slots each, the default pool: 513 pages of 2 MiB), each on a
+# Server of its own, in this process on the one card.  (a) four (1, 1024,
+# 32) Generates through "rr", then LA_CALLS of GOODPUT_REQUEST through
+# "la" beside a (1, 1500, 64) loop on A; (b) 6c (b)'s five sessions
+# through "c_murmurhash" (request code: a hash of the head), then five on
+# a second head through "rr"; (c) a (1, 1024, 32) call pinned to A (busy
+# with a (1, 1500, 64)) with a 50 ms backup; (d) a ParallelChannel over A
+# and B, a SelectiveChannel with a dead sub-channel; (e) "list://A,<dead
+# port>" with the breaker; (f) a registry and reporters every 0.2 s; (g)
+# two client threads looping GOODPUT_REQUEST over a file:// list while A
+# drains with a 2 s grace
+CLUSTER_SLOTS = 4
+LA_CALLS = 6
+BUSY_REQUEST = (1, 1500, 64)
+FLEET_INTERVAL_S = 0.2
+CLUSTER_DRAIN_GRACE_MS = 2000
+CLUSTER_DRAIN_LEAD_S, CLUSTER_DRAIN_TAIL_S = 0.5, 0.5
 TIMING_REPS = 20
 # the dense/flash crossover (phase 11 (i)): prefill lengths, b = 1
 CROSSOVER_SEQS = (128, 256, 512, 768, 1024, 1536, 2048)
@@ -1798,21 +1839,28 @@ class DecodeClient:
     arrive, the close reason, and the time to the first token."""
 
     def __init__(self, ep, service: str, prompt: np.ndarray, max_new: int,
-                 trace_id: int = 0):
+                 trace_id: int = 0, channel: Channel = None,
+                 request_code: int = 0):
         self.prompt, self.max_new = prompt, max_new
         self.trace_id = trace_id
         self.tokens, self.reason, self.ttft_s = [], None, None
         self.call_s = None          # the unary call's return
         self.error = None
+        self.remote = None          # the server that answered
         self.done = threading.Event()
         self._ep, self._service = ep, service
+        # a shared (cluster) channel, and the balancer's hash key
+        self._channel, self._code = channel, request_code
 
     def run(self) -> None:
-        ch = Channel()
-        ch.init(str(self._ep))
+        ch = self._channel
+        if ch is None:
+            ch = Channel()
+            ch.init(str(self._ep))
         cntl = Controller()
         cntl.timeout_ms = int(DECODE_TIMEOUT_S * 1000)
         cntl.trace_id = self.trace_id
+        cntl.request_code = self._code
 
         def on_received(st, msgs):
             if self.ttft_s is None:
@@ -1830,20 +1878,25 @@ class DecodeClient:
                            pack_generate_request(self.prompt[None],
                                                  self.max_new), cntl=cntl)
         self.call_s = time.perf_counter() - t0
+        self.remote = c.remote_side
         if c.failed:
             self.error = f"[{c.error_code}] {c.error_text}"
             self.done.set()
         self.done.wait(DECODE_TIMEOUT_S)
-        ch.close()
+        if self._channel is None:
+            ch.close()
 
 
 def run_decode_sessions(ep, service: str, prompts, stagger_s: float,
-                        batcher, trace_ids=None) -> tuple:
+                        batcher, trace_ids=None, channel: Channel = None,
+                        request_code: int = 0) -> tuple:
     """Start one client thread per prompt, ``stagger_s`` apart (each call
-    traced under its ``trace_ids`` entry, if given); wait for every stream
-    to close.  Returns the clients, the wall time from the first call to
-    the last close, and the most slots seen live."""
-    clients = [DecodeClient(ep, service, p, DECODE_MAX_NEW, tid)
+    traced under its ``trace_ids`` entry, if given; through ``channel``
+    with ``request_code``, if given); wait for every stream to close.
+    Returns the clients, the wall time from the first call to the last
+    close, and the most slots seen live."""
+    clients = [DecodeClient(ep, service, p, DECODE_MAX_NEW, tid, channel,
+                            request_code)
                for p, tid in zip(prompts, trace_ids or [0] * len(prompts))]
     threads = [threading.Thread(target=c.run) for c in clients]
     t0 = time.perf_counter()
@@ -4588,6 +4641,662 @@ def refused_decode(ch: Channel, service: str, prompt: np.ndarray) -> tuple:
     return (c.error_code, c.error_text) if c.failed else (0, "")
 
 
+# -- phase 14: the LM across replicas ------------------------------------
+
+
+class Replicas:
+    """Two paged replicas of phase 5's weights, each an LMService on a
+    Server of its own (its own device lock, batcher and KV pool)."""
+
+    def __init__(self, cfg: LMConfig, params, names=("A", "B")):
+        self.names = names
+        self.svcs = [LMService(cfg=cfg, params=params, device="cuda",
+                               decode_slots=CLUSTER_SLOTS, paged=True,
+                               page=PAGE) for _ in names]
+        self.srvs = [serve_lm({"LM": svc}) for svc in self.svcs]
+
+    @property
+    def eps(self) -> list:
+        return [srv.listen_endpoint for srv in self.srvs]
+
+    def url(self) -> str:
+        return "list://" + ",".join(str(ep) for ep in self.eps)
+
+    def name_of(self, ep) -> str:
+        return self.names[self.eps.index(ep)] if ep in self.eps else str(ep)
+
+    def counts(self, method: str = "LM.Generate") -> list:
+        return [srv.method_status(method).latency.count()
+                for srv in self.srvs]
+
+    def live_slots(self) -> int:
+        return sum(svc.batcher().live_slots() for svc in self.svcs)
+
+    def close(self) -> None:
+        for srv in self.srvs:
+            srv.stop()
+        for svc in self.svcs:
+            if svc._batcher is not None and not svc._batcher.shutdown():
+                raise AssertionError("a replica's batcher did not stop")
+
+
+def cluster_channel(url: str, lb: str, **opts) -> Channel:
+    options = ChannelOptions()
+    for key, value in opts.items():
+        setattr(options, key, value)
+    ch = Channel(options)
+    if ch.init(url, lb) != 0:
+        raise RuntimeError(f"cluster channel {url} {lb} did not init")
+    return ch
+
+
+def code_for(eps: list, target, lb: str = "c_murmurhash") -> int:
+    """The smallest request code ``lb`` maps to ``target`` over ``eps``."""
+    from brpc_tpu_torch.client.load_balancer import create_load_balancer
+    from brpc_tpu_torch.client.naming_service import parse_server_line
+    from brpc_tpu_torch.policy import load_balancers  # noqa: F401
+    balancer = create_load_balancer(lb)
+    balancer.reset_servers([parse_server_line(str(ep)) for ep in eps])
+    cntl = Controller()
+    for code in range(10_000):
+        cntl.request_code = code
+        if balancer.select_server(cntl) == target:
+            return code
+    raise AssertionError(f"no request code maps to {target}")
+
+
+def head_code(head: np.ndarray) -> int:
+    """A request code from a prompt head: the affinity key of its
+    sessions."""
+    import hashlib
+    return int.from_bytes(hashlib.md5(head.tobytes()).digest()[:8],
+                          "little")
+
+
+class BusyLoop:
+    """Generate calls of BUSY_REQUEST, one after another, on one replica
+    until stopped (or ``n`` of them): that replica's device lock stays
+    taken."""
+
+    def __init__(self, ep, cfg: LMConfig, n: int = 0):
+        self.ch = Channel()
+        self.ch.init(str(ep))
+        b, s, self.max_new = BUSY_REQUEST
+        self.prompt = np.random.default_rng(3).integers(
+            0, cfg.vocab, (b, s), dtype=np.int32)
+        self.n, self.calls, self.failed = n, 0, 0
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while not self.stop.is_set():
+            c = gen_call(self.ch, self.prompt, self.max_new, 600_000)
+            self.calls += 1
+            self.failed += c.failed
+            if self.n and self.calls >= self.n:
+                return
+
+    def join(self) -> None:
+        self.stop.set()
+        self.thread.join(600)
+        self.ch.close()
+        if self.thread.is_alive() or self.failed:
+            raise AssertionError("the busy loop failed")
+
+
+def phase_cl_spread(reps: Replicas, cfg: LMConfig, ref: tuple) -> dict:
+    """(a) Four Generates through "rr": two on each replica, phase 5's
+    tokens; then "la" with A kept busy."""
+    prompt, want = ref
+    ch = cluster_channel(reps.url(), "rr")
+    n0 = reps.counts()
+    l0 = FLASH_FWD.launches
+    sides, ms = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        c = gen_call(ch, prompt, len(want), 600_000)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if c.failed or unpack_generated(c.response)[0].tolist() != want:
+            raise AssertionError(f"(a) rr Generate: [{c.error_code}] "
+                                 f"{c.error_text}, or other tokens")
+        sides.append(reps.name_of(c.remote_side))
+    ch.close()
+    rr_launches = FLASH_FWD.launches - l0
+    split = [n - m for n, m in zip(reps.counts(), n0)]
+    busy = BusyLoop(reps.eps[0], cfg)
+    ch = cluster_channel(reps.url(), "la")
+    la_prompt = np.random.default_rng(4).integers(
+        0, cfg.vocab, GOODPUT_REQUEST[:2], dtype=np.int32)
+    la_sides, la_ms = [], []
+    try:
+        wait_until(lambda: reps.svcs[0]._device_lock.locked(), 60,
+                   "A's busy loop")
+        for _ in range(LA_CALLS):
+            t0 = time.perf_counter()
+            c = gen_call(ch, la_prompt, GOODPUT_REQUEST[2], 600_000)
+            la_ms.append((time.perf_counter() - t0) * 1e3)
+            if c.failed:
+                raise AssertionError(f"(a) la Generate: [{c.error_code}] "
+                                     f"{c.error_text}")
+            la_sides.append(reps.name_of(c.remote_side))
+    finally:
+        ch.close()
+        busy.join()
+    share_b = la_sides.count("B") / len(la_sides)
+    log(f"  (a) rr: 4 x {REQUESTS[0]} on {sides} (MethodStatus +{split}), "
+        f"phase 5's tokens, {[round(m, 1) for m in ms]} ms, flash_fwd "
+        f"{rr_launches} (expected {4 * cfg.depth}); la beside A's "
+        f"{BUSY_REQUEST} loop ({busy.calls} calls): {LA_CALLS} x "
+        f"{GOODPUT_REQUEST} on {''.join(la_sides)}, share to B "
+        f"{share_b:.3f}, median {statistics.median(la_ms):.1f} ms; "
+        f"{card_line()}")
+    if split != [2, 2] or sorted(sides) != ["A", "A", "B", "B"] \
+            or rr_launches != 4 * cfg.depth:
+        raise AssertionError("(a): rr did not spread 2 and 2")
+    return dict(rr_sides=sides, rr_split=split, rr_ms=ms,
+                rr_launches=rr_launches, la_sides="".join(la_sides),
+                la_share_b=share_b, la_ms=la_ms, busy_calls=busy.calls)
+
+
+def prefix_stats(service: LMService) -> dict:
+    """The replica's prefix-cache counters (zeros before its first join
+    builds the cache)."""
+    zero = dict(hits=0, partial_hits=0, misses=0)
+    return service.batcher().kv_stats().get("prefix", zero)
+
+
+def cluster_prefix_run(reps: Replicas, cfg: LMConfig, svc: LMService,
+                       seed: int, lb: str) -> dict:
+    """6c (b)'s five sessions (four prompts on one head, then the first
+    again) through one cluster channel: ``c_murmurhash`` keyed by the
+    head, or ``rr``."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, cfg.vocab, PREFIX_HEAD, dtype=np.int32)
+    prompts = [np.concatenate([head, rng.integers(
+        0, cfg.vocab, PREFIX_PROMPT - PREFIX_HEAD, dtype=np.int32)])
+        for _ in range(4)]
+    code = head_code(head) if lb == "c_murmurhash" else 0
+    ch = cluster_channel(reps.url(), lb)
+    stats0 = [prefix_stats(svc_) for svc_ in reps.svcs]
+    pre0 = [svc_.batcher().prefills_run for svc_ in reps.svcs]
+    dec0 = reps.counts("LM.Decode")
+    ev0 = prefix_event_counters()
+    l0 = FLASH_FWD.launches
+    clients = []
+    try:
+        for group, stagger in ((prompts[:1], 0.0),
+                               (prompts[1:], DECODE_STAGGER_S),
+                               (prompts[:1], 0.0)):
+            got, _, _ = run_decode_sessions(None, "LM", group, stagger, reps,
+                                            channel=ch, request_code=code)
+            clients += got
+    finally:
+        ch.close()
+    launches = FLASH_FWD.launches - l0
+    ev = {k: v - ev0[k] for k, v in prefix_event_counters().items()}
+    per = []
+    for svc_, st0, p0, d0, d1 in zip(reps.svcs, stats0, pre0, dec0,
+                                     reps.counts("LM.Decode")):
+        st = prefix_stats(svc_)
+        per.append(dict(sessions=d1 - d0,
+                        prefills=svc_.batcher().prefills_run - p0,
+                        miss=st["misses"] - st0["misses"],
+                        partial=st["partial_hits"] - st0["partial_hits"],
+                        hit=st["hits"] - st0["hits"]))
+    sides = [reps.name_of(c.remote) for c in clients]
+    res = dict(lb=lb, sides="".join(sides), per_replica=per,
+               events=ev, launches=launches,
+               ttft_ms=[c.ttft_s * 1e3 for c in clients])
+    res.update(hold_tokens(f"(b) {lb}", svc, cfg, clients))
+    # the solo references' prefills are a check, not the path
+    res["check_launches"] = FLASH_FWD.launches - l0 - launches
+    return res
+
+
+def phase_cl_affinity(reps: Replicas, cfg: LMConfig, svc: LMService) -> dict:
+    """(b) Prefix affinity: through ``c_murmurhash`` every session of a
+    head lands on one replica (one prefill); through ``rr`` both
+    replicas prefill."""
+    hashed = cluster_prefix_run(reps, cfg, svc, 11, "c_murmurhash")
+    spread = cluster_prefix_run(reps, cfg, svc, 12, "rr")
+    for label, res in (("c_murmurhash", hashed), ("rr", spread)):
+        log(f"  (b) {label}: sessions on {res['sides']}, per replica "
+            f"{res['per_replica']}, flash_fwd {res['launches']}, TTFT ms "
+            f"{[round(t, 1) for t in res['ttft_ms']]}")
+    home = [p for p in hashed["per_replica"] if p["sessions"]]
+    other = [p for p in hashed["per_replica"] if not p["sessions"]]
+    if len(home) != 1 or home[0]["sessions"] != 5 \
+            or (home[0]["miss"], home[0]["partial"], home[0]["hit"]) \
+            != (1, 3, 1) or home[0]["prefills"] != 1 \
+            or other[0]["miss"] + other[0]["partial"] + other[0]["hit"] \
+            or hashed["launches"] != cfg.depth:
+        raise AssertionError("(b): c_murmurhash did not keep a head's "
+                             "sessions on one replica")
+    if [p["prefills"] for p in spread["per_replica"]] != [1, 1] \
+            or spread["launches"] != 2 * cfg.depth:
+        raise AssertionError("(b): rr did not prefill on both replicas")
+    return dict(c_murmurhash=hashed, rr=spread,
+                launches=hashed["launches"] + spread["launches"],
+                check_launches=hashed["check_launches"]
+                + spread["check_launches"])
+
+
+def phase_cl_hedge(reps: Replicas, cfg: LMConfig, ref: tuple) -> dict:
+    """(c) A backup across replicas: the primary pinned to A, busy with a
+    BUSY_REQUEST; the 50 ms backup goes to B and wins."""
+    prompt, want = ref
+    a, b = reps.eps
+    lone_ch = Channel()
+    lone_ch.init(str(b))
+    t0 = time.perf_counter()
+    c = gen_call(lone_ch, prompt, len(want), 600_000)
+    lone_ms = (time.perf_counter() - t0) * 1e3
+    lone_ch.close()
+    if c.failed:
+        raise AssertionError("(c): the lone call failed")
+    ch = cluster_channel(reps.url(), "c_murmurhash", connection_type="pooled",
+                         backup_request_ms=BACKUP_MS)
+    n0 = reps.counts()
+    l0 = FLASH_FWD.launches
+    busy = BusyLoop(a, cfg, n=1)
+    try:
+        wait_until(lambda: reps.svcs[0]._device_lock.locked(), 60,
+                   "A's busy call")
+        cntl = Controller()
+        cntl.request_code = code_for(reps.eps, a)
+        t0 = time.perf_counter()
+        c = gen_call(ch, prompt, len(want), 600_000, cntl=cntl)
+        hedge_ms = (time.perf_counter() - t0) * 1e3
+        # A answers the busy call, then the hedge's primary (dropped)
+        wait_until(lambda: reps.counts()[0] >= n0[0] + 2, 120,
+                   "the primary on A")
+    finally:
+        busy.join()
+        ch.close()
+    call_launches = FLASH_FWD.launches - l0 - cfg.depth
+    ok = not c.failed and unpack_generated(c.response)[0].tolist() == want
+    # the same pinned call beside the same busy call, with no backup
+    ch = cluster_channel(reps.url(), "c_murmurhash")
+    busy = BusyLoop(a, cfg, n=1)
+    try:
+        wait_until(lambda: reps.svcs[0]._device_lock.locked(), 60,
+                   "A's busy call")
+        cntl = Controller()
+        cntl.request_code = code_for(reps.eps, a)
+        t0 = time.perf_counter()
+        u = gen_call(ch, prompt, len(want), 600_000, cntl=cntl)
+        unhedged_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        busy.join()
+        ch.close()
+    if u.failed or reps.name_of(u.remote_side) != "A":
+        raise AssertionError("(c): the unhedged call")
+    sides = side_by_side(reps, ref)
+    res = dict(ms=hedge_ms, lone_ms=lone_ms, unhedged_ms=unhedged_ms,
+               side_by_side=sides, has_backup=c.has_backup_request,
+               primary=reps.name_of(c.attempt_remotes.get(0)),
+               winner=reps.name_of(c.remote_side), retried=c.retried_count,
+               launches=FLASH_FWD.launches - l0 - sides["launches"],
+               call_launches=call_launches)
+    log(f"  (c) hedge across replicas: primary on {res['primary']} (busy "
+        f"with {BUSY_REQUEST}), backup at {BACKUP_MS} ms won on "
+        f"{res['winner']}: {hedge_ms:.1f} ms against {unhedged_ms:.1f} ms "
+        f"for the same call unhedged beside the same busy call, and a "
+        f"lone call's {lone_ms:.1f} ms; has_backup_request "
+        f"{c.has_backup_request}, tokens "
+        f"equal {ok}, flash_fwd once both attempts ended "
+        f"{res['call_launches']} (+{cfg.depth} the busy call); two "
+        f"generators called directly: one {sides['lone_ms']:.1f} ms, one "
+        f"after the other {sides['serial_ms']:.1f}, side by side on the "
+        f"default stream {sides['default_stream_ms']:.1f}, each on a "
+        f"stream of its own {sides['own_streams_ms']:.1f}; {card_line()}")
+    if not ok or not c.has_backup_request or res["primary"] != "A" \
+            or res["winner"] != "B" \
+            or res["call_launches"] != 2 * cfg.depth:
+        raise AssertionError("(c): the backup did not win on B")
+    return res
+
+
+def side_by_side(reps: Replicas, ref: tuple) -> dict:
+    """Where two replicas in one process lose their concurrency: A's and
+    B's generators called directly (no RPC, no device lock), one after
+    the other, then together from two threads on the default stream,
+    then together each on a CUDA stream of its own; host ms of each
+    arrangement, tokens checked."""
+    prompt, want = ref
+    ids = torch.from_numpy(prompt.astype(np.int64)).cuda()
+
+    def run(svc_, stream=None):
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            out = svc_._gen(ids, len(want))[0].cpu().tolist()
+        if out != want:
+            raise AssertionError("(c) a side-by-side run's tokens")
+
+    def together(streams) -> float:
+        threads = [threading.Thread(target=run, args=(svc_, st))
+                   for svc_, st in zip(reps.svcs, streams)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    l0 = FLASH_FWD.launches
+    t0 = time.perf_counter()
+    run(reps.svcs[0])
+    lone = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for svc_ in reps.svcs:
+        run(svc_)
+    serial = (time.perf_counter() - t0) * 1e3
+    shared = together([None, None])
+    own = together([torch.cuda.Stream(), torch.cuda.Stream()])
+    return dict(lone_ms=lone, serial_ms=serial, default_stream_ms=shared,
+                own_streams_ms=own, launches=FLASH_FWD.launches - l0)
+
+
+def dead_port() -> int:
+    """A loopback port nothing listens on."""
+    import socket as pysocket
+    with pysocket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_cl_fanout(reps: Replicas, cfg: LMConfig, ref: tuple) -> dict:
+    """(d) A ParallelChannel over A and B; a SelectiveChannel with a dead
+    sub-channel answering from the live one."""
+    from brpc_tpu_torch.client import ParallelChannel, SelectiveChannel
+    prompt, want = ref
+    req = pack_generate_request(prompt, len(want))
+    subs = []
+    for ep in reps.eps:
+        ch = Channel()
+        ch.init(str(ep))
+        subs.append(ch)
+    l0 = FLASH_FWD.launches
+    pc = ParallelChannel()
+    for ch in subs:
+        pc.add_channel(ch)
+    cntl = Controller()
+    cntl.timeout_ms = 600_000
+    t0 = time.perf_counter()
+    c = pc.call_method("LM.Generate", req, cntl=cntl)
+    fan_ms = (time.perf_counter() - t0) * 1e3
+    fan_ok = not c.failed and all(
+        unpack_generated(r)[0].tolist() == want for r in c.response)
+    fan_launches = FLASH_FWD.launches - l0
+    dead = Channel()
+    dead.init(f"127.0.0.1:{dead_port()}")
+    sc = SelectiveChannel()
+    sc.add_channel(dead)
+    sc.add_channel(subs[1])
+    cntl = Controller()
+    cntl.timeout_ms = 600_000
+    c2 = sc.call_method("LM.Generate", req, cntl=cntl)
+    sel_ok = not c2.failed and \
+        unpack_generated(c2.response)[0].tolist() == want
+    launches = FLASH_FWD.launches - l0
+    for ch in subs + [dead]:
+        ch.close()
+    log(f"  (d) ParallelChannel over A and B: both phase 5's tokens "
+        f"{fan_ok}, {fan_ms:.1f} ms, flash_fwd {fan_launches} (expected "
+        f"{2 * cfg.depth}); SelectiveChannel with a dead sub-channel: "
+        f"answered {sel_ok} from {reps.name_of(c2.remote_side)}")
+    if not fan_ok or fan_launches != 2 * cfg.depth or not sel_ok \
+            or launches != 3 * cfg.depth:
+        raise AssertionError("(d): the fan-out went wrong")
+    return dict(fan_ms=fan_ms, fan_launches=fan_launches,
+                selective_from=reps.name_of(c2.remote_side),
+                launches=launches)
+
+
+def phase_cl_breaker(reps: Replicas) -> dict:
+    """(e) ``list://A,<dead port>`` with the breaker: every call succeeds,
+    the dead port trips, and no attempt dials it while it is isolated."""
+    from brpc_tpu_torch import fleet
+    from brpc_tpu_torch.client.circuit_breaker import \
+        global_circuit_breaker_map
+    dead_ep = f"127.0.0.1:{dead_port()}"
+    ch = cluster_channel(f"list://{reps.eps[0]},{dead_ep}", "rr",
+                         enable_circuit_breaker=True)
+    breakers = global_circuit_breaker_map()
+    dead = [ep for ep in ch.load_balancer.servers
+            if str(ep.endpoint) == dead_ep][0].endpoint
+    trips0 = fleet.event_counters()["fleet_breaker_trip"]
+    calls = retried = 0
+    try:
+        while not breakers.isolated(dead):
+            c = ch.call_method("LM.Info", b"")
+            calls += 1
+            retried += c.retried_count
+            if c.failed or calls > 64:
+                raise AssertionError(f"(e) call {calls}: [{c.error_code}] "
+                                     f"{c.error_text}")
+        t_trip = time.perf_counter()
+        isolated_calls = dialed = 0
+        while breakers.isolated(dead):
+            c = ch.call_method("LM.Info", b"")
+            if c.failed:
+                raise AssertionError("(e) a call failed while isolated")
+            if breakers.isolated(dead):
+                isolated_calls += 1
+                dialed += dead in c.attempt_remotes.values()
+        isolation_ms = (time.perf_counter() - t_trip) * 1e3
+        after = ch.call_method("LM.Info", b"")
+    finally:
+        ch.close()
+    trips = fleet.event_counters()["fleet_breaker_trip"] - trips0
+    log(f"  (e) breaker: {calls} calls to trip (retried {retried}), "
+        f"fleet_breaker_trip +{trips}; {isolated_calls} calls in "
+        f"{isolation_ms:.1f} ms of isolation, {dialed} dialed the dead "
+        f"port; after: ok {not after.failed}")
+    if trips != 1 or dialed or not isolated_calls or after.failed:
+        raise AssertionError("(e): the breaker did not isolate the dead "
+                             "port")
+    return dict(calls_to_trip=calls, retried=retried, trips=trips,
+                isolated_calls=isolated_calls, isolation_ms=isolation_ms,
+                dialed=dialed)
+
+
+def phase_cl_fleet(reps: Replicas, registry, reg_srv: Server,
+                   dec_ep) -> dict:
+    """(f) Fleet: both replicas report to a registry; a KV.Probe's tail;
+    federation."""
+    from brpc_tpu_torch import fleet
+    from brpc_tpu_torch.kv.transport import decode_probe_report
+    t0 = time.perf_counter()
+    for srv in reps.srvs:
+        fleet.attach_reporter(srv, str(reg_srv.listen_endpoint),
+                              interval_s=FLEET_INTERVAL_S)
+    want = {str(ep) for ep in reps.eps}
+
+    def ok_members():
+        return {m["instance"] for m in registry.members()
+                if m["state"] == "ok"}
+
+    wait_until(lambda: want <= ok_members(), 1.0, "both replicas ok")
+    ok_s = time.perf_counter() - t0
+    rows = {m["instance"]: m for m in registry.members()}
+    for srv, svc_ in zip(reps.srvs, reps.svcs):
+        rep = rows[str(srv.listen_endpoint)]["report"]
+        if rep["v"] != fleet.LOAD_REPORT_VERSION \
+                or rep["slots"]["total"] != CLUSTER_SLOTS \
+                or not rep["kv"] or "alloc" not in rep["kv"]:
+            raise AssertionError(f"(f) a replica's report: {rep}")
+    ch = Channel()
+    ch.init(str(dec_ep))
+    c = ch.call_method("KV.Probe", b"")
+    ch.close()
+    tail = decode_probe_report(c.response) if not c.failed else None
+    if tail is None or tail["instance"] != str(dec_ep) \
+            or tail["v"] != fleet.LOAD_REPORT_VERSION:
+        raise AssertionError(f"(f) the probe's tail: {tail}")
+    fed = registry.federate(fetch=lambda inst, timeout_s=1.0:
+                            render_prometheus())
+    labelled = [inst for inst in sorted(want)
+                if f'instance="{inst}"' in fed]
+    if labelled != sorted(want):
+        raise AssertionError("(f) federation lacks a replica's label")
+    counts = fleet.event_counters()
+    log(f"  (f) fleet: both replicas ok in {ok_s * 1e3:.1f} ms (interval "
+        f"{FLEET_INTERVAL_S} s); slots "
+        f"{[rows[str(ep)]['report']['slots'] for ep in reps.eps]}; the "
+        f"probe's tail from {tail['instance']} (slots {tail['slots']}); "
+        f"federation {len(fed.splitlines())} lines; events {counts}")
+    return dict(ok_ms=ok_s * 1e3, probe_instance=tail["instance"],
+                federate_lines=len(fed.splitlines()), events=counts)
+
+
+def fmt_ms(ms) -> str:
+    return "none" if ms is None else f"{ms:.1f}"
+
+
+def phase_cl_drain(reps: Replicas, registry, cfg: LMConfig,
+                   naming: str) -> dict:
+    """(g) Drain with failover: two client threads loop Generate over a
+    ``file://`` list while A drains."""
+    from brpc_tpu_torch import fleet
+    a, b = reps.eps
+    for srv in reps.srvs:
+        if srv.publish(f"file://{naming}") != 0:
+            raise AssertionError("(g) publish failed")
+    ch = cluster_channel(f"file://{naming}", "rr")
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab, GOODPUT_REQUEST[:2], dtype=np.int32)
+    stop = threading.Event()
+    calls, lock = [], threading.Lock()
+
+    def loop():
+        while not stop.is_set():
+            c = gen_call(ch, prompt, GOODPUT_REQUEST[2], 600_000)
+            with lock:
+                calls.append((time.perf_counter(), c.error_code,
+                              c.retried_count, c.remote_side,
+                              dict(c.attempt_remotes)))
+
+    ev0 = fleet.event_counters()
+    threads = [threading.Thread(target=loop) for _ in range(2)]
+    for t in threads:
+        t.start()
+    draining_at = [None]
+
+    def watch(t_start):
+        while draining_at[0] is None and not stop.is_set():
+            rows = {m["instance"]: m["state"] for m in registry.members()}
+            if rows.get(str(a)) == "draining":
+                draining_at[0] = time.perf_counter() - t_start
+            time.sleep(0.002)
+
+    try:
+        time.sleep(CLUSTER_DRAIN_LEAD_S)
+        t_drain = time.perf_counter()
+        watcher = threading.Thread(target=watch, args=(t_drain,))
+        watcher.start()
+        rc = reps.srvs[0].drain(grace_ms=CLUSTER_DRAIN_GRACE_MS)
+        drain_ms = (time.perf_counter() - t_drain) * 1e3
+        time.sleep(CLUSTER_DRAIN_TAIL_S)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(600)
+    watcher.join(10)
+    ch.load_balancer._ns.run_once()     # the naming refresh
+    listed = [str(n.endpoint) for n in ch.load_balancer.servers]
+    after = [gen_call(ch, prompt, GOODPUT_REQUEST[2], 600_000)
+             for _ in range(4)]
+    ch.close()
+    ev = {k: v - ev0[k] for k, v in fleet.event_counters().items() if v
+          != ev0[k]}
+    failed = [x for x in calls if x[1]]
+    on_a = [x[0] for x in calls if x[3] == a]
+    lame = [x for x in calls if a in x[4].values() and x[3] == b
+            and x[2] >= 1]
+    last_a_ms = (max(on_a) - t_drain) * 1e3 if on_a else None
+    after_on_a = sum(a in c.attempt_remotes.values() for c in after)
+    res = dict(calls=len(calls), failed=len(failed),
+               retried=sum(x[2] for x in calls),
+               retried_off_a=len(lame), drain_rc=rc, drain_ms=drain_ms,
+               last_a_ms=last_a_ms, draining_after_ms=None
+               if draining_at[0] is None else draining_at[0] * 1e3,
+               listed=listed, after_on_a=after_on_a, events=ev)
+    log(f"  (g) drain of A under 2 client threads: {len(calls)} calls, "
+        f"{res['retried']} retries ({len(lame)} moved from A to B), "
+        f"{len(failed)} failed; drain rc {rc} in {drain_ms:.1f} ms, A's "
+        f"last answer {fmt_ms(last_a_ms)} ms after the drain began, the "
+        f"registry showed A draining after "
+        f"{fmt_ms(res['draining_after_ms'])} ms; listed "
+        f"after the refresh {listed}; {after_on_a} of 4 later calls "
+        f"picked A; events {ev}; {card_line()}")
+    if failed or listed != [str(b)] or after_on_a \
+            or any(c.failed for c in after) \
+            or res["draining_after_ms"] is None \
+            or res["draining_after_ms"] > FLEET_INTERVAL_S * 1e3 \
+            or not all(ev.get(k) for k in ("fleet_drain", "fleet_lame_duck",
+                                           "fleet_deregister")):
+        raise AssertionError(f"(g): the drain failed over badly: "
+                             f"{failed[:2]}")
+    return res
+
+
+def phase_cluster(svc: LMService, cfg: LMConfig, rows: list,
+                  dec_ep) -> dict:
+    """Phase 14: the LM across two replicas on the card, through the
+    cluster Channel, the combo channels, the breaker and the fleet."""
+    from brpc_tpu_torch import fleet
+    t0 = time.perf_counter()
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab, REQUESTS[0][:2], dtype=np.int32)
+    ref = (prompt, rows[0]["tokens"])
+    reps = Replicas(cfg, svc.params)
+    reg_srv = Server()
+    registry = fleet.host_registry(reg_srv, ttl_s=5.0)
+    if reg_srv.start("127.0.0.1:0") != 0:
+        raise RuntimeError("the registry did not start")
+    naming = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    steps = (("spread", lambda: phase_cl_spread(reps, cfg, ref)),
+             ("affinity", lambda: phase_cl_affinity(reps, cfg, svc)),
+             ("hedge", lambda: phase_cl_hedge(reps, cfg, ref)),
+             ("fanout", lambda: phase_cl_fanout(reps, cfg, ref)),
+             ("breaker", lambda: phase_cl_breaker(reps)),
+             ("fleet", lambda: phase_cl_fleet(reps, registry, reg_srv,
+                                              dec_ep)),
+             ("drain", lambda: phase_cl_drain(
+                 reps, registry, cfg, os.path.join(naming, "lm.naming"))))
+    res, sub_s, sub_launches = {}, {}, {}
+    FLASH_FWD.launches = 0
+    try:
+        for name, step in steps:
+            t1, l1 = time.perf_counter(), FLASH_FWD.launches
+            res[name] = step()
+            sub_s[name] = time.perf_counter() - t1
+            sub_launches[name] = FLASH_FWD.launches - l1
+    finally:
+        reps.close()
+        reg_srv.stop()
+        import shutil
+        shutil.rmtree(naming, ignore_errors=True)
+    # through the entry points; the token checks' solo prefills and the
+    # side-by-side generator calls apart
+    res["check_launches"] = res["affinity"]["check_launches"] \
+        + res["hedge"]["side_by_side"]["launches"]
+    res["launches"] = FLASH_FWD.launches - res["check_launches"]
+    res["seconds"] = time.perf_counter() - t0
+    res["sub_seconds"] = sub_s
+    res["sub_launches"] = sub_launches
+    log(f"  phase 14: {res['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items())
+        + f"); flash_fwd launches {res['launches']} through the entry "
+        f"points, {res['check_launches']} in checks (per sub-phase, all: "
+        f"{sub_launches}); no number here is "
+        f"across cards or processes (both replicas share this process and "
+        f"card)")
+    return res
+
+
 def phase_moe() -> dict:
     """Phase 6e: the MoE LM at MOE_CFG, full width and depth, through
     Generate, Decode (contiguous, paged with chunked prefill) and the
@@ -4980,6 +5689,11 @@ def main() -> int:
         log("[13] overload and drain: the shed, goodput under overload, "
             "admission, the drain, retries and backups")
         rob = phase_robustness(ch, srv, svc, paged, cfg, rows)
+        log("[14] the LM across replicas: naming, balancers, a hedge "
+            "across replicas, fan-out, the breaker, fleet, a drain with "
+            "failover")
+        cluster = phase_cluster(svc, cfg, rows,
+                                dec_srv["dec"].listen_endpoint)
     finally:
         ch.close()
         srv.stop()
@@ -5045,6 +5759,7 @@ def main() -> int:
                  "scan_generate": scan["launches"],
                  "observability": obs["launches"],
                  "robustness": rob["launches"],
+                 "cluster": cluster["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -5124,6 +5839,7 @@ def main() -> int:
     log(f"  scan: {json.dumps(scan)}")
     log(f"  observability: {json.dumps(obs)}")
     log(f"  robustness: {json.dumps(rob)}")
+    log(f"  cluster: {json.dumps(cluster, default=str)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

@@ -17,6 +17,7 @@
 """
 
 import importlib
+import sys
 import threading
 import time
 
@@ -689,3 +690,46 @@ def test_doomed_handoff_ends_at_the_jax_reason(cached, monkeypatch):
     assert mine == theirs
     assert mine == ({"kv_import_rejected": 1} if cached
                     else {"kv_probe_failed": 1})
+
+
+class _SlowThenFast(HoldSvc):
+    """``Nap``: the first call of each round sleeps 0.2 s, the next
+    answers at once."""
+
+    def __init__(self):
+        super().__init__()
+        self.naps = 0
+
+    def Nap(self, cntl, request):
+        self.naps += 1
+        if self.naps % 2:
+            time.sleep(0.2)
+            return b"primary"
+        return b"backup"
+
+
+def test_backup_on_the_single_connection_loses_every_time():
+    """The race behind the test above, stressed: the primary's and the
+    backup's answers arrive back to back on one connection, and the
+    attempt threads are switched every instruction; the primary's answer,
+    which arrived first, must win every round."""
+    srv, svc = _port_server(_SlowThenFast())
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        won = []
+        for i in range(12):
+            co = ChannelOptions()
+            co.timeout_ms = 5000
+            co.backup_request_ms = 30
+            ch = Channel(co)
+            ch.init(str(srv.listen_endpoint))
+            c = ch.call_method("D.Nap", b"")
+            assert not c.failed, c.error_text
+            won.append(c.response)
+            wait_for(lambda: svc.naps == 2 * (i + 1), what="the backup")
+            ch.close()
+        assert won == [b"primary"] * 12
+    finally:
+        sys.setswitchinterval(old)
+        srv.stop()

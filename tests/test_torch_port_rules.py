@@ -94,6 +94,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.rpcz_stitch",
             "brpc_tpu_torch.server.method_status"} <= names
     assert {f"brpc_tpu_torch.bvar.{m}" for m in _BVAR_MODULES} <= names
+    assert set(_CLUSTER_MODULES) <= names
 
 
 _BVAR_MODULES = ("variable", "reducer", "sampler", "window", "percentile",
@@ -117,13 +118,36 @@ print("imported", sys.argv[1])
 """
 
 
+# the cluster client, the fiber runtime and the fleet plane
+_CLUSTER_MODULES = (
+    "brpc_tpu_torch.butil.extension",
+    "brpc_tpu_torch.butil.doubly_buffered",
+    "brpc_tpu_torch.butil.work_stealing_queue",
+    "brpc_tpu_torch.fiber",
+    "brpc_tpu_torch.fiber.runtime",
+    "brpc_tpu_torch.fiber.timer_thread",
+    "brpc_tpu_torch.client.naming_service",
+    "brpc_tpu_torch.policy.naming",
+    "brpc_tpu_torch.policy.remote_naming",
+    "brpc_tpu_torch.client.circuit_breaker",
+    "brpc_tpu_torch.client.load_balancer",
+    "brpc_tpu_torch.policy.load_balancers",
+    "brpc_tpu_torch.client.load_balancer_with_naming",
+    "brpc_tpu_torch.client.parallel_channel",
+    "brpc_tpu_torch.client.partition_channel",
+    "brpc_tpu_torch.fleet",
+)
+
+
 @pytest.mark.parametrize("module", ["brpc_tpu_torch.bvar",
                                     "brpc_tpu_torch.rpcz",
-                                    "brpc_tpu_torch.rpcz_stitch"])
+                                    "brpc_tpu_torch.rpcz_stitch",
+                                    *_CLUSTER_MODULES])
 def test_observability_imports_alone_with_jax_and_brpc_tpu_blocked(module):
-    """The observability framework stands on its own: each of its entry
-    modules imports in a fresh interpreter with ``jax`` and every
-    ``brpc_tpu`` module refused."""
+    """The observability framework, the cluster client and the fleet
+    plane stand on their own: each of their entry modules imports in a
+    fresh interpreter with ``jax`` and every ``brpc_tpu`` module
+    refused."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
