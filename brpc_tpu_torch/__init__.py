@@ -6,3 +6,5 @@ relative path as its JAX counterpart.  It imports ``torch`` and never
 package it keeps its own copy.  Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """
+
+__version__ = "0.1.0"

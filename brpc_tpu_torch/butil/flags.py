@@ -4,14 +4,14 @@ A slimmed copy of ``brpc_tpu/butil/flags.py``: flags declare a default
 and help text; a flag is *reloadable* (``set_flag`` accepts writes) iff it
 registered a validator, and watchers (``watch_flag``) run after every
 accepted write, so that a live consumer with a cached copy (rpcz's and
-lm_telemetry's enable gates) resyncs.  Listing and the HTTP portal are not
-carried over.
+lm_telemetry's enable gates) resyncs.  :func:`list_flags` is what the
+builtin portal's ``/flags`` page lists and live-sets.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 class Flag:
@@ -82,6 +82,11 @@ def watch_flag(name: str, fn: Callable[[Any], None]) -> None:
     """Call ``fn(new_value)`` after every successful live-set of
     ``name``.  Watchers are process-lifetime (no unwatch)."""
     _watchers.setdefault(name, []).append(fn)
+
+
+def list_flags() -> List[Flag]:
+    with _lock:
+        return sorted(_flags.values(), key=lambda f: f.name)
 
 
 def any_value(v) -> bool:

@@ -13,17 +13,14 @@ Flags (live-tunable via /flags like the reference's reloadable gflags):
 Writes are atomic (temp file + rename) so a scraper never reads a
 half-written snapshot.
 
-A copy of ``brpc_tpu/bvar/dump.py`` with one divergence: the periodic
-tick runs on a daemon thread of its own (``bvar-dump``), where the JAX
-package schedules it on ``fiber.timer_thread``, which the port lacks.
-The flags and the file format are the same.
+A copy of ``brpc_tpu/bvar/dump.py``: each tick is a task on the
+process's ``fiber.timer_thread``, which schedules the next.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-import time
 from typing import Optional
 
 from ..butil.flags import define_flag, get_flag
@@ -80,18 +77,17 @@ def ensure_dumper() -> None:
         if _started:
             return
         _started = True
-    t = threading.Thread(target=_tick_loop, name="bvar-dump", daemon=True)
-    t.start()
+    from ..fiber.timer_thread import global_timer_thread
 
-
-def _tick_loop() -> None:
-    """The dump's own ticker: the JAX package schedules each tick on its
-    fiber timer thread, which the port does not have; one daemon thread
-    sleeping ``bvar_dump_interval`` between ticks does the same work."""
-    while True:
-        time.sleep(max(int(get_flag("bvar_dump_interval", 10)), 1))
+    def tick():
         try:
             if get_flag("bvar_dump", False):
                 dump_once()
         except Exception as e:
             LOG.warning("bvar dump failed: %s", e)
+        finally:
+            global_timer_thread().schedule(
+                tick, max(int(get_flag("bvar_dump_interval", 10)), 1))
+
+    global_timer_thread().schedule(
+        tick, max(int(get_flag("bvar_dump_interval", 10)), 1))

@@ -82,8 +82,24 @@ replica (the JAX backup asks the balancer again with the same key and
 lands where its primary is), and each attempt that fails and is
 superseded feeds the breaker with its own server and error (the JAX
 client feeds only the call's final server), so a dead replica that the
-retries route around still trips its breaker.  TLS and the other
-protocols wait for later slices of the port.
+retries route around still trips its breaker.
+
+Other protocols (``brpc_tpu/client/channel.py:188``, ``:229``, ``:305``):
+``ChannelOptions.protocol`` (or ``Channel(protocol=...)``) is
+``"tpu_std"`` (the default), ``"http"`` or ``"grpc"``.  Over ``"http"``
+each attempt is one HTTP/1.1 ``POST /Service/Method`` on a connection of
+its own (``"single"`` becomes ``"pooled"``: HTTP/1.1 cannot multiplex),
+carrying the attachment after the body (``x-rpc-attachment-size``), the
+remaining budget (``x-deadline-ms``), the trace (``traceparent``) and the
+tenant (``x-tenant``); its response is cut on the calling thread and
+read by ``controller.process_http_response``, so retries, backups, the
+balancer and the breaker work as on tpu_std.  Over ``"grpc"`` a call is
+one unary gRPC call on the peer's shared h2 connection
+(``client/grpc_client.py``), with ``grpc-timeout`` the remaining budget,
+no retry, and the balancer's pick on a cluster channel, as in the JAX
+client; :meth:`Channel.grpc_stream` opens a streaming call.  Streams
+(``stream_create``), device attachments and the shm lane ride tpu_std
+only.  TLS waits for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -102,19 +118,26 @@ from ..ici.endpoint import (ack_unused, conn_nonce_of, ici_enabled,
                             prepare_send, process_ack,
                             split_device_attachment)
 from ..ici.fabric import local_domain_id
+from ..butil.iobuf import IOPortal
+from ..protocol.base import ParseError
+from ..protocol.http import build_request
+from ..protocol.http import parse as http_parse
 from ..protocol.meta import RpcMeta
 from ..protocol.streaming import StreamFrame, dispatch
+from ..rpcz import format_traceparent
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
                                 serialize_payload)
 from ..transport import shm_ring
 from ..transport.socket import Socket
 from .circuit_breaker import global_circuit_breaker_map
-from .controller import _ELAMEDUCK, _FAIL_FAST, Controller
+from .controller import (_ELAMEDUCK, _FAIL_FAST, Controller,
+                         process_http_response)
 from .naming_service import global_lame_ducks
 
 _MAX_POST_WAIT_S = 30.0     # a request descriptor's wait for window credit
 _JOIN_TIMEOUT_S = 5.0
 _CONNECTION_TYPES = ("single", "pooled", "short")
+_PROTOCOLS = ("tpu_std", "http", "grpc")
 
 
 class ChannelOptions:
@@ -127,9 +150,10 @@ class ChannelOptions:
                  "backup_request_ms", "connection_type", "tenant",
                  "enable_circuit_breaker", "retry_budget_max",
                  "retry_budget_ratio", "retry_backoff_ms",
-                 "retry_backoff_max_ms")
+                 "retry_backoff_max_ms", "protocol")
 
     def __init__(self):
+        self.protocol = "tpu_std"       # or "http", "grpc"
         self.timeout_ms = 500
         self.connect_timeout_ms = 1000
         self.max_retry = 3
@@ -204,8 +228,11 @@ class _Call:
 
 
 class Channel:
-    def __init__(self, options: Optional[ChannelOptions] = None):
+    def __init__(self, options: Optional[ChannelOptions] = None,
+                 protocol: Optional[str] = None):
         self.options = options or ChannelOptions()
+        if protocol is not None:
+            self.options.protocol = protocol
         self.server: Optional[EndPoint] = None
         # a cluster channel's LoadBalancerWithNaming, and one sub-channel
         # (the connection state of one server) per endpoint it picked
@@ -329,6 +356,21 @@ class Channel:
             c._begin_trace_span(method_full)
         if self.server is None and self.load_balancer is None:
             c.set_failed(Errno.EINTERNAL, "channel not initialized")
+        elif self.options.protocol not in _PROTOCOLS:
+            c.set_failed(Errno.EINTERNAL, "unknown protocol "
+                         f"{self.options.protocol!r}")
+        elif self.options.protocol != "tpu_std" and (
+                stream is not None
+                or c.request_device_attachment is not None):
+            c.set_failed(Errno.EREQUEST, "streams and device attachments "
+                         "ride tpu_std only")
+        elif self.options.protocol == "grpc":
+            try:
+                payload = serialize_payload(request)
+            except TypeError as e:
+                c.set_failed(Errno.EREQUEST, str(e))
+            else:
+                self._call_grpc(c, method_full, payload)
         else:
             try:
                 payload = serialize_payload(request)
@@ -364,6 +406,8 @@ class Channel:
             c.backup_request_ms = opts.backup_request_ms
         if c.connection_type is None:
             c.connection_type = opts.connection_type
+        if opts.protocol == "http" and c.connection_type == "single":
+            c.connection_type = "pooled"    # http/1 cannot multiplex
         if stream is not None:
             # a stream binds to one long-lived connection: no second
             # attempt could get a second server to accept it
@@ -593,7 +637,9 @@ class Channel:
             meta.tenant = str(self.options.tenant).encode("utf-8")
         conn = call.conns[version]
         try:
-            if call.ctype == "single":
+            if self.options.protocol == "http":
+                result = conn._attempt_http(call, meta)
+            elif call.ctype == "single":
                 result = conn._attempt_single(call, meta)
             else:
                 result = conn._attempt_owned(call, meta)
@@ -787,6 +833,114 @@ class Channel:
                            f"expected {meta.correlation_id}")
         return "msg", (msg[0], msg[1], msg[2], sock, lease, offered)
 
+    def _attempt_http(self, call: _Call, meta: RpcMeta) -> tuple:
+        """One HTTP/1.1 attempt on a connection of its own (pooled or
+        short), its response cut on this thread: the result in the
+        tpu_std attempt's shape, the meta from
+        ``controller.process_http_response``.  A response that closes
+        the connection keeps it out of the pool."""
+        c = call.c
+        sock = None
+        if call.ctype == "pooled":
+            with self._pool_lock:
+                while self._pool and sock is None:
+                    s = self._pool.pop()
+                    if not s.failed:
+                        sock = s
+        headers = []
+        att = bytes(c.request_attachment or b"")
+        if att:
+            headers.append(("x-rpc-attachment-size", str(len(att))))
+        if meta.timeout_ms:
+            # x-deadline-ms: the HTTP/1.1 spelling of TLV 13, what is
+            # left of the call's budget for this attempt
+            headers.append(("x-deadline-ms", str(meta.timeout_ms)))
+        if c.trace_id and c.span_id:
+            headers.append(("traceparent",
+                            format_traceparent(c.trace_id, c.span_id)))
+        if self.options.tenant:
+            headers.append(("x-tenant", str(self.options.tenant)))
+        try:
+            if sock is None:
+                sock = self._dial()
+            frame = build_request(
+                "POST", f"/{meta.service_name}/{meta.method_name}",
+                body=bytes(call.payload) + att, host=str(self.server),
+                headers=headers or None)
+            left = call.remaining_s()
+            sock.conn.settimeout(None if left is None else max(left, 1e-3))
+            sock.write(frame)
+            msg = _read_http_response(sock)
+        except socket.timeout:
+            sock.close()
+            return "timeout", None
+        except (OSError, EOFError, FrameError) as e:
+            if sock is not None:
+                sock.close()
+            return "err", (int(Errno.EFAILEDSOCKET),
+                           f"{type(e).__name__}: {e}")
+        if not msg.keep_alive:
+            sock.failed = True          # not pooled: _release_owned closes
+        rmeta, body, ratt = process_http_response(msg)
+        rmeta.correlation_id = meta.correlation_id
+        return "msg", (rmeta, body, ratt, sock, None, False)
+
+    def _call_grpc(self, c: Controller, method_full: str,
+                   payload: bytes) -> None:
+        """gRPC unary over the peer's multiplexed h2 connection: one
+        attempt (a cluster channel's balancer picks its server),
+        ``grpc-timeout`` the call's budget capped by an inherited
+        deadline, ``traceparent`` and ``x-tenant`` as HPACK metadata."""
+        from ..protocol.h2_rpc import errno_of_grpc_status
+        from .grpc_client import grpc_connection
+        remote = self.server
+        if remote is None:
+            remote = self.load_balancer.select_server(c)
+        if remote is None:
+            c.set_failed(Errno.EINTERNAL, "no server available")
+            return
+        c.remote_side = remote
+        tmo_ms, expired = cap_timeout_ms(
+            c.timeout_ms or self.options.timeout_ms or 30000)
+        if expired:
+            c.set_failed(Errno.ERPCTIMEDOUT,
+                         "inherited deadline already expired (doomed "
+                         "downstream call failed fast)")
+            return
+        metadata = []
+        if c.trace_id and c.span_id:
+            metadata.append(("traceparent",
+                             format_traceparent(c.trace_id, c.span_id)))
+        if self.options.tenant:
+            metadata.append(("x-tenant", str(self.options.tenant)))
+        svc, _, mth = method_full.rpartition(".")
+        t0 = time.monotonic()
+        status, message, body = grpc_connection(remote).unary_call(
+            f"/{svc}/{mth}", payload, timeout_s=tmo_ms / 1e3,
+            metadata=metadata or None)
+        c.latency_us = int((time.monotonic() - t0) * 1e6)
+        if status != 0:
+            c.set_failed(errno_of_grpc_status(status),
+                         f"grpc-status {status}: {message}")
+        else:
+            c.response = body
+            self.on_call_success()
+        self._feedback(c)
+
+    def grpc_stream(self, method_full: str,
+                    timeout_ms: Optional[int] = None, metadata=None):
+        """Open a full-duplex gRPC stream to a single-server channel:
+        a ``GrpcStreamCall`` with ``write``/``read``/``done_writing``/
+        ``status``."""
+        from .grpc_client import grpc_connection
+        if self.server is None:
+            raise RpcError(int(Errno.EINTERNAL),
+                           "grpc_stream needs a single-server channel")
+        svc, _, mth = method_full.rpartition(".")
+        timeout_s = (timeout_ms or self.options.timeout_ms or 30000) / 1e3
+        return grpc_connection(self.server).streaming_call(
+            f"/{svc}/{mth}", timeout_s, metadata)
+
     def _win(self, call: _Call, version: int, data) -> None:
         """The call's outcome is attempt ``version``'s response (success or
         the server's error answer): settle its shm lease and resolve its
@@ -951,3 +1105,24 @@ class Channel:
         if c.failed:
             raise RpcError(c.error_code, c.error_text)
         return c.response
+
+
+def _read_http_response(sock: Socket):
+    """Cut one HTTP/1.1 response off ``sock`` (blocking), keeping bytes
+    read past it in the socket's portal for the next attempt."""
+    if sock.read_portal is None:
+        sock.read_portal = IOPortal()
+    portal = sock.read_portal
+    while True:
+        if len(portal) >= 4:
+            r = http_parse(portal, sock, False, None)
+            if r.ok:
+                if r.message.is_request:
+                    raise FrameError("an HTTP request where a response "
+                                     "was expected")
+                return r.message
+            if r.error != ParseError.NOT_ENOUGH_DATA:
+                raise FrameError(f"unparsable HTTP response "
+                                 f"({portal.fetch(16)!r})")
+        if portal.append_from_socket(sock.conn, 65536) == 0:
+            raise EOFError("connection closed before the HTTP response")

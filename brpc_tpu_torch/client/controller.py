@@ -31,6 +31,12 @@ call's, fed back to the balancer with its outcome.  With a balancer the
 fail-fast codes (``ELIMIT``, ``ELAMEDUCK``) are retried at once on
 another replica; on a single-server channel they are not, as the JAX
 policy decides.
+
+The HTTP client half (``brpc_tpu/client/controller.py:458``, ``:1072``):
+:func:`process_http_response` reads an attempt's HTTP/1.1 response into
+the meta the tpu_std attempt would have had (``x-rpc-error-code`` or
+``EHTTP`` for a non-200, ``x-lame-duck``, the ``x-rpc-attachment-size``
+split), so the channel settles both protocols alike.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Set
 
 from ..butil.status import Errno
+from ..protocol.meta import RpcMeta
 from ..rpcz import start_client_span
 
 # errors worth retrying on another attempt (≈ DefaultRetryPolicy)
@@ -129,3 +136,29 @@ class Controller:
     def set_failed(self, code: int, text: str = "") -> None:
         self._error_code = int(code)
         self._error_text = text
+
+
+def process_http_response(msg) -> tuple:
+    """Client side of the HTTP protocol: one attempt's response
+    (``protocol.http.HttpMessage``) -> ``(meta, body, attachment)``.  A
+    non-200 carries the server's RPC code in ``x-rpc-error-code`` (else
+    ``EHTTP``); ``x-lame-duck`` is the drain signal on any response; the
+    attachment rides after the body, split off by
+    ``x-rpc-attachment-size``."""
+    meta = RpcMeta()
+    if msg.headers.get("x-lame-duck"):
+        meta.lame_duck = 1
+    if msg.status_code != 200:
+        rpc_code = msg.headers.get("x-rpc-error-code")
+        meta.error_code = int(rpc_code) if rpc_code and rpc_code.isdigit() \
+            else int(Errno.EHTTP)
+        meta.error_text = (f"HTTP {msg.status_code}: "
+                           f"{msg.body[:200].decode('latin1', 'replace')}")
+        return meta, b"", b""
+    body, att = msg.body, b""
+    att_size = msg.headers.get("x-rpc-attachment-size")
+    if att_size and att_size.isdigit():
+        n = int(att_size)
+        if 0 < n <= len(body):
+            body, att = body[:len(body) - n], body[len(body) - n:]
+    return meta, body, att

@@ -1,9 +1,10 @@
-"""fiber — the task runtime and its timer thread.
+"""fiber — the task runtime, its timer thread and the butex.
 
-The port's ``brpc_tpu/fiber/`` holds ``runtime`` and ``timer_thread``
-only: the naming services' refreshes run on the timer.  ``butex``,
-``versioned_id`` and ``execution_queue`` wait for the port of the
-HTTP lanes and the builtin portal."""
+The port's ``brpc_tpu/fiber/`` holds ``runtime``, ``timer_thread`` (the
+naming services' refreshes and the bvar dump run on it) and ``butex``
+(whose waits ``/hotspots/contention`` times; import it from
+``fiber.butex``).  ``versioned_id`` and ``execution_queue`` wait for the
+native engine's lanes, which use them."""
 
 from .runtime import (DEFAULT_CONCURRENCY, TaskHandle, TaskRuntime, blocking,
                       global_runtime, set_concurrency, spawn)

@@ -32,13 +32,11 @@ is per-process.  This module grows the stack one level of hierarchy:
   :func:`record_event` is the lock-free write path (GIL-atomic deque
   append).
 
-A copy of ``brpc_tpu/fleet.py``: pure-Python bookkeeping.  Cut,
-waiting for the port of the builtin portal: the ``/fleet`` page,
-``fetch_member_metrics`` and ``fetch_member_report`` (HTTP GETs of a
-member's portal) and ``rpcz_stitch.locate_trace_root``; so
-:meth:`FleetRegistry.federate` takes its scrape as ``fetch=`` (each
-member's ``bvar.render_prometheus()``, for one), and ``Fleet.List``
-reads the registry.  The port has no native engine, so a report's
+A copy of ``brpc_tpu/fleet.py``: pure-Python bookkeeping, whose HTTP
+reads (:func:`fetch_member_metrics`, :func:`fetch_member_report`, and
+:meth:`FleetRegistry.federate`'s default scrape) GET a member's builtin
+portal (``/metrics``, ``/fleet?self=1``) on its serving port.  The port
+has no native engine, so a report's
 ``busy_ratio`` is None, as the JAX package's is without one.  Two
 divergences: :class:`FleetReportCache` keeps a report per server, so
 replicas in one process each report themselves; and a report reads a
@@ -569,18 +567,16 @@ class FleetRegistry:
         ``fetch(instance, timeout_s=)``, merged under an ``instance``
         label, prefixed by the fleet rollups.  Cached (one scrape sweep
         per interval) — a hot dashboard must not multiply into
-        per-request fleet-wide scrapes.  ``fetch`` is required until
-        the port has the members' ``/metrics`` pages."""
-        if fetch is None:
-            raise ValueError("federate needs fetch=: the port serves no "
-                             "/metrics page yet")
+        per-request fleet-wide scrapes.  The default ``fetch`` GETs each
+        member's ``/metrics`` page (:func:`fetch_member_metrics`)."""
         with self._fed_lock:
             now = _mono_s()
             if self._fed_body is not None and \
                     now - self._fed_t < _FED_TTL_S:
                 return self._fed_body
             self.fed_builds += 1
-            body = self._federate_build(fetch, timeout_s)
+            body = self._federate_build(fetch or fetch_member_metrics,
+                                        timeout_s)
             self._fed_body, self._fed_t = body, now
             return body
 
@@ -642,6 +638,42 @@ def _inject_instance_label(body: str, instance: str) -> str:
         else:
             out.append(f'{series}{{instance="{esc}"}} {value}')
     return "\n".join(out)
+
+
+def fetch_member_metrics(instance: str, timeout_s: float = 1.0) -> str:
+    """HTTP GET a member's local /metrics (the builtin portal rides
+    the shared serving port)."""
+    import http.client
+    host, _, port = str(instance).rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port),
+                                      timeout=timeout_s)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        data = resp.read()
+        if resp.status != 200:
+            raise RuntimeError(f"/metrics on {instance}: {resp.status}")
+        return data.decode("utf-8", "replace")
+    finally:
+        conn.close()
+
+
+def fetch_member_report(instance: str, timeout_s: float = 1.0) -> dict:
+    """Pull-on-demand path: HTTP GET a member's own load report from
+    its /fleet?self=1 portal page."""
+    import http.client
+    host, _, port = str(instance).rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port),
+                                      timeout=timeout_s)
+    try:
+        conn.request("GET", "/fleet?self=1&format=json")
+        resp = conn.getresponse()
+        data = resp.read()
+        if resp.status != 200:
+            raise RuntimeError(f"/fleet on {instance}: {resp.status}")
+        return json.loads(data.decode("utf-8", "replace"))
+    finally:
+        conn.close()
 
 
 # ---------------------------------------------------------------------------

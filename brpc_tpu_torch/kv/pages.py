@@ -493,6 +493,9 @@ class HostPagePool:
             self.peak_slots_used = max(self.peak_slots_used,
                                        self.slots - len(self._free))
         self._buf[slot, :nb].copy_(view)
+        from ..butil import copy_audit
+        if copy_audit.enabled and nb >= copy_audit.AUDIT_FLOOR:
+            copy_audit.record("spill_host", nb)
         with self._lock:
             self.staged += 1
         return HostHandle(slot, gen, nb)

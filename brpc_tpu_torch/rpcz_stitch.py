@@ -29,12 +29,11 @@ The collector is deliberately transport-simple (http.client, bounded
 timeouts, best-effort per remote): stitching is an operator query, not
 a serving-path dependency.
 
-A copy of ``brpc_tpu/rpcz_stitch.py``.  Divergence in use, not in code:
-``fetch_remote_spans`` and ``locate_trace_root`` GET ``/rpcz`` and
-``/fleet`` from a peer's builtin portal, which the port does not serve
-yet, so a remote stitch between two port processes waits for the port's
-portal; :func:`collect_trace`'s ``fetch=`` hook takes any other source of
-a peer's ``describe()`` dicts meanwhile.
+A copy of ``brpc_tpu/rpcz_stitch.py``: ``fetch_remote_spans`` and
+``locate_trace_root`` GET ``/rpcz`` and ``/fleet`` from a peer's builtin
+portal, which every port server serves on its port;
+:func:`collect_trace`'s ``fetch=`` hook takes any other source of a
+peer's ``describe()`` dicts.
 """
 
 from __future__ import annotations

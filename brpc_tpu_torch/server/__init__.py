@@ -1,5 +1,6 @@
 from .controller import ServerController
 from .server import Server, ServerOptions
-from .service import Service
+from .service import Service, grpc_streaming
 
-__all__ = ["Server", "ServerController", "ServerOptions", "Service"]
+__all__ = ["Server", "ServerController", "ServerOptions", "Service",
+           "grpc_streaming"]

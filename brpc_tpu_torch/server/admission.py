@@ -26,15 +26,15 @@ layer 0:
    contended.
 
 A rejection is answered with an error frame (``ELIMIT``, or
-``ELAMEDUCK`` while draining).  Every verdict is counted in the
+``ELAMEDUCK`` while draining) on tpu_std, with :func:`http_reject`'s 503
+on HTTP/1.1 and with grpc-status 8 on gRPC.  Every verdict is counted in the
 module-global ``overload_admission_total{tenant,verdict}`` family (a
 closed enum) and live per-tenant concurrency is exported as
 ``tenant_inflight{tenant}``.
 
-A copy of ``brpc_tpu/server/admission.py`` but for ``http_reject``, the
-HTTP spelling of a rejection, which waits for the port's HTTP lanes
-(a later slice), and ``count_admitted_burst``, which waits for the
-native engine's slim lanes with ``trivial_shape``'s callers.
+A copy of ``brpc_tpu/server/admission.py`` but for
+``count_admitted_burst``, which waits for the native engine's slim lanes
+with ``trivial_shape``'s callers.
 :func:`normalize_tenant` is the one tenant key the port's SLO tiers
 (``models/lm_service.TierRegistry``) use too.
 """
@@ -111,8 +111,8 @@ TENANT_OVERFLOW = "~other"
 
 class Rejection:
     """One admission rejection, protocol-agnostic: the lane serializes
-    it (``code``/``text`` for a tpu_std error frame; ``retry_after_s``
-    for the HTTP lanes to come)."""
+    it (``code``/``text`` for tpu_std error frames and grpc trailers;
+    :func:`http_reject` for HTTP)."""
 
     __slots__ = ("reason", "code", "text", "retry_after_s")
 
@@ -122,6 +122,18 @@ class Rejection:
         self.code = code
         self.text = text
         self.retry_after_s = retry_after_s
+
+
+def http_reject(rej: Rejection):
+    """The HTTP spelling of an admission rejection: (status, body,
+    extra_headers).  ``Retry-After`` tells well-behaved clients when to
+    come back; ``x-overload-reason`` distinguishes server-cap /
+    method-cap / codel / tenant-quota."""
+    return 503, rej.text.encode(), [
+        ("Retry-After", str(rej.retry_after_s)),
+        ("x-overload-reason", rej.reason),
+        ("x-rpc-error-code", str(rej.code)),
+    ]
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,21 @@ stream accepted on it is closed by its drain), and the deadline API of
 ``brpc_tpu/server/controller.py:127-146``: ``deadline_us`` (the absolute
 monotonic-µs deadline, 0 for none; the server re-anchors it at the
 frame's arrival), ``deadline_remaining_ms()`` and ``deadline_expired``.
-Async completion waits for a later slice of the port.
+The HTTP and gRPC lanes (``server/http_dispatch.py``,
+``protocol/h2_rpc.py``) build their controller with ``send``, the lane's
+completion callback, which :meth:`finish` calls once; they also set
+``http_method``, ``http_path``, ``http_unresolved_path`` (a restful
+mapping's captured tail) and ``grpc_stream`` (a streaming gRPC method's
+:class:`~brpc_tpu_torch.protocol.h2_rpc.GrpcServerStream`), and an HTTP
+handler may answer through :meth:`create_progressive_attachment`.
+Async completion (``begin_async``) waits for a later slice of the port:
+every lane finishes when the handler returns.
 """
 
 from __future__ import annotations
 
 from time import monotonic_ns as _mono_ns
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from ..butil.endpoint import EndPoint
 from ..butil.status import Errno
@@ -33,11 +41,14 @@ class ServerController:
                  "request_device_attachment", "response_device_attachment",
                  "_error_code", "_error_text", "_remote_stream_id",
                  "_accepted_stream_id", "_accepted_stream_window", "span",
-                 "server", "begin_time_us", "deadline_us")
+                 "server", "begin_time_us", "deadline_us", "_send",
+                 "http_method", "http_path", "http_unresolved_path",
+                 "_progressive", "grpc_stream")
 
     def __init__(self, request_meta: RpcMeta,
                  remote_side: Optional[EndPoint] = None,
-                 request_attachment: bytes = b"", socket_id: int = 0):
+                 request_attachment: bytes = b"", socket_id: int = 0,
+                 send: Optional[Callable] = None):
         self.request_meta = request_meta
         self.remote_side = remote_side
         self.socket_id = socket_id      # the connection (transport.Socket)
@@ -59,6 +70,29 @@ class ServerController:
         tmo = request_meta.timeout_ms
         self.deadline_us = self.begin_time_us + tmo * 1000 if tmo > 0 \
             else 0
+        self._send = send               # the lane's completion callback
+        self.http_method = ""
+        self.http_path = ""
+        self.http_unresolved_path = ""
+        self._progressive = None
+        self.grpc_stream = None
+
+    def finish(self, response: Any) -> None:
+        """Complete the request through the lane's ``send`` callback, once
+        (the HTTP and gRPC lanes; tpu_std answers from the server)."""
+        send, self._send = self._send, None
+        if send is not None:
+            send(self, response)
+
+    def create_progressive_attachment(self):
+        """An HTTP response body written in chunks after the handler
+        returns (≈ brpc's progressive_attachment.h): the headers go out
+        at completion, then each ``write`` is one chunk until
+        ``close``."""
+        from .http_dispatch import ProgressiveAttachment
+        if self._progressive is None:
+            self._progressive = ProgressiveAttachment(self.socket_id)
+        return self._progressive
 
     # -- deadline plane ----------------------------------------------------
 

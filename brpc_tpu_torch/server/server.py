@@ -1,12 +1,13 @@
-"""Server — serves registered services over tpu_std.
+"""Server — serves registered services over tpu_std, HTTP/1.1 and
+h2/gRPC on one port.
 
 The slim core of ``brpc_tpu/server/server.py``: ``add_service``,
-``start``, ``listen_endpoint`` and ``stop``, with one accept thread and,
-per connection on blocking sockets, a reader thread that takes each frame
-off the socket as it arrives (stamping its arrival) and a worker thread
-that answers the connection's requests in order.  Each connection is a
-:class:`~brpc_tpu_torch.transport.Socket`, which carries the device
-attachment lane's state (``brpc_tpu/server/rpc_dispatch.py`` and
+``start``, ``listen_endpoint`` and ``stop``, with an accept thread per
+listener and, per connection on blocking sockets, a reader thread that
+takes each frame off the socket as it arrives (stamping its arrival) and
+a worker thread that answers the connection's requests in order.  Each
+connection is a :class:`~brpc_tpu_torch.transport.Socket`, which carries
+the device attachment lane's state (``brpc_tpu/server/rpc_dispatch.py`` and
 ``interceptors.py``): the server learns the peer's fabric domain and pins
 its connection nonce from the request meta, splits the request's device
 attachment off, answers the domain exchange, settles the request
@@ -74,9 +75,26 @@ naming list (the format ``FileNamingService`` reads) and
 (the drain and lame-duck events, a final report that says draining, the
 registry's deregister), and ``stop`` unpublishes and calls
 ``fleet.on_server_stop``.  :attr:`methods` is the method table the load
-report reads.  It speaks tpu_std only.  Cut, each for a later slice of
-the port: the other protocols and the native engine (so the client
-demux's settle in ``drain``), and ``export_listeners`` (hot restart).
+report reads.
+
+One port, three protocols (``brpc_tpu/server/server.py:614-625`` and
+``transport/input_messenger.py``): a connection's reader looks at its
+first four bytes.  ``TRPC``/``TSTR``/``TICI`` keep the tpu_std reader
+above; anything else goes to an :class:`InputMessenger` holding the
+HTTP/1.x and h2 handlers (``protocol/http.py``'s method sniff,
+``protocol/h2_rpc.py``'s preface), which cuts, dispatches and answers
+(``server/http_dispatch.py``, the RPC bridge and the builtin portal;
+gRPC through ``h2_rpc``).  The protocol is fixed at those first bytes:
+where the JAX messenger would re-detect each message, a later message of
+another protocol on the same connection closes it (tpu_std bytes on an
+HTTP connection are cut by no handler; HTTP bytes on a tpu_std
+connection fail ``read_frame``).  ``ServerOptions.internal_port`` opens
+a second listener whose connections are tagged ``"internal"``: with it
+set, the builtin pages answer 403 on the main port but for ``/health``
+and ``/version``.  ``restful_mappings`` routes HTTP paths to methods.
+Cut, each for a later slice of the port: the native engine (so the
+client demux's settle in ``drain``), TLS (``ssl_*``) and
+``export_listeners`` (hot restart).
 """
 
 from __future__ import annotations
@@ -102,11 +120,13 @@ from ..ici.endpoint import (ack_unused, ici_enabled, prepare_send,
                             process_ack, split_device_attachment)
 from ..ici.fabric import local_domain_id
 from ..protocol.meta import RpcMeta
+from ..protocol.streaming import MAGIC as STREAM_MAGIC
 from ..protocol.streaming import StreamFrame, dispatch
-from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
-                                serialize_payload)
+from ..protocol.tpu_std import (ACK_MAGIC, MAGIC, AckFrame, FrameError,
+                                pack_frame, read_frame, serialize_payload)
 from ..rpcz import backdate_span, start_server_span
 from ..transport import shm_ring
+from ..transport.input_messenger import InputMessenger
 from ..transport.socket import Socket
 from .controller import ServerController
 from .method_status import MethodStatus
@@ -117,6 +137,8 @@ _ACCEPT_POLL_S = 0.2
 _JOIN_TIMEOUT_S = 5.0
 _POST_TIMEOUT_S = 5.0       # a response descriptor's wait for window credit
 _DRAIN_S = 1.0              # stop's wait for the ring's slots to settle
+# a connection's first bytes that keep it on the tpu_std reader
+_TPU_STD_MAGICS = (MAGIC, STREAM_MAGIC, ACK_MAGIC)
 
 # -- operability plane (graceful drain / lame duck) -------------------------
 
@@ -265,11 +287,13 @@ def _ensure_drain_vars() -> None:
 
 
 class ServerOptions:
-    """The overload plane's half of ``brpc_tpu/server/server.py``'s
-    ServerOptions (the other options belong to lanes not ported)."""
+    """The overload plane's and the HTTP lanes' half of
+    ``brpc_tpu/server/server.py``'s ServerOptions (the other options
+    belong to lanes not ported)."""
 
     __slots__ = ("max_concurrency", "method_max_concurrency",
-                 "tenant_fair_capacity", "tenant_weights")
+                 "tenant_fair_capacity", "tenant_weights", "internal_port",
+                 "restful_mappings", "server_info_name")
 
     def __init__(self):
         # server-wide in-flight cap: an int (0 = off), or a make_limiter
@@ -283,6 +307,16 @@ class ServerOptions:
         # divides (0 = account, never reject), weights default to 1
         self.tenant_fair_capacity = 0
         self.tenant_weights: Dict[str, float] = {}
+        # a second, operator-only port (-1 = none, 0 = any free one): the
+        # builtin portal pages answer only on connections accepted there
+        # (≈ server.cpp:1079-1086); /health and /version stay public
+        self.internal_port = -1
+        # restful routing (≈ restful.cpp): "PATH => Service.Method" pairs,
+        # comma separated; a trailing /* captures the rest of the path
+        # into cntl.http_unresolved_path.
+        #   "/v1/echo => E.Echo, /files/* => Files.Get"
+        self.restful_mappings = ""
+        self.server_info_name = ""      # the /version page's suffix
 
 
 class _RequestQueue:
@@ -328,12 +362,18 @@ class _RequestQueue:
 
 
 class _MethodEntry:
-    __slots__ = ("service", "fn", "status")
+    __slots__ = ("service", "fn", "status", "method_name", "request_type",
+                 "grpc_streaming", "_http_chain")
 
-    def __init__(self, service: Any, fn: Callable, status: MethodStatus):
+    def __init__(self, service: Any, fn: Callable, status: MethodStatus,
+                 method_name: str = ""):
         self.service = service
         self.fn = fn
         self.status = status
+        self.method_name = method_name
+        self.request_type = None        # requests are bytes in the port
+        self.grpc_streaming = bool(getattr(fn, "_grpc_streaming", False))
+        self._http_chain = None         # compiled at the first HTTP call
 
 
 class Server:
@@ -362,6 +402,11 @@ class Server:
         self._server_limiter = None     # from a spec'd max_concurrency
         self._server_limiter_spec = None
         self._published: Optional[Tuple[str, str]] = None
+        self._messenger: Optional[InputMessenger] = None
+        self._internal_listener: Optional[socket.socket] = None
+        self._internal_endpoint: Optional[EndPoint] = None
+        self._restful: list = []        # (segments, has_rest, method key)
+        self.version = self.options.server_info_name
         _live_servers.add(self)
         _ensure_drain_vars()
 
@@ -403,7 +448,8 @@ class Server:
                 mc = 0
             self._methods[(sname, mname)] = _MethodEntry(
                 service, fn,
-                MethodStatus(full, max_concurrency=mc, limiter=limiter))
+                MethodStatus(full, max_concurrency=mc, limiter=limiter),
+                method_name=mname)
         return 0
 
     @property
@@ -415,6 +461,46 @@ class Server:
     def find_method(self, service_name: str,
                     method_name: str) -> Optional[_MethodEntry]:
         return self._methods.get((service_name, method_name))
+
+    def find_restful(self, parts) -> Optional[Tuple[_MethodEntry, str]]:
+        """Match an HTTP path against restful_mappings
+        (≈ brpc's src/brpc/restful.cpp pattern table).
+        Returns (entry, unresolved_path) or None."""
+        for segs, has_rest, key in self._restful:
+            n = len(segs)
+            if has_rest:
+                if len(parts) < n or parts[:n] != segs:
+                    continue
+                entry = self._methods.get(key)
+                if entry is not None:
+                    return entry, "/".join(parts[n:])
+            elif list(parts) == segs:
+                entry = self._methods.get(key)
+                if entry is not None:
+                    return entry, ""
+        return None
+
+    def _parse_restful(self) -> None:
+        self._restful = []
+        spec = self.options.restful_mappings or ""
+        for pair in spec.split(","):
+            pair = pair.strip()
+            if not pair:
+                continue
+            pattern, _, target = pair.partition("=>")
+            svc, _, mth = target.strip().rpartition(".")
+            segs = [p for p in pattern.strip().split("/") if p]
+            has_rest = bool(segs) and segs[-1] == "*"
+            if has_rest:
+                segs = segs[:-1]
+            if (svc, mth) not in self._methods:
+                LOG.error("restful mapping %r: unknown method %s.%s",
+                          pair, svc, mth)
+                continue
+            self._restful.append((segs, has_rest, (svc, mth)))
+        # longest (most specific) patterns first; exact beats wildcard
+        # at equal length
+        self._restful.sort(key=lambda t: (-len(t[0]), t[1]))
 
     def method_status(self, full_name: str) -> Optional[MethodStatus]:
         """``"Service.Method"``'s MethodStatus (None for an unknown one)."""
@@ -503,8 +589,34 @@ class Server:
             return -1
         lsock.settimeout(_ACCEPT_POLL_S)
         host, port = lsock.getsockname()[:2]
+        ilsock = None
+        if self.options.internal_port >= 0:
+            ilsock = socket.socket(family, socket.SOCK_STREAM)
+            try:
+                ilsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                ilsock.bind((host, self.options.internal_port))
+                ilsock.listen(128)
+            except OSError as e:
+                ilsock.close()
+                lsock.close()
+                LOG.error("cannot listen on internal port %d: %s",
+                          self.options.internal_port, e)
+                return -1
+            ilsock.settimeout(_ACCEPT_POLL_S)
+            self._internal_endpoint = EndPoint(
+                host=host, port=ilsock.getsockname()[1])
+        self._internal_listener = ilsock
         self._listener = lsock
         self._listen_endpoint = EndPoint(host=host, port=port)
+        self.version = self.options.server_info_name
+        if self.options.restful_mappings:
+            self._parse_restful()
+        # the handler table of every non-tpu_std connection (≈
+        # Server::BuildAcceptor collecting protocols, server.cpp:572);
+        # importing the modules registers them
+        from ..protocol import h2_rpc as _h2
+        from ..protocol import http as _http
+        self._messenger = InputMessenger([_http.HTTP, _h2.H2], self)
         self._stopping.clear()
         self._accept_paused = False
         self._started = True
@@ -513,7 +625,10 @@ class Server:
         self._stopped_event.clear()
         if bool(get_flag("graceful_quit_on_sigterm", False)):
             _install_sigterm_drain()
-        self._spawn(self._accept_loop, "tpu_std-accept")
+        self._spawn(self._accept_loop, "tpu_std-accept", lsock, None)
+        if ilsock is not None:
+            self._spawn(self._accept_loop, "internal-accept", ilsock,
+                        "internal")
         ensure_dumper()     # a no-op unless the bvar_dump flag is on
         from .. import fleet
         fleet.on_server_start(self)     # flight recorder: restart event
@@ -522,6 +637,14 @@ class Server:
     @property
     def listen_endpoint(self) -> Optional[EndPoint]:
         return self._listen_endpoint
+
+    @property
+    def internal_endpoint(self) -> Optional[EndPoint]:
+        return self._internal_endpoint
+
+    def connection_count(self) -> int:
+        with self._lock:
+            return len(self._conns)
 
     def stop(self) -> int:
         """Close the listener and every connection and join the threads;
@@ -563,6 +686,10 @@ class Server:
         self._listener.close()
         self._listener = None
         self._listen_endpoint = None
+        if self._internal_listener is not None:
+            self._internal_listener.close()
+            self._internal_listener = None
+            self._internal_endpoint = None
         return 0
 
     def join(self, timeout: Optional[float] = None) -> None:
@@ -721,7 +848,7 @@ class Server:
         t.start()
         return t
 
-    def _accept_loop(self) -> None:
+    def _accept_loop(self, lsock: socket.socket, tag: Optional[str]) -> None:
         while not self._stopping.is_set():
             if self._accept_paused:
                 # draining: the listener stays open, new connections wait
@@ -729,7 +856,7 @@ class Server:
                 self._stopping.wait(_ACCEPT_POLL_S)
                 continue
             try:
-                conn, peer = self._listener.accept()
+                conn, peer = lsock.accept()
             except socket.timeout:
                 continue
             except OSError:
@@ -739,17 +866,32 @@ class Server:
             with self._lock:
                 self._conns[conn] = None
             self._spawn(self._serve_conn, "tpu_std-conn", conn,
-                        EndPoint(host=peer[0], port=peer[1]))
+                        EndPoint(host=peer[0], port=peer[1]), tag)
 
-    def _serve_conn(self, conn: socket.socket, peer: EndPoint) -> None:
-        """The connection's reader: every frame is taken off the socket as
-        it arrives (its arrival stamped for the deadline plane and
+    def _serve_conn(self, conn: socket.socket, peer: EndPoint,
+                    tag: Optional[str] = None) -> None:
+        """The connection's reader.  Its first four bytes fix its
+        protocol: anything but tpu_std's magics goes to the messenger
+        (HTTP/1.x, h2), which reads, cuts and answers until the
+        connection ends.  On tpu_std, every frame is taken off the socket
+        as it arrives (its arrival stamped for the deadline plane and
         CoDel); acks and stream frames are handled at once, requests are
         queued for the connection's worker, which answers them in
         order."""
         sock = Socket(conn, remote_side=peer)
+        sock.tag = tag
         with self._lock:
             self._conns[conn] = sock
+        try:
+            head = conn.recv(4, socket.MSG_PEEK | socket.MSG_WAITALL)
+        except OSError:
+            head = b""
+        if head and head not in _TPU_STD_MAGICS:
+            try:
+                self._messenger.serve(sock)
+            finally:
+                self._close_conn(conn, sock)
+            return
         work = _RequestQueue()
         worker = None
         try:

@@ -5,6 +5,8 @@ A Service is any object whose public methods take ``(controller,
 request)`` and return the response.  Requests arrive as raw ``bytes``
 and responses are bytes-like (request typing through the JAX package's
 ``@method`` decorator is not carried over: no port service uses it).
+:func:`grpc_streaming` marks a streaming gRPC method, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -44,3 +46,25 @@ def service_name_of(service: Any) -> str:
     if hasattr(service, "service_name"):
         return service.service_name()
     return type(service).__name__
+
+
+def grpc_streaming(fn: Callable) -> Callable:
+    """Declare a gRPC STREAMING method (server/client/bidi — the wire
+    doesn't distinguish; the handler shape does):
+
+        class Chat(Service):
+            @grpc_streaming
+            def Talk(self, cntl, msgs):       # msgs: iterator of requests
+                for m in msgs:                # client/bidi streaming
+                    cntl.grpc_stream.write(m) # server pushes
+                return None                   # or a final response message
+
+    The handler runs as soon as request HEADERS arrive; request messages
+    stream in through ``msgs`` (ends when the client half-closes); every
+    ``cntl.grpc_stream.write(bytes)`` pushes one response message; a
+    non-None return value is sent as a final message before trailers.
+    ≈ the reference's full-duplex h2 streams
+    (brpc's src/brpc/policy/http2_rpc_protocol.cpp + grpc.h).
+    """
+    fn._grpc_streaming = True
+    return fn

@@ -380,6 +380,9 @@ class ShmRing:
         finally:
             dst.release()
         _stat("staged", 1, n)
+        from ..butil import copy_audit as _audit
+        if _audit.enabled and n >= _audit.AUDIT_FLOOR:
+            _audit.record("stage_shm", n)
         return base, n
 
     def view(self, offset: int, length: int) -> Optional[memoryview]:

@@ -9,7 +9,13 @@ plane's negotiation state (``shm``, a ``shm_ring.ShmSockState``), one write
 lock, the ack queue of TICI credit returns, and the streams bound to the
 connection (``stream_map``: closing the connection closes them).  Reading
 stays with the owner (the server's connection thread; the channel's call,
-or its reader thread once the connection carries a stream).
+or its reader thread once the connection carries a stream).  An HTTP/1.x
+or h2 connection's reader is ``transport/input_messenger.py``, whose
+state rides here as in the JAX package: ``read_portal`` (the bytes read
+and not yet cut), ``last_protocol``, ``h2_conn`` (the h2 session),
+``tag`` (``"internal"`` on a server's internal port) and
+:meth:`set_failed`.  :func:`socket_pool` lists the live sockets for the
+``/sockets`` page.
 
 Acks.  :meth:`queue_ack` queues descriptor ids.  While ``defer_acks`` is
 set (a server between reading a request and writing its response) they
@@ -28,6 +34,7 @@ import threading
 from typing import Dict, List, Optional
 
 from ..butil.endpoint import EndPoint
+from ..butil.iobuf import IOBuf
 from ..protocol.tpu_std import pack_ack_frame
 
 _registry: Dict[int, "Socket"] = {}
@@ -57,6 +64,11 @@ class Socket:
         self._pending_acks: List[int] = []
         self.stream_map: Dict[int, object] = {}   # stream id -> Stream
         self._stream_lock = threading.Lock()
+        # the input messenger's state (HTTP/1.x and h2 connections)
+        self.read_portal = None
+        self.last_protocol = None
+        self.h2_conn = None
+        self.tag: Optional[str] = None
         with _registry_lock:
             self.id = next(_ids)
             _registry[self.id] = self
@@ -66,9 +78,20 @@ class Socket:
         """The live socket of an id, or None once it closed."""
         return _registry.get(socket_id)
 
-    def write(self, data: bytes) -> None:
-        """Write one or more whole frames, queued acks in front.  Raises
-        OSError when the connection is gone (and marks it failed)."""
+    def set_failed(self, code: int = 0, text: str = "") -> None:
+        """The messenger's verdict on a connection it can no longer read
+        (EOF, bytes no protocol claims; ``code`` and ``text`` name it):
+        marked failed, shut down."""
+        self.failed = True
+        try:
+            self.conn.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+
+    def write(self, data) -> None:
+        """Write one or more whole frames (bytes, or an ``IOBuf`` sent
+        from its blocks), queued acks in front.  Raises OSError when the
+        connection is gone (and marks it failed)."""
         with self._write_lock:
             self._send(self._take_acks())
             self._send(data)
@@ -156,11 +179,34 @@ class Socket:
             ids, self._pending_acks = self._pending_acks, []
         return pack_ack_frame(ids) if ids else b""
 
-    def _send(self, data: bytes) -> None:
+    def _send(self, data) -> None:
         if not data:
             return
         try:
-            self.conn.sendall(data)
+            if isinstance(data, IOBuf):
+                while not data.empty():
+                    data.cut_into_socket(self.conn)
+            else:
+                self.conn.sendall(data)
         except OSError:
             self.failed = True
             raise
+
+
+class _SocketPool:
+    """The live sockets, as the JAX package's ``socket_pool()`` shows
+    them to ``/sockets`` and ``/connections``."""
+
+    def live_items(self):
+        with _registry_lock:
+            return sorted(_registry.items())
+
+    def __len__(self) -> int:
+        return len(_registry)
+
+
+_pool = _SocketPool()
+
+
+def socket_pool() -> _SocketPool:
+    return _pool

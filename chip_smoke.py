@@ -153,6 +153,26 @@ result line) when a phase fails or CUDA is absent.  Phases:
    ``ELAMEDUCK`` answers retried on B, A unlisted after the naming
    refresh, the registry showing it ``draining`` within one report
    interval;
+   15. HTTP/1.1, h2c/gRPC and the builtin portal on phase 5's one port,
+   while the LM serves: (a) phase 5's three requests as ``POST
+   /LM/Generate`` (the tpu_std request bytes, ``application/octet-stream``)
+   and (b) through ``Channel(protocol="http")`` and
+   ``Channel(protocol="grpc")``, each lane phase 5's tokens with
+   ``flash_fwd`` depth x 3 and each call's ms beside phase 5's; (c) a call
+   whose budget ran out (``x-deadline-ms: 0``; a 0.5 µs ``grpc-timeout``)
+   on a fresh connection per lane, shed without a launch: HTTP 500 with
+   ``x-rpc-error-code`` ERPCTIMEDOUT, gRPC status 4; (d) ``/status``,
+   ``/vars`` and ``/metrics`` with phase 12's ``lm_*`` families, ``/lm``,
+   ``/rpcz?trace_id=...&format=json`` for a traced HTTP Generate (its
+   server span under the caller's span), ``/hotspots/cpu?seconds=1``
+   during a (1, 1500, 64) Generate (the generator's frames named),
+   ``/flags`` set live and ``internal_port`` gating; (e)
+   ``rpcz_stitch.collect_trace`` with no ``fetch=`` on 12 (c)'s traced
+   disaggregated Decode (both tiers' ``/rpcz`` over their ports), run
+   right after 12 (c) while the span store still holds the trace; (f)
+   inside phase 14, after its fleet step: ``federate()`` with no
+   ``fetch=`` over the two replicas' ``/metrics`` and
+   ``fetch_member_report`` of each;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -1764,6 +1784,7 @@ def phase_serve(ch: Channel, cfg: LMConfig) -> list:
                          tok_s=tps, warmup=i == 0))
         if i == 0:
             rows[0]["tokens"] = out[0].tolist()     # phase 13's reference
+        rows[i]["ids"] = out.tolist()               # phase 15's reference
         log(f"  Generate b={b} s={s} max_new={max_new}: {dt * 1e3:.1f} ms "
             f"end to end, {tps:.1f} generated tok/s (prefill included)"
             f"{' [warm-up]' if i == 0 else ''}; first ids "
@@ -3760,7 +3781,7 @@ def phase_obs_disagg(pre_ep, tiers: dict, cfg: LMConfig,
         raise AssertionError("the traced handoff did not run as 6d (a)")
     tiers["dec"].batcher().shutdown()
     return dict(prefill_notes=pre_n, decode_notes=dec_n, tree=tree,
-                launches=launches,
+                launches=launches, trace_id=tid, spans=len(spans),
                 import_ms=(imp_s.end_us - imp_s.received_us) / 1e3)
 
 
@@ -4008,18 +4029,25 @@ def phase_obs_overhead(svc: LMService, cfg: LMConfig) -> dict:
 
 def phase_observability(ep, pre_ep, ch: Channel, srv: Server,
                         svc: LMService, paged: dict, tiers: dict,
-                        cfg: LMConfig, six_b: dict) -> dict:
-    """Phase 12, on the serving phases' services and servers."""
+                        cfg: LMConfig, six_b: dict, stitch=None) -> dict:
+    """Phase 12, on the serving phases' services and servers.
+    ``stitch(disagg)`` (phase 15 (e)) runs right after (c), while the
+    span store still holds its trace, timed apart from phase 12."""
     t0 = time.perf_counter()
     res = {"generate": phase_obs_generate(ch, cfg, srv),
            "decode": phase_obs_decode(ep, svc, cfg),
-           "disagg": phase_obs_disagg(pre_ep, tiers, cfg, six_b),
-           "spill": phase_obs_spill(ep, paged["LMSpill"], cfg)}
+           "disagg": phase_obs_disagg(pre_ep, tiers, cfg, six_b)}
+    stitch_s = 0.0
+    if stitch is not None:
+        t1 = time.perf_counter()
+        res["stitch"] = stitch(res["disagg"])
+        stitch_s = time.perf_counter() - t1
+    res["spill"] = phase_obs_spill(ep, paged["LMSpill"], cfg)
     res["counters"] = phase_obs_counters(srv, six_b)
     res["overhead"] = phase_obs_overhead(svc, cfg)
     res["launches"] = sum(r["launches"] for r in res.values()
                           if isinstance(r, dict) and "launches" in r)
-    res["seconds"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t0 - stitch_s
     log(f"  phase 12: {res['seconds']:.1f} s; flash_fwd launches "
         f"{res['launches']}")
     return res
@@ -5243,9 +5271,11 @@ def phase_cl_drain(reps: Replicas, registry, cfg: LMConfig,
 
 
 def phase_cluster(svc: LMService, cfg: LMConfig, rows: list,
-                  dec_ep) -> dict:
+                  dec_ep, portal=None) -> dict:
     """Phase 14: the LM across two replicas on the card, through the
-    cluster Channel, the combo channels, the breaker and the fleet."""
+    cluster Channel, the combo channels, the breaker and the fleet.
+    ``portal(reps, registry)`` (phase 15 (f)) runs after the fleet step,
+    while both replicas report, timed apart from phase 14."""
     from brpc_tpu_torch import fleet
     t0 = time.perf_counter()
     prompt = np.random.default_rng(0).integers(
@@ -5267,6 +5297,7 @@ def phase_cluster(svc: LMService, cfg: LMConfig, rows: list,
              ("drain", lambda: phase_cl_drain(
                  reps, registry, cfg, os.path.join(naming, "lm.naming"))))
     res, sub_s, sub_launches = {}, {}, {}
+    portal_s = 0.0
     FLASH_FWD.launches = 0
     try:
         for name, step in steps:
@@ -5274,6 +5305,10 @@ def phase_cluster(svc: LMService, cfg: LMConfig, rows: list,
             res[name] = step()
             sub_s[name] = time.perf_counter() - t1
             sub_launches[name] = FLASH_FWD.launches - l1
+            if name == "fleet" and portal is not None:
+                t1 = time.perf_counter()
+                res["portal"] = portal(reps, registry)
+                portal_s = time.perf_counter() - t1
     finally:
         reps.close()
         reg_srv.stop()
@@ -5284,7 +5319,7 @@ def phase_cluster(svc: LMService, cfg: LMConfig, rows: list,
     res["check_launches"] = res["affinity"]["check_launches"] \
         + res["hedge"]["side_by_side"]["launches"]
     res["launches"] = FLASH_FWD.launches - res["check_launches"]
-    res["seconds"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t0 - portal_s
     res["sub_seconds"] = sub_s
     res["sub_launches"] = sub_launches
     log(f"  phase 14: {res['seconds']:.1f} s ("
@@ -5294,6 +5329,345 @@ def phase_cluster(svc: LMService, cfg: LMConfig, rows: list,
         f"{sub_launches}); no number here is "
         f"across cards or processes (both replicas share this process and "
         f"card)")
+    return res
+
+
+# -- phase 15: HTTP/1.1, h2/gRPC and the portal on the one port -------------
+
+PROTO_TIMEOUT_MS = 600_000
+HOTSPOT_REQUEST = BUSY_REQUEST          # (1, 1500, 64), profiled for 1 s
+HOTSPOT_FRAMES = ("Generate", "decode_step")
+LM_FAMILIES = ("lm_step_phase_total", "lm_step_phase_ns", "lm_ttft_ms",
+               "lm_itl_ms", "lm_slo_attained_total", "rpc_server_lm_generate")
+
+
+def phase5_prompts(cfg: LMConfig) -> list:
+    """Phase 5's prompts, drawn as ``phase_serve`` draws them."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+            for b, s, _ in REQUESTS]
+
+
+def http_call(ep, method: str, path: str, body: bytes = None,
+              headers: dict = None, timeout_s: float = 600.0) -> tuple:
+    """One HTTP/1.1 exchange on a connection of its own: ``(status,
+    headers, body, ms)``."""
+    import http.client
+    conn = http.client.HTTPConnection(ep.host, ep.port, timeout=timeout_s)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        data = r.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data, ms
+    finally:
+        conn.close()
+
+
+def grpc_raw_call(ep, path: str, payload: bytes,
+                  grpc_timeout: str) -> tuple:
+    """One unary gRPC call over a fresh h2c connection with the port's
+    own h2 session, whose only ``grpc-timeout`` is ``grpc_timeout``:
+    ``(grpc-status, grpc-message, ms)``."""
+    import socket
+    from brpc_tpu_torch.protocol.h2_rpc import GRPC_CT, pack_grpc_message
+    from brpc_tpu_torch.protocol.h2_session import H2Session
+    sess = H2Session(is_server=False)
+    sess.start()
+    sid = sess.next_stream_id()
+    sess.send_headers(sid, [(":method", "POST"), (":scheme", "http"),
+                            (":path", path), (":authority", str(ep)),
+                            ("content-type", GRPC_CT), ("te", "trailers"),
+                            ("grpc-timeout", grpc_timeout)])
+    sess.send_data(sid, pack_grpc_message(payload), end_stream=True)
+    headers = []
+    with socket.create_connection((ep.host, ep.port), timeout=60) as conn:
+        t0 = time.perf_counter()
+        conn.sendall(sess.take_output())
+        done = False
+        while not done:
+            data = conn.recv(65536)
+            if not data:
+                raise AssertionError("h2 connection closed early")
+            for ev in sess.feed(data):
+                if ev[0] in ("headers", "data") and ev[1] == sid:
+                    if ev[0] == "headers":
+                        headers += ev[2]
+                    done = done or ev[3]
+            out = sess.take_output()
+            if out:
+                conn.sendall(out)
+        ms = (time.perf_counter() - t0) * 1e3
+    h = dict(headers)
+    return int(h.get("grpc-status", "2")), h.get("grpc-message", ""), ms
+
+
+def proto_generate(ch: Channel, prompt: np.ndarray, max_new: int) -> tuple:
+    """One Generate through ``ch`` (any protocol): ``(ids, ms)``."""
+    cntl = Controller()
+    cntl.timeout_ms = PROTO_TIMEOUT_MS
+    t0 = time.perf_counter()
+    c = ch.call_method("LM.Generate", pack_generate_request(prompt, max_new),
+                       cntl=cntl)
+    ms = (time.perf_counter() - t0) * 1e3
+    if c.failed:
+        raise AssertionError(f"Generate over {ch.options.protocol} failed: "
+                             f"[{c.error_code}] {c.error_text}")
+    return unpack_generated(c.response), ms
+
+
+def check_lane(label: str, outs: list, rows: list, launches: int,
+               cfg: LMConfig) -> None:
+    for (ids, ms), row in zip(outs, rows):
+        log(f"  {label} b={row['b']} s={row['s']} max_new="
+            f"{row['max_new']}: {ms:.1f} ms (tpu_std in phase 5: "
+            f"{row['ms']:.1f} ms); tokens equal to phase 5's: "
+            f"{ids.tolist() == row['ids']}")
+    want = cfg.depth * len(REQUESTS)
+    if any(ids.tolist() != row["ids"] for (ids, _), row in zip(outs, rows)) \
+            or launches != want:
+        raise AssertionError(f"{label}: tokens or flash_fwd launches "
+                             f"({launches}, expected {want}) off")
+
+
+def phase_proto_generate(ep, cfg: LMConfig, rows: list) -> dict:
+    """(a) ``POST /LM/Generate`` (the tpu_std request bytes as
+    ``application/octet-stream``) on phase 5's port; (b) the same
+    requests through ``Channel(protocol="http")`` and
+    ``Channel(protocol="grpc")``.  Each lane: phase 5's tokens,
+    ``flash_fwd`` depth x 3."""
+    prompts = phase5_prompts(cfg)
+    res = {}
+    FLASH_FWD.launches = 0
+    outs = []
+    for prompt, (_, _, max_new) in zip(prompts, REQUESTS):
+        status, hdrs, body, ms = http_call(
+            ep, "POST", "/LM/Generate", pack_generate_request(prompt, max_new),
+            {"Content-Type": "application/octet-stream"})
+        if status != 200 or hdrs.get("content-type") != \
+                "application/octet-stream":
+            raise AssertionError(f"(a) POST /LM/Generate: {status} "
+                                 f"{body[:200]!r}")
+        outs.append((unpack_generated(body), ms))
+    launches = FLASH_FWD.launches
+    check_lane("(a) POST /LM/Generate", outs, rows, launches, cfg)
+    res["raw_http"] = dict(ms=[ms for _, ms in outs], launches=launches)
+    for proto in ("http", "grpc"):
+        ch = Channel(protocol=proto)
+        ch.init(str(ep))
+        FLASH_FWD.launches = 0
+        try:
+            outs = [proto_generate(ch, prompt, max_new)
+                    for prompt, (_, _, max_new) in zip(prompts, REQUESTS)]
+        finally:
+            ch.close()
+        launches = FLASH_FWD.launches
+        check_lane(f"(b) Channel(protocol={proto!r})", outs, rows, launches,
+                   cfg)
+        res[proto] = dict(ms=[ms for _, ms in outs], launches=launches)
+    res["launches"] = sum(r["launches"] for r in res.values())
+    return res
+
+
+def phase_proto_shed(ep, cfg: LMConfig) -> dict:
+    """(c) A call whose budget ran out before it is served, on a
+    connection of its own over each lane: shed without a launch, HTTP
+    500 with ``x-rpc-error-code`` ERPCTIMEDOUT, gRPC status 4."""
+    prompt = phase5_prompts(cfg)[0]
+    req = pack_generate_request(prompt, REQUESTS[0][2])
+    before = deadline.shed_counters()
+    FLASH_FWD.launches = 0
+    status, hdrs, body, http_ms = http_call(
+        ep, "POST", "/LM/Generate", req,
+        {"Content-Type": "application/octet-stream", "x-deadline-ms": "0"})
+    gstatus, gmsg, grpc_ms = grpc_raw_call(ep, "/LM/Generate", req, "500u")
+    launches = FLASH_FWD.launches
+    after = deadline.shed_counters()
+    sheds = {lane: after.get((lane, "LM.Generate"), 0)
+             - before.get((lane, "LM.Generate"), 0)
+             for lane in ("http", "grpc")}
+    log(f"  (c) expired budgets: HTTP {status} x-rpc-error-code "
+        f"{hdrs.get('x-rpc-error-code')} in {http_ms:.2f} ms; gRPC status "
+        f"{gstatus} ({gmsg!r}) in {grpc_ms:.2f} ms; sheds {sheds}; "
+        f"flash_fwd launches {launches}")
+    if status != 500 or hdrs.get("x-rpc-error-code") != \
+            str(int(Errno.ERPCTIMEDOUT)) or gstatus != 4 or launches \
+            or sheds != {"http": 1, "grpc": 1}:
+        raise AssertionError("(c) an expired budget was not shed as the "
+                             "JAX lanes shed it")
+    return dict(http_ms=http_ms, grpc_ms=grpc_ms, launches=launches)
+
+
+def portal_get(ep, path: str, want: int = 200) -> bytes:
+    status, _, body, _ = http_call(ep, "GET", path, timeout_s=120.0)
+    if status != want:
+        raise AssertionError(f"GET {path}: {status} (expected {want}) "
+                             f"{body[:200]!r}")
+    return body
+
+
+class Ping(Service):
+    def Ping(self, cntl, request):
+        return request
+
+
+def phase_portal(ep, cfg: LMConfig) -> dict:
+    """(d) The portal on phase 5's server while the LM serves."""
+    t0 = time.perf_counter()
+    status = json.loads(portal_get(ep, "/status"))
+    if status["services"]["LM.Generate"]["count"] < len(REQUESTS):
+        raise AssertionError(f"/status: {status['services']}")
+    for page in ("/vars", "/metrics"):
+        body = portal_get(ep, page).decode()
+        missing = [f for f in LM_FAMILIES if f not in body]
+        if missing:
+            raise AssertionError(f"{page} lacks {missing}")
+    lm = json.loads(portal_get(ep, "/lm"))
+    if not lm["enabled"] or "ttft_ms" not in lm or "phases" not in lm:
+        raise AssertionError(f"/lm: {sorted(lm)}")
+    # a traced HTTP Generate: its server span under the caller's span
+    tid = next(_trace_ids)
+    ch = Channel(protocol="http")
+    ch.init(str(ep))
+    cntl = Controller()
+    cntl.trace_id = tid
+    cntl.timeout_ms = PROTO_TIMEOUT_MS
+    FLASH_FWD.launches = 0
+    prompt = phase5_prompts(cfg)[0]
+    c = ch.call_method("LM.Generate",
+                       pack_generate_request(prompt, REQUESTS[0][2]),
+                       cntl=cntl)
+    ch.close()
+    launches = FLASH_FWD.launches
+    if c.failed:
+        raise AssertionError(f"traced HTTP Generate: {c.error_text}")
+    trace_spans(tid, {("LM.Generate", True), ("LM.Generate", False)})
+    page = json.loads(portal_get(ep, f"/rpcz?trace_id={tid:x}&format=json"))
+    spans = page["spans"]
+    server = [sp for sp in spans if sp["side"] == "server"]
+    client = [sp for sp in spans if sp["side"] == "client"]
+    if len(server) != 1 or len(client) != 1 \
+            or server[0]["parent_span_id"] != client[0]["span_id"] \
+            or len(page["tree"]) != 1:
+        raise AssertionError(f"/rpcz for the traced HTTP Generate: {page}")
+    legs = dict(handler_ms=(server[0]["end_us"] - server[0]["start_us"])
+                / 1e3, queue_us=server[0]["start_us"]
+                - server[0]["received_us"])
+    # the CPU profile during a (1, 1500, 64) Generate names its frames
+    b, s, max_new = HOTSPOT_REQUEST
+    busy = np.random.default_rng(15).integers(0, cfg.vocab, (b, s),
+                                              dtype=np.int32)
+    ch = Channel()
+    ch.init(str(ep))
+    box = {}
+
+    def run():
+        box["out"] = proto_generate(ch, busy, max_new)
+
+    th = threading.Thread(target=run)
+    th.start()
+    folded = portal_get(ep, "/hotspots/cpu?seconds=1&view=folded").decode()
+    th.join(600)
+    ch.close()
+    launches = FLASH_FWD.launches
+    named = [f for f in HOTSPOT_FRAMES if f in folded]
+    samples = sum(int(line.rsplit(" ", 1)[1])
+                  for line in folded.splitlines() if line.strip())
+    # /flags set live, then put back
+    old = get_flag("rpcz_max_samples_per_second")
+    portal_get(ep, f"/flags/rpcz_max_samples_per_second?setvalue={old + 1}")
+    live = get_flag("rpcz_max_samples_per_second") == old + 1
+    set_flag("rpcz_max_samples_per_second", old)
+    # internal_port gating, on a server of its own
+    opts = ServerOptions()
+    opts.internal_port = 0
+    gated = serve_lm({"Ping": Ping()}, opts)
+    try:
+        portal_get(gated.listen_endpoint, "/flags", 403)
+        portal_get(gated.listen_endpoint, "/health")
+        portal_get(gated.internal_endpoint, "/flags")
+    finally:
+        gated.stop()
+    log(f"  (d) portal: /status ({len(status['services'])} methods, "
+        f"{status['connections']} connections), /vars and /metrics with "
+        f"{list(LM_FAMILIES)}, /lm keys {len(lm)}; a traced HTTP Generate's "
+        f"server span under its client span (handler "
+        f"{legs['handler_ms']:.1f} ms, queue {legs['queue_us']} us); "
+        f"/hotspots/cpu over a {HOTSPOT_REQUEST} Generate: {samples} "
+        f"samples, frames named {named}; /flags set live {live}; "
+        f"internal_port gating held; flash_fwd launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if named != list(HOTSPOT_FRAMES) or not live or "out" not in box \
+            or launches != 2 * cfg.depth:
+        raise AssertionError("(d) the portal did not read the live server")
+    return dict(hotspot_samples=samples, launches=launches, **legs)
+
+
+def phase_portal_stitch(disagg: dict) -> dict:
+    """(e) Phase 12 (c)'s traced disaggregated Decode stitched with no
+    ``fetch=``: the walk GETs each tier's ``/rpcz`` over its port."""
+    tid = disagg["trace_id"]
+    t0 = time.perf_counter()
+    out = rpcz_stitch.collect_trace(tid)
+    ms = (time.perf_counter() - t0) * 1e3
+    roots = rpcz_stitch.build_tree(out["spans"])
+    log(f"  (e) rpcz_stitch.collect_trace({tid:x}) over the portals: "
+        f"{len(out['spans'])} spans, remotes {out['remotes']}, "
+        f"{len(roots)} root, {ms:.1f} ms")
+    for line in rpcz_stitch.render_tree_text(out["spans"]).rstrip() \
+            .splitlines():
+        log(f"    {line}")
+    if len(out["spans"]) != disagg["spans"] or len(roots) != 1 \
+            or len(out["remotes"]) < 2 or out["truncated"] \
+            or set(out["remotes"].values()) != {"ok"}:
+        raise AssertionError("(e) the stitch over the portals failed")
+    return dict(spans=len(out["spans"]), remotes=len(out["remotes"]),
+                ms=ms, seconds=ms / 1e3)
+
+
+def phase_portal_fleet(reps, registry) -> dict:
+    """(f) Federation with no ``fetch=`` over phase 14's two replicas,
+    and ``fetch_member_report`` of each."""
+    from brpc_tpu_torch import fleet
+    t0 = time.perf_counter()
+    builds = registry.fed_builds
+    wait_until(lambda: time.perf_counter() - t0 > 2.1, 3.0,
+               "the federation cache to age out")
+    fed = registry.federate()
+    want = sorted(str(ep) for ep in reps.eps)
+    labelled = [inst for inst in want if f'instance="{inst}"' in fed]
+    reports = {inst: fleet.fetch_member_report(inst) for inst in want}
+    log(f"  (f) federate() over the replicas' /metrics: "
+        f"{len(fed.splitlines())} lines, labels {labelled}; "
+        f"fetch_member_report: "
+        f"{ {i: (r['instance'], r['slots']) for i, r in reports.items()} }")
+    if labelled != want or registry.fed_builds != builds + 1 \
+            or any(r["instance"] != i or r["slots"]["total"] != CLUSTER_SLOTS
+                   for i, r in reports.items()):
+        raise AssertionError("(f) federation or a member report failed")
+    return dict(federate_lines=len(fed.splitlines()),
+                seconds=time.perf_counter() - t0)
+
+
+def phase_protocols(ep, cfg: LMConfig, rows: list, stitch_part: dict,
+                    fleet_part: dict) -> dict:
+    """Phase 15, on phase 5's server after phase 14 ((e) ran inside
+    phase 12, right after 12 (c); (f) inside phase 14, while its
+    replicas reported)."""
+    t0 = time.perf_counter()
+    res = {"generate": phase_proto_generate(ep, cfg, rows),
+           "shed": phase_proto_shed(ep, cfg),
+           "portal": phase_portal(ep, cfg),
+           "stitch": stitch_part,
+           "fleet": fleet_part}
+    res["launches"] = res["generate"]["launches"] \
+        + res["portal"]["launches"]
+    res["seconds"] = time.perf_counter() - t0 + stitch_part["seconds"] \
+        + fleet_part["seconds"]
+    log(f"  phase 15: {res['seconds']:.1f} s ((e) {stitch_part['seconds']:.2f}"
+        f" s and (f) {fleet_part['seconds']:.1f} s of it, run inside "
+        f"phases 12 and 14); flash_fwd launches {res['launches']}")
     return res
 
 
@@ -5685,7 +6059,8 @@ def main() -> int:
             "lm_telemetry")
         obs = phase_observability(srv.listen_endpoint,
                                   pre_srv.listen_endpoint, ch, srv, svc,
-                                  paged, tiers, cfg, streams)
+                                  paged, tiers, cfg, streams,
+                                  stitch=phase_portal_stitch)
         log("[13] overload and drain: the shed, goodput under overload, "
             "admission, the drain, retries and backups")
         rob = phase_robustness(ch, srv, svc, paged, cfg, rows)
@@ -5693,7 +6068,12 @@ def main() -> int:
             "across replicas, fan-out, the breaker, fleet, a drain with "
             "failover")
         cluster = phase_cluster(svc, cfg, rows,
-                                dec_srv["dec"].listen_endpoint)
+                                dec_srv["dec"].listen_endpoint,
+                                portal=phase_portal_fleet)
+        log("[15] HTTP/1.1, h2/gRPC and the builtin portal on phase 5's "
+            "port")
+        proto = phase_protocols(srv.listen_endpoint, cfg, rows,
+                                obs["stitch"], cluster["portal"])
     finally:
         ch.close()
         srv.stop()
@@ -5760,6 +6140,7 @@ def main() -> int:
                  "observability": obs["launches"],
                  "robustness": rob["launches"],
                  "cluster": cluster["launches"],
+                 "http_grpc": proto["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -5840,6 +6221,7 @@ def main() -> int:
     log(f"  observability: {json.dumps(obs)}")
     log(f"  robustness: {json.dumps(rob)}")
     log(f"  cluster: {json.dumps(cluster, default=str)}")
+    log(f"  protocols: {json.dumps(proto)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

@@ -357,28 +357,39 @@ def test_dump_once_writes_the_same_file(tmp_path, dump_flags):
 
 
 def test_dump_ticks_on_its_own_thread(tmp_path, dump_flags):
-    """Divergence: the port's periodic dump runs on a daemon thread of its
-    own (``bvar-dump``), where the JAX package schedules the tick on its
-    fiber timer thread, which the port lacks.  The flags and the file
+    """The port's periodic dump ticks as the JAX package's does: each
+    tick is a task on the process's ``fiber.timer_thread`` (the thread
+    of its own that every periodic task shares), which schedules the
+    next; no ``bvar-dump`` thread is started.  The flags and the file
     are the JAX package's."""
+    from brpc_tpu_torch.fiber.timer_thread import global_timer_thread
+    timer = global_timer_thread()
     path = str(tmp_path / "bvar.data")
     tb.Adder("tbvar_ticked") << 5
     tflags.set_flag("bvar_dump_file", path)
     tflags.set_flag("bvar_dump_interval", 1)
     tflags.set_flag("bvar_dump_prefix", "tbvar_ticked")
+    before = timer.scheduled_count
     tdump.ensure_dumper()           # off: starts nothing
+    assert timer.scheduled_count == before
     tflags.set_flag("bvar_dump", True)
     try:
         tdump.ensure_dumper()
         tdump.ensure_dumper()       # idempotent
-        assert [t for t in threading.enumerate()
-                if t.name == "bvar-dump"]
+        started = timer.scheduled_count
+        assert started - before in (0, 1)   # one tick, or none when an
+        #                                     earlier test started it
         deadline = time.monotonic() + 10
         while not os.path.exists(path) and time.monotonic() < deadline:
             time.sleep(0.05)
         assert open(path).read() == "tbvar_ticked : 5\n"
+        # the tick re-armed itself on the timer
+        deadline = time.monotonic() + 10
+        while timer.scheduled_count <= started \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert timer.scheduled_count > started
     finally:
         tflags.set_flag("bvar_dump", False)
         tflags.set_flag("bvar_dump_file", "monitor/bvar.data")
-    assert len([t for t in threading.enumerate()
-                if t.name == "bvar-dump"]) == 1
+    assert not [t for t in threading.enumerate() if t.name == "bvar-dump"]

@@ -278,8 +278,24 @@ def test_federation_injects_instance_label_like_jax():
 
 
 def test_federate_needs_a_fetch():
-    with pytest.raises(ValueError):
-        fleet.FleetRegistry().federate()
+    """``federate()``'s fetch defaults to ``fetch_member_metrics``, the
+    JAX package's: each live member's ``/metrics`` page over HTTP, a
+    dead member's scrape logged and skipped."""
+    srv = Server()
+    srv.add_service(Echo(), name="E")
+    assert srv.start("127.0.0.1:0") == 0
+    try:
+        addr = str(srv.listen_endpoint)
+        reg = fleet.FleetRegistry()
+        reg.ingest(_mk_report(addr))
+        reg.ingest(_mk_report("127.0.0.1:1"))       # nobody listens
+        body = reg.federate()
+        assert f'instance="{addr}"' in body
+        assert 'instance="127.0.0.1:1"' not in body
+        assert 'fleet_members{state="ok"} 2' in body
+        assert "# TYPE rpc_server_e_echo" in fleet.fetch_member_metrics(addr)
+    finally:
+        srv.stop()
 
 
 def test_fleet_vars_exposed():

@@ -16,7 +16,8 @@ PKG = os.path.join(ROOT, "brpc_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "lanes_ab.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -153,6 +154,51 @@ def test_observability_imports_alone_with_jax_and_brpc_tpu_blocked(module):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["imported", module]
+
+
+# the HTTP/1.1, h2/gRPC and builtin-portal lanes
+_HTTP_MODULES = (
+    "brpc_tpu_torch.butil.copy_audit",
+    "brpc_tpu_torch.butil.iobuf",
+    "brpc_tpu_torch.fiber.butex",
+    "brpc_tpu_torch.protocol.base",
+    "brpc_tpu_torch.transport.input_messenger",
+    "brpc_tpu_torch.protocol.compress",
+    "brpc_tpu_torch.protocol.json2pb",
+    "brpc_tpu_torch.protocol.http",
+    "brpc_tpu_torch.server.interceptors",
+    "brpc_tpu_torch.server.http_dispatch",
+    "brpc_tpu_torch.server.builtin",
+    "brpc_tpu_torch.protocol.hpack_tables",
+    "brpc_tpu_torch.protocol.hpack",
+    "brpc_tpu_torch.protocol.h2_session",
+    "brpc_tpu_torch.protocol.h2_rpc",
+    "brpc_tpu_torch.client.grpc_client",
+)
+
+
+@pytest.mark.parametrize("module", _HTTP_MODULES)
+def test_http_lanes_import_alone_with_jax_and_brpc_tpu_blocked(module):
+    """Each module of the HTTP, h2/gRPC and portal lanes imports in a
+    fresh interpreter with ``jax`` and every ``brpc_tpu`` module
+    refused, and its source names neither package in any import (nor
+    in an ``import_module`` string)."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["imported", module]
+    rel = module.replace(".", os.sep)
+    path = os.path.join(ROOT, rel + ".py")
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, rel, "__init__.py")
+    with open(path) as f:
+        src = f.read()
+    import re
+    assert not re.search(r"^\s*(from|import)\s+(jax|brpc_tpu)(\.|\s|$)",
+                         src, re.M), path
+    assert not re.search(r"import_module\(\s*[\"'](jax|brpc_tpu)[\"'.]",
+                         src), path
 
 
 @pytest.mark.parametrize("path", _port_files(),
