@@ -1,12 +1,14 @@
 """EndPoint — where a peer lives: ``host:port`` (IPv4, IPv6, hostname),
 or a rank of a device mesh, ``ici://<mesh>/<index>``.
 
-The port of ``brpc_tpu/butil/endpoint.py`` without its unix sockets.
+The port of ``brpc_tpu/butil/endpoint.py`` without its unix sockets:
+``device_endpoint``, ``hostname_to_ip`` and ``my_hostname`` as there.
 """
 
 from __future__ import annotations
 
 import re
+import socket
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -59,3 +61,16 @@ def parse_endpoint(text: str, default_port: int = 0) -> EndPoint:
     if not text:
         raise ValueError("empty endpoint")
     return EndPoint(host=text, port=default_port)
+
+
+def device_endpoint(mesh: str, index: int) -> EndPoint:
+    return EndPoint(mesh=mesh, device_index=index)
+
+
+def hostname_to_ip(hostname: str) -> str:
+    """Resolve a hostname to its first IP (≈ butil::hostname2ip)."""
+    return socket.gethostbyname(hostname)
+
+
+def my_hostname() -> str:
+    return socket.gethostname()

@@ -1,10 +1,81 @@
-"""Containers used across the stack: the cut of ``brpc_tpu/butil/flat_map.py``
-that the port's ``bvar`` needs, its :class:`BoundedQueue` (the percentile
-reservoirs and the sampler's history ring).  The case-ignored header map
-and the bounded MRU cache wait for the port's HTTP layer.
+"""Containers used across the stack.
+
+Python dicts are already open-addressing hash maps (brpc built FlatMap,
+src/butil/containers/flat_map.h, because std::unordered_map was slow;
+that reason does not carry over).  What does carry over is the
+case-ignored map for HTTP headers, the bounded MRU cache and the bounded
+queue (the percentile reservoirs and the sampler's history ring).
+
+A copy of ``brpc_tpu/butil/flat_map.py``.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Iterator, Tuple
+
+
+class CaseIgnoredFlatMap:
+    """Case-insensitive string map preserving original key casing
+    (≈ case_ignored_flat_map.h; used for HTTP headers)."""
+
+    def __init__(self):
+        self._d: dict = {}  # lower_key -> (orig_key, value)
+
+    def __setitem__(self, key: str, value) -> None:
+        self._d[key.lower()] = (key, value)
+
+    def __getitem__(self, key: str):
+        return self._d[key.lower()][1]
+
+    def get(self, key: str, default=None):
+        item = self._d.get(key.lower())
+        return item[1] if item is not None else default
+
+    def __delitem__(self, key: str) -> None:
+        del self._d[key.lower()]
+
+    def __contains__(self, key: str) -> bool:
+        return key.lower() in self._d
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def items(self) -> Iterator[Tuple[str, Any]]:
+        return iter(self._d.values())
+
+    def keys(self):
+        return (k for k, _ in self._d.values())
+
+    def clear(self) -> None:
+        self._d.clear()
+
+
+class MRUCache:
+    """Bounded most-recently-used cache (≈ butil/containers/mru_cache.h)."""
+
+    def __init__(self, max_size: int):
+        self.max_size = max_size
+        self._d: OrderedDict = OrderedDict()
+
+    def put(self, key, value) -> None:
+        if key in self._d:
+            self._d.move_to_end(key)
+        self._d[key] = value
+        while len(self._d) > self.max_size:
+            self._d.popitem(last=False)
+
+    def get(self, key, default=None):
+        if key in self._d:
+            self._d.move_to_end(key)
+            return self._d[key]
+        return default
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    def __len__(self) -> int:
+        return len(self._d)
 
 
 class BoundedQueue:

@@ -1,8 +1,8 @@
 from .channel import Channel, ChannelOptions, RpcError
-from .controller import Controller
+from .controller import Controller, start_cancel
 from .parallel_channel import SKIP, ParallelChannel, SelectiveChannel
 from .partition_channel import DynamicPartitionChannel, PartitionChannel
 
 __all__ = ["Channel", "ChannelOptions", "Controller",
            "DynamicPartitionChannel", "ParallelChannel", "PartitionChannel",
-           "RpcError", "SKIP", "SelectiveChannel"]
+           "RpcError", "SKIP", "SelectiveChannel", "start_cancel"]

@@ -99,7 +99,34 @@ one unary gRPC call on the peer's shared h2 connection
 no retry, and the balancer's pick on a cluster channel, as in the JAX
 client; :meth:`Channel.grpc_stream` opens a streaming call.  Streams
 (``stream_create``), device attachments and the shm lane ride tpu_std
-only.  TLS waits for a later slice of the port.
+only.
+
+Async calls and call ids (``brpc_tpu/client/channel.py:165-194``):
+``call_method(method, request, response_type=None, done=None,
+cntl=None, attachment=None)`` blocks without ``done``; with it, it
+returns at once and ``done(cntl)`` runs on the call's own thread when
+the call ends, on every protocol.  Each call holds a versioned id
+(``cntl.call_id``) from its launch to its end: ``cntl.join()`` waits for
+the end and ``controller.start_cancel(call_id)`` ends it
+``ECANCELLED``.  An async call's attempts run on threads of their own,
+so a cancel ends it at once; a blocking call's attempt runs on the
+caller's thread, so a cancel from another thread ends it when that
+attempt returns (its response, if any, is dropped).  A gRPC call honours
+a cancel only before it starts.  ``response_type`` parses the response
+as the JAX ``parse_payload`` does.
+
+The classic lane's request stages (``brpc_tpu/client/controller.py:
+561-581``): ``ChannelOptions.auth_data`` rides every tpu_std request
+(the server checks it on a connection's first), and
+``request_compress_type`` (the controller's, else the channel's)
+compresses the payload once per call, each attempt's meta naming the
+type; a compressed response is decompressed (``ERESPONSE`` when it
+cannot be).  TLS (``brpc_tpu/transport/socket.py:228-233``):
+``ChannelOptions.ssl`` wraps every tpu_std, HTTP and gRPC connection in
+the standard library's ``ssl`` after the connect, the handshake bounded
+by the connect timeout plus 4 s; ``ssl_context`` replaces the default
+client context, ``ssl_ca`` pins a CA file and ``ssl_verify`` turns the
+certificate check on (off by default, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -108,7 +135,7 @@ import queue
 import socket
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from ..butil.endpoint import EndPoint, parse_endpoint
 from ..butil.logging_util import LOG
@@ -119,14 +146,15 @@ from ..ici.endpoint import (ack_unused, conn_nonce_of, ici_enabled,
                             split_device_attachment)
 from ..ici.fabric import local_domain_id
 from ..butil.iobuf import IOPortal
+from ..protocol import compress as compress_mod
 from ..protocol.base import ParseError
 from ..protocol.http import build_request
 from ..protocol.http import parse as http_parse
-from ..protocol.meta import RpcMeta
+from ..protocol.meta import CompressType, RpcMeta
 from ..protocol.streaming import StreamFrame, dispatch
 from ..rpcz import format_traceparent
-from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame, read_frame,
-                                serialize_payload)
+from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame,
+                                parse_payload, read_frame, serialize_payload)
 from ..transport import shm_ring
 from ..transport.socket import Socket
 from .circuit_breaker import global_circuit_breaker_map
@@ -144,13 +172,14 @@ class ChannelOptions:
     """Defaults mirror the JAX package's: timeout 500 ms, connect 1 s,
     3 retries, no backup request, one connection, no circuit breaker, a
     retry budget of 100 tokens refilled 0.1 per success, no backoff (5 s
-    cap)."""
+    cap), no compression, no auth data, no TLS."""
 
     __slots__ = ("timeout_ms", "connect_timeout_ms", "max_retry",
                  "backup_request_ms", "connection_type", "tenant",
                  "enable_circuit_breaker", "retry_budget_max",
                  "retry_budget_ratio", "retry_backoff_ms",
-                 "retry_backoff_max_ms", "protocol")
+                 "retry_backoff_max_ms", "protocol", "request_compress_type",
+                 "auth_data", "ssl", "ssl_context", "ssl_ca", "ssl_verify")
 
     def __init__(self):
         self.protocol = "tpu_std"       # or "http", "grpc"
@@ -171,6 +200,16 @@ class ChannelOptions:
         self.retry_budget_ratio = 0.1
         self.retry_backoff_ms = 0
         self.retry_backoff_max_ms = 5000
+        self.request_compress_type = CompressType.NONE
+        self.auth_data = b""            # rides every tpu_std request
+        # TLS (≈ ChannelSSLOptions): ssl=True wraps every connection;
+        # ssl_context overrides the default client context; ssl_ca pins
+        # a CA file; ssl_verify turns the certificate check on (off by
+        # default: self-signed certificates work out of the box)
+        self.ssl = False
+        self.ssl_context = None
+        self.ssl_ca = None
+        self.ssl_verify = False
 
 
 class RpcError(Exception):
@@ -203,10 +242,12 @@ class _Call:
 
     __slots__ = ("c", "method", "payload", "stream", "cid_base", "deadline",
                  "timeout_ms", "ctype", "hedged", "results", "done",
-                 "leases", "staged", "lock", "conns")
+                 "leases", "staged", "lock", "conns", "threaded",
+                 "response_type", "wire_payload", "compress_type")
 
     def __init__(self, c, method, payload, stream, cid_base, deadline,
-                 timeout_ms, ctype, hedged):
+                 timeout_ms, ctype, hedged, threaded=False,
+                 response_type=None):
         self.c, self.method, self.payload = c, method, payload
         self.stream = stream
         self.cid_base = cid_base
@@ -214,6 +255,13 @@ class _Call:
         self.timeout_ms = timeout_ms
         self.ctype = ctype
         self.hedged = hedged
+        # attempts on threads of their own (a hedged or an async call),
+        # so that the caller's loop sees a backup's time or a cancel
+        self.threaded = hedged or threaded
+        self.response_type = response_type
+        # the tpu_std payload on the wire: compressed once per call
+        self.wire_payload = payload
+        self.compress_type = CompressType.NONE
         self.results: "queue.Queue" = queue.Queue()
         self.done = False
         self.leases: list = []              # every attempt's shm lease
@@ -254,6 +302,24 @@ class Channel:
         self._pool_lock = threading.Lock()
         self._retry_budget: Optional[RetryBudget] = None
         self._retry_budget_lock = threading.Lock()
+        self._ssl_ctx_cache = None
+
+    def ssl_ctx(self):
+        """The channel's client TLS context (None when TLS is off)."""
+        opts = self.options
+        if opts.ssl_context is not None:
+            return opts.ssl_context
+        if not opts.ssl:
+            return None
+        if self._ssl_ctx_cache is None:
+            import ssl
+            ctx = ssl.create_default_context(cafile=opts.ssl_ca) \
+                if opts.ssl_ca else ssl.create_default_context()
+            if not opts.ssl_verify:
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
+            self._ssl_ctx_cache = ctx
+        return self._ssl_ctx_cache
 
     def init(self, addr: Any, lb_name: str = "") -> int:
         """``addr``: "ip:port" or an EndPoint for one server, or a naming
@@ -344,11 +410,42 @@ class Channel:
     # -- calls -------------------------------------------------------------
 
     def call_method(self, method_full: str, request: Any,
-                    cntl: Optional[Controller] = None) -> Controller:
-        """Blocking call of ``"Service.Method"`` with a bytes request; the
-        response bytes and any error land in the returned controller."""
+                    response_type: Any = None,
+                    done: Optional[Callable] = None,
+                    cntl: Optional[Controller] = None,
+                    attachment: Any = None) -> Controller:
+        """Call ``"Service.Method"`` with a bytes request.  Without
+        ``done`` it blocks and the response (parsed as ``response_type``,
+        None: bytes) and any error land in the returned controller; with
+        ``done`` it returns at once and ``done(cntl)`` runs when the call
+        ends."""
         c = cntl or Controller()
         c._channel = self
+        if attachment is not None:
+            c.request_attachment = bytes(attachment)
+        c._open_call_id()
+        if done is None:
+            try:
+                self._call(c, method_full, request, response_type, False)
+            finally:
+                c._close_call_id()
+            return c
+        threading.Thread(target=self._call_async,
+                         args=(c, method_full, request, response_type, done),
+                         name="rpc-async", daemon=True).start()
+        return c
+
+    def _call_async(self, c: Controller, method_full: str, request: Any,
+                    response_type: Any, done: Callable) -> None:
+        try:
+            self._call(c, method_full, request, response_type, True)
+        except Exception as e:     # never leave an async call without an end
+            LOG.exception("async call of %s raised", method_full)
+            c.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
+        c._close_call_id(done)
+
+    def _call(self, c: Controller, method_full: str, request: Any,
+              response_type: Any, threaded: bool) -> None:
         stream = c._stream_to_create
         if c.trace_id:
             # an explicitly traced call: its client span opens before the
@@ -364,30 +461,27 @@ class Channel:
                 or c.request_device_attachment is not None):
             c.set_failed(Errno.EREQUEST, "streams and device attachments "
                          "ride tpu_std only")
-        elif self.options.protocol == "grpc":
-            try:
-                payload = serialize_payload(request)
-            except TypeError as e:
-                c.set_failed(Errno.EREQUEST, str(e))
-            else:
-                self._call_grpc(c, method_full, payload)
         else:
             try:
                 payload = serialize_payload(request)
             except TypeError as e:
                 c.set_failed(Errno.EREQUEST, str(e))
             else:
-                self._launch(c, method_full, payload, stream)
+                if self.options.protocol == "grpc":
+                    self._call_grpc(c, method_full, payload, response_type)
+                else:
+                    self._launch(c, method_full, payload, stream,
+                                 response_type, threaded)
         if stream is not None and (c.failed
                                    or not stream._established.is_set()):
             # a failed call, or one the server accepted no stream on:
             # the pending stream dies with it
             stream._close_local(notify_peer=False)
         c._end_trace_span(c.remote_side)
-        return c
 
     def _launch(self, c: Controller, method_full: str, payload: bytes,
-                stream) -> None:
+                stream, response_type: Any = None,
+                threaded: bool = False) -> None:
         opts = self.options
         timeout_ms = opts.timeout_ms if c.timeout_ms is None \
             else c.timeout_ms
@@ -428,7 +522,17 @@ class Channel:
             cid_base = self._next_cid
             self._next_cid += c.max_retry + 2
         call = _Call(c, method_full, payload, stream, cid_base, deadline,
-                     timeout_ms, c.connection_type, hedged)
+                     timeout_ms, c.connection_type, hedged, threaded,
+                     response_type)
+        ctype = c.request_compress_type or opts.request_compress_type
+        if ctype and opts.protocol == "tpu_std":
+            packed = compress_mod.compress(payload, ctype)
+            if packed is not None:
+                call.wire_payload, call.compress_type = packed, ctype
+        cancel = c._attach_call(call)
+        if cancel is not None:
+            c.set_failed(*cancel)       # cancelled before it started
+            return
         self._run(call, t0 + backup / 1e3 if hedged else None)
         c.latency_us = int((time.monotonic() - t0) * 1e6)
         self._feedback(c)
@@ -522,6 +626,9 @@ class Channel:
                     version, kind, data = call.results.get(timeout=wait)
                 except queue.Empty:
                     continue
+            if kind == "cancel":
+                self._finish(call, *data)
+                return
             if version not in live:
                 self._discard(call, kind, data)     # a stale attempt's
                 continue
@@ -584,7 +691,7 @@ class Channel:
         c.remote_side = remote
         c.attempt_remotes[version] = remote
         call.conns[version] = conn
-        if call.hedged:
+        if call.threaded:
             threading.Thread(target=self._attempt, args=(call, version),
                              name="tpu_std-attempt", daemon=True).start()
         else:
@@ -635,6 +742,12 @@ class Channel:
         meta.trace_id, meta.span_id = c.trace_id, c.span_id
         if self.options.tenant:
             meta.tenant = str(self.options.tenant).encode("utf-8")
+        if self.options.auth_data:
+            # credentials ride every frame; the server verifies them on
+            # the connection's first message
+            auth = self.options.auth_data
+            meta.auth_data = auth.encode() if isinstance(auth, str) else auth
+        meta.compress_type = call.compress_type
         conn = call.conns[version]
         try:
             if self.options.protocol == "http":
@@ -667,7 +780,7 @@ class Channel:
         with call.lock:
             multi = call.staged
         frame, lease, offered, err = self._request_frame(
-            call.c, sock, meta, call.payload, timeout_s, multi)
+            call.c, sock, meta, call.wire_payload, timeout_s, multi)
         if lease is not None:
             with call.lock:
                 call.staged = True
@@ -886,13 +999,17 @@ class Channel:
         return "msg", (rmeta, body, ratt, sock, None, False)
 
     def _call_grpc(self, c: Controller, method_full: str,
-                   payload: bytes) -> None:
+                   payload: bytes, response_type: Any = None) -> None:
         """gRPC unary over the peer's multiplexed h2 connection: one
         attempt (a cluster channel's balancer picks its server),
         ``grpc-timeout`` the call's budget capped by an inherited
         deadline, ``traceparent`` and ``x-tenant`` as HPACK metadata."""
         from ..protocol.h2_rpc import errno_of_grpc_status
         from .grpc_client import grpc_connection
+        cancel = c._attach_call(None)
+        if cancel is not None:
+            c.set_failed(*cancel)       # cancelled before it started
+            return
         remote = self.server
         if remote is None:
             remote = self.load_balancer.select_server(c)
@@ -915,7 +1032,8 @@ class Channel:
             metadata.append(("x-tenant", str(self.options.tenant)))
         svc, _, mth = method_full.rpartition(".")
         t0 = time.monotonic()
-        status, message, body = grpc_connection(remote).unary_call(
+        status, message, body = grpc_connection(
+            remote, self.ssl_ctx()).unary_call(
             f"/{svc}/{mth}", payload, timeout_s=tmo_ms / 1e3,
             metadata=metadata or None)
         c.latency_us = int((time.monotonic() - t0) * 1e6)
@@ -923,8 +1041,11 @@ class Channel:
             c.set_failed(errno_of_grpc_status(status),
                          f"grpc-status {status}: {message}")
         else:
-            c.response = body
-            self.on_call_success()
+            try:
+                c.response = parse_payload(body, response_type)
+                self.on_call_success()
+            except Exception as e:
+                c.set_failed(Errno.ERESPONSE, f"response parse failed: {e}")
         self._feedback(c)
 
     def grpc_stream(self, method_full: str,
@@ -938,7 +1059,7 @@ class Channel:
                            "grpc_stream needs a single-server channel")
         svc, _, mth = method_full.rpartition(".")
         timeout_s = (timeout_ms or self.options.timeout_ms or 30000) / 1e3
-        return grpc_connection(self.server).streaming_call(
+        return grpc_connection(self.server, self.ssl_ctx()).streaming_call(
             f"/{svc}/{mth}", timeout_s, metadata)
 
     def _win(self, call: _Call, version: int, data) -> None:
@@ -981,8 +1102,20 @@ class Channel:
             c.set_failed(rmeta.error_code, rmeta.error_text)
             self._drain_results(call)
             return
+        try:
+            if rmeta.compress_type:
+                body = compress_mod.decompress(bytes(body),
+                                               rmeta.compress_type)
+                if body is None:
+                    raise ValueError("undecompressable response")
+            c.response = parse_payload(body, call.response_type)
+        except Exception as e:
+            ack_unused(rmeta, sock.id)
+            conn._release_owned(call, sock, ok=False)
+            c.set_failed(Errno.ERESPONSE, f"response parse failed: {e}")
+            self._drain_results(call)
+            return
         self.on_call_success()
-        c.response = body
         c.response_attachment, c.response_device_attachment = \
             split_device_attachment(rmeta, ratt, sock.id)
         if view is not None:
@@ -1048,6 +1181,17 @@ class Channel:
             self.server.to_sockaddr(),
             timeout=self.options.connect_timeout_ms / 1e3)
         conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        ctx = self.ssl_ctx()
+        if ctx is not None:
+            # a bounded blocking handshake (≈ ssl_helper.cpp's
+            # SSL_do_handshake loop)
+            try:
+                conn.settimeout(self.options.connect_timeout_ms / 1e3 + 4.0)
+                conn = ctx.wrap_socket(conn,
+                                       server_hostname=str(self.server.host))
+            except (OSError, ValueError):
+                conn.close()
+                raise
         return Socket(conn)
 
     def _connect(self) -> Socket:

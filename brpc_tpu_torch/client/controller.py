@@ -32,6 +32,15 @@ fail-fast codes (``ELIMIT``, ``ELAMEDUCK``) are retried at once on
 another replica; on a single-server channel they are not, as the JAX
 policy decides.
 
+Call ids and the classic lane's request stages
+(``brpc_tpu/client/controller.py:263-270``, ``:561-581``, ``:1114``):
+every call holds a versioned id of ``fiber.versioned_id``'s global pool
+from its launch to its end (``call_id``); :meth:`Controller.join` waits
+for the end, and :func:`start_cancel` ends the call ``ECANCELLED`` (a
+response that arrives later is dropped; a handler already running is
+not stopped).  ``request_compress_type`` (default: the channel's)
+compresses a tpu_std request's payload.
+
 The HTTP client half (``brpc_tpu/client/controller.py:458``, ``:1072``):
 :func:`process_http_response` reads an attempt's HTTP/1.1 response into
 the meta the tpu_std attempt would have had (``x-rpc-error-code`` or
@@ -43,8 +52,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Set
 
+from ..butil.logging_util import LOG
 from ..butil.status import Errno
-from ..protocol.meta import RpcMeta
+from ..fiber.versioned_id import INVALID_CALL_ID, global_id_pool
+from ..protocol.meta import CompressType, RpcMeta
 from ..rpcz import start_client_span
 
 # errors worth retrying on another attempt (≈ DefaultRetryPolicy)
@@ -74,7 +85,8 @@ class Controller:
                  "excluded_servers", "remote_side", "attempt_remotes",
                  "latency_us", "_error_code", "_error_text",
                  "_stream_to_create", "trace_id", "span_id", "_client_span",
-                 "_channel")
+                 "_channel", "request_compress_type", "_call_id", "_call",
+                 "_cancel")
 
     def __init__(self):
         self.timeout_ms: Optional[int] = None   # None = the channel's
@@ -101,6 +113,10 @@ class Controller:
         self.trace_id = 0
         self.span_id = 0
         self._client_span = None        # rpcz Span of a traced call
+        self.request_compress_type = CompressType.NONE  # NONE: the channel's
+        self._call_id = INVALID_CALL_ID
+        self._call = None               # the channel's _Call, once launched
+        self._cancel = None             # (code, text) of a start_cancel
 
     def _begin_trace_span(self, method_full: str) -> None:
         """Open the client half of an explicitly traced call: the client
@@ -121,6 +137,54 @@ class Controller:
             span.remote_side = str(remote_side or "")
             span.finish(self._error_code)
 
+    # -- call ids ----------------------------------------------------------
+
+    @property
+    def call_id(self) -> int:
+        """The cancel handle (≈ Controller::call_id, controller.cpp:358);
+        valid from the call's launch until it ends."""
+        return self._call_id
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the call to end: True once it has (or was never
+        launched), False at ``timeout``."""
+        if not self._call_id:
+            return True
+        return global_id_pool().join(self._call_id, timeout)
+
+    def _open_call_id(self) -> None:
+        self._cancel = None
+        self._call = None
+        self._call_id = global_id_pool().create(data=self,
+                                                on_error=_on_id_error)
+
+    def _attach_call(self, call) -> Optional[tuple]:
+        """The launched call, under the id lock: a cancel that came first
+        is returned (the call then never starts), a later one reaches the
+        call through its results."""
+        ok, _ = global_id_pool().lock(self._call_id)
+        if not ok:
+            return self._cancel
+        try:
+            self._call = call
+            return self._cancel
+        finally:
+            global_id_pool().unlock(self._call_id)
+
+    def _close_call_id(self, done: Optional[Callable] = None) -> None:
+        """The call ended: its id dies (joiners wake, a later cancel is a
+        no-op), then ``done`` runs."""
+        cid = self._call_id
+        ok, _ = global_id_pool().lock(cid)
+        if ok:
+            self._call = None
+            global_id_pool().unlock_and_destroy(cid)
+        if done is not None:
+            try:
+                done(self)
+            except Exception:
+                LOG.exception("rpc done callback raised")
+
     @property
     def failed(self) -> bool:
         return self._error_code != 0
@@ -136,6 +200,24 @@ class Controller:
     def set_failed(self, code: int, text: str = "") -> None:
         self._error_code = int(code)
         self._error_text = text
+
+
+def _on_id_error(call_id: int, cntl: "Controller", code: int,
+                 text: str) -> None:
+    """Runs with the call's id locked (the IdPool contract): a cancel is
+    recorded and, once the call is launched, put on its results."""
+    cntl._cancel = (code, text)
+    call = cntl._call
+    if call is not None:
+        call.results.put((-1, "cancel", (code, text)))
+    global_id_pool().unlock(call_id)
+
+
+def start_cancel(call_id: int) -> None:
+    """≈ brpc::StartCancel(CallId): asynchronous and idempotent; the call
+    ends ``ECANCELLED``."""
+    global_id_pool().error(call_id, int(Errno.ECANCELLED),
+                           "cancelled by caller")
 
 
 def process_http_response(msg) -> tuple:

@@ -11,7 +11,12 @@ would not scale to pod-sized peer sets).
 Used by Channel when ``options.protocol == "grpc"``; also usable
 standalone against any gRPC server (oracle: grpcio in the tests).
 
-A copy of ``brpc_tpu/client/grpc_client.py``.
+A copy of ``brpc_tpu/client/grpc_client.py``, with TLS: a connection
+made with an ``ssl_context`` (``Channel`` passes its own when
+``ChannelOptions.ssl`` is on) wraps its socket after the connect and
+reads on a thread of its own, since a TLS socket can neither be polled
+for its buffered plaintext nor read with ``MSG_DONTWAIT``; the
+``:scheme`` is then ``https``.
 """
 
 from __future__ import annotations
@@ -170,9 +175,11 @@ class _Call:
 class GrpcConnection:
     """One h2 connection; thread-safe; reconnects lazily after failure."""
 
-    def __init__(self, remote: EndPoint, connect_timeout_s: float = 2.0):
+    def __init__(self, remote: EndPoint, connect_timeout_s: float = 2.0,
+                 ssl_context=None):
         self._remote = remote
         self._connect_timeout_s = connect_timeout_s
+        self._ssl_context = ssl_context
         self._lock = threading.Lock()        # guards session + socket writes
         self._sock: Optional[_socket.socket] = None
         self._session: Optional[H2Session] = None
@@ -189,13 +196,23 @@ class GrpcConnection:
                 self._remote.to_sockaddr(),
                 timeout=self._connect_timeout_s)
             sock.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+            if self._ssl_context is not None:
+                # a bounded blocking handshake, as the tpu_std client's
+                sock.settimeout(self._connect_timeout_s + 4.0)
+                sock = self._ssl_context.wrap_socket(
+                    sock, server_hostname=str(self._remote.host))
             sock.settimeout(None)
             self._sock = sock
             self._session = H2Session(is_server=False)
             self._session.start()
             self._flush_locked()
             self._dead = False
-            shared_reader().register(sock, self)
+            if self._ssl_context is None:
+                shared_reader().register(sock, self)
+            else:
+                threading.Thread(target=self._tls_read_loop, args=(sock,),
+                                 name="grpc_tls_reader",
+                                 daemon=True).start()
 
     def _flush_locked(self) -> None:
         out = self._session.take_output()
@@ -208,8 +225,15 @@ class GrpcConnection:
             calls = list(self._calls.values())
             self._calls.clear()
             if self._sock is not None:
-                # the reader loop deregisters, then closes
-                shared_reader().unregister(self._sock)
+                if self._ssl_context is None:
+                    # the reader loop deregisters, then closes
+                    shared_reader().unregister(self._sock)
+                else:
+                    # wakes the connection's reader, which closes it
+                    try:
+                        self._sock.shutdown(_socket.SHUT_RDWR)
+                    except OSError:
+                        pass
             self._sock = None
         for call in calls:
             call.rst_code = -1
@@ -239,20 +263,48 @@ class GrpcConnection:
         except OSError as e:
             self._fail_all(f"recv: {e}")
             return
+        self._on_data(session, data)
+
+    def _tls_read_loop(self, sock) -> None:
+        """A TLS connection's reader: blocking reads until the connection
+        fails or is superseded, then the socket closes."""
+        try:
+            while True:
+                with self._lock:
+                    if sock is not self._sock:
+                        return
+                    session = self._session
+                try:
+                    data = sock.recv(256 * 1024)
+                except OSError as e:
+                    self._fail_all(f"recv: {e}")
+                    return
+                if not self._on_data(session, data):
+                    return
+        finally:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def _on_data(self, session, data: bytes) -> bool:
+        """Feed one read's bytes to the session and dispatch its events;
+        False once the connection is done."""
         if not data:
             self._fail_all("connection closed by server")
-            return
+            return False
         try:
             with self._lock:
                 if self._session is not session:
-                    return                   # superseded mid-recv
+                    return False             # superseded mid-recv
                 events = session.feed(data)
                 self._flush_locked()
         except (H2Error, OSError) as e:
             self._fail_all(f"h2: {e}")
-            return
+            return False
         for ev in events:
             self._on_event(ev)
+        return True
 
     def _on_event(self, ev: tuple) -> None:
         kind = ev[0]
@@ -310,7 +362,7 @@ class GrpcConnection:
                          metadata) -> List[Tuple[str, str]]:
         return [
             (":method", "POST"),
-            (":scheme", "http"),
+            (":scheme", "http" if self._ssl_context is None else "https"),
             (":path", path),
             (":authority", str(self._remote)),
             ("content-type", GRPC_CT),
@@ -483,12 +535,16 @@ class GrpcStreamCall:
 
 
 _conns_lock = threading.Lock()
-_conns: Dict[EndPoint, GrpcConnection] = {}
+_conns: Dict[tuple, GrpcConnection] = {}
 
 
-def grpc_connection(remote: EndPoint) -> GrpcConnection:
+def grpc_connection(remote: EndPoint, ssl_context=None) -> GrpcConnection:
+    """The process's shared connection to ``remote`` (one per TLS
+    context: a TLS and a plaintext caller of one peer never share)."""
+    key = (remote, id(ssl_context) if ssl_context is not None else 0)
     with _conns_lock:
-        conn = _conns.get(remote)
+        conn = _conns.get(key)
         if conn is None:
-            conn = _conns[remote] = GrpcConnection(remote)
+            conn = _conns[key] = GrpcConnection(remote,
+                                                ssl_context=ssl_context)
         return conn

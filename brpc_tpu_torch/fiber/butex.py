@@ -4,10 +4,10 @@ equals the expected value; wakers bump the value and wake waiters.  All
 higher-level blocking (call join, stream windows, countdown) builds on it,
 mirroring the reference's layering.
 
-A copy of ``brpc_tpu/fiber/butex.py`` without the sanitizer watchdog's
-branch (``butil/sanitizers`` is not ported): a wait is timed for
-``/hotspots/contention`` while the contention profiler runs, and is a
-plain condition wait otherwise.
+A copy of ``brpc_tpu/fiber/butex.py``: a wait is timed for
+``/hotspots/contention`` while the contention profiler runs, registered
+with the stall watchdog (``butil/sanitizers``) while its flag is on, and
+is a plain condition wait otherwise.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from ..butil import sanitizers as _san
 from .runtime import blocking
 
 
@@ -56,6 +57,9 @@ class Butex:
                     timeout)
                 if profiling.contention_active():
                     return profiling.timed_wait("butex", waitfn)
+                if _san.watchdog_enabled():
+                    with _san.watched_wait("butex"):
+                        return waitfn()
                 return waitfn()
 
     def wake(self, n: int = 1) -> None:
@@ -101,6 +105,9 @@ class CountdownEvent:
                     lambda: self._butex._value <= 0, timeout)
                 if profiling.contention_active():
                     return profiling.timed_wait("countdown", waitfn)
+                if _san.watchdog_enabled():
+                    with _san.watched_wait("countdown"):
+                        return waitfn()
                 return waitfn()
 
     @property

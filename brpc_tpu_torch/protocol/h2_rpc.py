@@ -15,8 +15,9 @@ framework's h2 client.
 
 A copy of ``brpc_tpu/protocol/h2_rpc.py`` for the port's bytes payloads
 (a request reaches the method as ``bytes``; a response serializes as the
-tpu_std lane's does) and its synchronous handlers (a unary call finishes
-when the handler returns).  Two differences, taken from the port's
+tpu_std lane's does).  A unary call finishes when the handler returns,
+or, after the handler called ``cntl.begin_async()``, when it calls
+``cntl.finish``.  Two differences, taken from the port's
 tpu_std lane so that one server's lanes measure alike: a unary call's
 server span is backdated to the stream's assembly, and its latency runs
 from it.
@@ -671,6 +672,8 @@ def _process_grpc(req: H2Request, sock, server) -> None:
         cntl.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
         cntl.finish(None)
         return
+    if cntl.is_async:
+        return          # the handler owns completion: cntl.finish(resp)
     cntl.finish(response)
 
 

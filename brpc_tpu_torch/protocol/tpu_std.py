@@ -162,6 +162,23 @@ def read_frame(sock: socket.socket
     return unpack_frame(header + body)
 
 
+def parse_payload(data: bytes, response_type: Any) -> Any:
+    """Payload bytes -> an object of ``response_type`` (None: the bytes),
+    as ``brpc_tpu/protocol/tpu_std.py``'s ``parse_payload``."""
+    if response_type is None or response_type in (bytes, bytearray):
+        return data
+    if hasattr(response_type, "FromString"):
+        return response_type.FromString(data)
+    inst = response_type()
+    if hasattr(inst, "ParseFromString"):
+        inst.ParseFromString(data)
+        return inst
+    if hasattr(inst, "parse"):
+        inst.parse(data)
+        return inst
+    raise TypeError(f"cannot parse payload into {response_type!r}")
+
+
 def serialize_payload(obj: Any) -> bytes:
     """A method's response or a call's request -> payload bytes."""
     if isinstance(obj, (bytes, bytearray, memoryview)):

@@ -12,10 +12,10 @@ capability surface: recent spans by id/time, annotations); the
 cross-process stitcher lives in rpcz_stitch.py.
 
 A copy of ``brpc_tpu/rpcz.py``.  In the port the trace context rides the
-tpu_std meta TLVs (the traceparent helpers are here for the HTTP and
-gRPC lanes to come), and the store is read through
-:func:`global_span_store` and :func:`browse_persisted`: the ``/rpcz``
-page waits for the port's builtin portal.
+tpu_std meta TLVs and, through the traceparent helpers here, the HTTP/1.1
+and gRPC lanes; the store is read through :func:`global_span_store` and
+:func:`browse_persisted`, and over HTTP on the builtin portal's
+``/rpcz`` page (``server/builtin``).
 """
 
 from __future__ import annotations

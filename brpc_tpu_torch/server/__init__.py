@@ -1,6 +1,6 @@
 from .controller import ServerController
 from .server import Server, ServerOptions
-from .service import Service, grpc_streaming
+from .service import Service, grpc_streaming, method
 
 __all__ = ["Server", "ServerController", "ServerOptions", "Service",
-           "grpc_streaming"]
+           "grpc_streaming", "method"]

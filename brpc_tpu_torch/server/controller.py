@@ -14,25 +14,34 @@ stream accepted on it is closed by its drain), and the deadline API of
 ``brpc_tpu/server/controller.py:127-146``: ``deadline_us`` (the absolute
 monotonic-µs deadline, 0 for none; the server re-anchors it at the
 frame's arrival), ``deadline_remaining_ms()`` and ``deadline_expired``.
-The HTTP and gRPC lanes (``server/http_dispatch.py``,
-``protocol/h2_rpc.py``) build their controller with ``send``, the lane's
-completion callback, which :meth:`finish` calls once; they also set
-``http_method``, ``http_path``, ``http_unresolved_path`` (a restful
-mapping's captured tail) and ``grpc_stream`` (a streaming gRPC method's
-:class:`~brpc_tpu_torch.protocol.h2_rpc.GrpcServerStream`), and an HTTP
-handler may answer through :meth:`create_progressive_attachment`.
-Async completion (``begin_async``) waits for a later slice of the port:
-every lane finishes when the handler returns.
+Every lane (tpu_std in ``server/server.py``, ``server/http_dispatch.py``,
+``protocol/h2_rpc.py``) builds its controller with ``send``, the lane's
+completion callback, which :meth:`finish` calls once; the HTTP and gRPC
+lanes also set ``http_method``, ``http_path``, ``http_unresolved_path``
+(a restful mapping's captured tail) and ``grpc_stream`` (a streaming
+gRPC method's :class:`~brpc_tpu_torch.protocol.h2_rpc.GrpcServerStream`),
+and an HTTP handler may answer through
+:meth:`create_progressive_attachment`.  Async completion
+(``brpc_tpu/server/controller.py:170-201``): a handler that calls
+:meth:`begin_async` owns its completion and answers later, from any
+thread, through :meth:`finish`; otherwise the lane finishes with the
+handler's return value.  ``response_compress_type`` (default: the
+method's ``@method(response_compress=)``) compresses a tpu_std
+response; :meth:`session_local_data` lends the request an object from
+the server's ``SimpleDataPool`` (``ServerOptions.
+session_local_data_factory``), given back when the request finishes;
+``auth_context`` is the authenticator's to fill.
 """
 
 from __future__ import annotations
 
+import threading
 from time import monotonic_ns as _mono_ns
 from typing import Any, Callable, Optional
 
 from ..butil.endpoint import EndPoint
 from ..butil.status import Errno
-from ..protocol.meta import RpcMeta
+from ..protocol.meta import CompressType, RpcMeta
 
 
 class ServerController:
@@ -43,7 +52,8 @@ class ServerController:
                  "_accepted_stream_id", "_accepted_stream_window", "span",
                  "server", "begin_time_us", "deadline_us", "_send",
                  "http_method", "http_path", "http_unresolved_path",
-                 "_progressive", "grpc_stream")
+                 "_progressive", "grpc_stream", "response_compress_type",
+                 "auth_context", "_async", "_finish_lock", "_session_data")
 
     def __init__(self, request_meta: RpcMeta,
                  remote_side: Optional[EndPoint] = None,
@@ -76,13 +86,46 @@ class ServerController:
         self.http_unresolved_path = ""
         self._progressive = None
         self.grpc_stream = None
+        self.response_compress_type = CompressType.NONE
+        self.auth_context: Any = None
+        self._async = False
+        self._finish_lock = threading.Lock()
+        self._session_data = None       # borrowed SimpleDataPool object
 
-    def finish(self, response: Any) -> None:
-        """Complete the request through the lane's ``send`` callback, once
-        (the HTTP and gRPC lanes; tpu_std answers from the server)."""
-        send, self._send = self._send, None
-        if send is not None:
-            send(self, response)
+    # -- async completion --------------------------------------------------
+
+    def begin_async(self) -> None:
+        """Declare that the response will be sent later through
+        :meth:`finish` (≈ brpc's done->Run() ownership transfer): the
+        lane does not answer when the handler returns."""
+        self._async = True
+
+    @property
+    def is_async(self) -> bool:
+        return self._async
+
+    def finish(self, response: Any = None) -> None:
+        """Complete the request through the lane's ``send`` callback.
+        Idempotent: the first call wins.  The session-local data goes back
+        to the server's pool afterwards."""
+        with self._finish_lock:
+            send, self._send = self._send, None
+        if send is None:
+            return
+        send(self, response)
+        if self._session_data is not None and self.server is not None \
+                and self.server._session_pool is not None:
+            self.server._session_pool.give_back(self._session_data)
+            self._session_data = None
+
+    def session_local_data(self) -> Any:
+        """Reusable per-request user data from the server's
+        SimpleDataPool (≈ Controller::session_local_data); None when the
+        server has no ``session_local_data_factory``."""
+        if self._session_data is None and self.server is not None \
+                and self.server._session_pool is not None:
+            self._session_data = self.server._session_pool.borrow()
+        return self._session_data
 
     def create_progressive_attachment(self):
         """An HTTP response body written in chunks after the handler

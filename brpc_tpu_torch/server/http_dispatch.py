@@ -10,8 +10,9 @@ protobuf codegen in the way).
 A copy of ``brpc_tpu/server/http_dispatch.py`` for the port's bytes
 payloads: a request reaches the method as ``bytes`` (a JSON body too,
 unless json2pb converts it for a method typed with a protobuf class,
-which no port method is), attachments are ``bytes`` on both sides, and
-every handler finishes when it returns (no ``begin_async``).
+which no port method is) and attachments are ``bytes`` on both sides.
+A handler that calls ``cntl.begin_async()`` answers later through
+``cntl.finish``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -274,6 +275,8 @@ def _bridge_rpc(msg: HttpMessage, sock, server, svc: str,
         cntl.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
         cntl.finish(None)
         return
+    if cntl.is_async:
+        return          # the handler owns completion: cntl.finish(resp)
     cntl.finish(response)
 
 

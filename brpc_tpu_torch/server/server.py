@@ -92,9 +92,35 @@ connection fail ``read_frame``).  ``ServerOptions.internal_port`` opens
 a second listener whose connections are tagged ``"internal"``: with it
 set, the builtin pages answer 403 on the main port but for ``/health``
 and ``/version``.  ``restful_mappings`` routes HTTP paths to methods.
+
+The classic lane's stages (``brpc_tpu/server/rpc_dispatch.py:271-359``),
+in the JAX order: admission and the shed above, then auth on a
+connection's first message (``ServerOptions.auth``'s ``verify(auth_data,
+cntl)``; a refusal or a raise answers ``ERPCAUTH``, a pass marks the
+connection's ``app_data`` "authed"), the user interceptor
+(``ServerOptions.interceptor(cntl)`` -> a bool or ``(ok, code, text)``;
+a raise answers ``EINTERNAL "interceptor: ..."``, a bare False ``EREJECT
+"rejected"``), the request's decompression (``protocol/compress.py``; an
+unknown type answers ``EREQUEST``), the handler, and the response's
+compression when ``cntl.response_compress_type`` is set (the meta's
+``compress_type`` only when it succeeded).  A refused call runs no
+handler.  ``ServerOptions.session_local_data_factory`` backs
+``cntl.session_local_data()`` with a ``SimpleDataPool``.  A handler that
+calls ``cntl.begin_async()`` answers through ``cntl.finish`` later, from
+any thread: the connection's worker goes on to the next request at once,
+so responses may leave in another order than their requests (the
+correlation ids pair them), and the request stays in flight (drain and
+MethodStatus count it) until it finishes.
+
+TLS (``brpc_tpu/transport/acceptor.py:62-84``): with ``ssl_cert`` and
+``ssl_key`` (or ``ssl_context``) every accepted connection is wrapped in
+the standard library's ``ssl`` on its own thread, the handshake bounded
+by 5 s; its first four plaintext bytes are then read (a TLS socket takes
+no ``MSG_PEEK``) and handed back to whichever reader takes the
+connection.  A plaintext client fails the handshake and is closed.
 Cut, each for a later slice of the port: the native engine (so the
-client demux's settle in ``drain``), TLS (``ssl_*``) and
-``export_listeners`` (hot restart).
+client demux's settle in ``drain``) and ``export_listeners`` (hot
+restart).
 """
 
 from __future__ import annotations
@@ -110,6 +136,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..butil.endpoint import EndPoint, parse_endpoint
 from ..butil.flags import define_flag, get_flag
+from ..butil.simple_data_pool import SimpleDataPool
 from ..butil.status import Errno
 from ..bvar.dump import ensure_dumper
 from ..bvar.passive_status import PassiveStatus
@@ -119,6 +146,7 @@ from ..deadline import maybe_shed as _maybe_shed
 from ..ici.endpoint import (ack_unused, ici_enabled, prepare_send,
                             process_ack, split_device_attachment)
 from ..ici.fabric import local_domain_id
+from ..protocol import compress as compress_mod
 from ..protocol.meta import RpcMeta
 from ..protocol.streaming import MAGIC as STREAM_MAGIC
 from ..protocol.streaming import StreamFrame, dispatch
@@ -137,6 +165,7 @@ _ACCEPT_POLL_S = 0.2
 _JOIN_TIMEOUT_S = 5.0
 _POST_TIMEOUT_S = 5.0       # a response descriptor's wait for window credit
 _DRAIN_S = 1.0              # stop's wait for the ring's slots to settle
+_TLS_HANDSHAKE_S = 5.0      # an accepted connection's TLS handshake
 # a connection's first bytes that keep it on the tpu_std reader
 _TPU_STD_MAGICS = (MAGIC, STREAM_MAGIC, ACK_MAGIC)
 
@@ -287,13 +316,17 @@ def _ensure_drain_vars() -> None:
 
 
 class ServerOptions:
-    """The overload plane's and the HTTP lanes' half of
-    ``brpc_tpu/server/server.py``'s ServerOptions (the other options
-    belong to lanes not ported)."""
+    """The options of ``brpc_tpu/server/server.py``'s ServerOptions that
+    the port's lanes read: the overload plane's, the HTTP lanes', the
+    classic lane's stages (``auth``, ``interceptor``,
+    ``session_local_data_factory``) and TLS (``ssl_*``).  Options of the
+    native engine and its slim lanes are not ported."""
 
     __slots__ = ("max_concurrency", "method_max_concurrency",
                  "tenant_fair_capacity", "tenant_weights", "internal_port",
-                 "restful_mappings", "server_info_name")
+                 "restful_mappings", "server_info_name", "auth",
+                 "interceptor", "session_local_data_factory", "ssl_cert",
+                 "ssl_key", "ssl_context")
 
     def __init__(self):
         # server-wide in-flight cap: an int (0 = off), or a make_limiter
@@ -317,6 +350,38 @@ class ServerOptions:
         #   "/v1/echo => E.Echo, /files/* => Files.Get"
         self.restful_mappings = ""
         self.server_info_name = ""      # the /version page's suffix
+        # .verify(auth_data, cntl) -> bool, on a connection's first
+        # tpu_std message (≈ Authenticator)
+        self.auth: Optional[Any] = None
+        # (cntl) -> bool or (ok, code, text), before the handler
+        self.interceptor: Optional[Callable] = None
+        # reusable user data for cntl.session_local_data()
+        self.session_local_data_factory: Optional[Callable] = None
+        # TLS (≈ ServerSSLOptions): cert + key paths, or a ready
+        # ssl.SSLContext
+        self.ssl_cert = ""
+        self.ssl_key = ""
+        self.ssl_context = None
+
+
+class _Prefixed:
+    """A connection's reader whose first bytes were already taken off the
+    socket (a TLS connection's protocol check): ``recv_into`` serves them
+    before it reads on."""
+
+    __slots__ = ("_conn", "_head")
+
+    def __init__(self, conn, head: bytes):
+        self._conn = conn
+        self._head = head
+
+    def recv_into(self, view, nbytes: int = 0) -> int:
+        if self._head:
+            n = min(len(view), len(self._head))
+            view[:n] = self._head[:n]
+            self._head = self._head[n:]
+            return n
+        return self._conn.recv_into(view, nbytes)
 
 
 class _RequestQueue:
@@ -363,7 +428,7 @@ class _RequestQueue:
 
 class _MethodEntry:
     __slots__ = ("service", "fn", "status", "method_name", "request_type",
-                 "grpc_streaming", "_http_chain")
+                 "response_compress", "grpc_streaming", "_http_chain")
 
     def __init__(self, service: Any, fn: Callable, status: MethodStatus,
                  method_name: str = ""):
@@ -371,7 +436,10 @@ class _MethodEntry:
         self.fn = fn
         self.status = status
         self.method_name = method_name
-        self.request_type = None        # requests are bytes in the port
+        # @method(request_type=, response_compress=)
+        self.request_type = getattr(fn, "_rpc_request_type", None)
+        self.response_compress = int(getattr(fn, "_rpc_response_compress",
+                                             0) or 0)
         self.grpc_streaming = bool(getattr(fn, "_grpc_streaming", False))
         self._http_chain = None         # compiled at the first HTTP call
 
@@ -406,6 +474,8 @@ class Server:
         self._internal_listener: Optional[socket.socket] = None
         self._internal_endpoint: Optional[EndPoint] = None
         self._restful: list = []        # (segments, has_rest, method key)
+        self._session_pool: Optional[SimpleDataPool] = None
+        self._ssl_ctx = None
         self.version = self.options.server_info_name
         _live_servers.add(self)
         _ensure_drain_vars()
@@ -577,6 +647,11 @@ class Server:
             LOG.error("server already started")
             return -1
         ep = addr if isinstance(addr, EndPoint) else parse_endpoint(str(addr))
+        try:
+            self._ssl_ctx = self._server_ssl_context()
+        except (OSError, ValueError) as e:
+            LOG.error("cannot load the TLS certificate: %s", e)
+            return -1
         family = socket.AF_INET6 if ":" in ep.host else socket.AF_INET
         lsock = socket.socket(family, socket.SOCK_STREAM)
         try:
@@ -611,6 +686,10 @@ class Server:
         self.version = self.options.server_info_name
         if self.options.restful_mappings:
             self._parse_restful()
+        if self.options.session_local_data_factory is not None \
+                and self._session_pool is None:
+            self._session_pool = SimpleDataPool(
+                self.options.session_local_data_factory)
         # the handler table of every non-tpu_std connection (≈
         # Server::BuildAcceptor collecting protocols, server.cpp:572);
         # importing the modules registers them
@@ -633,6 +712,18 @@ class Server:
         from .. import fleet
         fleet.on_server_start(self)     # flight recorder: restart event
         return 0
+
+    def _server_ssl_context(self):
+        """The server's TLS context (None when TLS is off)."""
+        opts = self.options
+        if opts.ssl_context is not None:
+            return opts.ssl_context
+        if not opts.ssl_cert:
+            return None
+        import ssl
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(opts.ssl_cert, opts.ssl_key or None)
+        return ctx
 
     @property
     def listen_endpoint(self) -> Optional[EndPoint]:
@@ -870,34 +961,47 @@ class Server:
 
     def _serve_conn(self, conn: socket.socket, peer: EndPoint,
                     tag: Optional[str] = None) -> None:
-        """The connection's reader.  Its first four bytes fix its
-        protocol: anything but tpu_std's magics goes to the messenger
-        (HTTP/1.x, h2), which reads, cuts and answers until the
-        connection ends.  On tpu_std, every frame is taken off the socket
-        as it arrives (its arrival stamped for the deadline plane and
-        CoDel); acks and stream frames are handled at once, requests are
-        queued for the connection's worker, which answers them in
-        order."""
+        """The connection's reader.  On a TLS server it first completes
+        the handshake.  Its first four bytes fix its protocol: anything
+        but tpu_std's magics goes to the messenger (HTTP/1.x, h2), which
+        reads, cuts and answers until the connection ends.  On tpu_std,
+        every frame is taken off the socket as it arrives (its arrival
+        stamped for the deadline plane and CoDel); acks and stream frames
+        are handled at once, requests are queued for the connection's
+        worker, which answers them in order."""
+        tls = self._ssl_ctx is not None
+        if tls:
+            conn = self._tls_accept(conn, peer)
+            if conn is None:
+                return
+            head = self._read_head(conn)
         sock = Socket(conn, remote_side=peer)
         sock.tag = tag
         with self._lock:
             self._conns[conn] = sock
-        try:
-            head = conn.recv(4, socket.MSG_PEEK | socket.MSG_WAITALL)
-        except OSError:
-            head = b""
+        if not tls:
+            try:
+                head = conn.recv(4, socket.MSG_PEEK | socket.MSG_WAITALL)
+            except OSError:
+                head = b""
         if head and head not in _TPU_STD_MAGICS:
+            if tls:
+                # the bytes the protocol check took: the messenger's first
+                from ..butil.iobuf import IOPortal
+                sock.read_portal = IOPortal()
+                sock.read_portal.append(head)
             try:
                 self._messenger.serve(sock)
             finally:
                 self._close_conn(conn, sock)
             return
+        reader = _Prefixed(conn, head) if tls else conn
         work = _RequestQueue()
         worker = None
         try:
             while not self._stopping.is_set():
                 try:
-                    msg = read_frame(conn)
+                    msg = read_frame(reader)
                 except (EOFError, OSError):
                     return
                 except FrameError as e:
@@ -925,6 +1029,42 @@ class Server:
             if work.close():
                 self._close_conn(conn, sock)
 
+    def _tls_accept(self, conn: socket.socket, peer: EndPoint):
+        """The server side of the TLS handshake, bounded by 5 s: the
+        wrapped connection, or None (closed, logged) when it failed."""
+        try:
+            conn.settimeout(_TLS_HANDSHAKE_S)
+            tls = self._ssl_ctx.wrap_socket(conn, server_side=True)
+            tls.settimeout(None)
+        except (OSError, ValueError) as e:
+            LOG.warning("TLS handshake with %s failed: %s", peer, e)
+            with self._lock:
+                self._conns.pop(conn, None)
+            try:
+                conn.close()
+            except OSError:
+                pass
+            return None
+        with self._lock:
+            # stop() shuts the wrapped socket down from now on
+            self._conns.pop(conn, None)
+            self._conns[tls] = None
+        return tls
+
+    @staticmethod
+    def _read_head(conn) -> bytes:
+        """A TLS connection's first four plaintext bytes (fewer at EOF)."""
+        head = b""
+        try:
+            while len(head) < 4:
+                chunk = conn.recv(4 - len(head))
+                if not chunk:
+                    break
+                head += chunk
+        except OSError:
+            pass
+        return head
+
     def _work_conn(self, conn: socket.socket, sock: Socket,
                    work: _RequestQueue) -> None:
         while True:
@@ -935,10 +1075,7 @@ class Server:
             # acks queued while serving ride in front of the response
             sock.defer_acks = True
             try:
-                frame = self._dispatch(*msg, sock, recv_ns)
-                sock.write(frame)
-            except OSError:
-                pass            # the connection is gone: dropped
+                self._dispatch(*msg, sock, recv_ns)
             finally:
                 sock.defer_acks = False
             sock.flush_acks()
@@ -951,34 +1088,38 @@ class Server:
             self._conns.pop(conn, None)
         sock.close()
 
+    @staticmethod
+    def _write(sock: Socket, frame: bytes) -> None:
+        try:
+            sock.write(frame)
+        except OSError:
+            pass            # the connection is gone: dropped
+
     def _dispatch(self, meta: RpcMeta, payload: bytes, att: bytes,
-                  sock: Socket, recv_ns: int) -> bytes:
-        """One request frame's fields -> the response frame
-        (``recv_ns``: the frame's arrival on the monotonic clock).  A
-        known method runs admission first; an admitted one is settled
-        here, once, after its response frame exists: MethodStatus, the
-        server's in-flight count and tenant slot, and its span."""
+                  sock: Socket, recv_ns: int) -> None:
+        """One request frame's fields (``recv_ns``: the frame's arrival on
+        the monotonic clock), answered on ``sock`` when the request
+        completes: when its handler returns, or, after the handler called
+        ``begin_async``, when it calls ``finish``.  A known method runs
+        admission first; an admitted one is settled once, at completion,
+        after its response frame exists: MethodStatus, the server's
+        in-flight count and tenant slot, and its span."""
         entry = self._methods.get((meta.service_name, meta.method_name))
         if entry is None:
             # an unknown method: no admission, status or span, as in the
             # JAX package
-            return self._answer(meta, payload, att, sock, None, recv_ns)[0]
+            self._answer(meta, payload, att, sock, None, recv_ns)
+            return
         if not self._started:
-            return self._reject(meta, sock, int(Errno.ELOGOFF),
-                                "server is stopping")
+            self._write(sock, self._reject(meta, sock, int(Errno.ELOGOFF),
+                                           "server is stopping"))
+            return
         rej = self.admission.admit(entry, "tpu_std", meta.tenant,
                                    recv_ns // 1000)
         if rej is not None:
-            return self._reject(meta, sock, rej.code, rej.text)
-        frame, code, span = self._answer(meta, payload, att, sock,
-                                         entry.status, recv_ns)
-        latency_us = (time.monotonic_ns() - recv_ns) // 1000
-        entry.status.on_responded(code, latency_us)
-        self.on_request_out(tenant=meta.tenant, error_code=code,
-                            latency_us=latency_us)
-        if span is not None:
-            span.finish(code)
-        return frame
+            self._write(sock, self._reject(meta, sock, rej.code, rej.text))
+            return
+        self._answer(meta, payload, att, sock, entry, recv_ns)
 
     def _reject(self, meta: RpcMeta, sock: Socket, code: int,
                 text: str) -> bytes:
@@ -991,9 +1132,24 @@ class Server:
         return self._error_frame(meta, code, text, b"",
                                  lame_duck=self.lame_duck_signal_on)
 
+    def _settle(self, meta: RpcMeta, entry: Optional[_MethodEntry],
+                recv_ns: int, code: int, span) -> None:
+        if entry is None:
+            return
+        latency_us = (time.monotonic_ns() - recv_ns) // 1000
+        entry.status.on_responded(code, latency_us)
+        self.on_request_out(tenant=meta.tenant, error_code=code,
+                            latency_us=latency_us)
+        if span is not None:
+            span.finish(code)
+
     def _answer(self, meta: RpcMeta, payload: bytes, att: bytes,
-                sock: Socket, status: Optional[MethodStatus], recv_ns: int):
-        """``(response frame, error code, span or None)``."""
+                sock: Socket, entry: Optional[_MethodEntry],
+                recv_ns: int) -> None:
+        """The classic lane from the staging of the attachments to the
+        handler, in the JAX order; the request completes through
+        ``cntl.finish`` (``complete`` below: the response frame, the
+        settle, the write)."""
         if meta.ici_domain:
             sock.ici_peer_domain = meta.ici_domain
         if meta.ici_conn and sock.ici_conn_token is None:
@@ -1009,52 +1165,125 @@ class Server:
             elif meta.shm_desc:
                 if dev_att is not None:
                     dev_att.settle()
-                return self._error_frame(meta, Errno.EREQUEST,
-                                         "unresolvable shm attachment "
-                                         "descriptor", shm_extra), \
-                    int(Errno.EREQUEST), None
-        cntl = ServerController(meta, sock.remote_side, att, sock.id)
+                frame = self._error_frame(
+                    meta, Errno.EREQUEST, "unresolvable shm attachment "
+                    "descriptor", shm_extra)
+                self._settle(meta, entry, recv_ns, int(Errno.EREQUEST), None)
+                self._write(sock, frame)
+                return
+
+        def complete(cntl: ServerController, response) -> None:
+            if dev_att is not None:
+                # the credit return for a request descriptor precedes the
+                # response: redeemed in the handler, its ack is queued;
+                # never redeemed, settle acks it now
+                dev_att.settle()
+            frame = self._frame(meta, cntl, response, sock, handle,
+                                shm_extra)
+            self._settle(meta, entry, recv_ns, cntl.error_code, cntl.span)
+            self._write(sock, frame)
+
+        cntl = ServerController(meta, sock.remote_side, att, sock.id,
+                                send=complete)
         cntl.request_device_attachment = dev_att
         cntl.server = self
-        shed = False
-        if status is not None:
-            span = start_server_span(status.full_name, meta,
-                                     sock.remote_side)
-            if span is not None:
-                span.request_size = len(payload) + len(att)
-                backdate_span(span, recv_ns)
-                cntl.span = span
-            # the deadline plane, after admission and before user code:
-            # TLV 13's budget anchored at the frame's arrival (an
-            # explicit on-wire 0 is expired at arrival), then the shed
-            if meta.timeout_ms or meta.timeout_present:
-                _arm_deadline(cntl, meta.timeout_ms, recv_ns // 1000)
-                shed = _maybe_shed(cntl, "tpu_std", status.full_name)
-        entry = self._methods.get((meta.service_name, meta.method_name))
-        response = None
-        if shed:
-            pass                # answered ERPCTIMEDOUT by maybe_shed
-        elif entry is None:
+        if entry is None:
             known = meta.service_name in self._services
             cntl.set_failed(Errno.ENOMETHOD if known else Errno.ENOSERVICE,
                             f"unknown {meta.service_name}."
                             f"{meta.method_name}")
-        elif meta.compress_type:
-            cntl.set_failed(Errno.EREQUEST,
-                            f"unsupported compress_type {meta.compress_type}")
-        else:
+            cntl.finish(None)
+            return
+        cntl.response_compress_type = entry.response_compress
+        span = start_server_span(entry.status.full_name, meta,
+                                 sock.remote_side)
+        if span is not None:
+            span.request_size = len(payload) + len(att)
+            backdate_span(span, recv_ns)
+            cntl.span = span
+        # the deadline plane, after admission and before user code: TLV
+        # 13's budget anchored at the frame's arrival (an explicit
+        # on-wire 0 is expired at arrival), then the shed (answered
+        # ERPCTIMEDOUT by maybe_shed)
+        if meta.timeout_ms or meta.timeout_present:
+            _arm_deadline(cntl, meta.timeout_ms, recv_ns // 1000)
+            if _maybe_shed(cntl, "tpu_std", entry.status.full_name):
+                cntl.finish(None)
+                return
+        if not self._authenticate(meta, sock, cntl) \
+                or not self._intercept(cntl):
+            cntl.finish(None)
+            return
+        if meta.compress_type:
             try:
-                with inherit_deadline(cntl):
-                    response = entry.fn(cntl, payload)
-            except Exception as e:  # a failing method answers EINTERNAL
-                LOG.exception("method %s.%s raised", meta.service_name,
-                              meta.method_name)
-                cntl.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
-        if dev_att is not None:
-            # the credit return for a request descriptor precedes the
-            # response: redeemed in the handler, its ack is queued; never
-            # redeemed, settle acks it now
-            dev_att.settle()
+                raw = compress_mod.decompress(payload, meta.compress_type)
+            except Exception as e:
+                cntl.set_failed(Errno.EREQUEST,
+                                f"request decompression failed: {e}")
+                cntl.finish(None)
+                return
+            if raw is None:
+                cntl.set_failed(Errno.EREQUEST, "unsupported compress_type "
+                                f"{meta.compress_type}")
+                cntl.finish(None)
+                return
+            payload = raw
+        try:
+            with inherit_deadline(cntl):
+                response = entry.fn(cntl, payload)
+        except Exception as e:  # a failing method answers EINTERNAL
+            LOG.exception("method %s.%s raised", meta.service_name,
+                          meta.method_name)
+            cntl.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
+            cntl.finish(None)
+            return
+        if cntl.is_async:
+            return          # the handler owns completion: cntl.finish(resp)
+        cntl.finish(response)
+
+    def _authenticate(self, meta: RpcMeta, sock: Socket,
+                      cntl: ServerController) -> bool:
+        """Auth on the connection's first message (≈ Protocol::verify):
+        a pass marks the connection, a refusal or a raise fails ``cntl``
+        with ``ERPCAUTH``."""
+        auth = self.options.auth
+        if auth is None or sock.app_data is not None:
+            return True
+        try:
+            ok = auth.verify(meta.auth_data, cntl)
+        except Exception:
+            ok = False
+        if not ok:
+            cntl.set_failed(Errno.ERPCAUTH, "authentication failed")
+            return False
+        sock.app_data = "authed"
+        return True
+
+    def _intercept(self, cntl: ServerController) -> bool:
+        """The user interceptor's verdict (≈ interceptor.h:26-36): a bool
+        or ``(ok, code, text)``; a refusal fails ``cntl`` with its code
+        and text (``EREJECT "rejected"`` for a bare False), a raise with
+        ``EINTERNAL``."""
+        interceptor = self.options.interceptor
+        if interceptor is None:
+            return True
+        try:
+            verdict = interceptor(cntl)
+        except Exception as e:
+            verdict = (False, int(Errno.EINTERNAL), f"interceptor: {e}")
+        ok = verdict[0] if isinstance(verdict, tuple) else bool(verdict)
+        if ok:
+            return True
+        code = verdict[1] if isinstance(verdict, tuple) else Errno.EREJECT
+        text = verdict[2] if isinstance(verdict, tuple) and \
+            len(verdict) > 2 else "rejected"
+        cntl.set_failed(code, text)
+        return False
+
+    def _frame(self, meta: RpcMeta, cntl: ServerController, response,
+               sock: Socket, handle, shm_extra: bytes) -> bytes:
+        """The response frame of a completed request: its success frame,
+        or the error frame (a failed accepted stream closes)."""
         out = RpcMeta()
         out.correlation_id = meta.correlation_id
         if meta.ici_domain and ici_enabled():
@@ -1069,7 +1298,7 @@ class Server:
             frame = self._response_frame(cntl, out, response, sock, handle,
                                          shm_extra)
             if frame is not None:
-                return frame, 0, cntl.span
+                return frame
         if cntl._accepted_stream_id:
             # the client never binds a stream of a failed call
             from ..streaming import find_stream
@@ -1077,8 +1306,7 @@ class Server:
             if stream is not None:
                 stream._close_local(notify_peer=False)
         return self._error_frame(meta, cntl.error_code, cntl.error_text,
-                                 shm_extra, out.ici_domain, lame_duck), \
-            cntl.error_code, cntl.span
+                                 shm_extra, out.ici_domain, lame_duck)
 
     @staticmethod
     def _error_frame(meta: RpcMeta, code: int, text: str, shm_extra: bytes,
@@ -1106,6 +1334,12 @@ class Server:
             cntl.set_failed(Errno.EINTERNAL,
                             f"response serialization failed: {e}")
             return None
+        compressed = bool(cntl.response_compress_type)
+        if compressed:
+            packed = compress_mod.compress(body, cntl.response_compress_type)
+            if packed is not None:
+                out.compress_type = cntl.response_compress_type
+                body = packed
         attachment = cntl.response_attachment
         device = cntl.response_device_attachment is not None
         if device:
@@ -1117,7 +1351,7 @@ class Server:
                 return None
         shm_desc = b""
         if attachment:
-            if sock.shm is not None and not device:
+            if sock.shm is not None and not device and not compressed:
                 shm_desc, attachment = shm_ring.describe_response_att(
                     sock, attachment, handle)
                 attachment = attachment or b""
@@ -1125,8 +1359,9 @@ class Server:
                     get_flag("rpc_shm_threshold")):
                 # kept off the ring by the response's shape, or the peer
                 # never spoke a shm TLV
-                shm_ring.count_fallback("shm_device_combo" if device
-                                        else "shm_peer_no_cap")
+                shm_ring.count_fallback(
+                    "shm_compressed" if compressed else "shm_device_combo"
+                    if device else "shm_peer_no_cap")
         if device and tail is not None:
             attachment = bytes(attachment) + tail if attachment else tail
         if cntl.span is not None:

@@ -2,11 +2,14 @@
 core).
 
 A Service is any object whose public methods take ``(controller,
-request)`` and return the response.  Requests arrive as raw ``bytes``
-and responses are bytes-like (request typing through the JAX package's
-``@method`` decorator is not carried over: no port service uses it).
-:func:`grpc_streaming` marks a streaming gRPC method, as in the JAX
-package.
+request)`` and return the response, or return None after
+``controller.begin_async()`` and answer later through
+``controller.finish(resp)``.  Requests arrive as raw ``bytes`` and
+responses are bytes-like.  :func:`method` declares per-method options
+(``request_type``, recorded for json2pb on the HTTP lane, and
+``response_compress``, the default of the controller's
+``response_compress_type``); :func:`grpc_streaming` marks a streaming
+gRPC method, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +25,20 @@ class Service:
     @classmethod
     def service_name(cls) -> str:
         return cls.__name__
+
+
+def method(request_type: Any = None, response_compress: int = 0):
+    """Decorator declaring per-method options:
+
+        class Search(Service):
+            @method(response_compress=CompressType.GZIP)
+            def Query(self, cntl, request): ...
+    """
+    def mark(fn: Callable) -> Callable:
+        fn._rpc_request_type = request_type
+        fn._rpc_response_compress = response_compress
+        return fn
+    return mark
 
 
 def extract_methods(service: Any) -> Dict[str, Callable]:

@@ -15,7 +15,8 @@ state rides here as in the JAX package: ``read_portal`` (the bytes read
 and not yet cut), ``last_protocol``, ``h2_conn`` (the h2 session),
 ``tag`` (``"internal"`` on a server's internal port) and
 :meth:`set_failed`.  :func:`socket_pool` lists the live sockets for the
-``/sockets`` page.
+``/sockets`` page.  ``conn`` may be an ``ssl.SSLSocket`` (TLS at either
+end); ``app_data`` holds the server's per-connection auth verdict.
 
 Acks.  :meth:`queue_ack` queues descriptor ids.  While ``defer_acks`` is
 set (a server between reading a request and writing its response) they
@@ -69,6 +70,9 @@ class Socket:
         self.last_protocol = None
         self.h2_conn = None
         self.tag: Optional[str] = None
+        # the server's per-connection verdict ("authed" once the first
+        # message passed ServerOptions.auth), as in the JAX Socket
+        self.app_data = None
         with _registry_lock:
             self.id = next(_ids)
             _registry[self.id] = self

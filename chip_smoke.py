@@ -173,6 +173,26 @@ result line) when a phase fails or CUDA is absent.  Phases:
    inside phase 14, after its fleet step: ``federate()`` with no
    ``fetch=`` over the two replicas' ``/metrics`` and
    ``fetch_member_report`` of each;
+   16. the classic lane's stages, TLS, async calls and the device block
+   pool, on phase 5's service: (a) a GZIP (1, 1024, 32) Generate (phase
+   5's tokens and launches) on a server with ``auth``, an interceptor and
+   session-local data, a ``@method(response_compress=GZIP)`` echo read
+   back, a bad ``auth_data`` answered ``ERPCAUTH`` and an interceptor's
+   own code and text, each refusal with no launch, eight calls of one
+   connection on one session object; (b) a second server on the same
+   service with a self-signed localhost pair made by the ``openssl``
+   CLI: phase 5's three requests over TLS (phase 5's tokens), three
+   rounds in turns with plaintext, 1 MiB byte echoes per second over TLS
+   beside plaintext, and a plaintext client failing against the TLS port;
+   (c) four (1, 512, 16) Generates in flight from one thread through
+   ``call_method(done=)`` and ``join`` against the same four blocking, a
+   ``start_cancel`` ending a call ``ECANCELLED``, and an async handler
+   (``begin_async``, finished on another thread) over tpu_std, HTTP and
+   gRPC; (d) ``DeviceBlockPool(device="cuda")``: 1 MiB and 64 MiB landed,
+   recycled and landed again (``data_ptr`` steady, ``recycled`` 1 per
+   size, ``pooled_bytes`` back to 0), every landing's checksum through
+   ``checksum.cu`` equal to the host's, a recycle over the cap dropped,
+   and land GB/s beside a fresh ``torch.empty(...).copy_``;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -261,7 +281,8 @@ from brpc_tpu_torch.butil.flags import get_flag, set_flag  # noqa: E402
 from brpc_tpu_torch.butil.status import Errno  # noqa: E402
 from brpc_tpu_torch import deadline  # noqa: E402
 from brpc_tpu_torch.client import (  # noqa: E402
-    Channel, ChannelOptions, Controller)
+    Channel, ChannelOptions, Controller, start_cancel)
+from brpc_tpu_torch.ici import DeviceBlockPool  # noqa: E402
 from brpc_tpu_torch.ici.endpoint import live_endpoints  # noqa: E402
 from brpc_tpu_torch.ici import cuda_ipc  # noqa: E402
 from brpc_tpu_torch.ici.attachment import (  # noqa: E402
@@ -305,12 +326,13 @@ from brpc_tpu_torch.parallel.multiproc_dryrun import (  # noqa: E402
 from brpc_tpu_torch.parallel.ring_attention import (  # noqa: E402
     make_ulysses_attention)
 from brpc_tpu_torch.parallel.spmd import init_world  # noqa: E402
-from brpc_tpu_torch.protocol.meta import RpcMeta  # noqa: E402
+from brpc_tpu_torch.protocol.meta import CompressType, RpcMeta  # noqa
 from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
     MAX_BODY_SIZE, AckFrame, max_body_size, pack_frame, read_frame,
     unpack_frame)
 from brpc_tpu_torch.rpcz import global_span_store  # noqa: E402
-from brpc_tpu_torch.server import Server, Service, admission  # noqa
+from brpc_tpu_torch.server import (  # noqa: E402
+    Server, Service, admission, method)
 from brpc_tpu_torch.server.server import (  # noqa: E402
     DRAIN_FORCE_CLOSE_REASON, ServerOptions)
 from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
@@ -5671,6 +5693,501 @@ def phase_protocols(ep, cfg: LMConfig, rows: list, stitch_part: dict,
     return res
 
 
+# -- phase 16: the classic lane's stages, TLS, async calls, block pool ----
+
+GZIP = CompressType.GZIP
+P16_AUTH = b"phase16-secret"
+P16_BLOCKED_TENANT = "blocked"
+P16_SESSION_CALLS = 8
+P16_ROUNDS = 3
+P16_ECHO_BYTES = 1 << 20
+P16_ECHO_CALLS = 50                       # per lane and round
+P16_ASYNC_REQUEST = (1, 512, 16)
+P16_ASYNC_N = 4
+P16_CANCEL_REQUEST = (1, 1500, 64)
+P16_POOL_SIZES = (1 << 20, 64 << 20)
+P16_POOL_REPS = 20
+P16_POOL_WARMUP = 3
+
+
+class Auth16:
+    def verify(self, auth_data, cntl) -> bool:
+        return auth_data == P16_AUTH
+
+
+def intercept16(cntl):
+    """Refuse the blocked tenant with a verdict of the interceptor's
+    own."""
+    if cntl.request_meta.tenant == P16_BLOCKED_TENANT.encode():
+        return (False, int(Errno.ELIMIT), "tenant blocked by phase 16")
+    return True
+
+
+class Stages16(Service):
+    def Echo(self, cntl, request):
+        return request
+
+    @method(response_compress=GZIP)
+    def GzEcho(self, cntl, request):
+        return request
+
+    def Use(self, cntl, request):
+        d = cntl.session_local_data()
+        d["hits"] = d.get("hits", 0) + 1
+        return b"%d:%d" % (d["hits"], id(d))
+
+
+class AsyncLM(Service):
+    """Phase 5's Generate behind a handler that calls ``begin_async``
+    and finishes on a thread of its own."""
+
+    def __init__(self, svc: LMService):
+        self._svc = svc
+
+    def Generate(self, cntl, request):
+        cntl.begin_async()
+
+        def run():
+            try:
+                out = self._svc.Generate(cntl, request)
+            except Exception as e:      # the client sees EINTERNAL
+                cntl.set_failed(Errno.EINTERNAL, f"{type(e).__name__}: {e}")
+                out = None
+            cntl.finish(out)
+        threading.Thread(target=run, name="async-generate",
+                         daemon=True).start()
+        return None
+
+
+def p16_channel(ep, **opts) -> Channel:
+    co = ChannelOptions()
+    co.timeout_ms = PROTO_TIMEOUT_MS
+    for key, value in opts.items():
+        setattr(co, key, value)
+    ch = Channel(co)
+    if ch.init(str(ep)) != 0:
+        raise RuntimeError(f"channel to {ep} did not init")
+    return ch
+
+
+def p16_generate(ch: Channel, prompt: np.ndarray, max_new: int,
+                 **cntl_opts) -> tuple:
+    """One Generate: ``(ids or None, controller, ms)``."""
+    cntl = Controller()
+    cntl.timeout_ms = PROTO_TIMEOUT_MS
+    for key, value in cntl_opts.items():
+        setattr(cntl, key, value)
+    t0 = time.perf_counter()
+    c = ch.call_method("LM.Generate", pack_generate_request(prompt, max_new),
+                       cntl=cntl)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (None if c.failed else unpack_generated(c.response)), c, ms
+
+
+def phase_p16_stages(svc: LMService, cfg: LMConfig, rows: list) -> dict:
+    """(a) C13's stages on a server with ``auth``, an interceptor and
+    session-local data."""
+    prompt = phase5_prompts(cfg)[0]
+    max_new = REQUESTS[0][2]
+    opts = ServerOptions()
+    opts.auth = Auth16()
+    opts.interceptor = intercept16
+    opts.session_local_data_factory = dict
+    srv = serve_lm({"LM": svc, "S": Stages16()}, opts)
+    good = p16_channel(srv.listen_endpoint, auth_data=P16_AUTH)
+    bad = p16_channel(srv.listen_endpoint, auth_data=b"wrong", max_retry=0)
+    blocked = p16_channel(srv.listen_endpoint, auth_data=P16_AUTH,
+                          tenant=P16_BLOCKED_TENANT, max_retry=0)
+    res = {}
+    try:
+        FLASH_FWD.launches = 0
+        ids, c, ms = p16_generate(good, prompt, max_new,
+                                  request_compress_type=GZIP)
+        launches = FLASH_FWD.launches
+        log(f"  (a) GZIP Generate {REQUESTS[0]}: {ms:.1f} ms "
+            f"(phase 5: {rows[0]['ms']:.1f} ms); tokens equal to phase 5's: "
+            f"{ids is not None and ids.tolist() == rows[0]['ids']}; "
+            f"flash_fwd launches {launches}")
+        if ids is None or ids.tolist() != rows[0]["ids"] \
+                or launches != cfg.depth:
+            raise AssertionError(f"(a) the GZIP Generate: {c.error_text} "
+                                 f"or tokens or launches ({launches}) off")
+        res["gzip"] = dict(ms=ms, launches=launches)
+        payload = bytes(range(256)) * 4096            # 1 MiB, compressible
+        import socket
+        ep = srv.listen_endpoint
+        conn = socket.create_connection((ep.host, ep.port), timeout=60)
+        try:
+            meta = RpcMeta()
+            meta.correlation_id, meta.auth_data = 1, P16_AUTH
+            meta.service_name, meta.method_name = "S", "GzEcho"
+            t0 = time.perf_counter()
+            conn.sendall(pack_frame(meta, payload))
+            rmeta, body, _ = read_frame(conn)
+            raw_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            conn.close()
+        cntl = Controller()
+        cntl.timeout_ms = PROTO_TIMEOUT_MS
+        t0 = time.perf_counter()
+        c = good.call_method("S.GzEcho", payload, cntl=cntl)
+        gz_ms = (time.perf_counter() - t0) * 1e3
+        log(f"  (a) @method(response_compress=GZIP): compress_type "
+            f"{rmeta.compress_type}, {len(payload)} -> {len(body)} bytes on "
+            f"the wire in {raw_ms:.2f} ms; read back through the channel "
+            f"{'equal' if c.response == payload else 'DIFFERENT'} in "
+            f"{gz_ms:.2f} ms")
+        if rmeta.compress_type != GZIP or len(body) >= len(payload) \
+                or c.failed or c.response != payload:
+            raise AssertionError("(a) the compressed response was not "
+                                 "answered or read back")
+        res["response_compress"] = dict(ms=gz_ms, wire_bytes=len(body))
+        FLASH_FWD.launches = 0
+        _, c_auth, auth_ms = p16_generate(bad, prompt, max_new)
+        _, c_int, int_ms = p16_generate(blocked, prompt, max_new)
+        launches = FLASH_FWD.launches
+        log(f"  (a) bad auth_data: [{c_auth.error_code}] "
+            f"{c_auth.error_text!r} in {auth_ms:.2f} ms; the interceptor: "
+            f"[{c_int.error_code}] {c_int.error_text!r} in {int_ms:.2f} ms; "
+            f"flash_fwd launches {launches}")
+        if (c_auth.error_code, c_auth.error_text) != (
+                int(Errno.ERPCAUTH), "authentication failed") \
+                or (c_int.error_code, c_int.error_text) != (
+                    int(Errno.ELIMIT), "tenant blocked by phase 16") \
+                or launches:
+            raise AssertionError("(a) a refusal was not answered as the "
+                                 "JAX lane answers it, or it launched")
+        res["refusals"] = dict(auth_ms=auth_ms, interceptor_ms=int_ms,
+                               launches=launches)
+        outs = [good.call("S.Use", b"", timeout_ms=60_000)
+                for _ in range(P16_SESSION_CALLS)]
+        hits = [int(o.split(b":")[0]) for o in outs]
+        objs = {o.split(b":")[1] for o in outs}
+        created = srv._session_pool.created
+        log(f"  (a) {P16_SESSION_CALLS} calls on one connection: session "
+            f"hits {hits}, {len(objs)} object(s), {created} created")
+        if hits[-1] - hits[0] != P16_SESSION_CALLS - 1 or len(objs) != 1 \
+                or created != 1:
+            raise AssertionError("(a) session-local data was not reused")
+        res["session"] = dict(objects=len(objs), created=created)
+    finally:
+        for ch in (good, bad, blocked):
+            ch.close()
+        srv.stop()
+    return res
+
+
+def make_cert_pair(directory: str) -> tuple:
+    """A self-signed localhost certificate and key, made by the openssl
+    CLI (a test certificate, as ``tests/test_ssl.py`` makes it)."""
+    cert = os.path.join(directory, "cert.pem")
+    key = os.path.join(directory, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                    "-nodes", "-keyout", key, "-out", cert, "-days", "1",
+                    "-subj", "/CN=localhost", "-addext",
+                    "subjectAltName=IP:127.0.0.1,DNS:localhost"],
+                   check=True, capture_output=True, timeout=60)
+    return cert, key
+
+
+def echo_rate(ch: Channel, payload: bytes, n: int) -> float:
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if ch.call("S.Echo", payload, timeout_ms=60_000) != payload:
+            raise AssertionError("(b) a byte echo came back different")
+    return n / (time.perf_counter() - t0)
+
+
+def phase_p16_tls(svc: LMService, cfg: LMConfig, rows: list,
+                  plain_ch: Channel) -> dict:
+    """(b) A TLS server on phase 5's service against the plaintext
+    lane."""
+    prompts = phase5_prompts(cfg)
+    tmp = tempfile.mkdtemp(prefix="p16-certs-")
+    cert, key = make_cert_pair(tmp)
+    opts = ServerOptions()
+    opts.ssl_cert, opts.ssl_key = cert, key
+    srv = serve_lm({"LM": svc, "S": Stages16()}, opts)
+    plain_srv = serve_lm({"S": Stages16()})
+    tls = p16_channel(srv.listen_endpoint, ssl=True, ssl_ca=cert,
+                      ssl_verify=True)
+    res = {"tls_ms": [], "plain_ms": []}
+    try:
+        launches = 0
+        for r in range(P16_ROUNDS):
+            tls_ms, plain_ms = [], []
+            lanes = (("tls", tls, tls_ms), ("plain", plain_ch, plain_ms))
+            for lane, ch, out in (lanes if r % 2 == 0 else lanes[::-1]):
+                FLASH_FWD.launches = 0
+                for prompt, (_, _, max_new), row in zip(prompts, REQUESTS,
+                                                         rows):
+                    ids, c, ms = p16_generate(ch, prompt, max_new)
+                    if ids is None or ids.tolist() != row["ids"]:
+                        raise AssertionError(f"(b) {lane} round {r}: "
+                                             f"{c.error_text} or tokens off")
+                    out.append(ms)
+                if FLASH_FWD.launches != cfg.depth * len(REQUESTS):
+                    raise AssertionError(f"(b) {lane}: flash_fwd launches "
+                                         f"{FLASH_FWD.launches}")
+                if lane == "tls":
+                    launches += FLASH_FWD.launches
+            res["tls_ms"].append(tls_ms)
+            res["plain_ms"].append(plain_ms)
+            log(f"  (b) round {r}: TLS {[round(m, 1) for m in tls_ms]} ms, "
+                f"plaintext {[round(m, 1) for m in plain_ms]} ms "
+                f"(phase 5's shapes; tokens equal to phase 5's)")
+        res["launches"] = launches
+        payload = np.random.default_rng(16).integers(
+            0, 256, P16_ECHO_BYTES, dtype=np.uint8).tobytes()
+        tls_echo = p16_channel(srv.listen_endpoint, ssl=True)
+        plain_echo = p16_channel(plain_srv.listen_endpoint)
+        rates = {"tls": [], "plain": []}
+        try:
+            for r in range(P16_ROUNDS):
+                order = ("tls", "plain") if r % 2 == 0 else ("plain", "tls")
+                for lane in order:
+                    ch = tls_echo if lane == "tls" else plain_echo
+                    rates[lane].append(echo_rate(ch, payload,
+                                                 P16_ECHO_CALLS))
+        finally:
+            tls_echo.close()
+            plain_echo.close()
+        res["echo_calls_s"] = rates
+        log(f"  (b) 1 MiB byte echoes: TLS {[round(x, 1) for x in rates['tls']]}"
+            f" calls/s, plaintext {[round(x, 1) for x in rates['plain']]} "
+            f"calls/s ({P16_ECHO_CALLS} a round)")
+        bare = p16_channel(srv.listen_endpoint, max_retry=0,
+                           timeout_ms=5000)
+        try:
+            cntl = Controller()
+            t0 = time.perf_counter()
+            c = bare.call_method("S.Echo", b"plaintext", cntl=cntl)
+            fail_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            bare.close()
+        log(f"  (b) a plaintext client on the TLS port: "
+            f"[{c.error_code}] {c.error_text!r} in {fail_ms:.1f} ms")
+        if not c.failed or fail_ms > 4000:
+            raise AssertionError("(b) a plaintext client was not refused "
+                                 "at once by the TLS port")
+        res["plaintext_refused_ms"] = fail_ms
+    finally:
+        tls.close()
+        srv.stop()
+        plain_srv.stop()
+    return res
+
+
+def phase_p16_async(svc: LMService, srv: Server, cfg: LMConfig,
+                    rows: list) -> dict:
+    """(c) Four Generates in flight from one thread, a cancel, and an
+    async handler over the three lanes."""
+    b, s, max_new = P16_ASYNC_REQUEST
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+               for _ in range(P16_ASYNC_N)]
+    ep = srv.listen_endpoint
+    ch = p16_channel(ep)
+    res = {}
+    try:
+        FLASH_FWD.launches = 0
+        t0 = time.perf_counter()
+        blocking = [p16_generate(ch, p, max_new)[0] for p in prompts]
+        blocking_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cntls = [ch.call_method("LM.Generate",
+                                pack_generate_request(p, max_new),
+                                done=lambda c: None,
+                                cntl=p16_cntl()) for p in prompts]
+        joined = all(c.join(600.0) for c in cntls)
+        async_ms = (time.perf_counter() - t0) * 1e3
+        launches = FLASH_FWD.launches
+        same = joined and all(
+            not c.failed and unpack_generated(c.response).tolist()
+            == want.tolist() for c, want in zip(cntls, blocking))
+        log(f"  (c) {P16_ASYNC_N} x {P16_ASYNC_REQUEST} Generates: in flight "
+            f"through call_method(done=) {async_ms:.1f} ms, in turn "
+            f"{blocking_ms:.1f} ms; tokens equal: {same}; flash_fwd "
+            f"launches {launches}")
+        if not same or launches != 2 * P16_ASYNC_N * cfg.depth:
+            raise AssertionError("(c) the async Generates disagree with "
+                                 "the blocking ones")
+        res.update(async_ms=async_ms, blocking_ms=blocking_ms,
+                   launches=launches)
+        cb, cs, cn = P16_CANCEL_REQUEST
+        prompt = rng.integers(0, cfg.vocab, (cb, cs), dtype=np.int32)
+        ended = threading.Event()
+        cntl = p16_cntl()
+        FLASH_FWD.launches = 0
+        ch.call_method("LM.Generate", pack_generate_request(prompt, cn),
+                       done=lambda c: ended.set(), cntl=cntl)
+        # cancelled once the server is serving it, before its response
+        wait_until(lambda: srv.inflight >= 1, 60.0, "the call to reach "
+                   "the server")
+        t0 = time.perf_counter()
+        start_cancel(cntl.call_id)
+        if not ended.wait(60.0):
+            raise AssertionError("(c) the cancelled call never ended")
+        cancel_ms = (time.perf_counter() - t0) * 1e3
+        # the handler runs on (a cancel does not stop it); its response
+        # is dropped when it comes
+        wait_until(lambda: srv.inflight == 0, 120.0, "the cancelled "
+                   "Generate's handler")
+        log(f"  (c) start_cancel during a {P16_CANCEL_REQUEST} Generate: "
+            f"[{cntl.error_code}] {cntl.error_text!r} {cancel_ms:.2f} ms "
+            f"after the cancel; the handler ran on "
+            f"({FLASH_FWD.launches} flash_fwd launches)")
+        if cntl.error_code != int(Errno.ECANCELLED) \
+                or cntl.response is not None \
+                or FLASH_FWD.launches != cfg.depth:
+            raise AssertionError("(c) the cancel did not end the call")
+        res["cancel_ms"] = cancel_ms
+        res["launches"] += FLASH_FWD.launches
+        FLASH_FWD.launches = 0
+        ids, c, _ = p16_generate(ch, phase5_prompts(cfg)[0],
+                                 REQUESTS[0][2])
+        if ids is None or ids.tolist() != rows[0]["ids"]:
+            raise AssertionError("(c) the channel after the cancel "
+                                 "answered wrong")
+        res["launches"] += FLASH_FWD.launches
+    finally:
+        ch.close()
+    async_srv = serve_lm({"LM": AsyncLM(svc)})
+    try:
+        prompt, max_new = phase5_prompts(cfg)[0], REQUESTS[0][2]
+        res["begin_async_ms"] = {}
+        for proto in ("tpu_std", "http", "grpc"):
+            pch = p16_channel(async_srv.listen_endpoint, protocol=proto)
+            try:
+                FLASH_FWD.launches = 0
+                ids, c, ms = p16_generate(pch, prompt, max_new)
+            finally:
+                pch.close()
+            res["launches"] += FLASH_FWD.launches
+            log(f"  (c) begin_async handler over {proto}: {ms:.1f} ms; "
+                f"tokens equal to phase 5's: "
+                f"{ids is not None and ids.tolist() == rows[0]['ids']}; "
+                f"flash_fwd launches {FLASH_FWD.launches}")
+            if ids is None or ids.tolist() != rows[0]["ids"] \
+                    or FLASH_FWD.launches != cfg.depth:
+                raise AssertionError(f"(c) the async handler over {proto}: "
+                                     f"{c.error_text}")
+            res["begin_async_ms"][proto] = ms
+    finally:
+        async_srv.stop()
+    return res
+
+
+def p16_cntl() -> Controller:
+    cntl = Controller()
+    cntl.timeout_ms = PROTO_TIMEOUT_MS
+    return cntl
+
+
+def host_sum(data: bytes) -> int:
+    """The wrapping 32-bit sum of a payload's int32 words, on the host."""
+    return int(np.frombuffer(data, dtype=np.int32).sum(dtype=np.int64)) \
+        & 0xFFFFFFFF
+
+
+def event_ms(fn, reps: int = P16_POOL_REPS,
+             warmup: int = P16_POOL_WARMUP) -> float:
+    """Median CUDA-event time of ``fn()``, one call per pair of events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_p16_pool() -> dict:
+    """(d) The device block pool on the card, a pool per size."""
+    rng = np.random.default_rng(16)
+    res = {"sizes": {}}
+    CHECKSUM.launches = 0
+    for n in P16_POOL_SIZES:
+        pool = DeviceBlockPool(device="cuda")
+        first = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        second = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        recycled0 = pool.recycled
+        a = pool.land(first)
+        ptr = a.data_ptr()
+        sum_a = checksum_u32(a.view(torch.int32))
+        pool.recycle(a)
+        pooled = pool.pooled_bytes
+        del a
+        b = pool.land(second)
+        sum_b = checksum_u32(b.view(torch.int32))
+        ok = (b.data_ptr() == ptr and pool.recycled - recycled0 == 1
+              and pooled == n and pool.pooled_bytes == 0
+              and sum_a == host_sum(first) and sum_b == host_sum(second)
+              and b.is_cuda and b.numel() == n)
+        log(f"  (d) {n >> 20} MiB: data_ptr steady across the recycle: "
+            f"{b.data_ptr() == ptr}; recycled +{pool.recycled - recycled0}; "
+            f"pooled {pooled} then {pool.pooled_bytes} bytes; checksum.cu "
+            f"{sum_a:#010x} / {sum_b:#010x} against the host's "
+            f"{host_sum(first):#010x} / {host_sum(second):#010x}")
+        if not ok:
+            raise AssertionError(f"(d) the {n} byte landing was not "
+                                 "recycled or checksummed right")
+        pool.recycle(b)
+        del b
+        src = torch.frombuffer(bytearray(second), dtype=torch.uint8)
+
+        def land_recycle():
+            pool.recycle(pool.land(second))
+
+        land = event_ms(land_recycle)
+        fresh = event_ms(lambda: torch.empty(
+            n, dtype=torch.uint8, device="cuda").copy_(src))
+        res["sizes"][n] = dict(land_ms=land, land_gb_s=n / land / 1e6,
+                               fresh_copy_ms=fresh,
+                               fresh_copy_gb_s=n / fresh / 1e6)
+        log(f"  (d) {n >> 20} MiB land {land:.4f} ms ({n / land / 1e6:.2f} "
+            f"GB/s) against a fresh torch.empty().copy_ {fresh:.4f} ms "
+            f"({n / fresh / 1e6:.2f} GB/s), CUDA-event medians of "
+            f"{P16_POOL_REPS} after {P16_POOL_WARMUP} warm-ups")
+    res["checksum_launches"] = CHECKSUM.launches
+    if CHECKSUM.launches != 2 * len(P16_POOL_SIZES):
+        raise AssertionError(f"(d) checksum launches {CHECKSUM.launches}")
+    capped = DeviceBlockPool(max_bytes=1 << 20, device="cuda")
+    big = capped.land(b"\x01" * (P16_POOL_SIZES[1]))
+    capped.recycle(big)
+    again = capped.land(b"\x02" * (P16_POOL_SIZES[1]))
+    log(f"  (d) over the 1 MiB cap: pooled {capped.pooled_bytes} bytes, "
+        f"recycled {capped.recycled}")
+    if capped.pooled_bytes or capped.recycled or again.numel() != \
+            P16_POOL_SIZES[1]:
+        raise AssertionError("(d) a recycle over the cap was kept")
+    del big, again, capped, pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_slice16(svc: LMService, srv: Server, ch: Channel, cfg: LMConfig,
+                  rows: list) -> dict:
+    """Phase 16 on phase 5's service and server."""
+    t0 = time.perf_counter()
+    res = {"stages": phase_p16_stages(svc, cfg, rows),
+           "tls": phase_p16_tls(svc, cfg, rows, ch),
+           "async": phase_p16_async(svc, srv, cfg, rows),
+           "pool": phase_p16_pool()}
+    res["launches"] = (res["stages"]["gzip"]["launches"]
+                       + res["tls"]["launches"] + res["async"]["launches"])
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16: {res['seconds']:.1f} s; flash_fwd launches "
+        f"{res['launches']}, checksum launches "
+        f"{res['pool']['checksum_launches']} ({card_line()})")
+    return res
+
+
 def phase_moe() -> dict:
     """Phase 6e: the MoE LM at MOE_CFG, full width and depth, through
     Generate, Decode (contiguous, paged with chunked prefill) and the
@@ -6074,6 +6591,10 @@ def main() -> int:
             "port")
         proto = phase_protocols(srv.listen_endpoint, cfg, rows,
                                 obs["stitch"], cluster["portal"])
+        log("[16] the classic lane's stages (compression, auth, the "
+            "interceptor, session data), TLS, async calls and the device "
+            "block pool")
+        slice16 = phase_slice16(svc, srv, ch, cfg, rows)
     finally:
         ch.close()
         srv.stop()
@@ -6141,6 +6662,7 @@ def main() -> int:
                  "robustness": rob["launches"],
                  "cluster": cluster["launches"],
                  "http_grpc": proto["launches"],
+                 "stages_tls_async": slice16["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -6197,12 +6719,14 @@ def main() -> int:
         "launches": (ps["launches"] + xproc["xfer"]["launches"]
                      + xproc["xfer"]["launches_inline"]
                      + xproc["xfer"]["child_launches"]
-                     + par["two_processes"]["checksum_launches"]),
+                     + par["two_processes"]["checksum_launches"]
+                     + slice16["pool"]["checksum_launches"]),
         "launches_by_path": {
             "ps": ps["launches"], "xproc": xproc["xfer"]["launches"],
             "xproc_inline": xproc["xfer"]["launches_inline"],
             "xproc_child": xproc["xfer"]["child_launches"],
-            "dryrun_echo": par["two_processes"]["checksum_launches"]},
+            "dryrun_echo": par["two_processes"]["checksum_launches"],
+            "block_pool": slice16["pool"]["checksum_launches"]},
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
@@ -6222,6 +6746,7 @@ def main() -> int:
     log(f"  robustness: {json.dumps(rob)}")
     log(f"  cluster: {json.dumps(cluster, default=str)}")
     log(f"  protocols: {json.dumps(proto)}")
+    log(f"  slice16: {json.dumps(slice16)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

@@ -37,10 +37,16 @@ class Countdown:
 
 
 def test_exports_runtime_and_timer_only():
+    # the runtime and the timer, and since the butex, versioned ids and
+    # the execution queue were ported, every name the JAX package's
+    # fiber/__init__.py exports
     assert set(tfiber.__all__) == {
         "DEFAULT_CONCURRENCY", "TaskHandle", "TaskRuntime", "TimerThread",
         "blocking", "global_runtime", "global_timer_thread",
-        "set_concurrency", "spawn"}
+        "set_concurrency", "spawn", "Butex", "CountdownEvent", "IdPool",
+        "global_id_pool", "INVALID_CALL_ID", "ExecutionQueue",
+        "TaskIterator"}
+    assert all(hasattr(jfiber, name) for name in tfiber.__all__)
     assert tfiber.DEFAULT_CONCURRENCY == jfiber.DEFAULT_CONCURRENCY
 
 

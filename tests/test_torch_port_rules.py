@@ -201,6 +201,56 @@ def test_http_lanes_import_alone_with_jax_and_brpc_tpu_blocked(module):
                          src), path
 
 
+# the butil leaves, versioned ids and the execution queue, the block pool
+_LEAF_MODULES = (
+    "brpc_tpu_torch.butil",
+    "brpc_tpu_torch.butil.crc32c",
+    "brpc_tpu_torch.butil.resource_pool",
+    "brpc_tpu_torch.butil.simple_data_pool",
+    "brpc_tpu_torch.butil.periodic_task",
+    "brpc_tpu_torch.butil.sanitizers",
+    "brpc_tpu_torch.fiber.versioned_id",
+    "brpc_tpu_torch.fiber.execution_queue",
+    "brpc_tpu_torch.ici.block_pool",
+)
+
+
+@pytest.mark.parametrize("module", _LEAF_MODULES)
+def test_leaf_modules_import_alone_with_jax_and_brpc_tpu_blocked(module):
+    """Each of the leaves, the call-id and queue modules and the device
+    block pool imports in a fresh interpreter with ``jax`` and every
+    ``brpc_tpu`` module refused, and its source names neither package in
+    any import."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["imported", module]
+    rel = module.replace(".", os.sep)
+    path = os.path.join(ROOT, rel + ".py")
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, rel, "__init__.py")
+    with open(path) as f:
+        src = f.read()
+    import re
+    assert not re.search(r"^\s*(from|import)\s+(jax|brpc_tpu)(\.|\s|$)",
+                         src, re.M), path
+
+
+def test_block_pool_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without")
+    from brpc_tpu_torch.ici import DeviceBlockPool, default_device_pool
+    for call in (DeviceBlockPool, default_device_pool,
+                 lambda: DeviceBlockPool(max_bytes=1 << 20, device="cuda:0"),
+                 lambda: default_device_pool("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the CPU is served only when asked for
+    assert DeviceBlockPool(device="cpu").device.type == "cpu"
+    assert default_device_pool("cpu").land(b"ab").tolist() == [97, 98]
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_brpc_tpu_import_in_source(path):
