@@ -329,8 +329,10 @@ class ContinuousBatcher:
     equal the monolithic path's.  It has no prompt, so a spec round waits
     while one is active (the draft has no context to prefill).
 
-    The KV pools are f32.  Emission writes each token on the stream's
-    Python lane (the JAX package's native lane is not ported).
+    The KV pools are f32.  Emission (:meth:`_emit`) writes the streams
+    adopted onto the native engine's kind-5 lane in one
+    ``stream_write_many`` per engine, and the rest one ``Stream.write``
+    at a time.
     ``PH_DECODE_ROUND`` times a whole round, the step and the read-back of
     its tokens (the JAX package's timer stops at dispatch)."""
 
@@ -588,33 +590,59 @@ class ContinuousBatcher:
         return torch.from_numpy(bt).to(self.device)
 
     def _emit(self, pairs) -> list:
-        """Write one round's tokens, each credit wait bounded by
-        EMIT_TIMEOUT_MS: a stalled session costs the batch one short stall
-        once and is then evicted.  A spec round hands a session several
-        tokens; once one of them fails, the rest are skipped, so the stall
-        is one wait, not k + 1.  Returns one ``(session, reason)`` pair per
-        session to evict (stream gone, or out of credit:
-        ``backpressure``)."""
+        """Write one round's tokens: native-lane streams in ONE coalesced
+        engine call per engine (one writev per connection), Python-lane
+        ones one ``Stream.write`` each.  Every credit wait is bounded by
+        EMIT_TIMEOUT_MS: a stalled session costs the batch one short
+        stall once and is then evicted.  A spec round hands a session
+        several tokens; once one of them fails, the rest are skipped, so
+        the stall is one wait, not k + 1.  Returns one ``(session,
+        reason)`` pair per session to evict (stream gone, or out of
+        credit: ``backpressure``)."""
         dead = []
         failed = set()
+        by_engine = {}                 # id(engine) -> (engine, items)
+
+        def evict(sess, reason) -> None:
+            if id(sess) not in failed:
+                failed.add(id(sess))
+                dead.append((sess, reason))
+
         for sess, tok in pairs:
             if id(sess) in failed:
                 continue
             s = sess.stream
             if s.closed:
-                failed.add(id(sess))
-                dead.append((sess, None))
+                evict(sess, None)
+                continue
+            data = struct.pack("<i", tok)
+            # a stream of the kind-5 lane names its engine; any other
+            # stream (a stub with closed/options/write too) writes itself
+            eng = getattr(s, "_native_tx", None)
+            if eng is not None:
+                # sessions may span servers (several engines): group per
+                # engine — a stream id resolves only on its own
+                by_engine.setdefault(id(eng), (eng, []))[1].append(
+                    (sess, s.id, data))
                 continue
             prev = s.options.write_timeout_s
             s.options.write_timeout_s = self.EMIT_TIMEOUT_MS / 1e3
             try:
-                rc = s.write(struct.pack("<i", tok))
+                rc = s.write(data)
             finally:
                 s.options.write_timeout_s = prev
             if rc != 0:
-                failed.add(id(sess))
-                dead.append((sess, "backpressure"
-                             if rc == int(Errno.EOVERCROWDED) else None))
+                evict(sess, "backpressure"
+                      if rc == int(Errno.EOVERCROWDED) else None)
+        for eng, items in by_engine.values():
+            sts = eng.stream_write_many(
+                [(sid, data) for _sess, sid, data in items],
+                self.EMIT_TIMEOUT_MS)
+            for (sess, _sid, _data), st in zip(items, sts):
+                if st == -1:
+                    evict(sess, "backpressure")
+                elif st == -2:
+                    evict(sess, None)
         return dead
 
     def _admit(self, sess: _Session) -> None:

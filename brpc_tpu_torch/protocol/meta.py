@@ -45,6 +45,13 @@ TAG_SHM_OFFER = _T_SHM_OFFER
 TAG_SHM_ACCEPT = _T_SHM_ACCEPT
 TAG_SHM_RELEASE = _T_SHM_RELEASE
 TAG_SHM_DESC = _T_SHM_DESC
+# the native lanes' tags and pre-encoded TLV prefixes (the raw lane's
+# flat response meta, the stream grant, the domain answer)
+TAG_STREAM_ID = _T_STREAM_ID
+TAG_STREAM_WINDOW = _T_STREAM_WINDOW
+TAG_ICI_DOMAIN = _T_ICI_DOMAIN
+TLV_CORRELATION = b"\x01\x08\x00\x00\x00"   # _T_CORRELATION, u64 follows
+TLV_ATTACHMENT = b"\x03\x04\x00\x00\x00"    # _T_ATTACHMENT, u32 follows
 
 
 def encode_tlv(tag: int, data: bytes) -> bytes:

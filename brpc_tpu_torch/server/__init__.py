@@ -1,6 +1,6 @@
 from .controller import ServerController
 from .server import Server, ServerOptions
-from .service import Service, grpc_streaming, method
+from .service import Service, grpc_streaming, method, raw_method
 
 __all__ = ["Server", "ServerController", "ServerOptions", "Service",
-           "grpc_streaming", "method"]
+           "grpc_streaming", "method", "raw_method"]

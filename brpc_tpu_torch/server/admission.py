@@ -32,9 +32,9 @@ module-global ``overload_admission_total{tenant,verdict}`` family (a
 closed enum) and live per-tenant concurrency is exported as
 ``tenant_inflight{tenant}``.
 
-A copy of ``brpc_tpu/server/admission.py`` but for
-``count_admitted_burst``, which waits for the native engine's slim lanes
-with ``trivial_shape``'s callers.
+A copy of ``brpc_tpu/server/admission.py``: :func:`trivial_shape` and
+:func:`count_admitted_burst` serve the native engine's kind-3 slim lane
+(``server/slim_dispatch.py``).
 :func:`normalize_tenant` is the one tenant key the port's SLO tiers
 (``models/lm_service.TierRegistry``) use too.
 """
@@ -431,3 +431,15 @@ def trivial_shape(server, status) -> bool:
         return False
     cap = getattr(opts, "tenant_fair_capacity", 0)
     return not (isinstance(cap, int) and cap > 0)
+
+
+def count_admitted_burst(n: int) -> None:
+    """Fold one engine read burst's trivial-shape admitted verdicts into
+    the module-global counter family: one lock hold per burst instead of
+    one per item (the verdict enum stays closed — every fast item still
+    lands in exactly one bucket)."""
+    if n <= 0:
+        return
+    with _acct_lock:
+        k = ("-", ADMITTED)
+        _admission_total[k] = _admission_total.get(k, 0) + n

@@ -6,11 +6,14 @@ version, prometheus metrics, runtime introspection (sockets/fibers/ids),
 and the service index. Handlers return
 (status, content_type, body, extra_headers).
 
-A copy of ``brpc_tpu/server/builtin/__init__.py``.  The port has no
-native engine, so the pages that read it answer as a JAX server with
-``ServerOptions.native = False`` does: ``/native`` is a 404 and
-``/hotspots/engine`` reports no engine loops.  ``/hotspots/device``
-wraps ``profiling.collect_device_trace`` (``torch.profiler``).
+A copy of ``brpc_tpu/server/builtin/__init__.py``.  ``/native`` and
+``/hotspots/engine`` read the native engine's telemetry when
+``ServerOptions.native`` serves the port (the bridge's one cached
+snapshot), and answer as a JAX server without the engine otherwise (a
+404, no engine loops).  The client half of the native lanes is not
+ported yet, so ``/native``'s ``client_lane`` and ``scatter_fallbacks``
+are empty.  ``/hotspots/device`` wraps
+``profiling.collect_device_trace`` (``torch.profiler``).
 """
 
 from __future__ import annotations
@@ -314,13 +317,126 @@ def _rpcz(server, msg, rest):
     }, indent=1)
 
 
+def _hist_view(buckets, count, total) -> Dict:
+    """Portal rendering of one engine histogram: non-empty buckets
+    keyed by exclusive upper bound, plus count/avg."""
+    from ...transport.native_bridge import bucket_label
+    view = {bucket_label(i, len(buckets)): n
+            for i, n in enumerate(buckets) if n}
+    return {
+        "count": count,
+        "avg": round(total / count, 1) if count else 0,
+        "buckets": view,
+    }
+
+
 def _native(server, msg, rest):
-    """/native — the native engine's telemetry table.  The port serves
-    every connection through the Python transport, so this is the JAX
-    page's answer for a server whose ``ServerOptions.native`` is off."""
-    return (404, "text/plain",
-            "this server has no native engine (ServerOptions.native"
-            " is off)\n")
+    """/native — the native engine's always-on telemetry table: per-lane
+    stage histograms (queue = frame parse -> batched shim entry, shim =
+    dispatch time, resid = parse -> response build), burst/writev
+    coalescing distributions, reason-coded fallback counters with the
+    top reasons per route/method, loop busy ratios and high-water
+    marks.  One engine.telemetry() snapshot renders the whole page."""
+    bridge = getattr(server, "_native_bridge", None)
+    if bridge is None:
+        return (404, "text/plain",
+                "this server has no native engine (ServerOptions.native"
+                " is off)\n")
+    t = bridge.telemetry.get()
+    lanes = {}
+    for ln, d in t["lanes"].items():
+        lanes[ln] = {
+            "handled": d["handled"],
+            "errors": d["errors"],
+            "queue_us": _hist_view(d["queue_us"], d["queue_us_count"],
+                                   d["queue_us_sum"]),
+            "shim_us": _hist_view(d["shim_us"], d["shim_us_count"],
+                                  d["shim_us_sum"]),
+            "resid_us": _hist_view(d["resid_us"], d["resid_us_count"],
+                                   d["resid_us_sum"]),
+        }
+    top_fallbacks = sorted(
+        ((k, v) for k, v in t["fallbacks"].items() if v),
+        key=lambda kv: -kv[1])
+
+    def _per_target(table):
+        out = {}
+        for name, d in sorted(table.items()):
+            fbs = sorted(((k[3:], v) for k, v in d.items()
+                          if k.startswith("fb_") and v),
+                         key=lambda kv: -kv[1])
+            row = {"handled": d["handled"], "errors": d["errors"]}
+            if fbs:
+                row["top_fallbacks"] = dict(fbs)
+            out[name] = row
+        return out
+
+    # per-loop view: lifetime busy ratio plus the placement counters
+    # (accepts = conns pinned by this loop, frames = messages it parsed,
+    # handoffs = cross-loop completion nodes it consumed, spin_polls =
+    # busy-poll harvests); the windowed ratios come from the cache
+    windowed = bridge.telemetry.per_loop_busy_ratios()
+    loops = []
+    for i, lo in enumerate(t["loops"]):
+        denom = lo["busy_ns"] + lo["idle_ns"]
+        loops.append({
+            "busy_ratio": round(lo["busy_ns"] / denom, 4) if denom
+            else 0.0,
+            "busy_ratio_windowed": round(windowed[i], 4)
+            if i < len(windowed) else 0.0,
+            "busy_ms": round(lo["busy_ns"] / 1e6, 1),
+            "idle_ms": round(lo["idle_ns"] / 1e6, 1),
+            "polls": lo["polls"],
+            "spin_polls": lo.get("spin_polls", 0),
+            "accepts": lo.get("accepts", 0),
+            "frames": lo.get("frames", 0),
+            "handoffs": lo.get("handoffs", 0),
+        })
+    from ...deadline import shed_counters
+    # the kind-5 lane: streams open, chunk flow both directions, the
+    # chunks-per-burst distribution and credit stalls, plus the closed
+    # per-reason fallback table
+    st = t.get("streams", {})
+    streaming = {}
+    if st:
+        streaming = {
+            "open": st.get("open", 0),
+            "chunks_in": st.get("chunks_in", 0),
+            "chunks_out": st.get("chunks_out", 0),
+            "chunk_bytes_out": st.get("chunk_bytes_out", 0),
+            "feedbacks_in": st.get("feedbacks_in", 0),
+            "credit_stalls": st.get("credit_stalls", 0),
+            "write_batches": st.get("write_batches", 0),
+            "chunks_per_burst": _hist_view(
+                st["chunk_burst"], st["chunk_burst_count"],
+                st["chunk_burst_sum"]),
+            "fallbacks": {k: v for k, v in st.get("fallbacks",
+                                                  {}).items() if v},
+        }
+    out = {
+        "lanes": lanes,
+        "fallbacks": dict(top_fallbacks),
+        "streaming": streaming,
+        "client_lane": {},
+        "scatter_fallbacks": {},
+        # deadline plane: per-(lane, method) doomed-work sheds
+        "deadline_sheds": {f"{lane}|{method}": v for (lane, method), v
+                           in sorted(shed_counters().items())},
+        "burst": _hist_view(t["burst"], t["burst_count"],
+                            t["burst_sum"]),
+        "writev_iov": _hist_view(t["writev_iov"], t["writev_iov_count"],
+                                 t["writev_iov_sum"]),
+        "wq_hwm": t["wq_hwm"],
+        "inbuf_hwm": t["inbuf_hwm"],
+        # max−min of the windowed per-loop busy ratios (0 on a one-loop
+        # engine) — the native_engine_loop_busy_imbalance bvar
+        "loop_busy_imbalance": round(
+            bridge.telemetry.loop_busy_imbalance(), 4),
+        "loops": loops,
+        "methods": _per_target(t["methods"]),
+        "routes": _per_target(t["routes"]),
+    }
+    return 200, "application/json", json.dumps(out, indent=1)
 
 
 def _lm(server, msg, rest):
@@ -490,10 +606,40 @@ def _hotspots_run(server, q, kind, seconds):
     if kind == "heap":
         return 200, "text/plain", profiling.collect_heap()
     if kind == "engine":
-        # the port has no C++ engine loops: the answer of a JAX server
-        # without the native engine
-        return (200, "text/plain",
-                "no native engine loops on this server\n")
+        # C++ loop busy ratio over a sampled window: the engine loops
+        # never appear in the Python-thread samplers above, yet they
+        # are the data plane — time in callbacks vs epoll_wait is
+        # their whole hotspot story
+        bridge = getattr(server, "_native_bridge", None)
+        if bridge is None:
+            return (200, "text/plain",
+                    "no native engine loops on this server\n")
+        a = bridge.engine.telemetry()["loops"]
+        time.sleep(seconds)
+        b = bridge.engine.telemetry()["loops"]
+        lines = [f"native engine loops — {seconds:.1f}s window",
+                 f"{'loop':>4} {'busy_ratio':>10} {'busy_ms':>9} "
+                 f"{'idle_ms':>9} {'polls':>7}"]
+        stuck = False
+        for i, (la, lb) in enumerate(zip(a, b)):
+            busy = lb["busy_ns"] - la["busy_ns"]
+            idle = lb["idle_ns"] - la["idle_ns"]
+            polls = lb["polls"] - la["polls"]
+            denom = busy + idle
+            # a loop that never re-entered epoll_wait during the window
+            # spent ALL of it inside one callback (on an inline server
+            # that includes the callback rendering this very page)
+            ratio = busy / denom if denom else 1.0
+            if denom == 0:
+                stuck = True
+            lines.append(
+                f"{i:>4} {ratio:>10.4f} "
+                f"{busy / 1e6:>9.1f} {idle / 1e6:>9.1f} {polls:>7}")
+        if stuck:
+            lines.append("(0-poll loop: the whole window ran inside a "
+                         "single callback — on usercode_inline servers "
+                         "this request itself occupies its loop)")
+        return 200, "text/plain", "\n".join(lines) + "\n"
     if kind == "device":
         try:
             data, name = profiling.collect_device_trace(seconds)

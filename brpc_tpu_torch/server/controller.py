@@ -53,7 +53,8 @@ class ServerController:
                  "server", "begin_time_us", "deadline_us", "_send",
                  "http_method", "http_path", "http_unresolved_path",
                  "_progressive", "grpc_stream", "response_compress_type",
-                 "auth_context", "_async", "_finish_lock", "_session_data")
+                 "auth_context", "_async", "_finish_lock", "_session_data",
+                 "_slim_fast", "_shm_extra", "_shm_handle")
 
     def __init__(self, request_meta: RpcMeta,
                  remote_side: Optional[EndPoint] = None,
@@ -91,6 +92,13 @@ class ServerController:
         self._async = False
         self._finish_lock = threading.Lock()
         self._session_data = None       # borrowed SimpleDataPool object
+        # the native slim lane's trivial-shape request, whose admission
+        # counts were never taken (server/slim_dispatch.py)
+        self._slim_fast = False
+        # the classic lane's shm negotiation: the TLVs every response of
+        # the request carries, and the request slot's handle
+        self._shm_extra = b""
+        self._shm_handle = None
 
     # -- async completion --------------------------------------------------
 
@@ -117,6 +125,15 @@ class ServerController:
                 and self.server._session_pool is not None:
             self.server._session_pool.give_back(self._session_data)
             self._session_data = None
+
+    def _mark_finished_if_first(self) -> bool:
+        """Claim the completion without calling ``send``: a native slim
+        lane that answers inline (the engine builds the frame) takes it
+        here, so a later :meth:`finish` is a no-op.  False when another
+        completion already won."""
+        with self._finish_lock:
+            send, self._send = self._send, None
+        return send is not None
 
     def session_local_data(self) -> Any:
         """Reusable per-request user data from the server's

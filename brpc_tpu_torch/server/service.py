@@ -9,7 +9,8 @@ responses are bytes-like.  :func:`method` declares per-method options
 (``request_type``, recorded for json2pb on the HTTP lane, and
 ``response_compress``, the default of the controller's
 ``response_compress_type``); :func:`grpc_streaming` marks a streaming
-gRPC method, as in the JAX package.
+gRPC method and :func:`raw_method` a bytes-in/bytes-out method of the
+native engine's raw lanes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +40,48 @@ def method(request_type: Any = None, response_compress: int = 0):
         fn._rpc_response_compress = response_compress
         return fn
     return mark
+
+
+def raw_method(fn: Callable = None, *, native: str = None) -> Callable:
+    """Declare a RAW method — the latency lane's server half.
+
+    Signature: ``(payload, attachment) -> response`` where payload and
+    attachment are zero-copy buffers (a memoryview into the frame;
+    attachment is None when the request carried none) and the return is
+    ``bytes`` or ``(response_bytes, attachment_bytes)``.
+
+    On the native engine (``ServerOptions.native`` with
+    ``usercode_inline``) a raw method dispatches without a controller or
+    span: frame parse, handler, flat-TLV response (kind 2, or the bridge's
+    raw lane when the engine hands the frame to Python).  Per-method
+    stats and concurrency admission still apply.  Everywhere else — the
+    Python transport, a request carrying controller-tier features
+    (compression, device descriptors, streams, tracing, auth,
+    interceptors) — the classic lane calls the handler with the same
+    ``(payload, attachment)`` shape.  The request's deadline TLV is
+    accepted but not enforced on the raw path: handlers that need it
+    belong on a ``(cntl, request)`` method.
+
+    ``native=``: name a C++ built-in semantic and the engine answers the
+    method with no Python per request (kinds 0 and 1).  The Python ``fn``
+    is the behavioral spec and the live fallback, and must implement
+    exactly the declared semantic:
+
+      - ``"echo"``: respond with the request payload and attachment
+        unchanged
+      - ``"const"``: respond with the fixed bytes the handler returns
+        when called with (b"", None) — captured once at server start
+
+        class Echo(Service):
+            @raw_method(native="echo")
+            def Echo(self, payload, attachment):
+                return payload, attachment
+    """
+    def mark(f: Callable) -> Callable:
+        f._rpc_raw = True
+        f._rpc_native = native
+        return f
+    return mark(fn) if fn is not None else mark
 
 
 def extract_methods(service: Any) -> Dict[str, Callable]:

@@ -29,7 +29,14 @@ same connection.
   before the handler could accept it, so the client's pending stream
   closes with the failed call, as in the JAX package.
 
-The JAX package's native write lane is not ported.
+- The native write lane (``brpc_tpu/streaming.py:90-93``, ``:155-175``):
+  a stream accepted on the native engine's kind-5 lane is registered
+  with the engine (``server/stream_slim.py``) and ``_native_tx`` names
+  that engine.  ``write`` then goes through ``engine.stream_write``,
+  whose credit window lives in C++ (-1 is ``EOVERCROWDED``, anything
+  else a closed stream or connection), a drain's settle skips the Python
+  ledger (the engine's write queue orders the FIN after the data), and
+  the close unregisters the stream from the engine before its FIN.
 """
 
 from __future__ import annotations
@@ -144,6 +151,10 @@ class Stream:
         # peer's F_CLOSE payload; on_closed reads it
         self.close_reason: Optional[str] = None
         self._server = None             # the server that accepted it
+        # the native engine owning the write-side credit window of a
+        # kind-5 stream (server/stream_slim.py sets it); None = the
+        # Python credit path below
+        self._native_tx = None
         self._established = threading.Event()
         self._closed = False
         self._close_lock = threading.Lock()
@@ -203,6 +214,19 @@ class Stream:
             data = data.encode()
         if not self._established.wait(self.options.write_timeout_s):
             return int(Errno.EINTERNAL)
+        if self._closed:
+            return int(Errno.EEOF)
+        engine = self._native_tx
+        if engine is not None:
+            st = engine.stream_write(
+                self.id, bytes(data),
+                int(self.options.write_timeout_s * 1000))
+            if st == 0:
+                return 0
+            if st == -1:
+                return int(Errno.EOVERCROWDED)   # credit exhaustion
+            self._on_conn_broken()               # closed / conn gone
+            return int(Errno.EEOF)
         with self._cond:
             # admit while any credit remains: requiring room for the whole
             # message would deadlock messages larger than the window
@@ -292,12 +316,15 @@ class Stream:
         hold."""
         if self._closed:
             return
-        cap = min(max(settle_timeout_s, 0.0), _SETTLE_CAP_S)
-        with self._cond:
-            self._cond.wait_for(
-                lambda: self._closed
-                or self._produced <= self._remote_consumed,
-                timeout=cap)
+        if self._native_tx is None:
+            # a native-lane stream's ledger lives in the engine, whose
+            # write queue orders the FIN after the data
+            cap = min(max(settle_timeout_s, 0.0), _SETTLE_CAP_S)
+            with self._cond:
+                self._cond.wait_for(
+                    lambda: self._closed
+                    or self._produced <= self._remote_consumed,
+                    timeout=cap)
         self.close(reason=reason)
 
     def _close_local(self, notify_peer: bool,
@@ -308,6 +335,15 @@ class Stream:
             self._closed = True
         if reason is not None and self.close_reason is None:
             self.close_reason = reason
+        engine = self._native_tx
+        if engine is not None:
+            # off the kind-5 lane FIRST: a racing producer fails fast
+            # instead of writing after the FIN
+            self._native_tx = None
+            try:
+                engine.stream_unregister(self.id)
+            except Exception:
+                pass
         if notify_peer and self.peer_stream_id:
             self._send_frame(F_CLOSE, reason.encode() if reason else b"")
         with self._cond:

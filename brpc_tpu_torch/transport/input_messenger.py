@@ -14,7 +14,8 @@ blocking sockets: :meth:`InputMessenger.serve` is a connection's reader
 can cut), where the JAX package runs ``on_new_messages`` on a fiber woken
 by its event dispatcher.  The port's server hands a connection to it
 when the connection's first bytes are not tpu_std's (HTTP/1.x and h2);
-tpu_std connections keep their ``read_frame`` reader.
+tpu_std connections keep their ``read_frame`` reader.  On the native
+engine the loop reads the bytes and :meth:`process_buffered` cuts them.
 """
 
 from __future__ import annotations
@@ -62,6 +63,12 @@ class InputMessenger:
                 sock.set_failed(Errno.EEOF, "remote closed connection")
                 return
             self._cut_and_process(sock)
+
+    def process_buffered(self, sock: Socket) -> None:
+        """Cut and dispatch what is already in ``sock.read_portal``: the
+        native engine's passthrough lane, whose loop read the bytes
+        (``transport/native_bridge.py``)."""
+        self._cut_and_process(sock)
 
     def _cut_and_process(self, sock: Socket) -> None:
         source = sock.read_portal

@@ -18,6 +18,12 @@ and not yet cut), ``last_protocol``, ``h2_conn`` (the h2 session),
 ``/sockets`` page.  ``conn`` may be an ``ssl.SSLSocket`` (TLS at either
 end); ``app_data`` holds the server's per-connection auth verdict.
 
+A connection of the native engine has no Python socket: its
+``NativeSocket`` (``transport/native_bridge.py``) passes ``conn=None``
+with both addresses and fills the three hooks that touch the connection
+(:meth:`_send`, :meth:`_shutdown`, :meth:`_close_conn`), so controllers,
+streams and device-attachment acks address it through the same registry.
+
 Acks.  :meth:`queue_ack` queues descriptor ids.  While ``defer_acks`` is
 set (a server between reading a request and writing its response) they
 ride in front of the next frame written, so a request descriptor's ack
@@ -48,11 +54,12 @@ def _endpoint(addr) -> Optional[EndPoint]:
 
 
 class Socket:
-    def __init__(self, conn: socket.socket,
-                 remote_side: Optional[EndPoint] = None):
+    def __init__(self, conn: Optional[socket.socket],
+                 remote_side: Optional[EndPoint] = None,
+                 local_side: Optional[EndPoint] = None):
         self.conn = conn
         self.remote_side = remote_side or _endpoint(conn.getpeername())
-        self.local_side = _endpoint(conn.getsockname())
+        self.local_side = local_side or _endpoint(conn.getsockname())
         self.ici_endpoint = None        # lazy IciEndpoint (device payloads)
         self.ici_peer_domain: Optional[bytes] = None   # learned from meta
         self.ici_conn_token: Optional[bytes] = None    # client: generated;
@@ -87,10 +94,7 @@ class Socket:
         (EOF, bytes no protocol claims; ``code`` and ``text`` name it):
         marked failed, shut down."""
         self.failed = True
-        try:
-            self.conn.shutdown(socket.SHUT_RDWR)
-        except OSError:
-            pass
+        self._shutdown()
 
     def write(self, data) -> None:
         """Write one or more whole frames (bytes, or an ``IOBuf`` sent
@@ -152,11 +156,7 @@ class Socket:
             self.stream_map.clear()
         for stream in streams:
             stream._on_conn_broken()
-        try:
-            # wakes a thread blocked reading this connection
-            self.conn.shutdown(socket.SHUT_RDWR)
-        except OSError:
-            pass
+        self._shutdown()    # wakes a thread blocked reading the connection
         if self.ici_endpoint is not None:
             from ..ici.fabric import (in_process_fabric,
                                       installed_transfer_fabric)
@@ -173,15 +173,24 @@ class Socket:
         # flight when the client died) are swept the same way
         from ..kv.pages import on_socket_closed
         on_socket_closed(("kv", self.id))
-        try:
-            self.conn.close()
-        except OSError:
-            pass
+        self._close_conn()
 
     def _take_acks(self) -> bytes:
         with self._ack_lock:
             ids, self._pending_acks = self._pending_acks, []
         return pack_ack_frame(ids) if ids else b""
+
+    def _shutdown(self) -> None:
+        try:
+            self.conn.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+
+    def _close_conn(self) -> None:
+        try:
+            self.conn.close()
+        except OSError:
+            pass
 
     def _send(self, data) -> None:
         if not data:

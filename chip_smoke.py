@@ -193,6 +193,33 @@ result line) when a phase fails or CUDA is absent.  Phases:
    size, ``pooled_bytes`` back to 0), every landing's checksum through
    ``checksum.cu`` equal to the host's, a recycle over the cap dropped,
    and land GB/s beside a fresh ``torch.empty(...).copy_``;
+   17. the native C++ IO engine (``brpc_tpu_torch/native``, built with
+   g++ into ``native/_build/``; the phase fails if it does not load or
+   if its bridge owns no connection) serving phase 5's service on
+   ``Server(native=True)``: (a) phase 5's three Generates on the engine,
+   in turns with the Python server, three rounds, with
+   ``usercode_inline`` off (the classic lane on a fiber) and on (the
+   kind-3 slim lane): phase 5's tokens, ``flash_fwd`` depth a request,
+   host ms per shape for both lanes; (b) 6b's eight Decode streams on
+   the kind-5 lane against the Python stream lane of the same server
+   (``rpc_native_stream_lane`` flipped between runs, native, Python,
+   Python, native): tokens equal between the lanes and to the solo
+   generator under the near-tie rule, aggregate tok/s, median and max
+   TTFT, the round's emit ms (``PH_STREAM_EMIT``); (c) phase 13 (c)'s
+   method cap of 2 on the engine (one loop per connection) and on the
+   Python server: four refusals one after another and four at once
+   while the two capped Generates run, ``ELIMIT`` ms each, no launch
+   for a refused call; (d) two replicas of phase 5's weights, each on a
+   server of its own, on the engine and on the Python transport: two
+   Generates side by side against the two in turn, over RPC; (e) 1 MiB
+   device echoes of the full-width EmbeddingPS on the engine against
+   the Python server, in turns: calls/s, two ``checksum.cu`` launches a
+   call, every echo zero-copy, no live descriptor left (the TICI acks
+   come back through the engine); (f) a drain during four Decode
+   streams on the kind-5 lane of a paged service: drain ms, every stream
+   closed ``lame_duck``, no page left, and the lame-duck TLV on a
+   response the engine built itself (a kind-0 echo) beside the
+   ``ELAMEDUCK`` refusal of a new Generate;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -332,7 +359,7 @@ from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
     unpack_frame)
 from brpc_tpu_torch.rpcz import global_span_store  # noqa: E402
 from brpc_tpu_torch.server import (  # noqa: E402
-    Server, Service, admission, method)
+    Server, Service, admission, method, raw_method)
 from brpc_tpu_torch.server.server import (  # noqa: E402
     DRAIN_FORCE_CLOSE_REASON, ServerOptions)
 from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
@@ -5708,6 +5735,13 @@ P16_CANCEL_REQUEST = (1, 1500, 64)
 P16_POOL_SIZES = (1 << 20, 64 << 20)
 P16_POOL_REPS = 20
 P16_POOL_WARMUP = 3
+P17_ROUNDS = 3
+P17_DECODE_ORDER = ("native", "python", "python", "native")
+P17_ECHO_CALLS = 100                      # per lane and turn
+P17_ECHO_ORDER = ("python", "native", "native", "python")
+P17_LOOPS = 8                             # (c): one engine loop a connection
+P17_DRAIN_STREAMS = 4
+P17_DRAIN_PROMPT = 256
 
 
 class Auth16:
@@ -6188,6 +6222,496 @@ def phase_slice16(svc: LMService, srv: Server, ch: Channel, cfg: LMConfig,
     return res
 
 
+def native_server(services: dict, inline: bool = True,
+                  options: ServerOptions = None) -> Server:
+    """A port Server on the native engine; fails when the engine does not
+    load (the Python transport is not an answer here)."""
+    from brpc_tpu_torch import native
+    if native.load() is None:
+        raise AssertionError("phase 17: the native engine did not load")
+    opts = options or ServerOptions()
+    opts.native = True
+    opts.usercode_inline = inline
+    server = serve_lm(services, opts)
+    if server._native_bridge is None:
+        server.stop()
+        raise AssertionError("phase 17: the server is not on the engine")
+    return server
+
+
+def engine_lanes(server: Server) -> dict:
+    """The engine's handled counts per lane, read fresh."""
+    t = server._native_bridge.engine.telemetry()
+    return {lane: d["handled"] for lane, d in t["lanes"].items()}
+
+
+def engine_streams(server: Server) -> dict:
+    return dict(server._native_bridge.engine.telemetry()["streams"])
+
+
+def owns_connections(server: Server, what: str) -> None:
+    """Fail unless the engine accepted the part's connections (their
+    clients may have closed them by now)."""
+    loops = server._native_bridge.engine.telemetry()["loops"]
+    if server._native_bridge.connection_count() < 1 \
+            and sum(lo["accepts"] for lo in loops) < 1:
+        raise AssertionError(f"phase 17 {what}: the bridge owns no "
+                             f"connection")
+
+
+def timed_generates(ch: Channel, prompts: list, rows: list) -> list:
+    """Phase 5's requests, one after another: (ids, host ms) each."""
+    outs = []
+    for prompt, row in zip(prompts, rows):
+        t0 = time.perf_counter()
+        ids = generate(ch, prompt, row["max_new"])
+        outs.append((ids, (time.perf_counter() - t0) * 1e3))
+    return outs
+
+
+def phase_p17_generate(svc: LMService, ch: Channel, cfg: LMConfig,
+                       rows: list) -> dict:
+    """(a) Phase 5's Generates on the engine, in turns with the Python
+    server (phase 5's, through ``ch``), with usercode_inline off and on."""
+    prompts = phase5_prompts(cfg)
+    res, launches = {}, 0
+    for inline in (False, True):
+        label = "inline" if inline else "fiber"
+        server = native_server({"LM": svc}, inline)
+        nch = Channel()
+        try:
+            nch.init(str(server.listen_endpoint))
+            lanes0 = engine_lanes(server)
+            ms = {"python": [], "native": []}
+            for r in range(P17_ROUNDS):
+                order = ("python", "native") if r % 2 == 0 \
+                    else ("native", "python")
+                for lane in order:
+                    FLASH_FWD.launches = 0
+                    outs = timed_generates(
+                        nch if lane == "native" else ch, prompts, rows)
+                    n = FLASH_FWD.launches
+                    launches += n
+                    check_lane(f"(a) {label} {lane} round {r}", outs, rows,
+                               n, cfg)
+                    ms[lane].append([t for _, t in outs])
+            owns_connections(server, "(a)")
+            lanes = {k: v - lanes0[k] for k, v in engine_lanes(server).items()}
+        finally:
+            nch.close()
+            server.stop()
+        want_slim = P17_ROUNDS * len(REQUESTS) if inline else 0
+        rounded = {lane: [[round(t, 1) for t in r] for r in v]
+                   for lane, v in ms.items()}
+        log(f"  (a) usercode_inline {inline}: the engine's lanes "
+            f"+{lanes}; host ms per shape and round, Python server "
+            f"{rounded['python']}, native {rounded['native']} "
+            f"({card_line()})")
+        if lanes["slim"] != want_slim:
+            raise AssertionError(f"(a) {label}: {lanes['slim']} Generates "
+                                 f"on the kind-3 lane, expected {want_slim}")
+        res[label] = dict(python_ms=ms["python"], native_ms=ms["native"],
+                          lanes=lanes)
+    res["launches"] = launches
+    return res
+
+
+def lane_compare(a: list, b: list, solo: list) -> tuple:
+    """Two runs' session tokens: (sessions equal, sessions that differ
+    first at a near-tie of the solo run).  Any other difference fails."""
+    equal = ties = 0
+    for i, (x, y, (want, margins)) in enumerate(zip(a, b, solo)):
+        if x == y:
+            equal += 1
+            continue
+        j = next(k for k, (p, q) in enumerate(zip(x, y)) if p != q) \
+            if any(p != q for p, q in zip(x, y)) else min(len(x), len(y))
+        if j >= len(margins) or margins[j] >= LOGIT_RTOL:
+            raise AssertionError(f"(b) session {i}: the lanes' tokens "
+                                 f"differ at {j}, not at a near-tie")
+        ties += 1
+    return equal, ties
+
+
+def phase_p17_decode(svc: LMService, cfg: LMConfig, six_b: dict) -> dict:
+    """(b) 6b's eight Decode streams on the kind-5 lane against the Python
+    stream lane of the same native server."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+    solo = [solo_reference(svc, cfg, p, DECODE_MAX_NEW) for p in prompts]
+    server = native_server({"LM": svc})
+    batcher = svc.batcher()
+    runs, launches = [], 0
+    try:
+        for lane in P17_DECODE_ORDER:
+            set_flag("rpc_native_stream_lane", lane == "native")
+            lanes0, st0 = engine_lanes(server), engine_streams(server)
+            emit0 = lm_telemetry.phase_total_ns()["stream_emit"]
+            nemit0 = lm_telemetry.phase_counters()["stream_emit"]
+            FLASH_FWD.launches = 0
+            clients, wall_s, most_live = run_decode_sessions(
+                server.listen_endpoint, "LM", prompts, DECODE_STAGGER_S,
+                batcher)
+            n = FLASH_FWD.launches
+            launches += n
+            owns_connections(server, "(b)")
+            nemit = lm_telemetry.phase_counters()["stream_emit"] - nemit0
+            emit_ms = (lm_telemetry.phase_total_ns()["stream_emit"]
+                       - emit0) / 1e6 / max(nemit, 1)
+            lanes1, st1 = engine_lanes(server), engine_streams(server)
+            opened = lanes1["stream"] - lanes0["stream"]
+            chunks = st1["chunks_out"] - st0["chunks_out"]
+            tokens = sum(len(c.tokens) for c in clients)
+            ttfts = sorted(c.ttft_s * 1e3 for c in clients)
+            for i, (c, (want, margins)) in enumerate(zip(clients, solo)):
+                for j, (got, ref) in enumerate(zip(c.tokens, want)):
+                    if got != ref:
+                        if margins[j] >= LOGIT_RTOL:
+                            raise AssertionError(
+                                f"(b) {lane} session {i} token {j}: {got} "
+                                f"against the solo run's {ref}")
+                        break
+            run = dict(lane=lane, tokens=tokens, wall_s=wall_s,
+                       tok_s=tokens / wall_s, most_live=most_live,
+                       ttft_median_ms=statistics.median(ttfts),
+                       ttft_max_ms=ttfts[-1], emit_ms=emit_ms,
+                       emit_rounds=nemit, stream_opens=opened,
+                       native_chunks=chunks, launches=n,
+                       session_tokens=[c.tokens for c in clients])
+            runs.append(run)
+            log(f"  (b) {lane} stream lane: {tokens} tokens in "
+                f"{wall_s:.3f} s = {run['tok_s']:.1f} tok/s aggregate, TTFT "
+                f"median {run['ttft_median_ms']:.1f} ms, max "
+                f"{run['ttft_max_ms']:.1f} ms; {nemit} emit rounds, "
+                f"{emit_ms:.4f} ms each; kind-5 opens {opened}, chunks "
+                f"written by the engine {chunks}; flash_fwd {n}")
+            want_opens = len(prompts) if lane == "native" else 0
+            if opened != want_opens or (chunks > 0) != (lane == "native") \
+                    or n != cfg.depth * len(prompts):
+                raise AssertionError(f"(b) {lane}: the streams did not "
+                                     f"ride the lane asked for")
+    finally:
+        set_flag("rpc_native_stream_lane", True)
+        server.stop()
+        batcher.shutdown()
+    native = [r for r in runs if r["lane"] == "native"]
+    python = [r for r in runs if r["lane"] == "python"]
+    equal, ties = lane_compare(native[0]["session_tokens"],
+                               python[0]["session_tokens"], solo)
+    equal_6b, ties_6b = lane_compare(native[0]["session_tokens"],
+                                     six_b["session_tokens"], solo)
+    log(f"  (b) sessions with equal tokens on both lanes: {equal} of "
+        f"{len(prompts)} ({ties} apart after a near-tie); equal to 6b's: "
+        f"{equal_6b} ({ties_6b} after a near-tie); {card_line()}")
+    for r in runs:
+        del r["session_tokens"]
+    return dict(runs=runs, equal=equal, near_ties=ties, equal_6b=equal_6b,
+                launches=launches)
+
+
+def refusals(chans: list, prompt: np.ndarray, max_new: int,
+             together: bool) -> list:
+    """One Generate on each channel, all refused: one after another, or
+    all at once from a thread each; (host ms, code) each."""
+    out = [None] * len(chans)
+
+    def one(i):
+        t0 = time.perf_counter()
+        code = gen_call(chans[i], prompt, max_new, 600_000).error_code
+        out[i] = ((time.perf_counter() - t0) * 1e3, code)
+
+    if not together:
+        for i in range(len(chans)):
+            one(i)
+        return out
+    gate = threading.Barrier(len(chans))
+    threads = [threading.Thread(target=lambda i=i: (gate.wait(), one(i)))
+               for i in range(len(chans))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return out
+
+
+def phase_p17_admission(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(c) Phase 13 (c)'s method cap, on the engine and on the Python
+    transport: the refusals alone and at once, beside two capped calls."""
+    prompt, want = ref
+    elimit = int(Errno.ELIMIT)
+    res = {}
+    for lane in ("python", "native"):
+        opts = ServerOptions()
+        opts.method_max_concurrency = {"LM.Generate": ADMIT_CAP}
+        if lane == "native":
+            # one loop a connection: the single listener hands each new
+            # connection to the next loop, so the refusals never queue
+            # behind a capped Generate running on its loop
+            opts.native_loops = P17_LOOPS
+            set_flag("engine_reuseport", False)
+            server = native_server({"LM": svc}, True, opts)
+        else:
+            server = serve_lm({"LM": svc}, opts)
+        try:
+            extra = connected_channels(server.listen_endpoint,
+                                       ADMIT_CALLS - ADMIT_CAP)
+            before = admission.admission_counters()
+            FLASH_FWD.launches = 0
+            capped = {}
+            t = threading.Thread(target=lambda: capped.__setitem__(
+                "res", concurrent_generates(server.listen_endpoint,
+                                            ADMIT_CAP, prompt, len(want))))
+            t.start()
+            st = server.method_status("LM.Generate")
+            wait_until(lambda: st.inflight == ADMIT_CAP, 60,
+                       "the capped calls")
+            alone = refusals(extra, prompt, len(want), False)
+            burst = refusals(extra, prompt, len(want), True)
+            busy = st.inflight == ADMIT_CAP
+            t.join(600)
+            launches = FLASH_FWD.launches
+            verdicts = admission_delta(before)
+            if lane == "native":
+                owns_connections(server, "(c)")
+            for c in extra:
+                c.close()
+        finally:
+            server.stop()
+            set_flag("engine_reuseport", True)
+        served = [tok for code, _, tok in capped["res"] if code == 0]
+        log(f"  (c) {lane}: method cap {ADMIT_CAP}, {len(served)} served "
+            f"(phase 5's tokens {all(x == want for x in served)}); refusals "
+            f"one after another " + ", ".join(f"[{c}] {ms:.2f}"
+                                             for ms, c in alone)
+            + " ms; all at once " + ", ".join(f"[{c}] {ms:.2f}"
+                                             for ms, c in burst)
+            + f" ms; capped calls still running after both {busy}; "
+            f"flash_fwd {launches}; overload_admission_total +{verdicts}")
+        if len(served) != ADMIT_CAP or any(x != want for x in served) \
+                or any(code != elimit for _, code in alone + burst) \
+                or launches != cfg.depth * ADMIT_CAP \
+                or verdicts.get("-/method_cap") != len(alone) + len(burst):
+            raise AssertionError(f"(c) {lane}: the cap did not hold")
+        res[lane] = dict(alone_ms=[ms for ms, _ in alone],
+                         burst_ms=[ms for ms, _ in burst],
+                         capped_running=busy, launches=launches)
+    res["launches"] = res["python"]["launches"] + res["native"]["launches"]
+    log(f"  (c) ELIMIT median ms alone / at once: Python "
+        f"{statistics.median(res['python']['alone_ms']):.2f} / "
+        f"{statistics.median(res['python']['burst_ms']):.2f}, native "
+        f"{statistics.median(res['native']['alone_ms']):.2f} / "
+        f"{statistics.median(res['native']['burst_ms']):.2f}; "
+        f"{card_line()}")
+    return res
+
+
+def phase_p17_replicas(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(d) Two replicas of phase 5's weights, each an LMService (its own
+    device lock) on a server of its own: two Generates side by side
+    against the two in turn, over RPC, on the engine and in Python."""
+    prompt, want = ref
+    reps = [LMService(cfg=cfg, params=svc.params, device="cuda",
+                      decode_slots=1) for _ in range(2)]
+    res, launches = {}, 0
+    for lane in ("python", "native", "native", "python"):
+        servers = [native_server({"LM": r}) if lane == "native"
+                   else serve_lm({"LM": r}) for r in reps]
+        chans = []
+        try:
+            for server in servers:
+                c = Channel()
+                c.init(str(server.listen_endpoint))
+                chans.append(c)
+            outs = []
+
+            def one(c):
+                out = gen_call(c, prompt, len(want), 600_000)
+                outs.append(not out.failed and unpack_generated(
+                    out.response)[0].tolist() == want)
+
+            FLASH_FWD.launches = 0
+            t0 = time.perf_counter()
+            for c in chans:
+                one(c)
+            turn_ms = (time.perf_counter() - t0) * 1e3
+            threads = [threading.Thread(target=one, args=(c,))
+                       for c in chans]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            side_ms = (time.perf_counter() - t0) * 1e3
+            n = FLASH_FWD.launches
+            launches += n
+            if lane == "native":
+                for server in servers:
+                    owns_connections(server, "(d)")
+        finally:
+            for c in chans:
+                c.close()
+            for server in servers:
+                server.stop()
+        log(f"  (d) {lane}: two replicas, in turn {turn_ms:.1f} ms, side by "
+            f"side {side_ms:.1f} ms ({side_ms / turn_ms:.2f}x); tokens "
+            f"{all(outs)}; flash_fwd {n}")
+        if len(outs) != 4 or not all(outs) or n != 4 * cfg.depth:
+            raise AssertionError(f"(d) {lane}: a replica's Generate failed")
+        res.setdefault(lane, []).append(dict(turn_ms=turn_ms,
+                                             side_ms=side_ms))
+    res["launches"] = launches
+    log(f"  (d) {card_line()}")
+    return res
+
+
+def phase_p17_echo() -> dict:
+    """(e) 1 MiB device echoes of the full-width EmbeddingPS on the
+    engine against the Python server, in turns."""
+    cs = CountedChecksum()
+    model = EmbeddingPS(PS_CFG, device="cuda", seed=0)
+    servers = {"python": serve_lm({"PS": PSService(model)}),
+               "native": native_server({"PS": PSService(model)})}
+    chans = {}
+    x = torch.arange(ECHO_BYTES // 4, dtype=torch.float32, device="cuda")
+    res = {lane: [] for lane in servers}
+    try:
+        for lane, server in servers.items():
+            chans[lane] = Channel()
+            chans[lane].init(str(server.listen_endpoint))
+            echo(chans[lane], x, cs)        # the domain exchange
+        CHECKSUM.launches = 0
+        calls0 = cs.calls
+        for lane in P17_ECHO_ORDER:
+            same = 0
+            t0 = time.perf_counter()
+            for _ in range(P17_ECHO_CALLS):
+                dev, out = echo(chans[lane], x, cs)
+                same += dev and out.data_ptr() == x.data_ptr()
+            rps = P17_ECHO_CALLS / (time.perf_counter() - t0)
+            res[lane].append(dict(rps=rps, zero_copy=same))
+            log(f"  (e) {lane}: 1 MiB echo x{P17_ECHO_CALLS}: {rps:.1f} "
+                f"calls/s, zero-copy {same}/{P17_ECHO_CALLS}")
+            if same != P17_ECHO_CALLS:
+                raise AssertionError(f"(e) {lane}: echoes not zero-copy")
+        owns_connections(servers["native"], "(e)")
+        live, outstanding = wait_fabric_empty()
+        launches = CHECKSUM.launches
+        calls = cs.calls - calls0
+    finally:
+        for c in chans.values():
+            c.close()
+        for server in servers.values():
+            server.stop()
+    per_call = launches / (len(P17_ECHO_ORDER) * P17_ECHO_CALLS)
+    log(f"  (e) checksum.cu launches {launches} for {calls} checksums "
+        f"({per_call:.0f} a call); {live} live descriptors, {outstanding} "
+        f"outstanding bytes; {card_line()}")
+    if launches != calls or per_call != 2 or live or outstanding:
+        raise AssertionError("(e): launches or descriptors off")
+    res.update(checksum_launches=launches, live_descriptors=live)
+    return res
+
+
+class NativeEcho(Service):
+    """``Echo`` answered by the engine with no Python (kind 0)."""
+
+    @raw_method(native="echo")
+    def Echo(self, payload, attachment):
+        return payload, attachment
+
+
+def phase_p17_drain(paged: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(f) A drain during four Decode streams on the kind-5 lane of a
+    paged service on the engine."""
+    import socket as pysock
+    prompt, want = ref
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab, P17_DRAIN_PROMPT, dtype=np.int32)
+               for _ in range(P17_DRAIN_STREAMS)]
+    server = native_server({"LMPaged": paged, "LM": paged,
+                            "Echo": NativeEcho()})
+    batcher = paged.batcher()
+    probe = pysock.create_connection(("127.0.0.1",
+                                      server.listen_endpoint.port))
+    try:
+        lanes0 = engine_lanes(server)
+        clients = [DecodeClient(server.listen_endpoint, "LMPaged", p,
+                                DRAIN_MAX_NEW) for p in prompts]
+        threads = [threading.Thread(target=c.run) for c in clients]
+        FLASH_FWD.launches = 0
+        for t in threads:
+            t.start()
+        wait_until(lambda: all(c.tokens for c in clients), 120,
+                   "every stream's first token")
+        opened = engine_lanes(server)["stream"] - lanes0["stream"]
+        owns_connections(server, "(f)")
+        drained = {}
+        t0 = time.perf_counter()
+        d = threading.Thread(target=lambda: drained.__setitem__(
+            "rc", server.drain(DRAIN_GRACE_MS)))
+        d.start()
+        wait_until(lambda: server.draining, 10, "the drain")
+        meta = RpcMeta()
+        meta.correlation_id = 5
+        meta.service_name, meta.method_name = "Echo", "Echo"
+        probe.sendall(pack_frame(meta, b"drain-probe"))
+        echo_meta, echo_body, _ = read_frame(probe)
+        lame = raw_generate(probe, 7, prompt, len(want))
+        d.join(60)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        for c in clients:
+            if not c.done.wait(60):
+                raise AssertionError("(f): a stream never closed")
+        for t in threads:
+            t.join(10)
+        wait_until(lambda: session_pages(batcher) == (0, 0, 0), 60,
+                   "the drained sessions' pages")
+        left = session_pages(batcher)
+        launches = FLASH_FWD.launches
+    finally:
+        probe.close()
+        server.stop()
+        batcher.shutdown()
+    reasons = [c.reason for c in clients]
+    log(f"  (f) drain of a native server during {P17_DRAIN_STREAMS} kind-5 "
+        f"Decode streams ({opened} opened on the lane): rc "
+        f"{drained.get('rc')} in {drain_ms:.1f} ms; stream reasons "
+        f"{reasons}, tokens {[len(c.tokens) for c in clients]}; pages "
+        f"held, spills in flight, exported {left}; the engine's own echo "
+        f"during the drain: lame_duck TLV {echo_meta.lame_duck}, payload "
+        f"intact {echo_body == b'drain-probe'}; a new Generate "
+        f"[{lame.error_code}] lame_duck {lame.lame_duck}; flash_fwd "
+        f"{launches}; {card_line()}")
+    if drained.get("rc") != 0 or set(reasons) != {"lame_duck"} \
+            or left != (0, 0, 0) or opened != P17_DRAIN_STREAMS \
+            or echo_meta.lame_duck != 1 or echo_body != b"drain-probe" \
+            or lame.error_code != int(Errno.ELAMEDUCK) \
+            or lame.lame_duck != 1 \
+            or launches != cfg.depth * P17_DRAIN_STREAMS:
+        raise AssertionError("(f): the native drain did not settle")
+    return dict(rc=drained["rc"], drain_ms=drain_ms, left=left,
+                tokens=[len(c.tokens) for c in clients], launches=launches)
+
+
+def phase_slice17(svc: LMService, ch: Channel, cfg: LMConfig, rows: list,
+                  six_b: dict, paged: dict) -> dict:
+    """Phase 17 on phase 5's service: the native engine."""
+    t0 = time.perf_counter()
+    ref = (phase5_prompts(cfg)[0], rows[0]["tokens"])
+    res = {"generate": phase_p17_generate(svc, ch, cfg, rows),
+           "decode": phase_p17_decode(svc, cfg, six_b),
+           "admission": phase_p17_admission(svc, cfg, ref),
+           "replicas": phase_p17_replicas(svc, cfg, ref),
+           "echo": phase_p17_echo(),
+           "drain": phase_p17_drain(paged["LMPaged"], cfg, ref)}
+    res["launches"] = sum(res[k]["launches"] for k in (
+        "generate", "decode", "admission", "replicas", "drain"))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17: {res['seconds']:.1f} s; flash_fwd launches "
+        f"{res['launches']}, checksum launches "
+        f"{res['echo']['checksum_launches']} ({card_line()})")
+    return res
+
+
 def phase_moe() -> dict:
     """Phase 6e: the MoE LM at MOE_CFG, full width and depth, through
     Generate, Decode (contiguous, paged with chunked prefill) and the
@@ -6595,6 +7119,10 @@ def main() -> int:
             "interceptor, session data), TLS, async calls and the device "
             "block pool")
         slice16 = phase_slice16(svc, srv, ch, cfg, rows)
+        log("[17] the native C++ IO engine: Generate on the kind-3 lane, "
+            "Decode on the kind-5 lane, the method cap's refusals, two "
+            "replicas, device echoes and a drain")
+        slice17 = phase_slice17(svc, ch, cfg, rows, streams, paged)
     finally:
         ch.close()
         srv.stop()
@@ -6663,6 +7191,7 @@ def main() -> int:
                  "cluster": cluster["launches"],
                  "http_grpc": proto["launches"],
                  "stages_tls_async": slice16["launches"],
+                 "native_engine": slice17["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -6720,13 +7249,15 @@ def main() -> int:
                      + xproc["xfer"]["launches_inline"]
                      + xproc["xfer"]["child_launches"]
                      + par["two_processes"]["checksum_launches"]
-                     + slice16["pool"]["checksum_launches"]),
+                     + slice16["pool"]["checksum_launches"]
+                     + slice17["echo"]["checksum_launches"]),
         "launches_by_path": {
             "ps": ps["launches"], "xproc": xproc["xfer"]["launches"],
             "xproc_inline": xproc["xfer"]["launches_inline"],
             "xproc_child": xproc["xfer"]["child_launches"],
             "dryrun_echo": par["two_processes"]["checksum_launches"],
-            "block_pool": slice16["pool"]["checksum_launches"]},
+            "block_pool": slice16["pool"]["checksum_launches"],
+            "native_echo": slice17["echo"]["checksum_launches"]},
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
@@ -6747,6 +7278,7 @@ def main() -> int:
     log(f"  cluster: {json.dumps(cluster, default=str)}")
     log(f"  protocols: {json.dumps(proto)}")
     log(f"  slice16: {json.dumps(slice16)}")
+    log(f"  slice17: {json.dumps(slice17)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")
