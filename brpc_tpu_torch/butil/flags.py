@@ -91,3 +91,14 @@ def list_flags() -> List[Flag]:
 
 def any_value(v) -> bool:
     return True
+
+
+def positive(v) -> bool:
+    return v > 0
+
+
+# the core flag the port's client reads (``transport/socket_map.py``'s
+# health check); the JAX package's other core flag, ``max_body_size``,
+# is defined beside its reader in ``protocol/tpu_std.py``
+define_flag("health_check_interval_s", 3.0,
+            "failed-socket reconnect period", positive)

@@ -5,9 +5,24 @@ server ("ip:port"), or a cluster (a naming URL, ``"list://a:1,b:2"``,
 ``"file:///path"``, ``"dns://host:port"``, ``"watch://host:port/path"``,
 ``"mesh://name"``, with a load balancer's name: ``"rr"``, ``"wrr"``,
 ``"random"``, ``"wr"``, ``"c_murmurhash"``, ``"c_md5"``, ``"la"``,
-``"dynpart"``), then ``call_method`` / ``call``.  A call that times out
-or loses a connection closes it (reclaiming the device payloads posted
-on it), and the next call reconnects.
+``"dynpart"``), then ``call_method`` / ``call``.
+
+Connections (``transport/socket_map.py``, as the JAX client's): a
+``"single"`` connection is the process's one connection to its peer,
+shared by every channel to it with the same signature (TLS context,
+connect timeout, credentials; ``socket_map.conn_key``) and taken from
+the socket map; calls are
+multiplexed on it and matched by correlation id, its reads owned by the
+client lane's native demux (``transport/client_lane.py``) or, when the
+lane declines, by a reader thread.  A call that times out there fails
+alone and leaves the connection up; a transport error fails the
+connection, every call waiting on it and its streams, and the health
+check revives it in place.  ``"pooled"`` and ``"short"`` connections
+come from the map's pools.  A blocking call on them takes the fast lane
+(``client/fast_call.py``: the engine's ``sync_call`` on the calling
+thread) when ``fast_call.eligible`` holds, as in the JAX client
+(``brpc_tpu/client/channel.py:201-210``); :meth:`Channel.call_raw` and
+:meth:`Channel.call_batch` ride it too.
 
 Device attachments (``brpc_tpu/client/controller.py``'s ICI lane): every
 request advertises this process's fabric domain and the connection
@@ -35,20 +50,18 @@ window into the request meta, binds the stream to the connection before
 the write, and the response binds it to the server's stream (a failed
 call, or one the server did not accept it on, closes it).  Stream frames
 arrive after the call returns, and the first may arrive before the
-response: from that call on the connection gets one reader thread, which
-owns every read, hands each response to its waiting call by correlation
-id, and routes TSTR frames to their streams and TICI acks to the lane.
-A call that times out there leaves the connection up (the streams on it
-live on); its late response is dropped.  A call with ``cntl.trace_id``
-set is traced (``Controller._begin_trace_span``): its client span
-finishes with the call's outcome.
+response: the connection's reader (the lane or its thread) owns every
+read, hands each response to its waiting call by correlation id, and
+routes TSTR frames to their streams and TICI acks to the lane.  A call
+with ``cntl.trace_id`` set is traced (``Controller._begin_trace_span``):
+its client span finishes with the call's outcome.
 
 Retries and backup requests (``brpc_tpu/client/channel.py:20-116`` and
 the JAX ``Controller``'s attempt machinery): a call reserves
-``max_retry + 2`` correlation ids and attempt k carries ``base + k`` on
-the wire, as the JAX client's ranged id does, so a server sees the same
-frames from both.  Every attempt stamps what is left of the call's one
-deadline (TLV 13).  An attempt that fails under the retry policy is
+``max_retry + 2`` correlation ids from the process-wide counter the fast
+lane draws from too (``fast_call.reserve_cids``), and attempt k carries
+``base + k`` on the wire, as the JAX client's ranged id does.  Every
+attempt stamps what is left of the call's one deadline (TLV 13).  An attempt that fails under the retry policy is
 retried while ``max_retry`` allows and the channel's
 :class:`~brpc_tpu_torch.deadline.RetryBudget` grants a token, after
 ``retry_backoff_ms`` of exponential backoff with jitter (none for the
@@ -58,9 +71,9 @@ the first answer wins and the losers' responses are dropped without
 error.  Inside a server handler the call's timeout is capped by the
 inherited deadline (``deadline.cap_timeout_ms``) and an expired one
 fails fast with ``ERPCTIMEDOUT``.  ``connection_type``: ``"single"``
-(one connection per channel, calls serialized on it), ``"pooled"``
-(a free list of connections, one per concurrent attempt) or ``"short"``
-(a connection per attempt).  The port's server answers a connection's
+(the peer's shared connection), ``"pooled"`` (a free list of
+connections, one per concurrent attempt) or ``"short"`` (a connection
+per attempt).  The port's server answers a connection's
 requests in order, so a backup on ``"single"`` is sent but queues
 behind its primary and can only lose; hedging wants ``"pooled"``.
 
@@ -88,7 +101,8 @@ Other protocols (``brpc_tpu/client/channel.py:188``, ``:229``, ``:305``):
 ``ChannelOptions.protocol`` (or ``Channel(protocol=...)``) is
 ``"tpu_std"`` (the default), ``"http"`` or ``"grpc"``.  Over ``"http"``
 each attempt is one HTTP/1.1 ``POST /Service/Method`` on a connection of
-its own (``"single"`` becomes ``"pooled"``: HTTP/1.1 cannot multiplex),
+its own, from a pool of the channel's (``"single"`` becomes
+``"pooled"``: HTTP/1.1 cannot multiplex),
 carrying the attachment after the body (``x-rpc-attachment-size``), the
 remaining budget (``x-deadline-ms``), the trace (``traceparent``) and the
 tenant (``x-tenant``); its response is cut on the calling thread and
@@ -156,14 +170,18 @@ from ..rpcz import format_traceparent
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame,
                                 parse_payload, read_frame, serialize_payload)
 from ..transport import shm_ring
-from ..transport.socket import Socket
+from ..transport.client_lane import lane_cancel, lane_expect
+from ..transport.socket import Socket, dial
+from ..transport.socket_map import (NO_DEADLINE_S, conn_key,
+                                    global_socket_map, pooled_socket,
+                                    return_pooled_socket, short_socket)
+from . import fast_call
 from .circuit_breaker import global_circuit_breaker_map
 from .controller import (_ELAMEDUCK, _FAIL_FAST, Controller,
                          process_http_response)
 from .naming_service import global_lame_ducks
 
 _MAX_POST_WAIT_S = 30.0     # a request descriptor's wait for window credit
-_JOIN_TIMEOUT_S = 5.0
 _CONNECTION_TYPES = ("single", "pooled", "short")
 _PROTOCOLS = ("tpu_std", "http", "grpc")
 
@@ -220,18 +238,32 @@ class RpcError(Exception):
 
 
 class _Waiter:
-    """One attempt waiting for its response from the reader thread, which
-    delivers the response onto the call's results itself: two attempts of
-    one call on one connection then reach the call in the order their
-    responses arrived."""
+    """One attempt waiting on a ``"single"`` connection.  Its reader (the
+    client lane or the reader thread) delivers the response onto the
+    call's results itself (``socket_map.hand_over``): two attempts of one
+    call on one connection then reach the call in the order their
+    responses arrived.  A failed connection fails it."""
 
-    __slots__ = ("done", "error", "call", "version", "lease", "offered")
+    __slots__ = ("done", "error", "channel", "call", "version", "lease",
+                 "offered")
 
-    def __init__(self, call: "_Call", version: int, lease, offered: bool):
+    def __init__(self, channel: "Channel", call: "_Call", version: int,
+                 lease, offered: bool):
         self.done = threading.Event()
         self.error: Optional[str] = None
+        self.channel = channel
         self.call, self.version = call, version
         self.lease, self.offered = lease, offered
+
+    def deliver(self, msg, sock: Socket) -> None:
+        self.channel._deliver(self.call, self.version, (
+            "msg", (msg[0], msg[1], msg[2], sock, self.lease,
+                    self.offered)))
+        self.done.set()
+
+    def fail(self, why: str) -> None:
+        self.error = why
+        self.done.set()
 
 
 class _Call:
@@ -275,6 +307,27 @@ class _Call:
         return self.deadline - time.monotonic()
 
 
+_tls_contexts: Dict[tuple, Any] = {}
+_tls_contexts_lock = threading.Lock()
+
+
+def _client_tls_context(ca: Optional[str], verify: bool):
+    """The process's client TLS context for a CA file and a verification
+    setting, made on first use."""
+    key = (ca, verify)
+    with _tls_contexts_lock:
+        ctx = _tls_contexts.get(key)
+        if ctx is None:
+            import ssl
+            ctx = ssl.create_default_context(cafile=ca) if ca \
+                else ssl.create_default_context()
+            if not verify:
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
+            _tls_contexts[key] = ctx
+        return ctx
+
+
 class Channel:
     def __init__(self, options: Optional[ChannelOptions] = None,
                  protocol: Optional[str] = None):
@@ -287,39 +340,31 @@ class Channel:
         self.load_balancer = None
         self._subs: Dict[EndPoint, "Channel"] = {}
         self._subs_lock = threading.Lock()
-        self._sock: Optional[Socket] = None
-        self._next_cid = 1
         self._lock = threading.Lock()
-        # reader mode: the thread reading _reader_sock, and the calls
-        # waiting on it by correlation id
-        self._reader: Optional[threading.Thread] = None
-        self._reader_sock: Optional[Socket] = None
-        self._waiters: Dict[int, _Waiter] = {}
-        self._waiters_lock = threading.Lock()
-        self._inline: Optional[Socket] = None   # read inline by a call
-        self._want_reader: Optional[Socket] = None   # reader wanted after
-        self._pool: List[Socket] = []   # idle "pooled" connections
+        # the socket map's "single" entries this channel holds a ref on
+        self._map_keys: set = set()
+        self._method_tlvs: Dict[str, bytes] = {}   # the fast lane's cache
+        self._pool: List[Socket] = []   # idle HTTP/1.1 connections
         self._pool_lock = threading.Lock()
         self._retry_budget: Optional[RetryBudget] = None
         self._retry_budget_lock = threading.Lock()
-        self._ssl_ctx_cache = None
 
     def ssl_ctx(self):
-        """The channel's client TLS context (None when TLS is off)."""
+        """The channel's client TLS context (None when TLS is off): the
+        caller's own, else the process's one context for these options,
+        so channels with the same TLS options share connections."""
         opts = self.options
         if opts.ssl_context is not None:
             return opts.ssl_context
         if not opts.ssl:
             return None
-        if self._ssl_ctx_cache is None:
-            import ssl
-            ctx = ssl.create_default_context(cafile=opts.ssl_ca) \
-                if opts.ssl_ca else ssl.create_default_context()
-            if not opts.ssl_verify:
-                ctx.check_hostname = False
-                ctx.verify_mode = ssl.CERT_NONE
-            self._ssl_ctx_cache = ctx
-        return self._ssl_ctx_cache
+        return _client_tls_context(opts.ssl_ca, bool(opts.ssl_verify))
+
+    def _conn_key_args(self) -> tuple:
+        """``(ssl_context, connect_timeout_s, auth)``: the rest of this
+        channel's connection key (``socket_map.conn_key``)."""
+        return (self.ssl_ctx(), self.options.connect_timeout_ms / 1e3,
+                self.options.auth_data or b"")
 
     def init(self, addr: Any, lb_name: str = "") -> int:
         """``addr``: "ip:port" or an EndPoint for one server, or a naming
@@ -344,9 +389,12 @@ class Channel:
         return 0
 
     def close(self) -> None:
-        """Close the connections, and with them the streams they carry.
-        A cluster channel also closes its sub-channels and ends its naming
-        refresh (its balancer keeps the last server list)."""
+        """Let go of the shared connections (the last channel to a peer
+        closes its connection, and with it the streams it carries) and
+        close the HTTP connections.  A cluster channel also closes its
+        sub-channels and ends its naming refresh (its balancer keeps the
+        last server list).  Pooled connections stay in the process's
+        pools."""
         with self._subs_lock:
             subs = list(self._subs.values())
         for sub in subs:
@@ -354,14 +402,39 @@ class Channel:
         if self.load_balancer is not None:
             self.load_balancer.stop()
         with self._lock:
-            reader = self._reader
-            self._drop()
+            keys, self._map_keys = self._map_keys, set()
+        for key in keys:
+            global_socket_map().remove(key)
         with self._pool_lock:
             pool, self._pool = self._pool, []
         for sock in pool:
             sock.close()
-        if reader is not None and reader is not threading.current_thread():
-            reader.join(_JOIN_TIMEOUT_S)
+
+    @property
+    def _sock(self) -> Optional[Socket]:
+        """This channel's shared ``"single"`` connection, if open."""
+        if self.server is None:
+            return None
+        return global_socket_map().peek(self.server, *self._conn_key_args())
+
+    def _shared_socket(self) -> Socket:
+        """The peer's ``"single"`` connection under this channel's
+        signature, from the socket map (the first use takes a ref on it);
+        OSError when it cannot be had."""
+        ssl, connect_s, auth = self._conn_key_args()
+        key = conn_key(self.server, ssl, connect_s, auth)
+        if key not in self._map_keys:
+            with self._lock:
+                if key not in self._map_keys:
+                    self._map_keys.add(key)
+                    global_socket_map().insert(key)
+        sid, rc = global_socket_map().get_socket(
+            self.server, ssl, prefer_lane=True, connect_timeout_s=connect_s,
+            auth=auth)
+        sock = Socket.address(sid) if rc == 0 else None
+        if sock is None or sock.failed:
+            raise OSError(f"connect to {self.server} failed")
+        return sock
 
     def _sub(self, ep: EndPoint) -> "Channel":
         """The sub-channel holding ``ep``'s connections."""
@@ -373,11 +446,6 @@ class Channel:
                     sub = self._subs[ep] = Channel(self.options)
                     sub.server = ep
         return sub
-
-    def _drop(self) -> None:
-        if self._sock is not None:
-            self._sock.close()
-            self._sock = None
 
     # -- retry hardening ---------------------------------------------------
 
@@ -469,6 +537,8 @@ class Channel:
             else:
                 if self.options.protocol == "grpc":
                     self._call_grpc(c, method_full, payload, response_type)
+                elif not threaded and fast_call.eligible(self, c):
+                    self._call_fast(c, method_full, payload, response_type)
                 else:
                     self._launch(c, method_full, payload, stream,
                                  response_type, threaded)
@@ -478,6 +548,20 @@ class Channel:
             # the pending stream dies with it
             stream._close_local(notify_peer=False)
         c._end_trace_span(c.remote_side)
+
+    def _call_fast(self, c: Controller, method_full: str, payload: bytes,
+                   response_type: Any) -> None:
+        """A blocking pooled or short call on the fast lane.  A cancel
+        that came first ends it before it starts; a later one ends it
+        when its round trip returns (the response is dropped)."""
+        cancel = c._attach_call(None)
+        if cancel is None:
+            fast_call.run(self, c, method_full, payload, response_type,
+                          fast_call.channel_method_tlv(self, method_full))
+            cancel = c._cancel
+        if cancel is not None:
+            c.response = None
+            c.set_failed(*cancel)
 
     def _launch(self, c: Controller, method_full: str, payload: bytes,
                 stream, response_type: Any = None,
@@ -518,9 +602,7 @@ class Channel:
         backup = c.backup_request_ms
         hedged = bool(backup and backup > 0
                       and backup < (timeout_ms or 1 << 30))
-        with self._lock:
-            cid_base = self._next_cid
-            self._next_cid += c.max_retry + 2
+        cid_base = fast_call.reserve_cids(c.max_retry + 2)
         call = _Call(c, method_full, payload, stream, cid_base, deadline,
                      timeout_ms, c.connection_type, hedged, threaded,
                      response_type)
@@ -722,7 +804,7 @@ class Channel:
     def _discard(self, call: _Call, kind: str, data) -> None:
         """Drop a response no one takes: the credit of a device
         descriptor on it goes back, and a pooled or short connection that
-        carried it closes (it may hold an unread frame)."""
+        carried it closes."""
         if kind != "msg":
             return
         rmeta, _, _, sock, _, _ = data
@@ -788,146 +870,69 @@ class Channel:
         return frame, lease, offered, err
 
     def _attempt_single(self, call: _Call, meta: RpcMeta):
-        """One attempt on the channel's shared connection.  A call alone
-        on it writes and reads its response inline; a call that arrives
-        while another reads inline waits for its response by correlation
-        id, and the reading call hands it over (and, done, hands the
-        connection to a reader thread).  A stream, or a call that may
-        hedge, reads through the reader thread from the start.  The
-        result, or None when the response was handed over: the hand-over
-        delivers it onto the call."""
+        """One attempt on the peer's shared connection: registered under
+        its correlation id (with the client lane too) before the write,
+        then waited for.  A timeout fails this attempt alone; a write
+        error fails the connection.  The result, or None when the reader
+        delivered the response onto the call."""
         stream = call.stream
-        waiter = None
-        with self._lock:
+        cid = meta.correlation_id
+        try:
+            sock = self._shared_socket()
+            if stream is not None:
+                meta.stream_id = stream.id
+                meta.stream_window = stream.options.max_buf_size
+                if not stream._attach(sock.id):
+                    raise OSError("connection closed")
+            frame, lease, offered, err = self._stage(call, sock, meta,
+                                                     call.remaining_s())
+            if err is not None:
+                return "err", err
+            waiter = _Waiter(self, call, cid - call.cid_base, lease, offered)
+            if not sock.add_waiter(cid, waiter):
+                raise OSError("connection closed")
+            lane_expect(sock, cid)
             try:
-                sock = self._connect()
-                if stream is not None:
-                    meta.stream_id = stream.id
-                    meta.stream_window = stream.options.max_buf_size
-                    if not stream._attach(sock.id):
-                        raise OSError("connection closed")
-                if self._reader_sock is not sock and self._inline is not sock \
-                        and (stream is not None or call.hedged):
-                    self._start_reader(sock)
-                left = call.remaining_s()
-                frame, lease, offered, err = self._stage(call, sock, meta,
-                                                         left)
-                if err is not None:
-                    return "err", err
-                if self._reader_sock is sock or self._inline is sock:
-                    # the reader thread, or the call reading inline,
-                    # hands this call its response; a stream or a hedged
-                    # call keeps the reader once the inline call is done
-                    if stream is not None or call.hedged:
-                        self._want_reader = sock
-                    waiter = _Waiter(call, meta.correlation_id
-                                     - call.cid_base, lease, offered)
-                    with self._waiters_lock:
-                        self._waiters[meta.correlation_id] = waiter
-                    sock.write(frame)
-                else:
-                    self._inline = sock
-                    sock.conn.settimeout(None if left is None
-                                         else max(left, 1e-3))
-            except (OSError, EOFError, FrameError) as e:
-                if waiter is not None:
-                    with self._waiters_lock:
-                        self._waiters.pop(meta.correlation_id, None)
-                self._drop()
-                return "err", (int(Errno.EFAILEDSOCKET),
-                               f"{type(e).__name__}: {e}")
-        if waiter is None:
-            return self._read_inline(sock, frame, meta, lease, offered)
+                sock.write(frame)
+            except OSError as e:
+                sock.pop_waiter(cid)
+                lane_cancel(sock, cid)
+                sock.set_failed(int(Errno.EFAILEDSOCKET), str(e))
+                raise
+        except (OSError, EOFError, FrameError) as e:
+            return "err", (int(Errno.EFAILEDSOCKET),
+                           f"{type(e).__name__}: {e}")
         left = call.remaining_s()
         if not waiter.done.wait(None if left is None else max(left, 0.0)):
-            with self._waiters_lock:
-                timed_out = self._waiters.pop(meta.correlation_id,
-                                              None) is not None
-            if timed_out:
+            if sock.pop_waiter(cid) is not None:
+                lane_cancel(sock, cid)
                 return "timeout", None
             waiter.done.wait()      # its response is being handed over
+        lane_cancel(sock, cid)
         if waiter.error is not None:
             return "err", (int(Errno.EFAILEDSOCKET), waiter.error)
         return None                 # the reader delivered the response
-
-    def _read_inline(self, sock: Socket, frame: bytes, meta: RpcMeta,
-                     lease, offered) -> tuple:
-        """Write ``frame`` and read until its response, handing any other
-        call's response on the way to its waiter; then give the
-        connection to a reader thread if calls are waiting on it."""
-        result = None
-        try:
-            sock.write(frame)
-            while result is None:
-                msg = self._read_response(sock)
-                if msg[0].correlation_id == meta.correlation_id:
-                    result = "msg", (msg[0], msg[1], msg[2], sock, lease,
-                                     offered)
-                else:
-                    self._hand_over(msg, sock)
-        except socket.timeout:
-            result = "timeout", None
-        except (OSError, EOFError, FrameError) as e:
-            result = "err", (int(Errno.EFAILEDSOCKET),
-                             f"{type(e).__name__}: {e}")
-        with self._lock:
-            self._inline = None
-            if result[0] != "msg":
-                # a late response would be read as the next call's: the
-                # connection goes, with every call waiting on it
-                if self._sock is sock:
-                    self._drop()
-                else:
-                    sock.close()
-                self._fail_waiters(f"connection dropped: {result[0]}")
-            else:
-                with self._waiters_lock:
-                    waiting = bool(self._waiters)
-                if (waiting or self._want_reader is sock) \
-                        and self._sock is sock and not sock.failed:
-                    self._start_reader(sock)
-            self._want_reader = None
-        return result
-
-    def _hand_over(self, msg, sock: Socket) -> None:
-        with self._waiters_lock:
-            waiter = self._waiters.pop(msg[0].correlation_id, None)
-        if waiter is None:
-            ack_unused(msg[0], sock.id)       # its call has an outcome
-        else:
-            self._deliver(waiter.call, waiter.version, (
-                "msg", (msg[0], msg[1], msg[2], sock, waiter.lease,
-                        waiter.offered)))
-            waiter.done.set()
-
-    def _fail_waiters(self, why: str) -> None:
-        with self._waiters_lock:
-            waiters = list(self._waiters.values())
-            self._waiters.clear()
-        for waiter in waiters:
-            waiter.error = why
-            waiter.done.set()
 
     def _attempt_owned(self, call: _Call, meta: RpcMeta) -> tuple:
         """One attempt on a connection of its own: from the pool
         (``"pooled"``) or fresh (``"short"``).  A pooled connection goes
         back to the pool only after a call it won."""
         sock = None
-        if call.ctype == "pooled":
-            with self._pool_lock:
-                while self._pool and sock is None:
-                    s = self._pool.pop()
-                    if not s.failed:
-                        sock = s
         try:
+            ssl, connect_s, auth = self._conn_key_args()
+            sid, rc = pooled_socket(self.server, ssl, connect_s, auth) \
+                if call.ctype == "pooled" \
+                else short_socket(self.server, ssl, connect_s)
+            sock = Socket.address(sid) if rc == 0 else None
             if sock is None:
-                sock = self._dial()
+                raise OSError(f"connect to {self.server} failed")
             left = call.remaining_s()
             frame, lease, offered, err = self._stage(call, sock, meta, left)
             if err is not None:
-                sock.close()
+                self._release_owned(call, sock, ok=True)
                 return "err", err
-            sock.conn.settimeout(None if left is None else max(left, 1e-3))
+            sock.conn.settimeout(NO_DEADLINE_S if left is None
+                                 else max(left, 1e-3))
             sock.write(frame)
             msg = self._read_response(sock)
         except socket.timeout:
@@ -1130,13 +1135,16 @@ class Channel:
         self._drain_results(call)
 
     def _release_owned(self, call: _Call, sock: Socket, ok: bool) -> None:
-        """A won pooled connection returns to the pool; every other owned
-        connection closes."""
+        """A won pooled connection returns to its pool (the channel's own
+        for HTTP); every other owned connection closes."""
         if call.ctype == "single":
             return
         if ok and call.ctype == "pooled" and not sock.failed:
-            with self._pool_lock:
-                self._pool.append(sock)
+            if self.options.protocol == "http":
+                with self._pool_lock:
+                    self._pool.append(sock)
+            else:
+                return_pooled_socket(sock.id)
         else:
             sock.close()
 
@@ -1153,53 +1161,10 @@ class Channel:
             else:
                 return msg
 
-    def _start_reader(self, sock: Socket) -> None:
-        """From now on one thread reads ``sock`` (called under the lock,
-        so no call is reading it)."""
-        if self._reader_sock is sock:
-            return
-        sock.conn.settimeout(None)
-        self._reader_sock = sock
-        self._reader = threading.Thread(target=self._read_loop,
-                                        args=(sock,), name="tpu_std-reader",
-                                        daemon=True)
-        self._reader.start()
-
-    def _read_loop(self, sock: Socket) -> None:
-        why = "connection closed"
-        try:
-            while True:
-                self._hand_over(self._read_response(sock), sock)
-        except (OSError, EOFError, FrameError) as e:
-            why = f"{type(e).__name__}: {e}"
-        finally:
-            sock.close()            # closes the streams it carried
-            self._fail_waiters(why)
-
     def _dial(self) -> Socket:
-        conn = socket.create_connection(
-            self.server.to_sockaddr(),
-            timeout=self.options.connect_timeout_ms / 1e3)
-        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        ctx = self.ssl_ctx()
-        if ctx is not None:
-            # a bounded blocking handshake (≈ ssl_helper.cpp's
-            # SSL_do_handshake loop)
-            try:
-                conn.settimeout(self.options.connect_timeout_ms / 1e3 + 4.0)
-                conn = ctx.wrap_socket(conn,
-                                       server_hostname=str(self.server.host))
-            except (OSError, ValueError):
-                conn.close()
-                raise
-        return Socket(conn)
-
-    def _connect(self) -> Socket:
-        if self._sock is not None and self._sock.failed:
-            self._drop()
-        if self._sock is None:
-            self._sock = self._dial()
-        return self._sock
+        """A fresh connection of the channel's own (HTTP/1.1)."""
+        return Socket(dial(self.server, self.options.connect_timeout_ms / 1e3,
+                           self.ssl_ctx()))
 
     @staticmethod
     def _request_frame(c: Controller, sock: Socket, meta: RpcMeta,
@@ -1240,15 +1205,44 @@ class Channel:
             return None, None, False, (int(Errno.EREQUEST), str(e))
 
     def call(self, method_full: str, request: Any,
-             timeout_ms: Optional[int] = None) -> bytes:
+             timeout_ms: Optional[int] = None,
+             response_type: Any = None) -> Any:
         """``channel.call("LM.Info", b"")`` -> the response, or raises
         :class:`RpcError`."""
         cntl = Controller()
         cntl.timeout_ms = timeout_ms
-        c = self.call_method(method_full, request, cntl=cntl)
+        c = self.call_method(method_full, request, response_type, cntl=cntl)
         if c.failed:
             raise RpcError(c.error_code, c.error_text)
         return c.response
+
+    def call_raw(self, method_full: str, payload, attachment=b"",
+                 timeout_ms: Optional[int] = None):
+        """The raw lane (pairs with ``@raw_method`` on the server): bytes
+        in, ``(response_view, attachment_view)`` out, views into the
+        response frame.  No Controller, one attempt, no balancer; raises
+        :class:`RpcError`.  An attachment view that rode the shm lane
+        aliases a ring slot recycled at this thread's next call on the
+        channel: consume or copy it before then."""
+        return fast_call.run_raw(self, method_full, payload, attachment,
+                                 timeout_ms)
+
+    def call_batch(self, method_full: str, requests,
+                   response_type: Any = None,
+                   timeout_ms: Optional[int] = None) -> list:
+        """Pipelined unary calls: every request on one pooled connection
+        in one vectored write, the responses matched by correlation id.
+        A cluster channel, TLS or another protocol makes one call per
+        request.  Raises :class:`RpcError` on the first failure."""
+        if self.server is None and self.load_balancer is None:
+            raise RpcError(int(Errno.EINTERNAL), "channel not initialized")
+        if self.options.protocol != "tpu_std" or self.ssl_ctx() is not None:
+            return [self.call(method_full, r, timeout_ms=timeout_ms,
+                              response_type=response_type)
+                    for r in requests]
+        return fast_call.run_batch(
+            self, method_full, list(requests), response_type, timeout_ms,
+            fast_call.channel_method_tlv(self, method_full))
 
 
 def _read_http_response(sock: Socket):

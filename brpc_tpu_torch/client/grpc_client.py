@@ -15,14 +15,17 @@ A copy of ``brpc_tpu/client/grpc_client.py``, with TLS: a connection
 made with an ``ssl_context`` (``Channel`` passes its own when
 ``ChannelOptions.ssl`` is on) wraps its socket after the connect and
 reads on a thread of its own, since a TLS socket can neither be polled
-for its buffered plaintext nor read with ``MSG_DONTWAIT``; the
-``:scheme`` is then ``https``.
+for its buffered plaintext nor read with ``MSG_DONTWAIT``; that thread
+reads under the connection's lock, so no read runs beside a write on the
+one SSL object; the ``:scheme`` is then ``https``.
 """
 
 from __future__ import annotations
 
+import select
 import selectors
 import socket as _socket
+import ssl
 import threading
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -266,17 +269,29 @@ class GrpcConnection:
         self._on_data(session, data)
 
     def _tls_read_loop(self, sock) -> None:
-        """A TLS connection's reader: blocking reads until the connection
-        fails or is superseded, then the socket closes."""
+        """A TLS connection's reader, until the connection fails or is
+        superseded, then the socket closes.  One SSL object must not be
+        used by two threads at once: the reader waits for the descriptor
+        without the lock and reads under it, without blocking, so no
+        read runs beside a writer's ``sendall``."""
         try:
             while True:
-                with self._lock:
-                    if sock is not self._sock:
-                        return
-                    session = self._session
                 try:
-                    data = sock.recv(256 * 1024)
-                except OSError as e:
+                    if not sock.pending():
+                        select.select([sock], [], [])
+                    with self._lock:
+                        if sock is not self._sock:
+                            return
+                        session = self._session
+                        sock.setblocking(False)
+                        try:
+                            data = sock.recv(256 * 1024)
+                        except (ssl.SSLWantReadError, ssl.SSLWantWriteError,
+                                BlockingIOError):
+                            continue
+                        finally:
+                            sock.setblocking(True)
+                except (OSError, ValueError) as e:
                     self._fail_all(f"recv: {e}")
                     return
                 if not self._on_data(session, data):

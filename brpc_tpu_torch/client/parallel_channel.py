@@ -13,15 +13,20 @@ selective_channel.h:52,69:
   sub-channel (the failed one is excluded for that call).
 
 The port of ``brpc_tpu/client/parallel_channel.py``.  Its calls are
-synchronous, as the port's ``Channel`` is.  The JAX fan-out writes every
-branch's request on the native ``fast_call`` lane and then collects; the
-port has no native lane, so each branch is a blocking
-``Channel.call_method`` on a thread of its own, all started together and
-joined.  The rest is the JAX package's: the mapper and ``SKIP``, one
-merger over the ordered branch responses (``None`` for a failed branch),
-the fail limit (``ETOOMANYFAILS`` once ``fail_limit`` branches, or every
-branch, failed), one budget shared by every leg, and for a traced call
-one root client span that every branch's client span parents to.
+synchronous.  The fan-out is the JAX package's
+(``brpc_tpu/client/parallel_channel.py:114-148``): every branch rides a
+pooled leg, and ``fast_call.run_scatter`` writes every branch's request
+before it reads the first response, in one engine ``scatter_call`` on
+the pinned connections when the shape allows, from this thread either
+way.  Only a shape the scatter lane declines, counted under its name in
+``fast_call.scatter_fallback_counters()`` (a cluster branch, a device
+attachment, a request that is not bytes, ...), runs each branch as a
+blocking ``Channel.call_method`` on a thread of its own.  The rest is the
+JAX package's too: the mapper and ``SKIP``, one merger over the ordered
+branch responses (``None`` for a failed branch), the fail limit
+(``ETOOMANYFAILS`` once ``fail_limit`` branches, or every branch,
+failed), one budget shared by every leg, and for a traced call one root
+client span that every branch's client span parents to.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..butil.status import Errno
 from ..butil.time_utils import monotonic_us
 from ..deadline import cap_timeout_ms
 from ..rpcz import start_client_span
+from . import fast_call
 from .controller import Controller
 
 
@@ -124,17 +130,26 @@ class ParallelChannel:
             sc = Controller()
             sc.timeout_ms = left
             sc.max_retry = c.max_retry
+            # unary one-shots: exclusive pooled connections let one
+            # thread own every read
+            sc.connection_type = "pooled"
             sc.trace_id = c.trace_id
             sc.span_id = c.span_id
             legs.append(sc)
-        threads = [threading.Thread(
-            target=sub.call_method, args=(method_full, mapped),
-            kwargs={"cntl": sc}, name="pchan-branch", daemon=True)
-            for (_, sub, mapped), sc in zip(branches, legs)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        scatter = [(sub, sc, method_full, mapped, None)
+                   for (_, sub, mapped), sc in zip(branches, legs)]
+        if fast_call.run_scatter(scatter, left):
+            for (_, sub, _), sc in zip(branches, legs):
+                sc._end_trace_span(sc.remote_side)
+        else:
+            threads = [threading.Thread(
+                target=sub.call_method, args=(method_full, mapped),
+                kwargs={"cntl": sc}, name="pchan-branch", daemon=True)
+                for (_, sub, mapped), sc in zip(branches, legs)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
         failed = [sc for sc in legs if sc.failed]
         if failed and (len(failed) >= fail_limit or len(failed) == n):
             c.set_failed(Errno.ETOOMANYFAILS,

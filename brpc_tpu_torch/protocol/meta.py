@@ -52,6 +52,17 @@ TAG_STREAM_WINDOW = _T_STREAM_WINDOW
 TAG_ICI_DOMAIN = _T_ICI_DOMAIN
 TLV_CORRELATION = b"\x01\x08\x00\x00\x00"   # _T_CORRELATION, u64 follows
 TLV_ATTACHMENT = b"\x03\x04\x00\x00\x00"    # _T_ATTACHMENT, u32 follows
+TLV_TIMEOUT = b"\x0d\x04\x00\x00\x00"       # _T_TIMEOUT_MS, u32 follows
+TLV_TRACE = b"\x09\x08\x00\x00\x00"         # _T_TRACE_ID, u64 follows
+TLV_SPAN = b"\x0a\x08\x00\x00\x00"          # _T_SPAN_ID, u64 follows
+# the client fast lane's request tags (client/fast_call.py builds its
+# frames from cached TLV bytes, as the JAX lane does)
+TAG_SERVICE = _T_SERVICE
+TAG_METHOD = _T_METHOD
+TAG_AUTH = _T_AUTH
+TAG_ICI_DESC = _T_ICI_DESC
+TAG_ICI_CONN = _T_ICI_CONN
+TAG_TENANT = _T_TENANT
 
 
 def encode_tlv(tag: int, data: bytes) -> bytes:

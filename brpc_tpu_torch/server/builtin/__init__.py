@@ -10,9 +10,11 @@ A copy of ``brpc_tpu/server/builtin/__init__.py``.  ``/native`` and
 ``/hotspots/engine`` read the native engine's telemetry when
 ``ServerOptions.native`` serves the port (the bridge's one cached
 snapshot), and answer as a JAX server without the engine otherwise (a
-404, no engine loops).  The client half of the native lanes is not
-ported yet, so ``/native``'s ``client_lane`` and ``scatter_fallbacks``
-are empty.  ``/hotspots/device`` wraps
+404, no engine loops).  Its ``client_lane`` section is this
+process's client completion lane (``transport/client_lane.py``'s
+``client_lane_telemetry``: completions, named fallbacks and declines,
+bursts) and ``scatter_fallbacks`` the fan-out lane's named fallbacks
+(``client/fast_call.py``); both are process-wide.  ``/hotspots/device`` wraps
 ``profiling.collect_device_trace`` (``torch.profiler``).
 """
 
@@ -27,6 +29,7 @@ from typing import Callable, Dict, List, Tuple
 from ...butil import flags as flags_mod
 from ...bvar.prometheus import render_prometheus
 from ...bvar.variable import dump_exposed, find_exposed, list_exposed
+from ...client.fast_call import scatter_fallback_counters
 from ...protocol.http import HttpMessage
 
 Handler = Callable[[object, HttpMessage, List[str]], Tuple]
@@ -330,6 +333,30 @@ def _hist_view(buckets, count, total) -> Dict:
     }
 
 
+def _client_lane_view() -> Dict:
+    """The client lane's section of ``/native`` (empty when no
+    connection ever asked for the lane)."""
+    from ...transport.client_lane import client_lane_telemetry
+    cl = client_lane_telemetry()
+    if "completions" not in cl:
+        return {"declined": cl["declined"]} if cl else {}
+    return {
+        "completions": cl.get("completions", 0),
+        "fallback_total": cl.get("fallback_total", 0),
+        "fallbacks": {k: v for k, v in cl.get("fallbacks", {}).items()
+                      if v},
+        "declined": {k: v for k, v in cl.get("declined", {}).items() if v},
+        "bursts": cl.get("bursts", 0),
+        "attached": cl.get("attached", 0),
+        "acks": cl.get("acks", 0),
+        "demux_loops": cl.get("demux_loops", 1),
+        "loops": cl.get("loops", []),
+        "completions_per_burst": _hist_view(
+            cl["comp_burst"], cl["comp_burst_count"],
+            cl["comp_burst_sum"]),
+    }
+
+
 def _native(server, msg, rest):
     """/native — the native engine's always-on telemetry table: per-lane
     stage histograms (queue = frame parse -> batched shim entry, shim =
@@ -417,8 +444,8 @@ def _native(server, msg, rest):
         "lanes": lanes,
         "fallbacks": dict(top_fallbacks),
         "streaming": streaming,
-        "client_lane": {},
-        "scatter_fallbacks": {},
+        "client_lane": _client_lane_view(),
+        "scatter_fallbacks": scatter_fallback_counters(),
         # deadline plane: per-(lane, method) doomed-work sheds
         "deadline_sheds": {f"{lane}|{method}": v for (lane, method), v
                            in sorted(shed_counters().items())},

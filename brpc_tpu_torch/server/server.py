@@ -133,9 +133,10 @@ the bridge.  A TLS server, or one whose engine does not build, serves
 through the Python transport with a warning, as in the JAX package.
 ``connection_count``, ``drain`` (the engine's lame-duck mode, its
 connections force-closed at grace expiry) and ``stop`` reach the bridge.
-Cut, each for a later slice of the port: the client demux's settle in
-``drain`` (the native client lane) and ``export_listeners`` (hot
-restart).
+``drain`` and ``stop`` settle the client lane's demux entries within
+their deadline (``transport/client_lane.py``'s ``drain_settle``), as the
+JAX server does.  Cut, for a later slice of the port:
+``export_listeners`` (hot restart).
 """
 
 from __future__ import annotations
@@ -837,10 +838,14 @@ class Server:
         until = time.monotonic() + _JOIN_TIMEOUT_S
         for t in workers:
             t.join(max(0.0, until - time.monotonic()))
-        left = shm_ring.drain_settle(time.monotonic() + _DRAIN_S)
-        if left:
-            LOG.warning("stop: %d shm slot(s) of this process still "
-                        "outstanding", left)
+        settle_by = time.monotonic() + _DRAIN_S
+        left = shm_ring.drain_settle(settle_by)
+        from ..transport import client_lane as _client_lane
+        lane_left = _client_lane.drain_settle(settle_by)
+        if left or lane_left:
+            LOG.warning("stop: %d shm slot(s) and %d client demux "
+                        "entrie(s) of this process still outstanding",
+                        left, lane_left)
         self._listener.close()
         self._listener = None
         self._listen_endpoint = None
@@ -963,7 +968,8 @@ class Server:
            flag), for in-flight requests; at grace expiry force-close
            the connections under ``drain_grace_expired``;
         5. within the same deadline, settle this process's shm ring
-           slots, exported KV pages and host-tier spills in flight.
+           slots, exported KV pages and host-tier spills in flight, and
+           the client lane's demux entries (``client_lane.drain_settle``).
 
         0 when everything settled inside the grace, -1 otherwise.
         ``stop()`` afterwards is client-invisible.  Idempotent while
@@ -997,13 +1003,16 @@ class Server:
         # data-plane residue inside the same deadline (process-wide
         # gauges: a co-hosted client's traffic counts too)
         from ..kv import pages as _kv_pages
+        from ..transport import client_lane as _client_lane
         shm_left = shm_ring.drain_settle(deadline)
+        lane_left = _client_lane.drain_settle(deadline)
         kv_left = _kv_pages.drain_settle(deadline)
-        if shm_left or kv_left:
-            LOG.warning("drain grace expired with %d shm slot(s) and %d "
-                        "kv page(s) or spill(s) unsettled", shm_left,
-                        kv_left)
-        return 0 if settled and not shm_left and not kv_left else -1
+        if shm_left or lane_left or kv_left:
+            LOG.warning("drain grace expired with %d shm slot(s), %d "
+                        "demux entrie(s) and %d kv page(s) or spill(s) "
+                        "unsettled", shm_left, lane_left, kv_left)
+        return 0 if settled and not shm_left and not lane_left \
+            and not kv_left else -1
 
     # -- internals ---------------------------------------------------------
 

@@ -30,14 +30,21 @@ so a port peer and a JAX peer negotiate and resolve each other's rings.
   ``shm_unavailable``).
 
 A received view is a ``memoryview`` whose release (the last view of it
-dropped) settles its slot.  The native engine's IOBuf lane of the JAX
-package (``sendfile_spill``, ``resolve_ex``'s file ref,
-``wrap_view_iobuf``) has no counterpart here.
+dropped) settles its slot, on the Channel's path and on the fast lane
+alike.  The IOBuf half of the JAX module is here too:
+:meth:`ShmRing.sendfile_spill` (a staged slot over TCP with
+``os.sendfile``), :func:`resolve_ex` (a view and the file ref that spill
+needs; an attached peer ring keeps no descriptor, so its ref is None),
+:func:`wrap_view_iobuf` (a view as an ``IOBuf`` whose block settles the
+slot when dropped), :func:`defer_settle` (the raw lane's settle at the
+thread's next request on its pinned connection), and the allocator's
+:meth:`ShmRing.shard_stats` and :meth:`ShmRing.slot_of`.
 """
 
 from __future__ import annotations
 
 import itertools
+import weakref
 import logging
 import mmap
 import os
@@ -115,7 +122,8 @@ def shm_fallback_counters() -> Dict[str, int]:
 # are views
 _stats_lock = threading.Lock()
 _stats = {"staged": 0, "staged_bytes": 0, "resolved": 0,
-          "resolved_bytes": 0, "desc_reused": 0}
+          "resolved_bytes": 0, "desc_reused": 0, "spilled": 0,
+          "spilled_bytes": 0}
 
 
 def _stat(key: str, n: int = 1, nbytes: int = 0) -> None:
@@ -360,6 +368,36 @@ class ShmRing:
                 n += len(self._free[sh])
         return n
 
+    def shard_stats(self) -> Dict[str, int]:
+        """The allocator's shards: their count and each one's free
+        slots."""
+        out: Dict[str, int] = {"shards": self.nshards}
+        for sh in range(self.nshards):
+            with self._locks[sh]:
+                out[f"shard_{sh}_free"] = len(self._free[sh])
+        return out
+
+    def slot_of(self, offset: int) -> int:
+        return offset // self.slot_bytes
+
+    def sendfile_spill(self, sock_fd: int, offset: int, length: int,
+                       headers: bytes = b"") -> int:
+        """Ship a staged span over TCP with ``os.sendfile`` (the spill
+        when a staged block must ride the byte lane after all: the bytes
+        are not read back through user space).  A blocking-socket helper;
+        returns the bytes of the span sent."""
+        sent = 0
+        while sent < len(headers):
+            sent += os.write(sock_fd, headers[sent:])
+        done = 0
+        while done < length:
+            n = os.sendfile(sock_fd, self.fd, offset + done, length - done)
+            if n == 0:
+                raise ConnectionError("sendfile: peer closed")
+            done += n
+        _stat("spilled", 1, length)
+        return done
+
     # -- data ----------------------------------------------------------------
 
     def write(self, slot: int, data) -> Tuple[int, int]:
@@ -528,17 +566,27 @@ def resolve(ring_id: bytes, offset: int, length: int
             ) -> Optional[memoryview]:
     """A descriptor as a view into the local tx ring or an attached peer
     ring; None when the ring is unknown or the span out of bounds."""
+    r = resolve_ex(ring_id, offset, length)
+    return r[0] if r is not None else None
+
+
+def resolve_ex(ring_id: bytes, offset: int, length: int):
+    """Like :func:`resolve`, as ``(view, file_ref)``: ``file_ref`` is
+    ``(fd, offset)`` of the local ring, for :meth:`ShmRing.sendfile_spill`
+    (None for an attached peer ring)."""
     with _reg_lock:
         local = _tx_ring
         att = _attached.get(ring_id)
-    v = None
+    v = ref = None
     if local is not None and ring_id == local.ring_id:
         v = local.view(offset, length)
+        ref = (local.fd, offset)
     elif att is not None:
         v = att.view(offset, length)
-    if v is not None:
-        _stat("resolved", 1, length)
-    return v
+    if v is None:
+        return None
+    _stat("resolved", 1, length)
+    return v, ref
 
 
 def local_ring_for(ring_id: bytes) -> Optional[ShmRing]:
@@ -605,7 +653,7 @@ class ShmSockState:
 
     __slots__ = ("offered", "tx_ok", "peer_refused", "peer_ring_id",
                  "peer_ring_acked", "pending_release", "resp_desc_ok",
-                 "offer_waits", "lock")
+                 "offer_waits", "deferred_settles", "lock")
 
     def __init__(self):
         self.offered = False          # we advertised our tx ring
@@ -616,6 +664,9 @@ class ShmSockState:
         self.pending_release = []     # [(ring_id, slot)] to send back
         self.resp_desc_ok = False     # (server) the peer mapped OUR ring
         self.offer_waits = 0          # eligible calls since the offer
+        # settles run at the next request prepared on this connection
+        # (the raw lane's pinned connections: one thread each)
+        self.deferred_settles = []
         self.lock = threading.Lock()
 
 
@@ -669,6 +720,10 @@ def client_prepare(sock, att, device: bool = False,
     capability offer."""
     from ..protocol.meta import TAG_SHM_DESC, TAG_SHM_OFFER
     st = sock_state(sock)
+    with st.lock:
+        deferred, st.deferred_settles = st.deferred_settles, []
+    for settle in deferred:
+        settle()                  # the previous raw response's slot
     extra = take_release_tlvs(st)
     na = len(att) if att is not None else 0
     if na == 0:
@@ -767,6 +822,29 @@ class _SettledView:
         settle, self._settle = self._settle, None
         if settle is not None:
             settle()
+
+
+def defer_settle(sock, settle) -> None:
+    """Run ``settle`` when the next request is prepared on ``sock``.
+    Right only on a connection pinned to one thread (the raw lane): the
+    next request there comes from the thread that holds the view."""
+    if settle is None:
+        return
+    st = sock_state(sock)
+    with st.lock:
+        st.deferred_settles.append(settle)
+
+
+def wrap_view_iobuf(view: memoryview, settle, file_ref=None):
+    """A resolved view as an ``IOBuf`` whose block settles the slot when
+    the buffer is dropped; raw views taken from it must not outlive
+    it."""
+    from ..butil.iobuf import IOBuf
+    buf = IOBuf()
+    buf.append_user_data(view, file_ref=file_ref)
+    if settle is not None:
+        weakref.finalize(buf._refs[-1][0], settle)
+    return buf
 
 
 def settled_view(view: memoryview, settle) -> memoryview:

@@ -306,6 +306,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from brpc_tpu_torch.butil.flags import get_flag, set_flag  # noqa: E402
 from brpc_tpu_torch.butil.status import Errno  # noqa: E402
+from brpc_tpu_torch.butil.endpoint import parse_endpoint  # noqa: E402
 from brpc_tpu_torch import deadline  # noqa: E402
 from brpc_tpu_torch.client import (  # noqa: E402
     Channel, ChannelOptions, Controller, start_cancel)
@@ -365,6 +366,10 @@ from brpc_tpu_torch.server.server import (  # noqa: E402
 from brpc_tpu_torch.streaming import StreamOptions, stream_create  # noqa
 from brpc_tpu_torch.transport import shm_ring  # noqa: E402
 from brpc_tpu_torch.transport.socket import Socket  # noqa: E402
+from brpc_tpu_torch.transport.socket_map import (  # noqa: E402
+    global_socket_map, pooled_socket, return_pooled_socket, socket_pool_of)
+from brpc_tpu_torch.transport import client_lane, health_check  # noqa
+from brpc_tpu_torch.client import fast_call  # noqa: E402
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
     TrainCheckpointer, abstract_like)
 
@@ -1637,7 +1642,12 @@ def phase_xfer_inline(ch: Channel, addr: str, cs: CountedChecksum,
     the other's domain), the frame cap raised on both sides for 64 MiB."""
     cap0 = get_flag("max_body_size")
     legs = []
-    ch2 = Channel()
+    # a connection of its own (a pooled one, so the fast lane carries
+    # these calls): the "single" one is shared with ``ch``, whose frames
+    # taught the child this process's domain
+    opts = ChannelOptions()
+    opts.connection_type = "pooled"
+    ch2 = Channel(opts)
     launches0, calls0 = CHECKSUM.launches, cs.calls
     set_flag("ici_enabled", False)
     set_flag("max_body_size", INLINE_CAP)
@@ -4262,12 +4272,22 @@ def phase_rob_goodput(ch: Channel, srv: Server, cfg: LMConfig) -> dict:
 
 
 def connected_channels(ep, n: int, tenants=None) -> list:
-    """``n`` channels without retries, each connected by an ``LM.Info``."""
+    """``n`` channels without retries, each connected by an ``LM.Info``.
+    A ``"single"`` connection is one per peer and signature, shared by
+    every channel with it, so these ride pooled connections (their
+    blocking calls take the fast lane's ``sync_call``): ``n`` more of them
+    are made before the start, and ``n`` calls at once each take one."""
+    ep = parse_endpoint(str(ep))
+    pool = socket_pool_of(ep)
+    warm = [pooled_socket(ep)[0] for _ in range(pool.free_count() + n)]
+    for sid in warm:
+        return_pooled_socket(sid)
     chans = []
     for i in range(n):
         opts = ChannelOptions()
         opts.tenant = tenants[i] if tenants else ""
         opts.max_retry = 0
+        opts.connection_type = "pooled"
         c = Channel(opts)
         c.init(str(ep))
         c.call("LM.Info", b"", timeout_ms=60_000)
@@ -5829,6 +5849,8 @@ def phase_p16_stages(svc: LMService, cfg: LMConfig, rows: list) -> dict:
     opts.session_local_data_factory = dict
     srv = serve_lm({"LM": svc, "S": Stages16()}, opts)
     good = p16_channel(srv.listen_endpoint, auth_data=P16_AUTH)
+    # beside the live ``good``: other credentials never share its
+    # "single" connection (the socket map keys a connection by them)
     bad = p16_channel(srv.listen_endpoint, auth_data=b"wrong", max_retry=0)
     blocked = p16_channel(srv.listen_endpoint, auth_data=P16_AUTH,
                           tenant=P16_BLOCKED_TENANT, max_retry=0)
@@ -6711,6 +6733,513 @@ def phase_slice17(svc: LMService, ch: Channel, cfg: LMConfig, rows: list,
         f"{res['echo']['checksum_launches']} ({card_line()})")
     return res
 
+P18_ROUNDS = 2                            # (a): turns of the two servers
+P18_BATCH = 4                             # (b): Generates in one batch
+P18_BATCH_REQUEST = (1, 512, 16)
+P18_ECHO_CALLS = 200                      # (e): per arm
+P18_ECHO_ORDER = ("single", "pooled", "pooled", "single")
+P18_RAW_CALLS = 200
+
+
+def route_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in fast_call.lane_counters().items()
+            if v != before[k]}
+
+
+def lane_view() -> tuple:
+    """The client lane's completions and named fallbacks now."""
+    t = client_lane.client_lane_telemetry()
+    return t.get("completions", 0), dict(t.get("fallbacks", {}))
+
+
+def lane_delta(before: tuple) -> tuple:
+    comp, fb = lane_view()
+    return comp - before[0], {k: v - before[1].get(k, 0)
+                              for k, v in fb.items()
+                              if v != before[1].get(k, 0)}
+
+
+def typed_channel(ep, ctype: str) -> Channel:
+    opts = ChannelOptions()
+    opts.connection_type = ctype
+    opts.timeout_ms = PROTO_TIMEOUT_MS
+    ch = Channel(opts)
+    if ch.init(str(ep)) != 0:
+        raise RuntimeError(f"channel to {ep} did not init")
+    return ch
+
+
+def phase_p18_generate(svc: LMService, srv: Server, cfg: LMConfig,
+                       rows: list) -> dict:
+    """(a) Phase 5's Generates on "pooled" and "short" (the fast lane,
+    the engine's ``sync_call``) beside "single" (the client lane), on the
+    engine and on the Python server in turns."""
+    prompts = phase5_prompts(cfg)
+    native = native_server({"LM": svc})
+    servers = {"python": srv, "native": native}
+    res, launches = {}, 0
+    try:
+        for r in range(P18_ROUNDS):
+            order = ("python", "native") if r % 2 == 0 \
+                else ("native", "python")
+            for where in order:
+                ep = servers[where].listen_endpoint
+                for ctype in ("pooled", "short", "single"):
+                    ch = typed_channel(ep, ctype)
+                    routes0 = fast_call.lane_counters()
+                    FLASH_FWD.launches = 0
+                    outs = timed_generates(ch, prompts, rows)
+                    n = FLASH_FWD.launches
+                    routes = route_delta(routes0)
+                    ch.close()
+                    launches += n
+                    check_lane(f"(a) {where} {ctype} round {r}", outs, rows,
+                               n, cfg)
+                    want = {"sync_call": len(REQUESTS)} \
+                        if ctype != "single" else {}
+                    if routes != want:
+                        raise AssertionError(
+                            f"(a) {where} {ctype}: routes {routes}, "
+                            f"expected {want}")
+                    res.setdefault(f"{where}_{ctype}_ms", []).append(
+                        [t for _, t in outs])
+        owns_connections(native, "(a)")
+    finally:
+        native.stop()
+    for where in ("python", "native"):
+        per = {ctype: [[round(t, 1) for t in x]
+                       for x in res[f"{where}_{ctype}_ms"]]
+               for ctype in ("pooled", "short", "single")}
+        log(f"  (a) {where} server, host ms per shape and round: "
+            + "; ".join(f"{ctype} {v}" for ctype, v in per.items())
+            + f" ({card_line()})")
+    res["launches"] = launches
+    return res
+
+
+def phase_p18_batch(svc: LMService, srv: Server, ch: Channel,
+                    cfg: LMConfig) -> dict:
+    """(b) ``call_batch`` of four (1, 512, 16) Generates on one pooled
+    connection, each response against the same request alone."""
+    b, s, max_new = P18_BATCH_REQUEST
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+               for _ in range(P18_BATCH)]
+    reqs = [pack_generate_request(p, max_new) for p in prompts]
+    solo = [generate(ch, p, max_new).tolist() for p in prompts]
+    native = native_server({"LM": svc})
+    res, launches = {}, 0
+    try:
+        for where, server in (("python", srv), ("native", native)):
+            bch = typed_channel(server.listen_endpoint, "pooled")
+            routes0 = fast_call.lane_counters()
+            FLASH_FWD.launches = 0
+            t0 = time.perf_counter()
+            outs = bch.call_batch("LM.Generate", reqs,
+                                  timeout_ms=PROTO_TIMEOUT_MS)
+            ms = (time.perf_counter() - t0) * 1e3
+            n = FLASH_FWD.launches
+            routes = route_delta(routes0)
+            bch.close()
+            launches += n
+            same = [unpack_generated(o).tolist() == want
+                    for o, want in zip(outs, solo)]
+            log(f"  (b) {where}: call_batch of {P18_BATCH} x "
+                f"{P18_BATCH_REQUEST} in {ms:.1f} ms, each equal to its "
+                f"request alone {same}; flash_fwd {n}; routes {routes}")
+            if not all(same) or n != P18_BATCH * cfg.depth \
+                    or routes != {"call_batch": 1}:
+                raise AssertionError(f"(b) {where}: the batch went wrong")
+            res[where] = dict(ms=ms, launches=n)
+        owns_connections(native, "(b)")
+    finally:
+        native.stop()
+    res["launches"] = launches
+    return res
+
+
+def phase_p18_scatter(svc: LMService, cfg: LMConfig, ref: tuple,
+                      fan_14d_ms: float) -> dict:
+    """(c) Phase 14 (d)'s ParallelChannel over two replicas of phase 5's
+    weights, fanned out by the engine's ``scatter_call``; then one branch
+    behind a balancer, which the scatter lane declines by name."""
+    from brpc_tpu_torch.client import ParallelChannel
+    prompt, want = ref
+    req = pack_generate_request(prompt, len(want))
+    reps = [LMService(cfg=cfg, params=svc.params, device="cuda",
+                      decode_slots=1) for _ in range(2)]
+    res, launches = {}, 0
+    for where in ("native", "python"):
+        servers = [native_server({"LM": r}) if where == "native"
+                   else serve_lm({"LM": r}) for r in reps]
+        subs = []
+        try:
+            pc = ParallelChannel()
+            for server in servers:
+                sub = Channel()
+                sub.init(str(server.listen_endpoint))
+                subs.append(sub)
+                pc.add_channel(sub)
+            fb0, routes0 = fast_call.scatter_fallback_counters(), \
+                fast_call.lane_counters()
+            FLASH_FWD.launches = 0
+            outs = []
+            for _ in range(2):          # a warm-up, then the timed one
+                cntl = Controller()
+                cntl.timeout_ms = PROTO_TIMEOUT_MS
+                t0 = time.perf_counter()
+                c = pc.call_method("LM.Generate", req, cntl=cntl)
+                outs.append((c, (time.perf_counter() - t0) * 1e3))
+            (c0, warm_ms), (c, ms) = outs
+            n = FLASH_FWD.launches
+            routes = route_delta(routes0)
+            ok = all(not x.failed and all(
+                unpack_generated(r)[0].tolist() == want for r in x.response)
+                for x in (c0, c))
+            fallbacks = fast_call.scatter_fallback_counters() != fb0
+            launches += n
+            log(f"  (c) {where}: ParallelChannel over two replicas by "
+                f"scatter_call in {ms:.1f} ms after a {warm_ms:.1f} ms "
+                f"warm-up (phase 14 (d)'s branch threads: "
+                f"{fan_14d_ms:.1f} ms); both phase 5's tokens {ok}; routes "
+                f"{routes}; a scatter fallback {fallbacks}; flash_fwd {n}")
+            if not ok or fallbacks or routes != {"scatter_call": 2} \
+                    or n != 4 * cfg.depth:
+                raise AssertionError(f"(c) {where}: the fan-out did not "
+                                     f"ride scatter_call")
+            res[where] = dict(ms=ms, warm_ms=warm_ms, launches=n)
+            if where == "native":
+                for server in servers:
+                    owns_connections(server, "(c)")
+                continue
+            # a branch behind a balancer: declined under its name, the
+            # branch threads answer
+            cluster = Channel()
+            cluster.init("list://" + ",".join(
+                str(x.listen_endpoint) for x in servers), "rr")
+            pc2 = ParallelChannel()
+            pc2.add_channel(cluster)
+            fb0 = fast_call.scatter_fallback_counters()
+            cntl = Controller()
+            cntl.timeout_ms = PROTO_TIMEOUT_MS
+            FLASH_FWD.launches = 0
+            c = pc2.call_method("LM.Generate", req, cntl=cntl)
+            n = FLASH_FWD.launches
+            cluster.close()
+            launches += n
+            fb = {k: v - fb0.get(k, 0) for k, v in
+                  fast_call.scatter_fallback_counters().items()
+                  if v != fb0.get(k, 0)}
+            ok = not c.failed and \
+                unpack_generated(c.response[0])[0].tolist() == want
+            log(f"  (c) a cluster branch: scatter fallbacks {fb}, phase "
+                f"5's tokens {ok}; flash_fwd {n}")
+            if fb != {"load_balancer": 1} or not ok or n != cfg.depth:
+                raise AssertionError("(c): the named fallback went wrong")
+            res["fallback"] = fb
+        finally:
+            for sub in subs:
+                sub.close()
+            for server in servers:
+                server.stop()
+    res["launches"] = launches
+    log(f"  (c) {card_line()}")
+    return res
+
+
+def phase_p18_decode(svc: LMService, srv: Server, cfg: LMConfig,
+                     six_b: dict) -> dict:
+    """(d) 6b's eight Decode streams on one shared "single" connection on
+    the client lane, ``LM.Info`` calls multiplexed among them, on the
+    Python server and on the engine."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+    solo = [solo_reference(svc, cfg, p, DECODE_MAX_NEW) for p in prompts]
+    native = native_server({"LM": svc})
+    batcher = svc.batcher()
+    runs, launches = [], 0
+    try:
+        for where, server in (("python", srv), ("native", native)):
+            ep = server.listen_endpoint
+            shared = typed_channel(ep, "single")
+            shared.call("LM.Info", b"", timeout_ms=60_000)
+            sock = shared._sock
+            if not sock.lane_token:
+                raise AssertionError(f"(d) {where}: the shared connection "
+                                     f"is not on the client lane")
+            lane0 = lane_view()
+            infos = []
+            stop = threading.Event()
+            FLASH_FWD.launches = 0
+
+            def info_during():
+                while not stop.wait(DECODE_STAGGER_S):
+                    infos.append(shared.call("LM.Info", b"",
+                                             timeout_ms=60_000))
+
+            g = threading.Thread(target=info_during)
+            g.start()
+            try:
+                clients, wall_s, most_live = run_decode_sessions(
+                    ep, "LM", prompts, DECODE_STAGGER_S, batcher,
+                    channel=shared)
+            finally:
+                stop.set()
+                g.join(60)
+            n = FLASH_FWD.launches
+            comps, fb = lane_delta(lane0)
+            same_conn = shared._sock is sock and not sock.failed
+            shared.close()
+            launches += n
+            info_ok = bool(infos) and all(
+                json.loads(x)["depth"] == cfg.depth for x in infos)
+            for i, (cl, (toks, margins)) in enumerate(zip(clients, solo)):
+                for j, (got, r) in enumerate(zip(cl.tokens, toks)):
+                    if got != r:
+                        if margins[j] >= LOGIT_RTOL:
+                            raise AssertionError(
+                                f"(d) {where} session {i} token {j}: {got} "
+                                f"against the solo run's {r}")
+                        break
+            tokens = sum(len(cl.tokens) for cl in clients)
+            equal_6b, ties_6b = lane_compare(
+                [cl.tokens for cl in clients], six_b["session_tokens"],
+                solo)
+            ttfts = sorted(cl.ttft_s * 1e3 for cl in clients)
+            run = dict(where=where, tokens=tokens, wall_s=wall_s,
+                       tok_s=tokens / wall_s, most_live=most_live,
+                       ttft_median_ms=statistics.median(ttfts),
+                       ttft_max_ms=ttfts[-1], lane_completions=comps,
+                       lane_fallbacks=fb, equal_6b=equal_6b,
+                       near_ties_6b=ties_6b, launches=n)
+            runs.append(run)
+            log(f"  (d) {where}: {len(clients)} Decode streams and "
+                f"{len(infos)} LM.Info calls on one shared connection: "
+                f"{tokens} tokens in {wall_s:.3f} s = {run['tok_s']:.1f} "
+                f"tok/s aggregate (6b: {six_b['aggregate_tok_s']:.1f}), "
+                f"TTFT median {run['ttft_median_ms']:.1f} ms; the Infos "
+                f"right {info_ok}; lane completions {comps}, fallbacks {fb}; "
+                f"sessions equal to 6b's {equal_6b} ({ties_6b} after a "
+                f"near-tie); flash_fwd {n}")
+            if not info_ok or not same_conn or comps < len(infos) \
+                    or fb.get("cli_stream_frame", 0) < 1 \
+                    or fb.get("cli_meta_tags", 0) < len(prompts) \
+                    or set(fb) - {"cli_stream_frame", "cli_meta_tags",
+                                  "cli_unknown_cid"} \
+                    or n != cfg.depth * len(prompts):
+                raise AssertionError(f"(d) {where}: the shared connection "
+                                     f"or the lane's counts are off")
+        owns_connections(native, "(d)")
+    finally:
+        native.stop()
+        batcher.shutdown()
+    log(f"  (d) {card_line()}")
+    return dict(runs=runs, launches=launches)
+
+
+def phase_p18_echo() -> dict:
+    """(e) 1 MiB device echoes of the full-width EmbeddingPS on the fast
+    lane against the Controller path ("single"), in turns, on the engine
+    and on the Python server; then 1 MiB ``call_raw`` byte echoes on the
+    engine's native echo."""
+    cs = CountedChecksum()
+    model = EmbeddingPS(PS_CFG, device="cuda", seed=0)
+    servers = {"python": serve_lm({"PS": PSService(model)}),
+               "native": native_server({"PS": PSService(model),
+                                        "Echo": NativeEcho()})}
+    x = torch.arange(ECHO_BYTES // 4, dtype=torch.float32, device="cuda")
+    res = {}
+    chans = []
+    try:
+        for where, server in servers.items():
+            by = {}
+            for ctype in ("single", "pooled"):
+                c = typed_channel(server.listen_endpoint, ctype)
+                chans.append(c)
+                echo(c, x, cs)              # the domain exchange
+                by[ctype] = c
+            CHECKSUM.launches = 0
+            calls0 = cs.calls
+            routes0 = fast_call.lane_counters()
+            rows = {k: [] for k in by}
+            for ctype in P18_ECHO_ORDER:
+                same = 0
+                t0 = time.perf_counter()
+                for _ in range(P18_ECHO_CALLS):
+                    dev, out = echo(by[ctype], x, cs)
+                    same += dev and out.data_ptr() == x.data_ptr()
+                rps = P18_ECHO_CALLS / (time.perf_counter() - t0)
+                rows[ctype].append(dict(rps=rps, zero_copy=same))
+                if same != P18_ECHO_CALLS:
+                    raise AssertionError(f"(e) {where} {ctype}: echoes not "
+                                         f"zero-copy")
+            live, outstanding = wait_fabric_empty()
+            launches = CHECKSUM.launches
+            calls = cs.calls - calls0
+            routes = route_delta(routes0)
+            n_fast = P18_ECHO_CALLS * P18_ECHO_ORDER.count("pooled")
+            rps = {k: [round(r["rps"], 1) for r in v]
+                   for k, v in rows.items()}
+            log(f"  (e) {where}: 1 MiB device echo calls/s, fast lane "
+                f"{rps['pooled']}, Controller path {rps['single']}; "
+                f"checksum.cu {launches} for {calls} checksums; routes "
+                f"{routes}; {live} live descriptors, {outstanding} "
+                f"outstanding bytes")
+            if launches != calls or launches != 2 * P18_ECHO_CALLS * len(
+                    P18_ECHO_ORDER) or live or outstanding \
+                    or routes != {"sync_call": n_fast}:
+                raise AssertionError(f"(e) {where}: launches, routes or "
+                                     f"descriptors off")
+            res[where] = dict(rows=rows, checksum_launches=launches)
+        owns_connections(servers["native"], "(e)")
+        raw = typed_channel(servers["native"].listen_endpoint, "pooled")
+        chans.append(raw)
+        payload = bytes(range(256)) * (ECHO_BYTES // 256)
+        def echo_handled():
+            t = servers["native"]._native_bridge.engine.telemetry()
+            return t["methods"]["Echo.Echo"]["handled"]
+
+        handled0 = echo_handled()
+        routes0 = fast_call.lane_counters()
+        t0 = time.perf_counter()
+        for _ in range(P18_RAW_CALLS):
+            body, att = raw.call_raw("Echo.Echo", payload, b"",
+                                     timeout_ms=60_000)
+            if len(body) != len(payload):
+                raise AssertionError("(e) a raw echo came back short")
+        raw_rps = P18_RAW_CALLS / (time.perf_counter() - t0)
+        ok = bytes(body) == payload
+        routes = route_delta(routes0)
+        answered = echo_handled() - handled0
+        log(f"  (e) call_raw 1 MiB byte echoes on the engine's native "
+            f"echo: {raw_rps:.1f} calls/s, payload intact {ok}; routes "
+            f"{routes}; answered by the engine's kind-0 echo +{answered}; "
+            f"{card_line()}")
+        if not ok or routes != {"raw_call": P18_RAW_CALLS} \
+                or answered != P18_RAW_CALLS:
+            raise AssertionError("(e): the raw echoes went wrong")
+        res["raw_rps"] = raw_rps
+    finally:
+        for c in chans:
+            c.close()
+        for server in servers.values():
+            server.stop()
+    res["checksum_launches"] = sum(res[w]["checksum_launches"]
+                                   for w in ("python", "native"))
+    return res
+
+
+def phase_p18_drain(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(f) A drain while a Generate waits on the client lane: no demux
+    entry is left; a server stopped and started again on its port: the
+    shared connection is revived in place by the health check; /native's
+    client_lane and scatter_fallbacks sections."""
+    prompt, want = ref
+    server = native_server({"LM": svc})
+    port = server.listen_endpoint.port
+    ch = typed_channel(server.listen_endpoint, "single")
+    restarted = None
+    try:
+        ch.call("LM.Info", b"", timeout_ms=60_000)
+        # the sections are process-wide: (a)-(e) filled them
+        native_page = json.loads(portal_get(server.listen_endpoint,
+                                            "/native"))
+        done = threading.Event()
+        out = {}
+
+        def finished(c):
+            out["c"] = c
+            done.set()
+
+        cntl = Controller()
+        cntl.timeout_ms = 600_000
+        FLASH_FWD.launches = 0
+        ch.call_method("LM.Generate", pack_generate_request(
+            prompt, len(want)), cntl=cntl, done=finished)
+        wait_until(lambda: client_lane.pending_inflight() >= 1, 30,
+                   "the Generate's lane entry")
+        pending = client_lane.pending_inflight()
+        t0 = time.perf_counter()
+        rc = server.drain(DRAIN_GRACE_MS)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        left = client_lane.pending_inflight()
+        if not done.wait(60):
+            raise AssertionError("(f): the Generate never finished")
+        gen_ok = not out["c"].failed and unpack_generated(
+            out["c"].response)[0].tolist() == want
+        n = FLASH_FWD.launches
+        sock = ch._sock
+        sid = sock.id
+        revived0 = health_check.revive_count()
+        server.stop()
+        wait_until(lambda: sock.failed or health_check.revive_count()
+                   > revived0, 30, "the shared connection's failure")
+        opts = ServerOptions()
+        opts.native = True
+        opts.usercode_inline = True
+        restarted = Server(opts)
+        if restarted.add_service(svc, name="LM") != 0 \
+                or restarted.start(f"127.0.0.1:{port}") != 0:
+            raise AssertionError("(f): the server did not restart on its "
+                                 "port")
+        interval = float(get_flag("health_check_interval_s"))
+        t0 = time.perf_counter()
+        wait_until(lambda: health_check.revive_count() > revived0
+                   and not sock.failed, interval + 10,
+                   "the health check's revival")
+        revive_s = time.perf_counter() - t0
+        after = ch.call("LM.Info", b"", timeout_ms=60_000)
+        same = ch._sock is sock and sock.id == sid
+    finally:
+        ch.close()
+        server.stop()
+        if restarted is not None:
+            restarted.stop()
+    cl, sf = native_page["client_lane"], native_page["scatter_fallbacks"]
+    log(f"  (f) drain with a Generate out on the lane ({pending} demux "
+        f"entries): rc {rc} in {drain_ms:.1f} ms, {left} entries left, "
+        f"the Generate's tokens {gen_ok}; restarted on port {port}: "
+        f"revived in place {same} after {revive_s:.2f} s "
+        f"(health_check_interval_s {interval}), socket_revive_count "
+        f"+{health_check.revive_count() - revived0}, a call after "
+        f"{bool(after)}; /native client_lane completions "
+        f"{cl.get('completions')}, fallbacks {cl.get('fallbacks')}, "
+        f"scatter_fallbacks {sf}; flash_fwd {n}")
+    if rc != 0 or left or not gen_ok or not same \
+            or health_check.revive_count() - revived0 < 1 \
+            or revive_s > interval + 1.0 or not cl.get("completions") \
+            or not sf or n != cfg.depth:
+        raise AssertionError("(f): the drain, the revival or /native off")
+    return dict(rc=rc, drain_ms=drain_ms, left=left, revive_s=revive_s,
+                launches=n)
+
+
+def phase_slice18(svc: LMService, srv: Server, ch: Channel, cfg: LMConfig,
+                  rows: list, six_b: dict, cluster: dict) -> dict:
+    """Phase 18 on phase 5's service: the client on the native engine."""
+    from brpc_tpu_torch import native
+    if native.load() is None:
+        raise AssertionError("phase 18: the native engine did not load")
+    t0 = time.perf_counter()
+    ref = (phase5_prompts(cfg)[0], rows[0]["tokens"])
+    res = {"generate": phase_p18_generate(svc, srv, cfg, rows),
+           "batch": phase_p18_batch(svc, srv, ch, cfg),
+           "scatter": phase_p18_scatter(svc, cfg, ref,
+                                        cluster["fanout"]["fan_ms"]),
+           "decode": phase_p18_decode(svc, srv, cfg, six_b),
+           "echo": phase_p18_echo(),
+           "drain": phase_p18_drain(svc, cfg, ref)}
+    if fast_call.lane_counters()["py_sync_call"]:
+        raise AssertionError("phase 18: a call fell to the Python round "
+                             "trip")
+    res["launches"] = sum(res[k]["launches"] for k in (
+        "generate", "batch", "scatter", "decode", "drain"))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 18: {res['seconds']:.1f} s; flash_fwd launches "
+        f"{res['launches']}, checksum launches "
+        f"{res['echo']['checksum_launches']}; the fast lane's routes "
+        f"{fast_call.lane_counters()} ({card_line()})")
+    return res
+
 
 def phase_moe() -> dict:
     """Phase 6e: the MoE LM at MOE_CFG, full width and depth, through
@@ -7123,6 +7652,11 @@ def main() -> int:
             "Decode on the kind-5 lane, the method cap's refusals, two "
             "replicas, device echoes and a drain")
         slice17 = phase_slice17(svc, ch, cfg, rows, streams, paged)
+        log("[18] the client on the native engine: the fast lane "
+            "(pooled, short, call_batch, call_raw), the scatter fan-out, "
+            "the client lane under Decode streams, device echoes, a drain "
+            "and a revival")
+        slice18 = phase_slice18(svc, srv, ch, cfg, rows, streams, cluster)
     finally:
         ch.close()
         srv.stop()
@@ -7192,6 +7726,7 @@ def main() -> int:
                  "http_grpc": proto["launches"],
                  "stages_tls_async": slice16["launches"],
                  "native_engine": slice17["launches"],
+                 "native_client": slice18["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -7250,14 +7785,16 @@ def main() -> int:
                      + xproc["xfer"]["child_launches"]
                      + par["two_processes"]["checksum_launches"]
                      + slice16["pool"]["checksum_launches"]
-                     + slice17["echo"]["checksum_launches"]),
+                     + slice17["echo"]["checksum_launches"]
+                     + slice18["echo"]["checksum_launches"]),
         "launches_by_path": {
             "ps": ps["launches"], "xproc": xproc["xfer"]["launches"],
             "xproc_inline": xproc["xfer"]["launches_inline"],
             "xproc_child": xproc["xfer"]["child_launches"],
             "dryrun_echo": par["two_processes"]["checksum_launches"],
             "block_pool": slice16["pool"]["checksum_launches"],
-            "native_echo": slice17["echo"]["checksum_launches"]},
+            "native_echo": slice17["echo"]["checksum_launches"],
+            "fast_lane_echo": slice18["echo"]["checksum_launches"]},
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
@@ -7279,6 +7816,8 @@ def main() -> int:
     log(f"  protocols: {json.dumps(proto)}")
     log(f"  slice16: {json.dumps(slice16)}")
     log(f"  slice17: {json.dumps(slice17)}")
+    log(f"  slice18: {json.dumps(slice18, default=str)}; phase 10's "
+        f"Controller-path echo {ps['echo_rps']:.1f} calls/s")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

@@ -94,6 +94,7 @@ def test_imports_with_jax_and_brpc_tpu_blocked():
             "brpc_tpu_torch.rpcz",
             "brpc_tpu_torch.rpcz_stitch",
             "brpc_tpu_torch.server.method_status"} <= names
+    assert set(_CLIENT_ENGINE_MODULES) <= names
     assert {f"brpc_tpu_torch.bvar.{m}" for m in _BVAR_MODULES} <= names
     assert set(_CLUSTER_MODULES) <= names
 
@@ -199,6 +200,34 @@ def test_http_lanes_import_alone_with_jax_and_brpc_tpu_blocked(module):
                          src, re.M), path
     assert not re.search(r"import_module\(\s*[\"'](jax|brpc_tpu)[\"'.]",
                          src), path
+
+
+# the native engine's client half: the socket map, the health check,
+# the client completion lane and the fast lane
+_CLIENT_ENGINE_MODULES = (
+    "brpc_tpu_torch.transport.socket_map",
+    "brpc_tpu_torch.transport.health_check",
+    "brpc_tpu_torch.transport.client_lane",
+    "brpc_tpu_torch.client.fast_call",
+)
+
+
+@pytest.mark.parametrize("module", _CLIENT_ENGINE_MODULES)
+def test_client_engine_modules_import_alone_with_jax_and_brpc_tpu_blocked(
+        module):
+    """Each module of the engine's client half imports in a fresh
+    interpreter with ``jax`` and every ``brpc_tpu`` module refused, and
+    its source names neither package in any import."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["imported", module]
+    with open(os.path.join(ROOT, module.replace(".", os.sep) + ".py")) as f:
+        src = f.read()
+    import re
+    assert not re.search(r"^\s*(from|import)\s+(jax|brpc_tpu)(\.|\s|$)",
+                         src, re.M), module
 
 
 # the butil leaves, versioned ids and the execution queue, the block pool

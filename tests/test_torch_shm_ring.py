@@ -25,6 +25,7 @@ import gc
 import os
 import socket
 import struct
+import threading
 
 import pytest
 
@@ -610,3 +611,101 @@ def test_reset_tx_ring_refused_while_a_slot_is_out(needs_shm):
     assert set_flag("rpc_shm_slot_bytes", 16384)
     assert shm_ring.reset_tx_ring()
     assert shm_ring.process_tx_ring().slot_bytes == 16384
+
+
+# -- the IOBuf half, and the fast lane on the ring ----------------------------
+
+def test_iobuf_half_resolve_spill_and_allocator(needs_shm):
+    """``resolve_ex`` gives a view and the local ring's file ref,
+    ``sendfile_spill`` ships a staged span over a socket with headers in
+    front, ``slot_of`` maps an offset back to its slot and
+    ``shard_stats`` counts each shard's free slots, as in the JAX
+    ring."""
+    ring = shm_ring.process_tx_ring()
+    slot = ring.alloc(owner=("req", 0))
+    off, n = ring.write(slot, ATT_300K)
+    try:
+        assert ring.slot_of(off) == slot
+        st = ring.shard_stats()
+        assert st["shards"] == ring.nshards
+        assert sum(st[f"shard_{i}_free"] for i in range(ring.nshards)) \
+            == ring.free_count() == ring.nslots - 1
+        view, ref = shm_ring.resolve_ex(ring.ring_id, off, n)
+        assert bytes(view) == ATT_300K and ref == (ring.fd, off)
+        view.release()
+        assert shm_ring.resolve_ex(b"\0" * 8, off, n) is None
+        a, b = socket.socketpair()
+        got = bytearray()
+
+        def drain():
+            b.settimeout(10)
+            while len(got) < n + 3:
+                chunk = b.recv(1 << 20)
+                if not chunk:
+                    return
+                got.extend(chunk)
+
+        reader = threading.Thread(target=drain)
+        reader.start()             # the span outgrows the socket buffer
+        try:
+            spilled0 = shm_ring.shm_stats()["spilled"]
+            assert ring.sendfile_spill(a.fileno(), off, n, b"HDR") == n
+            reader.join(10)
+            assert bytes(got) == b"HDR" + ATT_300K
+            assert shm_ring.shm_stats()["spilled"] == spilled0 + 1
+        finally:
+            a.close()
+            b.close()
+            reader.join(10)
+    finally:
+        ring.free(slot)
+
+
+def test_wrap_view_iobuf_and_defer_settle():
+    """A view wrapped as an IOBuf settles its slot when the buffer is
+    dropped; a deferred settle runs when the next request is prepared on
+    the socket."""
+    settled = []
+    buf = shm_ring.wrap_view_iobuf(memoryview(b"abcdef")[1:4],
+                                   lambda: settled.append("iobuf"))
+    assert buf.to_bytes() == b"bcd" and not settled
+    del buf
+    gc.collect()
+    assert settled == ["iobuf"]
+
+    class Sock:
+        id = 0
+        shm = None
+
+    sock = Sock()
+    shm_ring.defer_settle(sock, lambda: settled.append("deferred"))
+    shm_ring.defer_settle(sock, None)
+    assert settled == ["iobuf"]
+    shm_ring.client_prepare(sock, None)
+    assert settled == ["iobuf", "deferred"]
+    shm_ring.client_prepare(sock, None)
+    assert settled == ["iobuf", "deferred"]
+
+
+def test_fast_lane_rides_the_ring(needs_shm, server):
+    """A pooled call's 1 MiB attachment rides the ring from the second
+    call on (the first carries the offer), on the engine's ``sync_call``;
+    the response is a view whose release settles its slot, and every
+    slot comes back."""
+    from brpc_tpu_torch.client import ChannelOptions, fast_call
+    co = ChannelOptions()
+    co.connection_type = "pooled"
+    ch = Channel(co)
+    assert ch.init(str(server.listen_endpoint)) == 0
+    calls0 = fast_call.lane_counters()["sync_call"]
+    staged0 = shm_ring.shm_stats()["staged"]
+    for _ in range(4):
+        c = _call(ch, "D.Echo", ATT_1MB)
+        assert not c.failed, c.error_text
+        att = c.response_attachment
+        assert bytes(att) == ATT_1MB
+        del att, c
+    assert fast_call.lane_counters()["sync_call"] == calls0 + 4
+    assert shm_ring.shm_stats()["staged"] >= staged0 + 3
+    gc.collect()
+    assert shm_ring.outstanding_tx_slots() == 0

@@ -42,6 +42,8 @@ from brpc_tpu_torch.protocol.meta import RpcMeta
 from brpc_tpu_torch.server import Server, ServerOptions, raw_method
 from brpc_tpu_torch.streaming import (StreamOptions, stream_accept,
                                       stream_create)
+from brpc_tpu_torch.transport.socket_map import (pooled_socket,
+                                                 return_pooled_socket)
 from conftest import wire_tlv
 
 TIMEOUT_MS = 10_000
@@ -349,9 +351,17 @@ def test_slim_admission_answers_elimit_without_a_handler_run():
     finally:
         set_flag("engine_reuseport", True)
     try:
-        # connected before the held call: the shared listener is read by
-        # a loop that the held handler will occupy
-        first, second = Channel(), Channel()
+        # two connections, made before the held call (the shared
+        # listener is read by a loop that the held handler will occupy):
+        # "single" is one connection per peer and signature, shared by
+        # both channels, so the channels ride two pooled connections,
+        # both in the pool before the first call
+        co = ChannelOptions()
+        co.connection_type = "pooled"
+        first, second = Channel(co), Channel(co)
+        warm = [pooled_socket(srv.listen_endpoint)[0] for _ in range(2)]
+        for sid in warm:
+            return_pooled_socket(sid)
         for ch in (first, second):
             ch.init(str(srv.listen_endpoint))
             assert not ch.call_method("S.Upper", b"connect").failed
