@@ -18,9 +18,9 @@ Fresh design notes (not a port):
   block, mirroring the reference's TLS block cache
   (brpc's src/butil/iobuf.cpp:297-306).
 
-A copy of ``brpc_tpu/butil/iobuf.py``.  The port's HTTP/1.1 and h2
-parsers cut from an :class:`IOPortal`; the tpu_std lane keeps reading
-``bytes`` frames off its blocking sockets.
+A copy of ``brpc_tpu/butil/iobuf.py``.  Every protocol of the port's
+Python transport cuts from a socket's :class:`IOPortal`; tpu_std's
+payloads and attachments leave it as ``bytes``.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ connect timeout, credentials; ``socket_map.conn_key``) and taken from
 the socket map; calls are
 multiplexed on it and matched by correlation id, its reads owned by the
 client lane's native demux (``transport/client_lane.py``) or, when the
-lane declines, by a reader thread.  A call that times out there fails
+lane declines, by the event dispatcher (``transport/event_dispatcher.py``)
+and the client messenger.  A call that times out there fails
 alone and leaves the connection up; a transport error fails the
 connection, every call waiting on it and its streams, and the health
 check revives it in place.  ``"pooled"`` and ``"short"`` connections
@@ -50,8 +51,8 @@ window into the request meta, binds the stream to the connection before
 the write, and the response binds it to the server's stream (a failed
 call, or one the server did not accept it on, closes it).  Stream frames
 arrive after the call returns, and the first may arrive before the
-response: the connection's reader (the lane or its thread) owns every
-read, hands each response to its waiting call by correlation id, and
+response: the connection's reader (the lane or the dispatcher) owns
+every read, hands each response to its waiting call by correlation id, and
 routes TSTR frames to their streams and TICI acks to the lane.  A call
 with ``cntl.trace_id`` set is traced (``Controller._begin_trace_span``):
 its client span finishes with the call's outcome.
@@ -73,9 +74,11 @@ inherited deadline (``deadline.cap_timeout_ms``) and an expired one
 fails fast with ``ERPCTIMEDOUT``.  ``connection_type``: ``"single"``
 (the peer's shared connection), ``"pooled"`` (a free list of
 connections, one per concurrent attempt) or ``"short"`` (a connection
-per attempt).  The port's server answers a connection's
-requests in order, so a backup on ``"single"`` is sent but queues
-behind its primary and can only lose; hedging wants ``"pooled"``.
+per attempt).  A server runs the last request of a read on the
+connection's reading fiber (the JAX rule), so a backup on ``"single"``
+that arrives while its primary runs waits behind it and can only lose;
+hedging wants ``"pooled"``, whose attempts' connections the dispatcher
+reads.
 
 The cluster client (``brpc_tpu/client/controller.py:405-421``): the
 connection state above lives per server, one sub-channel per endpoint
@@ -238,9 +241,9 @@ class RpcError(Exception):
 
 
 class _Waiter:
-    """One attempt waiting on a ``"single"`` connection.  Its reader (the
-    client lane or the reader thread) delivers the response onto the
-    call's results itself (``socket_map.hand_over``): two attempts of one
+    """One attempt waiting on a connection another reader reads (the
+    client lane or the dispatcher).  The reader delivers the response
+    onto the call's results itself (``socket_map.hand_over``): two attempts of one
     call on one connection then reach the call in the order their
     responses arrived.  A failed connection fails it."""
 
@@ -916,7 +919,11 @@ class Channel:
     def _attempt_owned(self, call: _Call, meta: RpcMeta) -> tuple:
         """One attempt on a connection of its own: from the pool
         (``"pooled"``) or fresh (``"short"``).  A pooled connection goes
-        back to the pool only after a call it won."""
+        back to the pool only after a call it won.  An async or hedged
+        call's connection becomes dispatcher-driven
+        (``Socket.ensure_dispatched``, as the JAX controller converts
+        it): its response reaches the attempt like a ``"single"`` one's;
+        a blocking call reads its connection itself."""
         sock = None
         try:
             ssl, connect_s, auth = self._conn_key_args()
@@ -926,6 +933,10 @@ class Channel:
             sock = Socket.address(sid) if rc == 0 else None
             if sock is None:
                 raise OSError(f"connect to {self.server} failed")
+            if call.threaded:
+                sock.ensure_dispatched()
+            if not sock.direct_read:
+                return self._attempt_dispatched(call, meta, sock)
             left = call.remaining_s()
             frame, lease, offered, err = self._stage(call, sock, meta, left)
             if err is not None:
@@ -950,6 +961,39 @@ class Channel:
                            f"response for call {msg[0].correlation_id}, "
                            f"expected {meta.correlation_id}")
         return "msg", (msg[0], msg[1], msg[2], sock, lease, offered)
+
+    def _attempt_dispatched(self, call: _Call, meta: RpcMeta,
+                            sock: Socket):
+        """An owned attempt on a dispatcher-driven connection: waited for
+        as on ``"single"``; a timeout or an error closes the
+        connection."""
+        cid = meta.correlation_id
+        frame, lease, offered, err = self._stage(call, sock, meta,
+                                                 call.remaining_s())
+        if err is not None:
+            self._release_owned(call, sock, ok=True)
+            return "err", err
+        waiter = _Waiter(self, call, cid - call.cid_base, lease, offered)
+        if not sock.add_waiter(cid, waiter):
+            sock.close()
+            return "err", (int(Errno.EFAILEDSOCKET), "connection closed")
+        try:
+            sock.write(frame)
+        except OSError as e:
+            sock.pop_waiter(cid)
+            sock.close()
+            return "err", (int(Errno.EFAILEDSOCKET),
+                           f"{type(e).__name__}: {e}")
+        left = call.remaining_s()
+        if not waiter.done.wait(None if left is None else max(left, 0.0)):
+            if sock.pop_waiter(cid) is not None:
+                sock.close()
+                return "timeout", None
+            waiter.done.wait()      # its response is being handed over
+        if waiter.error is not None:
+            sock.close()
+            return "err", (int(Errno.EFAILEDSOCKET), waiter.error)
+        return None                 # the messenger delivered the response
 
     def _attempt_http(self, call: _Call, meta: RpcMeta) -> tuple:
         """One HTTP/1.1 attempt on a connection of its own (pooled or
@@ -1150,8 +1194,9 @@ class Channel:
 
     @staticmethod
     def _read_response(sock: Socket):
-        """The next response on ``sock``, read inline by a call or by the
-        reader thread; acks and stream frames ahead of it are handed on."""
+        """The next response on ``sock``, read inline by the call that
+        owns the connection; acks and stream frames ahead of it are
+        handed on."""
         while True:
             msg = read_frame(sock.conn)
             if isinstance(msg, AckFrame):

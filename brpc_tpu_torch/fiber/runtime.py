@@ -14,8 +14,10 @@ start.  Design differences, deliberate:
   So: a dynamic pool with a shared run queue, LIFO slot for urgent starts,
   and on-demand worker growth up to ``max_workers`` when all workers are
   busy/blocked.
-- This Python runtime is the control-plane engine; the port has no
-  native IO engine, so its transport threads are plain threads.
+- This Python runtime is the control-plane engine: the Python
+  transport's consumers (``transport/event_dispatcher.py``) and the
+  messages they spawn run on it; the native engine's loops
+  (``brpc_tpu_torch/native``) are threads of their own.
 
 Wake-up discipline (≈ ParkingLot, parking_lot.h): every COOPERATIVE
 path is event-driven — spawn() notifies a parked worker the moment an

@@ -19,7 +19,9 @@ control.  The port of ``brpc_tpu/ici/endpoint.py``.
   fabric; the dead-connection and TTL sweeps run on both (the JAX package
   sweeps only its in-process fabric).
 - TICI frames are packed and read by ``protocol/tpu_std.py``; the
-  connection's ack queue is ``transport/socket.py``'s.
+  connection's ack queue is ``transport/socket.py``'s.  :data:`ICI_ACK`
+  registers them with the ``InputMessenger`` (inline) for the
+  connections the dispatcher reads, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ import torch
 
 from ..butil.flags import define_flag, get_flag
 from ..ops.device_ops import bytes_to_tensor, dtype_name, tensor_bytes
-from ..protocol.tpu_std import max_body_size
+from ..protocol.base import (ParseResult, Protocol, ProtocolType,
+                             register_protocol)
+from ..protocol.tpu_std import ACK_HEADER_SIZE, ACK_MAGIC, max_body_size
 from ..transport.socket import Socket
 from .attachment import (KIND_INLINE, KIND_INPROC, KIND_TRANSFER,
                          DeviceAttachment, decode_descriptor,
@@ -330,6 +334,37 @@ def process_ack(desc_ids, sock) -> None:
         if not fabric.release(desc_id, only_socket=sid) \
                 and xfab is not None:
             xfab.release(desc_id, only_socket=sid)
+
+
+def _parse_ack(source, sock, read_eof: bool, arg) -> ParseResult:
+    """One TICI frame off an ``InputMessenger``'s portal: its ids."""
+    avail = len(source)
+    if avail < ACK_HEADER_SIZE:
+        if ACK_MAGIC.startswith(source.fetch(min(4, avail))):
+            return ParseResult.not_enough_data()
+        return ParseResult.try_others()
+    head = source.fetch(ACK_HEADER_SIZE)
+    if head[:4] != ACK_MAGIC:
+        return ParseResult.try_others()
+    (count,) = struct.unpack_from("<I", head, 4)
+    if count > 1 << 20:
+        return ParseResult.absolutely_wrong()
+    if avail < ACK_HEADER_SIZE + 8 * count:
+        return ParseResult.not_enough_data()
+    source.pop_front(ACK_HEADER_SIZE)
+    ids = struct.unpack(f"<{count}Q", source.fetch(8 * count))
+    source.pop_front(8 * count)
+    return ParseResult.make_message(ids)
+
+
+# the dispatcher-read connections' TICI frames, on both sides, inline on
+# the reading fiber (a few dict operations; never blocks)
+ICI_ACK = Protocol(
+    ProtocolType.ICI_ACK, "ici_ack", _parse_ack,
+    process_request=lambda ids, sock, server: process_ack(ids, sock),
+    process_response=process_ack,
+    process_inline=True)
+register_protocol(ICI_ACK)
 
 
 # -- descriptor TTL sweep --------------------------------------------------

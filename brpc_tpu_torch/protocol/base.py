@@ -12,9 +12,9 @@ callbacks, pick an id, register. Differences from the reference:
   (the framed pb-RPC protocol cuts an ``RpcMessage`` with meta + payload
   IOBuf views — zero-copy all the way to user code).
 
-A copy of ``brpc_tpu/protocol/base.py``.  The port's server fixes a connection's protocol
-at its first bytes: tpu_std keeps its own reader, HTTP/1.x and h2
-connections go through ``transport/input_messenger.py``.
+A copy of ``brpc_tpu/protocol/base.py``.  The port's registrations are
+listed in its server's ``InputMessenger`` (``server/server.py``) and
+client messenger (``transport/input_messenger.py``).
 """
 
 from __future__ import annotations

@@ -14,7 +14,17 @@ credit-return frames (``brpc_tpu/ici/endpoint.py``'s ack frames)::
     [ "TICI" ][ u32 count ][ count x u64 descriptor id ]
 
 and the streams' "TSTR" frames (:mod:`.streaming`).  :func:`read_frame`
-returns any of the three kinds.
+returns any of the three kinds off a blocking socket (a caller that
+reads its own connection).  Where the dispatcher reads a connection,
+:func:`parse` cuts one tpu_std frame off the connection's portal for the
+``InputMessenger`` and :data:`TPU_STD` is its registration (as
+``brpc_tpu/protocol/tpu_std.py:170``): a request goes to
+``server/rpc_dispatch.process_rpc_request`` with its acks deferred in
+front of its response, a response to the call waiting on its
+correlation id (``transport/socket_map.hand_over``).  The streams' and
+the acks' registrations are ``STREAMING`` and ``ici.endpoint.ICI_ACK``.
+A cut frame is stamped with its arrival (``RpcMessage.recv_ns``): the
+deadline plane, CoDel and the server span run from it.
 
 A frame's body is capped by the live flag ``max_body_size`` (64 MiB by
 default, as in the JAX package), read at every send and receive.  The
@@ -26,9 +36,12 @@ from __future__ import annotations
 
 import socket
 import struct
+import threading
+import time
 from typing import Any, NamedTuple, Tuple, Union
 
 from ..butil.flags import define_flag, get_flag
+from .base import ParseResult, Protocol, ProtocolType, register_protocol
 from .meta import RpcMeta
 from .streaming import HEADER as STREAM_HEADER_SIZE
 from .streaming import MAGIC as STREAM_MAGIC
@@ -56,6 +69,19 @@ def max_body_size() -> int:
 
 class FrameError(ValueError):
     """Bytes that are not a tpu_std frame, or one past the size cap."""
+
+
+class RpcMessage(NamedTuple):
+    """One cut tpu_std frame: its meta, payload and attachment, and its
+    arrival on the monotonic clock (``(meta, payload, attachment)`` is
+    what :func:`unpack_frame` returns, so a response reads as one)."""
+    meta: RpcMeta
+    payload: bytes
+    attachment: bytes
+    recv_ns: int
+    # the first frame cut on a connection whose server checks
+    # credentials: its verdict is the one later frames wait for
+    auth_first: bool = False
 
 
 class AckFrame(NamedTuple):
@@ -187,3 +213,77 @@ def serialize_payload(obj: Any) -> bytes:
         return b""
     raise TypeError(f"cannot serialize {type(obj).__name__} as RPC payload;"
                     f" the port's payloads are bytes")
+
+
+# -- the frame cut for the InputMessenger ------------------------------------
+
+def _cut_bytes(source, n: int) -> bytes:
+    """The first ``n`` bytes of an IOBuf, consumed, as one copy."""
+    if n <= 0:
+        return b""
+    buf = source.cutn(n)
+    return b"".join([blk.view(off, ln) for blk, off, ln in buf._refs])
+
+
+def parse(source, sock, read_eof: bool, arg) -> ParseResult:
+    """≈ ParseRpcMessage (baidu_rpc_protocol.cpp:95): one tpu_std frame
+    off ``source`` as an :class:`RpcMessage` stamped with its arrival."""
+    avail = len(source)
+    if avail < HEADER_SIZE:
+        if MAGIC.startswith(source.fetch(min(4, avail))):
+            return ParseResult.not_enough_data()
+        return ParseResult.try_others()
+    header = source.fetch(HEADER_SIZE)
+    if header[:4] != MAGIC:
+        return ParseResult.try_others()
+    body_size, meta_size = struct.unpack_from("<II", header, 4)
+    limit = max_body_size()
+    if body_size > limit:
+        return ParseResult.too_big(limit)
+    if meta_size > body_size:
+        return ParseResult.absolutely_wrong()
+    if avail < HEADER_SIZE + body_size:
+        return ParseResult.not_enough_data()
+    recv_ns = time.monotonic_ns()
+    source.pop_front(HEADER_SIZE)
+    meta = RpcMeta.decode(_cut_bytes(source, meta_size))
+    rest = body_size - meta_size
+    if meta is None or meta.attachment_size > rest:
+        return ParseResult.absolutely_wrong()
+    payload = _cut_bytes(source, rest - meta.attachment_size)
+    attachment = _cut_bytes(source, meta.attachment_size)
+    auth_first = False
+    if arg is not None and sock.auth_gate is None \
+            and sock.app_data is None \
+            and getattr(arg.options, "auth", None) is not None:
+        # frames are cut in order: the first one's verdict decides
+        sock.auth_gate = threading.Event()
+        auth_first = True
+    return ParseResult.make_message(RpcMessage(meta, payload, attachment,
+                                               recv_ns, auth_first))
+
+
+def _process_request(msg: RpcMessage, sock, server) -> None:
+    # the server layer sits above the protocol layer
+    from ..server.rpc_dispatch import process_rpc_request
+    # acks queued while the request is served ride in front of its
+    # response
+    sock.defer_acks = True
+    try:
+        process_rpc_request(msg, sock, server)
+    finally:
+        sock.defer_acks = False
+        if msg.auth_first:
+            sock.auth_gate.set()
+    sock.flush_acks()
+
+
+def _process_response(msg: RpcMessage, sock) -> None:
+    from ..transport.socket_map import hand_over
+    hand_over(sock, msg)
+
+
+TPU_STD = Protocol(ProtocolType.TPU_STD, "tpu_std", parse,
+                   process_request=_process_request,
+                   process_response=_process_response)
+register_protocol(TPU_STD)

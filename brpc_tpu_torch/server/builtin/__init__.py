@@ -202,6 +202,8 @@ def _flag_line(f) -> str:
 
 
 def _connections(server, msg, rest):
+    """/connections — the connections the server's acceptors (and its
+    native engine) hold, and the live sockets of the process."""
     from ...transport.socket import socket_pool
 
     out = {
@@ -683,7 +685,8 @@ def _hotspots_run(server, q, kind, seconds):
 
 
 def _sockets(server, msg, rest):
-    """/sockets — live socket table (≈ builtin/sockets_service.cpp)."""
+    """/sockets — live socket table (≈ builtin/sockets_service.cpp), and
+    what the event dispatcher watches and each acceptor holds."""
     from ...transport.socket import socket_pool
 
     lines = [f"{'id':>20} {'remote':<22} {'state':<8} "
@@ -700,6 +703,14 @@ def _sockets(server, msg, rest):
         except Exception:
             continue
     lines.append(f"\n{len(socket_pool())} live sockets")
+    # the port's footer: what the Python transport reads
+    from ...transport.event_dispatcher import global_dispatcher
+    accs = getattr(server, "acceptors", [])
+    lines.append(f"event dispatcher: {global_dispatcher().watched_fds()} "
+                 f"descriptors watched; acceptors: "
+                 + (", ".join(f"{a.tag or 'main'} "
+                              f"{a.connection_count()} connections"
+                              for a in accs) or "none"))
     return 200, "text/plain", "\n".join(lines) + "\n"
 
 

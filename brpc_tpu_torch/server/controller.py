@@ -115,16 +115,19 @@ class ServerController:
     def finish(self, response: Any = None) -> None:
         """Complete the request through the lane's ``send`` callback.
         Idempotent: the first call wins.  The session-local data goes back
-        to the server's pool afterwards."""
+        to the server's pool first: the handler is done with it, and the
+        connection's next request may be served (on another fiber) as soon
+        as this answer is written, where the JAX lane gives it back after
+        the write."""
         with self._finish_lock:
             send, self._send = self._send, None
         if send is None:
             return
-        send(self, response)
         if self._session_data is not None and self.server is not None \
                 and self.server._session_pool is not None:
             self.server._session_pool.give_back(self._session_data)
             self._session_data = None
+        send(self, response)
 
     def _mark_finished_if_first(self) -> bool:
         """Claim the completion without calling ``send``: a native slim

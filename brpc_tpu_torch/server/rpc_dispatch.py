@@ -6,8 +6,9 @@ find the method, run the compiled interceptor chain's prologue
 (``interceptors.compile_rpc_chain``: admission, the attachment and
 fabric staging, the span, the deadline shed), then auth, the user
 interceptor, decompression and the handler, and answer exactly once.
-Both transports call :func:`process_rpc_request`: the server's reader
-thread for a connection it reads itself, and the native bridge for a
+Both transports call :func:`process_rpc_request`: the Python
+transport's ``InputMessenger`` for a frame tpu_std's ``parse`` cut
+(``protocol/tpu_std.py``'s ``TPU_STD``), and the native bridge for a
 frame the engine cut and could not answer on a slim lane.
 
 The port keeps its classic lane's shape where it differs from the JAX
@@ -28,7 +29,7 @@ closes the stream it accepted.
 from __future__ import annotations
 
 import logging
-from typing import Any, NamedTuple, Optional
+from typing import Any, Optional
 
 from ..butil.flags import get_flag
 from ..butil.status import Errno
@@ -38,22 +39,15 @@ from ..ici.endpoint import (ack_unused, ici_enabled, prepare_send,
 from ..ici.fabric import local_domain_id
 from ..protocol import compress as compress_mod
 from ..protocol.meta import TAG_ICI_DOMAIN, RpcMeta, encode_tlv
-from ..protocol.tpu_std import FrameError, pack_frame, serialize_payload
+from ..protocol.tpu_std import (FrameError, RpcMessage, pack_frame,
+                                serialize_payload)
 from ..transport import shm_ring
 from ..transport.socket import Socket
 from .controller import ServerController
 
 LOG = logging.getLogger(__name__)
 _POST_TIMEOUT_S = 5.0       # a response descriptor's wait for window credit
-
-
-class RpcMessage(NamedTuple):
-    """One request frame: its meta, payload and attachment, and its
-    arrival on the monotonic clock."""
-    meta: RpcMeta
-    payload: bytes
-    attachment: bytes
-    recv_ns: int
+_AUTH_WAIT_S = 5.0          # a message's wait for the first one's verdict
 
 
 def _write(sock: Socket, frame: bytes) -> None:
@@ -285,8 +279,16 @@ def process_rpc_request(msg: RpcMessage, sock: Socket, server) -> None:
     cntl = enter(msg, sock)
     if cntl is None:
         return      # rejected or shed: the client is already answered
-    # auth on the connection's first message (≈ Protocol::verify)
+    # auth on the connection's first message (≈ Protocol::verify); a
+    # later message the messenger runs beside it waits for its verdict
+    # (≈ brpc's Socket::FightAuthentication)
     auth = server.options.auth
+    gate = sock.auth_gate
+    if auth is not None and sock.app_data is None and gate is not None \
+            and not msg.auth_first:
+        from ..fiber import runtime as fiber_runtime
+        with fiber_runtime.blocking():
+            gate.wait(_AUTH_WAIT_S)
     if auth is not None and sock.app_data is None:
         try:
             ok = auth.verify(meta.auth_data, cntl)

@@ -24,14 +24,14 @@ Per item of a burst:
   back to the port's Python demux byte for byte: the engine hands over
   the exact wire bytes under a named reason (:data:`REASONS`, the closed
   ``CliFb`` enum of ``engine.cpp``, in its order), and they are read as
-  the reader thread reads them (``socket_map.process_client_msg``),
-  serialized per connection on an ``ExecutionQueue``.
-* **unknown magic** -- the lane detaches the connection and hands it to
-  a reader thread, the buffered bytes first (the port's counterpart of
-  the JAX conversion to the classic dispatcher).
+  whole frames (``socket_map.process_client_msg``), serialized per
+  connection on an ``ExecutionQueue``.
+* **unknown magic** -- the lane detaches the connection and converts it
+  to the classic dispatcher (``socket_map.dispatch_client``: the client
+  messenger cuts the buffered bytes first), as the JAX lane does.
 
-With ``rpc_native_client_lane`` off, or with no engine, a connection
-gets a reader thread, as in the JAX package; each such choice is counted
+With ``rpc_native_client_lane`` off, or with no engine, the dispatcher
+reads a connection, as in the JAX package; each such choice is counted
 in :func:`client_lane_telemetry`'s ``declined`` under a named reason
 (:data:`DECLINE_REASONS`).
 """
@@ -52,7 +52,7 @@ from ..bvar.passive_status import PassiveStatus
 define_flag("rpc_native_client_lane", True,
             "route eligible client sockets' response demux through the "
             "native engine's ClientDemux (batched completion delivery); "
-            "off = a reader thread for every socket",
+            "off = the classic dispatcher for every socket",
             validator=lambda v: isinstance(v, bool))
 define_flag("rpc_client_lane_loops", 0,
             "ClientDemux loops in the process-wide client lane (each "
@@ -64,7 +64,7 @@ define_flag("rpc_client_lane_loops", 0,
 # the closed fallback reason enum -- MUST mirror engine.cpp's CliFb order
 REASONS = ("cli_unknown_cid", "cli_meta_unparsed", "cli_meta_tags",
            "cli_stream_frame", "cli_unknown_magic")
-# why a connection that asked for the lane got a reader thread instead
+# why a connection that asked for the lane is read by the dispatcher instead
 DECLINE_REASONS = ("lane_flag_off", "lane_no_engine", "lane_tls",
                    "lane_attach_failed")
 
@@ -350,10 +350,9 @@ class ClientLane:
                 try:
                     if kind == 0:          # one whole frame
                         _classic_frame(_sock, payload)
-                    elif kind == 1:        # hand the reads to a thread
+                    elif kind == 1:        # to the classic dispatcher
                         if not _sock.failed:
-                            from .socket_map import start_reader
-                            start_reader(_sock, prefix=bytes(payload))
+                            _convert_to_dispatcher(_sock, payload)
                     else:                  # the connection is gone
                         _sock.set_failed(*payload)
                 except Exception:
@@ -377,7 +376,7 @@ class ClientLane:
                 q.execute((0, bytes(raw)))
         if prefix is not None:
             # sticky: detach first (on the demux thread: no further lane
-            # read can race), then a reader thread takes over after the
+            # read can race), then the dispatcher takes over after the
             # queued frames, the buffered bytes first
             self.detach(sock, _stop_queue=False)
             q.execute((1, bytes(prefix)))
@@ -391,9 +390,20 @@ class ClientLane:
             self.detach(sock, _stop_queue=False)
 
 
+def _convert_to_dispatcher(sock, prefix) -> None:
+    """The lane's sticky conversion of an unknown-magic connection: the
+    bytes it read (from the unknown magic on) into the socket's portal,
+    then the client messenger and the dispatcher own the reads."""
+    from ..butil.iobuf import IOPortal
+    from .socket_map import dispatch_client
+    if sock.read_portal is None:
+        sock.read_portal = IOPortal()
+    sock.read_portal.append(bytes(prefix))
+    dispatch_client(sock)
+
+
 def _classic_frame(sock, raw: bytes) -> None:
-    """One frame the lane handed back, read as the reader thread reads
-    it."""
+    """One whole frame the lane handed back."""
     from ..protocol.tpu_std import read_frame
     from .socket_map import Replay, process_client_msg
     process_client_msg(sock, read_frame(Replay(raw)))

@@ -8,8 +8,8 @@ device-attachment acks address it exactly like a connection the Python
 transport reads) and routes engine events into the dispatch layers:
 
     EV_MESSAGE -> server.rpc_dispatch.process_rpc_request, the classic
-                  lane the Python reader thread runs too (inline on the
-                  loop, or on a fiber)
+                  lane the Python transport's messenger runs too (inline
+                  on the loop, or on a fiber)
     EV_ACK     -> ici.endpoint.process_ack (descriptor ownership
                   enforced: only acks from the posting connection count)
     EV_STREAM  -> protocol.streaming.dispatch (socket binding checked)
@@ -17,7 +17,7 @@ transport reads) and routes engine events into the dispatch layers:
                   protocol.http parses, the server's HTTP dispatch
                   routes (RPC bridge, restful, builtin portal)
     EV_BYTES   -> passthrough gulp for the protocols the engine does not
-                  cut (h2/gRPC): the server's InputMessenger cuts and
+                  cut (h2/gRPC, RESP, thrift): the server's InputMessenger cuts and
                   dispatches
     EV_UNKNOWN -> connection failed (malformed sniffed HTTP)
 
@@ -71,16 +71,14 @@ class NativeSocket(Socket):
         self.engine = engine
         self.conn_id = conn_id
 
-    def _send(self, data) -> None:
-        if not data:
-            return
-        parts = tuple(data.backing_views()) if isinstance(data, IOBuf) \
-            else (data,)
+    def _send(self, views) -> int:
+        """The engine queues the whole frame: it never refuses bytes."""
         try:
-            self.engine.send(self.conn_id, parts)
+            self.engine.send(self.conn_id, tuple(views))
         except ConnectionError:
             self.failed = True
             raise
+        return sum(len(v) for v in views)
 
     def _shutdown(self) -> None:
         try:

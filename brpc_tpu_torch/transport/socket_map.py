@@ -7,8 +7,9 @@ The port of ``brpc_tpu/transport/socket_map.py`` (brpc's
   (:func:`conn_key`), shared by every channel with that signature; calls are
   multiplexed on it and matched by correlation id.  Its reads belong to
   the client lane's native demux (``transport/client_lane.py``,
-  ``prefer_lane``), or to a reader thread of its own when the lane
-  declines (TLS, the flag off, no engine).  A failed one stays in the
+  ``prefer_lane``), or to the event dispatcher and the client messenger
+  when the lane declines (TLS, the flag off, no engine), as in the JAX
+  package.  A failed one stays in the
   map and the health check revives it in place
   (``transport/health_check.py``, every ``health_check_interval_s``);
   :meth:`SocketMap.get_socket` also tries a rate-limited revival at
@@ -19,14 +20,17 @@ The port of ``brpc_tpu/transport/socket_map.py`` (brpc's
 
 Pooled and short connections are born ``direct_read``: their caller
 reads them itself (the fast lane, ``client/fast_call.py``), on a
-non-blocking descriptor that the engine polls.
+non-blocking descriptor that the engine polls.  An async or hedged
+call's attempt converts its connection to the dispatcher
+(``Socket.ensure_dispatched``); such a connection leaves the pool after
+its call, where the JAX pool keeps it and its fast lane declines it.
 
-The reader thread is the port's counterpart of the JAX package's
-classic dispatcher for client sockets (``event_dispatcher`` is not
-ported): it reads whole frames and hands a response to the call waiting
-on its correlation id (:func:`hand_over`), a TICI ack to the device lane
-and a TSTR frame to its stream (:func:`process_client_msg`).  The lane's
-fallback frames go through the same function.
+A connection the dispatcher reads runs ``transport/input_messenger``'s
+``client_messenger`` on its consumer fiber: a response goes to the call
+waiting on its correlation id (:func:`hand_over`, tpu_std's
+``process_response``), a TICI ack to the device lane and a TSTR frame to
+its stream.  The lane's fallback frames go through
+:func:`process_client_msg`, which does the same for a frame read whole.
 
 Divergences from the JAX map: the map and the pools are keyed by the
 channel's signature, as brpc's ``ChannelSignature`` keys them, and not by
@@ -84,8 +88,8 @@ def _new_connection(remote: EndPoint,
                     connect_timeout_s: float = 1.0) -> Tuple[int, int]:
     """Connect a client socket; ``(socket_id, 0)``, or ``(0, errno)``
     when the connect failed.  ``direct_read``: its caller reads it (no
-    reader); else ``prefer_lane`` asks the client lane to read it, and a
-    reader thread reads it when the lane declines."""
+    reader); else ``prefer_lane`` asks the client lane to read it, and
+    the dispatcher reads it when the lane declines."""
     try:
         conn = dial(remote, connect_timeout_s, ssl_context)
     except (OSError, ValueError):
@@ -108,10 +112,21 @@ def _arm_reader(sock: Socket, prefer_lane: bool) -> None:
         from .client_lane import try_attach
         if try_attach(sock):
             return
-    start_reader(sock)
+    dispatch_client(sock)
 
 
-# -- the Python demux (the reader thread, and the lane's fallback frames) ---
+def dispatch_client(sock: Socket) -> None:
+    """From now on the dispatcher reads ``sock`` through the client
+    messenger, the bytes already in its portal first."""
+    from .input_messenger import client_messenger
+    messenger = client_messenger()
+    if sock.read_portal is not None and not sock.read_portal.empty():
+        messenger.process_buffered(sock)
+    if not sock.failed:
+        sock.dispatch_reads(messenger.on_new_messages)
+
+
+# -- the Python demux (the lane's fallback frames) ---------------------------
 
 def hand_over(sock: Socket, msg) -> None:
     """A response ``(meta, payload, attachment)`` to the call waiting on
@@ -158,60 +173,6 @@ class Replay:
         if self._conn is None:
             return 0
         return self._conn.recv_into(view)
-
-
-class TlsReads:
-    """A TLS connection's reads, serialized with its writes: one SSL
-    object must not be used by two threads at once, so the reader waits
-    for the descriptor without the socket's write lock and reads under
-    it without blocking."""
-
-    __slots__ = ("_sock", "_conn")
-
-    def __init__(self, sock: Socket, conn):
-        self._sock = sock
-        self._conn = conn
-
-    def recv_into(self, view) -> int:
-        import select
-        import ssl
-        conn = self._conn
-        while True:
-            if not conn.pending():
-                select.select([conn], [], [])
-            with self._sock._write_lock:
-                conn.setblocking(False)
-                try:
-                    return conn.recv_into(view)
-                except (ssl.SSLWantReadError, ssl.SSLWantWriteError,
-                        BlockingIOError):
-                    continue
-                finally:
-                    conn.setblocking(True)
-
-
-def start_reader(sock: Socket, prefix: bytes = b"") -> None:
-    """From now on one thread reads ``sock`` (after ``prefix``, bytes
-    read off it already): blocking reads, and blocking writes."""
-    conn = sock.conn
-    conn.settimeout(None)
-    threading.Thread(target=_read_loop, args=(sock, conn, prefix),
-                     name="tpu_std-reader", daemon=True).start()
-
-
-def _read_loop(sock: Socket, conn, prefix: bytes) -> None:
-    from ..protocol.tpu_std import read_frame
-    src = conn if sock.ssl_context is None else TlsReads(sock, conn)
-    if prefix:
-        src = Replay(prefix, src)
-    why = "connection closed"
-    try:
-        while True:
-            process_client_msg(sock, read_frame(src))
-    except (OSError, EOFError, ValueError) as e:    # FrameError too;
-        why = f"{type(e).__name__}: {e}"            # ValueError: closed
-    if sock.conn is conn:       # not revived under us
-        sock.set_failed(int(Errno.EFAILEDSOCKET), why)
 
 
 # -- the shared "single" connections ----------------------------------------
@@ -338,7 +299,10 @@ class SocketPool:
         s = Socket.address(sid)
         if s is None:
             return
-        if s.failed:
+        if s.failed or not s.direct_read:
+            # a connection the dispatcher reads (an async or hedged call
+            # converted it) cannot serve the fast lane, which reads its
+            # pooled connections itself: it leaves the pool
             s.release()
             return
         if s._pending_acks:

@@ -110,13 +110,19 @@ result line) when a phase fails or CUDA is absent.  Phases:
    noise;
    13. the overload and drain planes on the same services: (a) two
    Generate calls from two threads on one connection, the second's budget
-   under the first's handler time: it is shed (``ERPCTIMEDOUT``, its
-   handler never run, ``deadline_shed_total`` +1, ``flash_fwd`` launched
-   for the first alone, whose tokens are phase 5's); (b) goodput under
+   under the first's handler time: held back while the first runs inline
+   on the connection's consumer, as on the JAX server, it times out at
+   its caller (``ERPCTIMEDOUT``) and is then read with a fresh arrival
+   stamp and run, unshed (``flash_fwd`` launched for both, the first's
+   tokens phase 5's); then a Generate whose budget is spent at its
+   arrival (an explicit on-wire 0) is shed (``ERPCTIMEDOUT``, its handler
+   never run, ``deadline_shed_total`` +1, no launch); (b) goodput under
    overload, ``bench.py``'s paired, interleaved A/B: bursts of 4 calls
    on one connection with budgets of 2.5 times a lone request's latency,
-   shedding on against off (completed-within-budget calls per second, sheds, launches
-   per completed call); (c) admission on servers of their own: a method
+   shedding on against off (completed-within-budget calls per second,
+   sheds, launches per completed call): every call runs, in both arms,
+   since nothing held back on one connection is late when it is read;
+   (c) admission on servers of their own: a method
    cap of 2 with 2 calls in flight and 4 more, one after another,
    beside them (4 ``ELIMIT`` in under 5 ms, no launch for them), an "auto" limiter under a 16-call burst, a fair
    capacity of 2 with one tenant flooding; (d) a drain of a server
@@ -220,6 +226,32 @@ result line) when a phase fails or CUDA is absent.  Phases:
    closed ``lame_duck``, no page left, and the lame-duck TLV on a
    response the engine built itself (a kind-0 echo) beside the
    ``ELAMEDUCK`` refusal of a new Generate;
+   18. the client on the engine: phase 5's Generates on ``"pooled"`` and
+   ``"short"`` (the fast lane's ``sync_call``) beside ``"single"`` (the
+   client lane), ``call_batch``, a ``scatter_call`` fan-out, 6b's
+   streams on one shared connection, device echoes on the fast lane
+   against the Controller path, ``call_raw``, a drain and a revival;
+   19. the Python transport on the event dispatcher (a default
+   ``Server``: an ``Acceptor``, the dispatcher's consumer fibers, one
+   ``InputMessenger``; the phase fails if a default server has no
+   acceptor or any thread named for one connection exists): (a) phase
+   5's Generates on phase 5's default server over ``"single"`` and
+   ``"pooled"``, in turns with ``Server(native=True)``: phase 5's
+   tokens, ``flash_fwd`` depth a request, host ms per shape; 16 more
+   connections add no thread each; (b) 6b's eight Decode streams on one
+   shared ``"single"`` connection: the solo generator's tokens under the
+   near-tie rule, aggregate tok/s and TTFT beside 6b's and phase 17's
+   kind-5 lane; (c) four Generates at once on one connection, each equal
+   to its request alone, with the messenger's inline and spawned counts;
+   (d) 200 1 MiB device echoes of the full-width EmbeddingPS on a
+   default server: two ``checksum.cu`` launches an echo, zero-copy, no
+   live descriptor, calls/s beside phase 17's engine; (e) phase 16's TLS
+   Generates and 1 MiB TLS echoes from four writer threads on one
+   connection, with no SSL error; (f) RESP and thrift on the LM's own
+   port, on both transports, while a Generate runs: the answers and the
+   Generate's tokens; (g) a drain during four paged Decode streams: no
+   connection and no page left, and a connection made during the drain
+   served from the backlog once ``start`` ends the drain;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -354,7 +386,8 @@ from brpc_tpu_torch.parallel.multiproc_dryrun import (  # noqa: E402
 from brpc_tpu_torch.parallel.ring_attention import (  # noqa: E402
     make_ulysses_attention)
 from brpc_tpu_torch.parallel.spmd import init_world  # noqa: E402
-from brpc_tpu_torch.protocol.meta import CompressType, RpcMeta  # noqa
+from brpc_tpu_torch.protocol.meta import (  # noqa: E402
+    TLV_TIMEOUT, CompressType, RpcMeta)
 from brpc_tpu_torch.protocol.tpu_std import (  # noqa: E402
     MAX_BODY_SIZE, AckFrame, max_body_size, pack_frame, read_frame,
     unpack_frame)
@@ -370,6 +403,12 @@ from brpc_tpu_torch.transport.socket_map import (  # noqa: E402
     global_socket_map, pooled_socket, return_pooled_socket, socket_pool_of)
 from brpc_tpu_torch.transport import client_lane, health_check  # noqa
 from brpc_tpu_torch.client import fast_call  # noqa: E402
+from brpc_tpu_torch.client.redis_client import RedisClient  # noqa: E402
+from brpc_tpu_torch.protocol.resp import RedisError  # noqa: E402
+from brpc_tpu_torch.protocol.thrift_proto import (  # noqa: E402
+    TBinary, ThriftClient)
+from brpc_tpu_torch.transport.input_messenger import (  # noqa: E402
+    messenger_counters)
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
     TrainCheckpointer, abstract_like)
 
@@ -4155,8 +4194,13 @@ def serve_lm(services: dict, options: ServerOptions = None) -> Server:
 def phase_rob_shed(ch: Channel, srv: Server, cfg: LMConfig,
                    ref: tuple) -> dict:
     """(a) Two Generate calls from two threads on one connection: the
-    second, whose budget is shorter than the first's handler time, waits
-    behind it on the in-order server and is shed without running."""
+    second, whose budget is shorter than the first's handler time, is
+    held back in the kernel while the first runs inline on the
+    connection's consumer (the JAX server's rule), so it times out at its
+    caller, and is then read with a fresh arrival stamp and run, unshed.
+    Then a Generate whose budget is spent at its arrival is shed without
+    running."""
+    import socket as pysock
     prompt, want = ref
     out = {}
     sheds0 = shed_count("LM.Generate")
@@ -4172,29 +4216,47 @@ def phase_rob_shed(ch: Channel, srv: Server, cfg: LMConfig,
     c = out["first"]
     if c.failed:
         raise RuntimeError(f"(a)'s first Generate failed: {c.error_text}")
-    wait_until(lambda: shed_count("LM.Generate") == sheds0 + 1, 30,
-               "the shed")
+    wait_until(lambda: FLASH_FWD.launches >= 2 * cfg.depth
+               and srv.inflight == 0, 60, "the held-back Generate's run")
     launches = FLASH_FWD.launches
+    held_sheds = shed_count("LM.Generate") - sheds0
     toks = unpack_generated(c.response)[0].tolist()
+    # a budget spent at arrival: an explicit on-wire 0
+    meta = RpcMeta()
+    meta.correlation_id = 13
+    meta.service_name, meta.method_name = "LM", "Generate"
+    with pysock.create_connection(("127.0.0.1",
+                                   srv.listen_endpoint.port)) as conn:
+        conn.sendall(pack_frame(meta, pack_generate_request(prompt,
+                                                            len(want)),
+                                extra_meta=TLV_TIMEOUT + bytes(4)))
+        doomed = read_frame(conn)[0]
+    doomed_launches = FLASH_FWD.launches - launches
+    doomed_sheds = shed_count("LM.Generate") - sheds0 - held_sheds
     log(f"  (a) two Generate {prompt.shape} x {len(want)} on one "
         f"connection: the first answered with phase 5's tokens "
         f"{toks == want}; the second ({SHED_BUDGET_MS} ms budget) "
-        f"[{second.error_code}] after {second_ms:.1f} ms, "
+        f"[{second.error_code}] after {second_ms:.1f} ms, then run, "
         f"deadline_shed_total{{lane=\"tpu_std\",method=\"LM.Generate\"}} "
-        f"+{shed_count('LM.Generate') - sheds0}; flash_fwd launches "
-        f"{launches} (depth {cfg.depth}); {card_line()}")
+        f"+{held_sheds}; flash_fwd launches {launches} (depth "
+        f"{cfg.depth}); one spent at arrival [{doomed.error_code}], shed "
+        f"+{doomed_sheds}, flash_fwd +{doomed_launches}; {card_line()}")
     if second.error_code != int(Errno.ERPCTIMEDOUT) or toks != want \
-            or launches != cfg.depth:
-        raise AssertionError("(a): the queued Generate was not shed alone")
-    return dict(second_ms=second_ms, sheds=1, launches=launches)
+            or launches != 2 * cfg.depth or held_sheds:
+        raise AssertionError("(a): the held-back Generate did not time out "
+                             "at its caller and run after the first")
+    if doomed.error_code != int(Errno.ERPCTIMEDOUT) or doomed_sheds != 1 \
+            or doomed_launches:
+        raise AssertionError("(a): the doomed Generate was not shed")
+    return dict(second_ms=second_ms, sheds=doomed_sheds,
+                launches=launches + doomed_launches)
 
 
 def goodput_arm(ch: Channel, prompt: np.ndarray, max_new: int,
                 budget_ms: int, seconds: float) -> tuple:
     """Bursts of GOODPUT_K Generates from as many threads on ``ch``'s one
-    connection, each burst closed by an ``LM.Info`` behind it (the
-    in-order server answers it once the burst is through, shed or run),
-    for ``seconds``: (completed within the budget per second, completed,
+    connection, each burst closed by an ``LM.Info`` after it, for
+    ``seconds``: (completed within the budget per second, completed,
     failed)."""
     done = [0, 0]
     lock = threading.Lock()
@@ -4222,7 +4284,9 @@ def phase_rob_goodput(ch: Channel, srv: Server, cfg: LMConfig) -> dict:
     interleaved A/B of closed-loop bursts: GOODPUT_K calls at once on one
     connection, each budget GOODPUT_BUDGET_L x L (L: one warm request
     alone), so a burst offers twice what a budget holds; shedding on
-    against off."""
+    against off.  On the JAX server's transport the connection holds
+    back what arrives while a call runs inline, and reads it with a fresh
+    arrival stamp: nothing is shed, and every call runs."""
     b, s, max_new = GOODPUT_REQUEST
     prompt = np.random.default_rng(13).integers(0, cfg.vocab, (b, s),
                                                 dtype=np.int32)
@@ -4242,6 +4306,12 @@ def phase_rob_goodput(ch: Channel, srv: Server, cfg: LMConfig) -> dict:
                 FLASH_FWD.launches = 0
                 qps, good, bad = goodput_arm(ch, prompt, max_new, budget,
                                              GOODPUT_ARM_S)
+                # calls whose callers timed out still run on the server
+                # (the closing LM.Info was read after every one of them)
+                for _ in range(2):
+                    wait_until(lambda: srv.inflight == 0, 60,
+                               "the arm's calls")
+                    time.sleep(0.05)
                 launches = FLASH_FWD.launches
                 rows[on].append(dict(
                     goodput_per_s=qps, completed=good, failed=bad,
@@ -4262,9 +4332,14 @@ def phase_rob_goodput(ch: Channel, srv: Server, cfg: LMConfig) -> dict:
                         f"{x['launches_per_completed']:.1f} launches per "
                         f"completed)" for x in rows[on])
             + f"; median {med[on]:.2f}/s")
-    if not all(x["completed"] and x["sheds"] for x in rows[True]) \
-            or any(x["sheds"] for x in rows[False]):
-        raise AssertionError("(b): shedding on did not shed, or off did")
+    # a call held back on the connection is read with a fresh arrival
+    # stamp: none is late at dispatch, so every one runs, in both arms
+    if not all(x["completed"] for on in rows for x in rows[on]) \
+            or any(x["sheds"] for on in rows for x in rows[on]) \
+            or any(x["launches"] != cfg.depth * (x["completed"]
+                                                 + x["failed"])
+                   for on in rows for x in rows[on]):
+        raise AssertionError("(b): a call was shed, or one did not run")
     return dict(L_ms=L, budget_ms=budget, on=rows[True], off=rows[False],
                 median_on=med[True], median_off=med[False],
                 launches=sum(x["launches"] for on in rows
@@ -4329,7 +4404,10 @@ def phase_rob_admission(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
     elimit = int(Errno.ELIMIT)
     opts = ServerOptions()
     opts.method_max_concurrency = {"LM.Generate": ADMIT_CAP}
+    stamps = ServerStamps()                 # traces a refusal that trips
+    stamps.install()
     server = serve_lm({"LM": svc}, opts)
+    traces = []
     try:
         before = admission.admission_counters()
         extra = connected_channels(server.listen_endpoint,
@@ -4347,14 +4425,18 @@ def phase_rob_admission(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
         # running Generate, not among a burst of client threads
         rejected = []
         for c in extra:
-            t0 = time.perf_counter()
+            del stamps.stamps[:]
+            t0 = time.monotonic_ns()
             code = gen_call(c, prompt, len(want), 600_000).error_code
-            rejected.append(((time.perf_counter() - t0) * 1e3, code))
+            t1 = time.monotonic_ns()
+            rejected.append(((t1 - t0) / 1e6, code))
+            traces.append(stamps.call(t0, t1))
             c.close()
         t.join(600)
         launches = FLASH_FWD.launches
         verdicts = admission_delta(before)
     finally:
+        stamps.remove()
         server.stop()
     served = [tok for code, _, tok in capped["res"] if code == 0]
     log(f"  (c) method cap {ADMIT_CAP} on LM.Generate: {len(served)} "
@@ -4363,6 +4445,10 @@ def phase_rob_admission(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
         + ", ".join(f"[{code}] in {ms:.2f}" for ms, code in rejected)
         + f" ms; flash_fwd launches {launches}; overload_admission_total "
         f"+{verdicts}; {card_line()}")
+    for (ms, _), tr in zip(rejected, traces):
+        if ms >= 5.0:
+            log(f"      a refusal over 5 ms, its server side (ms after the "
+                f"call began): {tr}")
     if len(served) != ADMIT_CAP \
             or any(code != elimit or ms >= 5.0 for ms, code in rejected) \
             or launches != cfg.depth * ADMIT_CAP \
@@ -7155,8 +7241,13 @@ def phase_p18_drain(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
         FLASH_FWD.launches = 0
         ch.call_method("LM.Generate", pack_generate_request(
             prompt, len(want)), cntl=cntl, done=finished)
-        wait_until(lambda: client_lane.pending_inflight() >= 1, 30,
-                   "the Generate's lane entry")
+        # the Generate waits on the lane and runs on the card (its first
+        # launch), not only written: the drain is then settled by its
+        # answer, never by a lame-duck refusal of a request still in
+        # flight to the server
+        wait_until(lambda: client_lane.pending_inflight() >= 1
+                   and FLASH_FWD.launches >= 1, 30,
+                   "the Generate's lane entry and its first launch")
         pending = client_lane.pending_inflight()
         t0 = time.perf_counter()
         rc = server.drain(DRAIN_GRACE_MS)
@@ -7238,6 +7329,651 @@ def phase_slice18(svc: LMService, srv: Server, ch: Channel, cfg: LMConfig,
         f"{res['launches']}, checksum launches "
         f"{res['echo']['checksum_launches']}; the fast lane's routes "
         f"{fast_call.lane_counters()} ({card_line()})")
+    return res
+
+
+P19_ROUNDS = 2                            # (a): turns of the two servers
+P19_CONCURRENT = 4                        # (c): Generates on one connection
+P19_CONCURRENT_REQUEST = (1, 512, 16)
+P19_IDLE_CONNECTIONS = 16                 # (a): connections for the census
+P19_ECHO_CALLS = 200                      # (d)
+P19_TRACED_ECHOES = 50                    # (d): echoes traced on the server
+P19_TLS_WRITERS = 4                       # (e): threads on one connection
+P19_TLS_ECHOES = 25                       # (e): 1 MiB echoes per writer
+P19_DRAIN_STREAMS = 4                     # (g)
+# threads that would serve one connection each: the Python transport's
+# names before this slice (the accept, reader, worker and client reader
+# threads); none may exist while phase 19 runs
+P19_CONN_THREAD_NAMES = ("tpu_std-accept", "internal-accept",
+                         "tpu_std-conn", "tpu_std-work", "tpu_std-reader")
+
+
+class P19Redis:
+    """A "redis" service on the LM's port: SET, GET, INCR, PING."""
+
+    def __init__(self):
+        self.store = {}
+        self.lock = threading.Lock()
+
+    def on_command(self, args):
+        cmd = args[0].upper()
+        with self.lock:
+            if cmd == b"PING":
+                return "PONG"
+            if cmd == b"SET":
+                self.store[args[1]] = args[2]
+                return "OK"
+            if cmd == b"GET":
+                return self.store.get(args[1])
+            if cmd == b"INCR":
+                v = int(self.store.get(args[1], b"0")) + 1
+                self.store[args[1]] = str(v).encode()
+                return v
+        raise RedisError(f"unknown command {cmd.decode()}")
+
+
+class P19Thrift:
+    """A "thrift" service on the LM's port: ``greet`` and ``echo``."""
+
+    def handle(self, method, body):
+        if method == "echo":
+            return body
+        if method == "greet":
+            name, _ = TBinary.read_string(body, 0)
+            return TBinary.write_string(b"hello " + name)
+        raise KeyError(method)
+
+
+def conn_threads() -> list:
+    """Threads named as the old transport named its per-connection ones."""
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(P19_CONN_THREAD_NAMES)]
+
+
+def on_dispatcher(server: Server, what: str) -> None:
+    """Fail unless ``server`` is a default Server on the acceptor and the
+    dispatcher, with no thread serving one connection."""
+    if server._native_bridge is not None or not server.acceptors:
+        raise AssertionError(f"phase 19 {what}: the server is not on the "
+                             f"Python transport's acceptor")
+    names = conn_threads()
+    if names:
+        raise AssertionError(f"phase 19 {what}: per-connection threads "
+                             f"{names}")
+
+
+class ServerStamps:
+    """Stamps of the Python transport's server side, on
+    ``time.monotonic_ns``, for a traced run: the dispatcher's wake-up of
+    a connection (``Socket.start_input_event``), its consumer fiber's
+    start (``Socket._process_events``), a tpu_std request's cut (its
+    ``recv_ns``) and each write (``Socket.write``).  The four are wrapped
+    inside the ``with`` block only; a connection registered before it is
+    woken through the bound method it registered, so a traced run opens
+    its connections inside the block."""
+
+    def __init__(self):
+        self.stamps = []
+
+    def __enter__(self):
+        self.install()
+        return self
+
+    def __exit__(self, *exc):
+        self.remove()
+
+    def install(self) -> None:
+        from brpc_tpu_torch.protocol.tpu_std import TPU_STD
+        stamps = self.stamps
+        self._saved = (Socket.start_input_event, Socket._process_events,
+                       Socket.write, TPU_STD.parse)
+        wake, consume, write, cut = self._saved
+
+        def t_wake(sock):
+            stamps.append(("wake", sock.id, time.monotonic_ns()))
+            return wake(sock)
+
+        def t_consume(sock):
+            stamps.append(("consumer", sock.id, time.monotonic_ns()))
+            return consume(sock)
+
+        def t_write(sock, data):
+            stamps.append(("write", sock.id, time.monotonic_ns()))
+            return write(sock, data)
+
+        def t_cut(source, sock, read_eof, arg):
+            r = cut(source, sock, read_eof, arg)
+            if r.ok and arg is not None:
+                stamps.append(("cut", sock.id, r.message.recv_ns))
+            return r
+
+        Socket.start_input_event = t_wake
+        Socket._process_events = t_consume
+        Socket.write = t_write
+        TPU_STD.parse = t_cut
+
+    def remove(self) -> None:
+        from brpc_tpu_torch.protocol.tpu_std import TPU_STD
+        (Socket.start_input_event, Socket._process_events, Socket.write,
+         TPU_STD.parse) = self._saved
+
+    def call(self, t0: int, t1: int) -> dict:
+        """One call's server side, between ``t0`` and ``t1``: ms after
+        ``t0`` of its request's cut, the wake-up and consumer start on
+        that connection before it, and the first write after it."""
+        cuts = [(sid, ns) for k, sid, ns in self.stamps
+                if k == "cut" and t0 <= ns <= t1]
+        if not cuts:
+            return {}
+        sid, cut = cuts[0]
+
+        def last(kind):
+            v = [ns for k, i, ns in self.stamps
+                 if k == kind and i == sid and t0 <= ns <= cut]
+            return v[-1] if v else None
+
+        wake, consumer = last("wake"), last("consumer")
+        writes = [ns for k, i, ns in self.stamps
+                  if k == "write" and i == sid and cut <= ns <= t1]
+        ms = lambda ns: None if ns is None else (ns - t0) / 1e6  # noqa
+        return dict(wake=ms(wake), consumer=ms(consumer), cut=ms(cut),
+                    write=ms(writes[0] if writes else None),
+                    end=ms(t1))
+
+
+def stamp_segments(traces: list) -> dict:
+    """Median ms of each step of traced calls: the client's send to the
+    dispatcher's wake-up, the wake-up to the consumer fiber, the consumer
+    to the cut, the cut to the response's write (the handler), and the
+    write to the call's return on the client.  A request the consumer
+    read on its way to EAGAIN, after the last answer, had no wake-up of
+    its own: counted apart."""
+    steps = (("send_to_wake", None, "wake"),
+             ("wake_to_consumer", "wake", "consumer"),
+             ("consumer_to_cut", "consumer", "cut"),
+             ("cut_to_write", "cut", "write"),
+             ("write_to_return", "write", "end"))
+    out = {}
+    for name, a, b in steps:
+        v = [t[b] - (t[a] if a else 0.0) for t in traces
+             if t.get(b) is not None and (a is None or t.get(a) is not None)]
+        out[name] = round(statistics.median(v), 4) if v else None
+    out["calls"] = len(traces)
+    out["read_without_wake"] = sum(t.get("cut") is not None
+                                   and t.get("wake") is None for t in traces)
+    return out
+
+
+def info_frame(cid: int) -> bytes:
+    meta = RpcMeta()
+    meta.correlation_id = cid
+    meta.service_name, meta.method_name = "LM", "Info"
+    return pack_frame(meta, b"")
+
+
+def phase_p19_generate(svc: LMService, srv: Server, cfg: LMConfig,
+                       rows: list) -> dict:
+    """(a) Phase 5's Generates on phase 5's default Server over "single"
+    and "pooled", in turns with the same calls to ``Server(native=True)``;
+    then a census: idle connections add no thread."""
+    import socket as pysock
+    prompts = phase5_prompts(cfg)
+    native = native_server({"LM": svc})
+    servers = {"python": srv, "native": native}
+    res, launches = {}, 0
+    try:
+        for r in range(P19_ROUNDS):
+            order = ("python", "native") if r % 2 == 0 \
+                else ("native", "python")
+            for where in order:
+                ep = servers[where].listen_endpoint
+                for ctype in ("single", "pooled"):
+                    ch = typed_channel(ep, ctype)
+                    FLASH_FWD.launches = 0
+                    outs = timed_generates(ch, prompts, rows)
+                    n = FLASH_FWD.launches
+                    ch.close()
+                    launches += n
+                    check_lane(f"(a) {where} {ctype} round {r}", outs, rows,
+                               n, cfg)
+                    res.setdefault(f"{where}_{ctype}_ms", []).append(
+                        [t for _, t in outs])
+        on_dispatcher(srv, "(a)")
+        owns_connections(native, "(a)")
+    finally:
+        native.stop()
+    for where in ("python", "native"):
+        per = {ctype: [[round(t, 1) for t in x]
+                       for x in res[f"{where}_{ctype}_ms"]]
+               for ctype in ("single", "pooled")}
+        log(f"  (a) {where} server, host ms per shape and round: "
+            + "; ".join(f"{ctype} {v}" for ctype, v in per.items())
+            + f" ({card_line()})")
+    ep = srv.listen_endpoint
+    before = threading.active_count()
+    conns0 = srv.connection_count()
+    socks = [pysock.create_connection((ep.host, ep.port), timeout=60)
+             for _ in range(P19_IDLE_CONNECTIONS)]
+    try:
+        for i, s in enumerate(socks):
+            s.sendall(info_frame(100 + i))
+        answered = sum(read_frame(s)[0].error_code == 0 for s in socks)
+        wait_until(lambda: srv.connection_count()
+                   >= conns0 + P19_IDLE_CONNECTIONS, 30, "the census")
+        grown = threading.active_count() - before
+        on_dispatcher(srv, "(a) census")
+    finally:
+        for s in socks:
+            s.close()
+    log(f"  (a) {P19_IDLE_CONNECTIONS} more connections to the default "
+        f"server, an LM.Info on each ({answered} answered): threads "
+        f"{before} -> {before + grown}; connection_count "
+        f"{conns0 + P19_IDLE_CONNECTIONS}+")
+    if answered != P19_IDLE_CONNECTIONS or grown >= P19_IDLE_CONNECTIONS // 2:
+        raise AssertionError("(a): the connections grew the threads")
+    res.update(launches=launches, census_threads_grown=grown)
+    return res
+
+
+def phase_p19_decode(svc: LMService, srv: Server, cfg: LMConfig,
+                     six_b: dict, slice17: dict) -> dict:
+    """(b) 6b's eight Decode streams on one shared "single" connection to
+    phase 5's default Server: the tokens of the solo generator (6b's
+    near-tie rule), aggregate tok/s and TTFT beside 6b's and phase 17's
+    engine figures."""
+    prompts = decode_prompts(cfg, 5, DECODE_SLOTS)
+    solo = [solo_reference(svc, cfg, p, DECODE_MAX_NEW) for p in prompts]
+    batcher = svc.batcher()
+    ep = srv.listen_endpoint
+    shared = typed_channel(ep, "single")
+    shared.call("LM.Info", b"", timeout_ms=60_000)
+    sock = shared._sock
+    msgs0 = messenger_counters()
+    FLASH_FWD.launches = 0
+    try:
+        clients, wall_s, most_live = run_decode_sessions(
+            ep, "LM", prompts, DECODE_STAGGER_S, batcher, channel=shared)
+    finally:
+        same_conn = shared._sock is sock and not sock.failed
+        shared.close()
+    n = FLASH_FWD.launches
+    for i, (cl, (toks, margins)) in enumerate(zip(clients, solo)):
+        for j, (got, want) in enumerate(zip(cl.tokens, toks)):
+            if got != want:
+                if margins[j] >= LOGIT_RTOL:
+                    raise AssertionError(f"(b) session {i} token {j}: {got}"
+                                         f" against the solo run's {want}")
+                break
+    tokens = sum(len(cl.tokens) for cl in clients)
+    equal_6b, ties_6b = lane_compare([cl.tokens for cl in clients],
+                                     six_b["session_tokens"], solo)
+    ttfts = sorted(cl.ttft_s * 1e3 for cl in clients)
+    msgs = {k: v - msgs0[k] for k, v in messenger_counters().items()}
+    engine = [r for r in slice17["decode"]["runs"] if r["lane"] == "native"]
+    run = dict(tokens=tokens, wall_s=wall_s, tok_s=tokens / wall_s,
+               most_live=most_live, ttft_median_ms=statistics.median(ttfts),
+               ttft_max_ms=ttfts[-1], equal_6b=equal_6b,
+               near_ties_6b=ties_6b, launches=n, messages=msgs)
+    log(f"  (b) {len(clients)} Decode streams on one shared connection to "
+        f"the default server: {tokens} tokens in {wall_s:.3f} s = "
+        f"{run['tok_s']:.1f} tok/s aggregate (6b: "
+        f"{six_b['aggregate_tok_s']:.1f}; phase 17's engine, kind-5 lane: "
+        f"{[round(r['tok_s'], 1) for r in engine]}), TTFT median "
+        f"{run['ttft_median_ms']:.1f} ms, max {run['ttft_max_ms']:.1f} ms "
+        f"(6b: {six_b['ttft_median_ms']:.1f} ms; engine: "
+        f"{[round(r['ttft_median_ms'], 1) for r in engine]}); sessions "
+        f"equal to 6b's {equal_6b} ({ties_6b} after a near-tie); messenger "
+        f"{msgs}; flash_fwd {n}; {card_line()}")
+    if not same_conn or n != cfg.depth * len(prompts) \
+            or any(cl.reason != "finished" for cl in clients):
+        raise AssertionError("(b): the shared connection, the streams or "
+                             "the launches are off")
+    on_dispatcher(srv, "(b)")
+    return run
+
+
+def phase_p19_concurrent(svc: LMService, srv: Server,
+                         cfg: LMConfig) -> dict:
+    """(c) Four Generates at once on one "single" connection, each
+    against the same request alone; the messenger's spawned and inline
+    counts."""
+    b, s, max_new = P19_CONCURRENT_REQUEST
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+               for _ in range(P19_CONCURRENT)]
+    ch = typed_channel(srv.listen_endpoint, "single")
+    try:
+        solo = [generate(ch, p, max_new).tolist() for p in prompts]
+        out = [None] * len(prompts)
+        msgs0 = messenger_counters()
+        FLASH_FWD.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, generate(ch, prompts[i], max_new).tolist()))
+            for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        n = FLASH_FWD.launches
+        msgs = {k: v - msgs0[k] for k, v in messenger_counters().items()}
+    finally:
+        ch.close()
+    same = sum(o == w for o, w in zip(out, solo))
+    log(f"  (c) {len(prompts)} Generates {P19_CONCURRENT_REQUEST} at once "
+        f"on one connection: {same} equal to the request alone, "
+        f"{wall_ms:.1f} ms for all; the messenger ran {msgs['inline']} "
+        f"inline and spawned {msgs['spawned']} (server and client "
+        f"messengers of this process); flash_fwd {n}; {card_line()}")
+    if same != len(prompts) or n != cfg.depth * len(prompts):
+        raise AssertionError("(c): an answer or the launches are off")
+    on_dispatcher(srv, "(c)")
+    return dict(equal=same, wall_ms=wall_ms, messages=msgs, launches=n)
+
+
+def phase_p19_echo(slice17: dict) -> dict:
+    """(d) 1 MiB device echoes of the full-width EmbeddingPS on a default
+    Server: checksum.cu twice an echo, zero-copy, no live descriptor
+    after; calls/s beside phase 17's engine figure."""
+    cs = CountedChecksum()
+    model = EmbeddingPS(PS_CFG, device="cuda", seed=0)
+    server = serve_lm({"PS": PSService(model)})
+    x = torch.arange(ECHO_BYTES // 4, dtype=torch.float32, device="cuda")
+    ch = typed_channel(server.listen_endpoint, "single")
+    try:
+        echo(ch, x, cs)                 # the domain exchange
+        on_dispatcher(server, "(d)")
+        CHECKSUM.launches = 0
+        calls0 = cs.calls
+        same = 0
+        t0 = time.perf_counter()
+        for _ in range(P19_ECHO_CALLS):
+            dev, out = echo(ch, x, cs)
+            same += dev and out.data_ptr() == x.data_ptr()
+        rps = P19_ECHO_CALLS / (time.perf_counter() - t0)
+        live, outstanding = wait_fabric_empty()
+        launches = CHECKSUM.launches
+        calls = cs.calls - calls0
+    finally:
+        ch.close()
+        server.stop()
+    traced = traced_echoes(model, x, cs)
+    engine = [round(r["rps"], 1) for r in slice17["echo"]["native"]]
+    log(f"  (d) 1 MiB device echo x{P19_ECHO_CALLS} on the default server: "
+        f"{rps:.1f} calls/s (phase 17's engine: {engine}), zero-copy "
+        f"{same}/{P19_ECHO_CALLS}; checksum.cu {launches} for {calls} "
+        f"checksums; {live} live descriptors, {outstanding} outstanding "
+        f"bytes; {card_line()}")
+    log(f"      traced apart, {P19_TRACED_ECHOES} more echoes a server, "
+        f"median ms of each step: {traced}")
+    if same != P19_ECHO_CALLS or launches != calls \
+            or launches != 2 * P19_ECHO_CALLS or live or outstanding:
+        raise AssertionError("(d): zero-copy, launches or descriptors off")
+    return dict(rps=rps, zero_copy=same, checksum_launches=launches,
+                live_descriptors=live, traced=traced)
+
+
+def traced_echoes(model, x: torch.Tensor, cs) -> dict:
+    """(d)'s echo, each step timed on the host clock (the checksum
+    before, the call, the landing's redeem, the checksum after), on a
+    default server and connection of their own with the call's server
+    side stamped (``ServerStamps``), and on the engine beside it; after
+    the timed run, so that the stamps cost it nothing: the median ms of
+    each step, per server."""
+    out = {}
+    for kind in ("python", "native"):
+        with ServerStamps() as st:
+            services = {"PS": PSService(model)}
+            server = serve_lm(services) if kind == "python" \
+                else native_server(services)
+            ch = typed_channel(server.listen_endpoint, "single")
+            try:
+                echo(ch, x, cs)
+                traces, host = [], []
+                for _ in range(P19_TRACED_ECHOES):
+                    del st.stamps[:]
+                    t = [time.monotonic_ns()]
+                    cs(x)
+                    t.append(time.monotonic_ns())
+                    c = ps_call(ch, "EchoTensor", device_att=x)
+                    t.append(time.monotonic_ns())
+                    landed = c.response_device_attachment.tensor()
+                    t.append(time.monotonic_ns())
+                    cs(landed)
+                    t.append(time.monotonic_ns())
+                    traces.append(st.call(t[1], t[2]))
+                    host.append([(b - a) / 1e6 for a, b in zip(t, t[1:])])
+            finally:
+                ch.close()
+                server.stop()
+        steps = stamp_segments(traces) if kind == "python" else {}
+        for i, name in enumerate(("checksum_before", "call", "redeem",
+                                  "checksum_after")):
+            steps[name] = round(statistics.median(h[i] for h in host), 4)
+        out[kind] = steps
+    wait_fabric_empty()
+    return out
+
+
+def phase_p19_tls(svc: LMService, cfg: LMConfig, rows: list) -> dict:
+    """(e) Phase 16's TLS Generates on a default TLS Server, then 1 MiB
+    TLS echoes from four writer threads on one connection."""
+    prompts = phase5_prompts(cfg)
+    tmp = tempfile.mkdtemp(prefix="p19-certs-")
+    cert, key = make_cert_pair(tmp)
+    opts = ServerOptions()
+    opts.ssl_cert, opts.ssl_key = cert, key
+    srv = serve_lm({"LM": svc, "S": Stages16()}, opts)
+    tls = p16_channel(srv.listen_endpoint, ssl=True, ssl_ca=cert,
+                      ssl_verify=True)
+    try:
+        FLASH_FWD.launches = 0
+        gen_ms = []
+        for prompt, (_, _, max_new), row in zip(prompts, REQUESTS, rows):
+            ids, c, ms = p16_generate(tls, prompt, max_new)
+            if ids is None or ids.tolist() != row["ids"]:
+                raise AssertionError(f"(e) TLS Generate: {c.error_text} or "
+                                     f"tokens off")
+            gen_ms.append(ms)
+        n = FLASH_FWD.launches
+        payloads = [np.random.default_rng(190 + i).integers(
+            0, 256, ECHO_BYTES, dtype=np.uint8).tobytes()
+            for i in range(P19_TLS_WRITERS)]
+        errors = []
+
+        def writer(i):
+            for _ in range(P19_TLS_ECHOES):
+                c = tls.call_method("S.Echo", payloads[i],
+                                    cntl=p16_cntl())
+                if c.failed or c.response != payloads[i]:
+                    errors.append(f"[{c.error_code}] {c.error_text}"
+                                  if c.failed else "a corrupted echo")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=writer, args=(i,))
+                   for i in range(P19_TLS_WRITERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        rps = P19_TLS_WRITERS * P19_TLS_ECHOES / (time.perf_counter() - t0)
+        conns = srv.connection_count()
+        on_dispatcher(srv, "(e)")
+    finally:
+        tls.close()
+        srv.stop()
+    log(f"  (e) TLS on a default server: phase 5's Generates "
+        f"{[round(m, 1) for m in gen_ms]} ms, tokens equal, flash_fwd {n}; "
+        f"{P19_TLS_WRITERS} writers x {P19_TLS_ECHOES} 1 MiB echoes on one "
+        f"connection: {rps:.1f} calls/s, errors {errors[:3] or 'none'}; "
+        f"{conns} server connection(s); {card_line()}")
+    if errors or n != cfg.depth * len(REQUESTS) or conns != 1:
+        raise AssertionError("(e): a TLS call failed or the launches are "
+                             "off")
+    return dict(generate_ms=gen_ms, echo_calls_s=rps, launches=n)
+
+
+def phase_p19_ecosystem(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(f) RESP and thrift on the LM server's own port, on both
+    transports, while a Generate runs on another connection."""
+    prompt, want = ref
+    res, launches = {}, 0
+    for where in ("python", "native"):
+        services = {"LM": svc, "redis": P19Redis(), "thrift": P19Thrift()}
+        server = native_server(services) if where == "native" \
+            else serve_lm(services)
+        ep = str(server.listen_endpoint)
+        ch = typed_channel(server.listen_endpoint, "single")
+        r = RedisClient(ep, timeout_s=60.0)
+        tc = ThriftClient(ep, timeout_s=60.0)
+        try:
+            out = {}
+            FLASH_FWD.launches = 0
+            g = threading.Thread(target=lambda: out.__setitem__(
+                "gen", gen_call(ch, prompt, len(want), 600_000)))
+            g.start()
+            if where == "python":
+                wait_until(lambda: server.inflight == 1, 60,
+                           "the Generate in flight")
+            t0 = time.perf_counter()
+            answers = [r.ping(), r.set("k19", b"v19"), r.get("k19"),
+                       r.incr("n19"),
+                       r.pipeline([("SET", "p%d" % i, "x%d" % i)
+                                   for i in range(8)] + [("GET", "p5")]),
+                       tc.call("greet", TBinary.write_string(b"tpu")),
+                       tc.call("echo", b"\x0b\x00\x01abc\x00")]
+            side_ms = (time.perf_counter() - t0) * 1e3
+            during = g.is_alive()
+            g.join(600)
+            c = out["gen"]
+            n = FLASH_FWD.launches
+            if where == "python":
+                on_dispatcher(server, "(f)")
+        finally:
+            r.close()
+            tc.close()
+            ch.close()
+            server.stop()
+        ok = answers[:4] == ["PONG", "OK", b"v19", 1] \
+            and answers[4] == ["OK"] * 8 + [b"x5"] \
+            and TBinary.read_string(answers[5], 0)[0] == b"hello tpu" \
+            and answers[6] == b"\x0b\x00\x01abc\x00"
+        toks = None if c.failed else unpack_generated(c.response)[0].tolist()
+        log(f"  (f) {where}: redis PING/SET/GET/INCR/9-command pipeline and "
+            f"two thrift calls on the LM's port in {side_ms:.1f} ms "
+            f"(the Generate still running at the end: {during}); answers "
+            f"right {ok}; the Generate's tokens equal phase 5's "
+            f"{toks == want}; flash_fwd {n}")
+        if not ok or toks != want or n != cfg.depth:
+            raise AssertionError(f"(f) {where}: an answer or the Generate "
+                                 f"is off")
+        res[where] = dict(side_ms=side_ms, during=during)
+        launches += n
+    res["launches"] = launches
+    return res
+
+
+def phase_p19_drain(paged: LMService, cfg: LMConfig) -> dict:
+    """(g) A drain of a default server during four Decode streams of a
+    paged service: no connection and no page left; a connection made
+    during the drain waits in the backlog and is served once ``start``
+    ends the drain."""
+    import socket as pysock
+    rng = np.random.default_rng(190)
+    prompts = [rng.integers(0, cfg.vocab, P17_DRAIN_PROMPT, dtype=np.int32)
+               for _ in range(P19_DRAIN_STREAMS)]
+    server = serve_lm({"LMPaged": paged, "LM": paged})
+    batcher = paged.batcher()
+    late = None
+    try:
+        clients = [DecodeClient(server.listen_endpoint, "LMPaged", p,
+                                DRAIN_MAX_NEW) for p in prompts]
+        threads = [threading.Thread(target=c.run) for c in clients]
+        FLASH_FWD.launches = 0
+        for t in threads:
+            t.start()
+        wait_until(lambda: all(c.tokens for c in clients), 120,
+                   "every stream's first token")
+        on_dispatcher(server, "(g)")
+        drained = {}
+        t0 = time.perf_counter()
+        d = threading.Thread(target=lambda: drained.__setitem__(
+            "rc", server.drain(DRAIN_GRACE_MS)))
+        d.start()
+        wait_until(lambda: server.draining, 10, "the drain")
+        ep = server.listen_endpoint
+        late = pysock.create_connection((ep.host, ep.port), timeout=60)
+        late.sendall(info_frame(77))
+        d.join(60)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        for c in clients:
+            if not c.done.wait(60):
+                raise AssertionError("(g): a stream never closed")
+        for t in threads:
+            t.join(10)
+        wait_until(lambda: session_pages(batcher) == (0, 0, 0), 60,
+                   "the drained sessions' pages")
+        left = session_pages(batcher)
+        wait_until(lambda: server.connection_count() == 0, 30,
+                   "the drained connections")
+        conns = server.connection_count()
+        late.settimeout(0.2)
+        try:
+            early = late.recv(1)
+        except pysock.timeout:
+            early = None            # nothing: it waits in the backlog
+        late.settimeout(60)
+        t1 = time.perf_counter()
+        rc_start = server.start()
+        meta, body, _ = read_frame(late)
+        served_ms = (time.perf_counter() - t1) * 1e3
+        launches = FLASH_FWD.launches
+    finally:
+        if late is not None:
+            late.close()
+        server.stop()
+        batcher.shutdown()
+    reasons = [c.reason for c in clients]
+    info_ok = meta.error_code == 0 and json.loads(body)["depth"] == cfg.depth
+    log(f"  (g) drain of a default server during {P19_DRAIN_STREAMS} paged "
+        f"Decode streams: rc {drained.get('rc')} in {drain_ms:.1f} ms; "
+        f"stream reasons {reasons}, tokens "
+        f"{[len(c.tokens) for c in clients]}; pages held, spills in "
+        f"flight, exported {left}; connection_count {conns}; a connection "
+        f"made during the drain answered before start: {early is not None}"
+        f", its LM.Info answered {served_ms:.1f} ms after start (rc "
+        f"{rc_start}): {info_ok}; flash_fwd {launches}; {card_line()}")
+    if drained.get("rc") != 0 or set(reasons) != {"lame_duck"} \
+            or left != (0, 0, 0) or conns != 0 or early is not None \
+            or rc_start != 0 or not info_ok:
+        raise AssertionError("(g): the drain did not settle or the backlog "
+                             "was not served after start")
+    return dict(rc=drained["rc"], drain_ms=drain_ms, left=left,
+                served_ms=served_ms, launches=launches)
+
+
+def phase_slice19(svc: LMService, srv: Server, cfg: LMConfig, rows: list,
+                  six_b: dict, slice17: dict, paged: dict) -> dict:
+    """Phase 19 on phase 5's service: the Python transport on the event
+    dispatcher."""
+    t0 = time.perf_counter()
+    ref = (phase5_prompts(cfg)[0], rows[0]["tokens"])
+    on_dispatcher(srv, "start")
+    res = {"generate": phase_p19_generate(svc, srv, cfg, rows),
+           "decode": phase_p19_decode(svc, srv, cfg, six_b, slice17),
+           "concurrent": phase_p19_concurrent(svc, srv, cfg),
+           "echo": phase_p19_echo(slice17),
+           "tls": phase_p19_tls(svc, cfg, rows),
+           "ecosystem": phase_p19_ecosystem(svc, cfg, ref),
+           "drain": phase_p19_drain(paged["LMPaged"], cfg)}
+    res["launches"] = sum(res[k]["launches"] for k in (
+        "generate", "decode", "concurrent", "tls", "ecosystem", "drain"))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 19: {res['seconds']:.1f} s; flash_fwd launches "
+        f"{res['launches']}, checksum launches "
+        f"{res['echo']['checksum_launches']}; messenger "
+        f"{messenger_counters()} ({card_line()})")
     return res
 
 
@@ -7657,6 +8393,11 @@ def main() -> int:
             "the client lane under Decode streams, device echoes, a drain "
             "and a revival")
         slice18 = phase_slice18(svc, srv, ch, cfg, rows, streams, cluster)
+        log("[19] the Python transport on the event dispatcher: Generate "
+            "and Decode on a default Server, four Generates on one "
+            "connection, device echoes, TLS, RESP and thrift on the LM's "
+            "port, a drain with a connection in the backlog")
+        slice19 = phase_slice19(svc, srv, cfg, rows, streams, slice17, paged)
     finally:
         ch.close()
         srv.stop()
@@ -7727,6 +8468,7 @@ def main() -> int:
                  "stages_tls_async": slice16["launches"],
                  "native_engine": slice17["launches"],
                  "native_client": slice18["launches"],
+                 "dispatcher": slice19["launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -7786,7 +8528,8 @@ def main() -> int:
                      + par["two_processes"]["checksum_launches"]
                      + slice16["pool"]["checksum_launches"]
                      + slice17["echo"]["checksum_launches"]
-                     + slice18["echo"]["checksum_launches"]),
+                     + slice18["echo"]["checksum_launches"]
+                     + slice19["echo"]["checksum_launches"]),
         "launches_by_path": {
             "ps": ps["launches"], "xproc": xproc["xfer"]["launches"],
             "xproc_inline": xproc["xfer"]["launches_inline"],
@@ -7794,7 +8537,8 @@ def main() -> int:
             "dryrun_echo": par["two_processes"]["checksum_launches"],
             "block_pool": slice16["pool"]["checksum_launches"],
             "native_echo": slice17["echo"]["checksum_launches"],
-            "fast_lane_echo": slice18["echo"]["checksum_launches"]},
+            "fast_lane_echo": slice18["echo"]["checksum_launches"],
+            "dispatcher_echo": slice19["echo"]["checksum_launches"]},
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
@@ -7818,6 +8562,7 @@ def main() -> int:
     log(f"  slice17: {json.dumps(slice17)}")
     log(f"  slice18: {json.dumps(slice18, default=str)}; phase 10's "
         f"Controller-path echo {ps['echo_rps']:.1f} calls/s")
+    log(f"  slice19: {json.dumps(slice19, default=str)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

@@ -6,7 +6,7 @@
 - an error response and stream frames fall back under their named
   reasons, and a backup's stale response is consumed without harm;
 - every Controller observable of a call matrix is the same with the lane
-  on and off (the reader thread), and the breaker is fed alike;
+  on and off (the dispatcher), and the breaker is fed alike;
 - the demux's reasons on crafted wire bytes, and EOF after a last
   completion;
 - ``drain_settle`` waits for the in-flight table and returns what is
@@ -463,8 +463,9 @@ def test_demux_unit_stream_frame_and_eof():
 
 def test_unknown_magic_hands_the_connection_to_a_reader():
     """A lane connection that receives bytes of no tpu_std kind is
-    detached; the reader thread then reads it and fails it (no protocol
-    claims them), failing the call waiting on it at once."""
+    detached and converted to the classic dispatcher, as the JAX lane
+    converts it; the client messenger then fails it (no client protocol
+    claims the bytes), failing the call waiting on it at once."""
     _require_native()
     lsock = pysock.socket()
     lsock.bind(("127.0.0.1", 0))

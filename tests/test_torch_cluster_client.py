@@ -711,6 +711,9 @@ def test_lame_duck_answer_marks_and_clean_answer_clears():
     try:
         assert ch.init(f"list://{a.listen_endpoint},{b.listen_endpoint}",
                        "rr") == 0
+        # the lame-duck signal reaches connected clients: a draining
+        # server accepts no new connection (it waits in the backlog)
+        assert sorted(_who(ch).response for _ in range(2)) == [b"a", b"b"]
         ducks = global_lame_ducks()
         drained = threading.Thread(target=a.drain, args=(3000,))
         drained.start()

@@ -92,55 +92,59 @@ def test_shed_raw_frame_expired_at_arrival():
         srv.stop()
 
 
-def test_shed_queued_behind_a_slow_call_from_a_jax_client():
-    """A JAX client's two calls on its one connection: the port's server
-    answers a connection in order, so the second waits behind a 300 ms
-    handler past its 100 ms budget and is shed, its handler never run."""
-    srv, svc = _port_server()
+def _held_behind_a_slow_call(make, client, then=None):
+    """Two calls on one connection, the second (100 ms budget) sent
+    while a 300 ms handler runs: ``(error code of the second, the shed
+    counter's delta)`` once the second has run; ``then(channel)`` runs
+    before the server stops."""
+    srv, svc = make()
+    dl = tdl if make is _port_server else jdl
     try:
-        before = tdl.shed_counters()
-        ch = JChannel()
-        assert ch.init(str(srv.listen_endpoint)) == 0
-        slow = threading.Thread(target=lambda: ch.call("D.Sleep", b"0.3",
-                                                       timeout_ms=5000))
-        slow.start()
-        time.sleep(0.05)
-        cntl = JController()
-        cntl.timeout_ms = 100
-        ch.call_method("D.Echo", b"late", cntl=cntl)
-        assert cntl.error_code == TIMEDOUT
-        slow.join(10)
-        wait_for(lambda: _delta(tdl, before, "D.Echo") == 1, what="shed")
-        assert svc.echo_calls == []
-    finally:
-        srv.stop()
-
-
-def test_shed_queued_behind_a_slow_call_on_the_ports_single_connection():
-    """The port's client multiplexes two threads' calls on its one
-    connection: the second, queued behind a 300 ms handler past its
-    100 ms budget, is shed; the first's answer comes back, and the
-    connection keeps serving (the shed answer is dropped without
-    error)."""
-    srv, svc = _port_server()
-    try:
-        before = tdl.shed_counters()
-        ch = Channel()
+        before = dl.shed_counters()
+        ch = (JChannel if client == "jax" else Channel)()
         assert ch.init(str(srv.listen_endpoint)) == 0
         out = {}
         slow = threading.Thread(target=lambda: out.__setitem__(
             "slow", ch.call("D.Sleep", b"0.3", timeout_ms=5000)))
         slow.start()
         wait_for(lambda: srv.inflight == 1, what="the slow call")
-        cntl = Controller()
+        cntl = (JController if client == "jax" else Controller)()
         cntl.timeout_ms = 100
         ch.call_method("D.Echo", b"late", cntl=cntl)
-        assert cntl.error_code == TIMEDOUT and cntl.retried_count == 0
+        assert "slow" not in out       # held back: it timed out first
         slow.join(10)
         assert out["slow"] == b"slept"
-        wait_for(lambda: _delta(tdl, before, "D.Echo") == 1, what="shed")
-        assert svc.echo_calls == []
-        # both calls of two threads at once, on the same connection
+        # read once the slow handler returned, with a fresh arrival
+        # stamp: run, not shed, its answer dropped by the caller
+        wait_for(lambda: svc.echo_calls == [b"late"], what="its run")
+        if then is not None:
+            then(ch)
+        return cntl.error_code, _delta(dl, before, "D.Echo")
+    finally:
+        srv.stop()
+
+
+def test_shed_queued_behind_a_slow_call_from_a_jax_client():
+    """A JAX client's two calls on its one connection: the second, sent
+    while a 300 ms handler runs, waits in the kernel -- the server runs
+    the gulp's last message inline, as the JAX server does -- so its
+    caller times out at its 100 ms budget, and the server reads it when
+    the handler returns and runs it, unshed, its arrival stamped at that
+    read.  The JAX server does the same.  (The port's in-order worker,
+    gone, read it at once and shed it: ROADMAP C9.)"""
+    for make in (_port_server, _jax_server):
+        code, shed = _held_behind_a_slow_call(make, "jax")
+        assert (code, shed) == (TIMEDOUT, 0), make.__name__
+
+
+def test_shed_queued_behind_a_slow_call_on_the_ports_single_connection():
+    """The port's client multiplexes two threads' calls on its one
+    connection: the second is held back behind a 300 ms handler past
+    its 100 ms budget and times out, the server runs it when the handler
+    returns (unshed, as the JAX server does), the first's answer comes
+    back, and the connection keeps serving four threads' calls at once
+    (the late answer is dropped without error)."""
+    def four_at_once(ch):
         res = []
         ts = [threading.Thread(target=lambda i=i: res.append(
             ch.call("D.Echo", b"%d" % i, timeout_ms=5000)))
@@ -151,8 +155,10 @@ def test_shed_queued_behind_a_slow_call_on_the_ports_single_connection():
             t.join(10)
         assert sorted(res) == [b"ok:0", b"ok:1", b"ok:2", b"ok:3"]
         ch.close()
-    finally:
-        srv.stop()
+
+    for make in (_port_server, _jax_server):
+        code, shed = _held_behind_a_slow_call(make, "port", four_at_once)
+        assert (code, shed) == (TIMEDOUT, 0), make.__name__
 
 
 @pytest.mark.parametrize("ctype", ["single", "pooled"])

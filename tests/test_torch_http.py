@@ -12,6 +12,7 @@ and a connection's protocol fixed at its first bytes."""
 import http.client
 import json
 import socket
+import struct
 import threading
 import time
 
@@ -286,15 +287,43 @@ def test_same_port_serves_tpu_std_and_http(servers):
     ch.close()
 
 
+def _one_connection(ep, first, second):
+    """Both answers on one connection: ``first`` then ``second`` sent
+    after the first's answer, each answer read whole."""
+    def answer(s, got):
+        while True:
+            if got.startswith(b"HTTP/1.1"):
+                head, sep, rest = got.partition(b"\r\n\r\n")
+                if sep:
+                    n = int(next(ln.split(b":")[1] for ln in
+                                 head.split(b"\r\n")
+                                 if ln.lower().startswith(b"content-length")))
+                    if len(rest) >= n:
+                        return got[:len(head) + 4 + n], rest[n:]
+            elif got.startswith(b"TRPC") and len(got) >= 12:
+                (body,) = struct.unpack_from("<I", got, 4)
+                if len(got) >= 12 + body:
+                    return got[:12 + body], got[12 + body:]
+            chunk = s.recv(65536)
+            assert chunk, "the server closed the connection"
+            got += chunk
+
+    with socket.create_connection((ep.host, ep.port), timeout=10) as s:
+        s.sendall(first)
+        a, rest = answer(s, b"")
+        s.sendall(second)
+        b, _ = answer(s, rest)
+    return a, b
+
+
 def test_connection_protocol_is_fixed_at_first_bytes(servers):
-    """Divergence: the port fixes a connection's protocol at its first
-    four bytes, where the JAX messenger re-detects each message.  A
-    tpu_std frame after an HTTP request on one connection is refused
-    (the connection closes), and an HTTP request on a connection that
-    began with tpu_std fails its frame read."""
+    """The protocol is no longer fixed at a connection's first bytes:
+    the port's messenger detects each message, as the JAX one does, so a
+    tpu_std frame after an HTTP request on one connection is answered,
+    and an HTTP request after a tpu_std frame too -- byte for byte as
+    the JAX server answers them (its date and version headers aside)."""
     from brpc_tpu_torch.protocol.meta import RpcMeta
     from brpc_tpu_torch.protocol.tpu_std import pack_frame
-    ep = servers["port"].listen_endpoint
     meta = RpcMeta()
     meta.correlation_id = 1
     meta.service_name, meta.method_name = "Calc", "Echo"
@@ -302,20 +331,16 @@ def test_connection_protocol_is_fixed_at_first_bytes(servers):
     http_req = (b"GET /health HTTP/1.1\r\nHost: x\r\n"
                 b"Content-Length: 0\r\n\r\n")
     for first, second in ((http_req, frame), (frame, http_req)):
-        with socket.create_connection((ep.host, ep.port), timeout=10) as s:
-            s.sendall(first)
-            got = b""
-            while not (got.startswith(b"HTTP/1.1 200") and got.endswith(
-                    b"OK\n")) and not got.startswith(b"TRPC"):
-                got += s.recv(65536)
-            s.sendall(second)
-            rest = b""
-            while True:
-                chunk = s.recv(65536)
-                if not chunk:
-                    break                  # refused: the server closed
-                rest += chunk
-            assert b"HTTP/1.1" not in rest and b"TRPC" not in rest
+        got = {}
+        for which in ("port", "jax"):
+            got[which] = _one_connection(servers[which].listen_endpoint,
+                                         first, second)
+        for (pa, ja) in zip(got["port"], got["jax"]):
+            if pa.startswith(b"TRPC"):
+                assert pa == ja
+            else:
+                assert pa.startswith(b"HTTP/1.1 200") \
+                    and pa.endswith(b"OK\n") and ja.endswith(b"OK\n")
 
 
 def test_internal_port_gates_builtin_pages():

@@ -307,13 +307,16 @@ def test_device_response_first_call(server):
 
 
 def test_window_ack_credit_cycle(server):
-    before = {id(ep) for ep in live_endpoints()}
+    # held, so that no endpoint of an earlier connection released
+    # meanwhile lends its id to a new one
+    before = list(live_endpoints())
     ch = _channel(server)
     _call(ch, "TE.Make", b"8").response_device_attachment.tensor("cpu")
     c = _call(ch, "TE.Echo", device_att=torch.ones(4096))
     assert not c.failed
     c.response_device_attachment.tensor("cpu")    # redeem -> ack flows
-    eps = [ep for ep in live_endpoints() if id(ep) not in before]
+    eps = [ep for ep in live_endpoints()
+           if not any(ep is old for old in before)]
     assert len(eps) == 2                          # client's and server's
     assert _wait_drained(eps), [(ep.posted_count, ep.acked_count,
                                  ep.outstanding_bytes) for ep in eps]
@@ -371,12 +374,15 @@ def test_expired_descriptor_raises_clean_error(server):
 
 
 def test_dropped_attachment_acks_on_gc(server):
-    before = {id(ep) for ep in live_endpoints()}
+    # held, so that no endpoint of an earlier connection released
+    # meanwhile lends its id to a new one
+    before = list(live_endpoints())
     ch = _channel(server)
     _call(ch, "TE.Make", b"8").response_device_attachment.tensor("cpu")
     c = _call(ch, "TE.Make", b"256")
     assert c.response_device_attachment.device_resident
-    eps = [ep for ep in live_endpoints() if id(ep) not in before]
+    eps = [ep for ep in live_endpoints()
+           if not any(ep is old for old in before)]
     assert len(eps) == 1 and eps[0].outstanding_bytes == 1024   # server's
     c.response_device_attachment = None           # dropped unredeemed
     del c

@@ -612,3 +612,38 @@ def test_two_processes_build_the_engine_at_once(tmp_path):
     assert len(paths) == 1
     built = sorted(os.listdir(tmp_path / "_build"))
     assert built == [".lock", os.path.basename(paths.pop())]
+
+
+# the Python transport on the event dispatcher, and the ecosystem
+# protocols on the one port
+_DISPATCHER_MODULES = (
+    "brpc_tpu_torch.transport.event_dispatcher",
+    "brpc_tpu_torch.transport.acceptor",
+    "brpc_tpu_torch.transport.socket",
+    "brpc_tpu_torch.protocol.tpu_std",
+    "brpc_tpu_torch.protocol.streaming",
+    "brpc_tpu_torch.protocol.resp",
+    "brpc_tpu_torch.protocol.thrift_proto",
+    "brpc_tpu_torch.client.redis_client",
+    "brpc_tpu_torch.client.memcache_client",
+    "brpc_tpu_torch.server.server",
+)
+
+
+@pytest.mark.parametrize("module", _DISPATCHER_MODULES)
+def test_dispatcher_modules_import_alone_with_jax_and_brpc_tpu_blocked(
+        module):
+    """Each module of the dispatcher-driven transport and of the RESP,
+    thrift, redis and memcache twins imports in a fresh interpreter with
+    ``jax`` and every ``brpc_tpu`` module refused, and its source names
+    neither package in any import."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["imported", module]
+    with open(os.path.join(ROOT, module.replace(".", os.sep) + ".py")) as f:
+        src = f.read()
+    import re
+    assert not re.search(r"^\s*(from|import)\s+(jax|brpc_tpu)(\.|\s|$)",
+                         src, re.M), module

@@ -309,7 +309,7 @@ def test_frame_on_another_connection_is_dropped(served):
 
 
 def test_calls_share_a_connection_with_a_stream(served):
-    """Once the connection carries a stream, its reader thread hands each
+    """Once the connection carries a stream, its reader hands each
     response to its call, concurrent calls included, while stream frames
     keep flowing."""
     srv, svc = served
