@@ -1,8 +1,10 @@
 """EndPoint — where a peer lives: ``host:port`` (IPv4, IPv6, hostname),
-or a rank of a device mesh, ``ici://<mesh>/<index>``.
+a unix socket path ``unix:/path``, or a rank of a device mesh,
+``ici://<mesh>/<index>``.
 
-The port of ``brpc_tpu/butil/endpoint.py`` without its unix sockets:
-``device_endpoint``, ``hostname_to_ip`` and ``my_hostname`` as there.
+The port of ``brpc_tpu/butil/endpoint.py``: ``is_unix``,
+``device_endpoint``, ``hostname_to_ip`` and ``my_hostname`` as there (a
+unix endpoint parses and prints; neither package dials one).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 _ICI_RE = re.compile(r"^ici://([A-Za-z0-9_\-\.]+)/(\d+)$")
+_UDS_PREFIX = "unix:"
 
 
 @dataclass(frozen=True, order=True)
@@ -27,9 +30,15 @@ class EndPoint:
     def is_device(self) -> bool:
         return self.device_index >= 0
 
+    @property
+    def is_unix(self) -> bool:
+        return self.host.startswith(_UDS_PREFIX)
+
     def __str__(self) -> str:
         if self.is_device:
             return f"ici://{self.mesh}/{self.device_index}"
+        if self.is_unix:
+            return self.host
         if ":" in self.host:  # ipv6 literal
             return f"[{self.host}]:{self.port}"
         return f"{self.host}:{self.port}"
@@ -41,9 +50,12 @@ class EndPoint:
 
 
 def parse_endpoint(text: str, default_port: int = 0) -> EndPoint:
-    """Parse ``host:port``, ``[v6]:port``, ``ici://mesh/idx``, a bare IPv6
-    literal, or a bare host (uses ``default_port``)."""
+    """Parse ``host:port``, ``[v6]:port``, ``unix:/path``,
+    ``ici://mesh/idx``, a bare IPv6 literal, or a bare host (uses
+    ``default_port``)."""
     text = text.strip()
+    if text.startswith(_UDS_PREFIX):
+        return EndPoint(host=text, port=default_port)
     m = _ICI_RE.match(text)
     if m:
         return EndPoint(mesh=m.group(1), device_index=int(m.group(2)))

@@ -97,6 +97,10 @@ def positive(v) -> bool:
     return v > 0
 
 
+def non_negative(v) -> bool:
+    return v >= 0
+
+
 # the core flag the port's client reads (``transport/socket_map.py``'s
 # health check); the JAX package's other core flag, ``max_body_size``,
 # is defined beside its reader in ``protocol/tpu_std.py``

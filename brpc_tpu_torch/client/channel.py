@@ -155,6 +155,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from ..butil.endpoint import EndPoint, parse_endpoint
+from ..butil.flags import get_flag
 from ..butil.logging_util import LOG
 from ..butil.status import Errno
 from ..deadline import RetryBudget, backoff_ms, cap_timeout_ms
@@ -173,6 +174,7 @@ from ..rpcz import format_traceparent
 from ..protocol.tpu_std import (AckFrame, FrameError, pack_frame,
                                 parse_payload, read_frame, serialize_payload)
 from ..transport import shm_ring
+from ..transport import client_lane
 from ..transport.client_lane import lane_cancel, lane_expect
 from ..transport.socket import Socket, dial
 from ..transport.socket_map import (NO_DEADLINE_S, conn_key,
@@ -389,6 +391,13 @@ class Channel:
                 else parse_endpoint(text)
         except ValueError:
             return -1
+        if self.options.protocol == "tpu_std" \
+                and get_flag("rpc_native_client_lane", True):
+            # the engine behind the client lane and the fast lane loads
+            # (and on a fresh checkout builds) here, as brpc's
+            # Channel::Init runs GlobalInitializeOrDie: a first call's
+            # deadline covers its connect, never the engine's build
+            client_lane.global_client_lane()
         return 0
 
     def close(self) -> None:

@@ -18,6 +18,10 @@ response frame is built before the settle, so a response that fails to
 serialize settles as the error it becomes; an unknown method's answer
 carries the domain answer and shm TLVs as any other response does.
 
+While the ``rpc_dump`` flag is on, :func:`process_rpc_request` first
+hands a budgeted sample of the requests to ``tools/rpc_dump.py``, as
+the JAX lane does (``:242-245``).
+
 Every completion — the handler's return, an async ``cntl.finish``, an
 error — reaches :func:`_send_response`: the credit return of a request
 descriptor first (so its ack precedes the response on the wire), the
@@ -41,6 +45,7 @@ from ..protocol import compress as compress_mod
 from ..protocol.meta import TAG_ICI_DOMAIN, RpcMeta, encode_tlv
 from ..protocol.tpu_std import (FrameError, RpcMessage, pack_frame,
                                 serialize_payload)
+from ..tools import rpc_dump as _rpc_dump
 from ..transport import shm_ring
 from ..transport.socket import Socket
 from .controller import ServerController
@@ -249,7 +254,8 @@ def _send_response(server, entry, cntl: ServerController,
     write.  The slim lanes' escalations land here as well."""
     frame = _respond_wire(server, entry, cntl, response)
     if entry is not None:
-        _chain_for(server, entry)[1](cntl, response)
+        _settle = _chain_for(server, entry)[1]
+        _settle(cntl, response)
     if frame is not None:
         sock = Socket.address(cntl.socket_id)
         if sock is not None:
@@ -261,6 +267,10 @@ def process_rpc_request(msg: RpcMessage, sock: Socket, server) -> None:
     completes: when its handler returns or, after the handler called
     ``begin_async``, when it calls ``finish``."""
     meta = msg.meta
+    if _rpc_dump.dump_enabled():
+        # sampled wire capture for rpc_replay: the frame's body as it
+        # came (payload, then the attachment)
+        _rpc_dump.maybe_dump_request(meta, msg.payload, msg.attachment)
     entry = server.find_method(meta.service_name, meta.method_name)
     if entry is None:
         # an unknown method: no admission, status or span, as in the JAX

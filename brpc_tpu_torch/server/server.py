@@ -147,8 +147,17 @@ through the Python transport with a warning, as in the JAX package.
 connections force-closed at grace expiry) and ``stop`` reach the bridge.
 ``drain`` and ``stop`` settle the client lane's demux entries within
 their deadline (``transport/client_lane.py``'s ``drain_settle``), as the
-JAX server does.  Cut, for a later slice of the port:
-``export_listeners`` (hot restart).
+JAX server does.
+
+Hot restart (``brpc_tpu/server/server.py:522-570``, ``:630-655``,
+``:791-811``; ``server/hot_restart.py``): :meth:`Server.export_listeners`
+hands the bound listeners to a successor over a unix socket, and
+``start(addr, inherit_from=path)`` serves from them, the kernel's listen
+queue included, so the swap refuses no connect; the predecessor then
+drains and stops, and its stop takes each listener off the dispatcher
+or the engine's loops and closes its descriptor without shutting the
+shared socket down.  An inherited shard listener goes to the engine; the
+Python transport closes it with a warning.
 """
 
 from __future__ import annotations
@@ -619,17 +628,26 @@ class Server:
 
     # -- lifecycle ---------------------------------------------------------
 
-    def start(self, addr: Any = "127.0.0.1:0") -> int:
+    def start(self, addr: Any = "127.0.0.1:0",
+              inherit_from: Optional[str] = None) -> int:
         """Listen on ``addr`` ("ip:port"; port 0 picks a free one) and
-        start accepting.  On a drained server that was not stopped it
-        ends the drain instead: the listener, still open and bound,
-        accepts again, the backlog first.  0 on success."""
+        start accepting.  ``inherit_from`` names a predecessor's
+        hot-restart handoff socket (see :meth:`export_listeners`): its
+        listener descriptors -- the kernel's listen queue with them --
+        are taken over instead of bound anew, the one on ``addr``'s port
+        (any, for port 0) as the primary and the rest as the engine's
+        shard listeners, so a binary swap never refuses a connect.  On a
+        drained server that was not stopped it ends the drain instead:
+        the listener, still open and bound, accepts again, the backlog
+        first.  0 on success."""
         if self._listener is not None:
             if self._drain_state == DRAIN_DRAINING \
                     and self._native_bridge is None:
                 return self._resume()
             LOG.error("server already started")
             return -1
+        if isinstance(addr, int):
+            addr = EndPoint(host="0.0.0.0", port=addr)
         ep = addr if isinstance(addr, EndPoint) else parse_endpoint(str(addr))
         try:
             self._ssl_ctx = self._server_ssl_context()
@@ -647,24 +665,33 @@ class Server:
             if native_mod is None:
                 LOG.warning("native engine unavailable; serving %s "
                             "through the Python transport", ep)
-        lsock = socket.socket(family, socket.SOCK_STREAM)
-        try:
-            lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            if native_mod is not None and hasattr(socket, "SO_REUSEPORT") \
-                    and (self.options.native_loops
-                         or default_engine_loops()) > 1 \
-                    and bool(get_flag("engine_reuseport", True)):
-                # the bridge shards accept across its loops with one
-                # SO_REUSEPORT listener each; the primary socket must
-                # carry the option from before bind (the kernel refuses
-                # mixed-mode binds)
-                lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
-            lsock.bind(ep.to_sockaddr())
-            lsock.listen(1024)
-        except OSError as e:
-            lsock.close()
-            LOG.error("cannot listen on %s: %s", ep, e)
-            return -1
+        inherited_extras: list = []
+        if inherit_from:
+            lsock, inherited_extras = self._inherit_listeners(inherit_from,
+                                                              ep.port)
+            if lsock is None:
+                return -1
+        else:
+            lsock = socket.socket(family, socket.SOCK_STREAM)
+            try:
+                lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                if native_mod is not None \
+                        and hasattr(socket, "SO_REUSEPORT") \
+                        and (self.options.native_loops
+                             or default_engine_loops()) > 1 \
+                        and bool(get_flag("engine_reuseport", True)):
+                    # the bridge shards accept across its loops with one
+                    # SO_REUSEPORT listener each; the primary socket must
+                    # carry the option from before bind (the kernel
+                    # refuses mixed-mode binds)
+                    lsock.setsockopt(socket.SOL_SOCKET,
+                                     socket.SO_REUSEPORT, 1)
+                lsock.bind(ep.to_sockaddr())
+                lsock.listen(1024)
+            except OSError as e:
+                lsock.close()
+                LOG.error("cannot listen on %s: %s", ep, e)
+                return -1
         host, port = lsock.getsockname()[:2]
         ilsock = None
         if self.options.internal_port >= 0:
@@ -676,6 +703,8 @@ class Server:
             except OSError as e:
                 ilsock.close()
                 lsock.close()
+                for extra in inherited_extras:
+                    extra.close()
                 LOG.error("cannot listen on internal port %d: %s",
                           self.options.internal_port, e)
                 return -1
@@ -712,11 +741,21 @@ class Server:
             from ..transport.native_bridge import NativeBridge
             self._native_bridge = NativeBridge(
                 self, native_mod, loops=self.options.native_loops)
-            self._native_bridge.listen(lsock)
+            self._native_bridge.listen(
+                lsock, inherited_shards=inherited_extras or None)
+            inherited_extras = []
         else:
             self._acceptor = Acceptor(self._messenger,
                                       ssl_context=self._ssl_ctx)
             self._acceptor.start_accept(lsock)
+        if inherited_extras:
+            # inherited shard listeners with no engine to serve them:
+            # closed rather than left to strand their queues
+            LOG.warning("closing %d inherited shard listener(s) the "
+                        "Python transport cannot serve",
+                        len(inherited_extras))
+            for extra in inherited_extras:
+                extra.close()
         if ilsock is not None:
             self._internal_acceptor = Acceptor(
                 self._messenger, tag="internal", ssl_context=self._ssl_ctx)
@@ -725,6 +764,53 @@ class Server:
         from .. import fleet
         fleet.on_server_start(self)     # flight recorder: restart event
         return 0
+
+    @staticmethod
+    def _inherit_listeners(path: str, want_port: int):
+        """A predecessor's listeners from its handoff socket at ``path``:
+        ``(primary, extras)``, the primary being the one on
+        ``want_port`` (the first, for 0); ``(None, [])`` when the
+        handoff failed or carried no such listener."""
+        from . import hot_restart
+        try:
+            got = hot_restart.import_listeners(path)
+        except (OSError, ValueError) as e:
+            LOG.error("hot-restart import from %s failed: %s", path, e)
+            return None, []
+        primary, extras = None, []
+        for s, _host, port in got:
+            if primary is None and want_port in (0, port):
+                primary = s
+            else:
+                extras.append(s)
+        if primary is None:
+            for s in extras:
+                s.close()
+            LOG.error("hot-restart handoff carried no listener for port "
+                      "%d", want_port)
+            return None, []
+        return primary, extras
+
+    def export_listeners(self, path: str, timeout_s: float = 30.0) -> int:
+        """Hot restart, predecessor side: serve ONE descriptor handoff at
+        unix socket ``path`` (blocking, bounded by ``timeout_s``: run it
+        on a thread while still serving), shipping the bound listeners
+        (the primary and the engine's SO_REUSEPORT shards) to the
+        successor.  Then :meth:`drain` and :meth:`stop`: established
+        connections finish here; everything queued or new lands on the
+        successor.  0 on success, -1 otherwise."""
+        if not self._started:
+            return -1
+        if self._native_bridge is not None:
+            socks = self._native_bridge.listener_sockets()
+        elif self._listener is not None:
+            socks = [self._listener]
+        else:
+            socks = []
+        if not socks:
+            return -1
+        from . import hot_restart
+        return hot_restart.handoff_listeners(path, socks, timeout_s)
 
     def _resume(self) -> int:
         """End a drain: no lame duck, accepting again."""

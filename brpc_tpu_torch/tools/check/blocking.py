@@ -1,0 +1,340 @@
+"""Analyzer 4 — blocking-call detector for loop-thread code.
+
+The engine's loop threads and the client demux loop run Python in
+batched GIL entries: the kind-3/kind-4 slim shims, the burst-end hook,
+``ClientLane``'s burst delivery and ``Controller._on_plain_response``
+all execute ON an event loop.  One blocking primitive there stalls
+every connection the loop owns — the rule "a blocking handler must
+never freeze a loop", and the one
+thing runtime tests are worst at catching (the stall needs load +
+timing to show).
+
+This pass walks the AST from each loop-thread entry point, follows
+*direct* calls into functions defined in the same module (handoffs —
+``fiber_runtime.spawn``, ``ExecutionQueue.execute``, timers — are
+boundaries by design: the callee runs elsewhere), and flags blocking
+primitives:
+
+- ``time.sleep`` / bare ``sleep``
+- ``.join()`` / ``.wait()`` / ``.wait_for(pred)`` without a timeout
+- explicit ``.acquire()`` without a timeout (``with lock:`` around a
+  short critical section is the sanctioned shape and is not flagged)
+- versioned-id ``idp.lock()`` (parks the caller until the id frees;
+  loop code must use ``try_lock`` and hop to a fiber)
+- blocking socket ops (``.recv``/``.accept``/``.connect``/
+  ``create_connection``), ``select.select`` without timeout
+- ``subprocess.run``/``check_output``/``os.system``
+
+A reviewed exception suppresses itself with a ``static-check: allow``
+comment on the flagged line.  User code invoked by the shims
+(``entry.fn``) is the documented ``usercode_inline`` contract and is
+not followed.
+
+The port's copy of ``brpc_tpu/tools/check/blocking.py``, its entry
+points in ``brpc_tpu_torch/``.  Two are renamed: the client demux's
+burst entry ``ClientLane._on_burst`` is the port's
+``ClientLane._on_loop_burst`` (the port folded the two), and
+``Controller._on_plain_response`` is ``channel._Waiter.deliver``, which
+the lane's plain completions reach through ``socket_map.hand_over`` on
+the demux loop.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from .base import ALLOW_MARK, Finding, Tree
+
+# (module, dotted function path) entry points that run on an engine /
+# demux loop thread (or in a weakref finalizer, which may fire on one)
+ENTRY_POINTS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    ("brpc_tpu_torch/server/slim_dispatch.py", ("make_slim_handler", "slim")),
+    ("brpc_tpu_torch/server/slim_dispatch.py", ("flush_burst_accounting",)),
+    ("brpc_tpu_torch/server/http_slim.py",
+     ("make_http_slim_handler", "slim")),
+    # the port's _on_burst: the per-loop entry below, which the port
+    # folded it into
+    ("brpc_tpu_torch/transport/client_lane.py",
+     ("ClientLane", "_on_loop_burst")),
+    # per-demux-loop burst entry — the cross-loop completion handoff
+    # delivery callback: completions parsed on one demux
+    # loop are handed to callers on any other thread/loop, so its
+    # whole reachable body runs ON a loop
+    ("brpc_tpu_torch/transport/client_lane.py",
+     ("ClientLane", "_on_loop_burst")),
+    ("brpc_tpu_torch/transport/client_lane.py",
+     ("ClientLane", "_complete_burst")),
+    ("brpc_tpu_torch/transport/client_lane.py",
+     ("ClientLane", "_enqueue_classic")),
+    # the port's Controller._on_plain_response: a plain completion's
+    # hand-over to the waiting call, on the demux loop
+    ("brpc_tpu_torch/client/channel.py", ("_Waiter", "deliver")),
+    # slot-settle finalizers: fire on whichever thread drops the last
+    # reference to a response view — possibly a demux loop
+    ("brpc_tpu_torch/transport/shm_ring.py", ("client_complete",)),
+    ("brpc_tpu_torch/transport/shm_ring.py", ("wrap_view_iobuf",)),
+    # per-loop shm sweep + response staging: EV_CLOSE lands
+    # the dead-conn slot sweep on the owning engine loop, and the slim
+    # shims stage response attachments into the sharded allocator from
+    # their loop thread
+    ("brpc_tpu_torch/transport/shm_ring.py", ("on_socket_closed",)),
+    ("brpc_tpu_torch/transport/shm_ring.py", ("ShmRing", "free_owner")),
+    ("brpc_tpu_torch/transport/shm_ring.py", ("describe_response_att",)),
+    # operability plane: the drain/hot-restart paths are
+    # DEADLINE-BOUNDED by contract — every wait they reach must carry
+    # a timeout (a drain that can hang forever defeats the grace), so
+    # they live in the same un-timed-primitive lint as loop code.
+    # Intentional bounded socket ops (settimeout'd handoff accept/
+    # connect) carry reviewed allow-markers.
+    ("brpc_tpu_torch/server/server.py", ("Server", "drain")),
+    ("brpc_tpu_torch/server/server.py", ("Server", "join")),
+    ("brpc_tpu_torch/transport/shm_ring.py", ("drain_settle",)),
+    ("brpc_tpu_torch/transport/client_lane.py", ("drain_settle",)),
+    ("brpc_tpu_torch/server/hot_restart.py", ("handoff_listeners",)),
+    ("brpc_tpu_torch/server/hot_restart.py", ("import_listeners",)),
+    # kind-5 streaming lane: the stream-open shim and the
+    # batched chunk delivery run inside the engine's per-burst GIL
+    # entry, ON a loop thread; the compiled interceptor chain they
+    # bind is loop-thread code by the same contract
+    ("brpc_tpu_torch/server/stream_slim.py",
+     ("make_stream_handler", "slim")),
+    ("brpc_tpu_torch/server/stream_slim.py", ("slim_chunks",)),
+    ("brpc_tpu_torch/server/interceptors.py", ("compile_chain", "enter")),
+    ("brpc_tpu_torch/server/interceptors.py", ("compile_chain", "settle")),
+    # drain-path stream settle: deadline-bounded by contract, same
+    # un-timed-primitive lint as Server.drain
+    ("brpc_tpu_torch/streaming.py", ("drain_server_streams",)),
+    ("brpc_tpu_torch/streaming.py", ("Stream", "drain_close")),
+    # KV transfer plane: the page sweep fires from
+    # Socket.release on the owning loop; the drain settle is
+    # deadline-bounded by contract; the transport's lease settle runs
+    # on the handoff completion path (possibly a demux loop)
+    ("brpc_tpu_torch/kv/pages.py", ("on_socket_closed",)),
+    ("brpc_tpu_torch/kv/pages.py", ("KvPageStore", "release_owner")),
+    ("brpc_tpu_torch/kv/pages.py", ("drain_settle",)),
+    ("brpc_tpu_torch/kv/transport.py", ("KvTransport", "_settle")),
+    # SLO-tiered scheduler: the chunk-prefill round and the
+    # speculative-decode round run inside the batcher's step loop —
+    # every live session's next token waits on them, so a blocking
+    # primitive there is an ITL stall for the whole slot pool (the
+    # step loop itself, _run, carries its sanctioned idle sleep and is
+    # not entry-listed; these rounds must stay primitive-free)
+    ("brpc_tpu_torch/models/lm_service.py",
+     ("ContinuousBatcher", "_chunk_round")),
+    ("brpc_tpu_torch/models/lm_service.py",
+     ("ContinuousBatcher", "_spec_round")),
+    # the fourth chain binding (http_slim): enter/settle run inside
+    # the kind-4 shim's per-burst GIL entry, on a loop thread
+    ("brpc_tpu_torch/server/interceptors.py",
+     ("compile_http_slim_chain", "enter")),
+    ("brpc_tpu_torch/server/interceptors.py",
+     ("compile_http_slim_chain", "settle")),
+    # serving observability: every write-side telemetry hook
+    # runs inside the batcher's step loop — a lock or sleep there is an
+    # ITL stall for the whole slot pool, so the write paths are plain
+    # GIL-atomic list/dict increments on the ONE batcher thread (the
+    # reader side, LmTelemetryCache, holds its snapshot lock off-loop
+    # and is deliberately NOT entry-listed)
+    ("brpc_tpu_torch/models/lm_telemetry.py", ("record_phase",)),
+    ("brpc_tpu_torch/models/lm_telemetry.py", ("on_emit",)),
+    ("brpc_tpu_torch/models/lm_telemetry.py", ("open_timeline",)),
+    ("brpc_tpu_torch/models/lm_telemetry.py", ("close_timeline",)),
+    ("brpc_tpu_torch/models/lm_telemetry.py", ("count_slo",)),
+    # fleet observability: the flight-recorder write path runs inside
+    # Server.drain and the KV evict/spill paths, and the report builder
+    # runs inside the KV.Probe handler — neither may ever grow a sleep,
+    # an untimed wait, or socket work (cadence + transport live in
+    # FleetReporter, which is a plain daemon thread)
+    ("brpc_tpu_torch/fleet.py", ("record_event",)),
+    ("brpc_tpu_torch/fleet.py", ("build_load_report",)),
+)
+
+# names whose call is a handoff, not an execution: arguments/targets
+# run on another thread, so they are not followed
+_HANDOFF = {"spawn", "execute", "schedule", "unschedule", "start"}
+
+# user-code closure bindings the shims invoke under the documented
+# inline contract — not followed, not flagged
+_USER_CODE = {"fn", "_fn", "raw_fn"}
+
+_SUBPROC = {"run", "call", "check_call", "check_output", "system",
+            "popen"}
+_SOCK_OPS = {"recv", "recv_into", "accept", "connect",
+             "create_connection", "getaddrinfo", "gethostbyname"}
+
+
+def _fail(findings, path, line, chain, msg):
+    via = " -> ".join(chain)
+    findings.append(Finding("blocking", path, line, f"[{via}] {msg}"))
+
+
+def _call_parts(call: ast.Call) -> Tuple[Optional[str], Optional[str]]:
+    """(receiver, attr_or_name): ('time','sleep') for time.sleep(...),
+    (None,'sleep') for sleep(...), ('self','_foo') for self._foo()."""
+    f = call.func
+    if isinstance(f, ast.Name):
+        return None, f.id
+    if isinstance(f, ast.Attribute):
+        recv = None
+        if isinstance(f.value, ast.Name):
+            recv = f.value.id
+        return recv, f.attr
+    return None, None
+
+
+def _has_timeout(call: ast.Call) -> bool:
+    if any(kw.arg == "timeout" for kw in call.keywords):
+        return True
+    return False
+
+
+class _ModuleIndex:
+    """Function lookup for one module: module-level defs, class
+    methods, and nested defs addressed by their enclosing chain."""
+
+    def __init__(self, rel: str, text: str):
+        self.rel = rel
+        self.lines = text.splitlines()
+        self.mod = ast.parse(text)
+        # flat name -> def node (last one wins is fine for this tree)
+        self.funcs: Dict[str, ast.FunctionDef] = {}
+        self.methods: Dict[Tuple[str, str], ast.FunctionDef] = {}
+        for node in self.mod.body:
+            if isinstance(node, ast.FunctionDef):
+                self._index_nested(node)
+            elif isinstance(node, ast.ClassDef):
+                for sub in node.body:
+                    if isinstance(sub, ast.FunctionDef):
+                        self.methods[(node.name, sub.name)] = sub
+                        self.funcs.setdefault(sub.name, sub)
+        self.time_sleep_names = self._sleep_imports()
+
+    def _index_nested(self, node: ast.FunctionDef) -> None:
+        self.funcs.setdefault(node.name, node)
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.FunctionDef) and sub is not node:
+                self.funcs.setdefault(sub.name, sub)
+
+    def _sleep_imports(self) -> Set[str]:
+        out = set()
+        for node in ast.walk(self.mod):
+            if isinstance(node, ast.ImportFrom) and node.module == "time":
+                for a in node.names:
+                    if a.name == "sleep":
+                        out.add(a.asname or a.name)
+        return out
+
+    def resolve(self, path: Sequence[str]) -> Optional[ast.FunctionDef]:
+        if len(path) == 1:
+            return self.funcs.get(path[0])
+        node = self.methods.get((path[0], path[1]))
+        if node is not None and len(path) == 2:
+            return node
+        # nested chain (make_slim_handler -> slim)
+        cur: Optional[ast.FunctionDef] = self.funcs.get(path[0])
+        for name in path[1:]:
+            if cur is None:
+                return None
+            nxt = None
+            for sub in ast.walk(cur):
+                if isinstance(sub, ast.FunctionDef) and sub.name == name:
+                    nxt = sub
+                    break
+            cur = nxt
+        return cur
+
+    def allowed(self, line: int) -> bool:
+        return 0 < line <= len(self.lines) \
+            and ALLOW_MARK in self.lines[line - 1]
+
+
+def _scan_function(idx: _ModuleIndex, func: ast.FunctionDef,
+                   chain: List[str], visited: Set[str],
+                   findings: List[Finding], depth: int) -> None:
+    # nested defs inside this function run when *called*; the shims'
+    # completion closures DO run inline, so nested bodies are scanned
+    # as part of the parent (they share the loop thread unless handed
+    # off, and handoff args are not followed at all)
+    for node in ast.walk(func):
+        if not isinstance(node, ast.Call):
+            continue
+        recv, name = _call_parts(node)
+        if name is None or idx.allowed(node.lineno):
+            continue
+        line = node.lineno
+
+        if name == "sleep" and (recv == "time"
+                                or (recv is None
+                                    and "sleep" in idx.time_sleep_names)):
+            _fail(findings, idx.rel, line, chain,
+                  "time.sleep on a loop thread stalls every connection "
+                  "the loop owns")
+        elif name == "join" and not node.args and not node.keywords:
+            _fail(findings, idx.rel, line, chain,
+                  ".join() without a timeout blocks the loop thread")
+        elif name == "wait" and not node.args and not _has_timeout(node):
+            _fail(findings, idx.rel, line, chain,
+                  ".wait() without a timeout blocks the loop thread")
+        elif name == "wait_for" and len(node.args) < 2 \
+                and not _has_timeout(node):
+            _fail(findings, idx.rel, line, chain,
+                  ".wait_for(pred) without a timeout blocks the loop "
+                  "thread")
+        elif name == "acquire" and not node.args \
+                and not _has_timeout(node) \
+                and not any(kw.arg == "blocking" for kw in node.keywords):
+            _fail(findings, idx.rel, line, chain,
+                  "un-timed .acquire() blocks the loop thread (use a "
+                  "timeout, try-acquire, or a short `with lock:`)")
+        elif name == "lock" and recv in ("idp", "pool", "id_pool"):
+            _fail(findings, idx.rel, line, chain,
+                  "versioned-id .lock() parks the caller until the id "
+                  "frees — loop code must try_lock and hop to a fiber")
+        elif name in _SOCK_OPS:
+            _fail(findings, idx.rel, line, chain,
+                  f"blocking socket op .{name}() on a loop thread")
+        elif name == "select" and recv == "select" \
+                and len(node.args) < 4:
+            _fail(findings, idx.rel, line, chain,
+                  "select.select without a timeout blocks the loop")
+        elif name in _SUBPROC and recv in ("subprocess", "os"):
+            _fail(findings, idx.rel, line, chain,
+                  f"{recv}.{name} blocks the loop thread on a child "
+                  "process")
+
+        # follow same-module direct calls (not handoffs / user code)
+        if depth <= 0 or name in _HANDOFF or name in _USER_CODE:
+            continue
+        target = None
+        if recv in (None, "self", "_self"):
+            target = idx.funcs.get(name)
+        if target is not None and name not in visited \
+                and target is not func:
+            visited.add(name)
+            _scan_function(idx, target, chain + [name], visited,
+                          findings, depth - 1)
+
+
+def check_blocking(tree: Tree) -> List[Finding]:
+    findings: List[Finding] = []
+    indexes: Dict[str, _ModuleIndex] = {}
+    for rel, path in ENTRY_POINTS:
+        if rel not in indexes:
+            try:
+                indexes[rel] = _ModuleIndex(rel, tree.text(rel))
+            except (OSError, SyntaxError) as e:
+                findings.append(Finding("blocking", rel, 1,
+                                        f"cannot analyze: {e}"))
+                continue
+        idx = indexes[rel]
+        func = idx.resolve(path)
+        if func is None:
+            findings.append(Finding(
+                "blocking", rel, 1,
+                f"entry point {'.'.join(path)} not found — loop-thread "
+                "surface changed, update the detector spec"))
+            continue
+        _scan_function(idx, func, [".".join(path)], {path[-1]},
+                      findings, depth=4)
+    return findings

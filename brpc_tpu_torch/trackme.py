@@ -1,22 +1,31 @@
-"""trackme — fleet version check-in, the server half.
+"""trackme — fleet version phone-home.
 
 ≈ brpc's src/brpc/details/trackme.cpp: clients ping a central "trackme"
 server at a gentle interval reporting their framework version; the
 server answers with a severity + message so operators can flag fleets
 running buggy/ancient builds.  The server half is the builtin
-``/trackme`` page (flag-tunable version gates).
+``/trackme`` page (flag-tunable version gates); the client half is
+:func:`start_trackme`, driven by the ``trackme_server`` flag.
 
-The server half of ``brpc_tpu/trackme.py``: :func:`handle_trackme_query`
-and its two flags.  The client half (``start_trackme``/``stop_trackme``,
-the ``trackme_server`` and ``trackme_interval_s`` flags) pings through
-``tools/rpc_view`` and waits for the port of ``tools/``.
+A copy of ``brpc_tpu/trackme.py``: the client pings through the port's
+``tools/rpc_view.fetch`` on the port's ``butil/periodic_task``.
 """
 
 from __future__ import annotations
 
+import json
+from typing import Optional
+
 from . import __version__
 from .butil.flags import define_flag, get_flag
+from .butil.logging_util import LOG
+from .butil.periodic_task import PeriodicTask
 
+define_flag("trackme_server", "",
+            "host:port pinged periodically with this process's framework "
+            "version (empty = off)", lambda v: True)
+define_flag("trackme_interval_s", 300,
+            "seconds between trackme pings", lambda v: int(v) > 0)
 define_flag("trackme_min_version", "",
             "server side: versions below this answer severity=warn",
             lambda v: True)
@@ -51,3 +60,44 @@ def handle_trackme_query(ver: str) -> dict:
     except ValueError:
         sev, msg = SEV_WARN, f"unparsable version {ver!r}"
     return {"severity": sev, "message": msg, "server_version": __version__}
+
+
+_task: Optional[PeriodicTask] = None
+
+
+def start_trackme(server: Optional[str] = None,
+                  interval_s: Optional[float] = None) -> bool:
+    """Begin pinging the trackme server (explicit addr or the
+    ``trackme_server`` flag).  Idempotent; returns False when no server
+    is configured."""
+    global _task
+    addr = server or str(get_flag("trackme_server", ""))
+    if not addr:
+        return False
+    if _task is not None:
+        return True
+    ivl = float(interval_s or get_flag("trackme_interval_s", 300))
+
+    def ping():
+        from .tools.rpc_view import fetch
+        try:
+            body = fetch(addr, f"trackme?ver={__version__}", timeout=5.0)
+            reply = json.loads(body)
+        except Exception as e:
+            LOG.debug("trackme ping failed: %s", e)
+            return
+        sev = int(reply.get("severity", 0))
+        if sev >= SEV_FATAL:
+            LOG.error("TRACKME: %s", reply.get("message", ""))
+        elif sev >= SEV_WARN:
+            LOG.warning("TRACKME: %s", reply.get("message", ""))
+
+    _task = PeriodicTask(ivl, ping, run_immediately=True)
+    return True
+
+
+def stop_trackme() -> None:
+    global _task
+    if _task is not None:
+        _task.stop()
+        _task = None

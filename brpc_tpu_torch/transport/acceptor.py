@@ -17,6 +17,9 @@ acceptor's sweep does), :meth:`Acceptor.pause_accept` takes the listener off the
 dispatcher with its descriptor open and bound (new connections wait in
 the kernel's backlog), :meth:`Acceptor.resume_accept` arms it again, and
 :meth:`Acceptor.stop_accept` closes the listener and every connection.
+The listener leaves the dispatcher before its descriptor closes, and is
+never shut down: a hot-restart successor may serve the same listening
+socket through a descriptor of its own (``server/hot_restart.py``).
 
 Divergences: ``resume_accept`` is the port's (a drained server that is
 started again serves its backlog), and the JAX acceptor releases a
@@ -38,6 +41,16 @@ from .input_messenger import InputMessenger
 from .socket import Socket
 
 TLS_HANDSHAKE_S = 5.0
+
+
+class _ListenSocket(Socket):
+    """The listener's Socket: closing it takes it off the dispatcher and
+    closes its descriptor, but never shuts the socket down.  A
+    hot-restart successor may hold another descriptor of the same
+    listening socket, and a shutdown would end its listen as well."""
+
+    def _shutdown(self) -> None:
+        pass
 
 
 class Acceptor:
@@ -62,7 +75,7 @@ class Acceptor:
         """≈ Acceptor::StartAccept (acceptor.cpp:50)."""
         host, port = listen_fd.getsockname()[:2]
         ep = EndPoint(host=host, port=port)
-        s = Socket(listen_fd, remote_side=ep, local_side=ep)
+        s = _ListenSocket(listen_fd, remote_side=ep, local_side=ep)
         self._listen_sid = s.id
         self._stopped = False
         s.dispatch_reads(self._on_new_connections, self._dispatcher)

@@ -27,10 +27,27 @@ answered in C++), kind 2 (plain ``@raw_method``), kind 3 (unary
 routes, ``server/http_slim.py``) and kind 5 (stream opens and chunks,
 ``server/stream_slim.py``).
 
-Differences from the JAX bridge: the port has no ``rpc_dump`` capture,
-so native dispatch is never gated off for it (the ``rpc_dispatch_off``
-fallback row stays 0), and the port's socket registry hands out ids
-itself (no versioned-id pool).
+Traffic capture (``brpc_tpu/transport/native_bridge.py:265-286``, ``:347``,
+``:991``): while the ``rpc_dump`` flag is on, every live bridge's engine
+has its native dispatch off (a flag watcher flips it both ways), so the
+slim lanes decline every request to ``EV_MESSAGE`` and the classic lane,
+whose dump hook (``server/rpc_dispatch.py``) sees it; the engine counts
+each under its ``rpc_dispatch_off`` fallback.  A bridge that starts while
+capture is on registers its methods with native dispatch off, and the
+raw lane (``@raw_method``, kind 2 taken by the Python side) declines to
+the classic lane as well.
+
+Hot restart (``:658-728``, ``:759``): :meth:`NativeBridge.listen` takes
+a predecessor's SO_REUSEPORT shard listeners (``inherited_shards``,
+fd-passed with their kernel queues) in place of binding new ones, one
+per loop beyond the primary; a surplus is closed with a warning, and a
+handoff short of the loops' count closes its shards and binds fresh.
+:meth:`NativeBridge.listener_sockets` is what ``Server.export_listeners``
+hands to a successor, and :meth:`NativeBridge.stop` takes the listeners
+off the engine's loops before it closes them.
+
+Differences from the JAX bridge: the port's socket registry hands out
+ids itself (no versioned-id pool).
 """
 
 from __future__ import annotations
@@ -239,6 +256,29 @@ def bucket_label(i: int, nbuckets: int) -> str:
     histogram_quantile() from silently mis-reading them."""
     return "+Inf" if i >= nbuckets - 1 else str(1 << i)
 
+# live bridges with native dispatch configured: the rpc_dump flag
+# watcher flips their engines' dispatch switch (capture must see every
+# request, so natively answered methods fall back to Python while on)
+import weakref as _weakref
+
+_native_bridges: "_weakref.WeakSet" = _weakref.WeakSet()
+_watcher_installed = False
+
+
+def _install_dump_watcher() -> None:
+    global _watcher_installed
+    if _watcher_installed:
+        return
+    _watcher_installed = True
+
+    def _on_dump_flip(enabled) -> None:
+        for bridge in list(_native_bridges):
+            bridge.engine.set_native_dispatch(
+                bridge._native_ok and not bool(enabled))
+
+    watch_flag("rpc_dump", _on_dump_flip)
+
+
 class NativeBridge:
     def __init__(self, server, engine_module, loops: int = 0):
         self._server = server
@@ -256,6 +296,8 @@ class NativeBridge:
         self._loop_threads: list = []
         self._listen_socket = None
         self._shard_sockets: list = []
+        self._inherited_shards: list = []
+        self._native_ok = False               # native dispatch configured
         self._socks: Dict[int, Any] = {}      # engine conn_id -> NativeSocket
         self._pt_queues: Dict[int, Any] = {}  # per-conn dispatch serializers
         self._stream_capable = False          # kind-5 shims registered
@@ -294,6 +336,7 @@ class NativeBridge:
         inline = bool(opts.usercode_inline)
         server_cap = bool(getattr(opts, "max_concurrency", 0))
         from ..bvar.passive_status import PassiveStatus
+        from ..tools.rpc_dump import dump_enabled
         registered = False
         for (svc, mth), entry in self._server._methods.items():
             if entry.raw_fn is not None:
@@ -375,7 +418,10 @@ class NativeBridge:
                 name=f"rpc_server_{safe}_native_errors"))
             registered = True
         if registered:
-            self.engine.set_native_dispatch(True)
+            self._native_ok = True
+            _native_bridges.add(self)
+            _install_dump_watcher()
+            self.engine.set_native_dispatch(not dump_enabled())
 
     def _register_http_routes(self) -> None:
         """Hand eligible HTTP routes to the C++ engine — the SLIM HTTP
@@ -601,11 +647,12 @@ class NativeBridge:
             return None
         return shards
 
-    def listen(self, listen_socket) -> None:
+    def listen(self, listen_socket, inherited_shards=None) -> None:
         listen_socket.setblocking(False)
         # the bridge owns the fd's lifetime alongside the engine
         self._listen_socket = listen_socket
         self._shard_sockets = []
+        self._inherited_shards = list(inherited_shards or [])
         name = listen_socket.getsockname()
         self._local_ep = EndPoint(host=name[0], port=name[1])
         self._register_native_methods()
@@ -648,8 +695,31 @@ class NativeBridge:
                    lambda v, _e=self.engine: _e.set_busy_poll_us(int(v)))
         # SO_REUSEPORT sharded accept: one listener per loop, each loop
         # accepts and pins its own connections (brpc's per-core
-        # EventDispatcher discipline); single-fd rr handoff otherwise
-        shards = self._shard_listen_sockets(listen_socket)
+        # EventDispatcher discipline); single-fd rr handoff otherwise.
+        # Hot restart: a predecessor's shard listeners (fd-passed, with
+        # their kernel queues) are reused when the count fits — one per
+        # loop beyond the primary; a mismatched handoff (different loop
+        # count across versions) closes the extras and re-shards fresh.
+        shards = None
+        if self._inherited_shards:
+            if len(self._inherited_shards) >= self._nloops - 1 \
+                    and self._nloops > 1:
+                shards = [listen_socket] \
+                    + self._inherited_shards[:self._nloops - 1]
+                for s in shards:
+                    s.setblocking(False)
+                leftovers = self._inherited_shards[self._nloops - 1:]
+            else:
+                leftovers = self._inherited_shards
+            for s in leftovers:
+                s.close()
+            if leftovers:
+                LOG.warning("hot restart: closed %d inherited shard "
+                            "listener(s) beyond this server's %d "
+                            "loop(s)", len(leftovers), self._nloops)
+            self._inherited_shards = []
+        if shards is None:
+            shards = self._shard_listen_sockets(listen_socket)
         if shards is not None:
             self._shard_sockets = shards[1:]
             self.engine.listen_sharded([s.fileno() for s in shards])
@@ -662,7 +732,7 @@ class NativeBridge:
             t.start()
             self._loop_threads.append(t)
 
-    # -- operability plane: drain / lame duck ----------------------------
+    # -- operability plane: drain / lame duck / hot restart -------------
 
     def enter_lame_duck(self, signal: bool = True) -> None:
         """Drain mode: disarm the engine's listeners (the fds stay open)
@@ -672,6 +742,16 @@ class NativeBridge:
         headers, and new kind-5 stream opens decline under
         ``stream_drain``."""
         self.engine.set_lame_duck(2 if signal else 1)
+
+    def listener_sockets(self):
+        """The bound listening sockets this bridge serves (primary +
+        SO_REUSEPORT shards): the hot-restart exporter passes their fds
+        to the successor."""
+        out = []
+        if self._listen_socket is not None:
+            out.append(self._listen_socket)
+        out.extend(self._shard_sockets)
+        return out
 
     def force_close_all(self, reason: str) -> int:
         """Drain-grace expiry: force-close every live native connection
@@ -690,9 +770,15 @@ class NativeBridge:
         return n
 
     def stop(self) -> None:
+        _native_bridges.discard(self)
         for v in self._native_vars:
             v.hide()
         self._native_vars.clear()
+        # the listeners leave the loops' epoll sets before their fds
+        # close: a hot-restart successor may hold the same listening
+        # sockets, and a registration left behind would outlive the fd
+        # (a no-op when a drain already disarmed them)
+        self.engine.set_lame_duck(1)
         self.engine.stop()
         for t in self._loop_threads:
             t.join(timeout=5.0)
@@ -840,9 +926,9 @@ class NativeBridge:
             scan = self._scan_request_meta(mv[:meta_size])
             if scan is not None:
                 entry = server.find_method(scan[1], scan[2])
-                if entry is not None and entry.raw_fn is not None:
-                    self._raw_dispatch(scan[0], scan[3], mv, meta_size,
-                                       sock, entry)
+                if entry is not None and entry.raw_fn is not None \
+                        and self._raw_dispatch(scan[0], scan[3], mv,
+                                               meta_size, sock, entry):
                     return
         if scan is not None:
             # slim-meta path: the scan proved no controller-tier tags —
@@ -886,24 +972,29 @@ class NativeBridge:
                             name="native_rpc")
 
     def _raw_dispatch(self, cid: int, na: int, mv, meta_size: int, sock,
-                      entry) -> None:
-        """Slim turnaround for @raw_method handlers.  Passive rpcz
+                      entry) -> bool:
+        """Slim turnaround for @raw_method handlers.  Returns False when
+        the request needs the full path after all (live traffic capture
+        — the dump observer must see the RpcMessage).  Passive rpcz
         SAMPLING deliberately skips raw methods and explicitly traced
         requests never reach here (the meta scan rejects tag 9; the
         native engine mirrors this as the named `rpc_trace_raw_lane`
         fallback) — that is the lane's contract (documented on
         @raw_method)."""
+        from ..tools.rpc_dump import dump_enabled
+        if dump_enabled():
+            return False
         server = self._server
         if not server.on_request_in():
             self._raw_error(sock, cid, int(Errno.ELIMIT),
                             "server max_concurrency")
-            return
+            return True
         status = entry.status
         if not status.on_requested():
             server.on_request_out()
             self._raw_error(sock, cid, int(Errno.ELIMIT),
                             f"{status.full_name} max_concurrency")
-            return
+            return True
         t0 = _mono_ns()
         payload = mv[meta_size:]
         att = None
@@ -915,7 +1006,7 @@ class NativeBridge:
                 server.on_request_out()
                 self._raw_error(sock, cid, int(Errno.EREQUEST),
                                 "attachment size exceeds body")
-                return
+                return True
             att = payload[len(payload) - na:]
             payload = payload[:len(payload) - na]
         code = 0
@@ -948,6 +1039,7 @@ class NativeBridge:
         finally:
             status.on_responded(code, (_mono_ns() - t0) // 1000)
             server.on_request_out()
+        return True
 
     def _raw_error(self, sock, cid: int, code: int, text: str) -> None:
         m = RpcMeta()

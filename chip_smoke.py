@@ -252,6 +252,34 @@ result line) when a phase fails or CUDA is absent.  Phases:
    Generate's tokens; (g) a drain during four paged Decode streams: no
    connection and no page left, and a connection made during the drain
    served from the backlog once ``start`` ends the drain;
+   20. the operability and tooling layer on phase 5's service, on a
+   default server and on the engine: (a) ``rpc_press`` drives
+   ``LM.Generate`` (1, 512, 16) on pooled connections flat out for 5 s,
+   then at half the rate it reached for 5 s (sent, no error, calls/s,
+   p50 and p99, every answer the server gave equal to the request
+   alone, ``flash_fwd`` depth a call); (b) ``rpc_dump`` on while 16 Generates
+   run on the engine (each counted ``rpc_dispatch_off``, the engine's
+   native dispatch off), then off (nothing counted, the slim lane
+   again), the dump read back by ``DumpReader`` (16 frames) and replayed
+   by ``Replayer`` into the default server (no error, each answer the
+   captured call's); (c) hot restart in one process, on each transport:
+   a client calls Generate on fresh connections without pause while the
+   predecessor exports its listeners, a successor starts with
+   ``inherit_from=`` on the same port and the predecessor drains and
+   stops (no failed call, no refused connect, no call lost; a call the
+   predecessor refused before running it -- answered ``ELAMEDUCK`` or
+   ``ELOGOFF``, or its connection closed unanswered -- is sent again on
+   a new connection, and counted; each attempt carries its own tag, and
+   a call sent again that a server ran, or one the predecessor ran and
+   never answered, is lost; the ms from the export to the successor's
+   first answer, the calls each answered); (d) the same
+   across processes: a child process builds ``SLICE_CFG`` from seed 0,
+   takes the listener over and serves phase 5's tokens while the parent
+   drains and stops; (e) the portal tools against the phase's servers:
+   ``parallel_http`` reads ``/vars`` from each, ``rpc_view``'s proxy
+   serves ``/status`` with its links rewritten, ``trace_dump`` gets a
+   traced Generate's Chrome JSON (a client and a server span), and
+   ``start_trackme`` pings ``/trackme`` until ``stop_trackme``;
    6e. serve the MoE LM (``MOE_CFG``: the same widths, 8 top-2 experts,
    2.32 B params): Info and two Generate requests, one profiled request,
    the prefill logits through the kernel against dense attention with
@@ -317,10 +345,12 @@ result line) when a phase fails or CUDA is absent.  Phases:
 
 from __future__ import annotations
 
+import http.client
 import itertools
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -409,6 +439,16 @@ from brpc_tpu_torch.protocol.thrift_proto import (  # noqa: E402
     TBinary, ThriftClient)
 from brpc_tpu_torch.transport.input_messenger import (  # noqa: E402
     messenger_counters)
+from brpc_tpu_torch.tools import rpc_view  # noqa: E402
+from brpc_tpu_torch.tools.parallel_http import parallel_fetch  # noqa: E402
+from brpc_tpu_torch.tools.rpc_dump import DumpReader, close_dump  # noqa
+from brpc_tpu_torch.tools.rpc_press import Press, PressOptions  # noqa: E402
+from brpc_tpu_torch.tools.rpc_replay import (  # noqa: E402
+    ReplayOptions, Replayer)
+from brpc_tpu_torch.tools.rpc_view import (  # noqa: E402
+    ViewProxy, fetch_raw)
+from brpc_tpu_torch.tools.trace_dump import fetch_trace  # noqa: E402
+from brpc_tpu_torch.trackme import start_trackme, stop_trackme  # noqa
 from brpc_tpu_torch.utils.checkpoint import (  # noqa: E402
     TrainCheckpointer, abstract_like)
 
@@ -7977,6 +8017,675 @@ def phase_slice19(svc: LMService, srv: Server, cfg: LMConfig, rows: list,
     return res
 
 
+# Phase 20: the operability and tooling layer on phase 5's service, on a
+# default server and on the engine
+P20_REQUEST = (1, 512, 16)        # the press's and the swaps' Generate
+P20_PRESS_S = 5.0                 # (a): flat out, then at half its rate
+P20_PRESS_THREADS = 2
+P20_CAPTURE = 16                  # (b): Generates captured on the engine
+P20_CAPTURE_THREADS = 4
+P20_SWAP_CALLS = 3                # (c), (d): calls on the successor alone
+P20_RESENDS = 3                   # (c), (d): a call's sends after its first
+P20_CHILD_START_S = 300.0         # (d): the child builds the LM first
+P20_TRACKME_S = 20.0
+P20_DEVICE = "cuda"
+# (d)'s successor: a new process that builds SLICE_CFG from seed 0, takes
+# the parent's listener over the handoff socket and serves the LM on it
+P20_CHILD = r"""
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+path, cfg_json, device = sys.argv[2], sys.argv[3], sys.argv[4]
+from brpc_tpu_torch.models.lm_service import LMService
+from brpc_tpu_torch.models.transformer_lm import LMConfig
+from brpc_tpu_torch.ops.flash_attention import FLASH_FWD
+from brpc_tpu_torch.server import Server, Service
+
+
+class CountedLM(Service):
+    def __init__(self, svc):
+        self.svc, self.answered, self.first_wall = svc, 0, None
+        self.lock = threading.Lock()
+
+    def Generate(self, cntl, request):
+        out = self.svc.Generate(cntl, request)
+        with self.lock:
+            self.answered += 1
+            if self.first_wall is None:
+                self.first_wall = time.time()
+        return out
+
+
+class Ctl(Service):
+    def __init__(self, lm):
+        self.lm = lm
+
+    def Stats(self, cntl, request):
+        return json.dumps({
+            "answered": self.lm.answered, "first_wall": self.lm.first_wall,
+            "launches": FLASH_FWD.launches,
+            "foreign": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "brpc_tpu"))}
+        ).encode()
+
+
+lm = CountedLM(LMService(cfg=LMConfig(**json.loads(cfg_json)),
+                         device=device, seed=0))
+srv = Server()
+srv.add_service(lm, name="LM")
+srv.add_service(Ctl(lm), name="Ctl")
+print("BUILT", flush=True)
+rc = srv.start("127.0.0.1:0", inherit_from=path)
+port = srv.listen_endpoint.port if rc == 0 else 0
+print(f"STARTED={rc} PORT={port} WALL={time.time()}", flush=True)
+if rc != 0:
+    sys.exit(3)
+sys.stdin.readline()            # the parent closes stdin to stop us
+srv.stop()
+"""
+
+
+class CountedLM(Service):
+    """Phase 5's service behind a server of phase 20: ``Generate`` only,
+    counting the calls this server answered and when it answered first
+    (the wall clock, which (d)'s child shares), keeping each answer under
+    its request (``answers``, for (a) and (b)), and the tag of every call
+    it ran (the request attachment, ``ran``, for (c) and (d))."""
+
+    def __init__(self, svc: LMService):
+        self.svc, self.answered, self.first_wall = svc, 0, None
+        self.answers: dict = {}
+        self.ran: set = set()
+        self._lock = threading.Lock()
+
+    def Generate(self, cntl, request):
+        tag = bytes(cntl.request_attachment or b"")
+        if tag:
+            with self._lock:
+                self.ran.add(tag)
+        out = self.svc.Generate(cntl, request)
+        with self._lock:
+            self.answered += 1
+            if self.first_wall is None:
+                self.first_wall = time.time()
+            if out is not None:
+                self.answers.setdefault(bytes(request), []).append(out)
+        return out
+
+    def take_answers(self, request: bytes) -> list:
+        """The tokens of every answer to ``request`` since the last take."""
+        with self._lock:
+            got = self.answers.pop(request, [])
+        return [unpack_generated(r)[0].tolist() for r in got]
+
+
+def p20_server(svc: LMService, where: str) -> tuple:
+    """``(server, counted)``: phase 5's service on a default server
+    (``"python"``) or on the engine (``"native"``)."""
+    lm = CountedLM(svc)
+    services = {"LM": lm}
+    server = native_server(services) if where == "native" \
+        else serve_lm(services)
+    if where == "python" and not server.acceptors:
+        server.stop()
+        raise AssertionError("phase 20: the default server has no acceptor")
+    return server, lm
+
+
+def press_arm(ep, lm: CountedLM, prompt: np.ndarray, max_new: int,
+              qps: int) -> tuple:
+    """One ``Press`` of ``LM.Generate`` for P20_PRESS_S (``qps`` 0: flat
+    out) on pooled connections: ``(summary, the tokens of every answer
+    the server gave, launches)``."""
+    request = pack_generate_request(prompt, max_new)
+    opts = PressOptions()
+    opts.server = str(ep)
+    opts.method = "LM.Generate"
+    opts.input = request
+    opts.duration_s = P20_PRESS_S
+    opts.threads = P20_PRESS_THREADS
+    opts.qps = qps
+    opts.timeout_ms = 600_000
+    opts.connection_type = "pooled"
+    opts.report_interval_s = 3600.0
+    opts.report = lambda line: None
+    lm.take_answers(request)
+    FLASH_FWD.launches = 0
+    summary = Press(opts).run()
+    return summary, lm.take_answers(request), FLASH_FWD.launches
+
+
+def phase_p20_press(servers: dict, cfg: LMConfig, ref: tuple) -> dict:
+    """(a) ``rpc_press`` drives ``LM.Generate`` flat out and then at half
+    the rate it reached, on each server: no error, every answer the
+    server gave the request's tokens, ``flash_fwd`` depth a call."""
+    prompt, want = ref
+    res, launches = {}, 0
+    for where, (server, lm) in servers.items():
+        arms = {}
+        for arm in ("flat", "half"):
+            qps = 0 if arm == "flat" else max(
+                1, int(arms["flat"]["qps"] / 2))
+            s, toks, n = press_arm(server.listen_endpoint, lm, prompt,
+                                   P20_REQUEST[2], qps)
+            same = sum(t == want for t in toks)
+            s = dict(s, target_qps=qps, answers=len(toks), equal=same,
+                     launches=n)
+            log(f"  (a) {where} {arm} (target {qps or 'none'} calls/s): "
+                f"sent {s['sent']}, errors {s['errors']}, "
+                f"{s['qps']} calls/s, p50 {s['latency_us_p50'] / 1e3:.1f} "
+                f"ms, p99 {s['latency_us_p99'] / 1e3:.1f} ms; {same} of "
+                f"the server's {len(toks)} answers equal to the request "
+                f"alone; flash_fwd {n}; {card_line()}")
+            if s["errors"] or len(toks) != s["sent"] \
+                    or same != len(toks) or n != cfg.depth * s["sent"]:
+                raise AssertionError(f"(a) {where} {arm}: an error, an "
+                                     f"answer or the launches are off")
+            arms[arm] = s
+            launches += n
+        res[where] = arms
+    res["launches"] = launches
+    return res
+
+
+def fallback_rows(server: Server) -> dict:
+    return dict(server._native_bridge.engine.telemetry()["fallbacks"])
+
+
+def phase_p20_capture(svc: LMService, servers: dict, cfg: LMConfig) -> dict:
+    """(b) ``rpc_dump`` turned on while P20_CAPTURE Generates run on the
+    engine (its native dispatch off, each counted ``rpc_dispatch_off``),
+    then off (the slim lane again, nothing counted); the dump read back
+    by ``DumpReader`` and replayed by ``Replayer`` into the default
+    server: every replayed answer the captured call's."""
+    engine, _ = servers["native"]
+    python, python_lm = servers["python"]
+    b, s, max_new = P20_REQUEST
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+               for _ in range(P20_CAPTURE)]
+    captured = [None] * len(prompts)
+    dump_dir = tempfile.mkdtemp(prefix="rpc_dump_")
+    close_dump()
+    if not set_flag("rpc_dump_dir", dump_dir):
+        raise AssertionError("(b): rpc_dump_dir refused")
+    ch = typed_channel(engine.listen_endpoint, "pooled")
+    try:
+        fb0 = fallback_rows(engine)
+        lanes0 = engine_lanes(engine)
+        FLASH_FWD.launches = 0
+        if not set_flag("rpc_dump", True):
+            raise AssertionError("(b): rpc_dump refused")
+        try:
+            def caller(k):
+                for i in range(k, len(prompts), P20_CAPTURE_THREADS):
+                    captured[i] = generate(ch, prompts[i],
+                                           max_new)[0].tolist()
+            threads = [threading.Thread(target=caller, args=(k,))
+                       for k in range(P20_CAPTURE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        finally:
+            set_flag("rpc_dump", False)
+        on = fallback_rows(engine)["rpc_dispatch_off"] \
+            - fb0["rpc_dispatch_off"]
+        n_on = FLASH_FWD.launches
+        path = close_dump()
+        mid = fallback_rows(engine)["rpc_dispatch_off"]
+        slim0 = engine_lanes(engine)["slim"]
+        after = [generate(ch, p, max_new)[0].tolist() for p in prompts[:2]]
+        off = fallback_rows(engine)["rpc_dispatch_off"] - mid
+        slim = engine_lanes(engine)["slim"] - slim0
+    finally:
+        ch.close()
+    frames = DumpReader(path).frames() if path else []
+    by_payload = {}
+    for i, p in enumerate(prompts):
+        by_payload[pack_generate_request(p, max_new)] = captured[i]
+    ropts = ReplayOptions()
+    ropts.server = str(python.listen_endpoint)
+    ropts.dump_files = [path] if path else []
+    ropts.timeout_ms = 600_000
+    for request in by_payload:
+        python_lm.take_answers(request)
+    FLASH_FWD.launches = 0
+    summary = Replayer(ropts).run()
+    n_replay = FLASH_FWD.launches
+    # each captured call replayed once: the default server answered its
+    # request once, with the captured call's tokens
+    same = sum(python_lm.take_answers(request) == [toks]
+               for request, toks in by_payload.items())
+    log(f"  (b) capture on the engine: {len(frames)} frames in "
+        f"{os.path.basename(path or '-')}; rpc_dispatch_off +{on} while "
+        f"on, +{off} after (the slim lane +{slim}); the two after equal "
+        f"to their captured calls {after == captured[:2]}; replayed into "
+        f"the default server: sent {summary['sent']}, errors "
+        f"{summary['errors']}, {same} answers equal to the captured "
+        f"calls', p50 {summary['latency_us_p50'] / 1e3:.1f} ms; flash_fwd "
+        f"{n_on} + {n_replay}; {card_line()}")
+    if len(frames) != len(prompts) or on != len(prompts) or off != 0 \
+            or slim < 2 or summary["errors"] or same != len(prompts) \
+            or after != captured[:2] \
+            or n_on != cfg.depth * len(prompts) \
+            or n_replay != cfg.depth * len(prompts):
+        raise AssertionError("(b): the capture, the gating or the replay "
+                             "is off")
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    return dict(frames=len(frames), dispatch_off_on=on,
+                dispatch_off_after=off, replay=summary, equal=same,
+                launches=n_on + n_replay + cfg.depth * 2)
+
+
+def swap_caller(ep, prompt: np.ndarray, max_new: int, want: list,
+                stop: threading.Event, out: dict) -> None:
+    """Generate after Generate on fresh ("short") connections until
+    ``stop``, each attempt tagged by its own request attachment.  A call
+    the predecessor refused before running it (answered ``ELAMEDUCK`` on
+    a connection it accepted before its drain, or ``ELOGOFF`` once
+    stopped, or its connection closed unanswered: brpc's client retries
+    all three) is sent again on a new connection, up to P20_RESENDS
+    times, its tag kept in ``resent`` (the servers' ``ran`` must not hold
+    it); the tags answered right go to ``answered`` (every tag the
+    predecessor ran must be there).  A failed connect counts under
+    ``refused``, any other failure under ``failed``."""
+    opts = ChannelOptions()
+    opts.connection_type = "short"
+    opts.timeout_ms = 600_000
+    ch = Channel(opts)
+    ch.init(str(ep))
+    request = pack_generate_request(prompt, max_new)
+    seq = 0
+    while not stop.is_set():
+        out["calls"] += 1
+        for attempt in range(P20_RESENDS + 1):
+            seq += 1
+            tag = b"%d" % seq
+            c = Controller()
+            c.timeout_ms = 600_000
+            c.max_retry = 0
+            c.request_attachment = tag
+            ch.call_method("LM.Generate", request, cntl=c)
+            why = p20_resend_reason(c)
+            if why is None or attempt == P20_RESENDS:
+                break
+            out[why] += 1
+            out["resent"].add(tag)
+        if not c.failed:
+            if unpack_generated(c.response)[0].tolist() != want:
+                out["wrong"] += 1
+            else:
+                out["answered"].add(tag)
+            continue
+        key = "refused" if c.error_code == int(Errno.EFAILEDSOCKET) \
+            and c.error_text.startswith("connect to ") else "failed"
+        out[key] += 1
+        out["errors"].append(f"[{c.error_code}] {c.error_text}")
+    ch.close()
+
+
+def p20_resend_reason(c: Controller):
+    """Why a swap's call goes out again: ``"lame_duck"`` (answered
+    ``ELAMEDUCK`` or ``ELOGOFF``), ``"closed"`` (its connection closed
+    before the answer; not a failed connect), or None."""
+    if not c.failed:
+        return None
+    if c.error_code in (int(Errno.ELAMEDUCK), int(Errno.ELOGOFF)):
+        return "lame_duck"
+    if c.error_code in (int(Errno.EFAILEDSOCKET), int(Errno.EEOF)) \
+            and not c.error_text.startswith("connect to "):
+        return "closed"
+    return None
+
+
+def p20_lost(out: dict, *lms) -> int:
+    """Calls the swap lost: a call sent again after one of ``lms`` had run
+    it, or one the predecessor (``lms[0]``) ran and never answered."""
+    ran = set().union(*(lm.ran for lm in lms))
+    return len(ran & out["resent"]) + len(lms[0].ran - out["answered"])
+
+
+def start_swap_caller(ep, ref: tuple) -> tuple:
+    out = dict(calls=0, lame_duck=0, closed=0, failed=0, refused=0,
+               wrong=0, errors=[], resent=set(), answered=set())
+    stop = threading.Event()
+    t = threading.Thread(target=swap_caller, args=(
+        ep, ref[0], P20_REQUEST[2], ref[1], stop, out))
+    t.start()
+    return t, stop, out
+
+
+def export_on_thread(server: Server, path: str, timeout_s: float) -> tuple:
+    got = {}
+    t = threading.Thread(target=lambda: got.__setitem__(
+        "rc", server.export_listeners(path, timeout_s)))
+    t.start()
+    # the handoff socket is bound, then listens: a successor may connect
+    # once it exists and a moment has passed
+    wait_until(lambda: os.path.exists(path), 30, "the handoff socket")
+    time.sleep(0.05)
+    return t, got
+
+
+def phase_p20_swap(svc: LMService, cfg: LMConfig, ref: tuple) -> dict:
+    """(c) Hot restart in one process, on each transport: a client calls
+    Generate without pause while the predecessor exports its listeners, a
+    successor starts with ``inherit_from=`` on the same port, and the
+    predecessor drains and stops."""
+    res, launches = {}, 0
+    for where in ("python", "native"):
+        old, old_lm = p20_server(svc, where)
+        ep = old.listen_endpoint
+        handoff = os.path.join(tempfile.mkdtemp(prefix="hr_"), "handoff")
+        FLASH_FWD.launches = 0
+        caller, stop, out = start_swap_caller(ep, ref)
+        new = new_lm = None
+        try:
+            wait_until(lambda: old_lm.answered >= 1, 600,
+                       "a first answer from the predecessor")
+            t_export = time.time()
+            t, got = export_on_thread(old, handoff, 30.0)
+            new_lm = CountedLM(svc)
+            opts = ServerOptions()
+            if where == "native":
+                opts.native = True
+                opts.usercode_inline = True
+            new = Server(opts)
+            new.add_service(new_lm, name="LM")
+            rc = new.start(f"127.0.0.1:{ep.port}", inherit_from=handoff)
+            t.join(60)
+            if rc != 0 or got.get("rc") != 0:
+                raise AssertionError(f"(c) {where}: the handoff failed "
+                                     f"(start {rc}, export {got})")
+            if where == "native" and new._native_bridge is None:
+                raise AssertionError("(c): the successor is not on the "
+                                     "engine")
+            t0 = time.perf_counter()
+            drain_rc = old.drain(10_000)
+            drain_ms = (time.perf_counter() - t0) * 1e3
+            old.stop()
+            wait_until(lambda: new_lm.answered >= 1, 600,
+                       "a first answer from the successor")
+            first_ms = (new_lm.first_wall - t_export) * 1e3
+            base = new_lm.answered
+            wait_until(lambda: new_lm.answered >= base + P20_SWAP_CALLS,
+                       600, "calls on the successor alone")
+        finally:
+            stop.set()
+            caller.join(600)
+            old.stop()
+            if new is not None:
+                new.stop()
+        n = FLASH_FWD.launches
+        answered = old_lm.answered + (new_lm.answered if new_lm else 0)
+        lost = p20_lost(out, old_lm, new_lm)
+        log(f"  (c) {where}: {out['calls']} calls through the swap, "
+            f"{out['failed']} failed, {out['refused']} refused connects, "
+            f"{out['wrong']} wrong tokens, re-sent {out['lame_duck']} after "
+            f"ELAMEDUCK/ELOGOFF and {out['closed']} after a closed "
+            f"connection, {lost} lost (run, then sent again or not "
+            f"answered); {first_ms:.1f} ms from the export to the "
+            f"successor's first answer; answered: predecessor "
+            f"{old_lm.answered}, successor {new_lm.answered}; drain rc "
+            f"{drain_rc} in {drain_ms:.1f} ms; flash_fwd {n}; {card_line()}")
+        if out["failed"] or out["refused"] or out["wrong"] or lost \
+                or drain_rc or old_lm.answered < 1 or new_lm.answered < 1 \
+                or n != cfg.depth * answered:
+            raise AssertionError(f"(c) {where}: a call failed or the "
+                                 f"swap is off: {out['errors'][:3]}")
+        res[where] = dict(calls=out["calls"], failed=out["failed"],
+                          refused=out["refused"],
+                          resent_lame_duck=out["lame_duck"],
+                          resent_closed=out["closed"], lost=lost,
+                          first_answer_ms=first_ms,
+                          predecessor=old_lm.answered,
+                          successor=new_lm.answered, drain_ms=drain_ms)
+        launches += n
+    res["launches"] = launches
+    return res
+
+
+def spawn_successor(handoff: str, cfg: LMConfig) -> tuple:
+    """(d)'s child, started on the handoff at ``handoff``: ``(process,
+    port, wall time of its start)``, read on a thread bounded by
+    P20_CHILD_START_S; a child that does not start fails the phase."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", P20_CHILD, root, handoff,
+         json.dumps(vars(cfg)), P20_DEVICE],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    got = {}
+
+    def read_start():
+        for line in proc.stdout:
+            if line.startswith("STARTED="):
+                fields = dict(f.split("=") for f in line.split())
+                got.update(rc=int(fields["STARTED"]),
+                           port=int(fields["PORT"]),
+                           wall=float(fields["WALL"]))
+                return
+
+    reader = threading.Thread(target=read_start, daemon=True)
+    reader.start()
+    reader.join(P20_CHILD_START_S)
+    if got.get("rc") != 0:
+        proc.kill()
+        proc.wait(10)
+        raise AssertionError(f"(d): the successor did not start ({got}, "
+                             f"exit {proc.poll()})")
+    return proc, got["port"], got["wall"]
+
+
+def phase_p20_xproc(svc: LMService, cfg: LMConfig, rows: list,
+                    ref: tuple) -> dict:
+    """(d) Hot restart across processes: a child (a new binary) builds
+    SLICE_CFG from seed 0 and starts with ``inherit_from=`` on the
+    parent's listener while the parent keeps calling; the parent drains
+    and stops; the child serves phase 5's tokens."""
+    old, old_lm = p20_server(svc, "python")
+    ep = old.listen_endpoint
+    handoff = os.path.join(tempfile.mkdtemp(prefix="hr_"), "handoff")
+    FLASH_FWD.launches = 0
+    caller, stop, out = start_swap_caller(ep, ref)
+    proc = None
+    stats = {}
+    try:
+        wait_until(lambda: old_lm.answered >= 1, 600,
+                   "a first answer from the predecessor")
+        t, got = export_on_thread(old, handoff, P20_CHILD_START_S)
+        t_export = time.time()
+        proc, port, started_wall = spawn_successor(handoff, cfg)
+        t.join(60)
+        if got.get("rc") != 0 or port != ep.port:
+            raise AssertionError(f"(d): the handoff failed (export {got}, "
+                                 f"child port {port})")
+        ctl = typed_channel(ep, "pooled")
+        try:
+            t0 = time.perf_counter()
+            drain_rc = old.drain(10_000)
+            drain_ms = (time.perf_counter() - t0) * 1e3
+            old.stop()
+            deadline_s = time.monotonic() + 600
+            while True:
+                stats = json.loads(ctl.call("Ctl.Stats", b"",
+                                            timeout_ms=60_000))
+                if stats["answered"] >= P20_SWAP_CALLS \
+                        or time.monotonic() > deadline_s:
+                    break
+                time.sleep(0.05)
+            stop.set()
+            caller.join(600)
+            full = generate(ctl, phase5_prompts(cfg)[0],
+                            REQUESTS[0][2])[0].tolist()
+            stats = json.loads(ctl.call("Ctl.Stats", b"",
+                                        timeout_ms=60_000))
+        finally:
+            ctl.close()
+    finally:
+        stop.set()
+        caller.join(600)
+        old.stop()
+        rc = stop_child(proc) if proc is not None else None
+    n = FLASH_FWD.launches
+    lost = p20_lost(out, old_lm)
+    first_ms = (stats["first_wall"] - started_wall) * 1e3 \
+        if stats.get("first_wall") else float("nan")
+    log(f"  (d) a child process took the listener over: {out['calls']} "
+        f"calls through the swap, {out['failed']} failed, "
+        f"{out['refused']} refused connects, {out['wrong']} wrong tokens, "
+        f"re-sent {out['lame_duck']} after ELAMEDUCK/ELOGOFF and "
+        f"{out['closed']} after a closed connection, {lost} lost; the "
+        f"child started "
+        f"{(started_wall - t_export) * 1e3:.1f} ms after the export began "
+        f"(building the LM) and answered first {first_ms:.1f} ms after its "
+        f"start; answered: parent {old_lm.answered}, child "
+        f"{stats.get('answered')}; phase 5's (1, 1024, 32) on the child "
+        f"equal to phase 5's {full == rows[0]['tokens']}; drain rc "
+        f"{drain_rc} in {drain_ms:.1f} ms; the child exited {rc}, imported "
+        f"{stats.get('foreign') or 'nothing'} of JAX; flash_fwd here {n}, "
+        f"in the child {stats.get('launches')}; {card_line()}")
+    if out["failed"] or out["refused"] or out["wrong"] or lost \
+            or drain_rc or rc \
+            or stats.get("foreign") or full != rows[0]["tokens"] \
+            or stats.get("answered", 0) < P20_SWAP_CALLS \
+            or n != cfg.depth * old_lm.answered \
+            or stats.get("launches") != cfg.depth * (stats["answered"]):
+        raise AssertionError(f"(d): a call failed or the swap is off: "
+                             f"{out['errors'][:3]}")
+    return dict(calls=out["calls"], failed=out["failed"],
+                refused=out["refused"], resent_lame_duck=out["lame_duck"],
+                resent_closed=out["closed"], lost=lost,
+                child_start_ms=(started_wall - t_export) * 1e3,
+                child_first_answer_ms=first_ms,
+                parent=old_lm.answered, child=stats["answered"],
+                drain_ms=drain_ms, launches=n,
+                child_launches=stats["launches"])
+
+
+def phase_p20_portal(servers: dict, srv: Server, cfg: LMConfig,
+                     ref: tuple) -> dict:
+    """(e) The portal tools against the phase's servers:
+    ``parallel_http`` reads ``/vars`` from every one, ``rpc_view``'s
+    proxy serves ``/status`` with its links rewritten, ``trace_dump``
+    gets a traced Generate's Chrome JSON (a client and a server span),
+    and ``start_trackme`` pings ``/trackme`` until ``stop_trackme``."""
+    eps = [str(s.listen_endpoint) for s, _ in servers.values()] \
+        + [str(srv.listen_endpoint)]
+    t0 = time.perf_counter()
+    fetched = parallel_fetch(eps, "/vars", concurrency=8, timeout=30.0)
+    vars_ms = (time.perf_counter() - t0) * 1e3
+    vars_ok = sum(r.ok and b"rpc_server_" in r.body
+                  for r in fetched.values())
+    target = eps[0]
+    proxy = ViewProxy(timeout=30.0)
+    port = proxy.start()
+    pages = {}
+    try:
+        for path in ("status", "vars?expand=drain_inflight_remaining"):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            conn.request("GET", f"/{target}/{path}")
+            resp = conn.getresponse()
+            pages[path] = (resp.status, resp.read())
+            conn.close()
+    finally:
+        proxy.stop()
+    status_code, status_page = pages["status"]
+    direct = json.loads(fetch_raw(target, "status", timeout=30.0)[2])
+    trend_code, trend = pages["vars?expand=drain_inflight_remaining"]
+    # /status is JSON (nothing to rewrite); the trend page's link back to
+    # /vars is re-rooted under the proxy's /<target>/
+    rewritten = status_code == 200 and trend_code == 200 \
+        and json.loads(status_page).keys() == direct.keys() \
+        and f"href='/{target}/vars'".encode() in trend \
+        and b"href='/vars'" not in trend
+    prompt, want = ref
+    trace_id = 0x2020_0000 + os.getpid()
+    ch = typed_channel(servers["python"][0].listen_endpoint, "single")
+    try:
+        cntl = Controller()
+        cntl.trace_id = trace_id
+        FLASH_FWD.launches = 0
+        c = gen_call(ch, prompt, P20_REQUEST[2], 600_000, cntl=cntl)
+        n = FLASH_FWD.launches
+        traced_ok = not c.failed \
+            and unpack_generated(c.response)[0].tolist() == want
+    finally:
+        ch.close()
+    wait_until(lambda: len(global_span_store().by_trace(trace_id)) >= 2,
+               30, "the traced Generate's spans")
+    doc = json.loads(fetch_trace(target, trace_id, timeout=30.0))
+    spans = [ev for ev in doc.get("traceEvents", ()) if ev.get("ph") == "X"]
+    kinds = {str(ev.get("cat", "")) for ev in spans}
+    pings = {"answered": 0}
+    real_fetch = rpc_view.fetch
+
+    def counted(*a, **kw):
+        body = real_fetch(*a, **kw)
+        pings["answered"] += 1
+        return body
+
+    rpc_view.fetch = counted
+    try:
+        if not start_trackme(target, interval_s=0.2):
+            raise AssertionError("(e): start_trackme refused its server")
+        wait_until(lambda: pings["answered"] >= 1, P20_TRACKME_S,
+                   "a trackme ping answered")
+        stop_trackme()
+        stopped_at = pings["answered"]
+        time.sleep(0.6)
+        after_stop = pings["answered"] - stopped_at
+    finally:
+        stop_trackme()
+        rpc_view.fetch = real_fetch
+    log(f"  (e) parallel_http /vars from {len(eps)} servers: {vars_ok} "
+        f"answered in {vars_ms:.1f} ms; rpc_view's proxy /status "
+        f"{status_code}, a trend page's links rewritten {rewritten}; "
+        f"trace_dump of a "
+        f"traced Generate (its tokens right {traced_ok}, flash_fwd {n}): "
+        f"{len(spans)} spans, kinds {sorted(kinds)}; trackme pings "
+        f"answered {stopped_at}, {after_stop} after stop_trackme; "
+        f"{card_line()}")
+    if vars_ok != len(eps) or not rewritten or not traced_ok \
+            or n != cfg.depth or not {"client", "server"} <= kinds \
+            or stopped_at < 1 or after_stop:
+        raise AssertionError("(e): a tool did not answer")
+    return dict(vars_ok=vars_ok, vars_ms=vars_ms, spans=len(spans),
+                trackme_pings=stopped_at, launches=n)
+
+
+def phase_slice20(svc: LMService, srv: Server, ch: Channel, cfg: LMConfig,
+                  rows: list) -> dict:
+    """Phase 20 on phase 5's service: the press, traffic capture and
+    replay, hot restart in one process and across processes, and the
+    portal tools, on a default server and on the engine."""
+    t0 = time.perf_counter()
+    b, s, max_new = P20_REQUEST
+    prompt = phase5_prompts(cfg)[2][:b]
+    want = generate(ch, prompt, max_new)[0].tolist()
+    log(f"  (1, 512, 16) on phase 5's server: {want[:6]}... (phase 5's "
+        f"(2, 512, 16) row 0 equal: {want == rows[2]['ids'][0]})")
+    ref = (prompt, want)
+    servers = {where: p20_server(svc, where)
+               for where in ("python", "native")}
+    try:
+        res = {"press": phase_p20_press(servers, cfg, ref),
+               "capture": phase_p20_capture(svc, servers, cfg),
+               "portal": phase_p20_portal(servers, srv, cfg, ref)}
+    finally:
+        for server, _ in servers.values():
+            server.stop()
+    res["swap"] = phase_p20_swap(svc, cfg, ref)
+    res["xproc"] = phase_p20_xproc(svc, cfg, rows, ref)
+    res["launches"] = sum(res[k]["launches"] for k in (
+        "press", "capture", "portal", "swap", "xproc"))
+    res["child_launches"] = res["xproc"]["child_launches"]
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20: {res['seconds']:.1f} s; flash_fwd launches "
+        f"{res['launches']} here and {res['child_launches']} in (d)'s "
+        f"child ({card_line()})")
+    return res
+
+
 def phase_moe() -> dict:
     """Phase 6e: the MoE LM at MOE_CFG, full width and depth, through
     Generate, Decode (contiguous, paged with chunked prefill) and the
@@ -8398,6 +9107,11 @@ def main() -> int:
             "connection, device echoes, TLS, RESP and thrift on the LM's "
             "port, a drain with a connection in the backlog")
         slice19 = phase_slice19(svc, srv, cfg, rows, streams, slice17, paged)
+        log("[20] operability and tools: rpc_press, rpc_dump capture and "
+            "rpc_replay, hot restart in one process and across processes, "
+            "and the portal tools (parallel_http, rpc_view, trace_dump, "
+            "trackme)")
+        slice20 = phase_slice20(svc, srv, ch, cfg, rows)
     finally:
         ch.close()
         srv.stop()
@@ -8469,6 +9183,8 @@ def main() -> int:
                  "native_engine": slice17["launches"],
                  "native_client": slice18["launches"],
                  "dispatcher": slice19["launches"],
+                 "tools_restart": slice20["launches"],
+                 "restart_child": slice20["child_launches"],
                  "moe_generate": moe_res["launches_generate"],
                  "moe_decode": moe_res["decode"]["launches"],
                  "moe_paged_decode": moe_res["paged"]["launches"],
@@ -8563,6 +9279,7 @@ def main() -> int:
     log(f"  slice18: {json.dumps(slice18, default=str)}; phase 10's "
         f"Controller-path echo {ps['echo_rps']:.1f} calls/s")
     log(f"  slice19: {json.dumps(slice19, default=str)}")
+    log(f"  slice20: {json.dumps(slice20, default=str)}")
     log(f"  moe: {json.dumps(moe_res)}")
     log(f"  train: {json.dumps(train)}; checkpoint {ckpt_s:.2f} s")
     log(f"  moe_train: {json.dumps(moe_train)}")

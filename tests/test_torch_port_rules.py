@@ -647,3 +647,64 @@ def test_dispatcher_modules_import_alone_with_jax_and_brpc_tpu_blocked(
     import re
     assert not re.search(r"^\s*(from|import)\s+(jax|brpc_tpu)(\.|\s|$)",
                          src, re.M), module
+
+
+# the operability and tooling layer: the tools, the static checks and hot
+# restart
+_TOOLS_MODULES = (
+    "brpc_tpu_torch.tools",
+    "brpc_tpu_torch.tools.rpc_view",
+    "brpc_tpu_torch.tools.rpc_dump",
+    "brpc_tpu_torch.tools.rpc_replay",
+    "brpc_tpu_torch.tools.rpc_press",
+    "brpc_tpu_torch.tools.parallel_http",
+    "brpc_tpu_torch.tools.trace_dump",
+    "brpc_tpu_torch.tools.fleet_dump",
+    "brpc_tpu_torch.tools.perf_guard",
+    "brpc_tpu_torch.tools.check",
+    "brpc_tpu_torch.tools.check.base",
+    "brpc_tpu_torch.tools.check.cppscan",
+    "brpc_tpu_torch.tools.check.contracts",
+    "brpc_tpu_torch.tools.check.lanes",
+    "brpc_tpu_torch.tools.check.enums",
+    "brpc_tpu_torch.tools.check.blocking",
+    "brpc_tpu_torch.tools.check.__main__",
+    "brpc_tpu_torch.server.hot_restart",
+    "brpc_tpu_torch.trackme",
+)
+
+
+@pytest.mark.parametrize("module", _TOOLS_MODULES)
+def test_tools_and_hot_restart_import_alone_with_jax_and_brpc_tpu_blocked(
+        module):
+    """Each tool, each analyzer of the static checks and the hot-restart
+    handoff imports in a fresh interpreter with ``jax`` and every
+    ``brpc_tpu`` module refused, and its source names neither package in
+    any import."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["imported", module]
+    rel = module.replace(".", os.sep)
+    path = os.path.join(ROOT, rel + ".py")
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, rel, "__init__.py")
+    with open(path) as f:
+        src = f.read()
+    import re
+    assert not re.search(r"^\s*(from|import)\s+(jax|brpc_tpu)(\.|\s|$)",
+                         src, re.M), path
+
+
+def test_every_jax_tool_and_hot_restart_has_a_twin():
+    """Every module of ``brpc_tpu/tools/``, ``brpc_tpu/tools/check/``
+    (``run_all.sh`` too) and ``brpc_tpu/server/hot_restart.py`` has a twin
+    at the same relative path in the port."""
+    jax_root = os.path.join(ROOT, "brpc_tpu")
+    rels = ["server/hot_restart.py"]
+    for sub in ("tools", "tools/check"):
+        rels += [f"{sub}/{f}" for f in os.listdir(os.path.join(jax_root, sub))
+                 if f.endswith((".py", ".sh"))]
+    missing = [r for r in rels if not os.path.exists(os.path.join(PKG, r))]
+    assert len(rels) == 19 and not missing, missing

@@ -1,0 +1,549 @@
+"""The port's static-analysis suite (``brpc_tpu_torch.tools.check``):
+tier-1 green gate + seeded-drift negatives, the twin of
+``tests/test_static_checks.py``.
+
+The first half runs all four analyzers over the port's tree and demands
+ZERO findings.  The second half is the linter's own test: each drift
+class is seeded into a COPY of the port's source (via the suite's
+override hook) and the responsible analyzer must catch it.  The last
+cases hold the port's analyzers to what they read: the port's engine and
+package, and the port's own tests for the reason pins.
+"""
+
+import subprocess
+import sys
+
+import pytest
+
+from brpc_tpu_torch.tools.check import (ANALYZERS, run_all, check_blocking,
+                                  check_contracts, check_enums,
+                                  check_lanes, Tree)
+
+ENGINE = "brpc_tpu_torch/native/src/engine.cpp"
+META = "brpc_tpu_torch/protocol/meta.py"
+HTTP_DISPATCH = "brpc_tpu_torch/server/http_dispatch.py"
+FAST_CALL = "brpc_tpu_torch/client/fast_call.py"
+CLIENT_LANE = "brpc_tpu_torch/transport/client_lane.py"
+SLIM = "brpc_tpu_torch/server/slim_dispatch.py"
+
+
+def _mutate(rel: str, old: str, new: str) -> dict:
+    """Override dict with one seeded edit; asserts the anchor exists
+    (a moved anchor must fail the negative test loudly, not skip it)."""
+    text = Tree().text(rel)
+    assert old in text, f"mutation anchor vanished from {rel}: {old!r}"
+    return {rel: text.replace(old, new)}
+
+
+# -- green gate --------------------------------------------------------------
+
+def test_tree_is_clean():
+    findings = run_all()
+    assert findings == [], "\n".join(repr(f) for f in findings)
+
+
+@pytest.mark.parametrize("name,fn", ANALYZERS, ids=[n for n, _ in ANALYZERS])
+def test_each_analyzer_clean(name, fn):
+    findings = fn(Tree())
+    assert findings == [], "\n".join(repr(f) for f in findings)
+
+
+def test_cli_exit_codes():
+    r = subprocess.run([sys.executable, "-m", "brpc_tpu_torch.tools.check",
+                        "--quiet"], capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    r = subprocess.run([sys.executable, "-m", "brpc_tpu_torch.tools.check",
+                        "-a", "contracts", "--fail-fast"],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+# -- seeded drifts: the five required classes --------------------------------
+
+def test_drift_enum_member_removed():
+    """Deleting a FbReason member breaks BOTH the name-table count and
+    every surviving call site that still bumps the counter."""
+    ov = _mutate(
+        ENGINE,
+        "FB_RPC_SHM_LANE,           // frame carries shm data-plane TLVs",
+        "// member removed by seeded-drift test")
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("kFbNames" in f.message for f in findings), findings
+    findings = check_enums(Tree(overrides=ov))
+    assert any("FB_RPC_SHM_LANE" in f.message for f in findings), findings
+
+
+def test_drift_tlv_tag_renumbered():
+    """Renumbering a meta.py tag leaves the engine scanning the OLD
+    number and the pre-encoded prefix carrying the OLD byte."""
+    ov = _mutate(META, "_T_TIMEOUT_MS = 13", "_T_TIMEOUT_MS = 23")
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("tag 13" in f.message for f in findings), findings
+    # the pre-encoded TLV_TIMEOUT prefix still says 0x0d
+    assert any("TLV_TIMEOUT" in f.message for f in findings), findings
+
+
+def test_drift_shim_arity_changed():
+    """Dropping one arg from the engine's kind-3 call (the 'grew one
+    arg in two separate rounds' class, in reverse)."""
+    ov = _mutate(ENGINE, "ten ? ten : Py_None, nullptr);", "nullptr);")
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("kind-3" in f.message and "9 args" in f.message
+               for f in findings), findings
+
+
+def test_drift_shim_arity_changed_python_side():
+    """The same class seeded on the Python side: the shim def grows a
+    public parameter the engine never passes."""
+    ov = _mutate(SLIM, "trace=None, tmo=None, tenant=None,",
+                 "trace=None, tmo=None, tenant=None, extra=None,")
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("kind-3" in f.message and "takes 11" in f.message
+               for f in findings), findings
+
+
+def test_drift_admission_deleted_from_one_lane():
+    """Removing the shared admission call from the classic HTTP lane's
+    compiled chain (rename → the stage is simply no longer invoked)."""
+    ov = _mutate("brpc_tpu_torch/server/interceptors.py",
+                 'rej = _admit_stage(_server, _entry, "http", tenant,',
+                 'rej = _noadmit_stage(_server, _entry, "http", tenant,')
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[http]" in f.message and "admission" in f.message
+               for f in findings), findings
+
+
+def test_drift_unregistered_fallback_reason():
+    """(a) a C++ counter bump under a member the enum never declared;
+    (b) a Python screening site inventing a reason no test pins."""
+    ov = _mutate(ENGINE, "lp->tel.fallbacks[FB_RPC_DISPATCH_OFF]++;",
+                 "lp->tel.fallbacks[FB_TOTALLY_NEW_REASON]++;")
+    findings = check_enums(Tree(overrides=ov))
+    assert any("FB_TOTALLY_NEW_REASON" in f.message
+               for f in findings), findings
+
+    # the seeded name is assembled at runtime: a literal here would
+    # itself count as a test pin (the checker scans tests/ as text)
+    unpinned = "reason_nobody_" + "anchored"
+    ov = _mutate(FAST_CALL, '_scatter_fallback("ineligible_cntl")',
+                 f'_scatter_fallback("{unpinned}")')
+    findings = check_enums(Tree(overrides=ov))
+    assert any(unpinned in f.message for f in findings), findings
+
+
+# -- further drift classes (beyond the required five) ------------------------
+
+def test_drift_stale_reason_name_table():
+    """A renamed kFbNames string with the enum untouched: the bridge
+    mirror no longer matches (the 'stale telemetry mirror' suspect)."""
+    ov = _mutate(ENGINE, '"rpc_dispatch_off",', '"rpc_dispatch_gone",')
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("FB_REASON_NAMES" in f.message for f in findings), findings
+
+
+def test_drift_shed_after_user_code():
+    """Deadline shed deleted from the grpc lane → doomed work reaches
+    the handler."""
+    ov = _mutate("brpc_tpu_torch/protocol/h2_rpc.py",
+                 'if _maybe_shed(cntl, "grpc", entry.status.full_name):',
+                 'if False and _nothing(cntl):')
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[grpc]" in f.message and "shed" in f.message
+               for f in findings), findings
+
+
+def test_drift_private_rejection_shape():
+    """A lane serializing rejections around the shared helper."""
+    ov = _mutate("brpc_tpu_torch/server/interceptors.py",
+                 "status_code, body, extra = _reject(rej)",
+                 "status_code, body, extra = 503, b'busy', []")
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[http]" in f.message and "shared helper" in f.message
+               for f in findings), findings
+
+
+def test_drift_undeclared_flag():
+    ov = _mutate(CLIENT_LANE, 'get_flag("rpc_native_client_lane", True)',
+                 'get_flag("rpc_native_client_lane_v2", True)')
+    findings = check_enums(Tree(overrides=ov))
+    assert any("rpc_native_client_lane_v2" in f.message
+               for f in findings), findings
+
+
+def test_drift_blocking_call_on_loop_thread():
+    ov = _mutate(CLIENT_LANE, "            meta = RpcMeta()\n",
+                 "            meta = RpcMeta(); time.sleep(0.01)\n")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("sleep" in f.message for f in findings), findings
+
+
+def test_drift_untimed_wait_on_loop_thread():
+    ov = _mutate(
+        CLIENT_LANE,
+        "sock = Socket.address(sid) if sid is not None else None",
+        "sock = Socket.address(sid) if sid is not None else None\n"
+        "        self._drained.wait()")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any(".wait()" in f.message for f in findings), findings
+
+
+def test_drift_blocking_call_in_handoff_consumer():
+    """the per-demux-loop burst entry (the cross-loop
+    completion handoff delivery callback) is a pinned loop-thread
+    entry — a blocking call seeded into it must be flagged."""
+    ov = _mutate(CLIENT_LANE, "self._loop_bursts[_idx] += 1",
+                 "self._loop_bursts[_idx] += 1; time.sleep(0.001)")
+    ov[CLIENT_LANE] = ov[CLIENT_LANE].replace(
+        "import threading", "import threading\nimport time", 1)
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("sleep" in f.message and "_on_loop_burst" in f.message
+               for f in findings), findings
+
+
+def test_drift_blocking_call_in_shm_sweep():
+    """the per-loop shm sweep (EV_CLOSE -> dead-conn
+    slot reclaim) runs on an engine loop — an untimed wait seeded into
+    it must be flagged."""
+    SHM = "brpc_tpu_torch/transport/shm_ring.py"
+    ov = _mutate(SHM, "    if ring is not None:\n        ring.free_owner(owner)",
+                 "    if ring is not None:\n        ring.free_owner(owner)\n"
+                 "        threading.Event().wait()")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any(".wait()" in f.message and "on_socket_closed" in f.message
+               for f in findings), findings
+
+
+def test_drift_sleep_in_drain_path():
+    """Server.drain is deadline-bounded by contract
+    and entry-listed in the blocking pass — a time.sleep seeded into
+    it must be flagged."""
+    SERVER = "brpc_tpu_torch/server/server.py"
+    ov = _mutate(SERVER, "        fleet.on_server_drain(self)\n"
+                 "        for acc in self.acceptors:\n"
+                 "            acc.pause_accept()",
+                 "        fleet.on_server_drain(self)\n"
+                 "        time.sleep(0.5)\n"
+                 "        for acc in self.acceptors:\n"
+                 "            acc.pause_accept()")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("sleep" in f.message and "drain" in f.message
+               for f in findings), findings
+
+
+def test_drift_untimed_wait_in_shm_drain_settle():
+    """the shm settle wait must stay bounded by the
+    drain grace — dropping the timeout must be flagged."""
+    SHM = "brpc_tpu_torch/transport/shm_ring.py"
+    ov = _mutate(SHM, "        ev.wait(0.005)      # timed: the drain "
+                 "stays deadline-bound",
+                 "        ev.wait()")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any(".wait()" in f.message and "drain_settle" in f.message
+               for f in findings), findings
+
+
+def test_drift_lame_duck_reason_renamed():
+    """the http_lame_duck fallback reason is part of
+    the closed engine↔bridge name-table contract — renaming one side
+    must be flagged."""
+    ov = _mutate(ENGINE, '"http_chunk_stream",  "http_lame_duck",',
+                 '"http_chunk_stream",  "http_lameduck2",')
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("http_lame" in f.message or "kFbNames" in f.message
+               for f in findings), findings
+
+
+# -- kind-5 streaming-lane drift classes --------------------------------------
+
+def test_drift_stream_shim_arity_changed():
+    """Dropping one arg from the engine's kind-5 stream-shim call (the
+    same 'grew one arg on one side' class as the kind-3 negative)."""
+    ov = _mutate(ENGINE, "sid, swin, nullptr);", "sid, nullptr);")
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("kind-5" in f.message and "11 args" in f.message
+               for f in findings), findings
+
+
+def test_drift_stream_reason_table_renamed():
+    """Renaming a kStreamFbNames string with the enum untouched: the
+    stream_slim mirror no longer matches."""
+    ov = _mutate(ENGINE, '"stream_chunk_oversize", "stream_drain",',
+                 '"stream_chunk_oversize", "stream_drained2",')
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("STREAM_FB_NAMES" in f.message for f in findings), findings
+
+
+def test_drift_admission_deleted_from_chain():
+    """Deleting the admission stage from the compiled interceptor
+    chain breaks EVERY binding lane at once — the linter must see it
+    through the chain half of the kind-5 spec."""
+    ov = _mutate("brpc_tpu_torch/server/interceptors.py",
+                 "rej = _admit_stage(_server, _entry, _lane, tenant,",
+                 "rej = _noadmit_stage(_server, _entry, _lane, tenant,")
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[stream_slim]" in f.message and "admission" in f.message
+               for f in findings), findings
+
+
+def test_drift_chain_binding_removed_from_lane():
+    """The kind-5 lane body no longer calling the compiled chain —
+    the binding is gone even though the chain itself is intact."""
+    ov = _mutate("brpc_tpu_torch/server/stream_slim.py",
+                 "cntl = _enter(sock, cid, len(payload), att, dom, nonce,",
+                 "cntl = _no_chain(sock, cid, len(payload), att, dom, nonce,")
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[stream_slim]" in f.message
+               and ("chain" in f.message or "enter" in f.message)
+               for f in findings), findings
+
+
+def test_drift_blocking_call_in_chunk_delivery():
+    """slim_chunks runs inside the engine's batched GIL entry ON a
+    loop thread — a sleep seeded into it must be flagged."""
+    ov = _mutate("brpc_tpu_torch/server/stream_slim.py",
+                 "            s.on_frame(flags, payload)",
+                 "            time.sleep(0.001)\n"
+                 "            s.on_frame(flags, payload)")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("slim_chunks" in f.message and "sleep" in f.message
+               for f in findings), findings
+
+
+def test_drift_untimed_wait_in_stream_drain():
+    """Stream drain settle is deadline-bounded by contract — an
+    untimed wait_for seeded into drain_close must be flagged."""
+    ov = _mutate("brpc_tpu_torch/streaming.py",
+                 "                    timeout=cap)",
+                 "                    )")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("drain_close" in f.message and "wait_for" in f.message
+               for f in findings), findings
+
+
+# -- KV transfer plane drift classes -------------------------------------------
+
+def test_drift_unregistered_kv_reason():
+    """A KV fallback reason added to the closed enum without a test
+    pin: the enum checker must demand the anchor (the same discipline
+    as the engine name tables — an unasserted reason is free to
+    drift)."""
+    KV = "brpc_tpu_torch/kv/transport.py"
+    # assembled at runtime: a literal here would itself count as a pin
+    unpinned = "kv_reason_nobody_" + "anchored"
+    ov = _mutate(KV, '"kv_peer_remote",',
+                 f'"kv_peer_remote", "{unpinned}",')
+    findings = check_enums(Tree(overrides=ov))
+    assert any(unpinned in f.message for f in findings), findings
+
+
+def test_drift_unregistered_evict_reason():
+    """A paged-KV eviction reason added to the closed enum without a
+    test pin: the allocator's close reasons follow the same discipline
+    as the transfer plane's fallback/close enums."""
+    KV_PAGES = "brpc_tpu_torch/kv/pages.py"
+    # assembled at runtime: a literal here would itself count as a pin
+    unpinned = "kv_evict_nobody_" + "anchored"
+    ov = _mutate(KV_PAGES, '"kv_pool_exhausted",',
+                 f'"kv_pool_exhausted", "{unpinned}",')
+    findings = check_enums(Tree(overrides=ov))
+    assert any(unpinned in f.message for f in findings), findings
+
+
+def test_drift_blocking_call_in_kv_sweep():
+    """The KV page sweep runs from Socket.release on the owning loop —
+    a sleep seeded into it must be flagged."""
+    KV_PAGES = "brpc_tpu_torch/kv/pages.py"
+    ov = _mutate(KV_PAGES, "    if store is not None:\n"
+                 "        n = store.release_owner(owner)",
+                 "    if store is not None:\n"
+                 "        time.sleep(0.01)\n"
+                 "        n = store.release_owner(owner)")
+    ov[KV_PAGES] = ov[KV_PAGES].replace(
+        "import struct", "import struct\nimport time", 1)
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("sleep" in f.message and "on_socket_closed" in f.message
+               for f in findings), findings
+
+
+def test_drift_untimed_wait_in_kv_drain_settle():
+    """The KV drain settle must stay bounded by the drain grace —
+    dropping the timeout must be flagged."""
+    KV_PAGES = "brpc_tpu_torch/kv/pages.py"
+    ov = _mutate(KV_PAGES,
+                 "        ev.wait(0.005)     # timed: the drain "
+                 "stays deadline-bound",
+                 "        ev.wait()")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any(".wait()" in f.message and "drain_settle" in f.message
+               for f in findings), findings
+
+
+def test_drift_admission_deleted_from_slim_chain_binding():
+    """The kind-3 lane body no longer calling the compiled chain — the
+    second binding is gone even though the chain itself is intact
+    (mirrors the kind-5 negative)."""
+    ov = _mutate("brpc_tpu_torch/server/slim_dispatch.py",
+                 "cntl = _enter(sock, cid, len(payload), att, dom, "
+                 "nonce,",
+                 "cntl = _no_chain(sock, cid, len(payload), att, dom, "
+                 "nonce,")
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[slim]" in f.message
+               and ("chain" in f.message or "enter" in f.message)
+               for f in findings), findings
+
+
+def test_drift_unregistered_sched_event():
+    """A member added to the scheduler's closed enum with NO test pin
+    (the name is assembled at runtime so this file itself never
+    anchors it) must be flagged by the enum analyzer."""
+    LM = "brpc_tpu_torch/models/lm_service.py"
+    unpinned = "sched_nobody_" + "anchored"
+    ov = _mutate(LM, '"sched_chunk_slice",',
+                 f'"sched_chunk_slice", "{unpinned}",')
+    findings = check_enums(Tree(overrides=ov))
+    assert any(unpinned in f.message for f in findings), findings
+
+
+def test_drift_blocking_call_in_chunk_round():
+    """A blocking primitive seeded into the batcher's chunk-prefill
+    round (every live session's next token waits on it) must be
+    caught by the step-loop entry points."""
+    LM = "brpc_tpu_torch/models/lm_service.py"
+    ov = _mutate(LM,
+                 "filling.sort(key=lambda s: (s.tier_rank, s.slot))",
+                 "import time; time.sleep(0.01); "
+                 "filling.sort(key=lambda s: (s.tier_rank, s.slot))")
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("_chunk_round" in f.message and "sleep" in f.message
+               for f in findings), findings
+
+
+def test_drift_http_slim_chain_binding_dropped():
+    """The kind-4 shim no longer calling the compiled chain — the
+    fourth binding is gone even though the chain itself is intact."""
+    ov = _mutate("brpc_tpu_torch/server/http_slim.py",
+                 "cntl, early = _enter(",
+                 "cntl, early = _no_chain(")
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[http_slim]" in f.message
+               and ("chain" in f.message or "enter" in f.message)
+               for f in findings), findings
+
+
+def test_drift_unregistered_slo_verdict():
+    """A new SLO verdict grown into the closed enum without a test pin
+    anywhere under tests/ (the name is assembled at runtime so this
+    file itself never anchors it) — the observability surface would
+    silently widen past what anything asserts on."""
+    LM_TEL = "brpc_tpu_torch/models/lm_telemetry.py"
+    unpinned = "slo_nobody_" + "anchored"
+    ov = _mutate(LM_TEL, '"slo_untargeted",',
+                 f'"slo_untargeted", "{unpinned}",')
+    findings = check_enums(Tree(overrides=ov))
+    assert any(unpinned in f.message for f in findings), findings
+
+
+def test_drift_lock_in_step_loop_profiler():
+    """A lock acquisition seeded into the per-sample profiler write
+    path (record_phase runs inside every batcher decode round) must be
+    caught by the step-loop entry points — the ZERO-locks hot-path
+    contract is linter-enforced, not reviewed-by-hope."""
+    LM_TEL = "brpc_tpu_torch/models/lm_telemetry.py"
+    ov = _mutate(LM_TEL, "    _phase_buckets[idx][b] += 1",
+                 "    _obs_lock.acquire()\n"
+                 "    _phase_buckets[idx][b] += 1")
+    ov[LM_TEL] = ov[LM_TEL].replace(
+        '_live = [bool(get_flag("lm_telemetry", True))]',
+        "_obs_lock = threading.Lock()\n"
+        '_live = [bool(get_flag("lm_telemetry", True))]', 1)
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("record_phase" in f.message and "acquire" in f.message
+               for f in findings), findings
+
+
+def test_drift_unregistered_fleet_event():
+    """A new flight-recorder event grown into the closed FLEET_EVENTS
+    enum without a test pin anywhere under tests/ (runtime-assembled
+    name so this file never anchors it) — the /fleet postmortem
+    timeline would widen past what anything asserts on."""
+    FLEET = "brpc_tpu_torch/fleet.py"
+    unpinned = "fleet_nobody_" + "anchored"
+    ov = _mutate(FLEET, '"fleet_host_spill",',
+                 f'"fleet_host_spill", "{unpinned}",')
+    findings = check_enums(Tree(overrides=ov))
+    assert any(unpinned in f.message for f in findings), findings
+
+
+def test_drift_sleep_in_fleet_report_builder():
+    """A time.sleep grown into build_load_report — the entry-listed
+    report builder runs inside the KV.Probe handler (engine loop on a
+    native server), where a sleep stalls every pinned connection."""
+    FLEET = "brpc_tpu_torch/fleet.py"
+    ov = _mutate(FLEET, "    report = {",
+                 "    time.sleep(0.01)\n    report = {")
+    ov[FLEET] = ov[FLEET].replace(
+        "import threading", "import threading\nimport time", 1)
+    findings = check_blocking(Tree(overrides=ov))
+    assert any("build_load_report" in f.message and "sleep" in f.message
+               for f in findings), findings
+
+
+def test_allow_marker_suppresses():
+    """The reviewed-exception escape hatch works (and is line-scoped)."""
+    ov = _mutate(
+        CLIENT_LANE,
+        "sock = Socket.address(sid) if sid is not None else None",
+        "sock = Socket.address(sid) if sid is not None else None\n"
+        "        self._drained.wait()  # static-check: allow")
+    findings = check_blocking(Tree(overrides=ov))
+    assert findings == [], findings
+
+
+# -- the port's suite reads the port -----------------------------------------
+
+def test_suite_reads_the_ports_package_and_tests():
+    tree = Tree()
+    pkg = [r for r, _ in tree.package_files()]
+    assert pkg and all(r.startswith("brpc_tpu_torch/") for r in pkg)
+    tests = [r for r, _ in tree.test_files()]
+    assert tests and all(
+        r.split("/")[-1].startswith(("test_torch_", "torch_"))
+        for r in tests)
+
+
+def test_drift_reason_pinned_only_by_a_jax_test():
+    """A reason whose only pin is a JAX test is unpinned for the port:
+    dropping the port's pin of ``rpc_dispatch_off`` is flagged even
+    though JAX's ``tests/test_reason_pins.py`` still names it."""
+    rel = "tests/test_torch_reason_pins.py"
+    tree = Tree()
+    ov = {}
+    for r, text in tree.test_files():
+        if "rpc_dispatch_off" in text:
+            ov[r] = text.replace("rpc_dispatch_off", "rpc_dispatch_gone")
+    assert rel in ov
+    findings = check_enums(Tree(overrides=ov))
+    assert any("rpc_dispatch_off" in f.message for f in findings), findings
+
+
+def test_drift_client_lane_callback_renamed():
+    """The port's demux callback is ``ClientLane._on_loop_burst``: a
+    rename leaves the engine's callback format unchecked, which the
+    port's contracts analyzer reports."""
+    ov = _mutate(CLIENT_LANE, "def _on_loop_burst(",
+                 "def _on_loop_burst_renamed(")
+    findings = check_contracts(Tree(overrides=ov))
+    assert any("_on_loop_burst" in f.message for f in findings), findings
+
+
+def test_drift_settle_dropped_from_classic_funnel():
+    """The port's classic lane settles in ``_send_response``: dropping
+    that call is flagged on the tpu_std lane."""
+    rel = "brpc_tpu_torch/server/rpc_dispatch.py"
+    ov = _mutate(rel, "        _settle(cntl, response)\n",
+                 "        pass\n")
+    findings = check_lanes(Tree(overrides=ov))
+    assert any("[tpu_std]" in f.message and "settle" in f.message
+               for f in findings), findings
