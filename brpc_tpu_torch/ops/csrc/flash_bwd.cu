@@ -65,46 +65,51 @@
 // dk and dv take 128 of the 255 registers: the head's bases come from
 // shared memory at each step and the key block from blockIdx.y, so that
 // no per-block value stays live across the products (ptxas spilled them).
+//
+// Head dims 1 <= d <= 128 are zero-padded to 16, 32, 64 or 128, and
+// 129 <= d <= 256 to 256, as the Pallas kernels pad d to 128s.  At
+// d = 256 (DqCfg, DkdvCfg):
+// - dq: 4 warps, 64 rows, 16-key k/v tiles; f32 199,680 B, one block per
+//   SM (32-key tiles would need 266,240 B); bf16 reads q from shared
+//   memory per k step (q_in_regs), 101,376 B, two blocks per SM.  The
+//   accumulator is 128 registers a thread.
+// - dkdv: dk and dv for 256 columns would take all 255 registers, and k
+//   and v for 128 keys alone 266,240 B.  So a grid axis (z) takes the two
+//   128-column halves of dk and dv: each block recomputes s^T and dp^T
+//   over the whole d, and keeps and writes dk and dv for its half only
+//   (the d = 128 register budget), with one owner per output element as
+//   before; the cost is s^T and dp^T twice.  4 warps and 64 keys; f32
+//   steps of 8 q rows (k, v and the split q/do ring: 199,808 B, one
+//   block per SM), bf16 steps of 16 rows (101,632 B, two per SM).
 
 #include "flash_mma.cuh"
 
 namespace {
 
-constexpr int DQ_BK = 32;  // dq: keys per k tile
-
-// The schedule of flash_dq_kernel for each dtype: warps per block (16 q
-// rows each) and the blocks per SM the registers must allow.  q's A
-// fragments stay in registers for bf16 and are read from shared memory
-// per k step for f32, as do's always are (QSource, SmemSource).
-template <typename T>
-struct DqCfg;
-template <>
-struct DqCfg<float> {
-  static constexpr int NW = 8;
-  static constexpr int MINB = 1;
-};
-template <>
-struct DqCfg<__nv_bfloat16> {
-  static constexpr int NW = 4;
-  static constexpr int MINB = 2;
+// The schedule of flash_dq_kernel for each dtype and padded head dim:
+// warps per block (16 q rows each), keys per k tile and the blocks per SM
+// the registers must allow.  q's A fragments stay in registers for bf16
+// up to d = 128 and are read from shared memory per k step otherwise, as
+// do's always are (QSource, SmemSource).
+template <typename T, int D>
+struct DqCfg {
+  static constexpr bool F32 = std::is_same_v<T, float>;
+  static constexpr int NW = F32 && D <= 128 ? 8 : 4;
+  static constexpr int BK = D <= 128 ? 32 : 16;
+  static constexpr int MINB = F32 ? 1 : 2;
 };
 
-// The schedule of flash_dkdv_kernel for each dtype: warps per block (16
-// keys each), q rows per step of the q/do ring, and the blocks per SM the
-// registers must allow.
-template <typename T>
-struct DkdvCfg;
-template <>
-struct DkdvCfg<float> {
-  static constexpr int NW = 8;
-  static constexpr int BQ = 16;
-  static constexpr int MINB = 1;
-};
-template <>
-struct DkdvCfg<__nv_bfloat16> {
-  static constexpr int NW = 4;
-  static constexpr int BQ = 32;
-  static constexpr int MINB = 2;
+// The schedule of flash_dkdv_kernel for each dtype and padded head dim:
+// warps per block (16 keys each), q rows per step of the q/do ring, the
+// blocks per SM the registers must allow, and the column parts of dk and
+// dv that take a block each (grid z).
+template <typename T, int D>
+struct DkdvCfg {
+  static constexpr bool F32 = std::is_same_v<T, float>;
+  static constexpr int NW = F32 && D <= 128 ? 8 : 4;
+  static constexpr int BQ = (F32 ? 16 : 32) / (D <= 128 ? 1 : 2);
+  static constexpr int MINB = F32 ? 1 : 2;
+  static constexpr int PARTS = D <= 128 ? 1 : 2;
 };
 
 struct Args {
@@ -130,23 +135,25 @@ struct Args {
 // the loop.
 template <typename T, int D>
 constexpr int dq_smem_elems() {
-  using C = DqCfg<T>;
+  using C = DqCfg<T, D>;
   constexpr int LD = flash_mma::tile_ld<T, D>();
-  return 4 * DQ_BK * LD +
-         (flash_mma::q_in_regs<T>() ? 1 : 2) * 16 * C::NW * LD;
+  return 4 * C::BK * LD +
+         (flash_mma::q_in_regs<T, D>() ? 1 : 2) * 16 * C::NW * LD;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(32 * DqCfg<T>::NW, DqCfg<T>::MINB)
+__global__ void __launch_bounds__((32 * DqCfg<T, D>::NW),
+                                  (DqCfg<T, D>::MINB))
     flash_dq_kernel(Args a) {
   using namespace flash_mma;
-  using C = DqCfg<T>;
+  using C = DqCfg<T, D>;
   constexpr int NT = 32 * C::NW;  // threads
   constexpr int BQ = 16 * C::NW;  // q rows per block
+  constexpr int BK = C::BK;       // keys per k tile
   constexpr int LD = tile_ld<T, D>();
-  constexpr int TILE = DQ_BK * LD;  // elements of one k or v tile
-  constexpr int SS = 2 * TILE;      // one ring stage
-  constexpr int NJ = DQ_BK / 8;     // score n8 tiles of a warp
+  constexpr int TILE = BK * LD;   // elements of one k or v tile
+  constexpr int SS = 2 * TILE;    // one ring stage
+  constexpr int NJ = BK / 8;      // score n8 tiles of a warp
   constexpr int NO = D / 8;         // dq n8 tiles of a warp
   constexpr bool F32 = std::is_same_v<T, float>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -154,7 +161,7 @@ __global__ void __launch_bounds__(32 * DqCfg<T>::NW, DqCfg<T>::MINB)
   // stage 1)
   T* const ring = reinterpret_cast<T*>(smem_raw);
   T* const sdo = ring + 2 * SS;
-  constexpr bool Q_REGS = q_in_regs<T>();
+  constexpr bool Q_REGS = q_in_regs<T, D>();
   static_assert(!Q_REGS || BQ * LD <= SS, "q must fit one stage");
   T* const sq = Q_REGS ? ring + SS : sdo + BQ * LD;
 
@@ -171,11 +178,11 @@ __global__ void __launch_bounds__(32 * DqCfg<T>::NW, DqCfg<T>::MINB)
   const bool kvec = can_vec(k, a.ks1, a.d), vvec = can_vec(v, a.vs1, a.d);
 
   const int k_end = a.causal ? min(q0 + BQ, a.s) : a.s;
-  const int nkt = (k_end + DQ_BK - 1) / DQ_BK;
+  const int nkt = (k_end + BK - 1) / BK;
   auto load_kv = [&](T* st, int k0) {
-    flash_mma::load_tile<T, DQ_BK, D, NT>(st, k, a.ks1, k0, a.s, a.d, kvec);
-    flash_mma::load_tile<T, DQ_BK, D, NT>(st + TILE, v, a.vs1, k0, a.s, a.d,
-                                          vvec);
+    flash_mma::load_tile<T, BK, D, NT>(st, k, a.ks1, k0, a.s, a.d, kvec);
+    flash_mma::load_tile<T, BK, D, NT>(st + TILE, v, a.vs1, k0, a.s, a.d,
+                                       vvec);
   };
 
   flash_mma::load_tile<T, BQ, D, NT>(sq, q, a.qs1, q0, a.s, a.d,
@@ -208,28 +215,27 @@ __global__ void __launch_bounds__(32 * DqCfg<T>::NW, DqCfg<T>::MINB)
   float acc[NO][4] = {};
 
   for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * DQ_BK;
+    const int k0 = kt * BK;
     T* const st = ring + (kt & 1) * SS;
     cp_async_wait_all();
     __syncthreads();  // tile kt landed; tile kt - 1 (and q) consumed
     if (kt + 1 < nkt) {
-      load_kv(ring + ((kt + 1) & 1) * SS, k0 + DQ_BK);
+      load_kv(ring + ((kt + 1) & 1) * SS, k0 + BK);
       cp_async_commit();
     }
 
     // s = q . k^T and dp = do . v^T for this warp's 16 rows
     float sc[NJ][4] = {}, dp[NJ][4] = {};
     if constexpr (F32) {
-      mma_abt3<D, DQ_BK>(sc, qa, RawB{st});
-      mma_abt3<D, DQ_BK>(dp, doa, RawB{st + TILE});
+      mma_abt3<D, BK>(sc, qa, RawB{st});
+      mma_abt3<D, BK>(dp, doa, RawB{st + TILE});
     } else {
-      mma_abt_bf16<D, DQ_BK>(sc, qa, st);
-      mma_abt_bf16<D, DQ_BK>(dp, doa, st + TILE);
+      mma_abt_bf16<D, BK>(sc, qa, st);
+      mma_abt_bf16<D, BK>(dp, doa, st + TILE);
     }
 
     // ds = p * (dp - dd), p = exp(s * scale - lse) in log2 units
-    const bool masked =
-        k0 + DQ_BK > a.s || (a.causal && k0 + DQ_BK - 1 > q0);
+    const bool masked = k0 + BK > a.s || (a.causal && k0 + BK - 1 > q0);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -245,9 +251,9 @@ __global__ void __launch_bounds__(32 * DqCfg<T>::NW, DqCfg<T>::MINB)
       }
     // dq += ds . k, ds rounded to k's dtype
     if constexpr (F32)
-      mma_pb3<D, DQ_BK>(acc, sc, RawB{st});
+      mma_pb3<D, BK>(acc, sc, RawB{st});
     else
-      mma_pb_bf16<D, DQ_BK>(acc, sc, st);
+      mma_pb_bf16<D, BK>(acc, sc, st);
   }
 
   T* dq = static_cast<T*>(a.g0);
@@ -289,7 +295,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* lse,
 // stage's lse and dd rows.
 template <typename T, int D>
 constexpr size_t dkdv_smem_bytes() {
-  using C = DkdvCfg<T>;
+  using C = DkdvCfg<T, D>;
   constexpr int parts = std::is_same_v<T, float> ? 4 : 2;
   return sizeof(T) * (2 * 16 * C::NW + 2 * parts * C::BQ) *
              flash_mma::tile_ld<T, D>() +
@@ -297,10 +303,11 @@ constexpr size_t dkdv_smem_bytes() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(32 * DkdvCfg<T>::NW, DkdvCfg<T>::MINB)
+__global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
+                                  (DkdvCfg<T, D>::MINB))
     flash_dkdv_kernel(Args a) {
   using namespace flash_mma;
-  using C = DkdvCfg<T>;
+  using C = DkdvCfg<T, D>;
   constexpr int NT = 32 * C::NW;  // threads
   constexpr int NK = 16 * C::NW;  // keys per block
   constexpr int BQ = C::BQ;       // q rows per ring step
@@ -309,7 +316,12 @@ __global__ void __launch_bounds__(32 * DkdvCfg<T>::NW, DkdvCfg<T>::MINB)
   constexpr bool F32 = std::is_same_v<T, float>;
   constexpr int SS = (F32 ? 4 : 2) * TILE;  // one ring stage
   constexpr int NJ = BQ / 8;                // s^T n8 tiles of a warp
-  constexpr int NO = D / 8;                 // dk/dv n8 tiles of a warp
+  constexpr int DO = D / C::PARTS;          // dk/dv columns of a block
+  constexpr int NO = DO / 8;                // dk/dv n8 tiles of a warp
+  // the block's first dk/dv column: its part (grid z) of a wide head
+  auto col0 = [] {
+    return C::PARTS > 1 ? static_cast<int>(blockIdx.z) * DO : 0;
+  };
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // k, v; then stage st: q at st SS, do at + TILE, their lo halves at
   // + 2 TILE and + 3 TILE (f32); then stage st's lse at 2 st BQ floats
@@ -421,11 +433,12 @@ __global__ void __launch_bounds__(32 * DkdvCfg<T>::NW, DkdvCfg<T>::MINB)
         sc[j][c] = exp2f(x - ((c & 1) ? l.y : l.x) * LOG2E);
       }
     }
-    // dv += p^T . do, p rounded to do's dtype
+    // dv += p^T . do, p rounded to do's dtype (the block's columns of do)
     if constexpr (F32)
-      mma_pb3<D, BQ, true>(dv, sc, SplitB{st + TILE, st + 3 * TILE});
+      mma_pb3<DO, BQ, true, D>(
+          dv, sc, SplitB{st + TILE + col0(), st + 3 * TILE + col0()});
     else
-      mma_pb_bf16<D, BQ>(dv, sc, st + TILE);
+      mma_pb_bf16<DO, BQ, D>(dv, sc, st + TILE + col0());
 
     // dp^T = v . do^T; ds^T = p^T (dp^T - dd), in place of p^T
     float dp[NJ][4] = {};
@@ -443,9 +456,10 @@ __global__ void __launch_bounds__(32 * DkdvCfg<T>::NW, DkdvCfg<T>::MINB)
     }
     // dk += ds^T . q, ds rounded to q's dtype (times scale at the store)
     if constexpr (F32)
-      mma_pb3<D, BQ, true>(dk, sc, SplitB{st, st + 2 * TILE});
+      mma_pb3<DO, BQ, true, D>(dk, sc,
+                               SplitB{st + col0(), st + 2 * TILE + col0()});
     else
-      mma_pb_bf16<D, BQ>(dk, sc, st);
+      mma_pb_bf16<DO, BQ, D>(dk, sc, st + col0());
   }
 
   T* const gk = bases.gk;
@@ -457,7 +471,7 @@ __global__ void __launch_bounds__(32 * DkdvCfg<T>::NW, DkdvCfg<T>::MINB)
     const long long off = (long long)key * a.h * a.d;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int col = n * 8 + 2 * t;
+      const int col = col0() + n * 8 + 2 * t;
       store2(gk + off + col, dk[n][2 * r] * a.scale,
              dk[n][2 * r + 1] * a.scale, a.d - col);
       store2(gv + off + col, dv[n][2 * r], dv[n][2 * r + 1], a.d - col);
@@ -467,24 +481,25 @@ __global__ void __launch_bounds__(32 * DkdvCfg<T>::NW, DkdvCfg<T>::MINB)
 
 template <typename T, int D>
 int launch_dq(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * dq_smem_elems<T, D>();
+  constexpr size_t smem = sizeof(T) * dq_smem_elems<T, D>();
+  static_assert(smem * DqCfg<T, D>::MINB <= 232448, "shared memory of an SM");
   const cudaError_t err = flash_mma::allow_smem(flash_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int bq = 16 * DqCfg<T>::NW;
+  const int bq = 16 * DqCfg<T, D>::NW;
   const int grid = (a.s + bq - 1) / bq * a.b * a.h;
-  flash_dq_kernel<T, D><<<grid, 32 * DqCfg<T>::NW, smem, stream>>>(a);
+  flash_dq_kernel<T, D><<<grid, 32 * DqCfg<T, D>::NW, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkdv(const Args& a, cudaStream_t stream) {
-  using C = DkdvCfg<T>;
+  using C = DkdvCfg<T, D>;
   constexpr size_t smem = dkdv_smem_bytes<T, D>();
   static_assert(smem * C::MINB <= 232448, "shared memory of an SM");
   const cudaError_t err = flash_mma::allow_smem(flash_dkdv_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int nk = 16 * C::NW;
-  const dim3 grid(a.b * a.h, (a.s + nk - 1) / nk);
+  const dim3 grid(a.b * a.h, (a.s + nk - 1) / nk, C::PARTS);
   flash_dkdv_kernel<T, D><<<grid, 32 * C::NW, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -494,7 +509,8 @@ int dispatch(const Args& a, bool dkdv, cudaStream_t st) {
   if (a.d <= 16) return dkdv ? launch_dkdv<T, 16>(a, st) : launch_dq<T, 16>(a, st);
   if (a.d <= 32) return dkdv ? launch_dkdv<T, 32>(a, st) : launch_dq<T, 32>(a, st);
   if (a.d <= 64) return dkdv ? launch_dkdv<T, 64>(a, st) : launch_dq<T, 64>(a, st);
-  return dkdv ? launch_dkdv<T, 128>(a, st) : launch_dq<T, 128>(a, st);
+  if (a.d <= 128) return dkdv ? launch_dkdv<T, 128>(a, st) : launch_dq<T, 128>(a, st);
+  return dkdv ? launch_dkdv<T, 256>(a, st) : launch_dq<T, 256>(a, st);
 }
 
 int run(const void* q, const void* k, const void* v, const void* dout,
@@ -504,7 +520,7 @@ int run(const void* q, const void* k, const void* v, const void* dout,
         long long vs1, long long vs2, long long ds0, long long ds1,
         long long ds2, int is_bf16, int causal, float scale, void* stream,
         bool dkdv) {
-  if (d < 1 || d > 128) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
   Args a{q,   k,   v,   dout, static_cast<const float*>(lse),
          static_cast<const float*>(dd), g0, g1, b, s, h, d,
          qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2, ds0, ds1, ds2,
@@ -517,7 +533,7 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Each returns a cudaError_t value: 0 on a launch that was accepted.  The
-// caller has checked devices, dtypes, shapes, 1 <= d <= 128, unit last
+// caller has checked devices, dtypes, shapes, 1 <= d <= 256, unit last
 // strides of q/k/v/do, contiguous lse/dd and contiguous outputs.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* dd,

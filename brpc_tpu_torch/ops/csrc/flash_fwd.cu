@@ -49,7 +49,15 @@
 //   and 64 rows, 99 KB, two blocks per SM, between them.  f32 reads q from
 //   shared memory per k step (in registers with the accumulators it
 //   spills).  bf16: 4 warps, q's fragments in registers.
-// Head dims 1 <= d <= 128 are zero-padded to 16, 32, 64 or 128.
+// - Head dims 1 <= d <= 128 are zero-padded to 16, 32, 64 or 128, and
+//   129 <= d <= 256 to 256, as the Pallas kernel pads d to 128s.  At
+//   d = 256 a 32-key k/v tile is 33 KB in f32, so f32 takes Narrow alone:
+//   4 warps and 64 rows, the ring unsplit beside the q tile, 199,680 B,
+//   one block per SM (Wide's split ring would need 399,360 B and KSplit's
+//   332,800); its output accumulator is 128 registers a thread (4 warps
+//   at two blocks per SM or one allow a thread 255 alike).  bf16 reads q
+//   from shared memory per k step there as f32 does (q_in_regs): 101,376
+//   B, two blocks per SM.
 
 #include "flash_mma.cuh"
 
@@ -113,7 +121,7 @@ template <typename T, int D, class C>
 constexpr int smem_elems() {
   constexpr int stage = C::KSPLIT * (C::SPLIT ? 4 : 2) * BK * tile_ld<T, D>();
   constexpr int bq = 16 * C::NW / C::KSPLIT;
-  return 2 * stage + (q_in_regs<T>() ? 0 : bq * tile_ld<T, D>());
+  return 2 * stage + (q_in_regs<T, D>() ? 0 : bq * tile_ld<T, D>());
 }
 
 template <typename T, int D, class C>
@@ -133,7 +141,7 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
   // stage st, group gi: k at st SS + gi TS, v at + TILE, their lo halves
   // at + 2 TILE and + 3 TILE when split
   T* const smem = reinterpret_cast<T*>(smem_raw);
-  constexpr bool Q_REGS = q_in_regs<T>();
+  constexpr bool Q_REGS = q_in_regs<T, D>();
   static_assert(!Q_REGS || BQ * LD <= SS, "q tile must fit one stage");
   T* const sq = smem + (Q_REGS ? SS : 2 * SS);
 
@@ -338,10 +346,12 @@ int launch_cfg(const Args& a, cudaStream_t stream) {
 // time.  KSplit gives each 64-row tile eight warps, two groups taking
 // even and odd k tiles, which halves the heaviest tile's path where its
 // blocks fit two waves (one prefill of 1024 tokens); between the two,
-// Narrow's 64-row blocks run two to an SM.
+// Narrow's 64-row blocks run two to an SM.  At d = 256 only Narrow fits.
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, float>) {
+  if constexpr (std::is_same_v<T, float> && D > 128) {
+    return launch_cfg<T, D, Narrow>(a, stream);
+  } else if constexpr (std::is_same_v<T, float>) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -363,13 +373,14 @@ int dispatch_d(const Args& a, cudaStream_t stream) {
   if (a.d <= 16) return launch<T, 16>(a, stream);
   if (a.d <= 32) return launch<T, 32>(a, stream);
   if (a.d <= 64) return launch<T, 64>(a, stream);
-  return launch<T, 128>(a, stream);
+  if (a.d <= 128) return launch<T, 128>(a, stream);
+  return launch<T, 256>(a, stream);
 }
 
 }  // namespace
 
 // Returns a cudaError_t value: 0 on a launch that was accepted.  The caller
-// has checked devices, dtypes, shapes, 1 <= d <= 128 and unit last strides.
+// has checked devices, dtypes, shapes, 1 <= d <= 256 and unit last strides.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int b, int s, int h, int d,
                          long long qs0, long long qs1, long long qs2,
@@ -377,7 +388,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          long long vs0, long long vs1, long long vs2,
                          long long os0, long long os1, long long os2,
                          int is_bf16, int causal, float scale, void* stream) {
-  if (d < 1 || d > 128) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
   Args a{q,   k,   v,   o,   static_cast<float*>(lse),
          b,   s,   h,   d,   qs0,
          qs1, qs2, ks0, ks1, ks2,

@@ -362,17 +362,18 @@ __device__ __forceinline__ void mma_abt3(float (&c)[BK / 8][4], const A& a_src,
 }
 
 // o (16 x D) += P . B, P (16 x BK) in accumulator layout in registers, B
-// a shared (BK x D) tile (rows are the k index): p.v and ds.k.
+// a shared (BK x D) tile (rows are the k index): p.v and ds.k.  B may be
+// D columns of a wider tile, of width LDD (its row stride tile_ld<LDD>).
 //
 // C's layout is not tf32 A's.  Instead of moving values between lanes the
 // k index is permuted: logical k t of a k8 step is key 2t and t + 4 is key
 // 2t + 1, in A (c0, c2 -> a0, a1; c1, c3 -> a2, a3) and in B (rows 2t and
 // 2t + 1 of the tile).  A k-sum does not depend on its order.
-template <int D, int BK, bool FAST = false, class B>
+template <int D, int BK, bool FAST = false, int LDD = D, class B>
 __device__ __forceinline__ void mma_pb3(float (&o)[D / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const B& b) {
-  constexpr int LD = tile_ld<float, D>();
+  constexpr int LD = tile_ld<float, LDD>();
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk) {
@@ -424,17 +425,20 @@ struct BfSmemA {
 };
 
 // The A source of q: f32 from shared memory per k step, bf16 in
-// registers for the whole k loop.  Of any other A operand (do): shared
-// memory per k step.
-template <typename T>
-__host__ __device__ constexpr bool q_in_regs() {
-  return !std::is_same_v<T, float>;
-}
+// registers for the whole k loop up to d = 128 (at d = 256 its 64
+// registers beside the 128 of a 16 x 256 f32 accumulator would spill, so
+// it is read from shared memory per k step too).  Of any other A operand
+// (do): shared memory per k step.
 template <typename T, int D>
-using QSource = std::conditional_t<q_in_regs<T>(), BfA<D>, SmemA<D>>;
+__host__ __device__ constexpr bool q_in_regs() {
+  return !std::is_same_v<T, float> && D <= 128;
+}
 template <typename T, int D>
 using SmemSource =
     std::conditional_t<std::is_same_v<T, float>, SmemA<D>, BfSmemA<D>>;
+template <typename T, int D>
+using QSource =
+    std::conditional_t<q_in_regs<T, D>(), BfA<D>, SmemSource<T, D>>;
 
 // c (16 x BK) += A (16 x D) . B^T, B a shared (BK x D) tile.
 template <int D, int BK, class A>
@@ -460,12 +464,13 @@ __device__ __forceinline__ void mma_abt_bf16(float (&c)[BK / 8][4],
 }
 
 // o (16 x D) += P . B, P rounded to bf16 (two n8 accumulator tiles are
-// one k16 A fragment), B a shared (BK x D) tile read with ldmatrix.trans.
-template <int D, int BK>
+// one k16 A fragment), B a shared (BK x D) tile read with ldmatrix.trans;
+// as in mma_pb3, B may be D columns of a tile of width LDD.
+template <int D, int BK, int LDD = D>
 __device__ __forceinline__ void mma_pb_bf16(float (&o)[D / 8][4],
                                             const float (&p)[BK / 8][4],
                                             const __nv_bfloat16* sb) {
-  constexpr int LD = tile_ld<__nv_bfloat16, D>();
+  constexpr int LD = tile_ld<__nv_bfloat16, LDD>();
   const int l = threadIdx.x & 31;
   const __nv_bfloat16* q =
       sb + ((l & 7) + ((l >> 3) & 1) * 8) * LD + (l >> 4) * 8;

@@ -30,13 +30,16 @@ import torch
 
 from .cuda_build import CudaKernel
 
-# Key tile of the kernels (csrc/flash_fwd.cu BK, flash_bwd.cu DQ_BK); the
-# plain version walks keys in the same tiles.
+# Key tile of the kernels (csrc/flash_fwd.cu BK, flash_bwd.cu DqCfg::BK up
+# to d = 128; dq takes 16 keys at a time above); the plain version walks
+# keys in tiles of 32.
 BLOCK_K = 32
-# The kernels' head-dim limit (their q/k/v tiles are instantiated up to
-# d = 128).  The plain versions take any head dim, as the JAX kernel does
-# (it pads d to a multiple of 128).
-MAX_HEAD_DIM = 128
+# The kernels' head-dim limit: their q/k/v tiles are instantiated for
+# d = 16, 32, 64, 128 and 256, and a head is zero-padded to the next of
+# them.  The plain versions take any head dim, as the JAX kernel does (it
+# pads d to a multiple of 128); past 256 the kernels would need the head
+# dim split across blocks, which none of them does.
+MAX_HEAD_DIM = 256
 
 
 def _check_kernel_inputs(name: str, *ts) -> None:

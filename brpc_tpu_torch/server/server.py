@@ -654,6 +654,10 @@ class Server:
         except (OSError, ValueError) as e:
             LOG.error("cannot load the TLS certificate: %s", e)
             return -1
+        # json2pb's protobuf import (~0.1 s, more under load) happens here
+        # and not in the first HTTP request's handler, which on an inline
+        # native server would hold its loop and every connection on it
+        from ..protocol import json2pb  # noqa: F401
         family = socket.AF_INET6 if ":" in ep.host else socket.AF_INET
         native_mod = None
         if self.options.native and self._ssl_ctx is not None:

@@ -12,7 +12,9 @@ result line) when a phase fails or CUDA is absent.  Phases:
    print ptxas's registers and spill bytes of each kernel function;
 3. hold the forward kernel against its plain PyTorch version on the card,
    at every shape the Generate and Decode paths give it and smaller
-   ones, and show that a head dim past its 128 raises there;
+   ones, hold it at d = 256 through ``flash_attention_fwd``, and show
+   that a head dim past its 256 raises there, in the forward and the
+   backward, before any launch;
    3b. hold the backward kernels (``flash_dq``, ``flash_dkdv``) against
    the plain backward, f32 and bf16, causal and not, at the training
    shape and smaller ones, and f32 causal past the training length
@@ -21,6 +23,10 @@ result line) when a phase fails or CUDA is absent.  Phases:
    payloads of 0 to 2**20+3 words and 64 MiB, in f32, int32 (sums that
    wrap), bf16, int8 and bool, unaligned and non-contiguous, and show
    that flipping one element changes the sum;
+   3w. hold all three flash kernels against their plain versions at head
+   dims 136, 192 and 256 (zero-padded to 256), f32 and bf16, causal and
+   not, one unaligned (offset) case per width, and the shapes of 4w and
+   5w, under the d <= 128 tolerances;
 4. time the forward kernel, its plain version and the library call
    (SDPA) at the full-width prefill shape and at the training shape,
    beside the card's bounds for the same work (f32 FMAs, and the tensor
@@ -30,6 +36,16 @@ result line) when a phase fails or CUDA is absent.  Phases:
    dkdv by their FLOPs for the ratio); 4c. the checksum kernel,
    its plain version and ``x.view(torch.int32).sum(dtype=torch.int64)``
    at 64 MiB, beside the bound and the achieved GB/s;
+   4w. the same at head dim 256: the forward at (1, 1024, 8, 256), dq
+   and dkdv at (4, 2048, 8, 256), f32 and bf16, each beside SDPA (the
+   backend that ran named from a profiler trace);
+   5w. serve the head-dim-256 LM (``WIDE_CFG``: ``SLICE_CFG`` with 8
+   heads, depth 4, ``attn_impl="auto"``) through a Server: three
+   Generates with prompts of 128-1024 tokens, ``flash_fwd`` depth a
+   request, the tokens beside dense attention's on the same weights and
+   the prefill logits held to theirs; then one step's loss and gradient
+   with ``use_flash=True`` against dense attention and one train step,
+   the launches read around each;
 5. serve ``LM.Info`` and three ``LM.Generate`` requests through the
    port's Server, LMService and Channel at the full width of the repo's
    widest LM, with the kernels' launch counts read around that run;
@@ -408,7 +424,8 @@ from brpc_tpu_torch.ops.device_ops import (  # noqa: E402
 from brpc_tpu_torch.ops.flash_attention import (  # noqa: E402
     DENSE_FLASH_CROSSOVER, FLASH_DKDV, FLASH_DQ, FLASH_FWD, KERNELS,
     attention_delta, dense_attention, flash_attention,
-    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_plain)
 from brpc_tpu_torch.parallel import (  # noqa: E402
     MeshTransport, make_mesh, multiproc_dryrun)
 from brpc_tpu_torch.parallel.multiproc_dryrun import (  # noqa: E402
@@ -691,6 +708,34 @@ BWD_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
 # ||dg|| / ||g|| <= 1e-2 (2.0e-3 measured on the H100)
 DENSE_LOSS_RTOL = 1e-3
 DENSE_GRAD_REL_NORM = 1e-2
+# Head dims past 128 (phases 3w, 4w, 5w).  The kernels pad 129-256 to 256.
+# The wide LM is SLICE_CFG with half its heads, so its head dim is 256,
+# Gemma 7B's and Gemma 2's head_dim; depth cut from 8 to 4 to keep the
+# run's time.  It serves through attn_impl="auto" (use_flash off), which
+# takes the kernel from DENSE_FLASH_CROSSOVER tokens on, so every prompt
+# is at least that long; it trains with use_flash=True, remat, accum 1 x
+# TRAIN_MICRO x TRAIN_SEQ
+WIDE_CFG = dict(SLICE_CFG, heads=8, depth=4, use_flash=False,
+                attn_impl="auto")
+WIDE_TRAIN_CFG = dict(WIDE_CFG, use_flash=True, remat=True)
+WIDE_REQUESTS = [(1, 1024, 16), (1, 300, 16), (2, DENSE_FLASH_CROSSOVER, 8)]
+# the forward timed at the prefill shape, dq and dkdv at the training
+# shape: the same FLOPs as MAIN_SHAPE's and TRAIN_SHAPE's (half the heads,
+# twice the head dim), so the bounds are theirs
+WIDE_FWD_SHAPE = (1, 1024, 8, 256)
+WIDE_TRAIN_SHAPE = (TRAIN_MICRO, TRAIN_SEQ, 8, 256)
+# (shape, offset): each width f32 and bf16, causal and not; an offset puts
+# q, k, v and do that many elements into a wider projection, so that rows
+# are not 16-byte aligned and the kernels take the per-element loads
+WIDE_CHECK_CASES = [((1, 129, 4, 136), 0), ((2, 77, 2, 136), 1),
+                    ((1, 300, 4, 192), 0), ((1, 100, 3, 192), 1),
+                    (WIDE_FWD_SHAPE, 0), (WIDE_TRAIN_SHAPE, 0),
+                    ((1, 77, 2, 256), 1)]
+for _b, _s, _ in WIDE_REQUESTS:
+    WIDE_CHECK_CASES.append(((_b, _s, 8, 256), 0))
+WIDE_CHECK_CASES = list(dict.fromkeys(WIDE_CHECK_CASES))
+# past the kernels' limit: raises on the card, no fallback
+TOO_WIDE = 264
 # the large device payload: one f32 (4, 2048, 2048) activation, the size
 # of a block's remat input at the training shape (64 MiB, the frame cap:
 # it can travel only device-resident)
@@ -909,18 +954,49 @@ def phase_check() -> float:
                                          f"at {shape} {dtype} {causal}")
                 if shape == MAIN_SHAPE and dtype == torch.float32:
                     main_err = max(main_err, e_out)
-    # head dims past the kernels' 128 raise on the card (the plain version
-    # takes them only on the CPU): no fallback
-    wide = torch.zeros((1, 40, 2, 256), device="cuda")
-    try:
-        flash_attention_fwd(wide, wide, wide, True)
-    except ValueError as e:
-        log(f"  d=256 on the card: ValueError {e}")
-        if "head dims up to 128" not in str(e):
-            raise
-    else:
-        raise AssertionError("flash attention took d=256 on the card")
+    # d = 256 through the dispatcher runs the kernel (phase 3w checks
+    # every width past 128); past the kernels' 256 it raises, no fallback
+    q, k, v = qkv((1, 40, 2, 256), torch.float32, seed=256)
+    before = FLASH_FWD.launches
+    out, lse = flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    pout, plse = flash_attention_plain(q, k, v, True)
+    ok = (FLASH_FWD.launches == before + 1
+          and within(out, pout, TOL[torch.float32])
+          and within(lse, plse, LSE_TOL))
+    log(f"  d=256 through flash_attention_fwd on the card: out err "
+        f"{max_err(out, pout):.3e} lse err {max_err(lse, plse):.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attention_fwd at d=256 did not run the "
+                             "kernel or disagrees with plain")
+    too_wide_raises()
     return main_err
+
+
+def too_wide_raises() -> None:
+    """Head dims past the kernels' 256 raise on the card in the forward
+    and the backward dispatchers, before any launch (the plain versions
+    take them only on the CPU)."""
+    x = torch.zeros((1, 40, 2, TOO_WIDE), device="cuda")
+    lse = torch.zeros((1, 2, 40), device="cuda")
+    before = read_launches()
+    for label, call in (
+            ("flash_attention_fwd",
+             lambda: flash_attention_fwd(x, x, x, True)),
+            ("flash_attention_bwd",
+             lambda: flash_attention_bwd(x, x, x, x, lse, x, True))):
+        try:
+            call()
+        except ValueError as e:
+            log(f"  d={TOO_WIDE} through {label} on the card: ValueError "
+                f"{e}")
+            if "head dims up to 256" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{label} took d={TOO_WIDE} on the card")
+    if read_launches() != before:
+        raise AssertionError(f"d={TOO_WIDE} launched a kernel")
 
 
 def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> float:
@@ -957,12 +1033,13 @@ def tc_bound_ms(flops: float, key: str, peaks: dict) -> float:
     return flops / peaks[key] * 1e3
 
 
-def phase_time(peaks: dict) -> dict:
+def phase_time(peaks: dict, shapes=(MAIN_SHAPE, TRAIN_SHAPE)) -> dict:
     """Kernel, plain and SDPA times, causal, at the main (prefill) shape
-    and at the training shape, each beside its bounds and its ratio to
-    SDPA in the same run: ``res[shape][dtype]``."""
+    and at the training shape (or ``shapes``), each beside its bounds, its
+    ratio to SDPA in the same run and the SDPA backend that ran:
+    ``res[shape][dtype]``."""
     res = {}
-    for shape in (MAIN_SHAPE, TRAIN_SHAPE):
+    for shape in shapes:
         b, s, h, d = shape
         res[shape] = {}
         for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -971,16 +1048,19 @@ def phase_time(peaks: dict) -> dict:
             ms = time_ms(lambda: FLASH_FWD(q, k, v, True),
                          inner=FWD_TIMING_INNER)
             plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, True))
-            lib_ms = time_ms(lambda: torch.nn.functional
-                             .scaled_dot_product_attention(qt, kt, vt,
-                                                           is_causal=True),
-                             inner=FWD_TIMING_INNER)
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+
+            lib_ms = time_ms(sdpa, inner=FWD_TIMING_INNER)
+            backend = sdpa_backend(sdpa)
             es = q.element_size()
             nbytes = 4 * b * s * h * d * es + b * h * s * 4  # q,k,v,out+lse
             flops = attention_flops(b, s, h, d, causal=True)
             by_bytes = nbytes / peaks["bytes"] * 1e3
             by_ops = flops / peaks[key] * 1e3
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_backend=backend,
                        ratio_to_library=ms / lib_ms,
                        bound_ms=max(by_bytes, by_ops),
                        bound_by="bytes" if by_bytes > by_ops
@@ -990,7 +1070,8 @@ def phase_time(peaks: dict) -> dict:
                        flops=flops, bytes=nbytes)
             res[shape][key] = row
             log(f"  time {shape} {key} causal: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (kernel / sdpa "
+                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms [{backend}] "
+                f"(kernel / sdpa "
                 f"{row['ratio_to_library']:.3f}), bound {row['bound_ms']:.4f}"
                 f" ms ({row['bound_by']}; {flops:.4g} FLOP, {nbytes} B), "
                 f"tensor-core bound {row['bound_tc_ms']:.4f} ms, "
@@ -1074,6 +1155,91 @@ def phase_check_bwd_long() -> dict:
     return res
 
 
+def wide_inputs(shape, dtype, seed: int, offset: int) -> list:
+    """q, k, v and a cotangent do on the card, each a view into one
+    (b, s, h, 4 d + offset) projection, ``offset`` elements in."""
+    b, s, h, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, 4 * d + offset), generator=g,
+                    device="cuda").to(dtype)
+    return [x[..., offset + i * d: offset + (i + 1) * d] for i in range(4)]
+
+
+def phase_check_wide() -> dict:
+    """Phase 3w: flash_fwd, flash_dq and flash_dkdv against their plain
+    versions at head dims past 128 (WIDE_CHECK_CASES), f32 and bf16,
+    causal and not, under TOL / LSE_TOL and BWD_TOL; returns the max abs
+    errors of each kernel by head dim and dtype."""
+    errs: dict = {}
+    for shape, offset in WIDE_CHECK_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                q, k, v, do = wide_inputs(shape, dtype, sum(shape) + offset,
+                                          offset)
+                out, lse = FLASH_FWD(q, k, v, causal)
+                dd = attention_delta(out, do)
+                (dq,) = FLASH_DQ(q, k, v, do, lse, dd, causal)
+                dk, dv = FLASH_DKDV(q, k, v, do, lse, dd, causal)
+                torch.cuda.synchronize()
+                pout, plse = flash_attention_plain(q, k, v, causal)
+                ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+                got = (dq, dk, dv)
+                e = [max_err(out, pout), max_err(lse, plse),
+                     *(max_err(a, r) for a, r in zip(got, ref))]
+                ok_fwd = (within(out, pout, TOL[dtype])
+                          and within(lse, plse, LSE_TOL))
+                ok_bwd = all(bwd_within(a, r, dtype)
+                             for a, r in zip(got, ref))
+                log(f"  check {shape} offset {offset} {str(dtype)[6:]} "
+                    f"causal={causal}: out err {e[0]:.3e} lse err "
+                    f"{e[1]:.3e}; dq err {e[2]:.3e} dk err {e[3]:.3e} dv "
+                    f"err {e[4]:.3e} (max |ref| "
+                    f"{max(float(r.abs().max()) for r in ref):.3e}) "
+                    f"{'ok' if ok_fwd and ok_bwd else 'FAIL'}")
+                if not (ok_fwd and ok_bwd):
+                    raise AssertionError(
+                        f"flash {'forward' if not ok_fwd else 'backward'} "
+                        f"disagrees with plain at {shape} offset {offset} "
+                        f"{dtype} causal={causal}")
+                key = f"d{shape[3]}_{str(dtype)[6:]}"
+                row = errs.setdefault(key, dict.fromkeys(
+                    (FLASH_FWD.name, FLASH_DQ.name, FLASH_DKDV.name), 0.0))
+                row[FLASH_FWD.name] = max(row[FLASH_FWD.name], e[0])
+                row[FLASH_DQ.name] = max(row[FLASH_DQ.name], e[2])
+                row[FLASH_DKDV.name] = max(row[FLASH_DKDV.name], e[3], e[4])
+                del q, k, v, do, out, lse, dd, dq, dk, dv, pout, plse, ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def sdpa_backend(fn) -> str:
+    """The kernels one call of ``fn`` (an SDPA call, or its backward)
+    runs on the card, from a profiler trace: the backend's name read from
+    the longest kernel's (cudnn, flash, efficient, else math)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trace_preroll()
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "spin_kernel" not in e.name:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+    if not by_name:
+        return "not measured (no device events in the trace)"
+    top = max(by_name, key=by_name.get).lower()
+    backend = ("cudnn" if "cudnn" in top else
+               "flash" if "flash" in top else
+               "efficient" if "fmha" in top or "efficient" in top else
+               "math")
+    return f"{backend} ({top[:70]})"
+
+
 def phase_crossover() -> dict:
     """Dense attention against the flash kernel (``flash_attention``),
     causal f32 at SLICE_CFG's heads and head dim, b = 1, over
@@ -1104,15 +1270,15 @@ def phase_crossover() -> dict:
                 constant=DENSE_FLASH_CROSSOVER)
 
 
-def phase_time_bwd(peaks: dict) -> dict:
+def phase_time_bwd(peaks: dict, shape=TRAIN_SHAPE) -> dict:
     """flash_dq, flash_dkdv, the plain backward and SDPA's backward at the
-    training shape, causal, each beside its bound."""
-    b, s, h, d = TRAIN_SHAPE
+    training shape (or ``shape``), causal, each beside its bound, and the
+    SDPA backend that ran."""
+    b, s, h, d = shape
     pairs = s * (s + 1) / 2
     res = {}
     for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        q, k, v, out, lse, do, dd = bwd_inputs(TRAIN_SHAPE, dtype, True,
-                                               seed=2)
+        q, k, v, out, lse, do, dd = bwd_inputs(shape, dtype, True, seed=2)
         dq_ms = time_ms(lambda: FLASH_DQ(q, k, v, do, lse, dd, True))
         dkdv_ms = time_ms(lambda: FLASH_DKDV(q, k, v, do, lse, dd, True))
         plain_ms = time_ms(lambda: flash_attention_bwd_plain(
@@ -1125,9 +1291,12 @@ def phase_time_bwd(peaks: dict) -> dict:
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True)
 
+        def sdpa_all():
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
         sdpa_fwd_ms = time_ms(sdpa)
-        sdpa_all_ms = time_ms(lambda: torch.autograd.grad(
-            sdpa(), (qt, kt, vt), dot))
+        sdpa_all_ms = time_ms(sdpa_all)
+        backend = sdpa_backend(sdpa_all)
         sdpa_bwd_ms = sdpa_all_ms - sdpa_fwd_ms
         es = q.element_size()
         tensor = b * s * h * d * es
@@ -1141,7 +1310,7 @@ def phase_time_bwd(peaks: dict) -> dict:
             by_ops = flops / peaks[key] * 1e3
             share_ms = BWD_LIBRARY_SHARE[name] * sdpa_bwd_ms
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd_ms,
-                       library_share_ms=share_ms,
+                       library_share_ms=share_ms, library_backend=backend,
                        ratio_to_library=ms / share_ms,
                        bound_ms=max(by_bytes, by_ops),
                        bound_by="bytes" if by_bytes > by_ops
@@ -1150,17 +1319,17 @@ def phase_time_bwd(peaks: dict) -> dict:
                                        tc_bound_ms(flops, key, peaks)),
                        flops=flops, bytes=nbytes)
             res[key][name] = row
-            log(f"  time {TRAIN_SHAPE} {key} causal {name}: {ms:.4f} ms, "
+            log(f"  time {shape} {key} causal {name}: {ms:.4f} ms, "
                 f"its share of SDPA's backward {share_ms:.4f} ms (ratio "
                 f"{row['ratio_to_library']:.3f}), bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
                 f"{flops:.4g} FLOP, {nbytes} B), tensor-core bound "
                 f"{row['bound_tc_ms']:.4f} ms, "
                 f"{flops / ms / 1e9:.2f} TFLOP/s")
-        log(f"  time {TRAIN_SHAPE} {key} causal: plain backward (dq, dk, dv)"
+        log(f"  time {shape} {key} causal: plain backward (dq, dk, dv)"
             f" {plain_ms:.4f} ms; library yardstick, SDPA forward+backward "
             f"minus SDPA forward: {sdpa_all_ms:.4f} - {sdpa_fwd_ms:.4f} = "
-            f"{sdpa_bwd_ms:.4f} ms")
+            f"{sdpa_bwd_ms:.4f} ms [{backend}]")
     return res
 
 
@@ -3319,6 +3488,123 @@ def phase_train_vs_dense(params, ids, labels, base: dict, accum: int
         raise AssertionError("the step through the kernels disagrees with "
                              "dense attention")
     return out
+
+
+def phase_wide_lm() -> dict:
+    """Phase 5w: the head-dim-256 LM (WIDE_CFG) on the card.  Served
+    through a Server with attn_impl="auto": WIDE_REQUESTS' Generates,
+    ``flash_fwd`` depth times a request and no backward launch; the same
+    prompts through the same weights under dense attention (no launch);
+    the tokens compared, and each prompt's prefill logits held to
+    LOGIT_RTOL of the largest |logit| against dense attention's.  Then
+    one step's loss and gradient with use_flash=True against dense
+    attention (DENSE_LOSS_RTOL, DENSE_GRAD_REL_NORM) and one train step,
+    the launch counts read around each."""
+    cfg = LMConfig(**WIDE_CFG)
+    dense_cfg = LMConfig(**{**WIDE_CFG, "attn_impl": "dense"})
+    svc = LMService(cfg=cfg, device="cuda", seed=0, decode_slots=1)
+    dense = LMService(cfg=dense_cfg, params=svc.params, device="cuda",
+                      decode_slots=1)
+    srv = Server()
+    ch = Channel()
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
+               for b, s, _ in WIDE_REQUESTS]
+    res = dict(head_dim=cfg.dim // cfg.heads, depth=cfg.depth)
+    # names of their own: the first server to register a method name
+    # exposes its recorder, and phase 12 (e) reads phase 5's LM.Generate
+    try:
+        if srv.add_service(svc, name="LMWide") != 0 or srv.add_service(
+                dense, name="LMWideDense") != 0 \
+                or srv.start("127.0.0.1:0") != 0:
+            raise RuntimeError("the wide LM's server did not start")
+        ch.init(str(srv.listen_endpoint))
+        info = json.loads(ch.call("LMWide.Info", b"", timeout_ms=60_000))
+        if info["dim"] != cfg.dim or info["heads"] != cfg.heads:
+            raise AssertionError(f"Info disagrees with WIDE_CFG: {info}")
+        runs = {}
+        for service in ("LMWide", "LMWideDense"):
+            reset_launches()
+            outs, ms = [], []
+            for prompt, (b, s, max_new) in zip(prompts, WIDE_REQUESTS):
+                t0 = time.perf_counter()
+                out = generate(ch, prompt, max_new, service=service)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if out.shape != (b, max_new) or out.min() < 0 \
+                        or out.max() >= cfg.vocab:
+                    raise AssertionError(f"bad {service}.Generate output "
+                                         f"{out.shape}")
+                outs.append(out)
+            runs[service] = (outs, ms, read_launches())
+            log(f"  {service}.Generate {WIDE_REQUESTS}: "
+                f"{' / '.join(f'{m:.1f}' for m in ms)} ms, launches "
+                f"{runs[service][2]}")
+    finally:
+        ch.close()
+        srv.stop()
+        for service in (svc, dense):
+            if service._batcher is not None:
+                service._batcher.shutdown()
+    want = {FLASH_FWD.name: cfg.depth * len(WIDE_REQUESTS),
+            FLASH_DQ.name: 0, FLASH_DKDV.name: 0}
+    if runs["LMWide"][2] != want:
+        raise AssertionError(f"the wide LM's Generates launched "
+                             f"{runs['LMWide'][2]}, want {want}")
+    if any(runs["LMWideDense"][2].values()):
+        raise AssertionError("dense attention launched a flash kernel")
+    same = [bool(np.array_equal(a, b))
+            for a, b in zip(runs["LMWide"][0], runs["LMWideDense"][0])]
+    rel = []
+    with torch.inference_mode():
+        for prompt in prompts:
+            ids = torch.from_numpy(prompt).long().cuda()
+            _, fl = make_decode(cfg, "cuda")[0](svc.params, ids)
+            _, dl = make_decode(dense_cfg, "cuda")[0](svc.params, ids)
+            if not torch.isfinite(fl).all():
+                raise AssertionError("wide LM logits not finite")
+            rel.append(max_err(fl, dl) / float(dl.abs().max()))
+    log(f"  tokens equal to dense attention's per request: {same}; prefill "
+        f"logits max err / max |logit| {[f'{r:.3e}' for r in rel]} "
+        f"(tolerance {LOGIT_RTOL})")
+    if max(rel) > LOGIT_RTOL:
+        raise AssertionError("the wide LM's prefill logits through the "
+                             "kernel disagree with dense attention's")
+    res.update(generate_ms=runs["LMWide"][1],
+               dense_generate_ms=runs["LMWideDense"][1],
+               launches_generate=runs["LMWide"][2][FLASH_FWD.name],
+               tokens_equal=same, logits_rel_err=rel)
+    del svc, dense
+    torch.cuda.empty_cache()
+
+    tcfg = LMConfig(**WIDE_TRAIN_CFG)
+    params, ids, labels = train_batch(tcfg, 1, TRAIN_MICRO)
+    want = train_launches(tcfg, 1)
+    reset_launches()
+    res.update(phase_train_vs_dense(params, ids, labels, WIDE_TRAIN_CFG, 1))
+    vg_launches = read_launches()
+    step = make_train_step(tcfg, accum=1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, loss = step(params, ids, labels, TRAIN_LR)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = read_launches()
+    log(f"  train step (use_flash, remat, 1 x {TRAIN_MICRO} x {TRAIN_SEQ}): "
+        f"loss {loss:.6f}, {step_ms:.1f} ms (first step, not warmed), "
+        f"launches {step_launches}; value_and_grad launches {vg_launches} "
+        f"(expected {want} each)")
+    if vg_launches != want or step_launches != want:
+        raise AssertionError("the wide LM's training did not launch the "
+                             "kernels once per layer")
+    if not np.isfinite(loss):
+        raise AssertionError("the wide LM's train step loss is not finite")
+    res.update(train_loss=loss, train_step_ms=step_ms,
+               launches_train=step_launches, launches_vg=vg_launches)
+    del params, ids, labels, step
+    torch.cuda.empty_cache()
+    return res
 
 
 # -- phase 11: the parallel paths at world size one ------------------------
@@ -8970,6 +9256,9 @@ def main() -> int:
     bwd_err = phase_check_bwd()
     bwd_long = phase_check_bwd_long()
     torch.cuda.empty_cache()
+    log("[3w] the three flash kernels vs plain at head dims past 128 "
+        "(zero-padded to 256)")
+    wide_err = phase_check_wide()
     log("[3c] checksum kernel vs plain")
     n_payloads, cs_err = phase_check_checksum()
     log("[4] timing")
@@ -8978,6 +9267,14 @@ def main() -> int:
     bwd_times = phase_time_bwd(peaks)
     log("[4c] checksum timing")
     cs_times = phase_time_checksum(peaks)
+    log(f"[4w] timing at head dim 256: the forward at {WIDE_FWD_SHAPE}, the "
+        f"backward at {WIDE_TRAIN_SHAPE}")
+    wide_times = phase_time(peaks, (WIDE_FWD_SHAPE,))[WIDE_FWD_SHAPE]
+    wide_bwd_times = phase_time_bwd(peaks, WIDE_TRAIN_SHAPE)
+    torch.cuda.empty_cache()
+    log(f"[5w] the head-dim-256 LM at {WIDE_CFG}, trained at "
+        f"{WIDE_TRAIN_CFG}")
+    wide_lm = phase_wide_lm()
 
     cfg = LMConfig(**SLICE_CFG)
     log(f"[5] serving LM at {SLICE_CFG}")
@@ -9194,7 +9491,10 @@ def main() -> int:
                  "parallel_train": par["dp_tp"]["launches"][FLASH_FWD.name],
                  "ulysses": par["ulysses"]["launches"],
                  "moe_parallel_train":
-                     par["moe_dp_tp"]["launches"][FLASH_FWD.name]}
+                     par["moe_dp_tp"]["launches"][FLASH_FWD.name],
+                 "wide_generate": wide_lm["launches_generate"],
+                 "wide_train": (wide_lm["launches_vg"][FLASH_FWD.name]
+                                + wide_lm["launches_train"][FLASH_FWD.name])}
     kernels = [{
         "name": FLASH_FWD.name, "route": "cuda",
         "source": "brpc_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -9209,7 +9509,10 @@ def main() -> int:
         "bound_tc_ms": f32["bound_tc_ms"],
         "at_train_shape": {key: f32_train[key] for key in (
             "ms", "plain_ms", "library_ms", "ratio_to_library", "bound_ms",
-            "bound_tc_ms")}}]
+            "bound_tc_ms")},
+        "at_head_dim_256": wide_times,
+        "max_abs_err_wide": {k: v[FLASH_FWD.name]
+                             for k, v in wide_err.items()}}]
     for kern, line in ((FLASH_DQ, 313), (FLASH_DKDV, 361)):
         row = bwd_times["f32"][kern.name]
         kernels.append({
@@ -9219,20 +9522,28 @@ def main() -> int:
             "launches": (train["launches"][kern.name]
                          + moe_train["launches"][kern.name]
                          + par["dp_tp"]["launches"][kern.name]
-                         + par["moe_dp_tp"]["launches"][kern.name]),
+                         + par["moe_dp_tp"]["launches"][kern.name]
+                         + wide_lm["launches_vg"][kern.name]
+                         + wide_lm["launches_train"][kern.name]),
             "launches_by_path": {
                 "train": train["launches"][kern.name],
                 "moe_train": moe_train["launches"][kern.name],
                 "parallel_train": par["dp_tp"]["launches"][kern.name],
                 "moe_parallel_train":
-                    par["moe_dp_tp"]["launches"][kern.name]},
+                    par["moe_dp_tp"]["launches"][kern.name],
+                "wide_train": (wide_lm["launches_vg"][kern.name]
+                               + wide_lm["launches_train"][kern.name])},
             "max_abs_err": bwd_err[kern.name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_share_ms": row["library_share_ms"],
             "ratio_to_library": row["ratio_to_library"],
-            "bound_tc_ms": row["bound_tc_ms"]})
+            "bound_tc_ms": row["bound_tc_ms"],
+            "at_head_dim_256": {key: wide_bwd_times[key][kern.name]
+                                for key in wide_bwd_times},
+            "max_abs_err_wide": {k: v[kern.name]
+                                 for k, v in wide_err.items()}})
     cs_row = cs_times[CHECKSUM_BYTES]
     kernels.append({
         "name": CHECKSUM.name, "route": "cuda",
@@ -9264,6 +9575,9 @@ def main() -> int:
         {str(shape): row for shape, row in times.items()}))
     log(f"  backward at {TRAIN_SHAPE} causal: {json.dumps(bwd_times)}; "
         f"past the training length: {json.dumps(bwd_long)}")
+    log(f"  head dim 256: forward {json.dumps(wide_times)}; backward at "
+        f"{WIDE_TRAIN_SHAPE} {json.dumps(wide_bwd_times)}; errors "
+        f"{json.dumps(wide_err)}; the LM {json.dumps(wide_lm)}")
     log(f"  requests: {json.dumps(rows)}")
     log(f"  decode: {json.dumps(decode)}")
     log(f"  streams: {json.dumps(streams)}")

@@ -67,6 +67,21 @@ def test_bf16_matches_jax(shape, causal):
     np.testing.assert_allclose(tlse, jlse, rtol=F32_TOL, atol=F32_TOL)
 
 
+# head dims past 128, which the kernels pad to 256 (and JAX to 256 too)
+WIDE_CASES = [(1, 72, 2, 136), (1, 100, 1, 192), (1, 128, 2, 256)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", WIDE_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_f32_wide_heads_match_jax(shape, causal):
+    q, k, v = _qkv(*shape, seed=sum(shape))
+    jout, jlse = _jax_fwd(q, k, v, causal, jnp.float32)
+    tout, tlse = _port_fwd(q, k, v, causal, torch.float32)
+    np.testing.assert_allclose(tout, jout, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(tlse, jlse, rtol=F32_TOL, atol=F32_TOL)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_matches_dense_inside_port(causal):
     q, k, v = (torch.from_numpy(x) for x in _qkv(2, 70, 3, 32, seed=11))
@@ -102,10 +117,14 @@ def test_dispatch_and_errors():
         tfa.attention(q, k, v, impl="ring")
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.FLASH_FWD(q, k, v, True)
-    # head dims past the kernels' 128: the kernels refuse them, the plain
-    # version (every CPU path) takes them, as the JAX kernel does
-    big = torch.ones(1, 4, 1, 136)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    # head dims up to 256 pass the kernels' head-dim check (a CPU tensor
+    # then fails the device check); past 256 the kernels refuse them, and
+    # the plain version (every CPU path) takes any, as the JAX kernel does
+    wide = torch.ones(1, 4, 1, 136)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.FLASH_FWD(wide, wide, wide, True)
+    big = torch.ones(1, 4, 1, 264)
+    with pytest.raises(ValueError, match="head dims up to 256"):
         tfa.FLASH_FWD(big, big, big, True)
     out, _ = tfa.flash_attention_fwd(big, big, big)
     torch.testing.assert_close(out, big)
@@ -133,8 +152,8 @@ def _card_inputs(shape, dtype, seed, offset):
 def test_kernel_on_card():
     """The CUDA kernel against the plain version (runs where a card is):
     s not a multiple of the q tile or the 32-key k tile, d = 24
-    (zero-padded to 32), unaligned views (the per-element loads), and both
-    f32 schedules."""
+    (zero-padded to 32) and d = 136 (to 256), d = 256, unaligned views
+    (the per-element loads), and every f32 schedule."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; python3 chip_smoke.py runs this "
                     "check and more on the card")
@@ -144,7 +163,8 @@ def test_kernel_on_card():
     for shape, offset in (((1, 129, 4, 64), 0), ((1, 100, 3, 24), 0),
                           ((2, 77, 2, 24), 1), ((1, 129, 4, 64), 1),
                           ((1, 2048, 48, 24), 0), ((1, 2000, 48, 24), 1),
-                          ((2, 1000, 16, 24), 0), ((2, 1000, 16, 24), 1)):
+                          ((2, 1000, 16, 24), 0), ((2, 1000, 16, 24), 1),
+                          ((1, 129, 2, 136), 0), ((1, 100, 2, 256), 1)):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, BF16_TOL)):
             for causal in (False, True):
                 q, k, v = _card_inputs(shape, dtype, sum(shape), offset)

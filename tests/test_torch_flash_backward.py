@@ -69,6 +69,24 @@ def test_f32_grads_match_jax_pallas(case):
                                    err_msg=f"d{name}")
 
 
+# head dims past 128, which the kernels pad to 256
+WIDE_CASES = [(1, 72, 2, 136, True, (None, None)),
+              (1, 100, 1, 192, False, (None, None)),
+              (1, 128, 2, 256, True, (None, None))]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES,
+                         ids=lambda c: f"s{c[1]}d{c[3]}{'c' if c[4] else ''}")
+def test_f32_wide_head_grads_match_jax_pallas(case):
+    b, s, h, d, causal, blocks = case
+    q, k, v, g = _inputs(b, s, h, d, seed=s + d)
+    want = _jax_grads(q, k, v, g, causal, blocks, jnp.float32)
+    got = _port_grads(q, k, v, g, causal, torch.float32)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a, w, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_grads_match_jax_pallas(causal):
     q, k, v, g = _inputs(1, 72, 2, 32, seed=3)
@@ -147,13 +165,15 @@ def test_backward_dispatch_and_errors():
 
 def test_backward_kernels_on_card():
     """flash_dq / flash_dkdv against the plain backward (runs where a card
-    is): s not a multiple of the tiles, d = 24 (zero-padded to 32), and
-    unaligned q/k/v/do views (the per-element loads)."""
+    is): s not a multiple of the tiles, d = 24 (zero-padded to 32), d =
+    136 and 256 (the d = 256 schedules), and unaligned q/k/v/do views
+    (the per-element loads)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; python3 chip_smoke.py runs this "
                     "check and more on the card")
     for shape, offset in (((1, 129, 4, 64), 0), ((1, 100, 3, 24), 0),
-                          ((2, 77, 2, 24), 1)):
+                          ((2, 77, 2, 24), 1), ((1, 129, 2, 136), 0),
+                          ((1, 100, 2, 256), 1)):
         b, s, h, d = shape
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):

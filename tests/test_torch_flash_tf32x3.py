@@ -106,17 +106,17 @@ def fwd_emulated(q, k, v, causal, mm=mm3):
     return out, lse
 
 
-def dq_emulated(q, k, v, out, lse, do, causal):
-    """The dq kernel's recurrence: p from lse in log2 units, dp = do·vᵀ,
-    ds = p (dp - dd), dq = Σ ds·k · scale."""
+def dq_emulated(q, k, v, out, lse, do, causal, bk=BK):
+    """The dq kernel's recurrence over ``bk``-key tiles: p from lse in
+    log2 units, dp = do·vᵀ, ds = p (dp - dd), dq = Σ ds·k · scale."""
     b, s, h, d = q.shape
     scale = 1.0 / d ** 0.5
     qf, kf, vf, dof = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
     dd = (do * out).sum(-1).permute(0, 2, 1)[..., None]
     lse2 = lse[..., None] * LOG2E
     dq = torch.zeros((b, h, s, d))
-    for k0 in range(0, s, BK):
-        k1 = min(k0 + BK, s)
+    for k0 in range(0, s, bk):
+        k1 = min(k0 + bk, s)
         x = _mask(mm3(qf, kf[:, :, k0:k1].transpose(-1, -2)) * scale * LOG2E,
                   k0, k1, causal)
         p = torch.exp2(x - lse2)
@@ -277,3 +277,32 @@ def test_dkdv_single_pass_tf32_is_far_worse():
     e1 = np.abs(dkdv_emulated(*ts[:3], out, lse, ts[3], True, mm=mm1)[0]
                 .numpy() - want_dk).max()
     assert e3 < 2e-5 and e1 > 50 * e3
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [136, 256])
+def test_3xtf32_at_head_dim_256(d, causal):
+    """The d = 256 schedules' recurrences (d = 136 zero-padded to them):
+    the forward over 32-key tiles, dq over 16-key tiles, dk/dv key-major
+    over 8-row q steps, each product 3xTF32 over the whole head dim (the
+    dkdv blocks that own the two 128-column halves recompute sᵀ and dpᵀ
+    alike, so one emulation covers both), against the Pallas kernel and
+    its gradient at the JAX package's tolerances."""
+    shape = (1, 72, 2, d)
+    q, k, v, g = _inputs(shape, seed=d + causal, n=4)
+    jout, jlse = _jax_fwd(q, k, v, causal)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = fwd_emulated(tq, tk, tv, causal)
+    np.testing.assert_allclose(out.numpy(), jout, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, rtol=TOL, atol=TOL)
+
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, causal) * g)
+
+    want = [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))]
+    dq = dq_emulated(tq, tk, tv, out, lse, tg, causal, bk=16)
+    dk, dv = dkdv_emulated(tq, tk, tv, out, lse, tg, causal, bq=8)
+    for name, got, w in zip("qkv", (dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"d{name}")

@@ -15,7 +15,11 @@ C9):
   ``recycle`` (a call builds its own controller),
   ``ServerController.reset_slim`` (the kind-3 lane builds a controller
   per request), and the JAX ``Socket`` methods the event dispatcher's
-  rewrite replaced.
+  rewrite replaced;
+- attachments: the port's ``Controller`` and ``ServerController`` hold
+  them as ``bytes`` where the JAX ones hand out lazy ``IOBuf``s, so a
+  handler written for brpc_tpu that appends to its response attachment
+  takes the port's idiom, an assignment.
 """
 
 import socket
@@ -25,10 +29,13 @@ import pytest
 from brpc_tpu.butil import flags as jflags
 from brpc_tpu.butil.endpoint import parse_endpoint as jparse_endpoint
 from brpc_tpu.butil.iobuf import IOBuf as JIOBuf
+from brpc_tpu.client import Channel as JChannel
 from brpc_tpu.client.controller import Controller as JController
 from brpc_tpu.ici.fabric import InProcessFabric as JInProcessFabric
 from brpc_tpu.protocol.meta import RpcMeta as JRpcMeta
 from brpc_tpu.protocol.tpu_std import RpcMessage as JRpcMessage
+from brpc_tpu.server import Server as JServer
+from brpc_tpu.server import Service as JService
 from brpc_tpu.server.controller import ServerController as JServerController
 from brpc_tpu.transport.socket import Socket as JSocket
 from brpc_tpu.transport.socket_map import SocketPool as JSocketPool
@@ -173,3 +180,79 @@ def test_socket_state_is_plain_attributes():
         assert s.failed is True
     finally:
         b.close()
+
+
+# the attachment types each server's controller handed its handler
+_SEEN = {}
+
+
+class _AttachmentStyles(Service):
+    """The JAX idiom (``examples/echo.py``: append the request's
+    attachment to the response's) beside the port's (assign it)."""
+
+    def JaxStyle(self, cntl, request):
+        _SEEN["port"] = (type(cntl.request_attachment),
+                         type(cntl.response_attachment))
+        cntl.response_attachment.append_iobuf(cntl.request_attachment)
+        return request
+
+    def PortStyle(self, cntl, request):
+        cntl.response_attachment = bytes(cntl.request_attachment)
+        return request
+
+
+class _JaxAttachmentStyle(JService):
+    def JaxStyle(self, cntl, request):
+        _SEEN["jax"] = (type(cntl.request_attachment),
+                        type(cntl.response_attachment))
+        cntl.response_attachment.append_iobuf(cntl.request_attachment)
+        return request
+
+
+def _att_call(ch, method, cntl, att=b"att-bytes"):
+    cntl.timeout_ms = 10_000
+    cntl.request_attachment = att
+    ch.call_method(method, b"req", cntl=cntl)
+    return cntl
+
+
+def test_attachments_are_bytes_where_jax_hands_out_iobufs():
+    """The port's controllers hold their attachments as ``bytes``; the
+    JAX ones hand out lazy ``IOBuf``s.  A handler written for brpc_tpu
+    that calls ``append_iobuf`` on its response attachment fails on the
+    port's server (the call answers the AttributeError), and the port's
+    idiom, an assignment, carries the same bytes.  Whether the port keeps
+    bytes or hands out IOBufs is the first thing the examples' port
+    (ROADMAP Queue A) must decide."""
+    assert isinstance(Controller().response_attachment, bytes)
+    assert isinstance(JController().response_attachment, JIOBuf)
+    srv, jsrv = Server(), JServer()
+    srv.add_service(_AttachmentStyles(), name="A")
+    jsrv.add_service(_JaxAttachmentStyle(), name="A")
+    assert srv.start("127.0.0.1:0") == 0 and jsrv.start("127.0.0.1:0") == 0
+    ch, jch = Channel(), JChannel()
+    try:
+        assert ch.init(str(srv.listen_endpoint)) == 0
+        c = _att_call(ch, "A.JaxStyle", Controller())
+        assert c.failed and "append_iobuf" in c.error_text
+        c = _att_call(ch, "A.PortStyle", Controller())
+        assert not c.failed and c.response == b"req"
+        assert c.response_attachment == b"att-bytes"
+        # the JAX handler as it is, on the JAX server: the same bytes
+        # back to the port's client and to the JAX client
+        jep = str(jsrv.listen_endpoint)
+        ch2 = Channel()
+        assert ch2.init(jep) == 0 and jch.init(jep) == 0
+        c = _att_call(ch2, "A.JaxStyle", Controller())
+        assert not c.failed and c.response_attachment == b"att-bytes"
+        ch2.close()
+        c = _att_call(jch, "A.JaxStyle", JController(), JIOBuf(b"att-bytes"))
+        assert not c.failed
+        assert isinstance(c.response_attachment, JIOBuf)
+        assert bytes(c.response_attachment) == b"att-bytes"
+        assert _SEEN["port"] == (bytes, bytes)
+        assert _SEEN["jax"] == (JIOBuf, JIOBuf)
+    finally:
+        ch.close()
+        srv.stop()
+        jsrv.stop()

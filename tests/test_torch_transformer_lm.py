@@ -195,3 +195,55 @@ def test_init_params_layout():
         assert tuple(tp["blk0"][k].shape) == jp["blk0"][k].shape
     # the same scale as the JAX init: std 1/sqrt(dim)
     assert abs(float(tp["embed"].std()) * np.sqrt(32) - 1.0) < 0.1
+
+
+# head dim 256 (Gemma's width, the kernels' widest schedule): dim 512
+# over 2 heads, use_flash=True.  Inside the port, the flash path against
+# dense attention at tests/test_flash_attention.py's LM tolerance (rtol
+# 3e-2, atol 3e-3: one framework, as in the JAX test).  Against the JAX
+# LM from the same init_params: the logits at this file's cross-framework
+# tolerance (a bf16 product element may round the other way: 15 of 3072
+# differ by up to 0.0117 here); one train step's loss within 1e-4, its
+# gradient (old - new) / lr elementwise at rtol 3e-2 / atol 3e-3 and in
+# norm within 1e-2 of each parameter's (at dim 512 the port's dense path
+# is 6.0e-3 from the JAX dense path too: the bf16 weight products, not
+# attention, set it; at dim 32 it is 1.7e-3)
+WIDE_KW = dict(vocab=64, dim=512, heads=2, depth=2, max_seq=32,
+               use_flash=True)
+WIDE_RTOL, WIDE_ATOL = 3e-2, 3e-3
+STEP_LOSS_RTOL, STEP_GRAD_REL_NORM = 1e-4, 1e-2
+
+
+def test_head_dim_256_forward_and_step_match_jax():
+    jcfg, tcfg = jlm.LMConfig(**WIDE_KW), tlm.LMConfig(**WIDE_KW)
+    assert tcfg.dim // tcfg.heads == 256
+    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    ids = _prompt(b=2, s=24, seed=9)
+    labels = np.roll(ids, -1, axis=-1)
+    got = tlm.make_forward(tcfg, device="cpu")(tp, torch.from_numpy(ids))
+    dense = tlm.make_forward(tlm.LMConfig(**{**WIDE_KW, "use_flash": False,
+                                             "attn_impl": "dense"}),
+                             device="cpu")(tp, torch.from_numpy(ids))
+    np.testing.assert_allclose(got.detach().numpy(), dense.detach().numpy(),
+                               rtol=WIDE_RTOL, atol=WIDE_ATOL)
+    want = np.asarray(jax.jit(jlm.make_forward(jcfg))(jp, jnp.asarray(ids)))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=LOGIT_ATOL,
+                               rtol=LOGIT_RTOL)
+    lr = 0.5
+    jnew, jloss = jax.jit(jlm.make_train_step(jcfg))(
+        jp, jnp.asarray(ids), jnp.asarray(labels), lr)
+    tnew, tloss = tlm.make_train_step(tcfg, device="cpu")(
+        tp, torch.from_numpy(ids), torch.from_numpy(labels), lr)
+    np.testing.assert_allclose(float(tloss), float(jloss),
+                               rtol=STEP_LOSS_RTOL)
+    for i in range(jcfg.depth):
+        for k in jp[f"blk{i}"]:
+            jg = (np.asarray(jp[f"blk{i}"][k])
+                  - np.asarray(jnew[f"blk{i}"][k])) / lr
+            tg = (tp[f"blk{i}"][k] - tnew[f"blk{i}"][k]).numpy() / lr
+            np.testing.assert_allclose(tg, jg, rtol=WIDE_RTOL,
+                                       atol=WIDE_ATOL, err_msg=f"blk{i}/{k}")
+            rel = np.linalg.norm(tg - jg) / np.linalg.norm(jg)
+            assert rel <= STEP_GRAD_REL_NORM, (f"blk{i}/{k}", rel)
