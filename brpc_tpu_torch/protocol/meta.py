@@ -63,6 +63,11 @@ TAG_AUTH = _T_AUTH
 TAG_ICI_DESC = _T_ICI_DESC
 TAG_ICI_CONN = _T_ICI_CONN
 TAG_TENANT = _T_TENANT
+# the drain signal: a response meta's complete TLV (tag 23, length 1,
+# value 1; nothing variable follows, so not a 5-byte TLV_* prefix), as
+# RpcMeta.encode writes it and native/src/engine.cpp's kDuckTlv splices it
+TAG_LAME_DUCK = _T_LAME_DUCK
+LAME_DUCK_TLV = b"\x17\x01\x00\x00\x00\x01"
 
 
 def encode_tlv(tag: int, data: bytes) -> bytes:
@@ -174,7 +179,7 @@ class RpcMeta:
         if self.tenant:
             put(_T_TENANT, self.tenant)
         if self.lame_duck:
-            put(_T_LAME_DUCK, b"\x01")
+            out.extend(LAME_DUCK_TLV)
         return bytes(out)
 
     @staticmethod

@@ -99,6 +99,11 @@ from ..butil.status import Errno
 from ..fiber import runtime as fiber_runtime
 from ..protocol.tpu_std import pack_ack_frame
 
+# brpc_tpu's name for the one TICI credit-return encoder ("TICI", u32
+# count, count u64 ids; 4096 ids a frame, frames back to back), which
+# lives with the frame's parser in protocol/tpu_std.py
+encode_ack_frame = pack_ack_frame
+
 _registry: Dict[int, "Socket"] = {}
 _registry_lock = threading.Lock()
 _ids = itertools.count(1)
@@ -595,7 +600,7 @@ class Socket:
     def _take_acks(self) -> bytes:
         with self._ack_lock:
             ids, self._pending_acks = self._pending_acks, []
-        return pack_ack_frame(ids) if ids else b""
+        return encode_ack_frame(ids) if ids else b""
 
     def _shutdown(self) -> None:
         try:

@@ -356,7 +356,19 @@ result line) when a phase fails or CUDA is absent.  Phases:
     10s. 1 MiB byte echoes between the two processes over the shm data
     plane, on and off in turns (the lane engaged, the child's answers
     re-describing our slots, every slot back);
-7. print the kernels' JSON line, then the result line.
+21. the thirteen examples (``brpc_tpu_torch/examples/``, the twins of
+    ``examples/``), each ``main(["--device", "cuda"])`` in a child
+    process of its own with the kernels' launch counters read around it
+    (four children at a time, then ``raw_echo`` and ``ici_tensor_echo``
+    alone): ``train_transformer_lm`` launches all three flash kernels and
+    its loss falls from step 0 to 19, ``ici_tensor_echo`` launches the
+    checksum twice a call, ``checkpoint_resume``'s resume is
+    bit-identical, ``lm_serving``'s three completions are equal; each
+    example's seconds and launches, ``ici_tensor_echo``'s GB/s and
+    ``raw_echo``'s p50 beside the card; a grpcio half that printed
+    ``skipped: grpcio absent`` is listed as skipped, not passed;
+7. print the kernels' JSON line (``launches_by_path`` has ``examples``),
+   then the result line.
 """
 
 from __future__ import annotations
@@ -376,6 +388,7 @@ import tarfile
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -9229,6 +9242,151 @@ def phase_moe_disagg(pre_ep, dec: LMService, cfg: LMConfig,
                 same_as_monolithic=same, launches=launches)
 
 
+# -- phase 21: the examples ---------------------------------------------------
+
+# the thirteen examples (brpc_tpu_torch/examples/, twins of examples/):
+# the timed two run alone, after the rest (EXAMPLE_WORKERS at a time)
+EXAMPLES = ("echo", "parallel_echo", "streaming_echo", "grpc_interop",
+            "press_and_portal", "fleet_serving", "multi_protocol_port",
+            "lm_serving", "checkpoint_resume", "train_transformer_lm",
+            "pipeline_train", "raw_echo", "ici_tensor_echo")
+EXAMPLES_ALONE = ("raw_echo", "ici_tensor_echo")
+EXAMPLE_WORKERS = 4
+EXAMPLE_TIMEOUT_S = 240.0
+ICI_ECHO_CALLS = 103                  # ici_tensor_echo: 3 warm + 100 timed
+EXAMPLE_CHILD = r"""
+import importlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+from brpc_tpu_torch.ops.device_ops import CHECKSUM
+from brpc_tpu_torch.ops.flash_attention import KERNELS
+name = sys.argv[2]
+mod = importlib.import_module("brpc_tpu_torch.examples." + name)
+counters = (*KERNELS, CHECKSUM)
+for kern in counters:
+    kern.launches = 0
+t0 = time.perf_counter()
+rc = mod.main(["--device", "cuda"])
+seconds = time.perf_counter() - t0
+print("EXAMPLE_RESULT " + json.dumps({
+    "name": name, "rc": rc, "seconds": seconds,
+    "launches": {kern.name: kern.launches for kern in counters}}),
+    flush=True)
+sys.exit(rc)
+"""
+
+
+def run_example(name: str) -> dict:
+    """One example's ``main(["--device", "cuda"])`` in a child process of
+    its own (its flags, servers and span stores die with it), the port's
+    launch counters read around it: the child's JSON line, with its
+    stdout and the wall seconds of the child."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_CHILD, root, name],
+            cwd=root, capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"example {name} ran past "
+                             f"{EXAMPLE_TIMEOUT_S:.0f} s") from e
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(f"  {name} stderr:\n{proc.stderr[-4000:]}")
+        raise AssertionError(f"example {name} exited {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("EXAMPLE_RESULT ")]
+    if len(lines) != 1:
+        raise AssertionError(f"example {name} printed no result line")
+    res = json.loads(lines[0].split(" ", 1)[1])
+    res["wall_s"] = wall
+    res["stdout"] = proc.stdout
+    return res
+
+
+def example_lines(out: str, prefix: str) -> list:
+    return [ln.strip() for ln in out.splitlines()
+            if ln.strip().startswith(prefix)]
+
+
+def check_examples(res: dict) -> dict:
+    """What phase 21 holds each example's output to; the numbers it
+    reports."""
+    found = {}
+    train = res["train_transformer_lm"]
+    launches = train["launches"]
+    losses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^step\s+(\d+)\s+loss\s+(\S+)$", train["stdout"], re.M)}
+    found["train_loss"] = [losses.get(0), losses.get(19)]
+    if not all(launches[k.name] for k in KERNELS):
+        raise AssertionError(f"train_transformer_lm launched {launches}: a "
+                             f"flash kernel did not run")
+    if 0 not in losses or 19 not in losses or not all(
+            np.isfinite(v) for v in losses.values()) \
+            or not losses[19] < losses[0]:
+        raise AssertionError(f"train_transformer_lm's loss did not fall: "
+                             f"{losses}")
+    ici = res["ici_tensor_echo"]
+    if ici["launches"][CHECKSUM.name] < 2 * ICI_ECHO_CALLS:
+        raise AssertionError(f"ici_tensor_echo launched the checksum "
+                             f"{ici['launches'][CHECKSUM.name]} times for "
+                             f"{ICI_ECHO_CALLS} calls")
+    m = re.search(r"echoes of (\d+) bytes: (\S+) GB/s", ici["stdout"])
+    found["ici_gb_s"] = float(m.group(2))
+    if not example_lines(res["checkpoint_resume"]["stdout"],
+                         "resumed trajectory bit-identical to "
+                         "uninterrupted: True"):
+        raise AssertionError("checkpoint_resume's resume is not "
+                             "bit-identical")
+    toks = [ln.split("->", 1)[1] for ln in example_lines(
+        res["lm_serving"]["stdout"], "request ")]
+    if len(toks) != 3 or len(set(toks)) != 1:
+        raise AssertionError(f"lm_serving's three requests differ: {toks}")
+    m = re.search(r"p50 (\d+)us\s+p99 (\d+)us", res["raw_echo"]["stdout"])
+    found["raw_echo_p50_us"], found["raw_echo_p99_us"] = (
+        int(m.group(1)), int(m.group(2)))
+    m = re.search(r"pipelined raw 64B: ([\d,]+) qps",
+                  res["raw_echo"]["stdout"])
+    found["raw_batch_qps"] = int(m.group(1).replace(",", ""))
+    found["skipped"] = sorted(
+        f"{name}: {ln}" for name, r in res.items()
+        for ln in r["stdout"].splitlines() if "skipped: grpcio absent" in ln)
+    return found
+
+
+def phase_examples(card: str) -> dict:
+    """Phase 21: each of the thirteen examples with ``--device cuda`` in a
+    child of its own; their seconds and launches, and the checks of
+    :func:`check_examples`."""
+    t0 = time.perf_counter()
+    together = [n for n in EXAMPLES if n not in EXAMPLES_ALONE]
+    with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        res = dict(zip(together, pool.map(run_example, together)))
+    for name in EXAMPLES_ALONE:
+        res[name] = run_example(name)
+    for name in EXAMPLES:
+        r = res[name]
+        log(f"  {name}: {r['seconds']:.2f} s in main ({r['wall_s']:.2f} s "
+            f"the child), launches {r['launches']}")
+    found = check_examples(res)
+    for line in found["skipped"]:
+        log(f"  skipped, not passed: {line}")
+    log(f"  ici_tensor_echo: {found['ici_gb_s']} GB/s over 100 1 MiB "
+        f"echoes; raw_echo: p50 {found['raw_echo_p50_us']} us, p99 "
+        f"{found['raw_echo_p99_us']} us, pipelined {found['raw_batch_qps']} "
+        f"calls/s ({card})")
+    log(f"  train_transformer_lm loss {found['train_loss'][0]} -> "
+        f"{found['train_loss'][1]}; phase 21 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {kern.name: sum(r["launches"][kern.name]
+                               for r in res.values())
+                for kern in (*KERNELS, CHECKSUM)}
+    return dict(found, launches=launches, per_example={
+        name: {"main_s": r["seconds"], "child_s": r["wall_s"],
+               "launches": r["launches"]} for name, r in res.items()},
+        phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -9462,6 +9620,9 @@ def main() -> int:
     log(f"[10] parameter server at {PS_CFG} and the device lane")
     ps = phase_ps()
     xproc = phase_xproc(ps)
+    log("[21] the thirteen examples (brpc_tpu_torch/examples/), each with "
+        "--device cuda in a child process of its own")
+    examples = phase_examples(card)
 
     f32 = times[MAIN_SHAPE]["f32"]
     f32_train = times[TRAIN_SHAPE]["f32"]
@@ -9494,7 +9655,8 @@ def main() -> int:
                      par["moe_dp_tp"]["launches"][FLASH_FWD.name],
                  "wide_generate": wide_lm["launches_generate"],
                  "wide_train": (wide_lm["launches_vg"][FLASH_FWD.name]
-                                + wide_lm["launches_train"][FLASH_FWD.name])}
+                                + wide_lm["launches_train"][FLASH_FWD.name]),
+                 "examples": examples["launches"][FLASH_FWD.name]}
     kernels = [{
         "name": FLASH_FWD.name, "route": "cuda",
         "source": "brpc_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -9524,7 +9686,8 @@ def main() -> int:
                          + par["dp_tp"]["launches"][kern.name]
                          + par["moe_dp_tp"]["launches"][kern.name]
                          + wide_lm["launches_vg"][kern.name]
-                         + wide_lm["launches_train"][kern.name]),
+                         + wide_lm["launches_train"][kern.name]
+                         + examples["launches"][kern.name]),
             "launches_by_path": {
                 "train": train["launches"][kern.name],
                 "moe_train": moe_train["launches"][kern.name],
@@ -9532,7 +9695,8 @@ def main() -> int:
                 "moe_parallel_train":
                     par["moe_dp_tp"]["launches"][kern.name],
                 "wide_train": (wide_lm["launches_vg"][kern.name]
-                               + wide_lm["launches_train"][kern.name])},
+                               + wide_lm["launches_train"][kern.name]),
+                "examples": examples["launches"][kern.name]},
             "max_abs_err": bwd_err[kern.name],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -9556,7 +9720,8 @@ def main() -> int:
                      + slice16["pool"]["checksum_launches"]
                      + slice17["echo"]["checksum_launches"]
                      + slice18["echo"]["checksum_launches"]
-                     + slice19["echo"]["checksum_launches"]),
+                     + slice19["echo"]["checksum_launches"]
+                     + examples["launches"][CHECKSUM.name]),
         "launches_by_path": {
             "ps": ps["launches"], "xproc": xproc["xfer"]["launches"],
             "xproc_inline": xproc["xfer"]["launches_inline"],
@@ -9565,7 +9730,8 @@ def main() -> int:
             "block_pool": slice16["pool"]["checksum_launches"],
             "native_echo": slice17["echo"]["checksum_launches"],
             "fast_lane_echo": slice18["echo"]["checksum_launches"],
-            "dispatcher_echo": slice19["echo"]["checksum_launches"]},
+            "dispatcher_echo": slice19["echo"]["checksum_launches"],
+            "examples": examples["launches"][CHECKSUM.name]},
         "max_abs_err": cs_err,
         "ms": cs_row["ms"], "plain_ms": cs_row["plain_ms"],
         "bound_ms": cs_row["bound_ms"], "bound_by": cs_row["bound_by"],
@@ -9601,6 +9767,7 @@ def main() -> int:
         f"{json.dumps(cs_times)}")
     log(f"  ps: {json.dumps(ps)}")
     log(f"  xproc: {json.dumps(xproc)}")
+    log(f"  examples: {json.dumps(examples)}")
     log(f"  parallel: {json.dumps(par)}")
     log("  crossover: " + " ".join(
         f"s={r['s']} dense {r['dense_ms']:.4f} flash {r['flash_ms']:.4f} ms;"
