@@ -23,10 +23,12 @@ them EREQUEST, as the JAX service does.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
 import struct
+import sys
 import threading
 import time
 from collections import deque
@@ -59,6 +61,40 @@ from .transformer_lm import (LMConfig, empty_batch_cache, empty_paged_cache,
                              paged_page_bytes)
 
 LOG = logging.getLogger(__name__)
+
+# The port's generator is a Python loop of kernel launches that holds the
+# interpreter lock between launches, where the JAX service's one compiled
+# scan releases it while the device works.  A thread that waits for the
+# lock asks for it only after the switch interval (5 ms by default), so
+# beside a running Generate every hand-off on a server's IO path (the
+# dispatcher's wake, the consumer fiber, the reply's write, a caller's
+# read) could wait that long: a refused call took up to 28 ms.  While a
+# generator runs, the interval is cut to this.
+_LAUNCH_LOOP_SWITCH_S = 2e-4
+_switch_lock = threading.Lock()
+_switch_state = {"users": 0, "saved": 0.0, "set": 0.0}
+
+
+@contextlib.contextmanager
+def _short_switch_interval():
+    """Run the body with the interpreter's switch interval at most
+    ``_LAUNCH_LOOP_SWITCH_S``; the first of overlapping bodies cuts it,
+    the last puts the earlier value back (unless someone else changed it
+    meanwhile)."""
+    st = _switch_state
+    with _switch_lock:
+        if st["users"] == 0:
+            st["saved"] = sys.getswitchinterval()
+            sys.setswitchinterval(min(st["saved"], _LAUNCH_LOOP_SWITCH_S))
+            st["set"] = sys.getswitchinterval()
+        st["users"] += 1
+    try:
+        yield
+    finally:
+        with _switch_lock:
+            st["users"] -= 1
+            if st["users"] == 0 and sys.getswitchinterval() == st["set"]:
+                sys.setswitchinterval(st["saved"])
 
 
 def pack_generate_request(prompt: np.ndarray, max_new: int) -> bytes:
@@ -1358,7 +1394,7 @@ class LMService(Service):
             bucket <<= 1
         bucket = min(bucket, self.max_new_cap, self.cfg.max_seq - s)
         ids = torch.from_numpy(prompt.astype(np.int64)).to(self.device)
-        with self._device_lock:
+        with self._device_lock, _short_switch_interval():
             toks = self._gen(ids, int(bucket))
         out = np.ascontiguousarray(toks.cpu().numpy()[:, :max_new],
                                    dtype=np.int32)

@@ -56,7 +56,7 @@
 // cvt.rna.tf32 takes seven, and those splits outnumbered the MMAs.  Keys
 // past seq_len need no mask, their rows are not stored; only the steps
 // that cross the diagonal are masked, and a warp skips the steps that lie
-// wholly above its keys.  Schedule (DkdvCfg), chosen by timings on an
+// wholly above its keys.  DkdvSplit and DkdvBf16, chosen by timings on an
 // H100: f32 8 warps, 128 keys and 16-row steps: k and v 2 x 128 x 132
 // floats, the ring 2 x 4 x 16 x 132 (q, do and their lo halves) and
 // 2 x 32 lse/dd floats = 203,008 B, one block per SM (64 keys of 4 warps
@@ -73,14 +73,29 @@
 //   SM (32-key tiles would need 266,240 B); bf16 reads q from shared
 //   memory per k step (q_in_regs), 101,376 B, two blocks per SM.  The
 //   accumulator is 128 registers a thread.
-// - dkdv: dk and dv for 256 columns would take all 255 registers, and k
-//   and v for 128 keys alone 266,240 B.  So a grid axis (z) takes the two
-//   128-column halves of dk and dv: each block recomputes s^T and dp^T
-//   over the whole d, and keeps and writes dk and dv for its half only
-//   (the d = 128 register budget), with one owner per output element as
-//   before; the cost is s^T and dp^T twice.  4 warps and 64 keys; f32
-//   steps of 8 q rows (k, v and the split q/do ring: 199,808 B, one
-//   block per SM), bf16 steps of 16 rows (101,632 B, two per SM).
+// - dkdv (DkdvPair, DkdvPairBf16).  What bounds it: 8 FLOPs per head dim
+//   per live pair, the d = 128 operations at half the heads (0.834 ms at
+//   (4, 2048, 8, 256) as 3xTF32), but dk and dv for 256 columns would take
+//   all 255 registers of a thread, and k and v for 128 keys alone 266,240
+//   B.  So warp pairs split d (flash_mma.cuh pair_sum): 8 warps and 64
+//   keys, four groups of 16 keys, each shared by warps kg and kg + 4 over
+//   columns 0-127 and 128-255.  Per q step each warp takes its half of
+//   s^T = k.q^T, the pair swaps the partials and both form p^T; dv +=
+//   p^T.do over the warp's half of do; the same for dp^T = v.do^T, then
+//   ds^T; dk += ds^T.q over its half of q.  Each warp keeps dk and dv for
+//   128 columns (the d = 128 budget), the score products are taken once
+//   (a grid axis over the column halves of dk and dv, each block taking
+//   s^T and dp^T over the whole d, did 1.5x the FLOPs on 4 warps an SM
+//   and ran 2.5x slower in f32, 1.4x in bf16), and every dk/dv element
+//   still has one owner block.  f32: 16-row steps with the q/do ring
+//   unsplit, each warp splitting q and do per use with split_tf32_fast as
+//   it splits its A operands (kept split, 16-row steps would not fit;
+//   8-row steps kept split ran 1.25x slower, rounded splits per use
+//   1.21x): k, v 133,120 B, ring 66,560, lse/dd 256, swap buffers (two a
+//   warp, 16 x 16 floats each) 16,384: 216,320 B, one block per SM; ptxas
+//   245 registers, no spill.  bf16: 32-row steps (16-row steps ran 1.2x
+//   slower): 67,584 + 67,584 + 512 + 32,768 = 168,448 B, one block per SM;
+//   ptxas 237 registers, no spill.  Timings on an H100: PERF.md.
 
 #include "flash_mma.cuh"
 
@@ -99,18 +114,40 @@ struct DqCfg {
   static constexpr int MINB = F32 ? 1 : 2;
 };
 
-// The schedule of flash_dkdv_kernel for each dtype and padded head dim:
-// warps per block (16 keys each), q rows per step of the q/do ring, the
-// blocks per SM the registers must allow, and the column parts of dk and
-// dv that take a block each (grid z).
-template <typename T, int D>
-struct DkdvCfg {
-  static constexpr bool F32 = std::is_same_v<T, float>;
-  static constexpr int NW = F32 && D <= 128 ? 8 : 4;
-  static constexpr int BQ = (F32 ? 16 : 32) / (D <= 128 ? 1 : 2);
-  static constexpr int MINB = F32 ? 1 : 2;
-  static constexpr int PARTS = D <= 128 ? 1 : 2;
+// Schedules of flash_dkdv_kernel: warps per block (16 keys each, or each
+// warp pair 16 keys), the warps that share 16 keys, one part of the head
+// dim each (DSPLIT: warp pairs, flash_mma.cuh pair_sum), q rows per step
+// of the q/do ring, whether the ring keeps q and do split into tf32 hi/lo
+// (f32; else each warp splits them per use with split_tf32_fast, as it
+// splits its A operands), and the blocks per SM the registers must allow.
+// Each schedule states where it differs from DkdvSchedule; DkdvCfg picks
+// one by dtype and padded head dim.
+struct DkdvSchedule {
+  static constexpr int NW = 8;
+  static constexpr int DSPLIT = 1;
+  static constexpr int BQ = 16;
+  static constexpr bool SPLIT = false;
+  static constexpr int MINB = 1;
 };
+struct DkdvSplit : DkdvSchedule {  // f32, d <= 128: 128 keys, split ring
+  static constexpr bool SPLIT = true;
+};
+struct DkdvBf16 : DkdvSchedule {  // bf16, d <= 128: 64 keys, two per SM
+  static constexpr int NW = 4;
+  static constexpr int BQ = 32;
+  static constexpr int MINB = 2;
+};
+struct DkdvPair : DkdvSchedule {  // f32, d = 256: 64 keys, pairs split d
+  static constexpr int DSPLIT = 2;
+};
+struct DkdvPairBf16 : DkdvPair {  // bf16, d = 256: 32-row steps
+  static constexpr int BQ = 32;
+};
+template <typename T, int D>
+using DkdvCfg =
+    std::conditional_t<std::is_same_v<T, float>,
+                       std::conditional_t<(D > 128), DkdvPair, DkdvSplit>,
+                       std::conditional_t<(D > 128), DkdvPairBf16, DkdvBf16>>;
 
 struct Args {
   const void* q;
@@ -291,45 +328,51 @@ __device__ __forceinline__ void load_rows(float* dst, const float* lse,
 }
 
 // Shared memory of one dkdv block, in bytes: the block's k and v tiles,
-// two ring stages of q and do (and their lo halves for f32), and each
-// stage's lse and dd rows.
-template <typename T, int D>
+// two ring stages of q and do (and their lo halves when split), each
+// stage's lse and dd rows, and with warp pairs two swap buffers per warp
+// (a 16 x BQ f32 partial of s^T and of dp^T).
+template <typename T, int D, class C>
 constexpr size_t dkdv_smem_bytes() {
-  using C = DkdvCfg<T, D>;
-  constexpr int parts = std::is_same_v<T, float> ? 4 : 2;
-  return sizeof(T) * (2 * 16 * C::NW + 2 * parts * C::BQ) *
+  constexpr int parts = C::SPLIT ? 4 : 2;
+  constexpr int nk = 16 * C::NW / C::DSPLIT;
+  constexpr int swap = C::DSPLIT > 1 ? C::NW * 2 * 16 * C::BQ : 0;
+  return sizeof(T) * (2 * nk + 2 * parts * C::BQ) *
              flash_mma::tile_ld<T, D>() +
-         sizeof(float) * 4 * C::BQ;
+         sizeof(float) * (4 * C::BQ + swap);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
-                                  (DkdvCfg<T, D>::MINB))
+template <typename T, int D, class C>
+__global__ void __launch_bounds__((32 * C::NW), (C::MINB))
     flash_dkdv_kernel(Args a) {
   using namespace flash_mma;
-  using C = DkdvCfg<T, D>;
   constexpr int NT = 32 * C::NW;  // threads
-  constexpr int NK = 16 * C::NW;  // keys per block
+  constexpr int P = C::DSPLIT;    // parts of d, one warp each
+  constexpr int PW = C::NW / P;   // warps of one part: key groups
+  constexpr int NK = 16 * PW;     // keys per block
   constexpr int BQ = C::BQ;       // q rows per ring step
   constexpr int LD = tile_ld<T, D>();
   constexpr int TILE = BQ * LD;  // elements of one q or do tile
   constexpr bool F32 = std::is_same_v<T, float>;
-  constexpr int SS = (F32 ? 4 : 2) * TILE;  // one ring stage
-  constexpr int NJ = BQ / 8;                // s^T n8 tiles of a warp
-  constexpr int DO = D / C::PARTS;          // dk/dv columns of a block
-  constexpr int NO = DO / 8;                // dk/dv n8 tiles of a warp
-  // the block's first dk/dv column: its part (grid z) of a wide head
+  constexpr bool SPLIT = C::SPLIT;
+  static_assert(F32 || !SPLIT, "bf16 tiles are not split");
+  constexpr int SS = (SPLIT ? 4 : 2) * TILE;  // one ring stage
+  constexpr int NJ = BQ / 8;                  // s^T n8 tiles of a warp
+  constexpr int DS = D / P;  // columns of s^T, dp^T, dk and dv of a warp
+  constexpr int NO = DS / 8;  // dk/dv n8 tiles of a warp
+  // The warp's first column (its part of d): cheap to recompute, not kept
+  // live across the products.
   auto col0 = [] {
-    return C::PARTS > 1 ? static_cast<int>(blockIdx.z) * DO : 0;
+    return P > 1 ? static_cast<int>(threadIdx.x >> 5) / PW * DS : 0;
   };
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // k, v; then stage st: q at st SS, do at + TILE, their lo halves at
-  // + 2 TILE and + 3 TILE (f32); then stage st's lse at 2 st BQ floats
-  // past the ring and its dd BQ floats further
+  // + 2 TILE and + 3 TILE (split); then stage st's lse at 2 st BQ floats
+  // past the ring and its dd BQ floats further; then the swap buffers
   T* const sk = reinterpret_cast<T*>(smem_raw);
   T* const sv = sk + NK * LD;
   T* const ring = sv + NK * LD;
   float* const srows = reinterpret_cast<float*>(ring + 2 * SS);
+  float* const swap = srows + 4 * BQ;
 
   // grid (b h, key blocks): blocks start in linear order, x fastest, so
   // the heaviest (first) key block of every head and batch goes first;
@@ -338,7 +381,8 @@ __global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
   const int hh = blockIdx.x % a.h, bb = blockIdx.x / a.h;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
-  const int kw0 = k0 + warp * 16;  // this warp's keys: kw0 .. kw0 + 15
+  const int kg = warp % PW;        // key group; the pair: kg and kg + PW
+  const int kw0 = k0 + kg * 16;    // this warp's keys: kw0 .. kw0 + 15
   const T* q = static_cast<const T*>(a.q) + bb * a.qs0 + hh * a.qs2;
   const T* k = static_cast<const T*>(a.k) + bb * a.ks0 + hh * a.ks2;
   const T* v = static_cast<const T*>(a.v) + bb * a.vs0 + hh * a.vs2;
@@ -375,9 +419,9 @@ __global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
   auto load_qdo = [&](int stage, int q0, const Bases& src) {
     T* const dst = ring + stage * SS;
     load_tile<T, BQ, D, NT>(dst, src.q, a.qs1, q0, a.s, a.d, qvec,
-                            F32 ? dst + 2 * TILE : nullptr);
+                            SPLIT ? dst + 2 * TILE : nullptr);
     load_tile<T, BQ, D, NT>(dst + TILE, src.dout, a.ds1, q0, a.s, a.d, dvec,
-                            F32 ? dst + 3 * TILE : nullptr);
+                            SPLIT ? dst + 3 * TILE : nullptr);
     load_rows<BQ, NT>(srows + stage * 2 * BQ, src.lse, src.dd, q0, a.s);
   };
 
@@ -389,8 +433,8 @@ __global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
   cp_async_commit();
   // f32: the A fragments of k and v take the three-instruction split
   std::conditional_t<F32, SmemA<D, true>, BfSmemA<D>> ka, va;
-  ka.init(sk, warp * 16);
-  va.init(sv, warp * 16);
+  ka.init(sk + col0(), kg * 16);
+  va.init(sv + col0(), kg * 16);
 
   const float sl = a.scale * LOG2E;
   float dk[NO][4] = {}, dv[NO][4] = {};
@@ -400,7 +444,7 @@ __global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
     T* const st = ring + stage * SS;
     const float* const sr = srows + stage * 2 * BQ;
     cp_async_wait_all();
-    if constexpr (F32) {
+    if constexpr (SPLIT) {
       split_own<BQ, D, NT>(st, st + 2 * TILE, qvec);
       split_own<BQ, D, NT>(st + TILE, st + 3 * TILE, dvec);
     }
@@ -412,12 +456,18 @@ __global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
     // causal: every row of this step lies above this warp's keys
     if (a.causal && q0 + BQ <= kw0) continue;
 
-    // s^T = k . q^T for this warp's 16 keys and the step's BQ rows
+    // s^T = k . q^T for this warp's 16 keys and the step's BQ rows (with
+    // warp pairs: this warp's part of d, then the pair's sum)
     float sc[NJ][4] = {};
-    if constexpr (F32)
-      mma_abt3<D, BQ>(sc, ka, SplitB{st, st + 2 * TILE});
+    if constexpr (SPLIT)
+      mma_abt3<DS, BQ, D>(sc, ka, SplitB{st + col0(), st + 2 * TILE + col0()});
+    else if constexpr (F32)
+      mma_abt3<DS, BQ, D>(sc, ka, RawBT<true>{st + col0()});
     else
-      mma_abt_bf16<D, BQ>(sc, ka, st);
+      mma_abt_bf16<DS, BQ, D>(sc, ka, st + col0());
+    if constexpr (P > 1)
+      pair_sum(sc, swap + warp * 32 * BQ, swap + (warp ^ PW) * 32 * BQ,
+               1 + kg);
 
     // p = exp(s scale - lse) in log2 units, in place of s^T; a lane's
     // keys are kw0 + g (+ 8), its rows q0 + 8 j + 2 t (+ 1)
@@ -433,19 +483,27 @@ __global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
         sc[j][c] = exp2f(x - ((c & 1) ? l.y : l.x) * LOG2E);
       }
     }
-    // dv += p^T . do, p rounded to do's dtype (the block's columns of do)
-    if constexpr (F32)
-      mma_pb3<DO, BQ, true, D>(
+    // dv += p^T . do, p rounded to do's dtype (the warp's columns of do)
+    if constexpr (SPLIT)
+      mma_pb3<DS, BQ, true, D>(
           dv, sc, SplitB{st + TILE + col0(), st + 3 * TILE + col0()});
+    else if constexpr (F32)
+      mma_pb3<DS, BQ, true, D>(dv, sc, RawBT<true>{st + TILE + col0()});
     else
-      mma_pb_bf16<DO, BQ, D>(dv, sc, st + TILE + col0());
+      mma_pb_bf16<DS, BQ, D>(dv, sc, st + TILE + col0());
 
     // dp^T = v . do^T; ds^T = p^T (dp^T - dd), in place of p^T
     float dp[NJ][4] = {};
-    if constexpr (F32)
-      mma_abt3<D, BQ>(dp, va, SplitB{st + TILE, st + 3 * TILE});
+    if constexpr (SPLIT)
+      mma_abt3<DS, BQ, D>(
+          dp, va, SplitB{st + TILE + col0(), st + 3 * TILE + col0()});
+    else if constexpr (F32)
+      mma_abt3<DS, BQ, D>(dp, va, RawBT<true>{st + TILE + col0()});
     else
-      mma_abt_bf16<D, BQ>(dp, va, st + TILE);
+      mma_abt_bf16<DS, BQ, D>(dp, va, st + TILE + col0());
+    if constexpr (P > 1)
+      pair_sum(dp, swap + warp * 32 * BQ + 16 * BQ,
+               swap + (warp ^ PW) * 32 * BQ + 16 * BQ, 1 + kg);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const float2 e =
@@ -455,11 +513,13 @@ __global__ void __launch_bounds__((32 * DkdvCfg<T, D>::NW),
         sc[j][c] *= dp[j][c] - ((c & 1) ? e.y : e.x);
     }
     // dk += ds^T . q, ds rounded to q's dtype (times scale at the store)
-    if constexpr (F32)
-      mma_pb3<DO, BQ, true, D>(dk, sc,
+    if constexpr (SPLIT)
+      mma_pb3<DS, BQ, true, D>(dk, sc,
                                SplitB{st + col0(), st + 2 * TILE + col0()});
+    else if constexpr (F32)
+      mma_pb3<DS, BQ, true, D>(dk, sc, RawBT<true>{st + col0()});
     else
-      mma_pb_bf16<DO, BQ, D>(dk, sc, st + col0());
+      mma_pb_bf16<DS, BQ, D>(dk, sc, st + col0());
   }
 
   T* const gk = bases.gk;
@@ -494,13 +554,14 @@ int launch_dq(const Args& a, cudaStream_t stream) {
 template <typename T, int D>
 int launch_dkdv(const Args& a, cudaStream_t stream) {
   using C = DkdvCfg<T, D>;
-  constexpr size_t smem = dkdv_smem_bytes<T, D>();
+  constexpr size_t smem = dkdv_smem_bytes<T, D, C>();
   static_assert(smem * C::MINB <= 232448, "shared memory of an SM");
-  const cudaError_t err = flash_mma::allow_smem(flash_dkdv_kernel<T, D>, smem);
+  const cudaError_t err =
+      flash_mma::allow_smem(flash_dkdv_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int nk = 16 * C::NW;
-  const dim3 grid(a.b * a.h, (a.s + nk - 1) / nk, C::PARTS);
-  flash_dkdv_kernel<T, D><<<grid, 32 * C::NW, smem, stream>>>(a);
+  constexpr int nk = 16 * C::NW / C::DSPLIT;
+  const dim3 grid(a.b * a.h, (a.s + nk - 1) / nk);
+  flash_dkdv_kernel<T, D, C><<<grid, 32 * C::NW, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -50,14 +50,34 @@
 //   shared memory per k step (in registers with the accumulators it
 //   spills).  bf16: 4 warps, q's fragments in registers.
 // - Head dims 1 <= d <= 128 are zero-padded to 16, 32, 64 or 128, and
-//   129 <= d <= 256 to 256, as the Pallas kernel pads d to 128s.  At
-//   d = 256 a 32-key k/v tile is 33 KB in f32, so f32 takes Narrow alone:
-//   4 warps and 64 rows, the ring unsplit beside the q tile, 199,680 B,
-//   one block per SM (Wide's split ring would need 399,360 B and KSplit's
-//   332,800); its output accumulator is 128 registers a thread (4 warps
-//   at two blocks per SM or one allow a thread 255 alike).  bf16 reads q
-//   from shared memory per k step there as f32 does (q_in_regs): 101,376
-//   B, two blocks per SM.
+//   129 <= d <= 256 to 256, as the Pallas kernel pads d to 128s.
+// - f32 at d = 256 (Pair).  What bounds it: the same FLOPs as d = 128 at
+//   half the heads (a (1, 1024, 8, 256) prefill is 0.026 ms on the tensor
+//   cores as 3xTF32), but its 128 blocks of 64 rows are one wave, so the
+//   heaviest causal q tile, which walks every key tile, sets the time, and
+//   registers set its warps: a 16 x 256 f32 accumulator is 128 registers a
+//   thread, and a 32-key k/v tile is 33 KB, so one warp over the whole d
+//   left 4 warps an SM (255 registers, 280 B spilled).  So warp pairs split
+//   d (flash_mma.cuh pair_sum): 8 warps and 64 rows; warps w and w + 4
+//   share rows 16 w .. 16 w + 15, w over columns 0-127 and w + 4 over
+//   128-255.  Per k tile each takes its half of q.k^T from its half of the
+//   q tile and of the k tile, the pair swaps the two partial scores and
+//   both run the softmax on the whole score; each keeps a 16 x 128
+//   accumulator (64 registers), multiplies p by its half of v and writes
+//   its half of out, the first half's warp also lse.  Every tf32 split
+//   takes split_tf32_fast (three instructions, lo truncated; flash_mma.cuh),
+//   as the dkdv kernel's A splits do: the splits of q, k, p and v, not the
+//   MMAs, fill most of a warp's issue slots, and rounded splits ran
+//   1.24-1.28x slower.  Shared memory: the 32-key ring unsplit (133,120
+//   B), the q tile (66,560 B) and one swap buffer a warp (16 x 32 floats,
+//   16,384 B): 216,064 B, one block and 8 warps an SM; ptxas 231
+//   registers, no spill.  Measured beside it on an H100 (PERF.md), and
+//   not kept: two groups over even and odd 16-key tiles on top (16 warps,
+//   128 registers, spilled) and 16-key tiles kept split in shared memory
+//   both ran slower.  bf16
+//   at d = 256 keeps 4 warps over the whole d, q read from shared memory
+//   per k step (q_in_regs): 101,376 B, two blocks per SM (warp pairs ran
+//   slower).
 
 #include "flash_mma.cuh"
 
@@ -68,34 +88,42 @@ using namespace flash_mma;
 constexpr int BK = 32;  // keys per k tile
 
 // Schedules: warps per block, warp groups that take turns over the k
-// tiles (KSPLIT; each group holds all the block's q rows, 16 per warp, and
-// the groups' softmax states merge at the end), whether the k/v tiles are
-// kept split into tf32 hi/lo (f32 only), and the blocks per SM that the
-// registers must allow.  f32 picks one by grid size (launch()).  q's A
-// fragments stay in registers for bf16 and are read from shared memory
-// per k step for f32 (QSource, flash_mma.cuh).
-struct Wide {  // f32: 128 q rows, 8 warps share each split k/v tile
-  static constexpr int NW = 8;
-  static constexpr int KSPLIT = 1;
-  static constexpr bool SPLIT = true;
-  static constexpr int MINB = 1;
-};
-struct Narrow {  // f32: 64 q rows, two blocks per SM
+// tiles (KSPLIT; each group holds all the block's q rows, 16 per warp or
+// warp pair, and the groups' softmax states merge at the end), the warps
+// that share 16 rows, one part of the head dim each (DSPLIT: warp pairs,
+// flash_mma.cuh pair_sum), whether the k/v tiles are kept split into tf32
+// hi/lo (f32 only), the blocks per SM that the registers must allow, and
+// whether every f32 split takes the three-instruction split
+// (split_tf32_fast, lo truncated).  Each schedule states where it differs
+// from Schedule.  f32 picks one by grid size (launch()).  q's A fragments
+// stay in registers for bf16 up to d = 128 and are read from shared memory
+// per k step otherwise (QSource, flash_mma.cuh).
+struct Schedule {
   static constexpr int NW = 4;
   static constexpr int KSPLIT = 1;
+  static constexpr int DSPLIT = 1;
   static constexpr bool SPLIT = false;
+  static constexpr int MINB = 1;
+  static constexpr bool FAST = false;
+};
+struct Wide : Schedule {  // f32: 128 q rows, 8 warps share each split k/v tile
+  static constexpr int NW = 8;
+  static constexpr bool SPLIT = true;
+};
+struct Narrow : Schedule {  // f32: 64 q rows, two blocks per SM
   static constexpr int MINB = 2;
 };
-struct KSplit {  // f32: 64 q rows, two groups of 4 warps, even/odd k tiles
+struct KSplit : Schedule {  // f32: 64 q rows, two groups of 4 warps over
+                            // even and odd k tiles
   static constexpr int NW = 8;
   static constexpr int KSPLIT = 2;
-  static constexpr bool SPLIT = false;
-  static constexpr int MINB = 1;
 };
-struct Bf16 {  // bf16: 64 q rows
-  static constexpr int NW = 4;
-  static constexpr int KSPLIT = 1;
-  static constexpr bool SPLIT = false;
+struct Pair : Schedule {  // f32, d = 256: 64 q rows, warps w and w + 4 split d
+  static constexpr int NW = 8;
+  static constexpr int DSPLIT = 2;
+  static constexpr bool FAST = true;
+};
+struct Bf16 : Schedule {  // bf16: 64 q rows, two blocks per SM
   static constexpr int MINB = 2;
 };
 
@@ -114,14 +142,22 @@ struct Args {
   int causal;
 };
 
-// Shared memory of one block, in elements: two ring stages, each a k and
-// a v tile (and their lo halves when split) per warp group, then the q
-// tile unless it passes through a stage before the loop.
+// q rows of one block: 16 per warp of one group and one part of d.
+template <class C>
+__host__ __device__ constexpr int block_rows() {
+  return 16 * C::NW / (C::KSPLIT * C::DSPLIT);
+}
+
+// Shared memory of one block, in bytes: two ring stages, each a k and a v
+// tile (and their lo halves when split) per warp group, then the q tile
+// unless it passes through a stage before the loop, then with warp pairs
+// one swap buffer per warp (a 16 x BK f32 partial score).
 template <typename T, int D, class C>
-constexpr int smem_elems() {
+constexpr size_t smem_bytes() {
   constexpr int stage = C::KSPLIT * (C::SPLIT ? 4 : 2) * BK * tile_ld<T, D>();
-  constexpr int bq = 16 * C::NW / C::KSPLIT;
-  return 2 * stage + (q_in_regs<T, D>() ? 0 : bq * tile_ld<T, D>());
+  constexpr int q = q_in_regs<T, D>() ? 0 : block_rows<C>() * tile_ld<T, D>();
+  constexpr int swap = C::DSPLIT > 1 ? C::NW * 16 * BK : 0;
+  return sizeof(T) * (2 * stage + q) + sizeof(float) * swap;
 }
 
 template <typename T, int D, class C>
@@ -129,21 +165,25 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
     flash_fwd_kernel(Args a) {
   constexpr int NT = 32 * C::NW;       // threads
   constexpr int G = C::KSPLIT;         // warp groups
-  constexpr int BQ = 16 * C::NW / G;   // query rows per block
+  constexpr int P = C::DSPLIT;         // parts of d, one warp each
+  constexpr int PW = C::NW / (G * P);  // warps of one group and part
+  constexpr int BQ = block_rows<C>();  // query rows per block
+  constexpr int DW = D / P;            // head-dim columns of a warp
   constexpr int LD = tile_ld<T, D>();
   constexpr int TILE = BK * LD;        // elements of one k or v tile
   constexpr int TS = (C::SPLIT ? 4 : 2) * TILE;  // one group's k/v set
   constexpr int SS = G * TS;           // one ring stage
   constexpr int NJ = BK / 8;           // score n8 tiles of a warp
-  constexpr int NO = D / 8;            // output n8 tiles of a warp
+  constexpr int NO = DW / 8;           // output n8 tiles of a warp
   constexpr bool F32 = std::is_same_v<T, float>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // stage st, group gi: k at st SS + gi TS, v at + TILE, their lo halves
-  // at + 2 TILE and + 3 TILE when split
+  // at + 2 TILE and + 3 TILE when split; then q; then the swap buffers
   T* const smem = reinterpret_cast<T*>(smem_raw);
   constexpr bool Q_REGS = q_in_regs<T, D>();
   static_assert(!Q_REGS || BQ * LD <= SS, "q tile must fit one stage");
   T* const sq = smem + (Q_REGS ? SS : 2 * SS);
+  float* const swap = reinterpret_cast<float*>(sq + (Q_REGS ? 0 : BQ * LD));
 
   // q tiles heaviest first: the last q tile of every (head, batch) is
   // dispatched before any second-to-last one
@@ -152,7 +192,11 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
   const int hh = blockIdx.x % bh % a.h, bb = blockIdx.x % bh / a.h;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
-  const int grp = warp / (C::NW / G), wr = warp % (C::NW / G);
+  // group grp; in it, part `part` of d (columns c0 .. c0 + DW - 1) of
+  // rows wr 16 .. wr 16 + 15; the warp `other` holds the other part
+  const int grp = warp / (C::NW / G), wig = warp % (C::NW / G);
+  const int part = wig / PW, wr = wig % PW, c0 = part * DW;
+  const int other = warp + (part ? -PW : PW);
   const T* q = static_cast<const T*>(a.q) + bb * a.qs0 + hh * a.qs2;
   const T* k = static_cast<const T*>(a.k) + bb * a.ks0 + hh * a.ks2;
   const T* v = static_cast<const T*>(a.v) + bb * a.vs0 + hh * a.vs2;
@@ -180,13 +224,13 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
                           can_vec(q, a.qs1, a.d));
   load_kv(smem, 0);
   cp_async_commit();
-  QSource<T, D> qa;
+  std::conditional_t<F32, SmemA<D, C::FAST>, QSource<T, D>> qa;
   if constexpr (Q_REGS) {
     // the q tile sits in stage 1 until its fragments are in registers
     cp_async_wait_all();
     __syncthreads();
   }
-  qa.init(sq, wr * 16);
+  qa.init(sq + c0, wr * 16);
 
   const float sl = a.scale * LOG2E;
   const int row0 = q0 + wr * 16 + g;  // this lane's rows: row0, row0 + 8
@@ -217,11 +261,14 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
 
     float sc[NJ][4] = {};
     if constexpr (!F32)
-      mma_abt_bf16<D, BK>(sc, qa, sk);
+      mma_abt_bf16<DW, BK, D>(sc, qa, sk + c0);
     else if constexpr (C::SPLIT)
-      mma_abt3<D, BK>(sc, qa, SplitB{sk, sk + 2 * TILE});
+      mma_abt3<DW, BK, D>(sc, qa, SplitB{sk + c0, sk + 2 * TILE + c0});
     else
-      mma_abt3<D, BK>(sc, qa, RawB{sk});
+      mma_abt3<DW, BK, D>(sc, qa, RawBT<C::FAST>{sk + c0});
+    if constexpr (P > 1)  // the whole score: first part + second part
+      pair_sum(sc, swap + warp * 16 * BK, swap + other * 16 * BK,
+               1 + grp * PW + wr);
 
     const bool masked = k0 + BK > a.s || (a.causal && k0 + BK - 1 > q0);
     float mx[2] = {m[0], m[1]};
@@ -264,20 +311,23 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
     }
     // acc += p . v, p rounded to v's dtype
     if constexpr (!F32)
-      mma_pb_bf16<D, BK>(acc, sc, sk + TILE);
+      mma_pb_bf16<DW, BK, D>(acc, sc, sk + TILE + c0);
     else if constexpr (C::SPLIT)
-      mma_pb3<D, BK>(acc, sc, SplitB{sk + TILE, sk + 3 * TILE});
+      mma_pb3<DW, BK, C::FAST, D>(
+          acc, sc, SplitB{sk + TILE + c0, sk + 3 * TILE + c0});
     else
-      mma_pb3<D, BK>(acc, sc, RawB{sk + TILE});
+      mma_pb3<DW, BK, C::FAST, D>(acc, sc,
+                                  RawBT<C::FAST>{sk + TILE + c0});
   }
 
   if constexpr (G == 2) {
     // group 1 hands its (m, l, acc) to the lane that holds the same rows
-    // in group 0, through the drained ring: value i of lane x at i L + x
+    // and columns in group 0, through the drained ring: value i of lane x
+    // at i L + x
     constexpr int L = 32 * C::NW / G;  // lanes of a group
     constexpr int NV = 4 + 4 * NO;     // values per lane
     float* xs = reinterpret_cast<float*>(smem_raw);
-    const int lane = wr * 32 + (threadIdx.x & 31);
+    const int lane = wig * 32 + (threadIdx.x & 31);
     __syncthreads();
     if (grp == 1) {
       xs[lane] = m[0];
@@ -319,11 +369,11 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
     T* orow = o + (long long)row * a.os1;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int col = n * 8 + 2 * t;
+      const int col = c0 + n * 8 + 2 * t;
       store2(orow + col, acc[n][2 * r] / lc, acc[n][2 * r + 1] / lc,
              a.d - col);
     }
-    if (t == 0)
+    if (t == 0 && part == 0)
       a.lse[((long long)bb * a.h + hh) * a.s + row] =
           l[r] <= 0.f ? 1e30f : m[r] * LN2 + logf(lc);
   }
@@ -331,10 +381,11 @@ __global__ void __launch_bounds__(32 * C::NW, C::MINB)
 
 template <typename T, int D, class C>
 int launch_cfg(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * smem_elems<T, D, C>();
+  constexpr size_t smem = smem_bytes<T, D, C>();
+  static_assert(smem * C::MINB <= 232448, "shared memory of an SM");
   const cudaError_t err = allow_smem(flash_fwd_kernel<T, D, C>, smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int bq = 16 * C::NW / C::KSPLIT;
+  constexpr int bq = block_rows<C>();
   const int grid = (a.s + bq - 1) / bq * a.b * a.h;
   flash_fwd_kernel<T, D, C><<<grid, 32 * C::NW, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -346,11 +397,13 @@ int launch_cfg(const Args& a, cudaStream_t stream) {
 // time.  KSplit gives each 64-row tile eight warps, two groups taking
 // even and odd k tiles, which halves the heaviest tile's path where its
 // blocks fit two waves (one prefill of 1024 tokens); between the two,
-// Narrow's 64-row blocks run two to an SM.  At d = 256 only Narrow fits.
+// Narrow's 64-row blocks run two to an SM.  At d = 256 f32 takes warp
+// pairs (Pair) at every grid size: of the others only Narrow fits there,
+// and it ran 2.3-2.5x slower.
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, float> && D > 128) {
-    return launch_cfg<T, D, Narrow>(a, stream);
+    return launch_cfg<T, D, Pair>(a, stream);
   } else if constexpr (std::is_same_v<T, float>) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);

@@ -292,8 +292,9 @@ cudaError_t allow_smem(K* kernel, size_t smem) {
 // at a time (SmemA) and split once per step for every n tile of it: held
 // in registers for the whole k loop, beside the f32 accumulators, it
 // makes ptxas spill.  The B operand comes from a raw f32 tile, split per
-// use (RawB), or from a tile already split by load_tile (SplitB), which
-// saves each warp the split of every B value it reads.
+// use (RawBT; FAST as split_a), or from a tile already split by
+// load_tile (SplitB), which saves each warp the split of every B value
+// it reads.
 
 template <int D, bool FAST = false>
 struct SmemA {
@@ -311,14 +312,16 @@ struct SmemA {
   }
 };
 
-struct RawB {
+template <bool FAST>
+struct RawBT {
   const float* p;
   __device__ __forceinline__ void get(int o0, int o1, uint32_t (&h)[2],
                                       uint32_t (&l)[2]) const {
-    split_tf32(p[o0], h[0], l[0]);
-    split_tf32(p[o1], h[1], l[1]);
+    split_a<FAST>(p[o0], h[0], l[0]);
+    split_a<FAST>(p[o1], h[1], l[1]);
   }
 };
+using RawB = RawBT<false>;
 
 struct SplitB {
   const float* hi;
@@ -336,10 +339,12 @@ struct SplitB {
 // n index): the score products q.k^T and do.v^T.  The two small terms of
 // 3xTF32 sum into a second accumulator, added at the end, so that each
 // accumulator's chain of dependent MMAs is shorter (BK / 8 chains only).
-template <int D, int BK, class A, class B>
+// As in mma_pb3, B may be D columns of a tile of width LDD (the A source
+// then reads the same columns of its own tile: a warp pair's half of d).
+template <int D, int BK, int LDD = D, class A, class B>
 __device__ __forceinline__ void mma_abt3(float (&c)[BK / 8][4], const A& a_src,
                                          const B& b) {
-  constexpr int LD = tile_ld<float, D>();
+  constexpr int LD = tile_ld<float, LDD>();
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   float cl[BK / 8][4] = {};
 #pragma unroll
@@ -440,12 +445,13 @@ template <typename T, int D>
 using QSource =
     std::conditional_t<q_in_regs<T, D>(), BfA<D>, SmemSource<T, D>>;
 
-// c (16 x BK) += A (16 x D) . B^T, B a shared (BK x D) tile.
-template <int D, int BK, class A>
+// c (16 x BK) += A (16 x D) . B^T, B a shared (BK x D) tile, or D columns
+// of a tile of width LDD.
+template <int D, int BK, int LDD = D, class A>
 __device__ __forceinline__ void mma_abt_bf16(float (&c)[BK / 8][4],
                                              const A& a_src,
                                              const __nv_bfloat16* sb) {
-  constexpr int LD = tile_ld<__nv_bfloat16, D>();
+  constexpr int LD = tile_ld<__nv_bfloat16, LDD>();
   const int l = threadIdx.x & 31;
   const __nv_bfloat16* pb =
       sb + ((l & 7) + ((l >> 4) << 3)) * LD + ((l >> 3) & 1) * 8;
@@ -488,6 +494,40 @@ __device__ __forceinline__ void mma_pb_bf16(float (&o)[D / 8][4],
       mma_bf16(o[2 * np + 1], a, b[2], b[3]);
     }
   }
+}
+
+// ---- warp pairs that split the head dim -------------------------------
+//
+// At d = 256 an f32 output accumulator of 16 rows takes 128 registers a
+// thread, and dk with dv 256: more than a thread has beside the products.
+// So two warps share one 16-row (or 16-key) tile and each owns one half of
+// d: each computes its half's partial score product (q.k^T, or k.q^T and
+// v.do^T) into an m16n8 accumulator, the pair swaps the partials through
+// shared memory, and both warps go on with the whole score, each keeping
+// only its own half of the output in registers (the d = 128 budget).
+//
+// pair_sum: the accumulator layout is the same in both warps, so lane x
+// writes value i of its partial at mine[i 32 + x] (32 consecutive words a
+// store: no bank conflict), the pair meets at named barrier `bar` (1-15;
+// 0 is __syncthreads) of 64 threads, so that no other warp waits, and each
+// lane adds the value at the same place of the other warp's buffer.  Both
+// warps then hold first half + second half of every score, bit for bit
+// (IEEE addition is commutative), so their softmax, masks, p and ds agree
+// exactly.  A warp writes `mine` again only after a __syncthreads that
+// follows the other warp's read (one buffer per swap of a loop step).
+template <int N>
+__device__ __forceinline__ void pair_sum(float (&c)[N][4], float* mine,
+                                         const float* theirs, int bar) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mine[(4 * j + i) * 32 + lane] = c[j][i];
+  asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += theirs[(4 * j + i) * 32 + lane];
 }
 
 // Reductions over the four lanes (one quad) that share a row.

@@ -26,7 +26,9 @@ result line) when a phase fails or CUDA is absent.  Phases:
    3w. hold all three flash kernels against their plain versions at head
    dims 136, 192 and 256 (zero-padded to 256), f32 and bf16, causal and
    not, one unaligned (offset) case per width, and the shapes of 4w and
-   5w, under the d <= 128 tolerances;
+   5w, under the d <= 128 tolerances; and two launches of ``flash_fwd``
+   at the 4w forward shape and of ``flash_dkdv`` at the 4w backward shape
+   bit-equal;
 4. time the forward kernel, its plain version and the library call
    (SDPA) at the full-width prefill shape and at the training shape,
    beside the card's bounds for the same work (f32 FMAs, and the tensor
@@ -38,7 +40,8 @@ result line) when a phase fails or CUDA is absent.  Phases:
    at 64 MiB, beside the bound and the achieved GB/s;
    4w. the same at head dim 256: the forward at (1, 1024, 8, 256), dq
    and dkdv at (4, 2048, 8, 256), f32 and bf16, each beside SDPA (the
-   backend that ran named from a profiler trace);
+   backend that ran named from a profiler trace), and the schedule each
+   kernel ran (its template arguments, from a profiler trace);
    5w. serve the head-dim-256 LM (``WIDE_CFG``: ``SLICE_CFG`` with 8
    heads, depth 4, ``attn_impl="auto"``) through a Server: three
    Generates with prompts of 128-1024 tokens, ``flash_fwd`` depth a
@@ -1223,6 +1226,77 @@ def phase_check_wide() -> dict:
                 del q, k, v, do, out, lse, dd, dq, dk, dv, pout, plse, ref
     torch.cuda.empty_cache()
     return errs
+
+
+def repeat_bit_equal() -> None:
+    """Two launches of flash_fwd at WIDE_FWD_SHAPE and of flash_dkdv at
+    WIDE_TRAIN_SHAPE on the same inputs, f32 and bf16, causal and not,
+    must give bit-equal outputs: a race in the warp pairs' swap of partial
+    scores (csrc/flash_mma.cuh pair_sum) would show as a difference."""
+    for name, shape in ((FLASH_FWD.name, WIDE_FWD_SHAPE),
+                        (FLASH_DKDV.name, WIDE_TRAIN_SHAPE)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                q, k, v, do = wide_inputs(shape, dtype, sum(shape), 0)
+                out, lse = FLASH_FWD(q, k, v, causal)
+                dd = attention_delta(out, do)
+                if name == FLASH_FWD.name:
+                    runs = [(out, lse), FLASH_FWD(q, k, v, causal)]
+                else:
+                    runs = [FLASH_DKDV(q, k, v, do, lse, dd, causal)
+                            for _ in range(2)]
+                torch.cuda.synchronize()
+                equal = all(torch.equal(a, b)
+                            for a, b in zip(runs[0], runs[1]))
+                log(f"  {name} {shape} {str(dtype)[6:]} causal={causal}: "
+                    f"two launches {'bit-equal' if equal else 'DIFFER'}")
+                if not equal:
+                    raise AssertionError(f"{name} gave two results at "
+                                         f"{shape} {dtype} causal={causal}")
+                del q, k, v, do, out, lse, dd, runs
+    torch.cuda.empty_cache()
+
+
+def kernel_schedule(fn, kernel: str) -> str:
+    """The template arguments (dtype, padded head dim, schedule) of the
+    ``kernel`` that one call of ``fn`` launched, read from a profiler
+    trace's kernel name, e.g. ``float, 256, Pair``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trace_preroll()
+        fn()
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and f"{kernel}_kernel<" in e.name):
+            args = e.name.split(f"{kernel}_kernel<", 1)[1].rsplit(">(", 1)[0]
+            return args.replace("(anonymous namespace)::", "").strip()
+    return "not measured (no device event of the kernel in the trace)"
+
+
+def wide_schedules() -> dict:
+    """Phase 4w: the schedule each kernel ran at the head-dim-256 timing
+    shapes (causal), f32 and bf16, by dtype and kernel."""
+    res = {}
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v, do = wide_inputs(WIDE_FWD_SHAPE, dtype, 1, 0)
+        res[key] = {FLASH_FWD.name: kernel_schedule(
+            lambda: FLASH_FWD(q, k, v, True), FLASH_FWD.name)}
+        q, k, v, out, lse, do, dd = bwd_inputs(WIDE_TRAIN_SHAPE, dtype, True,
+                                               seed=2)
+        for kern in (FLASH_DQ, FLASH_DKDV):
+            res[key][kern.name] = kernel_schedule(
+                lambda: kern(q, k, v, do, lse, dd, True), kern.name)
+        for name, sched in res[key].items():
+            shape = WIDE_FWD_SHAPE if name == FLASH_FWD.name \
+                else WIDE_TRAIN_SHAPE
+            log(f"  {name} {shape} {key} causal ran <{sched}>")
+        del q, k, v, out, lse, do, dd
+    torch.cuda.empty_cache()
+    return res
 
 
 def sdpa_backend(fn) -> str:
@@ -9417,6 +9491,7 @@ def main() -> int:
     log("[3w] the three flash kernels vs plain at head dims past 128 "
         "(zero-padded to 256)")
     wide_err = phase_check_wide()
+    repeat_bit_equal()
     log("[3c] checksum kernel vs plain")
     n_payloads, cs_err = phase_check_checksum()
     log("[4] timing")
@@ -9429,6 +9504,10 @@ def main() -> int:
         f"backward at {WIDE_TRAIN_SHAPE}")
     wide_times = phase_time(peaks, (WIDE_FWD_SHAPE,))[WIDE_FWD_SHAPE]
     wide_bwd_times = phase_time_bwd(peaks, WIDE_TRAIN_SHAPE)
+    for key, by_kernel in wide_schedules().items():
+        wide_times[key]["schedule"] = by_kernel[FLASH_FWD.name]
+        for kern in (FLASH_DQ, FLASH_DKDV):
+            wide_bwd_times[key][kern.name]["schedule"] = by_kernel[kern.name]
     torch.cuda.empty_cache()
     log(f"[5w] the head-dim-256 LM at {WIDE_CFG}, trained at "
         f"{WIDE_TRAIN_CFG}")

@@ -7,7 +7,12 @@ own recurrence (32-key tiles, running max in log2 units, ``exp2``; dkdv
 key-major over 16-row q tiles).  The forward, the dq and the dk/dv
 recurrences are held against the JAX package's Pallas ``flash_attention``
 in interpret mode, as tests/test_torch_flash_attention.py and
-tests/test_torch_flash_backward.py run it, with their cases.
+tests/test_torch_flash_backward.py run it, with their cases.  At head dims
+129-256 (padded to 256) the f32 forward and dk/dv kernels run warp pairs
+that split the head dim (``pair_sum`` in ``csrc/flash_mma.cuh``): each
+score product is the sum of two 3xTF32 partials, over columns 0-127 and
+128-255, first half first (``mm3_halves``), and every split of those two
+kernels there takes the three-instruction split (``mm3_fast``).
 
 Tolerances: out and lse 1e-4 abs/rel, as ``chip_smoke.py`` holds the
 forward kernel to its plain version (``TOL``, ``LSE_TOL``); dq, dk and dv
@@ -55,10 +60,11 @@ def split_fast(x: torch.Tensor):
     return hi, trunc_tf32(x - hi)
 
 
-def mm3(a: torch.Tensor, b: torch.Tensor, split_a=split) -> torch.Tensor:
+def mm3(a: torch.Tensor, b: torch.Tensor, split_a=split,
+        split_b=split) -> torch.Tensor:
     """``a @ b`` as three tf32 products with f32 sums, small terms first."""
     ah, al = split_a(a)
-    bh, bl = split(b)
+    bh, bl = split_b(b)
     return al @ bh + ah @ bl + ah @ bh
 
 
@@ -67,6 +73,28 @@ def mm3_fast_a(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     take the fast split per step, its B tiles (q, do) the rounded split
     once in shared memory."""
     return mm3(a, b, split_a=split_fast)
+
+
+def mm3_fast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3xTF32 as the f32 D = 256 forward and dkdv take it: every split,
+    of A and of B, the three-instruction one (``split_tf32_fast``)."""
+    return mm3(a, b, split_a=split_fast, split_b=split_fast)
+
+
+def mm3_halves(a: torch.Tensor, b: torch.Tensor, mm=mm3,
+               half: int = 128) -> torch.Tensor:
+    """A score product as a warp pair takes it: the partial ``mm`` over
+    the first ``half`` columns of the contracted dim (a's last, b's second
+    to last) plus the partial over the rest, first half first."""
+    first = mm(a[..., :half], b[..., :half, :])
+    second = mm(a[..., half:], b[..., half:, :])
+    return first + second
+
+
+def mm3_halves_fast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``mm3_halves`` of ``mm3_fast`` partials: the f32 D = 256 kernels'
+    score products."""
+    return mm3_halves(a, b, mm=mm3_fast)
 
 
 def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,8 +110,10 @@ def _mask(sc, k0, k1, causal):
     return torch.where(keep, sc, -1e30)
 
 
-def fwd_emulated(q, k, v, causal, mm=mm3):
-    """The forward kernel's recurrence on f32 (b, s, h, d) inputs."""
+def fwd_emulated(q, k, v, causal, mm=mm3, mm_s=None):
+    """The forward kernel's recurrence on f32 (b, s, h, d) inputs; the
+    scores through ``mm_s`` (``mm`` unless given), p·v through ``mm``."""
+    mm_s = mm_s or mm
     b, s, h, d = q.shape
     sl = LOG2E / d ** 0.5
     qf, kf, vf = (x.permute(0, 2, 1, 3) for x in (q, k, v))
@@ -92,7 +122,7 @@ def fwd_emulated(q, k, v, causal, mm=mm3):
     acc = torch.zeros((b, h, s, d))
     for k0 in range(0, s, BK):
         k1 = min(k0 + BK, s)
-        x = _mask(mm(qf, kf[:, :, k0:k1].transpose(-1, -2)) * sl, k0, k1,
+        x = _mask(mm_s(qf, kf[:, :, k0:k1].transpose(-1, -2)) * sl, k0, k1,
                   causal)
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         corr = torch.exp2(m - m_new)
@@ -125,12 +155,15 @@ def dq_emulated(q, k, v, out, lse, do, causal, bk=BK):
     return (dq * scale).permute(0, 2, 1, 3)
 
 
-def dkdv_emulated(q, k, v, out, lse, do, causal, bq=16, mm=mm3_fast_a):
+def dkdv_emulated(q, k, v, out, lse, do, causal, bq=16, mm=mm3_fast_a,
+                  mm_s=None):
     """The dkdv kernel's recurrence, key-major: for all keys at once, q
     tiles of ``bq`` rows in order (from the first key when causal, as for
     the kernel's first key block), sᵀ = k·qᵀ, pᵀ = exp2(sᵀ·scale·log2e -
     lse·log2e), dv += pᵀ·do, dpᵀ = v·doᵀ, dsᵀ = pᵀ (dpᵀ - dd), dk += dsᵀ·q;
-    dk times scale at the end.  Returns ``(dk, dv)``."""
+    dk times scale at the end.  sᵀ and dpᵀ through ``mm_s`` (``mm`` unless
+    given), the dv and dk products through ``mm``.  Returns ``(dk, dv)``."""
+    mm_s = mm_s or mm
     b, s, h, d = q.shape
     scale = 1.0 / d ** 0.5
     qf, kf, vf, dof = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
@@ -140,13 +173,13 @@ def dkdv_emulated(q, k, v, out, lse, do, causal, bq=16, mm=mm3_fast_a):
     dv = torch.zeros((b, h, s, d))
     for q0 in range(0, s, bq):
         q1 = min(q0 + bq, s)
-        x = mm(kf, qf[:, :, q0:q1].transpose(-1, -2)) * scale * LOG2E
+        x = mm_s(kf, qf[:, :, q0:q1].transpose(-1, -2)) * scale * LOG2E
         if causal:
             keep = torch.arange(q0, q1)[None, :] >= torch.arange(s)[:, None]
             x = torch.where(keep, x, -1e30)
         p = torch.exp2(x - lse2[..., q0:q1])
         dv += mm(p, dof[:, :, q0:q1])
-        ds = p * (mm(vf, dof[:, :, q0:q1].transpose(-1, -2))
+        ds = p * (mm_s(vf, dof[:, :, q0:q1].transpose(-1, -2))
                   - dd[..., q0:q1])
         dk += mm(ds, qf[:, :, q0:q1])
     return ((dk * scale).permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3))
@@ -282,12 +315,13 @@ def test_dkdv_single_pass_tf32_is_far_worse():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [136, 256])
 def test_3xtf32_at_head_dim_256(d, causal):
-    """The d = 256 schedules' recurrences (d = 136 zero-padded to them):
-    the forward over 32-key tiles, dq over 16-key tiles, dk/dv key-major
-    over 8-row q steps, each product 3xTF32 over the whole head dim (the
-    dkdv blocks that own the two 128-column halves recompute sᵀ and dpᵀ
-    alike, so one emulation covers both), against the Pallas kernel and
-    its gradient at the JAX package's tolerances."""
+    """The d = 256 schedules' tiling (d = 136 zero-padded to them): the
+    forward over 32-key tiles, dq over 16-key tiles, dk/dv key-major over
+    16-row q steps, each product 3xTF32 over the whole head dim, as the dq
+    kernel takes its products there, against the Pallas kernel and its
+    gradient at the JAX package's tolerances.  The f32 forward and dk/dv
+    take their score products in two halves of d (warp pairs); that order
+    is held by ``test_split_d_recurrence_at_head_dim_256``."""
     shape = (1, 72, 2, d)
     q, k, v, g = _inputs(shape, seed=d + causal, n=4)
     jout, jlse = _jax_fwd(q, k, v, causal)
@@ -302,7 +336,59 @@ def test_3xtf32_at_head_dim_256(d, causal):
     want = [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1, 2))(
         *(jnp.asarray(x) for x in (q, k, v)))]
     dq = dq_emulated(tq, tk, tv, out, lse, tg, causal, bk=16)
-    dk, dv = dkdv_emulated(tq, tk, tv, out, lse, tg, causal, bq=8)
+    dk, dv = dkdv_emulated(tq, tk, tv, out, lse, tg, causal, bq=16)
     for name, got, w in zip("qkv", (dq, dk, dv), want):
         np.testing.assert_allclose(got.numpy(), w, rtol=RTOL, atol=ATOL,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [136, 256])
+def test_split_d_recurrence_at_head_dim_256(d, causal):
+    """The f32 D = 256 forward and dk/dv as the warp pairs compute them:
+    every score product (q·kᵀ; kᵀ·q and v·doᵀ key-major) the sum of the
+    3xTF32 partials over columns 0-127 and 128-255, first half first, in
+    the kernels' tiling (32-key tiles; 16-row q steps), the output products
+    per column as before, every split the three-instruction one; against
+    the Pallas kernel in interpret mode and its gradient, at out and lse
+    1e-4 and dk, dv rtol 2e-4 / atol 2e-5."""
+    shape = (1, 72, 2, d)
+    q, k, v, g = _inputs(shape, seed=3 * d + causal, n=4)
+    jout, jlse = _jax_fwd(q, k, v, causal)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = fwd_emulated(tq, tk, tv, causal, mm=mm3_fast,
+                            mm_s=mm3_halves_fast)
+    np.testing.assert_allclose(out.numpy(), jout, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, rtol=TOL, atol=TOL)
+    want_dk, want_dv = _jax_dkdv(q, k, v, g, causal, (None, None))
+    dk, dv = dkdv_emulated(tq, tk, tv, out, lse, tg, causal, bq=16,
+                           mm=mm3_fast, mm_s=mm3_halves_fast)
+    np.testing.assert_allclose(dk.numpy(), want_dk, rtol=RTOL, atol=ATOL,
+                               err_msg="dk")
+    np.testing.assert_allclose(dv.numpy(), want_dv, rtol=RTOL, atol=ATOL,
+                               err_msg="dv")
+
+
+def test_pair_sum_is_bit_equal_in_both_warps():
+    """Each warp of a pair adds its own partial and the other's: the warp
+    of columns 0-127 takes first + second, the other second + first.  The
+    two sums are bit-equal (IEEE addition commutes), so both warps run
+    the same softmax: the forward through either warp's sums gives the
+    same out and lse, bit for bit."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs((1, 64, 2, 256), seed=7))
+    a, b = q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1)
+    first = mm3_fast(a[..., :128], b[..., :128, :])
+    second = mm3_fast(a[..., 128:], b[..., 128:, :])
+    assert not torch.equal(first, second)
+    assert torch.equal(first + second, second + first)
+    assert torch.equal(first + second, mm3_halves_fast(a, b))
+
+    def other_warp(x, y):
+        return (mm3_fast(x[..., 128:], y[..., 128:, :])
+                + mm3_fast(x[..., :128], y[..., :128, :]))
+
+    for causal in (False, True):
+        mine = fwd_emulated(q, k, v, causal, mm=mm3_fast,
+                            mm_s=mm3_halves_fast)
+        theirs = fwd_emulated(q, k, v, causal, mm=mm3_fast, mm_s=other_warp)
+        assert all(torch.equal(x, y) for x, y in zip(mine, theirs))

@@ -11,7 +11,11 @@
   test_torch_transformer_lm.py).
 """
 
+import contextlib
 import json
+import sys
+import threading
+import time
 
 import jax
 import numpy as np
@@ -278,3 +282,74 @@ def test_method_failures_answer_einternal():
     finally:
         srv.stop()
     assert srv.listen_endpoint is None
+
+
+def test_generate_loop_runs_at_a_short_switch_interval():
+    """Generate's launch loop holds the interpreter lock between
+    launches, so it runs with the switch interval cut to
+    ``_LAUNCH_LOOP_SWITCH_S``; the interval is back after the call."""
+    svc = tsvc.LMService(cfg=tlm.LMConfig(**CFG), device="cpu")
+    gen, seen = svc._gen, []
+
+    def spy(ids, n):
+        seen.append(sys.getswitchinterval())
+        return gen(ids, n)
+
+    svc._gen = spy
+    before = sys.getswitchinterval()
+    prompt = np.arange(6, dtype=np.int32).reshape(1, 6)
+    out = svc.Generate(Controller(),
+                       tsvc.pack_generate_request(prompt, 3))
+    assert tsvc.unpack_generated(out).shape == (1, 3)
+    assert seen == [pytest.approx(min(before, tsvc._LAUNCH_LOOP_SWITCH_S))]
+    assert sys.getswitchinterval() == before
+
+
+def test_short_switch_interval_overlaps_and_keeps_a_later_change():
+    before = sys.getswitchinterval()
+    short = min(before, tsvc._LAUNCH_LOOP_SWITCH_S)
+    a, b = tsvc._short_switch_interval(), tsvc._short_switch_interval()
+    a.__enter__()
+    b.__enter__()
+    a.__exit__(None, None, None)
+    assert sys.getswitchinterval() == pytest.approx(short)
+    b.__exit__(None, None, None)
+    assert sys.getswitchinterval() == before
+    try:
+        with tsvc._short_switch_interval():
+            sys.setswitchinterval(0.001)
+        assert sys.getswitchinterval() == pytest.approx(0.001)
+    finally:
+        sys.setswitchinterval(before)
+
+
+def test_a_thread_beside_a_lock_holding_loop_waits_less():
+    """A thread that wakes beside a loop holding the interpreter lock
+    waits about a switch interval for it: less inside the context."""
+    def lateness(short: bool) -> float:
+        stop = threading.Event()
+
+        def hog():
+            ctx = tsvc._short_switch_interval() if short \
+                else contextlib.nullcontext()
+            with ctx:
+                x = 0
+                while not stop.is_set():
+                    x += 1
+
+        t = threading.Thread(target=hog)
+        t.start()
+        late = []
+        try:
+            time.sleep(0.02)
+            for _ in range(20):
+                t0 = time.perf_counter()
+                time.sleep(0.002)
+                late.append(time.perf_counter() - t0 - 0.002)
+        finally:
+            stop.set()
+            t.join()
+        return sorted(late)[len(late) // 2]
+
+    plain, short = lateness(False), lateness(True)
+    assert short < plain / 2, (short, plain)

@@ -17,7 +17,8 @@ PKG = os.path.join(ROOT, "brpc_tpu_torch")
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "lanes_ab.py")]
+           os.path.join(ROOT, "lanes_ab.py"),
+           os.path.join(ROOT, "refusal_ab.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
